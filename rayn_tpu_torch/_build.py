@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+All `csrc/*.cu` sources are compiled by `nvcc` into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds). The build runs at first use, never at import,
+into `build/kernels/` beside the package (listed in .gitignore; override
+with RAYN_TORCH_BUILD_DIR), and is redone when the hash of the sources
+and flags changes. Each kernel has an `extern "C"` launcher
+`cudaError_t name(const Args*, cudaStream_t)`; `launch` passes the
+argument struct and PyTorch's current stream and raises if the launcher
+returns an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+ARCH = "arch=compute_90a,code=sm_90a"
+# IEEE division/sqrt and no FMA contraction: the kernels must agree with
+# the plain torch twins to float32 rounding (ill-conditioned cone terms
+# amplify any ulp difference, shade_pallas.py:34-45).
+FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
+         "-Xcompiler", "-fPIC")
+KERNELS = ("rayn_closest_hit", "rayn_bounce_tail", "rayn_shadow_sort_key")
+
+_lib = None
+build_log = ""
+
+
+def build_dir() -> Path:
+    env = os.environ.get("RAYN_TORCH_BUILD_DIR")
+    return Path(env) if env else CSRC.parent.parent / "build" / "kernels"
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(verbose: bool = False) -> Path:
+    """Compile the kernels if the sources changed; return the .so path.
+    verbose adds `-Xptxas -v` and keeps its report in `build_log`."""
+    global build_log
+    extra = ("-Xptxas", "-v") if verbose else ()
+    h = hashlib.sha256(" ".join(FLAGS + extra).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = build_dir()
+    lib = out_dir / f"rayn_kernels_{h.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
+    if lib.exists():
+        build_log = log.read_text() if log.exists() else ""
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = ([_nvcc(), *FLAGS, *extra, "-o", tmp]
+           + [str(s) for s in sorted(CSRC.glob("*.cu"))])
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    log.write_text(build_log)
+    os.replace(tmp, lib)   # atomic: a concurrent build never sees a partial
+    return lib
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(library_path(verbose)))
+        for name in KERNELS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, args: ctypes.Structure, device) -> None:
+    """Launch kernel `name` with its argument struct on the current
+    stream of `device`; raise if the launch is refused."""
+    import torch
+
+    fn = getattr(load(), name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+class MBox(ctypes.Structure):
+    """csrc/common.cuh MBox: a MandelBox's iteration count and scalars."""
+    _fields_ = [("iters", ctypes.c_int), ("scale", ctypes.c_float),
+                ("box_l", ctypes.c_float), ("min_rad_sq", ctypes.c_float),
+                ("fixed_rad_sq", ctypes.c_float)]
+
+
+def mbox_struct(mb) -> MBox:
+    """MBox of an ops.sdf.MandelBox (zeros for no SDF)."""
+    if mb is None:
+        return MBox(0, 0.0, 0.0, 0.0, 0.0)
+    return MBox(mb.iterations, mb.scale, mb.box_l, mb.min_rad_sq,
+                 mb.fixed_rad_sq)
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
+    """Validate one kernel operand and return its device pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    return t.data_ptr()

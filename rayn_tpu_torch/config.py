@@ -1,0 +1,104 @@
+"""Render settings.
+
+The frozen dataclass of `rayn_tpu.config.RenderSettings`, so a settings
+object means the same render in both packages. The fields that only
+tuned Pallas block scheduling on the TPU (block rows, the chained advance
+group, the phased/sorted study marches) are left out: nothing here reads
+them. Values that select a path the port has not implemented yet make
+`render_frame` raise `NotImplementedError` (see `unsupported_reason`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """All render knobs (reference src/setup.rs:16-44, src/main.rs:47-57).
+    See rayn_tpu.config.RenderSettings for the full notes on each."""
+
+    resolution: tuple[int, int] = (1280, 720)
+    spp: int = 8
+    max_bounces: int = 3
+    volume_marches: int = 2
+    nee_light_samples: int = 4
+    world_radius: float = 100.0
+    extra_aovs: tuple = ()
+    sdf_detail_scale: float = 0.5
+    max_marches: int = 256
+    max_vis_marches: int = 100
+    shadow_de_iterations: int = 0
+    shadow_eps_scale: float = 1.0
+    shadow_bv_clip: bool = True
+    filter_table_size: int = 512
+    sampler: str = "rd"
+    mis: bool = False
+    compat_spec_phi: bool = False
+    compat_spec_reflect: bool = False
+    rays_per_pass: int = 1 << 20
+    use_pallas: bool = True
+    use_pallas_occlusion: bool = True
+    chained_shadow_march: bool = True
+    sorted_shadow_march: bool = True
+    sorted_chunk: int = 0
+    sorted_intersect: bool = True
+    use_fused_shadows: bool = True
+    use_fused_finish: bool = True
+    use_fused_bounce_tail: bool = True
+    use_fused_intersect: bool = True
+    march_relaxation: float = 1.0
+    compact_bounces: bool = False
+
+    def __post_init__(self):
+        if self.sampler not in ("rd", "hash"):
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        if self.spp < 1 or self.max_bounces < 0:
+            raise ValueError("spp must be >= 1 and max_bounces >= 0")
+
+    # ---- sampler dimension layout (documented in utils/rng.py) ----
+    @property
+    def sets_1d_per_depth(self) -> int:
+        # light picks + volume light picks + volume distance + fresnel
+        # + roulette
+        return (self.nee_light_samples
+                + self.volume_marches * (self.nee_light_samples + 1) + 2)
+
+    @property
+    def sets_2d_per_depth(self) -> int:
+        # NEE light samples + volume light samples + diffuse dir + spec dir
+        return self.nee_light_samples * (1 + self.volume_marches) + 2
+
+    @property
+    def num_1d_sets(self) -> int:
+        # set 0 = shutter time jitter (reference src/film.rs:509-512)
+        return 1 + (self.max_bounces + 1) * self.sets_1d_per_depth
+
+    @property
+    def num_2d_sets(self) -> int:
+        # set 0 = pixel uv (filter importance sampling), set 1 = lens
+        return 2 + (self.max_bounces + 1) * self.sets_2d_per_depth
+
+
+def unsupported_reason(s: RenderSettings) -> str | None:
+    """The first setting this port does not implement yet, or None."""
+    checks = (
+        (s.mis, "mis=True"),
+        (s.march_relaxation != 1.0, "march_relaxation != 1"),
+        (s.shadow_de_iterations != 0, "shadow_de_iterations != 0"),
+        (bool(s.extra_aovs), "extra_aovs"),
+        (s.compact_bounces, "compact_bounces=True"),
+        (not (s.use_pallas and s.use_fused_intersect),
+         "the unfused intersect path (use_pallas/use_fused_intersect="
+         "False)"),
+        (not (s.use_pallas_occlusion and s.use_fused_shadows
+              and s.use_fused_finish),
+         "the unfused shadow path (use_pallas_occlusion/use_fused_shadows/"
+         "use_fused_finish=False)"),
+        (not s.use_fused_bounce_tail, "use_fused_bounce_tail=False"),
+        (s.max_vis_marches < 1, "max_vis_marches < 1"),
+    )
+    for bad, what in checks:
+        if bad:
+            return what
+    return None

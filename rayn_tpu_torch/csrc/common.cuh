@@ -1,0 +1,495 @@
+// Device helpers shared by the port's kernels (intersect.cu, shade.cu).
+//
+// Every function here mirrors a body of rayn_tpu's Pallas kernels
+// formula for formula, in the same association order, so that with
+// --fmad=false and IEEE division/sqrt a kernel differs from its plain
+// torch twin only where a transcendental (sin, cos, exp, pow) rounds
+// differently. The traps this file guards:
+//  - NaN: jnp.maximum/minimum propagate NaN, CUDA's fmaxf/fminf return
+//    the other operand; nmax/nmin propagate like jnp.
+//  - Sign bits: jnp.signbit sees -0.0 as negative; so does signbit().
+//  - The sampler is plain wrapping uint32 arithmetic.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rayn {
+
+// rayn_tpu constants, rounded to float32 exactly as JAX rounds a Python
+// double that meets a float32 array.
+constexpr double kPi = 3.14159265358979;
+constexpr float PI_F = (float)kPi;
+constexpr float TWO_PI_F = (float)(2.0 * kPi);
+constexpr float INV_PI_F = (float)(1.0 / kPi);
+constexpr float FRAC_PI_4_F = (float)(kPi / 4.0);
+constexpr float FRAC_PI_2_F = (float)(kPi / 2.0);
+constexpr float INV_4PI_F = (float)(1.0 / (4.0 * kPi));
+constexpr float F0_F = 0.04f;
+constexpr float ONE_MINUS_F0_F = (float)(1.0 - 0.04);
+constexpr float F32_EPS_F = 1.1920929e-07f;
+constexpr float MISS_F = 3.4e38f;
+
+// ---------------------------------------------------------------- NaN-aware
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? nan_f() : fmaxf(a, b);
+}
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? nan_f() : fminf(a, b);
+}
+
+// ------------------------------------------------------------ argument types
+struct MBox {  // ops/sdf.py MandelBox
+  int iters;
+  float scale, box_l, min_rad_sq, fixed_rad_sq;
+};
+
+struct Sampler {  // utils/rng.py: sampler kind, frame salt, R_d alphas
+  int hash;
+  uint32_t frame;
+  int num_1d_sets;
+  uint32_t a1_lo, a1_hi;
+  uint32_t a2_lo[2], a2_hi[2];
+};
+
+// ------------------------------------------------------------- MandelBox DE
+// ops/sdf.py mandelbox fn_c (reference src/sdf.rs:126-141). fminf/fmaxf
+// are safe here: a NaN coordinate stays NaN through `clip(x)*2 - x` and
+// makes the final sqrt NaN whichever way the folds treat it.
+__device__ __forceinline__ float mandelbox_de(const MBox& mb, float x,
+                                              float y, float z) {
+  const float ox = x, oy = y, oz = z;
+  float dr = 1.0f;
+  for (int i = 0; i < mb.iters; ++i) {
+    x = fminf(fmaxf(x, -mb.box_l), mb.box_l) * 2.0f - x;
+    y = fminf(fmaxf(y, -mb.box_l), mb.box_l) * 2.0f - y;
+    z = fminf(fmaxf(z, -mb.box_l), mb.box_l) * 2.0f - z;
+    const float r2 = x * x + y * y + z * z;
+    const float mul = fmaxf(1.0f, mb.fixed_rad_sq / fmaxf(mb.min_rad_sq, r2));
+    x = x * mul;
+    y = y * mul;
+    z = z * mul;
+    dr = dr * mul;
+    x = x * mb.scale + ox;
+    y = y * mb.scale + oy;
+    z = z * mb.scale + oz;
+    dr = -dr * mb.scale + 1.0f;
+  }
+  return sqrtf(x * x + y * y + z * z) / fabsf(dr);
+}
+
+// ------------------------------------------------------------------ sampler
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (x >> 22u) ^ x;
+}
+
+__device__ __forceinline__ float hash_to_unit(uint32_t h) {
+  return (float)(int)(h >> 8u) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+// bits 40..63 of ((set_base << 32) + n) * alpha mod 2^64 (utils/rng.py _rd_bits)
+__device__ __forceinline__ float rd_bits(uint32_t a_l, uint32_t a_h,
+                                         uint32_t set_base, uint32_t n) {
+  const uint32_t a0 = a_l & 0xFFFFu, a1 = a_l >> 16u;
+  const uint32_t n0 = n & 0xFFFFu, n1 = n >> 16u;
+  const uint32_t m00 = a0 * n0, m01 = a0 * n1, m10 = a1 * n0, m11 = a1 * n1;
+  const uint32_t carry =
+      ((m00 >> 16u) + (m01 & 0xFFFFu) + (m10 & 0xFFFFu)) >> 16u;
+  const uint32_t p0h = m11 + (m01 >> 16u) + (m10 >> 16u) + carry;
+  const uint32_t h = p0h + a_l * set_base + a_h * n;
+  return (float)(int)(h >> 8u) * 5.9604644775390625e-08f;
+}
+
+__device__ __forceinline__ float frac1(float x) {  // jnp.mod(x, 1.0), x in [0, 2)
+  return x >= 1.0f ? x - 1.0f : x;
+}
+
+constexpr uint32_t SALT_1D = 0x9E3779B9u;
+constexpr uint32_t SALT_2D = 0x85EBCA6Bu;
+
+__device__ __forceinline__ float sample_1d(const Sampler& s, int set_id,
+                                           uint32_t sidx, uint32_t pix) {
+  const uint32_t sid = (uint32_t)set_id;
+  if (s.hash) {
+    return hash_to_unit(pcg_hash(
+        pcg_hash(pcg_hash(pcg_hash(pix) ^ sidx) ^ (SALT_1D ^ sid)) ^ s.frame));
+  }
+  const float base = rd_bits(s.a1_lo, s.a1_hi, s.frame + sid, sidx);
+  const float scr =
+      hash_to_unit(pcg_hash(pcg_hash(pcg_hash(pix) ^ (SALT_1D ^ sid)) ^ s.frame));
+  return frac1(base + scr);
+}
+
+__device__ __forceinline__ void sample_2d(const Sampler& s, int set_id,
+                                          uint32_t sidx, uint32_t pix,
+                                          float& u, float& v) {
+  const uint32_t sid = (uint32_t)set_id;
+  const uint32_t su = SALT_2D ^ (sid * 2u), sv = SALT_2D ^ (sid * 2u + 1u);
+  if (s.hash) {
+    const uint32_t h0 = pcg_hash(pcg_hash(pix) ^ sidx);
+    u = hash_to_unit(pcg_hash(pcg_hash(h0 ^ su) ^ s.frame));
+    v = hash_to_unit(pcg_hash(pcg_hash(h0 ^ sv) ^ s.frame));
+    return;
+  }
+  const uint32_t base = s.frame + (uint32_t)s.num_1d_sets + sid;
+  const float bu = rd_bits(s.a2_lo[0], s.a2_hi[0], base, sidx);
+  const float bv = rd_bits(s.a2_lo[1], s.a2_hi[1], base, sidx);
+  const uint32_t hp = pcg_hash(pix);
+  const float scr_u = hash_to_unit(pcg_hash(pcg_hash(hp ^ su) ^ s.frame));
+  const float scr_v = hash_to_unit(pcg_hash(pcg_hash(hp ^ sv) ^ s.frame));
+  u = frac1(bu + scr_u);
+  v = frac1(bv + scr_v);
+}
+
+// --------------------------------------------------------------- geometry
+// shade_pallas._onb: Pixar/Duff basis, signbit(-0.0) counts as negative.
+__device__ __forceinline__ void onb(float nx, float ny, float nz, float uu[3],
+                                    float vv[3]) {
+  const float ks = signbit(nz) ? -1.0f : 1.0f;
+  const float ka = 1.0f / (1.0f + fabsf(nz));
+  const float kb = -ks * nx * ny * ka;
+  uu[0] = 1.0f - nx * nx * ka;
+  uu[1] = ks * kb;
+  uu[2] = -ks * nx;
+  vv[0] = kb;
+  vv[1] = ks - ny * ny * ka * ks;
+  vv[2] = -ny;
+}
+
+// shade_pallas._pick_light: clip(floor(u * NL), 0, NL - 1).
+__device__ __forceinline__ int pick_light(float u, int NL) {
+  int idx = (int)floorf(u * (float)NL);
+  return idx < 0 ? 0 : (idx > NL - 1 ? NL - 1 : idx);
+}
+
+// shade_pallas._sample_cone (reference src/light.rs:38-72).
+__device__ __forceinline__ void sample_cone(float u1, float u2, float lx,
+                                            float ly, float lz, float lrad,
+                                            float px, float py, float pz,
+                                            float& ex, float& ey, float& ez,
+                                            float& pdf) {
+  const float dlx = lx - px, dly = ly - py, dlz = lz - pz;
+  const float dist_sq = dlx * dlx + dly * dly + dlz * dlz;
+  const float dist = sqrtf(dist_sq);
+  const float inv = 1.0f / dist;
+  const float nx = -(dlx * inv), ny = -(dly * inv), nz = -(dlz * inv);
+  float uu[3], vv[3];
+  onb(nx, ny, nz, uu, vv);
+  const float r2 = lrad * lrad;
+  const float sin_theta_max_2 = r2 / dist_sq;
+  const float cos_theta_max = sqrtf(nmax(0.0f, 1.0f - sin_theta_max_2));
+  const float cos_theta = (1.0f - u1) + u1 * cos_theta_max;
+  const float sin_theta = sqrtf(nmax(0.0f, 1.0f - cos_theta * cos_theta));
+  const float phi = u2 * TWO_PI_F;
+  const float ds =
+      dist * cos_theta - sqrtf(nmax(0.0f, r2 - dist_sq * sin_theta * sin_theta));
+  const float cos_alpha = (dist_sq + r2 - ds * ds) / (2.0f * dist * lrad);
+  const float sin_alpha = sqrtf(nmax(0.0f, 1.0f - cos_alpha * cos_alpha));
+  const float sc = sin_alpha * cosf(phi);
+  const float ss = sin_alpha * sinf(phi);
+  ex = lx + (uu[0] * sc + vv[0] * ss + nx * cos_alpha) * lrad;
+  ey = ly + (uu[1] * sc + vv[1] * ss + ny * cos_alpha) * lrad;
+  ez = lz + (uu[2] * sc + vv[2] * ss + nz * cos_alpha) * lrad;
+  pdf = 1.0f / (TWO_PI_F * (1.0f - cos_theta_max));
+}
+
+// shade_pallas._sphere_occluded: any of K spheres [x, y, z, r] blocks s->e.
+__device__ __forceinline__ bool sphere_occluded(const float* __restrict__ sph,
+                                                int K, float sx, float sy,
+                                                float sz, float ex, float ey,
+                                                float ez) {
+  const float dx = ex - sx, dy = ey - sy, dz = ez - sz;
+  const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float inv = 1.0f / dist;
+  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
+  bool occ = false;
+  for (int k = 0; k < K; ++k) {
+    const float ocx = sx - sph[4 * k], ocy = sy - sph[4 * k + 1],
+                ocz = sz - sph[4 * k + 2], rad = sph[4 * k + 3];
+    const float b = ocx * ux + ocy * uy + ocz * uz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float descrim = b * b - c;
+    const float dsq = sqrtf(nmax(descrim, 0.0f));
+    const float t1 = -b - dsq, t2 = -b + dsq;
+    occ = occ || ((nmin(t1, t2) > 1e-3f) && (t1 <= dist) && (descrim > 0.0f));
+  }
+  return occ;
+}
+
+// ops/spheres.hit for one sphere (reference src/sphere.rs:48-72): the
+// nearer valid root in (1e-4, t_max], else MISS.
+__device__ __forceinline__ float sphere_hit(float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            const float* __restrict__ s,
+                                            float t_max) {
+  const float ocx = ox - s[0], ocy = oy - s[1], ocz = oz - s[2];
+  const float rad = s[3];
+  const float b = ocx * dx + ocy * dy + ocz * dz;
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float descrim = b * b - c;
+  const bool desc_pos = descrim > 0.0f;
+  const float ds = sqrtf(nmax(descrim, 0.0f));
+  const float t1 = -b - ds, t2 = -b + ds;
+  const bool t1v = (t1 > 1e-4f) && (t1 <= t_max) && desc_pos;
+  const bool t2v = (t2 > 1e-4f) && (t2 <= t_max) && desc_pos;
+  return t1v ? t1 : (t2v ? t2 : MISS_F);
+}
+
+// shade_pallas._eval_f: f(wo, wi) for NEE; is-kind masks multiply every
+// lobe, as in the Pallas body.
+__device__ __forceinline__ void eval_f(int kind, float car, float cag,
+                                       float cab, float power, float wox,
+                                       float woy, float woz, float wix,
+                                       float wiy, float wiz, float nx,
+                                       float ny, float nz, float& fr,
+                                       float& fg, float& fb) {
+  const float d = nmax(0.0f, wix * nx + wiy * ny + wiz * nz);
+  const float one_minus = 1.0f - d;
+  const float om2 = one_minus * one_minus;
+  const float om5 = om2 * om2 * one_minus;
+  const float fresnel = F0_F + ONE_MINUS_F0_F * om5;
+  const float hx = wox + wix, hy = woy + wiy, hz = woz + wiz;
+  const float hlen = sqrtf(hx * hx + hy * hy + hz * hz);
+  const float hinv = 1.0f / nmax(hlen, 1e-20f);
+  const float hdn = nmax(0.0f, (hx * nx + hy * ny + hz * nz) * hinv);
+  const float cos_alpha = powf(hdn, power);
+  const float spec_factor = cos_alpha * (power + 2.0f) / TWO_PI_F;
+  const float spec_f = spec_factor * fresnel;
+  const float one_minus_f = 1.0f - fresnel;
+  const float is_lam = kind == 0 ? 1.0f : 0.0f;
+  const float is_diel = kind == 1 ? 1.0f : 0.0f;
+  const float is_met = kind == 4 ? 1.0f : 0.0f;
+  const float c[3] = {car, cag, cab};
+  float f[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float lam = c[ch] * INV_PI_F;
+    const float diel = spec_f + c[ch] * INV_PI_F * one_minus_f;
+    const float met = (c[ch] + (1.0f - c[ch]) * om5) * spec_factor;
+    f[ch] = is_lam * lam + is_diel * diel + is_met * met;
+  }
+  fr = f[0];
+  fg = f[1];
+  fb = f[2];
+}
+
+__device__ __forceinline__ void concentric_disk(float u, float v, float& x,
+                                                float& y) {
+  const float a = u * 2.0f - 1.0f;
+  float b = v * 2.0f - 1.0f;
+  if (a == 0.0f && b == 0.0f) b = 1e-4f;
+  const float a_safe = a == 0.0f ? 1.0f : a;
+  const float phi1 = FRAC_PI_4_F * b / a_safe;
+  const float phi2 = FRAC_PI_2_F - FRAC_PI_4_F * a / b;
+  const bool take1 = (a * a) > (b * b);
+  const float r = take1 ? a : b;
+  const float phi = take1 ? phi1 : phi2;
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+}
+
+__device__ __forceinline__ void norm3(float& x, float& y, float& z,
+                                      float eps) {
+  const float mag = sqrtf(x * x + y * y + z * z);
+  const float inv = eps > 0.0f ? 1.0f / nmax(mag, eps) : 1.0f / mag;
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+__device__ __forceinline__ void basis(const float uu[3], const float vv[3],
+                                      float wx, float wy, float wz, float x,
+                                      float y, float z, float& ox, float& oy,
+                                      float& oz) {
+  ox = x * uu[0] + y * vv[0] + z * wx;
+  oy = x * uu[1] + y * vv[1] + z * wy;
+  oz = x * uu[2] + y * vv[2] + z * wz;
+}
+
+// shade_pallas._scatter: BSDF importance sampling (reference
+// src/material.rs:118-137 Lambert, :207-256 Dielectric, plus the working
+// Metallic and Refractive variants). Returns wi, f and pdf.
+__device__ __forceinline__ void scatter(
+    int compat_reflect, int compat_phi, int kind, float car, float cag, float cab,
+    float power, float ior, float wox, float woy, float woz, float nx,
+    float ny, float nz, float u_f, float u_d1, float u_d2, float u_s1,
+    float u_s2, float& wix, float& wiy, float& wiz, float& fr, float& fg,
+    float& fb, float& pdf) {
+  float uu[3], vv[3];
+  onb(nx, ny, nz, uu, vv);
+  float dsx, dsy;
+  concentric_disk(u_d1, u_d2, dsx, dsy);
+  const float dsz = sqrtf(1.0f - nmin(dsx * dsx + dsy * dsy, 1.0f));
+  float dbx, dby, dbz;
+  basis(uu, vv, nx, ny, nz, dsx, dsy, dsz, dbx, dby, dbz);
+  norm3(dbx, dby, dbz, 0.0f);
+  const float lambert_pdf = dsz / PI_F;
+  const float diffuse_pdf = nmax(1e-5f, lambert_pdf);
+
+  const float won = wox * nx + woy * ny + woz * nz;
+  float rx, ry, rz;
+  if (compat_reflect) {
+    rx = wox - 2.0f * won * nx;
+    ry = woy - 2.0f * won * ny;
+    rz = woz - 2.0f * won * nz;
+  } else {
+    rx = 2.0f * won * nx - wox;
+    ry = 2.0f * won * ny - woy;
+    rz = 2.0f * won * nz - woz;
+  }
+  float ru[3], rv[3];
+  onb(rx, ry, rz, ru, rv);
+  const float sa = powf(u_s1, 1.0f / (power + 1.0f));
+  const float sb = sqrtf(nmax(1.0f - sa * sa, 0.0f));
+  const float sphi = compat_phi ? (2.0f * u_s2) : (TWO_PI_F * u_s2);
+  float sbx, sby, sbz;
+  basis(ru, rv, rx, ry, rz, sb * cosf(sphi), sb * sinf(sphi), sa, sbx, sby,
+        sbz);
+  norm3(sbx, sby, sbz, 0.0f);
+  const float cos_alpha_pow = nmax(powf(sa, power), F32_EPS_F);
+  const float spec_pdf = (power + 1.0f) / TWO_PI_F * cos_alpha_pow;
+  float spec_coeff = (power + 2.0f) / TWO_PI_F * cos_alpha_pow;
+  if ((nx * sbx + ny * sby + nz * sbz) < 0.0f) spec_coeff = 0.0f;
+
+  const float cosv = fabsf(won);
+  const float one_m = 1.0f - cosv;
+  const float om2 = one_m * one_m;
+  const float fresnel = F0_F + ONE_MINUS_F0_F * (om2 * om2 * one_m);
+  const bool take_spec = u_f < fresnel;
+  const float diel_pdf = fresnel * spec_pdf + (1.0f - fresnel) * diffuse_pdf;
+
+  const bool dsel = kind == 1 && take_spec;
+  wix = dsel ? sbx : dbx;
+  wiy = dsel ? sby : dby;
+  wiz = dsel ? sbz : dbz;
+  pdf = kind == 1 ? diel_pdf : lambert_pdf;
+  fr = dsel ? spec_coeff : car * INV_PI_F;
+  fg = dsel ? spec_coeff : cag * INV_PI_F;
+  fb = dsel ? spec_coeff : cab * INV_PI_F;
+
+  if (kind == 4) {  // Metallic
+    const float om5 = om2 * om2 * one_m;
+    wix = sbx;
+    wiy = sby;
+    wiz = sbz;
+    pdf = spec_pdf;
+    fr = (car + (1.0f - car) * om5) * spec_coeff;
+    fg = (cag + (1.0f - cag) * om5) * spec_coeff;
+    fb = (cab + (1.0f - cab) * om5) * spec_coeff;
+  } else if (kind == 5) {  // Refractive
+    const bool entering = won > 0.0f;
+    const float nrx = entering ? nx : -nx, nry = entering ? ny : -ny,
+                nrz = entering ? nz : -nz;
+    const float eta = entering ? 1.0f / ior : ior;
+    const float ci = fabsf(won);
+    const float sin2_t = eta * eta * nmax(0.0f, 1.0f - ci * ci);
+    const bool tir = sin2_t > 1.0f;
+    const float cos_t = sqrtf(nmax(0.0f, 1.0f - sin2_t));
+    const float k_eta = eta * ci - cos_t;
+    float rfx = -wox * eta + nrx * k_eta, rfy = -woy * eta + nry * k_eta,
+          rfz = -woz * eta + nrz * k_eta;
+    norm3(rfx, rfy, rfz, 1e-20f);
+    float f0r = (1.0f - ior) / (1.0f + ior);
+    f0r = f0r * f0r;
+    const float omc = 1.0f - ci;
+    const float omc2 = omc * omc;
+    const float fresnel_r = f0r + (1.0f - f0r) * (omc2 * omc2 * omc);
+    const float wodn = wox * nrx + woy * nry + woz * nrz;
+    const bool take_reflect = (u_f < fresnel_r) || tir;
+    const float ax = take_reflect ? 2.0f * wodn * nrx - wox : rfx;
+    const float ay = take_reflect ? 2.0f * wodn * nry - woy : rfy;
+    const float az = take_reflect ? 2.0f * wodn * nrz - woz : rfz;
+    float auu[3], avv[3];
+    onb(ax, ay, az, auu, avv);
+    float rwx, rwy, rwz;
+    basis(auu, avv, ax, ay, az, dsx, dsy, dsz, rwx, rwy, rwz);
+    norm3(rwx, rwy, rwz, 0.0f);
+    const float refr_pdf = nmax(dsz / PI_F, 1e-6f);
+    const float ndl_r = nmax(fabsf(rwx * nx + rwy * ny + rwz * nz), 1e-6f);
+    const float scale_r = refr_pdf / ndl_r;
+    wix = rwx;
+    wiy = rwy;
+    wiz = rwz;
+    pdf = refr_pdf;
+    fr = (take_reflect ? 1.0f : car) * scale_r;
+    fg = (take_reflect ? 1.0f : cag) * scale_r;
+    fb = (take_reflect ? 1.0f : cab) * scale_r;
+  }
+}
+
+// march_pallas._segment_entry (reference src/sdf.rs:25-57) for segment
+// s->e: its direction d, its march length md (clipped to the bounding
+// sphere when bv_r > 0) and its first march distance t0. False when the
+// segment resolves at entry: a NaN first DE, or a miss of the bounding
+// sphere.
+__device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
+                                              float bv_r2, float sx, float sy,
+                                              float sz, float ex, float ey,
+                                              float ez, float& dx, float& dy,
+                                              float& dz, float& md,
+                                              float& t0) {
+  const float gx = ex - sx, gy = ey - sy, gz = ez - sz;
+  md = sqrtf(gx * gx + gy * gy + gz * gz);
+  const float inv = 1.0f / md;
+  dx = gx * inv;
+  dy = gy * inv;
+  dz = gz * inv;
+  const float dist0 = mandelbox_de(mb, sx, sy, sz);
+  if (isnan(dist0)) return false;
+  t0 = dist0;
+  if (bv_r > 0.0f) {
+    const float b = sx * dx + sy * dy + sz * dz;
+    const float c = sx * sx + sy * sy + sz * sz - bv_r2;
+    const float disc = b * b - c;
+    const float sq = sqrtf(nmax(disc, 0.0f));
+    const float t_exit = -b + sq;
+    if (disc <= 0.0f || t_exit <= 0.0f) return false;
+    md = nmin(md, t_exit);
+    t0 = nmax(dist0, nmax(-b - sq, 0.0f));
+  }
+  return true;
+}
+
+// The chained occlusion core's verdict (march_pallas._chained_occl_core)
+// for one segment: True iff the SDF blocks s->e. A segment resolved at
+// entry is unblocked; so is one that runs out of steps. Per-segment step
+// sequences are the JAX ones.
+__device__ __forceinline__ bool sdf_occluded(const MBox& mb, float bv_r,
+                                             float bv_r2, int max_steps,
+                                             float eps_c, float eps_l,
+                                             float sx, float sy, float sz,
+                                             float ex, float ey, float ez) {
+  float dx, dy, dz, md, t;
+  if (!segment_entry(mb, bv_r, bv_r2, sx, sy, sz, ex, ey, ez, dx, dy, dz, md,
+                     t))
+    return false;
+  for (int step = 0;; ++step) {
+    const bool gt_end = t > md;
+    const float dist = mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz);
+    const bool hit = fabsf(dist) < nmax(eps_c, eps_l * t);
+    if (hit || gt_end) return hit && !gt_end;
+    if (step + 1 >= max_steps) return false;
+    t = t + dist;
+  }
+}
+
+// The sort key's price of one segment (shade_pallas._segment_cost):
+// min(md / max(t0, 1e-6), max_steps), or 1 for an inactive or
+// entry-resolved segment or one that starts past its end.
+__device__ __forceinline__ float segment_cost(const MBox& mb, float bv_r,
+                                              float bv_r2, int max_steps,
+                                              bool act, float sx, float sy,
+                                              float sz, float ex, float ey,
+                                              float ez) {
+  float dx, dy, dz, md, t0;
+  if (!act || !segment_entry(mb, bv_r, bv_r2, sx, sy, sz, ex, ey, ez, dx, dy,
+                             dz, md, t0) ||
+      t0 > md)
+    return 1.0f;
+  return nmin(md / nmax(t0, 1e-6f), (float)max_steps);
+}
+
+}  // namespace rayn

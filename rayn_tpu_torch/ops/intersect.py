@@ -1,0 +1,94 @@
+"""Scene-level closest hit and shading info in plain torch (port of
+rayn_tpu.ops.intersect.closest_hit / shading_info).
+
+Object ids: 0..K-1 = spheres in scene order, K = the traced SDF, -1 =
+miss (reference src/hitable.rs:170-210). This unfused path is the
+reference the fused intersect kernel is held against; the render path
+always runs the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from rayn_tpu_torch.config import RenderSettings
+from rayn_tpu_torch.ops import march as march_ops
+from rayn_tpu_torch.ops import sdf as sdf_ops
+from rayn_tpu_torch.ops import spheres as sphere_ops
+from rayn_tpu_torch.scene.scene import (SceneData, SceneStatic,
+                                        sphere_center_of, sphere_centers_at)
+from rayn_tpu_torch.utils import vecmath
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor        # [N] distance (t_max or MISS-large on a miss)
+    obj: torch.Tensor      # [N] int32 object id, -1 on a miss
+    valid: torch.Tensor    # [N] bool
+
+
+class ShadingInfo(NamedTuple):
+    point: torch.Tensor      # [N, 3]
+    normal: torch.Tensor     # [N, 3]
+    offset_by: torch.Tensor  # [N] shadow/bounce ray origin bias
+    mat: torch.Tensor        # [N] int32 material id
+
+
+def closest_hit(data: SceneData, static: SceneStatic,
+                settings: RenderSettings, origin, direction, time, t_max,
+                hps_abs, hps_lin, active) -> Hit:
+    """Closest hit across all spheres and the SDF; the SDF is marched
+    with the sphere fold's closest t as its t_max."""
+    n = origin.shape[0]
+    best_t = t_max
+    best_obj = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
+    if static.n_spheres:
+        centers = sphere_centers_at(data, time)
+        ts = sphere_ops.hit(origin, direction, centers, data.sphere_radii,
+                            t_max)
+        sph_t, sph_id = torch.min(ts, dim=1)
+        closer = sph_t < best_t
+        best_t = torch.where(closer, sph_t, best_t)
+        best_obj = torch.where(closer, sph_id.to(torch.int32), best_obj)
+    if static.has_sdf:
+        detail = settings.sdf_detail_scale
+        t_sdf = march_ops.march(
+            data.sdf_params, origin, direction, best_t,
+            eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
+            eps_lin=0.05 * detail * hps_lin,
+            max_steps=settings.max_marches, active=active)
+        closer = t_sdf < best_t
+        best_t = torch.where(closer, t_sdf, best_t)
+        best_obj = torch.where(closer, static.n_spheres, best_obj)
+    return Hit(best_t, best_obj, active & (best_obj >= 0))
+
+
+def shading_info(data: SceneData, static: SceneStatic,
+                 settings: RenderSettings, hit: Hit, origin, direction,
+                 time, hps_abs, hps_lin) -> ShadingInfo:
+    """Spheres: geometric normal, offset_by = 0 (reference
+    src/sphere.rs:74-86). SDF: tetrahedral normal with
+    eps = max(1e-4, detail * half_pixel_size_at(t)), offset_by = eps
+    (reference src/sdf.rs:85-101)."""
+    n = origin.shape[0]
+    point = origin + hit.t[:, None] * direction
+    normal = torch.zeros_like(point)
+    offset_by = torch.zeros((n,), dtype=torch.float32, device=point.device)
+    mat = torch.zeros((n,), dtype=torch.int32, device=point.device)
+    if static.n_spheres:
+        idx = torch.clamp(hit.obj, 0, static.n_spheres - 1)
+        c = sphere_center_of(data, idx, time)
+        sph_n = vecmath.normalize(point - c, eps=1e-20)
+        is_sph = (hit.obj >= 0) & (hit.obj < static.n_spheres)
+        normal = torch.where(is_sph[:, None], sph_n, normal)
+        mat = torch.where(is_sph, data.sphere_mats[idx.long()], mat)
+    if static.has_sdf:
+        detail = settings.sdf_detail_scale
+        hps = torch.clamp(detail * (hps_abs + hps_lin * hit.t), min=1e-4)
+        is_sdf = hit.obj == static.n_spheres
+        sdf_n = sdf_ops.tetrahedral_normal(data.sdf_params, point, hps)
+        normal = torch.where(is_sdf[:, None], sdf_n, normal)
+        offset_by = torch.where(is_sdf, hps, offset_by)
+        mat = torch.where(is_sdf, static.sdf_mat, mat)
+    return ShadingInfo(point, normal, offset_by, mat)

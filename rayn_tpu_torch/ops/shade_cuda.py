@@ -1,0 +1,849 @@
+"""Fused bounce tail and shadow sort key: CUDA kernels and plain twins.
+
+Port of the two `rayn_tpu.ops.shade_pallas` kernels on the default
+render path:
+
+- `bounce_tail` replaces `bounce_tail_fused` (`_bounce_tail_kernel` =
+  `_shadow_delta` + `_finish_tail`, with `march_pallas._segment_entry`
+  and the chained occlusion core inlined): per ray, L NEE light samples
+  and VM*L equi-angular volume samples, each tested against the spheres
+  and marched through the SDF, then emission, BSDF scatter, Russian
+  roulette, the depth-0 AOVs and termination. Returns the next PathState.
+- `shadow_sort_key` replaces `shadow_sort_key` (`_shadow_key_kernel` ->
+  `_shadow_cost_key` -> `_segment_cost`): per ray, the summed estimate
+  min(segment length / first DE, max_steps) over the same segments.
+
+Each wrapper launches its CUDA kernel (csrc/shade.cu) for CUDA tensors,
+counts the launch in its `launches` attribute, and raises on anything
+the kernel does not take. For CPU tensors it calls its `_plain` twin,
+which mirrors the kernel body formula for formula (the JAX fused body,
+not the unfused integrator path), so kernel and twin differ only in the
+compiler's float choices. The equi-angular distances and pdfs stay in
+torch outside the kernels, exactly as in JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+
+from rayn_tpu_torch import _build
+from rayn_tpu_torch._build import check, mbox_struct
+from rayn_tpu_torch.ops import march as march_ops
+from rayn_tpu_torch.ops.sdf import MandelBox
+from rayn_tpu_torch.scene.scene import (DIELECTRIC, EMISSIVE, LAMBERT,
+                                        METALLIC, REFRACTIVE, SKY)
+from rayn_tpu_torch.utils import rng as rng_mod
+from rayn_tpu_torch.utils.vecmath import div as _div
+from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
+
+_PI = 3.14159265358979     # shade_pallas._PI (same float32 as math.pi)
+_TWO_PI = 2.0 * _PI
+_F0 = 0.04
+F32_EPS = 1.1920929e-07    # f32::EPSILON (reference src/material.rs:236)
+
+
+class ShadowCfg(NamedTuple):
+    """Every scalar the shadow/tail/key bodies read; one source for the
+    kernels' argument structs and the plain twins. `sampler` and
+    `num_1d_sets` make it a sampler layout for utils.rng."""
+    sampler: str
+    frame: int
+    num_1d_sets: int
+    L: int
+    VM: int
+    NL: int
+    K: int
+    has_ext: bool
+    mb: Optional[MandelBox]
+    bv_r: float
+    eps_c: float
+    eps_l: float
+    detail: float
+    max_steps: int
+    correction: float
+    vm_correction: float
+    sigma_t: float
+    sigma_s: float
+    compat_reflect: bool
+    compat_phi: bool
+    set_pick: tuple
+    set_nee: tuple
+    set_vol_pick: tuple    # VM*L, march-major
+    set_vol: tuple
+    set_fres: int
+    set_diff: int
+    set_spec: int
+    set_rr: int
+    roulette_on: bool
+    terminate_all: bool
+    aov: bool
+
+
+def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
+    """The shadow-kernel configuration of one bounce (mirrors
+    shade_pallas._shadow_cfg_const and the bounce_tail_fused flags)."""
+    NL, K = int(static.n_lights), int(static.n_spheres)
+    L = s.nee_light_samples if NL > 0 else 0
+    VM = s.volume_marches if (static.has_scattering and NL > 0) else 0
+    detail = s.sdf_detail_scale * s.shadow_eps_scale
+    return ShadowCfg(
+        sampler=s.sampler, frame=int(tables.frame),
+        num_1d_sets=s.num_1d_sets, L=L, VM=VM, NL=NL, K=K,
+        has_ext=static.has_extinction,
+        mb=data.sdf_params if static.has_sdf else None,
+        bv_r=float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0,
+        eps_c=1e-4 * detail, eps_l=1e-5 * detail, detail=detail,
+        max_steps=s.max_vis_marches,
+        correction=(NL / L) if L else 0.0,
+        vm_correction=(NL / L / VM) if (L and VM) else 0.0,
+        sigma_t=data.volume_sigma_t if static.has_extinction else 0.0,
+        sigma_s=data.volume_sigma_s if static.has_scattering else 0.0,
+        compat_reflect=bool(s.compat_spec_reflect),
+        compat_phi=bool(s.compat_spec_phi),
+        set_pick=tuple(rng_mod.set1d_light_pick(s, depth, i)
+                       for i in range(L)),
+        set_nee=tuple(rng_mod.set2d_nee(s, depth, i) for i in range(L)),
+        set_vol_pick=tuple(rng_mod.set1d_vol_pick(s, depth, m, i)
+                           for m in range(VM) for i in range(L)),
+        set_vol=tuple(rng_mod.set2d_vol(s, depth, m, i)
+                      for m in range(VM) for i in range(L)),
+        set_fres=rng_mod.set1d_fresnel(s, depth),
+        set_diff=rng_mod.set2d_diffuse(s, depth),
+        set_spec=rng_mod.set2d_spec(s, depth),
+        set_rr=rng_mod.set1d_roulette(s, depth),
+        roulette_on=depth > 2, terminate_all=depth >= s.max_bounces,
+        aov=depth == 0)
+
+
+def scene_tables(data, static):
+    """(lights [NL, 8] = pos xyz, radius, emission rgb, paired;
+    spheres [K, 4] = center xyz, radius), built on the scene's device
+    from the constant (knot 0) channels."""
+    lights = torch.cat([data.light_pos.values[:, 0, :],
+                        data.light_radii[:, None], data.light_emission,
+                        data.light_paired[:, None]], dim=-1).contiguous()
+    spheres = torch.cat([data.sphere_centers.values[:, 0, :],
+                         data.sphere_radii[:, None]], dim=-1).contiguous()
+    return lights, spheres
+
+
+# --------------------------------------------------------------------------
+# Plain twins: component-form torch mirrors of the kernel bodies
+# --------------------------------------------------------------------------
+
+def _s1(cfg, set_id, sidx, pix):
+    return rng_mod.sample_1d(cfg, rng_mod.SampleTables(cfg.frame), set_id,
+                             sidx, pix)
+
+
+def _s2(cfg, set_id, sidx, pix):
+    u = rng_mod.sample_2d(cfg, rng_mod.SampleTables(cfg.frame), set_id, sidx,
+                          pix)
+    return u[:, 0], u[:, 1]
+
+
+def _onb(nx, ny, nz):
+    """Pixar/Duff ONB with signbit(-0.0) = negative (shade_pallas._onb)."""
+    ks = torch.where(torch.signbit(nz), -1.0, 1.0)
+    ka = 1.0 / (1.0 + torch.abs(nz))
+    kb = -ks * nx * ny * ka
+    return ((1.0 - nx * nx * ka, ks * kb, -ks * nx),
+            (kb, ks - ny * ny * ka * ks, -ny))
+
+
+def _pick_light(u, lights):
+    """Per-lane light row: clip(floor(u * NL), 0, NL - 1)."""
+    NL = lights.shape[0]
+    idx = torch.clamp(torch.floor(u * NL).to(torch.int64), 0, NL - 1)
+    row = lights[idx]
+    return row.unbind(-1)
+
+
+def _sample_cone(u1, u2, lx, ly, lz, lrad, px, py, pz):
+    """Visible-cap sphere-light sample (shade_pallas._sample_cone)."""
+    dlx, dly, dlz = lx - px, ly - py, lz - pz
+    dist_sq = dlx * dlx + dly * dly + dlz * dlz
+    dist = _sqrt(dist_sq)
+    inv = 1.0 / dist
+    nx, ny, nz = -(dlx * inv), -(dly * inv), -(dlz * inv)
+    uu, vv = _onb(nx, ny, nz)
+    r2 = lrad * lrad
+    sin_theta_max_2 = r2 / dist_sq
+    cos_theta_max = _sqrt(torch.clamp(1.0 - sin_theta_max_2, min=0.0))
+    cos_theta = (1.0 - u1) + u1 * cos_theta_max
+    sin_theta = _sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    phi = u2 * _TWO_PI
+    ds = dist * cos_theta - _sqrt(
+        torch.clamp(r2 - dist_sq * sin_theta * sin_theta, min=0.0))
+    cos_alpha = (dist_sq + r2 - ds * ds) / (2.0 * dist * lrad)
+    sin_alpha = _sqrt(torch.clamp(1.0 - cos_alpha * cos_alpha, min=0.0))
+    sc = sin_alpha * torch.cos(phi)
+    ss = sin_alpha * torch.sin(phi)
+    ex = lx + (uu[0] * sc + vv[0] * ss + nx * cos_alpha) * lrad
+    ey = ly + (uu[1] * sc + vv[1] * ss + ny * cos_alpha) * lrad
+    ez = lz + (uu[2] * sc + vv[2] * ss + nz * cos_alpha) * lrad
+    pdf = 1.0 / (_TWO_PI * (1.0 - cos_theta_max))
+    return ex, ey, ez, pdf
+
+
+def _eval_f(kind, car, cag, cab, power, wox, woy, woz, wix, wiy, wiz,
+            nx, ny, nz):
+    """BSDF f(wo, wi) for NEE (shade_pallas._eval_f)."""
+    inv_pi = 1.0 / _PI
+    d = torch.clamp(wix * nx + wiy * ny + wiz * nz, min=0.0)
+    one_minus = 1.0 - d
+    om2 = one_minus * one_minus
+    om5 = om2 * om2 * one_minus
+    fresnel = _F0 + (1.0 - _F0) * om5
+    hx, hy, hz = wox + wix, woy + wiy, woz + wiz
+    hlen = _sqrt(hx * hx + hy * hy + hz * hz)
+    hinv = 1.0 / torch.clamp(hlen, min=1e-20)
+    hdn = torch.clamp((hx * nx + hy * ny + hz * nz) * hinv, min=0.0)
+    cos_alpha = torch.pow(hdn, power)
+    spec_factor = _div(cos_alpha * (power + 2.0), 2.0 * _PI)
+    spec_f = spec_factor * fresnel
+    one_minus_f = 1.0 - fresnel
+    is_lam = (kind == LAMBERT).to(torch.float32)
+    is_diel = (kind == DIELECTRIC).to(torch.float32)
+    is_met = (kind == METALLIC).to(torch.float32)
+
+    def chan(c):
+        lam = c * inv_pi
+        diel = spec_f + c * inv_pi * one_minus_f
+        met = (c + (1.0 - c) * om5) * spec_factor
+        return is_lam * lam + is_diel * diel + is_met * met
+
+    return chan(car), chan(cag), chan(cab)
+
+
+def _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez):
+    """Any-sphere segment occlusion (shade_pallas._sphere_occluded)."""
+    dx, dy, dz = ex - sx, ey - sy, ez - sz
+    dist = _sqrt(dx * dx + dy * dy + dz * dz)
+    inv = 1.0 / dist
+    ux, uy, uz = dx * inv, dy * inv, dz * inv
+    occ = torch.zeros_like(sx, dtype=torch.bool)
+    for k in range(spheres.shape[0]):
+        cx, cy, cz, rad = spheres[k].unbind(-1)
+        ocx, ocy, ocz = sx - cx, sy - cy, sz - cz
+        b = ocx * ux + ocy * uy + ocz * uz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+        descrim = b * b - c
+        desc_pos = descrim > 0.0
+        dsq = _sqrt(torch.clamp(descrim, min=0.0))
+        t1 = -b - dsq
+        t2 = -b + dsq
+        occ = occ | ((torch.minimum(t1, t2) > 1e-3) & (t1 <= dist)
+                     & desc_pos)
+    return occ
+
+
+def _concentric_disk(u, v):
+    a = u * 2.0 - 1.0
+    b = v * 2.0 - 1.0
+    b = torch.where((a == 0.0) & (b == 0.0), 1e-4, b)
+    a_safe = torch.where(a == 0.0, 1.0, a)
+    phi1 = (_PI / 4.0) * b / a_safe
+    phi2 = (_PI / 2.0) - (_PI / 4.0) * a / b
+    take1 = (a * a) > (b * b)
+    r = torch.where(take1, a, b)
+    phi = torch.where(take1, phi1, phi2)
+    return r * torch.cos(phi), r * torch.sin(phi)
+
+
+def _norm3(x, y, z, eps):
+    mag = _sqrt(x * x + y * y + z * z)
+    inv = 1.0 / torch.clamp(mag, min=eps) if eps else 1.0 / mag
+    return x * inv, y * inv, z * inv
+
+
+def _basis(uu, vv, w, x, y, z):
+    return (x * uu[0] + y * vv[0] + z * w[0],
+            x * uu[1] + y * vv[1] + z * w[1],
+            x * uu[2] + y * vv[2] + z * w[2])
+
+
+def _scatter(cfg, kind, car, cag, cab, power, ior, wox, woy, woz,
+             nx, ny, nz, u_f, u_d1, u_d2, u_s1, u_s2):
+    """Component-form BSDF sampling (shade_pallas._scatter). Returns
+    (wi xyz, f rgb, pdf)."""
+    uu, vv = _onb(nx, ny, nz)
+    dx, dy = _concentric_disk(u_d1, u_d2)
+    dz = _sqrt(1.0 - torch.clamp(dx * dx + dy * dy, max=1.0))
+    dbx, dby, dbz = _norm3(*_basis(uu, vv, (nx, ny, nz), dx, dy, dz), 0.0)
+    lambert_pdf = _div(dz, _PI)
+    diffuse_pdf = torch.clamp(lambert_pdf, min=1e-5)
+    inv_pi = 1.0 / _PI
+
+    won = wox * nx + woy * ny + woz * nz
+    if cfg.compat_reflect:
+        rx, ry, rz = (wox - 2.0 * won * nx, woy - 2.0 * won * ny,
+                      woz - 2.0 * won * nz)
+    else:
+        rx, ry, rz = (2.0 * won * nx - wox, 2.0 * won * ny - woy,
+                      2.0 * won * nz - woz)
+    ru, rv = _onb(rx, ry, rz)
+    sa = torch.pow(u_s1, 1.0 / (power + 1.0))
+    sb = _sqrt(torch.clamp(1.0 - sa * sa, min=0.0))
+    sphi = (2.0 * u_s2) if cfg.compat_phi else ((2.0 * _PI) * u_s2)
+    ssx, ssy, ssz = sb * torch.cos(sphi), sb * torch.sin(sphi), sa
+    sbx, sby, sbz = _norm3(*_basis(ru, rv, (rx, ry, rz), ssx, ssy, ssz), 0.0)
+    cos_alpha_pow = torch.clamp(torch.pow(ssz, power), min=F32_EPS)
+    spec_pdf = _div(power + 1.0, _TWO_PI) * cos_alpha_pow
+    spec_coeff = _div(power + 2.0, _TWO_PI) * cos_alpha_pow
+    below = (nx * sbx + ny * sby + nz * sbz) < 0.0
+    spec_coeff = torch.where(below, 0.0, spec_coeff)
+
+    cos = torch.abs(won)
+    one_m = 1.0 - cos
+    om2 = one_m * one_m
+    fresnel = _F0 + (1.0 - _F0) * (om2 * om2 * one_m)
+    take_spec = u_f < fresnel
+    diel_pdf = fresnel * spec_pdf + (1.0 - fresnel) * diffuse_pdf
+
+    is_diel = kind == DIELECTRIC
+    dsel = is_diel & take_spec
+    wix = torch.where(dsel, sbx, dbx)
+    wiy = torch.where(dsel, sby, dby)
+    wiz = torch.where(dsel, sbz, dbz)
+    pdf = torch.where(is_diel, diel_pdf, lambert_pdf)
+
+    def chan_df(c):
+        diffuse_f = c * inv_pi
+        return torch.where(dsel, spec_coeff, diffuse_f)
+
+    fr, fg, fb = chan_df(car), chan_df(cag), chan_df(cab)
+
+    is_metal = kind == METALLIC
+    om5 = om2 * om2 * one_m
+    wix = torch.where(is_metal, sbx, wix)
+    wiy = torch.where(is_metal, sby, wiy)
+    wiz = torch.where(is_metal, sbz, wiz)
+    pdf = torch.where(is_metal, spec_pdf, pdf)
+    fr = torch.where(is_metal, (car + (1.0 - car) * om5) * spec_coeff, fr)
+    fg = torch.where(is_metal, (cag + (1.0 - cag) * om5) * spec_coeff, fg)
+    fb = torch.where(is_metal, (cab + (1.0 - cab) * om5) * spec_coeff, fb)
+
+    is_refr = kind == REFRACTIVE
+    entering = won > 0.0
+    nrx = torch.where(entering, nx, -nx)
+    nry = torch.where(entering, ny, -ny)
+    nrz = torch.where(entering, nz, -nz)
+    eta = torch.where(entering, 1.0 / ior, ior)
+    ci = torch.abs(won)
+    sin2_t = eta * eta * torch.clamp(1.0 - ci * ci, min=0.0)
+    tir = sin2_t > 1.0
+    cos_t = _sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    k_eta = eta * ci - cos_t
+    rfx, rfy, rfz = _norm3(-wox * eta + nrx * k_eta, -woy * eta + nry * k_eta,
+                           -woz * eta + nrz * k_eta, 1e-20)
+    f0r = (1.0 - ior) / (1.0 + ior)
+    f0r = f0r * f0r
+    omc = 1.0 - ci
+    omc2 = omc * omc
+    fresnel_r = f0r + (1.0 - f0r) * (omc2 * omc2 * omc)
+    wodn = wox * nrx + woy * nry + woz * nrz
+    rlx = 2.0 * wodn * nrx - wox
+    rly = 2.0 * wodn * nry - woy
+    rlz = 2.0 * wodn * nrz - woz
+    take_reflect = (u_f < fresnel_r) | tir
+    ax = torch.where(take_reflect, rlx, rfx)
+    ay = torch.where(take_reflect, rly, rfy)
+    az = torch.where(take_reflect, rlz, rfz)
+    auu, avv = _onb(ax, ay, az)
+    rwx, rwy, rwz = _norm3(*_basis(auu, avv, (ax, ay, az), dx, dy, dz), 0.0)
+    refr_pdf = torch.clamp(_div(dz, _PI), min=1e-6)
+    ndl_r = torch.clamp(torch.abs(rwx * nx + rwy * ny + rwz * nz), min=1e-6)
+    scale_r = refr_pdf / ndl_r
+    wix = torch.where(is_refr, rwx, wix)
+    wiy = torch.where(is_refr, rwy, wiy)
+    wiz = torch.where(is_refr, rwz, wiz)
+    pdf = torch.where(is_refr, refr_pdf, pdf)
+    fr, fg, fb = (torch.where(is_refr,
+                              torch.where(take_reflect, 1.0, c) * scale_r, f)
+                  for c, f in ((car, fr), (cag, fg), (cab, fb)))
+    return wix, wiy, wiz, fr, fg, fb, pdf
+
+
+def _nee_site(cfg, lights, i, v):
+    """Light pick + cone sample of NEE site i: (end xyz, pdf, light row)."""
+    u_pick = _s1(cfg, cfg.set_pick[i], v["sidx"], v["pix"])
+    lx, ly, lz, lrad, er, eg, eb, _pair = _pick_light(u_pick, lights)
+    u1, u2 = _s2(cfg, cfg.set_nee[i], v["sidx"], v["pix"])
+    p_x, p_y, p_z = v["p"]
+    ex, ey, ez, pdf = _sample_cone(u1, u2, lx, ly, lz, lrad, p_x, p_y, p_z)
+    return ex, ey, ez, pdf, (er, eg, eb)
+
+
+def _vol_site(cfg, lights, j, vd_j, v):
+    """Light pick + scatter point + cone sample of volume site j
+    (march-major): (start xyz, end xyz, light pdf, emission)."""
+    u_pick = _s1(cfg, cfg.set_vol_pick[j], v["sidx"], v["pix"])
+    lx, ly, lz, lrad, er, eg, eb, _pair = _pick_light(u_pick, lights)
+    (o_x, o_y, o_z), (d_x, d_y, d_z) = v["o"], v["d"]
+    spx = o_x + vd_j * d_x
+    spy = o_y + vd_j * d_y
+    spz = o_z + vd_j * d_z
+    u1, u2 = _s2(cfg, cfg.set_vol[j], v["sidx"], v["pix"])
+    ex, ey, ez, pdf = _sample_cone(u1, u2, lx, ly, lz, lrad, spx, spy, spz)
+    return (spx, spy, spz), (ex, ey, ez), pdf, (er, eg, eb)
+
+
+def _stack(*cols):
+    return torch.stack(cols, dim=-1)
+
+
+def _sdf_verdicts(cfg, segs):
+    """Occlusion verdict of every segment: all segments march as one
+    batch, each with its own per-segment step sequence (scheduling never
+    changes a verdict). segs: list of (start xyz, end xyz, active)."""
+    if cfg.mb is None or not segs:
+        return [torch.zeros_like(a) for (_s, _e, a) in segs]
+    n = segs[0][2].shape[0]
+    start = torch.cat([_stack(*s) for (s, _e, _a) in segs])
+    end = torch.cat([_stack(*e) for (_s, e, _a) in segs])
+    act = torch.cat([a for (_s, _e, a) in segs])
+    occ = march_ops.march_occlusion(cfg.mb, start, end, cfg.detail,
+                                    cfg.max_steps, act, cfg.bv_r)
+    return list(occ.split(n))
+
+
+def _lane_values(state, info, mat, live, receives):
+    d = state.direction.unbind(-1)
+    return dict(
+        p=info.point.unbind(-1), n=info.normal.unbind(-1),
+        off=info.offset_by, o=state.origin.unbind(-1), d=d,
+        tp=state.throughput.unbind(-1), kind=mat.kind,
+        ca=mat.color_a.unbind(-1), cb=mat.color_b.unbind(-1),
+        pw=mat.power, ior=mat.ior, sidx=state.sample_idx,
+        pix=state.pixel, alive=live, recv=receives,
+        wo=(-d[0], -d[1], -d[2]))
+
+
+def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+    """The per-bounce shadow pipeline (shade_pallas._shadow_delta):
+    radiance delta (r, g, b), accumulated NEE 0..L-1 then volume sites
+    march-major."""
+    p_x, p_y, p_z = v["p"]
+    n_x, n_y, n_z = v["n"]
+    off = v["off"]
+    tp_x, tp_y, tp_z = v["tp"]
+    wo_x, wo_y, wo_z = v["wo"]
+    c_r, c_g, c_b = v["ca"]
+    receives, alive = v["recv"], v["alive"]
+    segs, pend = [], []
+    for i in range(cfg.L):
+        ex, ey, ez, pdf, (er, eg, eb) = _nee_site(cfg, lights, i, v)
+        wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
+        dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
+        dinv = 1.0 / dist
+        wix, wiy, wiz = wfx * dinv, wfy * dinv, wfz * dinv
+        ndw = n_x * wix + n_y * wiy + n_z * wiz
+        bias = torch.where(torch.signbit(ndw), -off, off)
+        sx, sy, sz = p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias
+        fr, fg, fb = _eval_f(v["kind"], c_r, c_g, c_b, v["pw"],
+                             wo_x, wo_y, wo_z, wix, wiy, wiz, n_x, n_y, n_z)
+        ndl = torch.clamp(ndw, min=0.0)
+        seg_trans = (torch.exp(-cfg.sigma_t * dist) if cfg.has_ext
+                     else 1.0)
+        scale = _div(seg_trans, pdf) * (cfg.correction * vtr)
+        kr = torch.where(receives, er * fr * ndl * scale * tp_x, 0.0)
+        kg = torch.where(receives, eg * fg * ndl * scale * tp_y, 0.0)
+        kb = torch.where(receives, eb * fb * ndl * scale * tp_z, 0.0)
+        worth = receives & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
+        blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
+        m_act = worth & ~blocked
+        segs.append(((sx, sy, sz), (ex, ey, ez), m_act))
+        pend.append((kr, kg, kb, m_act))
+    if cfg.VM:
+        inv_4pi = 1.0 / (4.0 * _PI)
+        for j in range(cfg.VM * cfg.L):
+            vd, vp = vol_dist[j], vol_pdf[j]
+            (spx, spy, spz), (ex, ey, ez), light_pdf, (er, eg, eb) = \
+                _vol_site(cfg, lights, j, vd, v)
+            sgx, sgy, sgz = ex - spx, ey - spy, ez - spz
+            dist_pl = _sqrt(sgx * sgx + sgy * sgy + sgz * sgz)
+            if cfg.has_ext:
+                seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
+                to_point = torch.exp(-cfg.sigma_t * vd)
+            else:
+                seg_trans = to_point = 1.0
+            scale = (_div(inv_4pi * seg_trans, vp * light_pdf)
+                     * cfg.vm_correction * cfg.sigma_s * to_point)
+            kr = torch.where(alive, er * scale * tp_x, 0.0)
+            kg = torch.where(alive, eg * scale * tp_y, 0.0)
+            kb = torch.where(alive, eb * scale * tp_z, 0.0)
+            worth = alive & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
+            blocked = _sphere_occluded(spheres, spx, spy, spz, ex, ey, ez)
+            m_act = worth & ~blocked
+            segs.append(((spx, spy, spz), (ex, ey, ez), m_act))
+            pend.append((kr, kg, kb, m_act))
+    occ = _sdf_verdicts(cfg, segs)
+    rad_r = torch.zeros_like(p_x)
+    rad_g = torch.zeros_like(p_x)
+    rad_b = torch.zeros_like(p_x)
+    for (kr, kg, kb, m_act), o in zip(pend, occ):
+        vis = (m_act & ~o).to(torch.float32)
+        rad_r = rad_r + kr * vis
+        rad_g = rad_g + kg * vis
+        rad_b = rad_b + kb * vis
+    return rad_r, rad_g, rad_b
+
+
+def _finish_plain(cfg, v, vtr, state, rad_in):
+    """Steps 2 and 5-7 of a bounce (shade_pallas._finish_tail, MIS off):
+    the 24 output columns as [N,3]/[N] tensors in PathState order."""
+    o_x, o_y, o_z = v["o"]
+    d_x, d_y, d_z = v["d"]
+    tp_x, tp_y, tp_z = v["tp"]
+    n_x, n_y, n_z = v["n"]
+    p_x, p_y, p_z = v["p"]
+    off, live, receives = v["off"], v["alive"], v["recv"]
+    sidx, pix, kind = v["sidx"], v["pix"], v["kind"]
+    car, cag, cab = v["ca"]
+    cbr, cbg, cbb = v["cb"]
+    wox, woy, woz = v["wo"]
+
+    t_sky = 0.5 * (woy + 1.0)
+    is_sky = kind == SKY
+    is_em = kind == EMISSIVE
+    le_r = torch.where(is_sky, car * (1.0 - t_sky) + cbr * t_sky,
+                       torch.where(is_em, cbr, 0.0))
+    le_g = torch.where(is_sky, cag * (1.0 - t_sky) + cbg * t_sky,
+                       torch.where(is_em, cbg, 0.0))
+    le_b = torch.where(is_sky, cab * (1.0 - t_sky) + cbb * t_sky,
+                       torch.where(is_em, cbb, 0.0))
+    rad_r = rad_in[0] + torch.where(live, le_r * tp_x * vtr, 0.0)
+    rad_g = rad_in[1] + torch.where(live, le_g * tp_y * vtr, 0.0)
+    rad_b = rad_in[2] + torch.where(live, le_b * tp_z * vtr, 0.0)
+
+    u_f = _s1(cfg, cfg.set_fres, sidx, pix)
+    u_d1, u_d2 = _s2(cfg, cfg.set_diff, sidx, pix)
+    u_s1, u_s2 = _s2(cfg, cfg.set_spec, sidx, pix)
+    wix, wiy, wiz, f_r, f_g, f_b, pdf = _scatter(
+        cfg, kind, car, cag, cab, v["pw"], v["ior"], wox, woy, woz,
+        n_x, n_y, n_z, u_f, u_d1, u_d2, u_s1, u_s2)
+    ndl = torch.abs(wix * n_x + wiy * n_y + wiz * n_z)
+    scale = vtr * (ndl / pdf)
+    ntp_x = tp_x * scale * f_r
+    ntp_y = tp_y * scale * f_g
+    ntp_z = tp_z * scale * f_b
+    max_tp = torch.maximum(tp_x, torch.maximum(tp_y, tp_z))
+    if cfg.roulette_on:
+        roulette = torch.clamp(1.0 - max_tp, min=0.05)
+    else:
+        roulette = torch.zeros_like(max_tp)
+    inv_keep = 1.0 / (1.0 - roulette)
+    ntp_x, ntp_y, ntp_z = ntp_x * inv_keep, ntp_y * inv_keep, ntp_z * inv_keep
+    u_r = _s1(cfg, cfg.set_rr, sidx, pix)
+    terminate = (u_r < roulette) | cfg.terminate_all
+
+    rad = _stack(rad_r, rad_g, rad_b)
+    if cfg.aov:
+        al = torch.where(receives, 1.0, state.alpha_out)
+        nout = torch.where(receives[:, None], _stack(n_x, n_y, n_z),
+                           state.normal_out)
+    else:
+        al, nout = state.alpha_out, state.normal_out
+    non_recv = live & ~receives
+    bgsel = non_recv if cfg.aov else torch.zeros_like(non_recv)
+    bg = torch.where(bgsel[:, None], rad, state.bg_out)
+    csel = torch.zeros_like(non_recv) if cfg.aov else non_recv
+    co = torch.where(csel[:, None], rad, state.color_out)
+    co = torch.where((receives & terminate)[:, None], rad, co)
+    survive = receives & ~terminate
+
+    ndw = n_x * wix + n_y * wiy + n_z * wiz
+    bias = torch.where(torch.signbit(ndw), -off, off)
+    new_o = _stack(p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias)
+    tp_nan = torch.isnan(ntp_x) | torch.isnan(ntp_y) | torch.isnan(ntp_z)
+    f = _stack(torch.where(tp_nan, tp_x, ntp_x),
+               torch.where(tp_nan, tp_y, ntp_y),
+               torch.where(tp_nan, tp_z, ntp_z))
+    next_pdf = torch.where(kind == REFRACTIVE, -1.0, pdf)
+    sv = survive[:, None]
+    return dict(
+        origin=torch.where(sv, new_o, state.origin),
+        direction=torch.where(sv, _stack(wix, wiy, wiz), state.direction),
+        throughput=torch.where(sv, f, state.throughput),
+        radiance=rad, alive=survive,
+        prev_pdf=torch.where(survive, next_pdf, state.prev_pdf),
+        color_out=co, bg_out=bg, alpha_out=al, normal_out=nout)
+
+
+def bounce_tail_plain(cfg: ShadowCfg, lights, spheres, state, info, mat,
+                      live, receives, vol_trans, vol_dist, vol_pdf):
+    """Plain twin of the bounce-tail kernel: the next PathState fields
+    as a dict (origin, direction, throughput, radiance, alive, prev_pdf,
+    color_out, bg_out, alpha_out, normal_out). Association order is the
+    fused kernel's: (state.radiance + shadow delta) + emission."""
+    v = _lane_values(state, info, mat, live, receives)
+    dr, dg, db = _shadow_delta_plain(cfg, lights, spheres, v, vol_trans,
+                                     vol_dist, vol_pdf)
+    rx, ry, rz = state.radiance.unbind(-1)
+    return _finish_plain(cfg, v, vol_trans, state,
+                         (rx + dr, ry + dg, rz + db))
+
+
+def _segment_cost(cfg, start, end, act):
+    """min(md / max(t0, 1e-6), max_steps), or 1 for a segment resolved at
+    entry or starting past its end (shade_pallas._segment_cost)."""
+    _d, md, t0, nan, _ = march_ops.segment_entry(
+        cfg.mb, cfg.bv_r, _stack(*start), _stack(*end), act)
+    est = torch.clamp(md / torch.clamp(t0, min=1e-6),
+                      max=float(cfg.max_steps))
+    return torch.where(nan | (t0 > md), 1.0, est)
+
+
+def shadow_sort_key_plain(cfg: ShadowCfg, lights, point, normal, offset_by,
+                          origin, direction, live, receives, sample_idx,
+                          pixel, vol_dist):
+    """Plain twin of the sort-key kernel (shade_pallas._shadow_cost_key)."""
+    d = direction.unbind(-1)
+    v = dict(p=point.unbind(-1), n=normal.unbind(-1), off=offset_by,
+             o=origin.unbind(-1), d=d, sidx=sample_idx, pix=pixel)
+    p_x, p_y, p_z = v["p"]
+    n_x, n_y, n_z = v["n"]
+    key = torch.zeros_like(p_x)
+    if cfg.mb is None:
+        return key
+    for i in range(cfg.L):
+        ex, ey, ez, _pdf, _em = _nee_site(cfg, lights, i, v)
+        wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
+        dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
+        dinv = 1.0 / dist
+        ndw = n_x * wfx * dinv + n_y * wfy * dinv + n_z * wfz * dinv
+        bias = torch.where(torch.signbit(ndw), -offset_by, offset_by)
+        start = (p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias)
+        key = key + _segment_cost(cfg, start, (ex, ey, ez),
+                                  receives & (ndw > 0.0))
+    if cfg.VM:
+        for j in range(cfg.VM * cfg.L):
+            sp, e, _pdf, _em = _vol_site(cfg, lights, j, vol_dist[j], v)
+            key = key + _segment_cost(cfg, sp, e, live)
+    return key
+
+
+# --------------------------------------------------------------------------
+# CUDA wrappers
+# --------------------------------------------------------------------------
+
+class _Sampler(ctypes.Structure):
+    _fields_ = [("hash", ctypes.c_int), ("frame", ctypes.c_uint32),
+                ("num_1d_sets", ctypes.c_int),
+                ("a1_lo", ctypes.c_uint32), ("a1_hi", ctypes.c_uint32),
+                ("a2_lo", ctypes.c_uint32 * 2),
+                ("a2_hi", ctypes.c_uint32 * 2)]
+
+
+class _ShadowScalars(ctypes.Structure):
+    _fields_ = [
+        ("smp", _Sampler), ("mb", _build.MBox),
+        ("L", ctypes.c_int), ("VM", ctypes.c_int), ("NL", ctypes.c_int),
+        ("K", ctypes.c_int), ("has_ext", ctypes.c_int),
+        ("has_sdf", ctypes.c_int),
+        ("max_steps", ctypes.c_int),
+        ("bv_r", ctypes.c_float), ("bv_r2", ctypes.c_float),
+        ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float),
+        ("correction", ctypes.c_float), ("vm_correction", ctypes.c_float),
+        ("sigma_t", ctypes.c_float), ("sigma_s", ctypes.c_float),
+        ("compat_reflect", ctypes.c_int), ("compat_phi", ctypes.c_int),
+        ("set_fres", ctypes.c_int), ("set_diff", ctypes.c_int),
+        ("set_spec", ctypes.c_int), ("set_rr", ctypes.c_int),
+        ("roulette_on", ctypes.c_int), ("terminate_all", ctypes.c_int),
+        ("aov", ctypes.c_int), ("set_pick0", ctypes.c_int),
+        ("set_nee0", ctypes.c_int), ("set_vol_pick0", ctypes.c_int),
+        ("set_vol0", ctypes.c_int)]
+
+
+_P = ctypes.c_void_p
+
+
+class _TailArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "point", "normal", "offset_by", "origin", "direction", "throughput",
+        "vol_trans", "kind", "color_a", "color_b", "power", "ior",
+        "sample_idx", "pixel", "live", "recv", "radiance", "color_out",
+        "bg_out", "alpha_out", "normal_out", "prev_pdf", "vol_dist",
+        "vol_pdf", "lights", "spheres",
+        "o_origin", "o_direction", "o_throughput", "o_radiance", "o_alive",
+        "o_prev_pdf", "o_color_out", "o_bg_out", "o_alpha_out",
+        "o_normal_out")] + [("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+
+
+class _KeyArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "point", "normal", "offset_by", "origin", "direction", "sample_idx",
+        "pixel", "live", "recv", "vol_dist", "lights", "key")] + [
+        ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+
+
+def sampler_struct(frame: int, sampler_hash: bool, num_1d_sets: int):
+    M = rng_mod.M32
+    a2 = rng_mod.A2
+    return _Sampler(int(sampler_hash), frame & M, num_1d_sets,
+                    rng_mod.A1 & M, (rng_mod.A1 >> 32) & M,
+                    (ctypes.c_uint32 * 2)(a2[0] & M, a2[1] & M),
+                    (ctypes.c_uint32 * 2)((a2[0] >> 32) & M,
+                                          (a2[1] >> 32) & M))
+
+
+def _base(ids: tuple) -> int:
+    """The first set id of a run of consecutive ids (the kernels derive
+    site i's id as base + i)."""
+    if not ids:
+        return 0
+    if ids != tuple(range(ids[0], ids[0] + len(ids))):
+        raise ValueError(f"set ids {ids} are not consecutive")
+    return ids[0]
+
+
+def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
+    return _ShadowScalars(
+        smp=sampler_struct(cfg.frame, cfg.sampler == "hash",
+                           cfg.num_1d_sets),
+        mb=mbox_struct(cfg.mb), L=cfg.L, VM=cfg.VM,
+        NL=cfg.NL, K=cfg.K, has_ext=int(cfg.has_ext),
+        has_sdf=int(cfg.mb is not None),
+        max_steps=cfg.max_steps, bv_r=cfg.bv_r,
+        bv_r2=float(cfg.bv_r * cfg.bv_r), eps_c=cfg.eps_c, eps_l=cfg.eps_l,
+        correction=cfg.correction, vm_correction=cfg.vm_correction,
+        sigma_t=cfg.sigma_t, sigma_s=cfg.sigma_s,
+        compat_reflect=int(cfg.compat_reflect),
+        compat_phi=int(cfg.compat_phi), set_fres=cfg.set_fres,
+        set_diff=cfg.set_diff, set_spec=cfg.set_spec, set_rr=cfg.set_rr,
+        roulette_on=int(cfg.roulette_on),
+        terminate_all=int(cfg.terminate_all), aov=int(cfg.aov),
+        set_pick0=_base(cfg.set_pick), set_nee0=_base(cfg.set_nee),
+        set_vol_pick0=_base(cfg.set_vol_pick), set_vol0=_base(cfg.set_vol))
+
+
+def _vol_cols(vol, n, sites, device):
+    """The volume sites' [N] columns as one [sites, N] tensor (a dummy
+    row when the scene has no scattering medium)."""
+    if len(vol) != sites:
+        raise ValueError(f"expected {sites} volume sites, got {len(vol)}")
+    if sites:
+        return torch.stack(list(vol)).contiguous()
+    return torch.zeros((1, n), dtype=torch.float32, device=device)
+
+
+def bounce_tail(cfg: ShadowCfg, lights, spheres, state, info, mat, live,
+                receives, vol_trans, vol_dist, vol_pdf) -> dict:
+    """Whole bounce tail of one bounce. vol_dist/vol_pdf: sequences of
+    VM*L [N] tensors (march-major). Returns the next PathState fields
+    (see bounce_tail_plain)."""
+    if state.origin.device.type == "cpu":
+        return bounce_tail_plain(cfg, lights, spheres, state, info, mat,
+                                 live, receives, vol_trans, vol_dist,
+                                 vol_pdf)
+    dev = state.origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"bounce_tail: unsupported device {dev}")
+    if cfg.NL < 1:
+        raise NotImplementedError("bounce_tail needs a scene with lights")
+    n = state.origin.shape[0]
+    sites = cfg.VM * cfg.L
+    vd = _vol_cols(vol_dist, n, sites, dev)
+    vp = _vol_cols(vol_pdf, n, sites, dev)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    out = dict(
+        origin=torch.empty((n, 3), dtype=f32, device=dev),
+        direction=torch.empty((n, 3), dtype=f32, device=dev),
+        throughput=torch.empty((n, 3), dtype=f32, device=dev),
+        radiance=torch.empty((n, 3), dtype=f32, device=dev),
+        alive=torch.empty((n,), dtype=b8, device=dev),
+        prev_pdf=torch.empty((n,), dtype=f32, device=dev),
+        color_out=torch.empty((n, 3), dtype=f32, device=dev),
+        bg_out=torch.empty((n, 3), dtype=f32, device=dev),
+        alpha_out=torch.empty((n,), dtype=f32, device=dev),
+        normal_out=torch.empty((n, 3), dtype=f32, device=dev))
+    v3, v1 = (n, 3), (n,)
+    args = _TailArgs(
+        point=check(info.point, "point", f32, v3, dev),
+        normal=check(info.normal, "normal", f32, v3, dev),
+        offset_by=check(info.offset_by, "offset_by", f32, v1, dev),
+        origin=check(state.origin, "origin", f32, v3, dev),
+        direction=check(state.direction, "direction", f32, v3, dev),
+        throughput=check(state.throughput, "throughput", f32, v3, dev),
+        vol_trans=check(vol_trans, "vol_trans", f32, v1, dev),
+        kind=check(mat.kind, "kind", i32, v1, dev),
+        color_a=check(mat.color_a, "color_a", f32, v3, dev),
+        color_b=check(mat.color_b, "color_b", f32, v3, dev),
+        power=check(mat.power, "power", f32, v1, dev),
+        ior=check(mat.ior, "ior", f32, v1, dev),
+        sample_idx=check(state.sample_idx, "sample_idx", i32, v1, dev),
+        pixel=check(state.pixel, "pixel", i32, v1, dev),
+        live=check(live, "live", b8, v1, dev),
+        recv=check(receives, "receives", b8, v1, dev),
+        radiance=check(state.radiance, "radiance", f32, v3, dev),
+        color_out=check(state.color_out, "color_out", f32, v3, dev),
+        bg_out=check(state.bg_out, "bg_out", f32, v3, dev),
+        alpha_out=check(state.alpha_out, "alpha_out", f32, v1, dev),
+        normal_out=check(state.normal_out, "normal_out", f32, v3, dev),
+        prev_pdf=check(state.prev_pdf, "prev_pdf", f32, v1, dev),
+        vol_dist=check(vd, "vol_dist", f32, (max(sites, 1), n), dev),
+        vol_pdf=check(vp, "vol_pdf", f32, (max(sites, 1), n), dev),
+        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
+        spheres=check(spheres, "spheres", f32, (cfg.K, 4), dev),
+        o_origin=out["origin"].data_ptr(),
+        o_direction=out["direction"].data_ptr(),
+        o_throughput=out["throughput"].data_ptr(),
+        o_radiance=out["radiance"].data_ptr(),
+        o_alive=out["alive"].data_ptr(),
+        o_prev_pdf=out["prev_pdf"].data_ptr(),
+        o_color_out=out["color_out"].data_ptr(),
+        o_bg_out=out["bg_out"].data_ptr(),
+        o_alpha_out=out["alpha_out"].data_ptr(),
+        o_normal_out=out["normal_out"].data_ptr(),
+        n=n, sc=_scalars(cfg))
+    _build.launch("rayn_bounce_tail", args, dev)
+    bounce_tail.launches += 1
+    return out
+
+
+bounce_tail.launches = 0
+
+
+def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
+                    direction, live, receives, sample_idx, pixel,
+                    vol_dist) -> torch.Tensor:
+    """[N] f32 cost key of one bounce's shadow segments (scheduling only:
+    it never feeds a verdict or a radiance term)."""
+    if point.device.type == "cpu":
+        return shadow_sort_key_plain(cfg, lights, point, normal, offset_by,
+                                     origin, direction, live, receives,
+                                     sample_idx, pixel, vol_dist)
+    dev = point.device
+    if dev.type != "cuda":
+        raise ValueError(f"shadow_sort_key: unsupported device {dev}")
+    if cfg.NL < 1:
+        raise NotImplementedError("shadow_sort_key needs a scene with lights")
+    n = point.shape[0]
+    sites = cfg.VM * cfg.L
+    vd = _vol_cols(vol_dist, n, sites, dev)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    key = torch.empty((n,), dtype=f32, device=dev)
+    v3, v1 = (n, 3), (n,)
+    args = _KeyArgs(
+        point=check(point, "point", f32, v3, dev),
+        normal=check(normal, "normal", f32, v3, dev),
+        offset_by=check(offset_by, "offset_by", f32, v1, dev),
+        origin=check(origin, "origin", f32, v3, dev),
+        direction=check(direction, "direction", f32, v3, dev),
+        sample_idx=check(sample_idx, "sample_idx", i32, v1, dev),
+        pixel=check(pixel, "pixel", i32, v1, dev),
+        live=check(live, "live", b8, v1, dev),
+        recv=check(receives, "receives", b8, v1, dev),
+        vol_dist=check(vd, "vol_dist", f32, (max(sites, 1), n), dev),
+        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
+        key=key.data_ptr(), n=n, sc=_scalars(cfg))
+    _build.launch("rayn_shadow_sort_key", args, dev)
+    shadow_sort_key.launches += 1
+    return key
+
+
+shadow_sort_key.launches = 0

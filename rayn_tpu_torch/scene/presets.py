@@ -1,0 +1,61 @@
+"""Built-in scenes (port of rayn_tpu.scene.presets.default_scene).
+
+`default_scene` is the reference's hard-coded scene (src/setup.rs:46-170):
+sky dome, 12-iteration MandelBox, five sphere lights with co-located
+emissive bodies, a homogeneous volume and a pinhole camera. The animated
+variants wait for animated channels in the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from rayn_tpu_torch.ops import sdf as sdf_ops
+from rayn_tpu_torch.render.camera import PinholeCamera
+from rayn_tpu_torch.scene.scene import SceneBuilder
+
+
+def _normalized(v):
+    v = np.asarray(v, np.float32)
+    return v / np.linalg.norm(v)
+
+
+def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
+                  fractal_iterations: int = 12, volume: bool = True,
+                  device="cpu"):
+    """Returns (scene_data, scene_static, camera), tensors on `device`."""
+    b = SceneBuilder()
+    if volume:
+        b.set_volume(0.25, 0.035)
+
+    sky = b.add_sky(top=(0.3, 0.4, 0.6),
+                    bottom=np.asarray((0.2, 0.3, 0.6), np.float32) * 0.05)
+    b.add_sphere((0.0, 0.0, 0.0), world_radius, sky)
+
+    grey = b.add_dielectric(albedo=(0.2, 0.2, 0.2), roughness=0.6)
+    mandelbox = sdf_ops.mandelbox(
+        iterations=fractal_iterations, box_fold_l=1.0,
+        sphere_min_rad=0.01, sphere_fixed_rad=1.9, scale=-2.1)
+    # Bounding sphere for shadow-segment clipping (measured in the JAX
+    # package: the {DE < 1e-3} shell ends at |p| = 2.78; 3.6 adds margin).
+    b.set_sdf(mandelbox, grey, bound_radius=3.6)
+
+    green = _normalized((1.5, 4.5, 3.0))
+    blue = _normalized((1.5, 3.0, 4.5))
+    blue_emissive = b.add_emissive(blue * 3.0)
+    green_emissive = b.add_emissive(green * 3.0)
+    for pos, rad in [((1.2, -1.2, 1.2), 0.15), ((-1.2, 1.2, 1.2), 0.15)]:
+        pos = np.asarray(pos, np.float32)
+        green_pos = pos * np.asarray((1.0, -1.0, 1.0), np.float32)
+        b.add_sphere_light(green_pos, rad, green * 40.0)
+        b.add_sphere_light(pos, rad, blue * 40.0)
+        b.add_sphere(green_pos, rad - 0.01, green_emissive)
+        b.add_sphere(pos, rad - 0.01, blue_emissive)
+    b.add_sphere_light((0.0, 0.0, 0.0), 0.25, green * 20.0)
+    b.add_sphere((0.0, 0.0, 0.0), 0.24, green_emissive)
+
+    origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
+    camera = PinholeCamera.make(resolution, 60.0, origin, (0.0, 0.0, 0.0),
+                                (0.0, 1.0, 0.0), device=device)
+    data, static = b.build(device)
+    return data, static, camera

@@ -1,0 +1,136 @@
+"""Each CUDA kernel of rayn_tpu_torch against its plain twin, on the card.
+
+Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu -q
+
+Without CUDA the `cuda` fixture skips every test here. The inputs are
+the real kernel inputs of the default scene at 2^14 rays (128x128 at
+1 spp), depths 0 and 1; the gates are the JAX package's fused-vs-unfused
+gates (tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
+"""
+
+import pytest
+import torch
+
+from rayn_tpu_torch.config import RenderSettings
+from rayn_tpu_torch.ops import filters, intersect_cuda, shade_cuda
+from rayn_tpu_torch.render import integrator, renderer
+from rayn_tpu_torch.scene import presets
+from rayn_tpu_torch.utils import rng
+
+pytestmark = pytest.mark.gpu
+
+RES = (128, 128)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _wavefront(dev, depth):
+    """(scene, settings, tables, state, hps) of the default scene's
+    wavefront at `depth` (depth 1 = the bounce rays of a plain depth-0
+    bounce)."""
+    s = RenderSettings(resolution=RES, spp=1, max_marches=128,
+                       max_vis_marches=64, rays_per_pass=RES[0] * RES[1])
+    data, static, cam = presets.default_scene(resolution=RES, device=dev)
+    tables = rng.build_sample_tables(s, 1)
+    fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
+                                  device=dev)
+    n = RES[0] * RES[1]
+    o, d, tm, px, si, ok = renderer.generate_rays(
+        s, tables, cam, fis, renderer.ray_indices(0, n, dev), 1 / 24, 2 / 24)
+    state = integrator.init_state(o, d, tm, px, si, ok)
+    ha, hl = cam.half_pixel_size_coeffs()
+    if depth == 1:
+        hit, info = intersect_cuda.closest_hit_shading_plain(
+            data, static, s, state.origin, state.direction,
+            torch.full((n,), ha, device=dev), torch.full((n,), hl, device=dev),
+            state.alive)
+        live, mat, recv, vtr = integrator._derive_shading(data, static,
+                                                          state, hit, info)
+        vd, vp = integrator._equi_angular_samples(data, static, s, tables,
+                                                  state, hit, 0)
+        cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
+        out = shade_cuda.bounce_tail_plain(
+            cfg, *shade_cuda.scene_tables(data, static), state, info, mat,
+            live, recv, vtr, vd, vp)
+        state = state._replace(**out)
+        ha, hl = 0.0, 2e-4
+    hps = (torch.full((n,), ha, device=dev), torch.full((n,), hl, device=dev))
+    return data, static, s, tables, state, hps
+
+
+def _hit(data, static, s, state, hps, fn):
+    return fn(data, static, s, state.origin, state.direction, *hps,
+              state.alive)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_closest_hit_kernel_matches_plain(cuda, depth):
+    data, static, s, _t, state, hps = _wavefront(cuda, depth)
+    before = intersect_cuda.closest_hit_shading.launches
+    gh, gi = _hit(data, static, s, state, hps,
+                  intersect_cuda.closest_hit_shading)
+    wh, wi = _hit(data, static, s, state, hps,
+                  intersect_cuda.closest_hit_shading_plain)
+    torch.cuda.synchronize()
+    assert intersect_cuda.closest_hit_shading.launches == before + 1
+    same = (gh.obj == wh.obj) & (gh.valid == wh.valid)
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(gh.t[same], wh.t[same], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gi.point[same], wi.point[same], rtol=1e-4,
+                               atol=1e-5)
+
+
+def _tail_inputs(cuda, depth):
+    data, static, s, tables, state, hps = _wavefront(cuda, depth)
+    hit, info = _hit(data, static, s, state, hps,
+                     intersect_cuda.closest_hit_shading_plain)
+    live, mat, recv, vtr = integrator._derive_shading(data, static, state,
+                                                      hit, info)
+    vd, vp = integrator._equi_angular_samples(data, static, s, tables, state,
+                                              hit, depth)
+    cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
+    tabs = shade_cuda.scene_tables(data, static)
+    return cfg, tabs, state, info, mat, live, recv, vtr, vd, vp
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_bounce_tail_kernel_matches_plain(cuda, depth):
+    cfg, tabs, state, info, mat, live, recv, vtr, vd, vp = _tail_inputs(
+        cuda, depth)
+    args = (cfg, *tabs, state, info, mat, live, recv, vtr, vd, vp)
+    before = shade_cuda.bounce_tail.launches
+    got = shade_cuda.bounce_tail(*args)
+    want = shade_cuda.bounce_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert shade_cuda.bounce_tail.launches == before + 1
+    close = torch.isclose(got["radiance"], want["radiance"], rtol=2e-4,
+                          atol=2e-5)
+    assert close.float().mean().item() >= 0.985
+    assert (got["radiance"] - want["radiance"]).abs().max().item() < 0.1
+    tfrac = 1.0 - torch.isclose(got["throughput"], want["throughput"],
+                                rtol=1e-4, atol=1e-5).float().mean().item()
+    assert tfrac < (1e-3 if depth == 0 else 3e-2)
+    afrac = (got["alive"] != want["alive"]).float().mean().item()
+    assert afrac < (1e-3 if depth == 0 else 1e-2)
+
+
+def test_shadow_sort_key_kernel_matches_plain(cuda):
+    cfg, tabs, state, info, _mat, live, recv, _vtr, vd, _vp = _tail_inputs(
+        cuda, 1)
+    args = (cfg, tabs[0], info.point, info.normal, info.offset_by,
+            state.origin, state.direction, live, recv, state.sample_idx,
+            state.pixel, vd)
+    before = shade_cuda.shadow_sort_key.launches
+    got = shade_cuda.shadow_sort_key(*args)
+    want = shade_cuda.shadow_sort_key_plain(*args)
+    torch.cuda.synchronize()
+    assert shade_cuda.shadow_sort_key.launches == before + 1
+    ok = torch.isclose(got, want, rtol=1e-4, atol=0.0)
+    assert ok.float().mean().item() >= 0.999
