@@ -6,24 +6,33 @@
 Phases (any failed gate raises and the script exits non-zero):
 1. Device: CUDA must be available; prints the card, the device count and
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
-2. Build: compiles csrc/*.cu with nvcc (-Xptxas -v); prints the build
-   seconds and each kernel's registers, spills and shared memory.
+2. Build: compiles csrc/*.cu with nvcc (-Xptxas -v), one process per
+   source; prints the build seconds and each kernel's registers, spills
+   and shared memory.
 3. Kernels against their plain twins: one 2^20-ray pass of the 1920x1080
-   default scene runs through the plain twins, which records the real
-   inputs of the three kernels (intersect and bounce tail at depths 0
-   and 1, sort key at depths 1 and 2); each kernel then runs on those
-   inputs beside its twin, gated by the JAX package's fused-vs-unfused
-   gates, and both are timed with CUDA events.
+   default scene runs through the plain twins on each of three paths and
+   records the real inputs of the six kernels at depths 0 and 1 (sort
+   key: 1 and 2): the fused path (intersect, sort key, bounce tail), the
+   relaxed segment queue (march and occlusion at relax 1.5) and the
+   relax-1 unfused segment queue (march and chained occlusion). Each
+   kernel then runs on those inputs beside its twin, gated by the JAX
+   package's fused-vs-unfused gates; kernel and twin are timed with CUDA
+   events, and the twin's DE count gives the kernel's bound.
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
-   headline workload with spp cut from 16 to 4); every kernel must have
-   launched; the film must hold w*h*spp samples, finite colour and
-   coverage around the image centre.
+   headline workload with spp cut from 16 to 4); every kernel of the
+   fused path must have launched; the film must hold w*h*spp samples,
+   finite colour and coverage around the image centre.
 5. Invariants: sorted and unsorted films equal bit for bit (256x256,
-   4 spp); pass sizes 2^16 and 2^15 agree to atol 2e-5.
-6. Image gate: 64x64 at 32 spp through the kernels and through the plain
-   twins; RMSE <= 1.5x a seed-swap null (plain twins at frame 101) and
-   mean relative difference <= 1e-3 (bench.py:117-151).
+   4 spp); pass sizes 2^16 and 2^15 agree to atol 2e-5, on the fused
+   path and on the relaxed path.
+6. Image gates at 64x64, 32 spp, RMSE <= 1.5x a seed-swap null (plain
+   twins at frame 101) and mean relative difference <= 1e-3
+   (bench.py:117-151): the kernels against the plain twins on the fused
+   and on the relaxed path, and the relax-1 unfused path against the
+   fused image. The relaxed image against the fused one is held to the
+   RMSE gate only: over-relaxed marching darkens this scene by a few
+   percent (in the JAX package too), and the script prints by how much.
 7. Profile (only with --profile): five unprofiled 2^20-ray passes of the
    phase-4 workload, each timed on the host clock up to
    `torch.cuda.synchronize()`, then one pass under `torch.profiler`. The
@@ -31,7 +40,15 @@ Phases (any failed gate raises and the script exits non-zero):
    idle share is 1 - busy / the median unprofiled pass wall (the
    profiler's own launch tracing inflates the profiled pass's wall, so
    that wall is printed but not used). Also prints the launch count and
-   device time by kernel name.
+   device time by kernel name. The same again for the phase-8 workload
+   and for phase 4's workload on the relax-1 unfused path.
+8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
+   which takes the segment queue; the march and occlusion kernels must
+   have launched, with phase 4's film gates.
+9. The relax-1 unfused path: use_fused_intersect and use_fused_shadows
+   off, 960x540 at 4 spp (phase 4's aspect, so its centre crop covers
+   the same view angles); the march and chained occlusion kernels must
+   have launched, with the film gates.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -52,7 +69,41 @@ import time
 MAIN_RES, MAIN_SPP, MAIN_PASS = (1920, 1080), 4, 1 << 20
 INV_RES, INV_PASSES = (256, 256), (1 << 16, 1 << 15)
 IMG_RES, IMG_SPP = (64, 64), 32
+UNFUSED_RES = (960, 540)
+RELAX = 1.5
 DEVICE = "cuda"
+
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores
+# and HBM3 bandwidth; a kernel's bound is the larger of its MandelBox DE
+# flops over the first and its bytes in and out over the second.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def de_flops(iterations: int) -> int:
+    """float32 operations of one MandelBox DE (csrc/common.cuh
+    mandelbox_de): per iteration 3 box folds (min, max, mul, sub), |p|^2
+    (3 mul, 2 add), the sphere fold (max, div, max), 4 scaling muls, 3
+    mul-adds of p * scale + p0 and dr = -dr * scale + 1 (neg, mul, add):
+    33; then |p| / |dr| (3 mul, 2 add, sqrt, abs, div): 8."""
+    return 33 * iterations + 8
+
+
+# Wrapper names of the kernels, what each replaces, and its source.
+KERNEL_ROWS = (
+    ("intersect", "closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
+     "rayn_tpu/ops/intersect_pallas.py:225"),
+    ("key", "shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1971"),
+    ("tail", "bounce_tail", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1711"),
+    ("march", "march", "rayn_tpu_torch/csrc/march.cu",
+     "rayn_tpu/ops/march_pallas.py:124"),
+    ("occl", "march_occlusion", "rayn_tpu_torch/csrc/march.cu",
+     "rayn_tpu/ops/march_pallas.py:780"),
+    ("chained", "march_occlusion_chained", "rayn_tpu_torch/csrc/march.cu",
+     "rayn_tpu/ops/march_pallas.py:959"),
+)
 
 
 def gate(cond, what: str) -> None:
@@ -100,8 +151,8 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_pass(one_pass) -> dict:
-    """Phase 7: device busy time and idle share of one main-path pass."""
+def profile_pass(one_pass, label: str) -> dict:
+    """Phase 7: device busy time and idle share of one `label` pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -130,16 +181,40 @@ def profile_pass(one_pass) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
     wall = sorted(walls)[len(walls) // 2]
-    log(f"[7 profile] unprofiled pass wall ms {walls}; device busy {busy} "
-        f"ms; idle share {1 - busy / wall} of the median wall {wall} ms; "
+    log(f"[7 profile] {label}: unprofiled pass wall ms {walls}; device "
+        f"busy {busy} ms; idle share {1 - busy / wall} of the median wall "
+        f"{wall} ms; "
         f"profiled pass wall {prof_wall} ms; {len(kernels)} kernels, "
         f"{launches} cudaLaunchKernel calls")
     for name, (ms, calls) in top:
-        log(f"[7 profile] {ms:9.3f} ms {100 * ms / busy:6.2f}% {calls:6d}x "
-            f" {name[:90]}")
+        log(f"[7 profile] {label} {ms:9.3f} ms {100 * ms / busy:6.2f}% "
+            f"{calls:6d}x  {name[:90]}")
     return dict(pass_wall_ms=walls, busy_ms=busy, idle_share=1 - busy / wall,
                 profiled_wall_ms=prof_wall, n_kernels=len(kernels),
                 launches=launches, top=[(n, ms, c) for n, (ms, c) in top])
+
+
+def io_tensors(key, a, kw, out):
+    """(inputs, outputs) of one kernel call: the tensors the kernel reads
+    and writes, each counted once for its bound."""
+    if key == "intersect":
+        hit, info = out
+        return list(a[3:8]), [hit.t, hit.obj, *info]
+    if key == "key":
+        return [*a[2:11], *a[11]], [out]
+    if key == "tail":
+        (_cfg, _l, _s, state, info, mat, live, recv, vtr, vd, vp) = a
+        ins = [info.point, info.normal, info.offset_by, state.origin,
+               state.direction, state.throughput, state.sample_idx,
+               state.pixel, state.radiance, state.color_out, state.bg_out,
+               state.alpha_out, state.normal_out, state.prev_pdf,
+               mat.kind, mat.color_a, mat.color_b, mat.power, mat.ior,
+               live, recv, vtr, *vd, *vp]
+        return ins, list(out.values())
+    if key == "march":
+        return [a[1], a[2], a[3], kw["eps_abs"], kw["eps_lin"],
+                kw["active"]], [out]
+    return [a[1], a[2], a[5]], [out]     # occl, chained
 
 
 def main(argv=None) -> int:
@@ -147,7 +222,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
     ap.add_argument("--profile", action="store_true",
-                    help="also run phase 7, the profiled main-path pass")
+                    help="also run phase 7, the profiled main-path passes")
     args = ap.parse_args(argv)
 
     import torch
@@ -155,11 +230,15 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    import dataclasses
+
     import numpy as np
 
     from rayn_tpu_torch import _build
     from rayn_tpu_torch.config import RenderSettings
-    from rayn_tpu_torch.ops import filters, intersect_cuda, shade_cuda
+    from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda
+    from rayn_tpu_torch.ops import march as march_ops
+    from rayn_tpu_torch.ops import shade_cuda
     from rayn_tpu_torch.render import film as film_mod
     from rayn_tpu_torch.render import renderer
     from rayn_tpu_torch.scene import presets
@@ -190,32 +269,34 @@ def main(argv=None) -> int:
     log(f"[2 build] {build_s:.1f} s")
     for entry, p in ptx.items():
         log(f"[2 build] {entry}: {p}")
-    gate(len(ptx) >= 3, f"ptxas reported {len(ptx)} kernels, expected 3")
+    gate(len(ptx) >= len(KERNEL_ROWS),
+         f"ptxas reported {len(ptx)} kernels, expected {len(KERNEL_ROWS)}")
     record["build"] = dict(seconds=build_s, ptxas=ptx)
 
     W, H = MAIN_RES
     main_s = RenderSettings(resolution=(W, H), spp=MAIN_SPP,
                             rays_per_pass=MAIN_PASS, max_marches=256,
                             max_vis_marches=100)
+    relax_s = dataclasses.replace(main_s, march_relaxation=RELAX)
+    unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
+                                    use_fused_shadows=False)
     data, static, cam = presets.default_scene(resolution=(W, H),
                                               device=dev)
+    flops_per_de = de_flops(data.sdf_params.iterations)
 
     # ------------------------------------ 3. kernels vs plain twins
-    wrappers = {
-        "intersect": (intersect_cuda, "closest_hit_shading",
-                      intersect_cuda.closest_hit_shading_plain),
-        "key": (shade_cuda, "shadow_sort_key",
-                shade_cuda.shadow_sort_key_plain),
-        "tail": (shade_cuda, "bounce_tail", shade_cuda.bounce_tail_plain),
-    }
+    mods = {"intersect": intersect_cuda, "key": shade_cuda,
+            "tail": shade_cuda, "march": march_cuda, "occl": march_cuda,
+            "chained": march_cuda}
+    wrappers = {key: (mods[key], attr, getattr(mods[key], attr + "_plain"))
+                for key, attr, _src, _rep in KERNEL_ROWS}
+    kernels = {key: getattr(mod, attr)
+               for key, (mod, attr, _p) in wrappers.items()}
 
     @contextlib.contextmanager
     def plain_twins(capture=None):
-        """Route the render path's three kernel calls to their plain
-        twins (recording the first two calls of each into `capture`)."""
-        saved = {k: getattr(mod, attr) for k, (mod, attr, _p)
-                 in wrappers.items()}
-
+        """Route the render path's kernel calls to their plain twins
+        (recording the first two calls of each into `capture`)."""
         def recorder(key, fn):
             def call(*a, **kw):
                 if capture is not None and len(capture[key]) < 2:
@@ -229,25 +310,32 @@ def main(argv=None) -> int:
             yield
         finally:
             for key, (mod, attr, _p) in wrappers.items():
-                setattr(mod, attr, saved[key])
+                setattr(mod, attr, kernels[key])
 
-    kernels = {"intersect": intersect_cuda.closest_hit_shading,
-               "key": shade_cuda.shadow_sort_key,
-               "tail": shade_cuda.bounce_tail}
-    captured = {k: [] for k in wrappers}
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
     tables = rng.build_sample_tables(main_s, 1)
-    t0 = time.perf_counter()
-    with plain_twins(captured):
-        renderer.render_pass(film_mod.new_film(W * H, device=dev), data,
-                             static, main_s, tables, cam, fis, 0, MAIN_PASS,
-                             1.0 / 24, 2.0 / 24)
-    torch.cuda.synchronize()
-    log(f"[3 kernels] plain-twin pass of {MAIN_PASS} rays: "
-        f"{time.perf_counter() - t0:.1f} s")
-    gate(all(len(v) == 2 for v in captured.values()),
-         f"captured {[len(v) for v in captured.values()]} calls")
+    # (path settings, kernels whose inputs it records, name of the march
+    # kernel's inputs on that path)
+    paths = (("fused", main_s, ("intersect", "key", "tail")),
+             ("relaxed", relax_s, ("march", "occl")),
+             ("unfused", unfused_s, ("march", "chained")))
+    captured = {}
+    for path, s, keys in paths:
+        cap = {k: [] for k in wrappers}
+        t0 = time.perf_counter()
+        with plain_twins(cap):
+            renderer.render_pass(film_mod.new_film(W * H, device=dev), data,
+                                 static, s, tables, cam, fis, 0, MAIN_PASS,
+                                 1.0 / 24, 2.0 / 24)
+        torch.cuda.synchronize()
+        log(f"[3 kernels] plain-twin pass of {MAIN_PASS} rays, {path} path: "
+            f"{time.perf_counter() - t0:.1f} s")
+        gate(all(len(cap[k]) == 2 for k in keys),
+             f"{path}: captured {[len(cap[k]) for k in keys]} calls")
+        for k in keys:
+            captured[(path, k)] = cap[k]
+        del cap
 
     def timed(fn, a, kw, reps):
         fn(*a, **kw)
@@ -261,99 +349,183 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def de_evals(key, a, kw, out):
+        """MandelBox DEs the kernel needs on these inputs, counted from
+        the plain twin's lanes at each step (plus the intersect's four
+        normal taps per SDF hit)."""
+        n_de = [0]
+        orig = march_ops.dist_c
+
+        def counting(mb, x, y, z):
+            n_de[0] += x.numel()
+            return orig(mb, x, y, z)
+
+        march_ops.dist_c = counting
+        try:
+            wrappers[key][2](*a, **kw)
+        finally:
+            march_ops.dist_c = orig
+        if key == "intersect":
+            n_de[0] += 4 * int((out[0].obj == static.n_spheres).sum())
+        return n_de[0]
+
+    def check_march(label, got, want, t_max, act):
+        hit_g, hit_w = got < t_max, want < t_max
+        agree = (hit_g == hit_w) & act
+        frac = (agree.sum() / act.sum().clamp(min=1)).item()
+        gate(frac >= 0.999, f"march {label}: hits agree on {frac:.5f} < "
+             "0.999 of active lanes")
+        ok = torch.isclose(got[agree], want[agree], rtol=1e-5, atol=1e-5,
+                           equal_nan=True)
+        gate(bool(ok.all()), f"march {label}: t out of tolerance on "
+             f"{int((~ok).sum())} lanes")
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        d = (got[agree] - want[agree]).abs()
+        err = d[~torch.isnan(d)].max().item() if d.numel() else 0.0
+        log(f"[3 kernels] march {label}: hits agree {frac:.6f}, max |dt| "
+            f"{err:.3g}, bit for bit: {bool(same.all())}")
+        return err
+
+    def check_verdicts(label, got, want, act):
+        n_act = max(int(act.sum()), 1)
+        bad = int(((got != want) & act).sum())
+        gate(1.0 - bad / n_act >= 0.999, f"{label}: verdicts differ on "
+             f"{bad} of {n_act} active segments")
+        log(f"[3 kernels] {label}: verdicts differ on {bad} of {n_act} "
+            f"active segments ({got.numel()} segments, "
+            f"{int(want.sum())} occluded)")
+        return float(bad > 0)
+
+    def check(key, path, depth, a, kw, got, want):
+        if key == "intersect":
+            (gh, gi), (wh, wi) = got, want
+            same = (gh.obj == wh.obj) & (gh.valid == wh.valid)
+            frac = same.float().mean().item()
+            gate(frac >= 0.999, f"intersect depth {depth}: obj/valid "
+                 f"agree on {frac:.5f} < 0.999 of lanes")
+            ok_t = torch.isclose(gh.t[same], wh.t[same], rtol=1e-4,
+                                 atol=1e-5)
+            ok_p = torch.isclose(gi.point[same], wi.point[same],
+                                 rtol=1e-4, atol=1e-5)
+            gate(bool(ok_t.all()) and bool(ok_p.all()),
+                 f"intersect depth {depth}: t/point out of tolerance on "
+                 f"{int((~ok_t).sum())}/{int((~ok_p).sum())} values")
+            err = (gh.t[same] - wh.t[same]).abs().max().item()
+            log(f"[3 kernels] intersect depth {depth}: obj/valid agree "
+                f"{frac:.6f}, max |dt| {err:.3g}")
+            return err
+        if key == "key":
+            ok = torch.isclose(got, want, rtol=1e-4, atol=0.0)
+            frac = ok.float().mean().item()
+            gate(frac >= 0.999, f"sort key depth {depth}: {frac:.5f} "
+                 "< 0.999 of lanes within rtol 1e-4")
+            err = (got - want).abs().max().item()
+            log(f"[3 kernels] sort key depth {depth}: within rtol 1e-4 "
+                f"on {frac:.6f}, max |d| {err:.3g}")
+            return err
+        if key == "tail":
+            rg, rw = got["radiance"], want["radiance"]
+            close = torch.isclose(rg, rw, rtol=2e-4, atol=2e-5)
+            frac = close.float().mean().item()
+            err = (rg - rw).abs().max().item()
+            gate(frac >= 0.985 and err < 0.1,
+                 f"tail depth {depth}: radiance close on {frac:.5f}, "
+                 f"max |d| {err}")
+            tfrac = 1.0 - torch.isclose(
+                got["throughput"], want["throughput"], rtol=1e-4,
+                atol=1e-5).float().mean().item()
+            gate(tfrac < (1e-3 if depth == 0 else 3e-2),
+                 f"tail depth {depth}: throughput diverged on {tfrac}")
+            afrac = (got["alive"] != want["alive"]).float().mean().item()
+            gate(afrac < (1e-3 if depth == 0 else 1e-2),
+                 f"tail depth {depth}: alive differs on {afrac}")
+            log(f"[3 kernels] tail depth {depth}: radiance close "
+                f"{frac:.6f}, max |d| {err:.3g}, throughput diverged "
+                f"{tfrac:.2e}, alive differs {afrac:.2e}")
+            return err
+        label = f"{key} {path} depth {depth}"
+        if key == "march":
+            return check_march(label, got, want, a[3], kw["active"])
+        act = a[5] if len(a) > 5 else kw["active"]
+        return check_verdicts(label, got, want, act)
+
     results = {}
-    for key in ("intersect", "key", "tail"):
-        errs = []
-        for i, (a, kw) in enumerate(captured[key]):
-            got = kernels[key](*a, **kw)
-            want = wrappers[key][2](*a, **kw)
-            torch.cuda.synchronize()
-            depth = i + (1 if key == "key" else 0)
-            if key == "intersect":
-                (gh, gi), (wh, wi) = got, want
-                same = (gh.obj == wh.obj) & (gh.valid == wh.valid)
-                frac = same.float().mean().item()
-                gate(frac >= 0.999, f"intersect depth {depth}: obj/valid "
-                     f"agree on {frac:.5f} < 0.999 of lanes")
-                ok_t = torch.isclose(gh.t[same], wh.t[same], rtol=1e-4,
-                                     atol=1e-5)
-                ok_p = torch.isclose(gi.point[same], wi.point[same],
-                                     rtol=1e-4, atol=1e-5)
-                gate(bool(ok_t.all()) and bool(ok_p.all()),
-                     f"intersect depth {depth}: t/point out of tolerance on "
-                     f"{int((~ok_t).sum())}/{int((~ok_p).sum())} values")
-                err = (gh.t[same] - wh.t[same]).abs().max().item()
-                log(f"[3 kernels] intersect depth {depth}: obj/valid agree "
-                    f"{frac:.6f}, max |dt| {err:.3g}")
-            elif key == "key":
-                ok = torch.isclose(got, want, rtol=1e-4, atol=0.0)
-                frac = ok.float().mean().item()
-                gate(frac >= 0.999, f"sort key depth {depth}: {frac:.5f} "
-                     "< 0.999 of lanes within rtol 1e-4")
-                err = (got - want).abs().max().item()
-                log(f"[3 kernels] sort key depth {depth}: within rtol 1e-4 "
-                    f"on {frac:.6f}, max |d| {err:.3g}")
-            else:
-                rg, rw = got["radiance"], want["radiance"]
-                close = torch.isclose(rg, rw, rtol=2e-4, atol=2e-5)
-                frac = close.float().mean().item()
-                err = (rg - rw).abs().max().item()
-                gate(frac >= 0.985 and err < 0.1,
-                     f"tail depth {depth}: radiance close on {frac:.5f}, "
-                     f"max |d| {err}")
-                tfrac = 1.0 - torch.isclose(
-                    got["throughput"], want["throughput"], rtol=1e-4,
-                    atol=1e-5).float().mean().item()
-                gate(tfrac < (1e-3 if depth == 0 else 3e-2),
-                     f"tail depth {depth}: throughput diverged on {tfrac}")
-                afrac = (got["alive"] != want["alive"]).float().mean().item()
-                gate(afrac < (1e-3 if depth == 0 else 1e-2),
-                     f"tail depth {depth}: alive differs on {afrac}")
-                log(f"[3 kernels] tail depth {depth}: radiance close "
-                    f"{frac:.6f}, max |d| {err:.3g}, throughput diverged "
-                    f"{tfrac:.2e}, alive differs {afrac:.2e}")
-            errs.append(err)
-        a, kw = captured[key][1]
-        ms = timed(kernels[key], a, kw, reps=5)
-        plain_ms = timed(wrappers[key][2], a, kw, reps=1)
-        log(f"[3 kernels] {key}: kernel {ms:.3f} ms, plain twin "
-            f"{plain_ms:.3f} ms per call at {MAIN_PASS} rays")
-        results[key] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    for path, _s, keys in paths:
+        for key in keys:
+            errs = []
+            for i, (a, kw) in enumerate(captured[(path, key)]):
+                depth = i + (1 if key == "key" else 0)
+                got = kernels[key](*a, **kw)
+                want = wrappers[key][2](*a, **kw)
+                torch.cuda.synchronize()
+                errs.append(check(key, path, depth, a, kw, got, want))
+            a, kw = captured[(path, key)][1]
+            out = kernels[key](*a, **kw)
+            ins, outs = io_tensors(key, a, kw, out)
+            n_bytes = sum(t.numel() * t.element_size() for t in ins + outs)
+            n_de = de_evals(key, a, kw, out)
+            ops_ms = n_de * flops_per_de / PEAK_F32_FLOPS * 1e3
+            bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+            ms = timed(kernels[key], a, kw, reps=5)
+            plain_ms = timed(wrappers[key][2], a, kw, reps=1)
+            log(f"[3 kernels] {key} ({path}): kernel {ms:.3f} ms, plain twin "
+                f"{plain_ms:.3f} ms per call at {MAIN_PASS} rays; {n_de} DEs "
+                f"-> {ops_ms:.3f} ms at {PEAK_F32_FLOPS:.3g} flop/s, "
+                f"{n_bytes} B -> {bytes_ms:.3f} ms at {PEAK_BYTES_PER_S:.3g} "
+                "B/s")
+            results[(path, key)] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                de_evals=n_de, bytes=n_bytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+            del out, ins, outs
+    record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
     del captured
     torch.cuda.empty_cache()
 
+    def reset_launches():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def main_path(phase, s, res, need):
+        """Render one frame of `s`; gate that the kernels `need`
+        launched, the sample count, finite colour and centre coverage."""
+        w, h = res
+        d_, st_, c_ = ((data, static, cam) if res == MAIN_RES else
+                       presets.default_scene(resolution=res, device=dev))
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = renderer.render_frame(d_, st_, s, c_, frame=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_samples = w * h * s.spp
+        log(f"[{phase}] {w}x{h} @ {s.spp} spp: {wall:.3f} s wall, "
+            f"{n_samples / wall / 1e6:.4f} Msamples/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB ({peak} B), launches {launches}")
+        gate(all(launches[k] > 0 for k in need),
+             f"{phase}: launches {launches}, needed {need}")
+        gate(int(f.samples.sum().item()) == n_samples, "film sample count")
+        img = film_mod.resolve(f, (w, h))
+        gate(np.isfinite(img.color).all(), "non-finite colour")
+        # the exact centre pixel sees the emissive sphere at the origin,
+        # which does not receive light (alpha 0); coverage is checked on
+        # the central 5% crop
+        ch, cw = max(1, h // 40), max(1, w // 40)
+        crop = img.alpha[h // 2 - ch:h // 2 + ch, w // 2 - cw:w // 2 + cw]
+        gate(crop.mean() > 0.0, "no coverage around the image centre")
+        log(f"[{phase}] mean colour {img.color.mean():.6f}, mean alpha "
+            f"{img.alpha.mean():.4f}, centre-crop alpha {crop.mean():.4f}")
+        del f, img
+        torch.cuda.empty_cache()
+        return dict(seconds=wall, msamples_per_s=n_samples / wall / 1e6,
+                    peak_bytes=peak, launches=launches)
+
     # -------------------------------------------------------- 4. main path
-    for fn in kernels.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    f = renderer.render_frame(data, static, main_s, cam, frame=1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated(dev)
-    n_samples = W * H * main_s.spp
-    log(f"[4 main] {W}x{H} @ {main_s.spp} spp: {wall:.3f} s wall, "
-        f"{n_samples / wall / 1e6:.4f} Msamples/s, peak device memory "
-        f"{peak / 2**30:.2f} GiB, launches {launches}")
-    gate(all(v > 0 for v in launches.values()), f"launches {launches}")
-    gate(int(f.samples.sum().item()) == n_samples, "film sample count")
-    img = film_mod.resolve(f, (W, H))
-    gate(np.isfinite(img.color).all(), "non-finite colour")
-    # the exact centre pixel sees the emissive sphere at the origin,
-    # which does not receive light (alpha 0); coverage is checked on the
-    # central 5% crop
-    ch, cw = max(1, H // 40), max(1, W // 40)
-    crop = img.alpha[H // 2 - ch:H // 2 + ch, W // 2 - cw:W // 2 + cw]
-    gate(crop.mean() > 0.0, "no coverage around the image centre")
-    log(f"[4 main] mean colour {img.color.mean():.6f}, mean alpha "
-        f"{img.alpha.mean():.4f}, centre-crop alpha {crop.mean():.4f}")
-    record["main"] = dict(seconds=wall, msamples_per_s=n_samples / wall / 1e6,
-                          peak_bytes=peak, launches=launches,
-                          mean_color=float(img.color.mean()))
-    del f, img
-    torch.cuda.empty_cache()
+    record["main"] = main_path("4 main", main_s, MAIN_RES,
+                               ("intersect", "key", "tail"))
 
     # ------------------------------------------------------ 5. invariants
     res5 = INV_RES
@@ -367,12 +539,17 @@ def main(argv=None) -> int:
     b = render5(sorted_shadow_march=False, sorted_intersect=False)
     gate(all(torch.equal(x, y) for x, y in zip(a, b)),
          "sorted and unsorted films differ")
-    p16 = render5(rays_per_pass=INV_PASSES[0])
-    p15 = render5(rays_per_pass=INV_PASSES[1])
-    diff = max((x - y).abs().max().item() for x, y in zip(p16, p15))
-    gate(diff <= 2e-5, f"pass-size films differ by {diff}")
+    inv = {}
+    for label, kw in (("fused", {}),
+                      ("relaxed", dict(march_relaxation=RELAX))):
+        p16 = render5(rays_per_pass=INV_PASSES[0], **kw)
+        p15 = render5(rays_per_pass=INV_PASSES[1], **kw)
+        inv[label] = max((x - y).abs().max().item() for x, y in zip(p16, p15))
+        gate(inv[label] <= 2e-5,
+             f"{label}: pass-size films differ by {inv[label]}")
     log(f"[5 invariants] sorted == unsorted bit for bit; 2^16 vs 2^15 "
-        f"passes max |d| {diff:.3g}")
+        f"passes max |d| {inv}")
+    record["invariants"] = inv
 
     # ------------------------------------------------------ 6. image gate
     res6, spp6 = IMG_RES, IMG_SPP
@@ -381,43 +558,85 @@ def main(argv=None) -> int:
                           max_vis_marches=64,
                           rays_per_pass=res6[0] * res6[1] * spp6)
 
-    def render6(frame):
-        fr = renderer.render_frame(d6, s6, set6, c6, frame=frame)
+    def render6(frame, **kw):
+        fr = renderer.render_frame(d6, s6, dataclasses.replace(set6, **kw),
+                                   c6, frame=frame)
         return film_mod.resolve(fr, res6).color
 
+    def image_gate(label, img, ref, null, gate_mean=True):
+        rmse = float(np.sqrt(np.mean((img - ref) ** 2)))
+        mean_rel = float(abs(img.mean() - ref.mean())
+                         / max(ref.mean(), 1e-9))
+        log(f"[6 image] {label} at {res6[0]}x{res6[1]} @ {spp6} spp: RMSE "
+            f"{rmse:.3e}, seed-swap null {null:.3e}, mean rel diff "
+            f"{mean_rel:.3e}, mean ratio {img.mean() / ref.mean():.6f}")
+        gate(rmse <= 1.5 * null and (mean_rel <= 1e-3 or not gate_mean),
+             f"image gate failed: {label}")
+        return dict(rmse=rmse, null_rmse=null, mean_rel=mean_rel)
+
+    relaxed = dict(march_relaxation=RELAX)
     img_k = render6(1)
+    img_rk = render6(1, **relaxed)
     with plain_twins():
         img_p = render6(1)
         img_null = render6(101)
-    rmse = float(np.sqrt(np.mean((img_k - img_p) ** 2)))
+        img_rp = render6(1, **relaxed)
     null = float(np.sqrt(np.mean((img_p - img_null) ** 2)))
-    mean_rel = float(abs(img_k.mean() - img_p.mean())
-                     / max(img_p.mean(), 1e-9))
-    log(f"[6 image] kernels vs plain twins at 64x64 @ 32 spp: RMSE "
-        f"{rmse:.3e}, seed-swap null {null:.3e}, mean rel diff "
-        f"{mean_rel:.3e}")
-    gate(rmse <= 1.5 * null and mean_rel <= 1e-3, "image gate failed")
-    record["image"] = dict(rmse=rmse, null_rmse=null, mean_rel=mean_rel)
+    record["image"] = {
+        "kernels_vs_plain": image_gate("kernels vs plain twins", img_k,
+                                       img_p, null),
+        "relaxed_kernels_vs_plain": image_gate(
+            "relaxed path, kernels vs plain twins", img_rk, img_rp, null),
+        # Over-relaxed steps can pass through thin parts of the fractal
+        # (the JAX march does the same; tests/test_torch_render.py holds
+        # the port's relaxed image to JAX's), so the relaxed image is
+        # darker than the plain one by more than 1e-3: only its RMSE is
+        # gated against the fused image, and its mean ratio is printed.
+        "relaxed_vs_fused": image_gate(
+            "relaxed path vs fused path", img_rk, img_k, null,
+            gate_mean=False),
+        "unfused_vs_fused": image_gate(
+            "relax-1 unfused path vs fused path",
+            render6(1, use_fused_intersect=False, use_fused_shadows=False),
+            img_k, null)}
 
     # --------------------------------------------- 7. profile (optional)
     if args.profile:
         film7 = film_mod.new_film(W * H, device=dev)
-        record["profile"] = profile_pass(lambda: renderer.render_pass(
-            film7, data, static, main_s, tables, cam, fis, 0, MAIN_PASS,
-            1.0 / 24, 2.0 / 24))
+        record["profile"] = {
+            label: profile_pass(lambda s=s: renderer.render_pass(
+                film7, data, static, s, tables, cam, fis, 0, MAIN_PASS,
+                1.0 / 24, 2.0 / 24), label)
+            for label, s in (("fused", main_s), ("relaxed", relax_s),
+                             ("unfused", unfused_s))}
+        del film7
 
-    sources = {"intersect": ("closest_hit_shading",
-                             "rayn_tpu_torch/csrc/intersect.cu",
-                             "rayn_tpu/ops/intersect_pallas.py:225"),
-               "key": ("shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
-                       "rayn_tpu/ops/shade_pallas.py:1971"),
-               "tail": ("bounce_tail", "rayn_tpu_torch/csrc/shade.cu",
-                        "rayn_tpu/ops/shade_pallas.py:1711")}
-    kern = [dict(name=sources[k][0], route="cuda", source=sources[k][1],
-                 replaces=sources[k][2], launches=launches[k],
-                 max_abs_err=results[k]["max_abs_err"], ms=results[k]["ms"],
-                 plain_ms=results[k]["plain_ms"])
-            for k in ("intersect", "key", "tail")]
+    # ------------------------------------------- 8. relaxed main path
+    record["relaxed"] = main_path("8 relaxed", relax_s, MAIN_RES,
+                                  ("march", "occl"))
+
+    # --------------------------------------- 9. relax-1 unfused path
+    unf = dataclasses.replace(unfused_s, resolution=UNFUSED_RES)
+    record["unfused"] = main_path("9 unfused", unf, UNFUSED_RES,
+                                  ("march", "chained"))
+
+    # each kernel's launches come from the main path that runs it; the
+    # march kernel is timed and bounded on the relaxed path's inputs and
+    # carries the larger error of its two paths
+    phase_of = {"intersect": "main", "key": "main", "tail": "main",
+                "march": "relaxed", "occl": "relaxed", "chained": "unfused"}
+    kern = []
+    for key, kname, src, rep in KERNEL_ROWS:
+        path = {"main": "fused"}.get(phase_of[key], phase_of[key])
+        r = results[(path, key)]
+        err = max(v["max_abs_err"] for (_p, k), v in results.items()
+                  if k == key)
+        kern.append(dict(
+            name=kname, route="cuda", source=src, replaces=rep,
+            launches=record[phase_of[key]]["launches"][key],
+            max_abs_err=err, ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None))
     record["kernels"] = kern
     if args.json:
         with open(args.json, "w") as fh:

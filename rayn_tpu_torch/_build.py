@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources are compiled by `nvcc` into one shared library
+Each `csrc/*.cu` source is compiled by its own `nvcc` process (all
+started together) and the objects are linked into one shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The build runs at first use, never at import,
 into `build/kernels/` beside the package (listed in .gitignore; override
@@ -26,9 +27,11 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # IEEE division/sqrt and no FMA contraction: the kernels must agree with
 # the plain torch twins to float32 rounding (ill-conditioned cone terms
 # amplify any ulp difference, shade_pallas.py:34-45).
-FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
+FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC")
-KERNELS = ("rayn_closest_hit", "rayn_bounce_tail", "rayn_shadow_sort_key")
+KERNELS = ("rayn_closest_hit", "rayn_bounce_tail", "rayn_shadow_sort_key",
+           "rayn_march", "rayn_march_occlusion",
+           "rayn_march_occlusion_chained")
 
 _lib = None
 build_log = ""
@@ -70,17 +73,28 @@ def library_path(verbose: bool = False) -> Path:
         build_log = log.read_text() if log.exists() else ""
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = ([_nvcc(), *FLAGS, *extra, "-o", tmp]
-           + [str(s) for s in sorted(CSRC.glob("*.cu"))])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    log.write_text(build_log)
-    os.replace(tmp, lib)   # atomic: a concurrent build never sees a partial
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *FLAGS, *extra, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            so = os.path.join(tmp, lib.name)
+            link = subprocess.run([nvcc, *FLAGS, "-shared", "-o", so, *objs],
+                                  capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode != 0 else []
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+        log.write_text(build_log)
+        os.replace(so, lib)   # atomic: a concurrent build never sees a partial
     return lib
 
 

@@ -81,21 +81,27 @@ class RenderSettings:
 
 
 def unsupported_reason(s: RenderSettings) -> str | None:
-    """The first setting this port does not implement yet, or None."""
+    """The first setting this port does not implement yet, or None.
+
+    The fused bounce tail runs with plain marching and
+    `use_fused_shadows`; there `use_fused_finish=False` or
+    `use_fused_bounce_tail=False` would ask for the split tail kernels
+    (finish_bounce_fused, shadow_radiance), which are not ported. Relaxed
+    marching or `use_fused_shadows=False` takes the segment queue, which
+    never reads those two flags."""
+    fused_tail = s.use_fused_shadows and s.march_relaxation == 1.0
     checks = (
         (s.mis, "mis=True"),
-        (s.march_relaxation != 1.0, "march_relaxation != 1"),
         (s.shadow_de_iterations != 0, "shadow_de_iterations != 0"),
         (bool(s.extra_aovs), "extra_aovs"),
         (s.compact_bounces, "compact_bounces=True"),
-        (not (s.use_pallas and s.use_fused_intersect),
-         "the unfused intersect path (use_pallas/use_fused_intersect="
-         "False)"),
-        (not (s.use_pallas_occlusion and s.use_fused_shadows
-              and s.use_fused_finish),
-         "the unfused shadow path (use_pallas_occlusion/use_fused_shadows/"
-         "use_fused_finish=False)"),
-        (not s.use_fused_bounce_tail, "use_fused_bounce_tail=False"),
+        (not s.use_pallas, "the non-kernel intersect path (use_pallas=False)"),
+        (not s.use_pallas_occlusion,
+         "the non-kernel occlusion path (use_pallas_occlusion=False)"),
+        (fused_tail and not s.use_fused_finish,
+         "use_fused_finish=False (the split shadow/finish kernels)"),
+        (fused_tail and not s.use_fused_bounce_tail,
+         "use_fused_bounce_tail=False (the split shadow/finish kernels)"),
         (s.max_vis_marches < 1, "max_vis_marches < 1"),
     )
     for bad, what in checks:

@@ -6,7 +6,8 @@ facts (counts, flags, SDF material, bound radius) and the MandelBox
 iteration count, which the JAX package keeps inside a closure. `camera`
 takes the JAX `PinholeCamera` with numpy leaves. Both packages then
 render the same scene. Nothing here imports JAX: the inputs are read by
-attribute name.
+attribute name. Like every entry point of the port, both place their
+tensors on the CUDA card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def _channel(ch, device) -> AnimChannel:
     return AnimChannel(_t(ch.values, device), _f32(ch.t0), _f32(ch.t1))
 
 
-def scene(data, static, sdf_iterations: int, device="cpu"):
+def scene(data, static, sdf_iterations: int, device="cuda"):
     """(SceneData, SceneStatic) of the port from the JAX scene."""
     if static.extra_sdfs or getattr(data, "extra_sdf_params", ()):
         raise NotImplementedError(
@@ -74,7 +75,7 @@ def scene(data, static, sdf_iterations: int, device="cpu"):
     return out, st
 
 
-def camera(cam, device="cpu") -> PinholeCamera:
+def camera(cam, device="cuda") -> PinholeCamera:
     """The port's PinholeCamera from the JAX one (numpy leaves)."""
     if tuple(getattr(cam, "_fields", ())) != PinholeCamera._fields:
         raise NotImplementedError(

@@ -35,8 +35,8 @@ def blackman_harris(radius: float = 1.5) -> Filter:
     return Filter("blackman_harris", radius, ev)
 
 
-def build_fis_table(filt: Filter, table_size: int = 512,
-                    device="cpu") -> torch.Tensor:
+def build_fis_table(filt: Filter, table_size: int = 512, *,
+                    device) -> torch.Tensor:
     """Inverse-CDF table over (0, radius) (reference src/filter.rs:193-218)."""
     n = table_size
     d = np.linspace(0.0, filt.radius, n)

@@ -1,10 +1,12 @@
-"""Scene-level closest hit and shading info in plain torch (port of
-rayn_tpu.ops.intersect.closest_hit / shading_info).
+"""Scene-level closest hit, occlusion and shading info (port of
+rayn_tpu.ops.intersect: closest_hit, test_occluded, shading_info).
 
 Object ids: 0..K-1 = spheres in scene order, K = the traced SDF, -1 =
-miss (reference src/hitable.rs:170-210). This unfused path is the
-reference the fused intersect kernel is held against; the render path
-always runs the kernel.
+miss (reference src/hitable.rs:170-210). The spheres are plain torch;
+the SDF marches go through the kernels of ops/march_cuda.py (their plain
+twins for CPU tensors). This unfused path is what the segment-queue
+bounce runs, and the reference the fused intersect kernel is held
+against.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
-from rayn_tpu_torch.ops import march as march_ops
+from rayn_tpu_torch.ops import march_cuda
 from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.scene.scene import (SceneData, SceneStatic,
@@ -53,15 +55,55 @@ def closest_hit(data: SceneData, static: SceneStatic,
         best_obj = torch.where(closer, sph_id.to(torch.int32), best_obj)
     if static.has_sdf:
         detail = settings.sdf_detail_scale
-        t_sdf = march_ops.march(
+        t_sdf = march_cuda.march(
             data.sdf_params, origin, direction, best_t,
             eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
             eps_lin=0.05 * detail * hps_lin,
-            max_steps=settings.max_marches, active=active)
+            max_steps=settings.max_marches, active=active,
+            relax=settings.march_relaxation)
         closer = t_sdf < best_t
         best_t = torch.where(closer, t_sdf, best_t)
         best_obj = torch.where(closer, static.n_spheres, best_obj)
     return Hit(best_t, best_obj, active & (best_obj >= 0))
+
+
+def test_occluded(data: SceneData, static: SceneStatic,
+                  settings: RenderSettings, start, end, time, active,
+                  segments: int = 1) -> torch.Tensor:
+    """[M] f32 visibility (1 = visible, 0 = occluded) of shadow segments
+    start -> end: the spheres first, then the SDF march of the segments
+    still active and unblocked (reference src/hitable.rs:163-168).
+
+    segments > 1 declares the queue to be `segments` equal groups
+    concatenated segment-major (segment k of ray i at k * M / segments +
+    i). With plain marching and `chained_shadow_march`, the SDF verdicts
+    then come from the chained kernel, one thread per ray walking its
+    segments; otherwise from the one-segment kernel. Both give the same
+    verdicts."""
+    s = settings
+    m = start.shape[0]
+    occluded = torch.zeros((m,), dtype=torch.bool, device=start.device)
+    if static.n_spheres:
+        occ = sphere_ops.occluded(start, end, sphere_centers_at(data, time),
+                                  data.sphere_radii)
+        occluded = occluded | occ.any(dim=1)
+    if static.has_sdf:
+        detail = s.sdf_detail_scale * s.shadow_eps_scale
+        bv_r = float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0
+        m_act = active & ~occluded
+        if (1 < segments <= 30 and s.chained_shadow_march
+                and s.march_relaxation == 1.0 and m % segments == 0):
+            k, n = segments, m // segments
+            occ_sdf = march_cuda.march_occlusion_chained(
+                data.sdf_params, start.reshape(k, n, 3),
+                end.reshape(k, n, 3), detail, s.max_vis_marches,
+                m_act.reshape(k, n), bound_radius=bv_r).reshape(m)
+        else:
+            occ_sdf = march_cuda.march_occlusion(
+                data.sdf_params, start, end, detail, s.max_vis_marches,
+                m_act, relax=s.march_relaxation, bound_radius=bv_r)
+        occluded = occluded | occ_sdf
+    return torch.where(occluded, 0.0, 1.0)
 
 
 def shading_info(data: SceneData, static: SceneStatic,

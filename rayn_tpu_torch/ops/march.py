@@ -1,13 +1,19 @@
 """Sphere tracing over the wavefront in plain torch (port of
-rayn_tpu.ops.march, relax = 1).
+rayn_tpu.ops.march, plain and over-relaxed).
 
 Each lane steps until it is done or has taken `max_steps` steps; a lane
 that is done keeps a frozen `t`. That is the JAX while-loop's per-lane
 result, whose block-wide `all(done)` exit only decides when the loop
 stops. The loop here carries the indices of the lanes still marching,
-so finished lanes cost nothing. This is the plain reference path that
-the CUDA kernels are held against; it is also what the plain twins of
-the kernels call.
+so finished lanes cost nothing, and inactive lanes never evaluate the
+DE (as in the CUDA kernels). This is the plain reference path that the
+CUDA kernels (ops/march_cuda.py, ops/shade_cuda.py) are held against.
+
+Over-relaxed sphere tracing (Keinert et al., "Enhanced Sphere Tracing";
+relax in (1, 2)): step by relax * DE; when the bounding spheres of two
+consecutive positions no longer overlap, (t - t_prev) > |r_prev| + |r|,
+the step overshot and the lane falls back to the conservative step
+t_prev + r_prev. relax == 1 is the reference algorithm.
 
 Hit thresholds are cone-traced: max(eps_const, eps_abs + eps_lin * t)
 (reference src/camera.rs:116-118, src/film.rs:547-551).
@@ -21,30 +27,49 @@ from rayn_tpu_torch.ops.sdf import MandelBox, dist_c
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 
+def _de_at(mb, origin, direction, idx, t):
+    o, d = origin[idx], direction[idx]
+    return dist_c(mb, o[:, 0] + t * d[:, 0], o[:, 1] + t * d[:, 1],
+                  o[:, 2] + t * d[:, 2])
+
+
 def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
-          eps_abs, eps_lin, max_steps: int, active=None) -> torch.Tensor:
+          eps_abs, eps_lin, max_steps: int, active=None,
+          relax: float = 1.0) -> torch.Tensor:
     """Primary-ray sphere trace; per-ray t (>= t_max on a miss). Lanes
     that are inactive return t_max + 1; a NaN DE at the origin freezes
     the lane at NaN (reference src/sdf.rs:59-83)."""
-    t = dist_c(mb, origin[:, 0], origin[:, 1], origin[:, 2])
-    nan_mask = torch.isnan(t)
-    if active is not None:
-        t = torch.where(active, t, t_max + 1.0)
-        nan_mask = nan_mask & active
-    live = torch.nonzero(~nan_mask & (t <= t_max)).squeeze(1)
+    act = (torch.ones_like(t_max, dtype=torch.bool) if active is None
+           else active)
+    t = t_max + 1.0
+    o = origin[act]
+    t[act] = dist_c(mb, o[:, 0], o[:, 1], o[:, 2])
+    # NaN and past-the-end lanes are done at their first step
+    live = torch.nonzero(act & (t <= t_max)).squeeze(1)
+    t_prev = torch.zeros_like(t)
+    r_prev = t.clone()
     for _ in range(max_steps):
         if live.numel() == 0:
             break
         tl = t[live]
-        o, d = origin[live], direction[live]
-        dist = dist_c(mb, o[:, 0] + tl * d[:, 0], o[:, 1] + tl * d[:, 1],
-                      o[:, 2] + tl * d[:, 2])
+        r = _de_at(mb, origin, direction, live, tl)
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
                              min=eps_const)
-        done = (torch.abs(dist) < thresh) | (tl > t_max[live])
-        step = ~done
+        done = (torch.abs(r) < thresh) | (tl > t_max[live])
+        if relax == 1.0:
+            step = ~done
+            live = live[step]
+            t[live] = tl[step] + r[step]
+            continue
+        tp, rp = t_prev[live], r_prev[live]
+        overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
+        step = ~(done & ~overshoot)
+        adv = step & ~overshoot
+        t_prev[live[adv]] = tl[adv]
+        r_prev[live[adv]] = r[adv]
+        nxt = torch.where(overshoot, tp + rp, tl + relax * r)
         live = live[step]
-        t[live] = tl[step] + dist[step]
+        t[live] = nxt[step]
     return t
 
 
@@ -53,14 +78,17 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     (unit direction [N,3], effective length md, first t0, entry-resolved
     mask, raw first DE). With bound_radius > 0 the segment is clipped to
     the origin-centred bounding sphere: lanes that miss it resolve at
-    entry, the march starts at the sphere entry and ends at its exit."""
+    entry, the march starts at the sphere entry and ends at its exit.
+    The first DE is evaluated for active lanes only (NaN elsewhere)."""
     seg = end - start
     sx, sy, sz = start[:, 0], start[:, 1], start[:, 2]
     gx, gy, gz = seg[:, 0], seg[:, 1], seg[:, 2]
     md = _sqrt(gx * gx + gy * gy + gz * gz)
     inv = 1.0 / md
     d = torch.stack([gx * inv, gy * inv, gz * inv], dim=-1)
-    dist0 = dist_c(mb, sx, sy, sz)
+    dist0 = torch.full_like(sx, float("nan"))
+    s = start[act]
+    dist0[act] = dist_c(mb, s[:, 0], s[:, 1], s[:, 2])
     nan = torch.isnan(dist0) | ~act
     t0 = dist0
     if bound_radius > 0.0:
@@ -77,34 +105,60 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
 
 
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
-                    max_steps: int, active, bound_radius: float = 0.0):
+                    max_steps: int, active, bound_radius: float = 0.0,
+                    relax: float = 1.0):
     """Shadow march; bool [N], True where the SDF blocks the segment.
 
     Per lane: from t0, test |DE| < max(eps_c, eps_l * t) and t > md at
     each step; the verdict is `hit and not past the end` at the step the
     lane resolves, and False for a lane that resolves at entry or runs
-    out of steps (the verdict of the JAX chained occlusion core, which
-    the fused shadow kernels use; reference src/sdf.rs:25-57)."""
+    out of steps (the verdict of the JAX march_occlusion; reference
+    src/sdf.rs:25-57). A relaxed step that overshoots is never a hit."""
     d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
     eps_c = 1e-4 * detail_scale
     eps_l = 1e-5 * detail_scale
     occ = torch.zeros_like(nan)
     live = torch.nonzero(~nan).squeeze(1)
     t = t.clone()
+    t_prev = torch.zeros_like(t)
+    r_prev = t.clone()
     for step in range(max(max_steps, 1)):
         if live.numel() == 0:
             break
         tl = t[live]
-        s, dl = start[live], d[live]
         gt_end = tl > md[live]
-        dist = dist_c(mb, s[:, 0] + tl * dl[:, 0], s[:, 1] + tl * dl[:, 1],
-                      s[:, 2] + tl * dl[:, 2])
-        hit = torch.abs(dist) < torch.clamp(eps_l * tl, min=eps_c)
+        r = _de_at(mb, start, d, live, tl)
+        hit = torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)
+        if relax != 1.0:
+            tp, rp = t_prev[live], r_prev[live]
+            overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
+            hit = hit & ~overshoot
         done = hit | gt_end
         occ[live[hit & ~gt_end]] = True
         if step + 1 >= max_steps:
             break
         step_on = ~done
+        if relax == 1.0:
+            nxt = tl + r
+        else:
+            adv = step_on & ~overshoot
+            t_prev[live[adv]] = tl[adv]
+            r_prev[live[adv]] = r[adv]
+            nxt = torch.where(overshoot, tp + rp, tl + relax * r)
         live = live[step_on]
-        t[live] = tl[step_on] + dist[step_on]
+        t[live] = nxt[step_on]
     return occ
+
+
+def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
+                            max_steps: int, active,
+                            bound_radius: float = 0.0):
+    """K shadow segments per ray (start/end [K, N, 3], active [K, N]) ->
+    bool [K, N]: the plain twin of march_pallas.march_occlusion_chained.
+    Chaining only schedules a ray's segments one after another, so each
+    verdict is that of `march_occlusion` at relax 1."""
+    k, n = start.shape[0], start.shape[1]
+    return march_occlusion(mb, start.reshape(k * n, 3),
+                           end.reshape(k * n, 3), detail_scale, max_steps,
+                           active.reshape(k * n),
+                           bound_radius).reshape(k, n)

@@ -38,7 +38,7 @@ class PinholeCamera(NamedTuple):
 
     @staticmethod
     def make(resolution, vfov_degrees: float, origin, at, up,
-             device="cpu") -> "PinholeCamera":
+             device="cuda") -> "PinholeCamera":
         theta = vfov_degrees * math.pi / 180.0
         half_h = math.tan(theta / 2.0)
         aspect = resolution[0] / resolution[1]

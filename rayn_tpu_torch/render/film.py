@@ -24,7 +24,7 @@ class Film(NamedTuple):
     samples: torch.Tensor     # [P]    per-pixel sample counts
 
 
-def new_film(n_pixels: int, device="cpu") -> Film:
+def new_film(n_pixels: int, device) -> Film:
     kw = dict(dtype=torch.float32, device=device)
     return Film(color=torch.zeros((n_pixels, 3), **kw),
                 alpha=torch.zeros((n_pixels,), **kw),

@@ -1,36 +1,43 @@
-"""Wavefront path-tracing integrator: the kernel path of
+"""Wavefront path-tracing integrator: the kernel paths of
 `rayn_tpu.render.integrator.bounce` (reference src/integrator.rs:32-281).
 
 One bounce at depth d:
 1. at d >= 1, the pre-intersect chunk cost sort (`sorted_intersect`);
-2. closest hit + shading info (the intersect kernel);
+2. closest hit + shading info: the fused intersect kernel, or with
+   relaxed marching or `use_fused_intersect=False` the unfused
+   intersect.closest_hit (march kernel) + shading_info;
 3. per-lane shading values (`_derive_shading`);
-4. at d >= 1, the equi-angular samples, the shadow sort-key kernel and
-   the chunk sort (`sorted_shadow_march`);
-5. the bounce-tail kernel (NEE, volume scattering, emission, scatter,
-   roulette, AOVs, termination);
-6. the unsort back to pixel-major order.
+4. the bounce tail, one of two branches, chosen as JAX chooses them:
+   - fused (plain marching and `use_fused_shadows`): at d >= 1 the
+     equi-angular samples, the shadow sort-key kernel and the chunk sort
+     (`sorted_shadow_march`), then the bounce-tail kernel (NEE, volume
+     scattering, emission, scatter, roulette, AOVs, termination);
+   - the segment queue (relaxed marching or `use_fused_shadows=False`):
+     emission, then every NEE and volume shadow segment of the bounce in
+     one batched `intersect.test_occluded` (occlusion kernels), the
+     contributions times visibility, then `_finish_bounce`;
+5. the unsort back to pixel-major order.
 
 Sorting moves whole chunks of lanes and every per-lane result is
 position-independent, so sorted and unsorted bounces give bit-identical
-outputs. The unfused segment-queue branch and `compact` are not ported
-yet.
+outputs. `compact` is not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
-from rayn_tpu_torch.ops import intersect_cuda, lights, shade_cuda
+from rayn_tpu_torch.ops import intersect, intersect_cuda, lights, shade_cuda
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import dist
-from rayn_tpu_torch.scene.scene import (SceneData, SceneStatic,
+from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of, sphere_centers_at)
-from rayn_tpu_torch.utils import rng
+from rayn_tpu_torch.utils import rng, vecmath
 from rayn_tpu_torch.utils.rng import SampleTables
 
 
@@ -143,6 +150,18 @@ def _derive_shading(data: SceneData, static: SceneStatic, state: PathState,
     return live, mat, receives, vol_trans
 
 
+def _pick_lights(static: SceneStatic, u: torch.Tensor) -> torch.Tensor:
+    """Light index clip(floor(u * n_lights), 0, n_lights - 1)."""
+    return torch.clamp(torch.floor(u * static.n_lights).to(torch.int64), 0,
+                       static.n_lights - 1)
+
+
+def _gather_lights(data: SceneData, time, lidx):
+    """Per-ray light position [N,3], radius [N] and emission [N,3]."""
+    return (light_position_of(data, lidx, time), data.light_radii[lidx],
+            data.light_emission[lidx])
+
+
 def _equi_angular_samples(data, static, s, tables, state, hit, depth):
     """(vol_dists, vol_pdfs): VM*L [N] tensors each, march-major, in torch
     outside the kernels exactly as in JAX (integrator.py:521-544)."""
@@ -155,9 +174,7 @@ def _equi_angular_samples(data, static, s, tables, state, hit, depth):
                 u_pick = rng.sample_1d(
                     s, tables, rng.set1d_vol_pick(s, depth, m, i),
                     state.sample_idx, state.pixel)
-                lidx = torch.clamp(
-                    torch.floor(u_pick * static.n_lights).to(torch.int64),
-                    0, static.n_lights - 1)
+                lidx = _pick_lights(static, u_pick)
                 lp = light_position_of(data, lidx, state.time)
                 vdist, vpdf = lights.sample_equi_angular(
                     u_dist, lp, state.origin, state.direction, hit.t)
@@ -189,11 +206,28 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         (state,), pre_perm = _sort_tree_by_cost(
             (state,), _intersect_cost_key(data, static, s, state), chunk)
 
-    hit, info = intersect_cuda.closest_hit_shading(
-        data, static, s, state.origin, state.direction, hps_abs, hps_lin,
-        state.alive)
+    plain_march = s.march_relaxation == 1.0
+    if s.use_fused_intersect and plain_march:
+        hit, info = intersect_cuda.closest_hit_shading(
+            data, static, s, state.origin, state.direction, hps_abs, hps_lin,
+            state.alive)
+    else:
+        t_max = torch.full((n,), 2.0 * s.world_radius, dtype=torch.float32,
+                           device=dev)
+        hit = intersect.closest_hit(data, static, s, state.origin,
+                                    state.direction, state.time, t_max,
+                                    hps_abs, hps_lin, state.alive)
+        info = intersect.shading_info(data, static, s, hit, state.origin,
+                                      state.direction, state.time, hps_abs,
+                                      hps_lin)
     live, mat, receives, vol_trans = _derive_shading(data, static, state,
                                                      hit, info)
+    if not (s.use_fused_shadows and plain_march):
+        out = _segment_queue_tail(data, static, s, tables, state, depth,
+                                  hit, info, mat, live, receives, vol_trans)
+        return out if pre_perm is None else _unsort_state(out, pre_perm,
+                                                          chunk)
+
     lights_t, spheres_t = scene_tables or shade_cuda.scene_tables(data,
                                                                   static)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
@@ -222,6 +256,160 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
     if shadow_perm is not None:
         perm = shadow_perm if perm is None else perm[shadow_perm]
     return out if perm is None else _unsort_state(out, perm, chunk)
+
+
+def _segment_queue_tail(data, static, s, tables, state, depth, hit, info,
+                        mat, live, receives, vol_trans) -> PathState:
+    """Steps 2-7 of the unfused bounce (JAX integrator.py:374-518, MIS
+    off): emission; the L NEE segments, then the VM*L equi-angular volume
+    segments, each with its contribution and `worth_it` mask, tested in
+    one batched `test_occluded` call (segment-major queue); radiance +=
+    contribution * visibility in segment order; then `_finish_bounce`."""
+    n = state.origin.shape[0]
+    wo = -state.direction
+    tp = state.throughput
+    le = bsdf_ops.emitted(mat, wo)
+    radiance = state.radiance + torch.where(
+        live[:, None], le * tp * vol_trans[:, None], 0.0)
+
+    starts, ends, acts, contribs = [], [], [], []
+    ones = torch.ones_like(vol_trans)
+    if static.n_lights > 0:
+        correction = static.n_lights / s.nee_light_samples
+        for i in range(s.nee_light_samples):
+            u_pick = rng.sample_1d(s, tables,
+                                   rng.set1d_light_pick(s, depth, i),
+                                   state.sample_idx, state.pixel)
+            lp, lr, lem = _gather_lights(data, state.time,
+                                         _pick_lights(static, u_pick))
+            u2 = rng.sample_2d(s, tables, rng.set2d_nee(s, depth, i),
+                               state.sample_idx, state.pixel)
+            end_point, li, pdf = lights.sample_cone(u2, lp, lr, info.point,
+                                                    lem)
+            wi_full = end_point - info.point
+            dist = vecmath.length(wi_full)
+            wi = wi_full / dist[:, None]
+            ndw = vecmath.dot(info.normal, wi)
+            occ_origin = info.point + info.normal * (
+                torch.copysign(ones, ndw) * info.offset_by)[:, None]
+            f = (bsdf_ops.eval_f(mat, wo, wi, info.normal)
+                 * torch.clamp(ndw, min=0.0)[:, None])
+            seg_trans = (torch.exp(-data.volume_sigma_t * dist)
+                         if static.has_extinction else ones)
+            contrib = (li * f * (seg_trans / pdf)[:, None] * tp
+                       * (correction * vol_trans)[..., None])
+            contrib = torch.where(receives[:, None], contrib, 0.0)
+            starts.append(occ_origin)
+            ends.append(end_point)
+            acts.append(receives & (contrib != 0.0).any(dim=-1))
+            contribs.append(contrib)
+
+    if static.has_scattering and static.n_lights > 0 and s.volume_marches:
+        vm_correction = (static.n_lights / s.nee_light_samples
+                         / s.volume_marches)
+        phase_f = 1.0 / (4.0 * math.pi)
+        for m in range(s.volume_marches):
+            u_dist = rng.sample_1d(s, tables, rng.set1d_vol_dist(s, depth, m),
+                                   state.sample_idx, state.pixel)
+            for i in range(s.nee_light_samples):
+                u_pick = rng.sample_1d(
+                    s, tables, rng.set1d_vol_pick(s, depth, m, i),
+                    state.sample_idx, state.pixel)
+                lp, lr, lem = _gather_lights(data, state.time,
+                                             _pick_lights(static, u_pick))
+                vol_dist, vol_pdf = lights.sample_equi_angular(
+                    u_dist, lp, state.origin, state.direction, hit.t)
+                sampled = state.origin + vol_dist[:, None] * state.direction
+                u2 = rng.sample_2d(s, tables, rng.set2d_vol(s, depth, m, i),
+                                   state.sample_idx, state.pixel)
+                end_point, li, light_pdf = lights.sample_cone(
+                    u2, lp, lr, sampled, lem)
+                dist_pl = vecmath.length(end_point - sampled)
+                if static.has_extinction:
+                    seg_trans = torch.exp(-data.volume_sigma_t * dist_pl)
+                    to_point = torch.exp(-data.volume_sigma_t * vol_dist)
+                else:
+                    seg_trans = to_point = ones
+                scale = (phase_f * seg_trans / (vol_pdf * light_pdf)
+                         * vm_correction * data.volume_sigma_s * to_point)
+                contrib = torch.where(live[:, None],
+                                      li * scale[:, None] * tp, 0.0)
+                starts.append(sampled)
+                ends.append(end_point)
+                acts.append(live & (contrib != 0.0).any(dim=-1))
+                contribs.append(contrib)
+
+    if starts:
+        k = len(starts)
+        vis = intersect.test_occluded(
+            data, static, s, torch.cat(starts), torch.cat(ends),
+            state.time.repeat(k), torch.cat(acts), segments=k)
+        for j, contrib in enumerate(contribs):
+            radiance = radiance + contrib * vis[j * n:(j + 1) * n, None]
+    return _finish_bounce(s, tables, state, depth, info, mat, live,
+                          receives, wo, vol_trans, radiance)
+
+
+def _finish_bounce(s, tables, state, depth, info, mat, live, receives, wo,
+                   vol_trans, radiance) -> PathState:
+    """Steps 5-7 of the unfused bounce (JAX integrator.py:547-626): BSDF
+    scatter and throughput (roulette at depth > 2), the depth-0 AOVs,
+    termination, the NaN-throughput guard and the spawned ray's pdf."""
+    n = state.origin.shape[0]
+    u_f = rng.sample_1d(s, tables, rng.set1d_fresnel(s, depth),
+                        state.sample_idx, state.pixel)
+    u_diff = rng.sample_2d(s, tables, rng.set2d_diffuse(s, depth),
+                           state.sample_idx, state.pixel)
+    u_spec = rng.sample_2d(s, tables, rng.set2d_spec(s, depth),
+                           state.sample_idx, state.pixel)
+    se = bsdf_ops.scatter(mat, s, wo, info.normal, u_f, u_diff, u_spec)
+    ndl = torch.abs(vecmath.dot(se.wi, info.normal))
+    new_tp = (state.throughput * vol_trans[:, None] * se.f
+              * (ndl / se.pdf)[:, None])
+    if depth > 2:  # reference src/integrator.rs:147-156
+        roulette = torch.clamp(1.0 - state.throughput.max(dim=-1).values,
+                               min=0.05)
+        new_tp = new_tp / (1.0 - roulette)[:, None]
+    else:
+        roulette = torch.zeros((n,), dtype=torch.float32,
+                               device=state.origin.device)
+    u_r = rng.sample_1d(s, tables, rng.set1d_roulette(s, depth),
+                        state.sample_idx, state.pixel)
+    terminate = (u_r < roulette) | (depth >= s.max_bounces)
+
+    if depth == 0:
+        alpha_out = torch.where(receives, 1.0, state.alpha_out)
+        normal_out = torch.where(receives[:, None], info.normal,
+                                 state.normal_out)
+    else:
+        alpha_out, normal_out = state.alpha_out, state.normal_out
+    non_recv = (live & ~receives)[:, None]
+    if depth == 0:
+        bg_out = torch.where(non_recv, radiance, state.bg_out)
+        color_out = state.color_out
+    else:
+        bg_out = state.bg_out
+        color_out = torch.where(non_recv, radiance, state.color_out)
+    color_out = torch.where((receives & terminate)[:, None], radiance,
+                            color_out)
+    survive = receives & ~terminate
+
+    ndw = vecmath.dot(info.normal, se.wi)
+    new_origin = info.point + info.normal * (
+        torch.copysign(torch.ones_like(ndw), ndw) * info.offset_by)[:, None]
+    tp_nan = torch.isnan(new_tp).any(dim=-1)
+    next_tp = torch.where(tp_nan[:, None], state.throughput, new_tp)
+    next_pdf = torch.where(mat.kind == REFRACTIVE, -1.0, se.pdf)
+    sv = survive[:, None]
+    return state._replace(
+        origin=torch.where(sv, new_origin, state.origin),
+        direction=torch.where(sv, se.wi, state.direction),
+        radiance=radiance,
+        throughput=torch.where(sv, next_tp, state.throughput),
+        alive=survive,
+        prev_pdf=torch.where(survive, next_pdf, state.prev_pdf),
+        color_out=color_out, bg_out=bg_out, alpha_out=alpha_out,
+        normal_out=normal_out)
 
 
 def trace(data: SceneData, static: SceneStatic, settings: RenderSettings,

@@ -26,7 +26,7 @@ from rayn_tpu_torch.utils.rng import SampleTables
 from rayn_tpu_torch.utils.vecmath import div
 
 
-def ray_indices(pass_start: int, pass_size: int, device="cpu"):
+def ray_indices(pass_start: int, pass_size: int, device):
     """Flat ray ids of one pass, made on the device."""
     return pass_start + torch.arange(pass_size, dtype=torch.int64,
                                      device=device)

@@ -25,7 +25,7 @@ class AnimChannel(NamedTuple):
     t1: float
 
     @staticmethod
-    def constant(value, device="cpu") -> "AnimChannel":
+    def constant(value, device) -> "AnimChannel":
         v = np.atleast_1d(np.asarray(value, np.float32))[None, :]
         return AnimChannel(torch.as_tensor(v, device=device), 0.0, 1.0)
 

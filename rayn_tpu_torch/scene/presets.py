@@ -22,8 +22,9 @@ def _normalized(v):
 
 def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
                   fractal_iterations: int = 12, volume: bool = True,
-                  device="cpu"):
-    """Returns (scene_data, scene_static, camera), tensors on `device`."""
+                  device="cuda"):
+    """Returns (scene_data, scene_static, camera), tensors on `device`
+    (the CUDA card unless the caller asks for another device)."""
     b = SceneBuilder()
     if volume:
         b.set_volume(0.25, 0.035)

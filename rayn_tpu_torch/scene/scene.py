@@ -6,7 +6,8 @@ wavefront is a dense gather instead of a virtual call per object
 (reference src/world.rs:7-13, src/setup.rs:46-170).
 
 `SceneBuilder.build(device)` returns `(SceneData, SceneStatic)`:
-SceneData holds the tensors, on `device`; SceneStatic holds the counts
+SceneData holds the tensors, on `device` (CUDA unless the caller asks
+for another device); SceneStatic holds the counts
 and flags. The port supports one traced SDF, a `MandelBox`.
 """
 
@@ -97,7 +98,8 @@ def _f32(x) -> float:
 def _as_channel(value) -> AnimChannel:
     if isinstance(value, AnimChannel):
         return value
-    return AnimChannel.constant(np.asarray(value, np.float32))
+    # staged on the host; build() moves every channel to its device
+    return AnimChannel.constant(np.asarray(value, np.float32), "cpu")
 
 
 class SceneBuilder:
@@ -221,7 +223,7 @@ class SceneBuilder:
         light_paired[sphere_light[sphere_light >= 0]] = 1.0
         return sphere_light, light_paired
 
-    def build(self, device="cpu") -> tuple[SceneData, SceneStatic]:
+    def build(self, device="cuda") -> tuple[SceneData, SceneStatic]:
         if not self._mat_kind:
             raise ValueError("scene has no materials")
 

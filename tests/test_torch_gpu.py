@@ -8,13 +8,16 @@ Without CUDA the `cuda` fixture skips every test here. The inputs are
 the real kernel inputs of the default scene at 2^14 rays (128x128 at
 1 spp), depths 0 and 1; the gates are the JAX package's fused-vs-unfused
 gates (tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
+The occlusion kernels take 12 x 2^14 seeded random segments, gated on
+>= 99.9% equal verdicts.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
-from rayn_tpu_torch.ops import filters, intersect_cuda, shade_cuda
+from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda, shade_cuda
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
 from rayn_tpu_torch.utils import rng
@@ -134,3 +137,61 @@ def test_shadow_sort_key_kernel_matches_plain(cuda):
     assert shade_cuda.shadow_sort_key.launches == before + 1
     ok = torch.isclose(got, want, rtol=1e-4, atol=0.0)
     assert ok.float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+def test_march_kernel_matches_plain(cuda, relax):
+    data, static, s, _t, state, (ha, hl) = _wavefront(cuda, 0)
+    n = ha.shape[0]
+    t_max = torch.full((n,), 2.0 * s.world_radius, device=cuda)
+    detail = s.sdf_detail_scale
+    args = (data.sdf_params, state.origin, state.direction, t_max,
+            5e-5 * detail, 0.05 * detail * ha, 0.05 * detail * hl,
+            s.max_marches, state.alive, relax)
+    before = march_cuda.march.launches
+    got = march_cuda.march(*args)
+    want = march_cuda.march_plain(*args)
+    torch.cuda.synchronize()
+    assert march_cuda.march.launches == before + 1
+    agree = ((got < t_max) == (want < t_max)) & state.alive
+    assert agree.sum() >= 0.999 * state.alive.sum()
+    torch.testing.assert_close(got[agree], want[agree], rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+
+
+def _segments(dev, k, n):
+    g = np.random.default_rng(7)
+    start = g.uniform(-3.0, 3.0, (k, n, 3)).astype(np.float32)
+    d = g.normal(size=(k, n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    end = start + d * g.uniform(0.2, 6.0, (k, n, 1)).astype(np.float32)
+    act = g.uniform(size=(k, n)) > 0.3
+    return (torch.from_numpy(start).to(dev), torch.from_numpy(end).to(dev),
+            torch.from_numpy(act).to(dev))
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+def test_march_occlusion_kernel_matches_plain(cuda, relax):
+    data, static, cam = presets.default_scene(resolution=RES, device=cuda)
+    start, end, act = _segments(cuda, 12, RES[0] * RES[1])
+    args = (data.sdf_params, start.reshape(-1, 3), end.reshape(-1, 3), 0.5,
+            100, act.reshape(-1), relax, 3.6)
+    before = march_cuda.march_occlusion.launches
+    got = march_cuda.march_occlusion(*args)
+    want = march_cuda.march_occlusion_plain(*args)
+    torch.cuda.synchronize()
+    assert march_cuda.march_occlusion.launches == before + 1
+    assert want.any() and (got == want).float().mean().item() >= 0.999
+
+
+def test_chained_occlusion_kernel_matches_plain(cuda):
+    data, static, cam = presets.default_scene(resolution=RES, device=cuda)
+    start, end, act = _segments(cuda, 12, RES[0] * RES[1])
+    args = (data.sdf_params, start, end, 0.5, 100, act, 3.6)
+    before = march_cuda.march_occlusion_chained.launches
+    got = march_cuda.march_occlusion_chained(*args)
+    want = march_cuda.march_occlusion_chained_plain(*args)
+    torch.cuda.synchronize()
+    assert march_cuda.march_occlusion_chained.launches == before + 1
+    assert got.shape == act.shape
+    assert want.any() and (got == want).float().mean().item() >= 0.999

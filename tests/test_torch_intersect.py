@@ -40,7 +40,7 @@ def _setup():
                         rays_per_pass=N)
     jdata, jstatic, jcam = jpresets.default_scene(resolution=RES)
     tdata, tstatic = convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
-                                   sdf_iterations=12)
+                                   sdf_iterations=12, device="cpu")
     tables = jrng.build_sample_tables(js, frame=1)
     fis = jfilters.build_fis_table(jfilters.blackman_harris(1.5), 512)
     o, d, tm, _px, _si, in_range = jrenderer.generate_rays(

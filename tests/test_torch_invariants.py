@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 
 def _render(**kw):
     res = (16, 16)
-    data, static, cam = presets.default_scene(resolution=res)
+    data, static, cam = presets.default_scene(resolution=res, device="cpu")
     s = RenderSettings(resolution=res, spp=4, max_marches=48,
                        max_vis_marches=32, **kw)
     return renderer.render_frame(data, static, s, cam, frame=3)
@@ -74,7 +74,7 @@ def test_wrappers_reject_other_devices():
     """A wrapper runs its plain twin only for CPU tensors; anything else
     that is not CUDA is refused, never moved to the CPU."""
     res = (8, 8)
-    data, static, _cam = presets.default_scene(resolution=res)
+    data, static, _cam = presets.default_scene(resolution=res, device="cpu")
     s = RenderSettings(resolution=res, spp=1)
     z3 = torch.zeros((4, 3), device="meta")
     z = torch.zeros((4,), device="meta")

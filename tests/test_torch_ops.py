@@ -150,7 +150,8 @@ def test_bsdf_eval_and_scatter_all_kinds(compat):
 
 def test_fis_table_and_sample():
     jt = jfilters.build_fis_table(jfilters.blackman_harris(1.5), 512)
-    tt = filters.build_fis_table(filters.blackman_harris(1.5), 512)
+    tt = filters.build_fis_table(filters.blackman_harris(1.5), 512,
+                                 device="cpu")
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     u = _rng(5).uniform(0.0, 1.0, N).astype(np.float32)
     _close(filters.fis_sample(tt, torch.from_numpy(u)),
@@ -160,7 +161,7 @@ def test_fis_table_and_sample():
 def test_pinhole_generate():
     res = (64, 36)
     _, _, jcam = jpresets.default_scene(resolution=res)
-    _, _, tcam = presets.default_scene(resolution=res)
+    _, _, tcam = presets.default_scene(resolution=res, device="cpu")
     g = _rng(6)
     ndc = g.uniform(0.0, 1.0, (N, 2)).astype(np.float32)
     tm = g.uniform(0.0, 1.0, N).astype(np.float32)
@@ -179,9 +180,9 @@ def test_convert_matches_port_default_scene():
     res = (64, 36)
     jdata, jstatic, jcam = jpresets.default_scene(resolution=res)
     cdata, cstatic = convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
-                                   sdf_iterations=12)
-    ccam = convert.camera(jax.tree.map(np.asarray, jcam))
-    tdata, tstatic, tcam = presets.default_scene(resolution=res)
+                                   sdf_iterations=12, device="cpu")
+    ccam = convert.camera(jax.tree.map(np.asarray, jcam), device="cpu")
+    tdata, tstatic, tcam = presets.default_scene(resolution=res, device="cpu")
     assert cstatic == tstatic
 
     def leaves(x):

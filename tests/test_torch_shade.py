@@ -94,7 +94,7 @@ def test_bounce_tail_matches_jax_unfused(volume):
     jdata, jstatic, jcam = jpresets.default_scene(resolution=res,
                                                   volume=volume)
     tdata, tstatic = convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
-                                   sdf_iterations=12)
+                                   sdf_iterations=12, device="cpu")
     jtables, jstate = _camera_state(js, jcam, n)
     ttables = rng.build_sample_tables(ts, 1)
     tabs = shade_cuda.scene_tables(tdata, tstatic)
@@ -137,7 +137,7 @@ def test_shadow_sort_key_matches_pallas_interpret():
     js, ts = JSettings(**kw), RenderSettings(**kw)
     jdata, jstatic, jcam = jpresets.default_scene(resolution=res)
     tdata, tstatic = convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
-                                   sdf_iterations=12)
+                                   sdf_iterations=12, device="cpu")
     jtables, jstate = _camera_state(js, jcam, n)
     ha, hl = jcam.half_pixel_size_coeffs()
     # camera-ray hits priced with the depth-1 sampler sets (the key never
