@@ -10,14 +10,16 @@ Phases (any failed gate raises and the script exits non-zero):
    source; prints the build seconds and each kernel's registers, spills
    and shared memory.
 3. Kernels against their plain twins: one 2^20-ray pass of the 1920x1080
-   default scene runs through the plain twins on each of three paths and
-   records the real inputs of the six kernels at depths 0 and 1 (sort
+   default scene runs through the plain twins on each of five paths and
+   records the real inputs of the eight kernels at depths 0 and 1 (sort
    key: 1 and 2): the fused path (intersect, sort key, bounce tail), the
-   relaxed segment queue (march and occlusion at relax 1.5) and the
-   relax-1 unfused segment queue (march and chained occlusion). Each
-   kernel then runs on those inputs beside its twin, gated by the JAX
-   package's fused-vs-unfused gates; kernel and twin are timed with CUDA
-   events, and the twin's DE count gives the kernel's bound.
+   fused path with MIS (bounce tail), the split tail with MIS (shadow
+   radiance, finish), the relaxed segment queue (march and occlusion at
+   relax 1.5) and the relax-1 unfused segment queue (march and chained
+   occlusion). Each kernel then runs on those inputs beside its twin,
+   gated by the JAX package's fused-vs-unfused gates; kernel and twin are
+   timed with CUDA events, and the twin's DE count (the finish kernel:
+   its bytes) gives the kernel's bound.
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
@@ -25,15 +27,20 @@ Phases (any failed gate raises and the script exits non-zero):
    finite colour and coverage around the image centre.
 5. Invariants: sorted and unsorted films equal bit for bit (256x256,
    4 spp); pass sizes 2^16 and 2^15 agree to atol 2e-5, on the fused
-   path and on the relaxed path.
+   path and on the relaxed path; with MIS, the split-tail film and the
+   bounce-tail film agree to atol 2e-5 (the script prints whether they
+   are equal bit for bit).
 6. Image gates at 64x64, 32 spp, RMSE <= 1.5x a seed-swap null (plain
    twins at frame 101) and mean relative difference <= 1e-3
    (bench.py:117-151): the kernels against the plain twins on the fused
-   and on the relaxed path, and the relax-1 unfused path against the
-   fused image. The relaxed image against the fused one is held to the
+   path, on the relaxed path and on the split tail with MIS, and the
+   relax-1 unfused path against the fused image. The MIS image's mean
+   against the image without MIS is printed, not gated: MIS removes the
+   paired emitters' double count, so the mean moves by design. The relaxed image against the fused one is held to the
    RMSE gate only: over-relaxed marching darkens this scene by a few
    percent (in the JAX package too), and the script prints by how much.
-7. Profile (only with --profile): five unprofiled 2^20-ray passes of the
+7. Profile (only with --profile; run after phase 11, so that no main
+   path runs after the profiler): five unprofiled 2^20-ray passes of the
    phase-4 workload, each timed on the host clock up to
    `torch.cuda.synchronize()`, then one pass under `torch.profiler`. The
    device busy time is the union of the profiled kernels' intervals; the
@@ -41,7 +48,8 @@ Phases (any failed gate raises and the script exits non-zero):
    profiler's own launch tracing inflates the profiled pass's wall, so
    that wall is printed but not used). Also prints the launch count and
    device time by kernel name. The same again for the phase-8 workload
-   and for phase 4's workload on the relax-1 unfused path.
+   and for phase 4's workload on the relax-1 unfused path and on the
+   phase-10 split tail with MIS.
 8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
    which takes the segment queue; the march and occlusion kernels must
    have launched, with phase 4's film gates.
@@ -49,6 +57,17 @@ Phases (any failed gate raises and the script exits non-zero):
    off, 960x540 at 4 spp (phase 4's aspect, so its centre crop covers
    the same view angles); the march and chained occlusion kernels must
    have launched, with the film gates.
+10. The split tail with MIS: phase 4's workload with `mis=True` and
+   `use_fused_bounce_tail=False`; the intersect, sort-key, shadow and
+   finish kernels must have launched (the bounce-tail kernel not), with
+   phase 4's film gates.
+11. The smaller paths, each gated on its own kernels and the film gates:
+   `use_fused_finish=False` with MIS at 480x270 (intersect, key and
+   shadow; no finish kernel); the default scene without its lights and
+   their emissive bodies at 960x540 (intersect and finish; no shadow, key
+   or tail kernel); MIS at relaxation 1.5 at 480x270 (march and
+   occlusion); the spheres scene with MIS at 480x270 on the bounce tail
+   and on the split tail (no SDF, so no sort key).
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -70,6 +89,9 @@ MAIN_RES, MAIN_SPP, MAIN_PASS = (1920, 1080), 4, 1 << 20
 INV_RES, INV_PASSES = (256, 256), (1 << 16, 1 << 15)
 IMG_RES, IMG_SPP = (64, 64), 32
 UNFUSED_RES = (960, 540)
+# phase 11's small frames keep 1080p's aspect: in a square frame the
+# emissive sphere at the origin fills the centre crop of the film gate
+SMALL_RES = (480, 270)
 RELAX = 1.5
 DEVICE = "cuda"
 
@@ -89,20 +111,26 @@ def de_flops(iterations: int) -> int:
     return 33 * iterations + 8
 
 
-# Wrapper names of the kernels, what each replaces, and its source.
+# Wrapper names of the kernels, the TPU kernel each replaces (its name
+# in the kernels line, and its file:line), and its source.
 KERNEL_ROWS = (
-    ("intersect", "closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
+    ("intersect", "closest_hit_shading", "closest_hit_shading",
+     "rayn_tpu_torch/csrc/intersect.cu",
      "rayn_tpu/ops/intersect_pallas.py:225"),
-    ("key", "shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1971"),
-    ("tail", "bounce_tail", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1711"),
-    ("march", "march", "rayn_tpu_torch/csrc/march.cu",
+    ("key", "shadow_sort_key", "shadow_sort_key",
+     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1971"),
+    ("tail", "bounce_tail", "bounce_tail_fused",
+     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1711"),
+    ("shadow", "shadow_radiance", "shadow_radiance",
+     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1886"),
+    ("finish", "finish_bounce", "finish_bounce_fused",
+     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1562"),
+    ("march", "march", "march", "rayn_tpu_torch/csrc/march.cu",
      "rayn_tpu/ops/march_pallas.py:124"),
-    ("occl", "march_occlusion", "rayn_tpu_torch/csrc/march.cu",
-     "rayn_tpu/ops/march_pallas.py:780"),
-    ("chained", "march_occlusion_chained", "rayn_tpu_torch/csrc/march.cu",
-     "rayn_tpu/ops/march_pallas.py:959"),
+    ("occl", "march_occlusion", "march_occlusion",
+     "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py:780"),
+    ("chained", "march_occlusion_chained", "march_occlusion_chained",
+     "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py:959"),
 )
 
 
@@ -202,15 +230,26 @@ def io_tensors(key, a, kw, out):
         return list(a[3:8]), [hit.t, hit.obj, *info]
     if key == "key":
         return [*a[2:11], *a[11]], [out]
-    if key == "tail":
-        (_cfg, _l, _s, state, info, mat, live, recv, vtr, vd, vp) = a
+    if key in ("tail", "shadow", "finish"):
+        if key == "shadow":
+            (_cfg, _tabs, state, info, mat, live, recv, vtr, vd, vp) = a
+        elif key == "tail":
+            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, vd,
+             vp) = a
+        else:
+            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, rad) = a
         ins = [info.point, info.normal, info.offset_by, state.origin,
                state.direction, state.throughput, state.sample_idx,
-               state.pixel, state.radiance, state.color_out, state.bg_out,
-               state.alpha_out, state.normal_out, state.prev_pdf,
-               mat.kind, mat.color_a, mat.color_b, mat.power, mat.ior,
-               live, recv, vtr, *vd, *vp]
-        return ins, list(out.values())
+               state.pixel, mat.kind, mat.color_a, mat.power, live, recv,
+               vtr]
+        if key != "shadow":   # the finish half's columns
+            ins += [hit.obj, state.color_out, state.bg_out, state.alpha_out,
+                    state.normal_out, state.prev_pdf, mat.color_b, mat.ior,
+                    rad if key == "finish" else state.radiance]
+        if key == "finish":
+            return ins, list(out.values())
+        ins += [*vd, *vp]
+        return ins, (list(out.values()) if key == "tail" else [out])
     if key == "march":
         return [a[1], a[2], a[3], kw["eps_abs"], kw["eps_lin"],
                 kw["active"]], [out]
@@ -238,10 +277,13 @@ def main(argv=None) -> int:
     from rayn_tpu_torch.config import RenderSettings
     from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda
     from rayn_tpu_torch.ops import march as march_ops
+    from rayn_tpu_torch.ops import sdf as sdf_ops
     from rayn_tpu_torch.ops import shade_cuda
     from rayn_tpu_torch.render import film as film_mod
     from rayn_tpu_torch.render import renderer
+    from rayn_tpu_torch.render.camera import PinholeCamera
     from rayn_tpu_torch.scene import presets
+    from rayn_tpu_torch.scene.scene import SceneBuilder
     from rayn_tpu_torch.utils import rng
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -278,6 +320,8 @@ def main(argv=None) -> int:
                             rays_per_pass=MAIN_PASS, max_marches=256,
                             max_vis_marches=100)
     relax_s = dataclasses.replace(main_s, march_relaxation=RELAX)
+    mis_s = dataclasses.replace(main_s, mis=True)
+    split_s = dataclasses.replace(mis_s, use_fused_bounce_tail=False)
     unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
                                     use_fused_shadows=False)
     data, static, cam = presets.default_scene(resolution=(W, H),
@@ -286,10 +330,10 @@ def main(argv=None) -> int:
 
     # ------------------------------------ 3. kernels vs plain twins
     mods = {"intersect": intersect_cuda, "key": shade_cuda,
-            "tail": shade_cuda, "march": march_cuda, "occl": march_cuda,
-            "chained": march_cuda}
+            "tail": shade_cuda, "shadow": shade_cuda, "finish": shade_cuda,
+            "march": march_cuda, "occl": march_cuda, "chained": march_cuda}
     wrappers = {key: (mods[key], attr, getattr(mods[key], attr + "_plain"))
-                for key, attr, _src, _rep in KERNEL_ROWS}
+                for key, attr, _name, _src, _rep in KERNEL_ROWS}
     kernels = {key: getattr(mod, attr)
                for key, (mod, attr, _p) in wrappers.items()}
 
@@ -318,6 +362,8 @@ def main(argv=None) -> int:
     # (path settings, kernels whose inputs it records, name of the march
     # kernel's inputs on that path)
     paths = (("fused", main_s, ("intersect", "key", "tail")),
+             ("fused mis", mis_s, ("tail",)),
+             ("split mis", split_s, ("shadow", "finish")),
              ("relaxed", relax_s, ("march", "occl")),
              ("unfused", unfused_s, ("march", "chained")))
     captured = {}
@@ -396,6 +442,16 @@ def main(argv=None) -> int:
             f"{int(want.sum())} occluded)")
         return float(bad > 0)
 
+    def check_radiance(label, rg, rw):
+        close = torch.isclose(rg, rw, rtol=2e-4, atol=2e-5)
+        frac = close.float().mean().item()
+        err = (rg - rw).abs().max().item()
+        gate(frac >= 0.985 and err < 0.1,
+             f"{label}: radiance close on {frac:.5f}, max |d| {err}")
+        log(f"[3 kernels] {label}: radiance close {frac:.6f}, max |d| "
+            f"{err:.3g}, bit for bit: {bool(torch.equal(rg, rw))}")
+        return err
+
     def check(key, path, depth, a, kw, got, want):
         if key == "intersect":
             (gh, gi), (wh, wi) = got, want
@@ -423,25 +479,23 @@ def main(argv=None) -> int:
             log(f"[3 kernels] sort key depth {depth}: within rtol 1e-4 "
                 f"on {frac:.6f}, max |d| {err:.3g}")
             return err
-        if key == "tail":
-            rg, rw = got["radiance"], want["radiance"]
-            close = torch.isclose(rg, rw, rtol=2e-4, atol=2e-5)
-            frac = close.float().mean().item()
-            err = (rg - rw).abs().max().item()
-            gate(frac >= 0.985 and err < 0.1,
-                 f"tail depth {depth}: radiance close on {frac:.5f}, "
-                 f"max |d| {err}")
+        if key == "shadow":
+            return check_radiance(f"shadow {path} depth {depth}", got, want)
+        if key in ("tail", "finish"):
+            label = f"{key} {path} depth {depth}"
+            err = check_radiance(label, got["radiance"], want["radiance"])
             tfrac = 1.0 - torch.isclose(
                 got["throughput"], want["throughput"], rtol=1e-4,
                 atol=1e-5).float().mean().item()
             gate(tfrac < (1e-3 if depth == 0 else 3e-2),
-                 f"tail depth {depth}: throughput diverged on {tfrac}")
+                 f"{label}: throughput diverged on {tfrac}")
             afrac = (got["alive"] != want["alive"]).float().mean().item()
             gate(afrac < (1e-3 if depth == 0 else 1e-2),
-                 f"tail depth {depth}: alive differs on {afrac}")
-            log(f"[3 kernels] tail depth {depth}: radiance close "
-                f"{frac:.6f}, max |d| {err:.3g}, throughput diverged "
-                f"{tfrac:.2e}, alive differs {afrac:.2e}")
+                 f"{label}: alive differs on {afrac}")
+            same = all(torch.equal(got[f], want[f]) for f in got)
+            log(f"[3 kernels] {label}: throughput diverged {tfrac:.2e}, "
+                f"alive differs {afrac:.2e}, every column bit for bit: "
+                f"{same}")
             return err
         label = f"{key} {path} depth {depth}"
         if key == "march":
@@ -479,19 +533,24 @@ def main(argv=None) -> int:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             del out, ins, outs
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
-    del captured
+    # drop the last captured inputs too, or they count in phase 4's peak
+    del captured, a, kw, got, want
     torch.cuda.empty_cache()
 
     def reset_launches():
         for fn in kernels.values():
             fn.launches = 0
 
-    def main_path(phase, s, res, need):
-        """Render one frame of `s`; gate that the kernels `need`
-        launched, the sample count, finite colour and centre coverage."""
+    def main_path(phase, s, res, need, scene=None, absent=()):
+        """Render one frame of `s` on `scene` (default: the default scene
+        at `res`); gate that the kernels `need` launched and the kernels
+        `absent` did not, the sample count, finite colour and centre
+        coverage."""
         w, h = res
-        d_, st_, c_ = ((data, static, cam) if res == MAIN_RES else
-                       presets.default_scene(resolution=res, device=dev))
+        if scene is None:
+            scene = (presets.default_scene if res != MAIN_RES else
+                     lambda resolution, device: (data, static, cam))
+        d_, st_, c_ = scene(resolution=res, device=dev)
         reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -505,8 +564,9 @@ def main(argv=None) -> int:
         log(f"[{phase}] {w}x{h} @ {s.spp} spp: {wall:.3f} s wall, "
             f"{n_samples / wall / 1e6:.4f} Msamples/s, peak device memory "
             f"{peak / 2**30:.2f} GiB ({peak} B), launches {launches}")
-        gate(all(launches[k] > 0 for k in need),
-             f"{phase}: launches {launches}, needed {need}")
+        gate(all(launches[k] > 0 for k in need)
+             and not any(launches[k] for k in absent),
+             f"{phase}: launches {launches}, needed {need}, absent {absent}")
         gate(int(f.samples.sum().item()) == n_samples, "film sample count")
         img = film_mod.resolve(f, (w, h))
         gate(np.isfinite(img.color).all(), "non-finite colour")
@@ -547,9 +607,19 @@ def main(argv=None) -> int:
         inv[label] = max((x - y).abs().max().item() for x, y in zip(p16, p15))
         gate(inv[label] <= 2e-5,
              f"{label}: pass-size films differ by {inv[label]}")
+    split5 = render5(mis=True, use_fused_bounce_tail=False)
+    tail5 = render5(mis=True)
+    inv["split vs tail, mis"] = max((x - y).abs().max().item()
+                                    for x, y in zip(split5, tail5))
+    gate(inv["split vs tail, mis"] <= 2e-5,
+         f"mis: split-tail and bounce-tail films differ by "
+         f"{inv['split vs tail, mis']}")
+    same = all(torch.equal(x, y) for x, y in zip(split5, tail5))
+    del split5, tail5
     log(f"[5 invariants] sorted == unsorted bit for bit; 2^16 vs 2^15 "
-        f"passes max |d| {inv}")
-    record["invariants"] = inv
+        f"passes and split vs bounce tail with mis, max |d| {inv}; split "
+        f"and bounce-tail films with mis bit for bit: {same}")
+    record["invariants"] = dict(inv, split_tail_bit_for_bit=same)
 
     # ------------------------------------------------------ 6. image gate
     res6, spp6 = IMG_RES, IMG_SPP
@@ -575,18 +645,29 @@ def main(argv=None) -> int:
         return dict(rmse=rmse, null_rmse=null, mean_rel=mean_rel)
 
     relaxed = dict(march_relaxation=RELAX)
+    split_mis = dict(mis=True, use_fused_bounce_tail=False)
     img_k = render6(1)
     img_rk = render6(1, **relaxed)
+    img_sk = render6(1, **split_mis)
     with plain_twins():
         img_p = render6(1)
         img_null = render6(101)
         img_rp = render6(1, **relaxed)
+        img_sp = render6(1, **split_mis)
+    mis_ratio = float(img_sk.mean() / img_k.mean())
+    log(f"[6 image] mis=True against mis=False at {res6[0]}x{res6[1]} @ "
+        f"{spp6} spp: mean ratio {mis_ratio:.6f} (not gated: MIS removes "
+        "the double count of the paired emitters)")
     null = float(np.sqrt(np.mean((img_p - img_null) ** 2)))
     record["image"] = {
         "kernels_vs_plain": image_gate("kernels vs plain twins", img_k,
                                        img_p, null),
         "relaxed_kernels_vs_plain": image_gate(
             "relaxed path, kernels vs plain twins", img_rk, img_rp, null),
+        "split_mis_kernels_vs_plain": image_gate(
+            "split tail with mis, kernels vs plain twins", img_sk, img_sp,
+            null),
+        "mis_vs_no_mis_mean_ratio": mis_ratio,
         # Over-relaxed steps can pass through thin parts of the fractal
         # (the JAX march does the same; tests/test_torch_render.py holds
         # the port's relaxed image to JAX's), so the relaxed image is
@@ -600,17 +681,6 @@ def main(argv=None) -> int:
             render6(1, use_fused_intersect=False, use_fused_shadows=False),
             img_k, null)}
 
-    # --------------------------------------------- 7. profile (optional)
-    if args.profile:
-        film7 = film_mod.new_film(W * H, device=dev)
-        record["profile"] = {
-            label: profile_pass(lambda s=s: renderer.render_pass(
-                film7, data, static, s, tables, cam, fis, 0, MAIN_PASS,
-                1.0 / 24, 2.0 / 24), label)
-            for label, s in (("fused", main_s), ("relaxed", relax_s),
-                             ("unfused", unfused_s))}
-        del film7
-
     # ------------------------------------------- 8. relaxed main path
     record["relaxed"] = main_path("8 relaxed", relax_s, MAIN_RES,
                                   ("march", "occl"))
@@ -620,14 +690,103 @@ def main(argv=None) -> int:
     record["unfused"] = main_path("9 unfused", unf, UNFUSED_RES,
                                   ("march", "chained"))
 
+    # ------------------------------- 10. split tail with MIS, full width
+    record["split"] = main_path("10 split mis", split_s, MAIN_RES,
+                                ("intersect", "key", "shadow", "finish"),
+                                absent=("tail",))
+
+    # ------------------------------------------ 11. the smaller paths
+    def no_lights_scene(resolution, device):
+        """The default scene without its five sphere lights and their
+        emissive bodies: sky, MandelBox, its material, volume, camera."""
+        b = SceneBuilder()
+        b.set_volume(0.25, 0.035)
+        sky = b.add_sky(top=(0.3, 0.4, 0.6),
+                        bottom=np.asarray((0.2, 0.3, 0.6), np.float32)
+                        * 0.05)
+        b.add_sphere((0.0, 0.0, 0.0), 100.0, sky)
+        grey = b.add_dielectric(albedo=(0.2, 0.2, 0.2), roughness=0.6)
+        b.set_sdf(sdf_ops.mandelbox(iterations=12, box_fold_l=1.0,
+                                    sphere_min_rad=0.01,
+                                    sphere_fixed_rad=1.9, scale=-2.1),
+                  grey, bound_radius=3.6)
+        origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
+        camera = PinholeCamera.make(resolution, 60.0, origin,
+                                    (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                    device=device)
+        return (*b.build(device), camera)
+
+    small = dataclasses.replace(mis_s, resolution=SMALL_RES)
+    record["smaller"] = {
+        "no_fused_finish_mis": main_path(
+            "11 use_fused_finish=False, mis", dataclasses.replace(
+                small, use_fused_finish=False), SMALL_RES,
+            ("intersect", "key", "shadow"), absent=("finish", "tail")),
+        "no_lights": main_path(
+            "11 no lights", dataclasses.replace(
+                main_s, resolution=UNFUSED_RES), UNFUSED_RES,
+            ("intersect", "finish"), scene=no_lights_scene,
+            absent=("shadow", "key", "tail")),
+        "relaxed_mis": main_path(
+            "11 relaxed, mis", dataclasses.replace(
+                small, march_relaxation=RELAX), SMALL_RES,
+            ("march", "occl"), absent=("tail", "shadow", "finish")),
+        "spheres_mis": main_path(
+            "11 spheres, mis", small, SMALL_RES, ("intersect", "tail"),
+            scene=presets.spheres_scene, absent=("key",)),
+        "spheres_split_mis": main_path(
+            "11 spheres, split tail, mis", dataclasses.replace(
+                small, use_fused_bounce_tail=False), SMALL_RES,
+            ("intersect", "shadow", "finish"), scene=presets.spheres_scene,
+            absent=("key", "tail")),
+    }
+
+    # --------------------------------------------- 7. profile (optional)
+    # Last of the render phases: passes that ran after torch.profiler in
+    # the same process were measured slower, so no main path follows it.
+    if args.profile:
+        film7 = film_mod.new_film(W * H, device=dev)
+
+        def pass7(s):
+            return lambda: renderer.render_pass(
+                film7, data, static, s, tables, cam, fis, 0, MAIN_PASS,
+                1.0 / 24, 2.0 / 24)
+
+        record["profile"] = {
+            label: profile_pass(pass7(s), label)
+            for label, s in (("fused", main_s), ("relaxed", relax_s),
+                             ("unfused", unfused_s),
+                             ("split mis", split_s))}
+        # The host's launch rate drifts within a call, so the fused pass,
+        # the fused pass with MIS and the split tail with MIS are also
+        # timed alternately, the order reversed every other round.
+        walls7 = {"fused": [], "fused mis": [], "split mis": []}
+        fns7 = {"fused": pass7(main_s), "fused mis": pass7(mis_s),
+                "split mis": pass7(split_s)}
+        for r in range(8):
+            for label in (list(walls7) if r % 2 == 0 else
+                          list(walls7)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns7[label]()
+                torch.cuda.synchronize()
+                walls7[label].append((time.perf_counter() - t0) * 1e3)
+        med7 = {k: sorted(v)[len(v) // 2] for k, v in walls7.items()}
+        log(f"[7 profile] interleaved pass walls ms, 8 rounds: {walls7}; "
+            f"medians {med7}")
+        record["profile"]["interleaved_walls_ms"] = walls7
+        del film7
+
     # each kernel's launches come from the main path that runs it; the
     # march kernel is timed and bounded on the relaxed path's inputs and
     # carries the larger error of its two paths
     phase_of = {"intersect": "main", "key": "main", "tail": "main",
-                "march": "relaxed", "occl": "relaxed", "chained": "unfused"}
+                "shadow": "split", "finish": "split", "march": "relaxed",
+                "occl": "relaxed", "chained": "unfused"}
     kern = []
-    for key, kname, src, rep in KERNEL_ROWS:
-        path = {"main": "fused"}.get(phase_of[key], phase_of[key])
+    for key, _attr, kname, src, rep in KERNEL_ROWS:
+        path = {"main": "fused", "split": "split mis"}.get(phase_of[key],
+                                                           phase_of[key])
         r = results[(path, key)]
         err = max(v["max_abs_err"] for (_p, k), v in results.items()
                   if k == key)

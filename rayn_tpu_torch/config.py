@@ -2,10 +2,12 @@
 
 The frozen dataclass of `rayn_tpu.config.RenderSettings`, so a settings
 object means the same render in both packages. The fields that only
-tuned Pallas block scheduling on the TPU (block rows, the chained advance
-group, the phased/sorted study marches) are left out: nothing here reads
-them. Values that select a path the port has not implemented yet make
-`render_frame` raise `NotImplementedError` (see `unsupported_reason`).
+sized Pallas blocks on the TPU (`pallas_block_rows`,
+`pallas_occl_block_rows`, `chained_advance_group`) are left out: nothing
+here reads them. The phased/sorted march fields are kept, so that the
+JAX package's values carry across; values that select a path the port
+has not implemented yet make `render_frame` raise `NotImplementedError`
+(see `unsupported_reason`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ class RenderSettings:
     use_pallas: bool = True
     use_pallas_occlusion: bool = True
     chained_shadow_march: bool = True
+    occl_phase1_steps: int = 0
+    occl_sort_steps: int = 0
     sorted_shadow_march: bool = True
     sorted_chunk: int = 0
     sorted_intersect: bool = True
@@ -47,6 +51,7 @@ class RenderSettings:
     use_fused_finish: bool = True
     use_fused_bounce_tail: bool = True
     use_fused_intersect: bool = True
+    march_sort_steps: int = 0
     march_relaxation: float = 1.0
     compact_bounces: bool = False
 
@@ -83,25 +88,25 @@ class RenderSettings:
 def unsupported_reason(s: RenderSettings) -> str | None:
     """The first setting this port does not implement yet, or None.
 
-    The fused bounce tail runs with plain marching and
-    `use_fused_shadows`; there `use_fused_finish=False` or
-    `use_fused_bounce_tail=False` would ask for the split tail kernels
-    (finish_bounce_fused, shadow_radiance), which are not ported. Relaxed
-    marching or `use_fused_shadows=False` takes the segment queue, which
-    never reads those two flags."""
-    fused_tail = s.use_fused_shadows and s.march_relaxation == 1.0
+    Every bounce-tail branch is ported, `mis` included: with plain
+    marching and `use_fused_shadows` the fused kernels run (the bounce
+    tail, or with `use_fused_bounce_tail=False` / `use_fused_finish=False`
+    the split shadow-radiance and finish kernels); relaxed marching or
+    `use_fused_shadows=False` takes the segment queue. The phased and
+    sorted marches are not ported yet."""
     checks = (
-        (s.mis, "mis=True"),
+        (s.march_sort_steps != 0,
+         "march_sort_steps != 0 (the march_sorted kernel)"),
+        (s.occl_phase1_steps != 0,
+         "occl_phase1_steps != 0 (the march_occlusion_phased kernel)"),
+        (s.occl_sort_steps != 0,
+         "occl_sort_steps != 0 (the march_occlusion_sorted kernel)"),
         (s.shadow_de_iterations != 0, "shadow_de_iterations != 0"),
         (bool(s.extra_aovs), "extra_aovs"),
         (s.compact_bounces, "compact_bounces=True"),
         (not s.use_pallas, "the non-kernel intersect path (use_pallas=False)"),
         (not s.use_pallas_occlusion,
          "the non-kernel occlusion path (use_pallas_occlusion=False)"),
-        (fused_tail and not s.use_fused_finish,
-         "use_fused_finish=False (the split shadow/finish kernels)"),
-        (fused_tail and not s.use_fused_bounce_tail,
-         "use_fused_bounce_tail=False (the split shadow/finish kernels)"),
         (s.max_vis_marches < 1, "max_vis_marches < 1"),
     )
     for bad, what in checks:

@@ -276,6 +276,47 @@ __device__ __forceinline__ void eval_f(int kind, float car, float cag,
   fb = f[2];
 }
 
+// shade_pallas._power_heuristic (reference src/math.rs:193-199).
+__device__ __forceinline__ float power_heuristic(float nf, float f_pdf,
+                                                 float ng, float g_pdf) {
+  const float f = nf * f_pdf, g = ng * g_pdf;
+  return f * f / (f * f + g * g);
+}
+
+// shade_pallas._eval_pdf: the solid-angle pdf with which scatter() would
+// have sampled wi (MIS weights only); 0 for kinds that take no NEE.
+__device__ __forceinline__ float eval_pdf(int compat_reflect, int kind,
+                                          float power, float wox, float woy,
+                                          float woz, float wix, float wiy,
+                                          float wiz, float nx, float ny,
+                                          float nz) {
+  const float cos_i = nmax(0.0f, wix * nx + wiy * ny + wiz * nz);
+  const float lambert_pdf = cos_i / PI_F;
+  const float diffuse_pdf = nmax(1e-5f, lambert_pdf);
+  const float won = wox * nx + woy * ny + woz * nz;
+  float rx, ry, rz;
+  if (compat_reflect) {
+    rx = wox - 2.0f * won * nx;
+    ry = woy - 2.0f * won * ny;
+    rz = woz - 2.0f * won * nz;
+  } else {
+    rx = 2.0f * won * nx - wox;
+    ry = 2.0f * won * ny - woy;
+    rz = 2.0f * won * nz - woz;
+  }
+  const float cos_alpha = nmax(0.0f, rx * wix + ry * wiy + rz * wiz);
+  const float cos_alpha_pow = nmax(powf(cos_alpha, power), F32_EPS_F);
+  const float spec_pdf = (power + 1.0f) / TWO_PI_F * cos_alpha_pow;
+  const float one_m = 1.0f - fabsf(won);
+  const float om2 = one_m * one_m;
+  const float fresnel = F0_F + ONE_MINUS_F0_F * (om2 * om2 * one_m);
+  const float diel_pdf = fresnel * spec_pdf + (1.0f - fresnel) * diffuse_pdf;
+  if (kind == 0) return lambert_pdf;
+  if (kind == 1) return diel_pdf;
+  if (kind == 4) return spec_pdf;
+  return 0.0f;
+}
+
 __device__ __forceinline__ void concentric_disk(float u, float v, float& x,
                                                 float& y) {
   const float a = u * 2.0f - 1.0f;

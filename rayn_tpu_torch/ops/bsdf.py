@@ -75,6 +75,28 @@ def eval_f(p: MatParams, wo, wi, n) -> torch.Tensor:
     return torch.where((p.kind == METALLIC)[:, None], metal_f, f)
 
 
+def eval_pdf(p: MatParams, settings: RenderSettings, wo, wi, n):
+    """Solid-angle pdf [N] with which `scatter` would have sampled wi,
+    for the MIS weights: Lambert cosine, Dielectric Fresnel-mixed
+    cosine/Phong, Metallic Phong; 0 for the other kinds (no NEE)."""
+    cos_i = torch.clamp(vecmath.dot(wi, n), min=0.0)
+    lambert_pdf = vecmath.div(cos_i, sampling.PI)
+    diffuse_pdf = torch.clamp(lambert_pdf, min=1e-5)  # src/material.rs:223
+    if settings.compat_spec_reflect:
+        reflection = vecmath.reflect_glsl(wo, n)
+    else:
+        reflection = vecmath.reflect(wo, n)
+    cos_alpha = torch.clamp(vecmath.dot(reflection, wi), min=0.0)
+    cos_alpha_pow = torch.clamp(cos_alpha ** p.power, min=F32_EPS)
+    spec_pdf = vecmath.div(p.power + 1.0, sampling.TWO_PI) * cos_alpha_pow
+    fresnel = sampling.f_schlick(torch.abs(vecmath.dot(n, wo)), F0)
+    diel_pdf = fresnel * spec_pdf + (1.0 - fresnel) * diffuse_pdf
+    zero = torch.zeros_like(lambert_pdf)
+    pdf = torch.where(p.kind == LAMBERT, lambert_pdf, zero)
+    pdf = torch.where(p.kind == DIELECTRIC, diel_pdf, pdf)
+    return torch.where(p.kind == METALLIC, spec_pdf, pdf)
+
+
 class ScatterEvent(NamedTuple):
     wi: torch.Tensor   # [N, 3]
     f: torch.Tensor    # [N, 3]

@@ -1,14 +1,22 @@
-"""Fused bounce tail and shadow sort key: CUDA kernels and plain twins.
+"""The bounce tail, its two halves and the shadow sort key: CUDA kernels
+and plain twins.
 
-Port of the two `rayn_tpu.ops.shade_pallas` kernels on the default
-render path:
+Port of the four `rayn_tpu.ops.shade_pallas` kernels of the fused
+render paths:
 
-- `bounce_tail` replaces `bounce_tail_fused` (`_bounce_tail_kernel` =
-  `_shadow_delta` + `_finish_tail`, with `march_pallas._segment_entry`
-  and the chained occlusion core inlined): per ray, L NEE light samples
-  and VM*L equi-angular volume samples, each tested against the spheres
-  and marched through the SDF, then emission, BSDF scatter, Russian
-  roulette, the depth-0 AOVs and termination. Returns the next PathState.
+- `shadow_radiance` replaces `shadow_radiance` (`_shadow_kernel` ->
+  `_shadow_delta`, with `march_pallas._segment_entry` and the chained
+  occlusion core inlined): per ray, L NEE light samples (power-heuristic
+  weighted for paired lights when `mis`) and VM*L equi-angular volume
+  samples, each tested against the spheres and marched through the SDF.
+  Returns the radiance delta [N, 3].
+- `finish_bounce` replaces `finish_bounce_fused` (`_finish_kernel` ->
+  `_finish_tail`): emission (power-heuristic weighted for paired spheres
+  at depth > 0 when `mis`), BSDF scatter, Russian roulette, the depth-0
+  AOVs and termination, from the pre-emission radiance. Returns the next
+  PathState.
+- `bounce_tail` replaces `bounce_tail_fused` (`_bounce_tail_kernel`):
+  both bodies in one kernel, on (state radiance + delta).
 - `shadow_sort_key` replaces `shadow_sort_key` (`_shadow_key_kernel` ->
   `_shadow_cost_key` -> `_segment_cost`): per ray, the summed estimate
   min(segment length / first DE, max_steps) over the same segments.
@@ -36,6 +44,7 @@ from rayn_tpu_torch.ops.sdf import MandelBox
 from rayn_tpu_torch.scene.scene import (DIELECTRIC, EMISSIVE, LAMBERT,
                                         METALLIC, REFRACTIVE, SKY)
 from rayn_tpu_torch.utils import rng as rng_mod
+from rayn_tpu_torch.utils.sampling import power_heuristic
 from rayn_tpu_torch.utils.vecmath import div as _div
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
@@ -80,6 +89,8 @@ class ShadowCfg(NamedTuple):
     roulette_on: bool
     terminate_all: bool
     aov: bool
+    mis: bool       # weight NEE of paired lights
+    mis_on: bool    # weight BSDF-hit emission of paired spheres
 
 
 def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
@@ -115,19 +126,35 @@ def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
         set_spec=rng_mod.set2d_spec(s, depth),
         set_rr=rng_mod.set1d_roulette(s, depth),
         roulette_on=depth > 2, terminate_all=depth >= s.max_bounces,
-        aov=depth == 0)
+        aov=depth == 0, mis=bool(s.mis),
+        mis_on=bool(s.mis) and K > 0 and NL > 0 and depth > 0)
 
 
-def scene_tables(data, static):
-    """(lights [NL, 8] = pos xyz, radius, emission rgb, paired;
-    spheres [K, 4] = center xyz, radius), built on the scene's device
-    from the constant (knot 0) channels."""
+class SceneTables(NamedTuple):
+    """The scene constants the tail kernels read, from the constant
+    (knot 0) channels, on the scene's device."""
+    lights: torch.Tensor   # [NL, 8] pos xyz, radius, emission rgb, paired
+    spheres: torch.Tensor  # [K, 4] center xyz, radius
+    mis: torch.Tensor      # [K, 5] paired flag, paired light radius, pos xyz
+
+
+def scene_tables(data, static) -> SceneTables:
+    """Built with device gathers only (no host sync)."""
     lights = torch.cat([data.light_pos.values[:, 0, :],
                         data.light_radii[:, None], data.light_emission,
                         data.light_paired[:, None]], dim=-1).contiguous()
     spheres = torch.cat([data.sphere_centers.values[:, 0, :],
                          data.sphere_radii[:, None]], dim=-1).contiguous()
-    return lights, spheres
+    pair = data.sphere_light
+    if static.n_lights:
+        lidx = torch.clamp(pair.long(), 0, static.n_lights - 1)
+        mis = torch.cat([(pair >= 0).to(torch.float32)[:, None],
+                         data.light_radii[lidx][:, None],
+                         data.light_pos.values[lidx, 0, :]], dim=-1)
+    else:
+        mis = torch.zeros((pair.shape[0], 5), dtype=torch.float32,
+                          device=pair.device)
+    return SceneTables(lights, spheres, mis.contiguous())
 
 
 # --------------------------------------------------------------------------
@@ -217,6 +244,31 @@ def _eval_f(kind, car, cag, cab, power, wox, woy, woz, wix, wiy, wiz,
         return is_lam * lam + is_diel * diel + is_met * met
 
     return chan(car), chan(cag), chan(cab)
+
+
+def _eval_pdf(cfg, kind, power, wox, woy, woz, wix, wiy, wiz, nx, ny, nz):
+    """Solid-angle pdf of scatter sampling wi, for the NEE MIS weight
+    (shade_pallas._eval_pdf)."""
+    lambert_pdf = _div(torch.clamp(wix * nx + wiy * ny + wiz * nz, min=0.0),
+                       _PI)
+    diffuse_pdf = torch.clamp(lambert_pdf, min=1e-5)
+    won = wox * nx + woy * ny + woz * nz
+    if cfg.compat_reflect:
+        rx, ry, rz = (wox - 2.0 * won * nx, woy - 2.0 * won * ny,
+                      woz - 2.0 * won * nz)
+    else:
+        rx, ry, rz = (2.0 * won * nx - wox, 2.0 * won * ny - woy,
+                      2.0 * won * nz - woz)
+    cos_alpha = torch.clamp(rx * wix + ry * wiy + rz * wiz, min=0.0)
+    cos_alpha_pow = torch.clamp(torch.pow(cos_alpha, power), min=F32_EPS)
+    spec_pdf = _div(power + 1.0, _TWO_PI) * cos_alpha_pow
+    one_m = 1.0 - torch.abs(won)
+    om2 = one_m * one_m
+    fresnel = _F0 + (1.0 - _F0) * (om2 * om2 * one_m)
+    diel_pdf = fresnel * spec_pdf + (1.0 - fresnel) * diffuse_pdf
+    pdf = torch.where(kind == LAMBERT, lambert_pdf, 0.0)
+    pdf = torch.where(kind == DIELECTRIC, diel_pdf, pdf)
+    return torch.where(kind == METALLIC, spec_pdf, pdf)
 
 
 def _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez):
@@ -369,13 +421,14 @@ def _scatter(cfg, kind, car, cag, cab, power, ior, wox, woy, woz,
 
 
 def _nee_site(cfg, lights, i, v):
-    """Light pick + cone sample of NEE site i: (end xyz, pdf, light row)."""
+    """Light pick + cone sample of NEE site i: (end xyz, pdf, emission,
+    paired flag)."""
     u_pick = _s1(cfg, cfg.set_pick[i], v["sidx"], v["pix"])
-    lx, ly, lz, lrad, er, eg, eb, _pair = _pick_light(u_pick, lights)
+    lx, ly, lz, lrad, er, eg, eb, pair = _pick_light(u_pick, lights)
     u1, u2 = _s2(cfg, cfg.set_nee[i], v["sidx"], v["pix"])
     p_x, p_y, p_z = v["p"]
     ex, ey, ez, pdf = _sample_cone(u1, u2, lx, ly, lz, lrad, p_x, p_y, p_z)
-    return ex, ey, ez, pdf, (er, eg, eb)
+    return ex, ey, ez, pdf, (er, eg, eb), pair
 
 
 def _vol_site(cfg, lights, j, vd_j, v):
@@ -426,7 +479,8 @@ def _lane_values(state, info, mat, live, receives):
 def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
     """The per-bounce shadow pipeline (shade_pallas._shadow_delta):
     radiance delta (r, g, b), accumulated NEE 0..L-1 then volume sites
-    march-major."""
+    march-major; with `mis`, the NEE of a paired light is weighted before
+    `worth` decides whether its segment is marched."""
     p_x, p_y, p_z = v["p"]
     n_x, n_y, n_z = v["n"]
     off = v["off"]
@@ -436,7 +490,7 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
     receives, alive = v["recv"], v["alive"]
     segs, pend = [], []
     for i in range(cfg.L):
-        ex, ey, ez, pdf, (er, eg, eb) = _nee_site(cfg, lights, i, v)
+        ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, lights, i, v)
         wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
         dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
         dinv = 1.0 / dist
@@ -453,6 +507,13 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
         kr = torch.where(receives, er * fr * ndl * scale * tp_x, 0.0)
         kg = torch.where(receives, eg * fg * ndl * scale * tp_y, 0.0)
         kb = torch.where(receives, eb * fb * ndl * scale * tp_z, 0.0)
+        if cfg.mis:
+            p_bsdf = _eval_pdf(cfg, v["kind"], v["pw"], wo_x, wo_y, wo_z,
+                               wix, wiy, wiz, n_x, n_y, n_z)
+            w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
+                                      1.0, p_bsdf)
+            w = torch.where(pair > 0.0, w_light, 1.0)
+            kr, kg, kb = kr * w, kg * w, kb * w
         worth = receives & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
         blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
         m_act = worth & ~blocked
@@ -493,9 +554,10 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
     return rad_r, rad_g, rad_b
 
 
-def _finish_plain(cfg, v, vtr, state, rad_in):
-    """Steps 2 and 5-7 of a bounce (shade_pallas._finish_tail, MIS off):
-    the 24 output columns as [N,3]/[N] tensors in PathState order."""
+def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
+    """Steps 2 and 5-7 of a bounce (shade_pallas._finish_tail) from the
+    pre-emission radiance rad_in: the 24 output columns as [N,3]/[N]
+    tensors in PathState order."""
     o_x, o_y, o_z = v["o"]
     d_x, d_y, d_z = v["d"]
     tp_x, tp_y, tp_z = v["tp"]
@@ -516,6 +578,21 @@ def _finish_plain(cfg, v, vtr, state, rad_in):
                        torch.where(is_em, cbg, 0.0))
     le_b = torch.where(is_sky, cab * (1.0 - t_sky) + cbb * t_sky,
                        torch.where(is_em, cbb, 0.0))
+    if cfg.mis_on:
+        # BSDF-hit emission of a sphere paired with a light, weighted
+        # against the NEE strategy that could have sampled it
+        K = mis_tab.shape[0]
+        row = mis_tab[torch.clamp(obj, 0, K - 1).long()]
+        pairf, lrad, lpx, lpy, lpz = row.unbind(-1)
+        ppdf = state.prev_pdf
+        is_paired = (obj >= 0) & (obj < K) & (pairf > 0.0) & (ppdf >= 0.0)
+        dlx, dly, dlz = lpx - o_x, lpy - o_y, lpz - o_z
+        d2 = dlx * dlx + dly * dly + dlz * dlz
+        cos_theta_max = _sqrt(torch.clamp(1.0 - lrad * lrad / d2, min=0.0))
+        q = _div(_div(1.0, _TWO_PI * (1.0 - cos_theta_max)), float(cfg.NL))
+        w = torch.where(is_paired,
+                        power_heuristic(1.0, ppdf, float(cfg.L), q), 1.0)
+        le_r, le_g, le_b = le_r * w, le_g * w, le_b * w
     rad_r = rad_in[0] + torch.where(live, le_r * tp_x * vtr, 0.0)
     rad_g = rad_in[1] + torch.where(live, le_g * tp_y * vtr, 0.0)
     rad_b = rad_in[2] + torch.where(live, le_b * tp_z * vtr, 0.0)
@@ -574,17 +651,35 @@ def _finish_plain(cfg, v, vtr, state, rad_in):
         color_out=co, bg_out=bg, alpha_out=al, normal_out=nout)
 
 
-def bounce_tail_plain(cfg: ShadowCfg, lights, spheres, state, info, mat,
-                      live, receives, vol_trans, vol_dist, vol_pdf):
+def shadow_radiance_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
+                          mat, live, receives, vol_trans, vol_dist, vol_pdf):
+    """Plain twin of the shadow-radiance kernel: the [N, 3] radiance
+    delta of one bounce's NEE and volume segments."""
+    v = _lane_values(state, info, mat, live, receives)
+    return _stack(*_shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
+                                       vol_trans, vol_dist, vol_pdf))
+
+
+def finish_bounce_plain(cfg: ShadowCfg, tables: SceneTables, state, hit,
+                        info, mat, live, receives, vol_trans, radiance):
+    """Plain twin of the finish kernel: the next PathState fields (as
+    bounce_tail_plain) from the pre-emission radiance [N, 3]."""
+    v = _lane_values(state, info, mat, live, receives)
+    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
+                         radiance.unbind(-1))
+
+
+def bounce_tail_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
+                      mat, live, receives, vol_trans, vol_dist, vol_pdf):
     """Plain twin of the bounce-tail kernel: the next PathState fields
     as a dict (origin, direction, throughput, radiance, alive, prev_pdf,
     color_out, bg_out, alpha_out, normal_out). Association order is the
-    fused kernel's: (state.radiance + shadow delta) + emission."""
+    two-kernel path's: (state.radiance + shadow delta) + emission."""
     v = _lane_values(state, info, mat, live, receives)
-    dr, dg, db = _shadow_delta_plain(cfg, lights, spheres, v, vol_trans,
-                                     vol_dist, vol_pdf)
+    dr, dg, db = _shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
+                                     vol_trans, vol_dist, vol_pdf)
     rx, ry, rz = state.radiance.unbind(-1)
-    return _finish_plain(cfg, v, vol_trans, state,
+    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
 
 
@@ -611,7 +706,7 @@ def shadow_sort_key_plain(cfg: ShadowCfg, lights, point, normal, offset_by,
     if cfg.mb is None:
         return key
     for i in range(cfg.L):
-        ex, ey, ez, _pdf, _em = _nee_site(cfg, lights, i, v)
+        ex, ey, ez, _pdf, _em, _pair = _nee_site(cfg, lights, i, v)
         wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
         dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
         dinv = 1.0 / dist
@@ -654,7 +749,8 @@ class _ShadowScalars(ctypes.Structure):
         ("set_fres", ctypes.c_int), ("set_diff", ctypes.c_int),
         ("set_spec", ctypes.c_int), ("set_rr", ctypes.c_int),
         ("roulette_on", ctypes.c_int), ("terminate_all", ctypes.c_int),
-        ("aov", ctypes.c_int), ("set_pick0", ctypes.c_int),
+        ("aov", ctypes.c_int), ("mis", ctypes.c_int), ("mis_on", ctypes.c_int),
+        ("set_pick0", ctypes.c_int),
         ("set_nee0", ctypes.c_int), ("set_vol_pick0", ctypes.c_int),
         ("set_vol0", ctypes.c_int)]
 
@@ -662,16 +758,44 @@ class _ShadowScalars(ctypes.Structure):
 _P = ctypes.c_void_p
 
 
+def _ptrs(*names):
+    return [(name, _P) for name in names]
+
+
+class _RayCols(ctypes.Structure):
+    _fields_ = _ptrs("point", "normal", "offset_by", "origin", "direction",
+                     "throughput", "vol_trans", "kind", "color_a", "power",
+                     "sample_idx", "pixel", "live", "recv")
+
+
+class _ShadowCols(ctypes.Structure):
+    _fields_ = _ptrs("vol_dist", "vol_pdf", "lights", "spheres")
+
+
+# output columns in PathState order, each with its csrc/shade.cu name
+_OUT = ("origin", "direction", "throughput", "radiance", "alive", "prev_pdf",
+        "color_out", "bg_out", "alpha_out", "normal_out")
+
+
+class _FinishCols(ctypes.Structure):
+    _fields_ = _ptrs("color_b", "ior", "radiance", "color_out", "bg_out",
+                     "alpha_out", "normal_out", "prev_pdf", "obj", "mis",
+                     *(f"o_{name}" for name in _OUT))
+
+
 class _TailArgs(ctypes.Structure):
-    _fields_ = [(name, _P) for name in (
-        "point", "normal", "offset_by", "origin", "direction", "throughput",
-        "vol_trans", "kind", "color_a", "color_b", "power", "ior",
-        "sample_idx", "pixel", "live", "recv", "radiance", "color_out",
-        "bg_out", "alpha_out", "normal_out", "prev_pdf", "vol_dist",
-        "vol_pdf", "lights", "spheres",
-        "o_origin", "o_direction", "o_throughput", "o_radiance", "o_alive",
-        "o_prev_pdf", "o_color_out", "o_bg_out", "o_alpha_out",
-        "o_normal_out")] + [("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+    _fields_ = [("r", _RayCols), ("s", _ShadowCols), ("f", _FinishCols),
+                ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+
+
+class _ShadowArgs(ctypes.Structure):
+    _fields_ = [("r", _RayCols), ("s", _ShadowCols), ("o_delta", _P),
+                ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+
+
+class _FinishArgs(ctypes.Structure):
+    _fields_ = [("r", _RayCols), ("f", _FinishCols), ("n", ctypes.c_int64),
+                ("sc", _ShadowScalars)]
 
 
 class _KeyArgs(ctypes.Structure):
@@ -717,6 +841,7 @@ def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
         set_diff=cfg.set_diff, set_spec=cfg.set_spec, set_rr=cfg.set_rr,
         roulette_on=int(cfg.roulette_on),
         terminate_all=int(cfg.terminate_all), aov=int(cfg.aov),
+        mis=int(cfg.mis), mis_on=int(cfg.mis_on),
         set_pick0=_base(cfg.set_pick), set_nee0=_base(cfg.set_nee),
         set_vol_pick0=_base(cfg.set_vol_pick), set_vol0=_base(cfg.set_vol))
 
@@ -731,38 +856,20 @@ def _vol_cols(vol, n, sites, device):
     return torch.zeros((1, n), dtype=torch.float32, device=device)
 
 
-def bounce_tail(cfg: ShadowCfg, lights, spheres, state, info, mat, live,
-                receives, vol_trans, vol_dist, vol_pdf) -> dict:
-    """Whole bounce tail of one bounce. vol_dist/vol_pdf: sequences of
-    VM*L [N] tensors (march-major). Returns the next PathState fields
-    (see bounce_tail_plain)."""
-    if state.origin.device.type == "cpu":
-        return bounce_tail_plain(cfg, lights, spheres, state, info, mat,
-                                 live, receives, vol_trans, vol_dist,
-                                 vol_pdf)
-    dev = state.origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"bounce_tail: unsupported device {dev}")
-    if cfg.NL < 1:
-        raise NotImplementedError("bounce_tail needs a scene with lights")
+def _device(name, t):
+    """The CUDA device of a wrapper's operands (None for the CPU)."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
     n = state.origin.shape[0]
-    sites = cfg.VM * cfg.L
-    vd = _vol_cols(vol_dist, n, sites, dev)
-    vp = _vol_cols(vol_pdf, n, sites, dev)
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    out = dict(
-        origin=torch.empty((n, 3), dtype=f32, device=dev),
-        direction=torch.empty((n, 3), dtype=f32, device=dev),
-        throughput=torch.empty((n, 3), dtype=f32, device=dev),
-        radiance=torch.empty((n, 3), dtype=f32, device=dev),
-        alive=torch.empty((n,), dtype=b8, device=dev),
-        prev_pdf=torch.empty((n,), dtype=f32, device=dev),
-        color_out=torch.empty((n, 3), dtype=f32, device=dev),
-        bg_out=torch.empty((n, 3), dtype=f32, device=dev),
-        alpha_out=torch.empty((n,), dtype=f32, device=dev),
-        normal_out=torch.empty((n, 3), dtype=f32, device=dev))
     v3, v1 = (n, 3), (n,)
-    args = _TailArgs(
+    return _RayCols(
         point=check(info.point, "point", f32, v3, dev),
         normal=check(info.normal, "normal", f32, v3, dev),
         offset_by=check(info.offset_by, "offset_by", f32, v1, dev),
@@ -772,34 +879,66 @@ def bounce_tail(cfg: ShadowCfg, lights, spheres, state, info, mat, live,
         vol_trans=check(vol_trans, "vol_trans", f32, v1, dev),
         kind=check(mat.kind, "kind", i32, v1, dev),
         color_a=check(mat.color_a, "color_a", f32, v3, dev),
-        color_b=check(mat.color_b, "color_b", f32, v3, dev),
         power=check(mat.power, "power", f32, v1, dev),
-        ior=check(mat.ior, "ior", f32, v1, dev),
         sample_idx=check(state.sample_idx, "sample_idx", i32, v1, dev),
         pixel=check(state.pixel, "pixel", i32, v1, dev),
         live=check(live, "live", b8, v1, dev),
-        recv=check(receives, "receives", b8, v1, dev),
-        radiance=check(state.radiance, "radiance", f32, v3, dev),
+        recv=check(receives, "receives", b8, v1, dev))
+
+
+def _shadow_cols(cfg, tables, vd, vp, dev):
+    """vd, vp: the [max(VM*L, 1), N] volume columns of _vol_cols."""
+    f32 = torch.float32
+    return _ShadowCols(
+        vol_dist=check(vd, "vol_dist", f32, vd.shape, dev),
+        vol_pdf=check(vp, "vol_pdf", f32, vd.shape, dev),
+        lights=check(tables.lights, "lights", f32, (cfg.NL, 8), dev),
+        spheres=check(tables.spheres, "spheres", f32, (cfg.K, 4), dev))
+
+
+def _finish_cols(cfg, tables, state, hit, mat, radiance, dev):
+    """(the _FinishCols struct, the output tensors in PathState order)."""
+    n = state.origin.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    v3, v1 = (n, 3), (n,)
+    out = {name: torch.empty(v1 if name in ("alive", "prev_pdf", "alpha_out")
+                             else v3, dtype=b8 if name == "alive" else f32,
+                             device=dev) for name in _OUT}
+    cols = _FinishCols(
+        color_b=check(mat.color_b, "color_b", f32, v3, dev),
+        ior=check(mat.ior, "ior", f32, v1, dev),
+        radiance=check(radiance, "radiance", f32, v3, dev),
         color_out=check(state.color_out, "color_out", f32, v3, dev),
         bg_out=check(state.bg_out, "bg_out", f32, v3, dev),
         alpha_out=check(state.alpha_out, "alpha_out", f32, v1, dev),
         normal_out=check(state.normal_out, "normal_out", f32, v3, dev),
         prev_pdf=check(state.prev_pdf, "prev_pdf", f32, v1, dev),
-        vol_dist=check(vd, "vol_dist", f32, (max(sites, 1), n), dev),
-        vol_pdf=check(vp, "vol_pdf", f32, (max(sites, 1), n), dev),
-        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
-        spheres=check(spheres, "spheres", f32, (cfg.K, 4), dev),
-        o_origin=out["origin"].data_ptr(),
-        o_direction=out["direction"].data_ptr(),
-        o_throughput=out["throughput"].data_ptr(),
-        o_radiance=out["radiance"].data_ptr(),
-        o_alive=out["alive"].data_ptr(),
-        o_prev_pdf=out["prev_pdf"].data_ptr(),
-        o_color_out=out["color_out"].data_ptr(),
-        o_bg_out=out["bg_out"].data_ptr(),
-        o_alpha_out=out["alpha_out"].data_ptr(),
-        o_normal_out=out["normal_out"].data_ptr(),
-        n=n, sc=_scalars(cfg))
+        obj=check(hit.obj, "obj", i32, v1, dev),
+        mis=check(tables.mis, "mis", f32, (cfg.K, 5), dev),
+        **{f"o_{name}": t.data_ptr() for name, t in out.items()})
+    return cols, out
+
+
+def bounce_tail(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
+                live, receives, vol_trans, vol_dist, vol_pdf) -> dict:
+    """Whole bounce tail of one bounce. vol_dist/vol_pdf: sequences of
+    VM*L [N] tensors (march-major). Returns the next PathState fields
+    (see bounce_tail_plain)."""
+    dev = _device("bounce_tail", state.origin)
+    if dev is None:
+        return bounce_tail_plain(cfg, tables, state, hit, info, mat, live,
+                                 receives, vol_trans, vol_dist, vol_pdf)
+    if cfg.NL < 1:
+        raise NotImplementedError("bounce_tail needs a scene with lights")
+    n = state.origin.shape[0]
+    vd = _vol_cols(vol_dist, n, cfg.VM * cfg.L, dev)
+    vp = _vol_cols(vol_pdf, n, cfg.VM * cfg.L, dev)
+    fcols, out = _finish_cols(cfg, tables, state, hit, mat, state.radiance,
+                              dev)
+    args = _TailArgs(
+        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
+        s=_shadow_cols(cfg, tables, vd, vp, dev), f=fcols, n=n,
+        sc=_scalars(cfg))
     _build.launch("rayn_bounce_tail", args, dev)
     bounce_tail.launches += 1
     return out
@@ -808,18 +947,61 @@ def bounce_tail(cfg: ShadowCfg, lights, spheres, state, info, mat, live,
 bounce_tail.launches = 0
 
 
+def shadow_radiance(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
+                    live, receives, vol_trans, vol_dist, vol_pdf
+                    ) -> torch.Tensor:
+    """[N, 3] radiance delta of one bounce's NEE and volume segments
+    (see shadow_radiance_plain)."""
+    dev = _device("shadow_radiance", state.origin)
+    if dev is None:
+        return shadow_radiance_plain(cfg, tables, state, info, mat, live,
+                                     receives, vol_trans, vol_dist, vol_pdf)
+    n = state.origin.shape[0]
+    vd = _vol_cols(vol_dist, n, cfg.VM * cfg.L, dev)
+    vp = _vol_cols(vol_pdf, n, cfg.VM * cfg.L, dev)
+    delta = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    args = _ShadowArgs(
+        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
+        s=_shadow_cols(cfg, tables, vd, vp, dev), o_delta=delta.data_ptr(),
+        n=n, sc=_scalars(cfg))
+    _build.launch("rayn_shadow_radiance", args, dev)
+    shadow_radiance.launches += 1
+    return delta
+
+
+shadow_radiance.launches = 0
+
+
+def finish_bounce(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
+                  live, receives, vol_trans, radiance) -> dict:
+    """The next PathState fields from the pre-emission radiance [N, 3]
+    (state radiance + shadow delta; see finish_bounce_plain)."""
+    dev = _device("finish_bounce", state.origin)
+    if dev is None:
+        return finish_bounce_plain(cfg, tables, state, hit, info, mat, live,
+                                   receives, vol_trans, radiance)
+    fcols, out = _finish_cols(cfg, tables, state, hit, mat, radiance, dev)
+    args = _FinishArgs(
+        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
+        f=fcols, n=state.origin.shape[0], sc=_scalars(cfg))
+    _build.launch("rayn_finish_bounce", args, dev)
+    finish_bounce.launches += 1
+    return out
+
+
+finish_bounce.launches = 0
+
+
 def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
                     direction, live, receives, sample_idx, pixel,
                     vol_dist) -> torch.Tensor:
     """[N] f32 cost key of one bounce's shadow segments (scheduling only:
     it never feeds a verdict or a radiance term)."""
-    if point.device.type == "cpu":
+    dev = _device("shadow_sort_key", point)
+    if dev is None:
         return shadow_sort_key_plain(cfg, lights, point, normal, offset_by,
                                      origin, direction, live, receives,
                                      sample_idx, pixel, vol_dist)
-    dev = point.device
-    if dev.type != "cuda":
-        raise ValueError(f"shadow_sort_key: unsupported device {dev}")
     if cfg.NL < 1:
         raise NotImplementedError("shadow_sort_key needs a scene with lights")
     n = point.shape[0]

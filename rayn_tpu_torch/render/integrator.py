@@ -7,15 +7,23 @@ One bounce at depth d:
    relaxed marching or `use_fused_intersect=False` the unfused
    intersect.closest_hit (march kernel) + shading_info;
 3. per-lane shading values (`_derive_shading`);
-4. the bounce tail, one of two branches, chosen as JAX chooses them:
-   - fused (plain marching and `use_fused_shadows`): at d >= 1 the
-     equi-angular samples, the shadow sort-key kernel and the chunk sort
-     (`sorted_shadow_march`), then the bounce-tail kernel (NEE, volume
-     scattering, emission, scatter, roulette, AOVs, termination);
+4. the bounce tail, chosen as JAX chooses it:
+   - fused (plain marching and `use_fused_shadows`): in a scene with
+     lights, at d >= 1 the equi-angular samples, the shadow sort-key
+     kernel and the chunk sort (`sorted_shadow_march`); then one of
+     - the bounce-tail kernel (NEE, volume scattering, emission,
+       scatter, roulette, AOVs, termination), with `use_fused_finish`,
+       `use_fused_bounce_tail` and lights;
+     - else with `use_fused_finish`: the shadow-radiance kernel (with
+       lights), then the finish kernel on (radiance + delta);
+     - else: emission in torch, the shadow-radiance kernel (with
+       lights), then `_finish_bounce`, so (radiance + emission) + delta;
    - the segment queue (relaxed marching or `use_fused_shadows=False`):
      emission, then every NEE and volume shadow segment of the bounce in
      one batched `intersect.test_occluded` (occlusion kernels), the
      contributions times visibility, then `_finish_bounce`;
+   with `mis`, every branch weights NEE of paired lights and, at d >= 1,
+   BSDF-hit emission of paired spheres by the power heuristic;
 5. the unsort back to pixel-major order.
 
 Sorting moves whole chunks of lanes and every per-lane result is
@@ -37,7 +45,7 @@ from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import dist
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of, sphere_centers_at)
-from rayn_tpu_torch.utils import rng, vecmath
+from rayn_tpu_torch.utils import rng, sampling, vecmath
 from rayn_tpu_torch.utils.rng import SampleTables
 
 
@@ -186,9 +194,8 @@ def _equi_angular_samples(data, static, s, tables, state, hit, depth):
 def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
            tables: SampleTables, state: PathState, depth: int,
            hps_abs0: float, hps_lin0: float, scene_tables=None) -> PathState:
-    """One wavefront bounce at `depth`. scene_tables: the (lights,
-    spheres) constant tables of shade_cuda.scene_tables, built per call
-    when not given."""
+    """One wavefront bounce at `depth`. scene_tables: the constant tables
+    of shade_cuda.scene_tables, built per call when not given."""
     n = state.origin.shape[0]
     s = settings
     dev = state.origin.device
@@ -228,8 +235,7 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         return out if pre_perm is None else _unsort_state(out, pre_perm,
                                                           chunk)
 
-    lights_t, spheres_t = scene_tables or shade_cuda.scene_tables(data,
-                                                                  static)
+    tabs = scene_tables or shade_cuda.scene_tables(data, static)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
 
     shadow_perm = None
@@ -238,7 +244,7 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         vd0, _ = _equi_angular_samples(data, static, s, tables, state, hit,
                                        depth)
         cost = shade_cuda.shadow_sort_key(
-            cfg, lights_t, info.point, info.normal, info.offset_by,
+            cfg, tabs.lights, info.point, info.normal, info.offset_by,
             state.origin, state.direction, live, receives, state.sample_idx,
             state.pixel, vd0)
         (state, hit, info), shadow_perm = _sort_tree_by_cost(
@@ -248,29 +254,76 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
 
     vol_dists, vol_pdfs = _equi_angular_samples(data, static, s, tables,
                                                 state, hit, depth)
-    out = shade_cuda.bounce_tail(cfg, lights_t, spheres_t, state, info, mat,
-                                 live, receives, vol_trans, vol_dists,
-                                 vol_pdfs)
-    out = state._replace(**out)
+    lit = static.n_lights > 0
+    if s.use_fused_finish and s.use_fused_bounce_tail and lit:
+        out = state._replace(**shade_cuda.bounce_tail(
+            cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
+            vol_dists, vol_pdfs))
+    elif s.use_fused_finish:
+        radiance = state.radiance
+        if lit:
+            radiance = radiance + shade_cuda.shadow_radiance(
+                cfg, tabs, state, info, mat, live, receives, vol_trans,
+                vol_dists, vol_pdfs)
+        out = state._replace(**shade_cuda.finish_bounce(
+            cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
+            radiance))
+    else:
+        wo = -state.direction
+        radiance = _emission(data, static, s, state, depth, hit, mat, live,
+                             wo, vol_trans)
+        if lit:
+            radiance = radiance + shade_cuda.shadow_radiance(
+                cfg, tabs, state, info, mat, live, receives, vol_trans,
+                vol_dists, vol_pdfs)
+        out = _finish_bounce(s, tables, state, depth, info, mat, live,
+                             receives, wo, vol_trans, radiance)
     perm = pre_perm
     if shadow_perm is not None:
         perm = shadow_perm if perm is None else perm[shadow_perm]
     return out if perm is None else _unsort_state(out, perm, chunk)
 
 
+def _emission(data, static, s, state, depth, hit, mat, live, wo, vol_trans):
+    """Step 2 (JAX integrator.py:374-395): state radiance + emission. With
+    `mis`, at depth >= 1 the BSDF-hit emission of a sphere paired with a
+    light is power-heuristic weighted against the NEE strategy that could
+    have sampled the same emitter from the previous vertex."""
+    le = bsdf_ops.emitted(mat, wo)
+    K, NL = static.n_spheres, static.n_lights
+    if s.mis and depth > 0 and NL > 0 and K > 0:
+        pair = data.sphere_light[torch.clamp(hit.obj, 0, K - 1).long()]
+        is_paired = ((hit.obj >= 0) & (hit.obj < K) & (pair >= 0)
+                     & (state.prev_pdf >= 0.0))
+        lidx = torch.clamp(pair.long(), 0, NL - 1)
+        lp = light_position_of(data, lidx, state.time)
+        lr = data.light_radii[lidx]
+        d2 = vecmath.length_sq(lp - state.origin)
+        cos_theta_max = vecmath.sqrt(torch.clamp(1.0 - lr * lr / d2,
+                                                 min=0.0))
+        # NEE draws nee_light_samples directions, each with density
+        # cone pdf / n_lights; the BSDF strategy drew one with prev_pdf
+        q = vecmath.div(sampling.uniform_cone_pdf(cos_theta_max), float(NL))
+        w_bsdf = sampling.power_heuristic(1.0, state.prev_pdf,
+                                          float(s.nee_light_samples), q)
+        le = le * torch.where(is_paired, w_bsdf, 1.0)[:, None]
+    return state.radiance + torch.where(
+        live[:, None], le * state.throughput * vol_trans[:, None], 0.0)
+
+
 def _segment_queue_tail(data, static, s, tables, state, depth, hit, info,
                         mat, live, receives, vol_trans) -> PathState:
-    """Steps 2-7 of the unfused bounce (JAX integrator.py:374-518, MIS
-    off): emission; the L NEE segments, then the VM*L equi-angular volume
-    segments, each with its contribution and `worth_it` mask, tested in
-    one batched `test_occluded` call (segment-major queue); radiance +=
-    contribution * visibility in segment order; then `_finish_bounce`."""
+    """Steps 2-7 of the unfused bounce (JAX integrator.py:374-518):
+    emission; the L NEE segments (MIS-weighted for paired lights), then
+    the VM*L equi-angular volume segments, each with its contribution and
+    `worth_it` mask, tested in one batched `test_occluded` call
+    (segment-major queue); radiance += contribution * visibility in
+    segment order; then `_finish_bounce`."""
     n = state.origin.shape[0]
     wo = -state.direction
     tp = state.throughput
-    le = bsdf_ops.emitted(mat, wo)
-    radiance = state.radiance + torch.where(
-        live[:, None], le * tp * vol_trans[:, None], 0.0)
+    radiance = _emission(data, static, s, state, depth, hit, mat, live, wo,
+                         vol_trans)
 
     starts, ends, acts, contribs = [], [], [], []
     ones = torch.ones_like(vol_trans)
@@ -280,8 +333,8 @@ def _segment_queue_tail(data, static, s, tables, state, depth, hit, info,
             u_pick = rng.sample_1d(s, tables,
                                    rng.set1d_light_pick(s, depth, i),
                                    state.sample_idx, state.pixel)
-            lp, lr, lem = _gather_lights(data, state.time,
-                                         _pick_lights(static, u_pick))
+            lidx = _pick_lights(static, u_pick)
+            lp, lr, lem = _gather_lights(data, state.time, lidx)
             u2 = rng.sample_2d(s, tables, rng.set2d_nee(s, depth, i),
                                state.sample_idx, state.pixel)
             end_point, li, pdf = lights.sample_cone(u2, lp, lr, info.point,
@@ -299,6 +352,15 @@ def _segment_queue_tail(data, static, s, tables, state, depth, hit, info,
             contrib = (li * f * (seg_trans / pdf)[:, None] * tp
                        * (correction * vol_trans)[..., None])
             contrib = torch.where(receives[:, None], contrib, 0.0)
+            if s.mis:
+                # unpaired lights are invisible to BSDF rays: weight 1
+                p_bsdf = bsdf_ops.eval_pdf(mat, s, wo, wi, info.normal)
+                w_light = sampling.power_heuristic(
+                    float(s.nee_light_samples),
+                    vecmath.div(pdf, float(static.n_lights)), 1.0, p_bsdf)
+                paired = data.light_paired[lidx]
+                contrib = contrib * torch.where(paired > 0.0, w_light,
+                                                1.0)[:, None]
             starts.append(occ_origin)
             ends.append(end_point)
             acts.append(receives & (contrib != 0.0).any(dim=-1))

@@ -95,8 +95,6 @@ def check_supported(data: SceneData, static: SceneStatic,
     reason = unsupported_reason(settings)
     if reason is None and not isinstance(camera, PinholeCamera):
         reason = f"{type(camera).__name__} (only PinholeCamera is ported)"
-    if reason is None and static.n_lights == 0:
-        reason = "scenes without lights (need finish_bounce_fused)"
     if reason is None and (data.light_pos.knots > 1
                            or data.sphere_centers.knots > 1):
         reason = "animated light or sphere channels (TL/TS > 1)"

@@ -1,9 +1,10 @@
-"""Built-in scenes (port of rayn_tpu.scene.presets.default_scene).
+"""Built-in scenes (port of rayn_tpu.scene.presets).
 
 `default_scene` is the reference's hard-coded scene (src/setup.rs:46-170):
 sky dome, 12-iteration MandelBox, five sphere lights with co-located
-emissive bodies, a homogeneous volume and a pinhole camera. The animated
-variants wait for animated channels in the port.
+emissive bodies, a homogeneous volume and a pinhole camera.
+`spheres_scene` has analytic spheres only. The animated variants wait
+for animated channels in the port.
 """
 
 from __future__ import annotations
@@ -58,5 +59,44 @@ def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
     origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
     camera = PinholeCamera.make(resolution, 60.0, origin, (0.0, 0.0, 0.0),
                                 (0.0, 1.0, 0.0), device=device)
+    data, static = b.build(device)
+    return data, static, camera
+
+
+def spheres_scene(resolution=(1280, 720), world_radius: float = 100.0,
+                  device="cuda"):
+    """Analytic-spheres-only scene (bench.py `--config spheres`): a row of
+    lambert / dielectric / metal / refractive spheres on a floor under the
+    sky, lit by two sphere lights with co-located emissive bodies, and no
+    SDF. Returns (scene_data, scene_static, camera) on `device`."""
+    b = SceneBuilder()
+    sky = b.add_sky(top=(0.3, 0.4, 0.6),
+                    bottom=np.asarray((0.2, 0.3, 0.6), np.float32) * 0.05)
+    b.add_sphere((0.0, 0.0, 0.0), world_radius, sky)
+
+    floor = b.add_lambertian((0.5, 0.5, 0.5))
+    b.add_sphere((0.0, -100.5, 0.0), 100.0, floor)
+
+    mats = [
+        b.add_lambertian((0.7, 0.3, 0.3)),
+        b.add_dielectric((0.8, 0.8, 0.2), 0.2),
+        b.add_metallic((0.9, 0.7, 0.3), 0.15),
+        b.add_dielectric((0.3, 0.5, 0.8), 0.6),
+        b.add_refractive((0.9, 0.95, 1.0), 0.0, 1.5),
+        b.add_lambertian((0.2, 0.7, 0.4)),
+    ]
+    for i, m in enumerate(mats):
+        b.add_sphere((-2.0 + i * 0.8, 0.0, 0.0), 0.38, m)
+
+    warm = _normalized((5.0, 4.0, 2.5))
+    b.add_sphere_light((2.0, 2.5, 2.0), 0.4, warm * 30.0)
+    b.add_sphere_light((-2.0, 1.5, -1.0), 0.3, warm * 20.0)
+    emissive = b.add_emissive(warm * 3.0)
+    b.add_sphere((2.0, 2.5, 2.0), 0.39, emissive)
+    b.add_sphere((-2.0, 1.5, -1.0), 0.29, emissive)
+
+    camera = PinholeCamera.make(resolution, 60.0, (0.0, 0.8, 4.0),
+                                (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                device=device)
     data, static = b.build(device)
     return data, static, camera

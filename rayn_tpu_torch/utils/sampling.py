@@ -59,6 +59,14 @@ def f0_from_ior(ior: torch.Tensor) -> torch.Tensor:
     return f0 * f0
 
 
+def power_heuristic(nf: float, f_pdf: torch.Tensor, ng: float,
+                    g_pdf: torch.Tensor) -> torch.Tensor:
+    """Balance-power MIS heuristic (reference src/math.rs:193-199)."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return f * f / (f * f + g * g)
+
+
 def uniform_cone_pdf(cos_theta_max: torch.Tensor) -> torch.Tensor:
     """pdf of uniform sampling inside a cone (reference
     src/light.rs:105-107)."""

@@ -6,8 +6,9 @@ Run on a machine with an NVIDIA GPU (sm_90a) and nvcc:
 
 Without CUDA the `cuda` fixture skips every test here. The inputs are
 the real kernel inputs of the default scene at 2^14 rays (128x128 at
-1 spp), depths 0 and 1; the gates are the JAX package's fused-vs-unfused
-gates (tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
+1 spp), depths 0 and 1, with MIS off and on for the tail kernels; the
+gates are the JAX package's fused-vs-unfused gates
+(tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
 The occlusion kernels take 12 x 2^14 seeded random segments, gated on
 >= 99.9% equal verdicts.
 """
@@ -34,12 +35,13 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _wavefront(dev, depth):
+def _wavefront(dev, depth, mis=False):
     """(scene, settings, tables, state, hps) of the default scene's
     wavefront at `depth` (depth 1 = the bounce rays of a plain depth-0
     bounce)."""
     s = RenderSettings(resolution=RES, spp=1, max_marches=128,
-                       max_vis_marches=64, rays_per_pass=RES[0] * RES[1])
+                       max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
+                       mis=mis)
     data, static, cam = presets.default_scene(resolution=RES, device=dev)
     tables = rng.build_sample_tables(s, 1)
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
@@ -60,8 +62,8 @@ def _wavefront(dev, depth):
                                                   state, hit, 0)
         cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
         out = shade_cuda.bounce_tail_plain(
-            cfg, *shade_cuda.scene_tables(data, static), state, info, mat,
-            live, recv, vtr, vd, vp)
+            cfg, shade_cuda.scene_tables(data, static), state, hit, info,
+            mat, live, recv, vtr, vd, vp)
         state = state._replace(**out)
         ha, hl = 0.0, 2e-4
     hps = (torch.full((n,), ha, device=dev), torch.full((n,), hl, device=dev))
@@ -90,8 +92,8 @@ def test_closest_hit_kernel_matches_plain(cuda, depth):
                                atol=1e-5)
 
 
-def _tail_inputs(cuda, depth):
-    data, static, s, tables, state, hps = _wavefront(cuda, depth)
+def _tail_inputs(cuda, depth, mis=False):
+    data, static, s, tables, state, hps = _wavefront(cuda, depth, mis)
     hit, info = _hit(data, static, s, state, hps,
                      intersect_cuda.closest_hit_shading_plain)
     live, mat, recv, vtr = integrator._derive_shading(data, static, state,
@@ -100,23 +102,17 @@ def _tail_inputs(cuda, depth):
                                               hit, depth)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
     tabs = shade_cuda.scene_tables(data, static)
-    return cfg, tabs, state, info, mat, live, recv, vtr, vd, vp
+    return cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp
 
 
-@pytest.mark.parametrize("depth", [0, 1])
-def test_bounce_tail_kernel_matches_plain(cuda, depth):
-    cfg, tabs, state, info, mat, live, recv, vtr, vd, vp = _tail_inputs(
-        cuda, depth)
-    args = (cfg, *tabs, state, info, mat, live, recv, vtr, vd, vp)
-    before = shade_cuda.bounce_tail.launches
-    got = shade_cuda.bounce_tail(*args)
-    want = shade_cuda.bounce_tail_plain(*args)
-    torch.cuda.synchronize()
-    assert shade_cuda.bounce_tail.launches == before + 1
-    close = torch.isclose(got["radiance"], want["radiance"], rtol=2e-4,
-                          atol=2e-5)
+def _check_radiance(got, want):
+    close = torch.isclose(got, want, rtol=2e-4, atol=2e-5)
     assert close.float().mean().item() >= 0.985
-    assert (got["radiance"] - want["radiance"]).abs().max().item() < 0.1
+    assert (got - want).abs().max().item() < 0.1
+
+
+def _check_state(got, want, depth):
+    _check_radiance(got["radiance"], want["radiance"])
     tfrac = 1.0 - torch.isclose(got["throughput"], want["throughput"],
                                 rtol=1e-4, atol=1e-5).float().mean().item()
     assert tfrac < (1e-3 if depth == 0 else 3e-2)
@@ -124,10 +120,61 @@ def test_bounce_tail_kernel_matches_plain(cuda, depth):
     assert afrac < (1e-3 if depth == 0 else 1e-2)
 
 
+def _bounce_tail_vs_plain(cuda, depth, mis):
+    args = _tail_inputs(cuda, depth, mis)
+    before = shade_cuda.bounce_tail.launches
+    got = shade_cuda.bounce_tail(*args)
+    want = shade_cuda.bounce_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert shade_cuda.bounce_tail.launches == before + 1
+    _check_state(got, want, depth)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_bounce_tail_kernel_matches_plain(cuda, depth):
+    _bounce_tail_vs_plain(cuda, depth, False)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_bounce_tail_kernel_with_mis_matches_plain(cuda, depth):
+    _bounce_tail_vs_plain(cuda, depth, True)
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_shadow_radiance_kernel_matches_plain(cuda, depth, mis):
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, mis))
+    args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    before = shade_cuda.shadow_radiance.launches
+    got = shade_cuda.shadow_radiance(*args)
+    want = shade_cuda.shadow_radiance_plain(*args)
+    torch.cuda.synchronize()
+    assert shade_cuda.shadow_radiance.launches == before + 1
+    assert want.abs().max().item() > 0.0
+    _check_radiance(got, want)
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_finish_bounce_kernel_matches_plain(cuda, depth, mis):
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, mis))
+    radiance = state.radiance + shade_cuda.shadow_radiance_plain(
+        cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    args = (cfg, tabs, state, hit, info, mat, live, recv, vtr, radiance)
+    before = shade_cuda.finish_bounce.launches
+    got = shade_cuda.finish_bounce(*args)
+    want = shade_cuda.finish_bounce_plain(*args)
+    torch.cuda.synchronize()
+    assert shade_cuda.finish_bounce.launches == before + 1
+    _check_state(got, want, depth)
+
+
 def test_shadow_sort_key_kernel_matches_plain(cuda):
-    cfg, tabs, state, info, _mat, live, recv, _vtr, vd, _vp = _tail_inputs(
-        cuda, 1)
-    args = (cfg, tabs[0], info.point, info.normal, info.offset_by,
+    cfg, tabs, state, _hit_, info, _mat, live, recv, _vtr, vd, _vp = (
+        _tail_inputs(cuda, 1))
+    args = (cfg, tabs.lights, info.point, info.normal, info.offset_by,
             state.origin, state.direction, live, recv, state.sample_idx,
             state.pixel, vd)
     before = shade_cuda.shadow_sort_key.launches

@@ -82,7 +82,15 @@ def test_wrappers_reject_other_devices():
         intersect_cuda.closest_hit_shading(data, static, s, z3, z3, z, z,
                                            z.bool())
     cfg = shade_cuda.shadow_cfg(data, static, s, rng.SampleTables(1), 0)
-    lights, _sph = shade_cuda.scene_tables(data, static)
+    tabs = shade_cuda.scene_tables(data, static)
     with pytest.raises(ValueError):
-        shade_cuda.shadow_sort_key(cfg, lights, z3, z3, z, z3, z3, z.bool(),
-                                   z.bool(), z.int(), z.int(), [])
+        shade_cuda.shadow_sort_key(cfg, tabs.lights, z3, z3, z, z3, z3,
+                                   z.bool(), z.bool(), z.int(), z.int(), [])
+    state = integrator.PathState(*(z3,) * len(integrator.PathState._fields))
+    for wrapper, tail in ((shade_cuda.bounce_tail, (None, [], [])),
+                          (shade_cuda.finish_bounce, (None, z3))):
+        with pytest.raises(ValueError):
+            wrapper(cfg, tabs, state, None, None, None, z, z, *tail)
+    with pytest.raises(ValueError):
+        shade_cuda.shadow_radiance(cfg, tabs, state, None, None, z, z, z,
+                                   [], [])

@@ -1,6 +1,7 @@
 """The whole port slice on the CPU against rayn_tpu: images, one
 segment-queue bounce, the settings that raise or render, the default
-device of the entry points, and the import boundary.
+device of the entry points, and the import boundary. The split tail and
+MIS are held to JAX in tests/test_torch_split_tail.py.
 
 The image gate is the fused-vs-unfused one of
 tests/test_fused_shadows.py:98-119, here at 16x16, 4 spp and one
@@ -141,16 +142,47 @@ def test_segment_queue_bounce_matches_jax(case):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mis=True), dict(shadow_de_iterations=4),
-    dict(extra_aovs=("depth",)), dict(compact_bounces=True),
-    dict(use_fused_bounce_tail=False), dict(use_fused_finish=False),
-    dict(use_pallas=False), dict(use_pallas_occlusion=False)])
+    dict(shadow_de_iterations=4), dict(extra_aovs=("depth",)),
+    dict(compact_bounces=True), dict(use_pallas=False),
+    dict(use_pallas_occlusion=False)])
 def test_unimplemented_settings_raise(change):
     res = (8, 8)
     data, static, cam = presets.default_scene(resolution=res, device="cpu")
     s = dataclasses.replace(RenderSettings(resolution=res, spp=1), **change)
     with pytest.raises(NotImplementedError):
         renderer.render_frame(data, static, s, cam)
+
+
+@pytest.mark.parametrize("field, kernel", [
+    ("march_sort_steps", "march_sorted"),
+    ("occl_phase1_steps", "march_occlusion_phased"),
+    ("occl_sort_steps", "march_occlusion_sorted")])
+def test_phased_march_settings_carry_across(field, kernel):
+    """A phased/sorted march field of the JAX settings is a field here
+    too, with JAX's default; a non-zero value is refused and names the
+    kernel it would need."""
+    assert getattr(RenderSettings(), field) == getattr(JSettings(), field)
+    res = (8, 8)
+    data, static, cam = presets.default_scene(resolution=res, device="cpu")
+    s = RenderSettings(resolution=res, spp=1, **{field: 8})
+    with pytest.raises(NotImplementedError, match=kernel):
+        renderer.render_frame(data, static, s, cam)
+
+
+@pytest.mark.parametrize("change", [
+    dict(mis=True), dict(use_fused_bounce_tail=False),
+    dict(use_fused_finish=False)])
+def test_split_tail_settings_render(change):
+    """MIS and the split tail render on the fused path (the three
+    settings that were refused before their kernels were ported)."""
+    res = (8, 8)
+    data, static, cam = presets.default_scene(resolution=res, device="cpu")
+    s = dataclasses.replace(RenderSettings(
+        resolution=res, spp=2, max_bounces=1, max_marches=24,
+        max_vis_marches=16), **change)
+    f = renderer.render_frame(data, static, s, cam)
+    assert f.samples.sum().item() == res[0] * res[1] * 2
+    assert torch.isfinite(f.color).all() and f.alpha.sum().item() > 0.0
 
 
 @pytest.mark.parametrize("change", [

@@ -110,8 +110,8 @@ def test_bounce_tail_matches_jax_unfused(volume):
         vd, vp = integrator._equi_angular_samples(
             tdata, tstatic, ts, ttables, tstate, hit, depth)
         cfg = shade_cuda.shadow_cfg(tdata, tstatic, ts, ttables, depth)
-        out = shade_cuda.bounce_tail(cfg, *tabs, tstate, info, mat, live,
-                                     receives, vtr, vd, vp)
+        out = shade_cuda.bounce_tail(cfg, tabs, tstate, hit, info, mat,
+                                     live, receives, vtr, vd, vp)
         jstate = jint.bounce(jdata, jstatic, js, jtables, jstate, depth,
                              ha, hl)
         ra, rb = _np(jstate.radiance), out["radiance"].numpy()
@@ -156,7 +156,7 @@ def test_shadow_sort_key_matches_pallas_interpret():
     T = lambda a: torch.from_numpy(_np(a))  # noqa: E731
     cfg = shade_cuda.shadow_cfg(tdata, tstatic, ts,
                                 rng.build_sample_tables(ts, 1), depth)
-    lights, _spheres = shade_cuda.scene_tables(tdata, tstatic)
+    lights = shade_cuda.scene_tables(tdata, tstatic).lights
     got = shade_cuda.shadow_sort_key(
         cfg, lights, T(info.point), T(info.normal), T(info.offset_by),
         T(jstate.origin), T(jstate.direction), T(live), T(receives),
