@@ -19,7 +19,19 @@ Phases (any failed gate raises and the script exits non-zero):
    occlusion). Each kernel then runs on those inputs beside its twin,
    gated by the JAX package's fused-vs-unfused gates; kernel and twin are
    timed with CUDA events, and the twin's DE count (the finish kernel:
-   its bytes) gives the kernel's bound.
+   its bytes) gives the kernel's bound. Then the two-phase marches on
+   the relax-1 unfused path's inputs: the closest-hit march at depths 0
+   and 1 and the chained [12, N] shadow queue as the [12N] queue that
+   test_occluded passes. At phase-1 steps 8 and 32 (march) and 8 and 16
+   (occlusion), each function's phase-1 and resume kernels equal their
+   twins bit for bit (the resume on the twin's phase-1 outputs in the
+   function's lane order), and march_sorted and march_phased equal the
+   march kernel, march_occlusion_phased and march_occlusion_sorted the
+   occlusion kernel with no clip, bit for bit. On the depth-1 inputs, at
+   each function's JAX default split, phase 1, the resume, the whole
+   function (its sort or partition included), the single-phase kernel
+   and the plain function are timed; the script prints how many of the
+   queue's verdicts the bounding-sphere clip changes.
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
@@ -34,12 +46,15 @@ Phases (any failed gate raises and the script exits non-zero):
    twins at frame 101) and mean relative difference <= 1e-3
    (bench.py:117-151): the kernels against the plain twins on the fused
    path, on the relaxed path and on the split tail with MIS, and the
-   relax-1 unfused path against the fused image. The MIS image's mean
+   relax-1 unfused path against the fused image; the sorted two-phase
+   path (`march_sort_steps=8`, `occl_sort_steps=8`, unfused), kernels
+   against plain twins, and by RMSE only against the clipped unfused
+   image (its occlusion marches are unclipped). The MIS image's mean
    against the image without MIS is printed, not gated: MIS removes the
-   paired emitters' double count, so the mean moves by design. The relaxed image against the fused one is held to the
-   RMSE gate only: over-relaxed marching darkens this scene by a few
+   paired emitters' double count, so the mean moves by design. The
+   relaxed image against the fused one is held to the RMSE gate only: over-relaxed marching darkens this scene by a few
    percent (in the JAX package too), and the script prints by how much.
-7. Profile (only with --profile; run after phase 11, so that no main
+7. Profile (only with --profile; run after phase 12, so that no main
    path runs after the profiler): five unprofiled 2^20-ray passes of the
    phase-4 workload, each timed on the host clock up to
    `torch.cuda.synchronize()`, then one pass under `torch.profiler`. The
@@ -48,8 +63,9 @@ Phases (any failed gate raises and the script exits non-zero):
    profiler's own launch tracing inflates the profiled pass's wall, so
    that wall is printed but not used). Also prints the launch count and
    device time by kernel name. The same again for the phase-8 workload
-   and for phase 4's workload on the relax-1 unfused path and on the
-   phase-10 split tail with MIS.
+   and for phase 4's workload on the relax-1 unfused path, on the
+   phase-10 split tail with MIS and on phase 12's sorted path; then the
+   fused, fused-MIS, split-MIS, unfused and sorted passes timed in turns.
 8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
    which takes the segment queue; the march and occlusion kernels must
    have launched, with phase 4's film gates.
@@ -68,6 +84,15 @@ Phases (any failed gate raises and the script exits non-zero):
    or tail kernel); MIS at relaxation 1.5 at 480x270 (march and
    occlusion); the spheres scene with MIS at 480x270 on the bounce tail
    and on the split tail (no SDF, so no sort key).
+12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
+   spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
+   with `march_sort_steps=8` and `occl_phase1_steps=16`; the march and
+   occlusion phase-1 and resume kernels must have launched and the
+   march, occlusion and chained kernels not, with the film gates. At
+   256x256, 4 spp: the film with `march_sort_steps=8` alone equals the
+   unfused film bit for bit, the film with `occl_sort_steps=8` equals the
+   one with `occl_phase1_steps=16`, and the sorted path's films at pass
+   sizes 2^16 and 2^15 agree to atol 2e-5.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -111,27 +136,53 @@ def de_flops(iterations: int) -> int:
     return 33 * iterations + 8
 
 
-# Wrapper names of the kernels, the TPU kernel each replaces (its name
-# in the kernels line, and its file:line), and its source.
-KERNEL_ROWS = (
-    ("intersect", "closest_hit_shading", "closest_hit_shading",
-     "rayn_tpu_torch/csrc/intersect.cu",
-     "rayn_tpu/ops/intersect_pallas.py:225"),
-    ("key", "shadow_sort_key", "shadow_sort_key",
-     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1971"),
-    ("tail", "bounce_tail", "bounce_tail_fused",
-     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1711"),
-    ("shadow", "shadow_radiance", "shadow_radiance",
-     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1886"),
-    ("finish", "finish_bounce", "finish_bounce_fused",
-     "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py:1562"),
-    ("march", "march", "march", "rayn_tpu_torch/csrc/march.cu",
-     "rayn_tpu/ops/march_pallas.py:124"),
-    ("occl", "march_occlusion", "march_occlusion",
-     "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py:780"),
-    ("chained", "march_occlusion_chained", "march_occlusion_chained",
-     "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py:959"),
+# The port's CUDA kernels: key, module of rayn_tpu_torch.ops, wrapper
+# name (each wrapper counts its launches and has a `_plain` twin).
+CUDA_KERNELS = (
+    ("intersect", "intersect_cuda", "closest_hit_shading"),
+    ("key", "shade_cuda", "shadow_sort_key"),
+    ("tail", "shade_cuda", "bounce_tail"),
+    ("shadow", "shade_cuda", "shadow_radiance"),
+    ("finish", "shade_cuda", "finish_bounce"),
+    ("march", "march_cuda", "march"),
+    ("occl", "march_cuda", "march_occlusion"),
+    ("chained", "march_cuda", "march_occlusion_chained"),
+    ("march_p1", "march_cuda", "march_phase1"),
+    ("march_resume", "march_cuda", "march_resume"),
+    ("occl_p1", "march_cuda", "occlusion_phase1"),
+    ("occl_resume", "march_cuda", "occlusion_resume"),
 )
+
+# The TPU kernels (every function that reaches pl.pallas_call): its name
+# in the kernels line, the port's source, its file:line, and the keys of
+# the CUDA kernels that compute it.
+MD, MP = "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py"
+KERNEL_ROWS = (
+    ("closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
+     "rayn_tpu/ops/intersect_pallas.py:225", ("intersect",)),
+    ("shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1971", ("key",)),
+    ("bounce_tail_fused", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1711", ("tail",)),
+    ("shadow_radiance", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1886", ("shadow",)),
+    ("finish_bounce_fused", "rayn_tpu_torch/csrc/shade.cu",
+     "rayn_tpu/ops/shade_pallas.py:1562", ("finish",)),
+    ("march", MD, f"{MP}:124", ("march",)),
+    ("march_occlusion", MD, f"{MP}:780", ("occl",)),
+    ("march_occlusion_chained", MD, f"{MP}:959", ("chained",)),
+    ("march_sorted", MD, f"{MP}:163", ("march_p1", "march_resume")),
+    ("march_occlusion_phased", MD, f"{MP}:582", ("occl_p1", "occl_resume")),
+    ("march_occlusion_sorted", MD, f"{MP}:677", ("occl_p1", "occl_resume")),
+    ("march_phased", MD, f"{MP}:421", ("march_p1", "march_resume")),
+)
+# The phase-1 steps of the two-phase functions in phase 3 (the JAX
+# defaults; the sorted ones are also phase 12's settings).
+SPLITS = {"march_sorted": (8, 32), "march_phased": (8, 32),
+          "march_occlusion_phased": (8, 16),
+          "march_occlusion_sorted": (8, 16)}
+ROW_SPLIT = {"march_sorted": 8, "march_phased": 32,
+             "march_occlusion_phased": 16, "march_occlusion_sorted": 8}
 
 
 def gate(cond, what: str) -> None:
@@ -311,8 +362,8 @@ def main(argv=None) -> int:
     log(f"[2 build] {build_s:.1f} s")
     for entry, p in ptx.items():
         log(f"[2 build] {entry}: {p}")
-    gate(len(ptx) >= len(KERNEL_ROWS),
-         f"ptxas reported {len(ptx)} kernels, expected {len(KERNEL_ROWS)}")
+    gate(len(ptx) >= len(CUDA_KERNELS),
+         f"ptxas reported {len(ptx)} kernels, expected {len(CUDA_KERNELS)}")
     record["build"] = dict(seconds=build_s, ptxas=ptx)
 
     W, H = MAIN_RES
@@ -324,16 +375,17 @@ def main(argv=None) -> int:
     split_s = dataclasses.replace(mis_s, use_fused_bounce_tail=False)
     unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
                                     use_fused_shadows=False)
+    sorted_kw = dict(march_sort_steps=8, occl_sort_steps=8)
+    sorted_s = dataclasses.replace(unfused_s, **sorted_kw)
     data, static, cam = presets.default_scene(resolution=(W, H),
                                               device=dev)
     flops_per_de = de_flops(data.sdf_params.iterations)
 
     # ------------------------------------ 3. kernels vs plain twins
-    mods = {"intersect": intersect_cuda, "key": shade_cuda,
-            "tail": shade_cuda, "shadow": shade_cuda, "finish": shade_cuda,
-            "march": march_cuda, "occl": march_cuda, "chained": march_cuda}
-    wrappers = {key: (mods[key], attr, getattr(mods[key], attr + "_plain"))
-                for key, attr, _name, _src, _rep in KERNEL_ROWS}
+    mods = {"intersect_cuda": intersect_cuda, "shade_cuda": shade_cuda,
+            "march_cuda": march_cuda}
+    wrappers = {key: (mods[mod], attr, getattr(mods[mod], attr + "_plain"))
+                for key, mod, attr in CUDA_KERNELS}
     kernels = {key: getattr(mod, attr)
                for key, (mod, attr, _p) in wrappers.items()}
 
@@ -395,10 +447,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def de_evals(key, a, kw, out):
-        """MandelBox DEs the kernel needs on these inputs, counted from
-        the plain twin's lanes at each step (plus the intersect's four
-        normal taps per SDF hit)."""
+    def count_des(fn, a, kw):
+        """MandelBox DEs of fn(*a, **kw), a plain twin or a function of
+        them: the lanes of each of its march steps."""
         n_de = [0]
         orig = march_ops.dist_c
 
@@ -408,12 +459,28 @@ def main(argv=None) -> int:
 
         march_ops.dist_c = counting
         try:
-            wrappers[key][2](*a, **kw)
+            fn(*a, **kw)
         finally:
             march_ops.dist_c = orig
-        if key == "intersect":
-            n_de[0] += 4 * int((out[0].obj == static.n_spheres).sum())
         return n_de[0]
+
+    def de_evals(key, a, kw, out):
+        """MandelBox DEs the kernel needs on these inputs, counted from
+        the plain twin's lanes at each step (plus the intersect's four
+        normal taps per SDF hit)."""
+        n_de = count_des(wrappers[key][2], a, kw)
+        if key == "intersect":
+            n_de += 4 * int((out[0].obj == static.n_spheres).sum())
+        return n_de
+
+    def bound(n_de, ins, outs):
+        """(bound ms, what bounds it, bytes) of a call that needs n_de DEs
+        and reads `ins` and writes `outs` once."""
+        n_bytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        ops_ms = n_de * flops_per_de / PEAK_F32_FLOPS * 1e3
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes", n_bytes)
 
     def check_march(label, got, want, t_max, act):
         hit_g, hit_w = got < t_max, want < t_max
@@ -533,8 +600,127 @@ def main(argv=None) -> int:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             del out, ins, outs
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
+    del got, want
+
+    # ----------------- 3, continued: the two-phase marches, same inputs
+    def same_bits(got, want):
+        """Equal bit for bit (float NaNs of any payload count as equal)."""
+        if got.dtype == torch.bool:
+            return torch.equal(got, want)
+        return bool(((got.view(torch.int32) == want.view(torch.int32))
+                     | (torch.isnan(got) & torch.isnan(want))).all())
+
+    def max_diff(got, want):
+        """max |got - want| where neither is NaN (verdicts: 1.0 if any
+        differs)."""
+        if got.dtype == torch.bool:
+            return float(bool((got != want).any()))
+        d = (got - want).abs()
+        d = d[~torch.isnan(d)]
+        return d.max().item() if d.numel() else 0.0
+
+    def phase_pair(label, p1, resume, head, steps, act, split, order_of):
+        """Phase 1 and the resume, each kernel against its twin bit for
+        bit on the same inputs (the resume on the twin's phase-1 outputs
+        in the function's lane order). Returns the resume's arguments and
+        the largest difference."""
+        got1 = kernels[p1](*head, split, act)
+        want1 = wrappers[p1][2](*head, split, act)
+        gate(all(same_bits(g, w) for g, w in zip(got1, want1)),
+             f"{label}: phase-1 kernel differs from its twin")
+        rest = (*head, steps - split, *want1, order_of(want1))
+        got2, want2 = kernels[resume](*rest), wrappers[resume][2](*rest)
+        gate(same_bits(got2, want2),
+             f"{label}: resume kernel differs from its twin")
+        n_act = max(int(act.sum()), 1)
+        log(f"[3 two-phase] {label}: phase 1 and resume equal their twins "
+            f"bit for bit; {int((~want1[-1]).sum())} of {n_act} active "
+            f"lanes unresolved after {split} steps")
+        return rest, max([max_diff(g, w) for g, w in zip(got1, want1)]
+                         + [max_diff(got2, want2)])
+
+    two_phase, clip_changes = {}, {}
+    two_phase_err = {fname: 0.0 for fname in SPLITS}
+    for depth in (0, 1):
+        a, kw = captured[("unfused", "march")][depth]
+        mb, act, steps = a[0], kw["active"], kw["max_steps"]
+        mhead = (*a, kw["eps_const"], kw["eps_abs"], kw["eps_lin"])
+        single = kernels["march"](*mhead, steps, act)
+        a, kw = captured[("unfused", "chained")][depth]
+        ohead = (mb, a[1].reshape(-1, 3), a[2].reshape(-1, 3), a[3])
+        oact, osteps = a[5].reshape(-1), a[4]
+        unclipped = kernels["occl"](*ohead, osteps, oact, bound_radius=0.0)
+        clipped = kernels["chained"](*a, **kw).reshape(-1)
+        clip_changes[depth] = int(((unclipped != clipped) & oact).sum())
+        log(f"[3 two-phase] depth {depth}: the bounding-sphere clip changes "
+            f"{clip_changes[depth]} of {int(oact.sum())} active verdicts of "
+            f"the {oact.numel()}-segment queue")
+        seg = ohead[2] - ohead[1]
+        seg_len = torch.sqrt((seg * seg).sum(-1))
+        del seg
+        for fname, splits in SPLITS.items():
+            is_march = fname in ("march_sorted", "march_phased")
+            head, act_, steps_, want = ((mhead, act, steps, single) if is_march
+                                        else (ohead, oact, osteps, unclipped))
+            p1, res_k = (("march_p1", "march_resume") if is_march
+                         else ("occl_p1", "occl_resume"))
+            length = mhead[3] if is_march else seg_len
+            fn = getattr(march_cuda, fname)
+            for split in splits:
+                label = f"{fname} depth {depth} split {split}"
+
+                def order_of(out1):
+                    """The function's own lane order from phase 1's
+                    (.., t1, resolved)."""
+                    if fname in ("march_sorted", "march_occlusion_sorted"):
+                        return march_cuda.sorted_order(out1[-1], length,
+                                                       out1[-2], split)
+                    return march_cuda.partition_order(out1[-1])
+
+                rest, err = phase_pair(label, p1, res_k, head, steps_, act_,
+                                       split, order_of)
+                got = fn(*head, steps_, act_, phase1_steps=split)
+                gate(same_bits(got, want),
+                     f"{label}: differs from the single-phase kernel")
+                two_phase_err[fname] = max(two_phase_err[fname], err,
+                                           max_diff(got, want))
+                log(f"[3 two-phase] {label}: equal to the single-phase "
+                    "kernel bit for bit")
+                if depth == 0 or split != ROW_SPLIT[fname]:
+                    continue
+                # times and bound on the depth-1 inputs at the row's split
+                with plain_twins():
+                    plain_ms = timed(fn, (*head, steps_, act_),
+                                     dict(phase1_steps=split), reps=1)
+                    n_de = count_des(fn, (*head, steps_, act_),
+                                     dict(phase1_steps=split))
+                ins = ([*head[1:4], *head[5:], act_] if is_march
+                       else [*head[1:3], act_])
+                b_ms, b_by, n_bytes = bound(n_de, ins, [got])
+                r = dict(ms=timed(fn, (*head, steps_, act_),
+                                  dict(phase1_steps=split), reps=5),
+                         single_ms=timed(kernels["march" if is_march
+                                                 else "occl"],
+                                         (*head, steps_, act_),
+                                         {} if is_march else
+                                         dict(bound_radius=0.0), reps=5),
+                         plain_ms=plain_ms, de_evals=n_de, bytes=n_bytes,
+                         bound_ms=b_ms, bound_by=b_by, split=split,
+                         phase1_ms=timed(kernels[p1], (*head, split, act_),
+                                         {}, reps=5),
+                         resume_ms=timed(kernels[res_k], rest, {}, reps=5))
+                two_phase[fname] = r
+                log(f"[3 two-phase] {fname} (depth 1, split {split}): "
+                    f"{r['ms']:.3f} ms with its lane order, phase 1 "
+                    f"{r['phase1_ms']:.3f} ms, resume {r['resume_ms']:.3f} "
+                    f"ms; single-phase kernel {r['single_ms']:.3f} ms; plain "
+                    f"{plain_ms:.3f} ms; {n_de} DEs, bound {b_ms:.3f} ms by "
+                    f"{b_by}")
+        del single, unclipped, clipped, got, want, seg_len, length
+    record["two_phase"] = dict(two_phase, clip_changes=clip_changes,
+                               max_abs_err=two_phase_err)
     # drop the last captured inputs too, or they count in phase 4's peak
-    del captured, a, kw, got, want
+    del captured, a, kw, mhead, ohead, head, rest, act, oact, act_
     torch.cuda.empty_cache()
 
     def reset_launches():
@@ -646,14 +832,19 @@ def main(argv=None) -> int:
 
     relaxed = dict(march_relaxation=RELAX)
     split_mis = dict(mis=True, use_fused_bounce_tail=False)
+    unfused = dict(use_fused_intersect=False, use_fused_shadows=False)
+    two_phase6 = dict(unfused, **sorted_kw)
     img_k = render6(1)
     img_rk = render6(1, **relaxed)
     img_sk = render6(1, **split_mis)
+    img_tk = render6(1, **two_phase6)
+    img_uk = render6(1, **unfused)
     with plain_twins():
         img_p = render6(1)
         img_null = render6(101)
         img_rp = render6(1, **relaxed)
         img_sp = render6(1, **split_mis)
+        img_tp = render6(1, **two_phase6)
     mis_ratio = float(img_sk.mean() / img_k.mean())
     log(f"[6 image] mis=True against mis=False at {res6[0]}x{res6[1]} @ "
         f"{spp6} spp: mean ratio {mis_ratio:.6f} (not gated: MIS removes "
@@ -677,9 +868,15 @@ def main(argv=None) -> int:
             "relaxed path vs fused path", img_rk, img_k, null,
             gate_mean=False),
         "unfused_vs_fused": image_gate(
-            "relax-1 unfused path vs fused path",
-            render6(1, use_fused_intersect=False, use_fused_shadows=False),
-            img_k, null)}
+            "relax-1 unfused path vs fused path", img_uk, img_k, null),
+        "two_phase_kernels_vs_plain": image_gate(
+            "sorted two-phase path, kernels vs plain twins", img_tk, img_tp,
+            null),
+        # the two-phase occlusion marches unclipped, the unfused path with
+        # the bounding-sphere clip, so only the RMSE is gated
+        "two_phase_vs_unfused": image_gate(
+            "sorted two-phase path vs clipped unfused path", img_tk, img_uk,
+            null, gate_mean=False)}
 
     # ------------------------------------------- 8. relaxed main path
     record["relaxed"] = main_path("8 relaxed", relax_s, MAIN_RES,
@@ -741,6 +938,36 @@ def main(argv=None) -> int:
             absent=("key", "tail")),
     }
 
+    # ------------------------------------------ 12. the two-phase marches
+    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume")
+    absent12 = ("march", "occl", "chained")
+    record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
+                                 absent=absent12)
+    record["phased"] = main_path(
+        "12 phased", dataclasses.replace(
+            unfused_s, resolution=UNFUSED_RES, march_sort_steps=8,
+            occl_phase1_steps=16), UNFUSED_RES, need12, absent=absent12)
+    unf5 = dict(use_fused_intersect=False, use_fused_shadows=False)
+    same12 = {}
+    for label, x_kw, y_kw in (
+            ("march_sort_steps=8 vs unfused", dict(march_sort_steps=8), {}),
+            ("occl_sort_steps=8 vs occl_phase1_steps=16",
+             dict(occl_sort_steps=8), dict(occl_phase1_steps=16))):
+        x, y = render5(**unf5, **x_kw), render5(**unf5, **y_kw)
+        same12[label] = all(torch.equal(u, v) for u, v in zip(x, y))
+        gate(same12[label], f"12 invariants: {label}: films differ")
+    del x, y
+    p16 = render5(rays_per_pass=INV_PASSES[0], **unf5, **sorted_kw)
+    p15 = render5(rays_per_pass=INV_PASSES[1], **unf5, **sorted_kw)
+    same12["2^16 vs 2^15 passes, max |d|"] = max(
+        (u - v).abs().max().item() for u, v in zip(p16, p15))
+    gate(same12["2^16 vs 2^15 passes, max |d|"] <= 2e-5,
+         f"12 invariants: sorted pass-size films differ: {same12}")
+    del p16, p15
+    log(f"[12 invariants] at {res5[0]}x{res5[1]}, 4 spp, bit for bit: "
+        f"{same12}")
+    record["invariants"]["two_phase"] = same12
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -756,13 +983,16 @@ def main(argv=None) -> int:
             label: profile_pass(pass7(s), label)
             for label, s in (("fused", main_s), ("relaxed", relax_s),
                              ("unfused", unfused_s),
-                             ("split mis", split_s))}
+                             ("split mis", split_s), ("sorted", sorted_s))}
         # The host's launch rate drifts within a call, so the fused pass,
-        # the fused pass with MIS and the split tail with MIS are also
-        # timed alternately, the order reversed every other round.
-        walls7 = {"fused": [], "fused mis": [], "split mis": []}
+        # the fused pass with MIS, the split tail with MIS, the relax-1
+        # unfused pass and the sorted two-phase pass are also timed
+        # alternately, the order reversed every other round.
+        walls7 = {"fused": [], "fused mis": [], "split mis": [],
+                  "unfused": [], "sorted": []}
         fns7 = {"fused": pass7(main_s), "fused mis": pass7(mis_s),
-                "split mis": pass7(split_s)}
+                "split mis": pass7(split_s), "unfused": pass7(unfused_s),
+                "sorted": pass7(sorted_s)}
         for r in range(8):
             for label in (list(walls7) if r % 2 == 0 else
                           list(walls7)[::-1]):
@@ -779,21 +1009,33 @@ def main(argv=None) -> int:
 
     # each kernel's launches come from the main path that runs it; the
     # march kernel is timed and bounded on the relaxed path's inputs and
-    # carries the larger error of its two paths
+    # carries the larger error of its two paths. A two-phase function's
+    # launches are its phase-1 kernel's on the phase-12 path that takes it
+    # (march_phased: no setting reaches it, in the JAX package either;
+    # its kernels are march_sorted's).
     phase_of = {"intersect": "main", "key": "main", "tail": "main",
                 "shadow": "split", "finish": "split", "march": "relaxed",
                 "occl": "relaxed", "chained": "unfused"}
+    phase12_of = {"march_sorted": "sorted", "march_phased": "sorted",
+                  "march_occlusion_sorted": "sorted",
+                  "march_occlusion_phased": "phased"}
     kern = []
-    for key, _attr, kname, src, rep in KERNEL_ROWS:
-        path = {"main": "fused", "split": "split mis"}.get(phase_of[key],
-                                                           phase_of[key])
-        r = results[(path, key)]
-        err = max(v["max_abs_err"] for (_p, k), v in results.items()
-                  if k == key)
+    for kname, src, rep, keys in KERNEL_ROWS:
+        key = keys[0]
+        if kname in two_phase:
+            r = two_phase[kname]
+            err = two_phase_err[kname]
+            launches = record[phase12_of[kname]]["launches"][key]
+        else:
+            path = {"main": "fused", "split": "split mis"}.get(
+                phase_of[key], phase_of[key])
+            r = results[(path, key)]
+            err = max(v["max_abs_err"] for (_p, k), v in results.items()
+                      if k == key)
+            launches = record[phase_of[key]]["launches"][key]
         kern.append(dict(
             name=kname, route="cuda", source=src, replaces=rep,
-            launches=record[phase_of[key]]["launches"][key],
-            max_abs_err=err, ms=r["ms"],
+            launches=launches, max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None))
     record["kernels"] = kern

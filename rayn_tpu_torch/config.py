@@ -4,10 +4,9 @@ The frozen dataclass of `rayn_tpu.config.RenderSettings`, so a settings
 object means the same render in both packages. The fields that only
 sized Pallas blocks on the TPU (`pallas_block_rows`,
 `pallas_occl_block_rows`, `chained_advance_group`) are left out: nothing
-here reads them. The phased/sorted march fields are kept, so that the
-JAX package's values carry across; values that select a path the port
-has not implemented yet make `render_frame` raise `NotImplementedError`
-(see `unsupported_reason`).
+here reads them. Values that select a path the port has not implemented
+yet make `render_frame` raise `NotImplementedError` (see
+`unsupported_reason`).
 """
 
 from __future__ import annotations
@@ -92,15 +91,12 @@ def unsupported_reason(s: RenderSettings) -> str | None:
     marching and `use_fused_shadows` the fused kernels run (the bounce
     tail, or with `use_fused_bounce_tail=False` / `use_fused_finish=False`
     the split shadow-radiance and finish kernels); relaxed marching or
-    `use_fused_shadows=False` takes the segment queue. The phased and
-    sorted marches are not ported yet."""
+    `use_fused_shadows=False` takes the segment queue. At relax 1,
+    `march_sort_steps` then sends the unfused closest-hit march, and
+    `occl_sort_steps` or `occl_phase1_steps` the segment queue's shadow
+    marches, to the two-phase marches, as in the JAX package
+    (ops/intersect.py)."""
     checks = (
-        (s.march_sort_steps != 0,
-         "march_sort_steps != 0 (the march_sorted kernel)"),
-        (s.occl_phase1_steps != 0,
-         "occl_phase1_steps != 0 (the march_occlusion_phased kernel)"),
-        (s.occl_sort_steps != 0,
-         "occl_sort_steps != 0 (the march_occlusion_sorted kernel)"),
         (s.shadow_de_iterations != 0, "shadow_de_iterations != 0"),
         (bool(s.extra_aovs), "extra_aovs"),
         (s.compact_bounces, "compact_bounces=True"),

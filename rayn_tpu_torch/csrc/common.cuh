@@ -461,6 +461,19 @@ __device__ __forceinline__ void scatter(
   }
 }
 
+// The unit direction d and the length md of segment s->e.
+__device__ __forceinline__ void segment_dir(float sx, float sy, float sz,
+                                            float ex, float ey, float ez,
+                                            float& dx, float& dy, float& dz,
+                                            float& md) {
+  const float gx = ex - sx, gy = ey - sy, gz = ez - sz;
+  md = sqrtf(gx * gx + gy * gy + gz * gz);
+  const float inv = 1.0f / md;
+  dx = gx * inv;
+  dy = gy * inv;
+  dz = gz * inv;
+}
+
 // march_pallas._segment_entry (reference src/sdf.rs:25-57) for segment
 // s->e: its direction d, its march length md (clipped to the bounding
 // sphere when bv_r > 0) and its first march distance t0. False when the
@@ -472,12 +485,7 @@ __device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
                                               float ez, float& dx, float& dy,
                                               float& dz, float& md,
                                               float& t0) {
-  const float gx = ex - sx, gy = ey - sy, gz = ez - sz;
-  md = sqrtf(gx * gx + gy * gy + gz * gz);
-  const float inv = 1.0f / md;
-  dx = gx * inv;
-  dy = gy * inv;
-  dz = gz * inv;
+  segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
   const float dist0 = mandelbox_de(mb, sx, sy, sz);
   if (isnan(dist0)) return false;
   t0 = dist0;

@@ -41,7 +41,9 @@ def closest_hit(data: SceneData, static: SceneStatic,
                 settings: RenderSettings, origin, direction, time, t_max,
                 hps_abs, hps_lin, active) -> Hit:
     """Closest hit across all spheres and the SDF; the SDF is marched
-    with the sphere fold's closest t as its t_max."""
+    with the sphere fold's closest t as its t_max, by march_sorted with
+    plain marching and `march_sort_steps` > 0 (as the JAX package routes
+    it), else by the march kernel."""
     n = origin.shape[0]
     best_t = t_max
     best_obj = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
@@ -55,12 +57,17 @@ def closest_hit(data: SceneData, static: SceneStatic,
         best_obj = torch.where(closer, sph_id.to(torch.int32), best_obj)
     if static.has_sdf:
         detail = settings.sdf_detail_scale
-        t_sdf = march_cuda.march(
-            data.sdf_params, origin, direction, best_t,
-            eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
-            eps_lin=0.05 * detail * hps_lin,
-            max_steps=settings.max_marches, active=active,
-            relax=settings.march_relaxation)
+        kw = dict(eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
+                  eps_lin=0.05 * detail * hps_lin,
+                  max_steps=settings.max_marches, active=active)
+        if settings.march_sort_steps > 0 and settings.march_relaxation == 1:
+            t_sdf = march_cuda.march_sorted(
+                data.sdf_params, origin, direction, best_t,
+                phase1_steps=settings.march_sort_steps, **kw)
+        else:
+            t_sdf = march_cuda.march(data.sdf_params, origin, direction,
+                                     best_t, relax=settings.march_relaxation,
+                                     **kw)
         closer = t_sdf < best_t
         best_t = torch.where(closer, t_sdf, best_t)
         best_obj = torch.where(closer, static.n_spheres, best_obj)
@@ -74,12 +81,18 @@ def test_occluded(data: SceneData, static: SceneStatic,
     start -> end: the spheres first, then the SDF march of the segments
     still active and unblocked (reference src/hitable.rs:163-168).
 
-    segments > 1 declares the queue to be `segments` equal groups
-    concatenated segment-major (segment k of ray i at k * M / segments +
-    i). With plain marching and `chained_shadow_march`, the SDF verdicts
-    then come from the chained kernel, one thread per ray walking its
-    segments; otherwise from the one-segment kernel. Both give the same
-    verdicts."""
+    The SDF verdicts come from the first of these that applies, in the
+    JAX package's order (rayn_tpu/ops/intersect.py:153-199):
+    - plain marching with `occl_sort_steps` > 0: march_occlusion_sorted;
+    - plain marching with `occl_phase1_steps` > 0: march_occlusion_phased;
+      these two march the whole segment with no bounding-sphere clip,
+      whatever `shadow_bv_clip` says, as in the JAX package;
+    - plain marching, `chained_shadow_march` and segments > 1 (the queue
+      is `segments` equal groups concatenated segment-major, segment k of
+      ray i at k * M / segments + i): the chained kernel, one thread per
+      ray walking its segments;
+    - else the one-segment kernel.
+    The chained and one-segment kernels give the same verdicts."""
     s = settings
     m = start.shape[0]
     occluded = torch.zeros((m,), dtype=torch.bool, device=start.device)
@@ -91,7 +104,15 @@ def test_occluded(data: SceneData, static: SceneStatic,
         detail = s.sdf_detail_scale * s.shadow_eps_scale
         bv_r = float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0
         m_act = active & ~occluded
-        if (1 < segments <= 30 and s.chained_shadow_march
+        if s.march_relaxation == 1.0 and s.occl_sort_steps > 0:
+            occ_sdf = march_cuda.march_occlusion_sorted(
+                data.sdf_params, start, end, detail, s.max_vis_marches,
+                m_act, phase1_steps=s.occl_sort_steps)
+        elif s.march_relaxation == 1.0 and s.occl_phase1_steps > 0:
+            occ_sdf = march_cuda.march_occlusion_phased(
+                data.sdf_params, start, end, detail, s.max_vis_marches,
+                m_act, phase1_steps=s.occl_phase1_steps)
+        elif (1 < segments <= 30 and s.chained_shadow_march
                 and s.march_relaxation == 1.0 and m % segments == 0):
             k, n = segments, m // segments
             occ_sdf = march_cuda.march_occlusion_chained(

@@ -17,6 +17,14 @@ t_prev + r_prev. relax == 1 is the reference algorithm.
 
 Hit thresholds are cone-traced: max(eps_const, eps_abs + eps_lin * t)
 (reference src/camera.rs:116-118, src/film.rs:547-551).
+
+The two-phase marches (march_pallas.march_sorted, march_phased,
+march_occlusion_phased, march_occlusion_sorted) split the plain march
+into a step-capped phase 1 that reports which lanes resolved, and a
+resume that finishes the others from phase 1's t: `march_phase1` /
+`march_resume` and `occlusion_phase1` / `occlusion_resume` are the plain
+twins of their four kernels. Each lane takes the same steps as in one
+uncapped march, so the composition is bit-identical to it.
 """
 
 from __future__ import annotations
@@ -33,6 +41,33 @@ def _de_at(mb, origin, direction, idx, t):
                   o[:, 2] + t * d[:, 2])
 
 
+def _march_steps(mb, origin, direction, t_max, eps_const: float, eps_abs,
+                 eps_lin, t, live, steps: int):
+    """At most `steps` plain (relax 1) steps of the lanes `live`, with t
+    advanced in place; returns the lanes that neither met their
+    threshold nor passed t_max in them."""
+    for _ in range(steps):
+        if live.numel() == 0:
+            break
+        tl = t[live]
+        r = _de_at(mb, origin, direction, live, tl)
+        thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
+                             min=eps_const)
+        step = ~((torch.abs(r) < thresh) | (tl > t_max[live]))
+        live = live[step]
+        t[live] = tl[step] + r[step]
+    return live
+
+
+def _first_de(mb, origin, t_max, act):
+    """t of every lane before its first step: the DE at the origin, or
+    t_max + 1 for an inactive lane."""
+    t = t_max + 1.0
+    o = origin[act]
+    t[act] = dist_c(mb, o[:, 0], o[:, 1], o[:, 2])
+    return t
+
+
 def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
           eps_abs, eps_lin, max_steps: int, active=None,
           relax: float = 1.0) -> torch.Tensor:
@@ -41,11 +76,13 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
     the lane at NaN (reference src/sdf.rs:59-83)."""
     act = (torch.ones_like(t_max, dtype=torch.bool) if active is None
            else active)
-    t = t_max + 1.0
-    o = origin[act]
-    t[act] = dist_c(mb, o[:, 0], o[:, 1], o[:, 2])
+    t = _first_de(mb, origin, t_max, act)
     # NaN and past-the-end lanes are done at their first step
     live = torch.nonzero(act & (t <= t_max)).squeeze(1)
+    if relax == 1.0:
+        _march_steps(mb, origin, direction, t_max, eps_const, eps_abs,
+                     eps_lin, t, live, max_steps)
+        return t
     t_prev = torch.zeros_like(t)
     r_prev = t.clone()
     for _ in range(max_steps):
@@ -56,11 +93,6 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
                              min=eps_const)
         done = (torch.abs(r) < thresh) | (tl > t_max[live])
-        if relax == 1.0:
-            step = ~done
-            live = live[step]
-            t[live] = tl[step] + r[step]
-            continue
         tp, rp = t_prev[live], r_prev[live]
         overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
         step = ~(done & ~overshoot)
@@ -73,6 +105,42 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
     return t
 
 
+def march_phase1(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, steps: int, active):
+    """Phase 1 of the two-phase march (march_pallas._march_phase1_kernel):
+    every lane takes at most `steps` plain steps. Returns (t1, resolved):
+    t as `march` has it after those steps, and whether the lane is done:
+    inactive, NaN at its first DE, or it met its threshold or passed
+    t_max within them."""
+    t = _first_de(mb, origin, t_max, active)
+    live = torch.nonzero(active & ~torch.isnan(t)).squeeze(1)
+    live = _march_steps(mb, origin, direction, t_max, eps_const, eps_abs,
+                        eps_lin, t, live, steps)
+    resolved = torch.ones_like(active)
+    resolved[live] = False
+    return t, resolved
+
+
+def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, steps: int, t1, resolved, order):
+    """Phase 2 (march_pallas._march_resume_kernel): the lanes in `order`
+    that phase 1 left unresolved march on from t1 for at most `steps`
+    more plain steps. Returns a copy of t1 with their final t."""
+    t = t1.clone()
+    _march_steps(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+                 t, order[~resolved[order]], steps)
+    return t
+
+
+def _segment_dir(start, end):
+    """Unit direction [N, 3] and length of the segments start -> end."""
+    seg = end - start
+    gx, gy, gz = seg[:, 0], seg[:, 1], seg[:, 2]
+    md = _sqrt(gx * gx + gy * gy + gz * gz)
+    inv = 1.0 / md
+    return torch.stack([gx * inv, gy * inv, gz * inv], dim=-1), md
+
+
 def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     """Shadow-segment entry (port of march_pallas._segment_entry):
     (unit direction [N,3], effective length md, first t0, entry-resolved
@@ -80,12 +148,8 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     the origin-centred bounding sphere: lanes that miss it resolve at
     entry, the march starts at the sphere entry and ends at its exit.
     The first DE is evaluated for active lanes only (NaN elsewhere)."""
-    seg = end - start
     sx, sy, sz = start[:, 0], start[:, 1], start[:, 2]
-    gx, gy, gz = seg[:, 0], seg[:, 1], seg[:, 2]
-    md = _sqrt(gx * gx + gy * gy + gz * gz)
-    inv = 1.0 / md
-    d = torch.stack([gx * inv, gy * inv, gz * inv], dim=-1)
+    d, md = _segment_dir(start, end)
     dist0 = torch.full_like(sx, float("nan"))
     s = start[act]
     dist0[act] = dist_c(mb, s[:, 0], s[:, 1], s[:, 2])
@@ -104,6 +168,29 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     return d, md, t0, nan, dist0
 
 
+def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
+                steps: int):
+    """At most `steps` relax-1 occlusion steps of the segments `live`,
+    with t advanced in place: at each, a segment whose DE meets
+    max(eps_c, eps_l * t) before its end is occluded (set in `occ`), one
+    that hits or is past its end is done, and the others step on.
+    Returns the segments not done."""
+    eps_c = 1e-4 * detail_scale
+    eps_l = 1e-5 * detail_scale
+    for _ in range(steps):
+        if live.numel() == 0:
+            break
+        tl = t[live]
+        gt_end = tl > md[live]
+        r = _de_at(mb, start, d, live, tl)
+        hit = torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)
+        occ[live[hit & ~gt_end]] = True
+        step_on = ~(hit | gt_end)
+        live = live[step_on]
+        t[live] = tl[step_on] + r[step_on]
+    return live
+
+
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
                     max_steps: int, active, bound_radius: float = 0.0,
                     relax: float = 1.0):
@@ -115,11 +202,15 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     out of steps (the verdict of the JAX march_occlusion; reference
     src/sdf.rs:25-57). A relaxed step that overshoots is never a hit."""
     d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
-    eps_c = 1e-4 * detail_scale
-    eps_l = 1e-5 * detail_scale
     occ = torch.zeros_like(nan)
     live = torch.nonzero(~nan).squeeze(1)
     t = t.clone()
+    if relax == 1.0:
+        _occl_steps(mb, start, d, md, detail_scale, t, occ, live,
+                    max(max_steps, 1))
+        return occ
+    eps_c = 1e-4 * detail_scale
+    eps_l = 1e-5 * detail_scale
     t_prev = torch.zeros_like(t)
     r_prev = t.clone()
     for step in range(max(max_steps, 1)):
@@ -128,25 +219,53 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
         tl = t[live]
         gt_end = tl > md[live]
         r = _de_at(mb, start, d, live, tl)
-        hit = torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)
-        if relax != 1.0:
-            tp, rp = t_prev[live], r_prev[live]
-            overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
-            hit = hit & ~overshoot
-        done = hit | gt_end
+        tp, rp = t_prev[live], r_prev[live]
+        overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
+        hit = (torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)) & ~overshoot
         occ[live[hit & ~gt_end]] = True
         if step + 1 >= max_steps:
             break
-        step_on = ~done
-        if relax == 1.0:
-            nxt = tl + r
-        else:
-            adv = step_on & ~overshoot
-            t_prev[live[adv]] = tl[adv]
-            r_prev[live[adv]] = r[adv]
-            nxt = torch.where(overshoot, tp + rp, tl + relax * r)
+        step_on = ~(hit | gt_end)
+        adv = step_on & ~overshoot
+        t_prev[live[adv]] = tl[adv]
+        r_prev[live[adv]] = r[adv]
+        nxt = torch.where(overshoot, tp + rp, tl + relax * r)
         live = live[step_on]
         t[live] = nxt[step_on]
+    return occ
+
+
+def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
+                     steps: int, active):
+    """Phase 1 of the two-phase occlusion march
+    (march_pallas._occl_phase1_kernel): every segment takes at most
+    `steps` relax-1 steps from its first DE, with no bounding-sphere clip.
+    Returns (occluded, t1, resolved): the verdict so far, t after those
+    steps, and whether the segment hit or is past its end (an inactive or
+    NaN-entry segment is resolved and unblocked). With no step taken the
+    verdict is the kernel's `first DE < 1e-4` (march_pallas.py:518)."""
+    d, md, t0, nan, dist0 = segment_entry(mb, 0.0, start, end, active)
+    t = t0.clone()
+    occ = torch.zeros_like(nan)
+    live = torch.nonzero(~nan).squeeze(1)
+    if steps == 0:
+        occ[live] = (dist0[live] < 1e-4) & ~(t[live] > md[live])
+    live = _occl_steps(mb, start, d, md, detail_scale, t, occ, live, steps)
+    resolved = torch.ones_like(nan)
+    resolved[live] = (t[live] > md[live]) | occ[live]
+    return occ, t, resolved
+
+
+def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
+                     steps: int, occluded, t1, resolved, order):
+    """Phase 2 (march_pallas._occl_resume_kernel): the segments in
+    `order` that phase 1 left unresolved march on from t1 for at most
+    `steps` more relax-1 steps. Returns a copy of `occluded` with their
+    final verdicts."""
+    d, md = _segment_dir(start, end)
+    occ = occluded.clone()
+    _occl_steps(mb, start, d, md, detail_scale, t1.clone(), occ,
+                order[~resolved[order]], steps)
     return occ
 
 

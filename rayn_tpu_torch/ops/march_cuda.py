@@ -11,11 +11,27 @@ bounce runs (csrc/march.cu):
 - `march_occlusion_chained` replaces `march_occlusion_chained`
   (`_chained_occl_core`): K segments per ray, each with the relax-1
   verdict of `march_occlusion`.
+- `march_phase1` and `march_resume` replace `_march_phase1_kernel` and
+  `_march_resume_kernel`; `occlusion_phase1` and `occlusion_resume`
+  replace `_occl_phase1_kernel` and `_occl_resume_kernel`. Phase 1
+  marches every lane a capped number of steps and reports which lanes
+  resolved; the resume kernel takes a lane order and finishes the
+  unresolved lanes in place of a copy of phase 1's output, reading each
+  lane's inputs where they lie (on the TPU the stragglers were packed
+  by a payload sort or gathers instead).
 
-Each wrapper launches its kernel for CUDA tensors, counts the launch in
-its `launches` attribute, and raises on anything the kernel does not
-take. For CPU tensors it calls its `_plain` twin, which is the plain
-torch march of ops/march.py.
+On these four stand the TPU functions `march_sorted`, `march_phased`,
+`march_occlusion_phased` and `march_occlusion_sorted`: phase 1, then a
+lane order (a sort by the predicted remaining steps, or a stable
+partition with the unresolved lanes first), then the resume. None of
+them waits for the device. Each is bit-identical to the single-phase
+kernel at relax 1 (the occlusion ones at bound_radius 0): every lane
+takes the same steps, only the warps that run them change.
+
+Each kernel wrapper launches its kernel for CUDA tensors, counts the
+launch in its `launches` attribute, and raises on anything the kernel
+does not take. For CPU tensors it calls its `_plain` twin, which is the
+plain torch march of ops/march.py.
 """
 
 from __future__ import annotations
@@ -35,16 +51,17 @@ _P = ctypes.c_void_p
 class _MarchArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "origin", "direction", "t_max", "eps_abs", "eps_lin", "active",
-        "t")] + [
-        ("n", ctypes.c_int64), ("max_steps", ctypes.c_int), ("mb", MBox),
+        "t", "resolved", "order")] + [
+        ("n", ctypes.c_int64), ("n_order", ctypes.c_int64),
+        ("max_steps", ctypes.c_int), ("mb", MBox),
         ("eps_const", ctypes.c_float), ("relax", ctypes.c_float)]
 
 
 class _OcclArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
-        "start", "end", "active", "occluded")] + [
-        ("n", ctypes.c_int64), ("K", ctypes.c_int),
-        ("max_steps", ctypes.c_int), ("mb", MBox),
+        "start", "end", "active", "occluded", "t1", "resolved", "order")] + [
+        ("n", ctypes.c_int64), ("n_order", ctypes.c_int64),
+        ("K", ctypes.c_int), ("max_steps", ctypes.c_int), ("mb", MBox),
         ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float),
         ("relax", ctypes.c_float), ("bv_r", ctypes.c_float),
         ("bv_r2", ctypes.c_float)]
@@ -54,6 +71,35 @@ def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
     return t.device
+
+
+def _steps_at_least(steps: int, least: int, name: str) -> int:
+    if steps < least:
+        raise ValueError(f"{name} needs at least {least} steps, got {steps}")
+    return steps
+
+
+def _lane_order(order, resolved, dev) -> dict:
+    """The resume kernels' lane-order fields (order is 1-D int64)."""
+    n = resolved.shape[0]
+    return dict(resolved=check(resolved, "resolved", torch.bool, (n,), dev),
+                order=check(order, "order", torch.int64, (order.shape[0],),
+                            dev),
+                n_order=order.shape[0])
+
+
+def _march_args(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+                max_steps, t, dev, **fields) -> _MarchArgs:
+    n = origin.shape[0]
+    f32 = torch.float32
+    return _MarchArgs(
+        origin=check(origin, "origin", f32, (n, 3), dev),
+        direction=check(direction, "direction", f32, (n, 3), dev),
+        t_max=check(t_max, "t_max", f32, (n,), dev),
+        eps_abs=check(eps_abs, "eps_abs", f32, (n,), dev),
+        eps_lin=check(eps_lin, "eps_lin", f32, (n,), dev),
+        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mbox_struct(mb),
+        eps_const=eps_const, **fields)
 
 
 def march_plain(mb: MandelBox, origin, direction, t_max, eps_const: float,
@@ -74,17 +120,10 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
                            eps_lin, max_steps, active, relax)
     dev = _cuda_device(origin, "march")
     n = origin.shape[0]
-    f32 = torch.float32
-    t = torch.empty((n,), dtype=f32, device=dev)
-    args = _MarchArgs(
-        origin=check(origin, "origin", f32, (n, 3), dev),
-        direction=check(direction, "direction", f32, (n, 3), dev),
-        t_max=check(t_max, "t_max", f32, (n,), dev),
-        eps_abs=check(eps_abs, "eps_abs", f32, (n,), dev),
-        eps_lin=check(eps_lin, "eps_lin", f32, (n,), dev),
-        active=check(active, "active", torch.bool, (n,), dev),
-        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mbox_struct(mb),
-        eps_const=eps_const, relax=relax)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
+                       eps_lin, max_steps, t, dev, relax=relax,
+                       active=check(active, "active", torch.bool, (n,), dev))
     _build.launch("rayn_march", args, dev)
     march.launches += 1
     return t
@@ -93,19 +132,87 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
 march.launches = 0
 
 
+def march_phase1_plain(mb: MandelBox, origin, direction, t_max,
+                       eps_const: float, eps_abs, eps_lin, max_steps: int,
+                       active):
+    """Plain twin of the march phase-1 kernel (ops/march.py)."""
+    return march_ops.march_phase1(mb, origin, direction, t_max, eps_const,
+                                  eps_abs, eps_lin, max_steps, active)
+
+
+def march_phase1(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, max_steps: int, active):
+    """(t1 [N] f32, resolved [N] bool): every lane marched at most
+    `max_steps` (>= 0) plain steps; resolved where it is inactive, NaN at
+    its first DE, or met its threshold or passed t_max."""
+    if origin.device.type == "cpu":
+        return march_phase1_plain(mb, origin, direction, t_max, eps_const,
+                                  eps_abs, eps_lin, max_steps, active)
+    dev = _cuda_device(origin, "march_phase1")
+    n = origin.shape[0]
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    resolved = torch.empty((n,), dtype=torch.bool, device=dev)
+    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
+                       eps_lin, _steps_at_least(max_steps, 0, "march_phase1"),
+                       t, dev, relax=1.0, resolved=resolved.data_ptr(),
+                       active=check(active, "active", torch.bool, (n,), dev))
+    _build.launch("rayn_march_phase1", args, dev)
+    march_phase1.launches += 1
+    return t, resolved
+
+
+march_phase1.launches = 0
+
+
+def march_resume_plain(mb: MandelBox, origin, direction, t_max,
+                       eps_const: float, eps_abs, eps_lin, max_steps: int,
+                       t1, resolved, order):
+    """Plain twin of the march resume kernel (ops/march.py)."""
+    return march_ops.march_resume(mb, origin, direction, t_max, eps_const,
+                                  eps_abs, eps_lin, max_steps, t1, resolved,
+                                  order)
+
+
+def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, max_steps: int, t1, resolved, order):
+    """A copy of phase 1's t1 in which the lanes listed in `order`
+    (int64 lane indices) that phase 1 left unresolved have marched on
+    for at most `max_steps` more plain steps; thread i of the kernel
+    works on lane order[i]."""
+    if origin.device.type == "cpu":
+        return march_resume_plain(mb, origin, direction, t_max, eps_const,
+                                  eps_abs, eps_lin, max_steps, t1, resolved,
+                                  order)
+    dev = _cuda_device(origin, "march_resume")
+    n = origin.shape[0]
+    check(t1, "t1", torch.float32, (n,), dev)
+    t = t1.clone()
+    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
+                       eps_lin, _steps_at_least(max_steps, 0, "march_resume"),
+                       t, dev, relax=1.0, **_lane_order(order, resolved, dev))
+    _build.launch("rayn_march_resume", args, dev)
+    march_resume.launches += 1
+    return t
+
+
+march_resume.launches = 0
+
+
 def _occl_args(mb, start, end, active, out, detail_scale, max_steps, relax,
-               bound_radius, n, K, seg_shape, dev) -> _OcclArgs:
-    if max_steps < 1:
-        raise ValueError("the occlusion kernels need max_steps >= 1")
+               bound_radius, n, K, seg_shape, dev, least_steps=1,
+               **fields) -> _OcclArgs:
     f32 = torch.float32
+    if active is not None:
+        fields["active"] = check(active, "active", torch.bool, seg_shape, dev)
     return _OcclArgs(
         start=check(start, "start", f32, seg_shape + (3,), dev),
         end=check(end, "end", f32, seg_shape + (3,), dev),
-        active=check(active, "active", torch.bool, seg_shape, dev),
-        occluded=out.data_ptr(), n=n, K=K, max_steps=max_steps,
+        occluded=out.data_ptr(), n=n, K=K,
+        max_steps=_steps_at_least(max_steps, least_steps,
+                                  "the occlusion kernel"),
         mb=mbox_struct(mb), eps_c=1e-4 * detail_scale,
         eps_l=1e-5 * detail_scale, relax=relax, bv_r=bound_radius,
-        bv_r2=float(bound_radius * bound_radius))
+        bv_r2=float(bound_radius * bound_radius), **fields)
 
 
 def march_occlusion_plain(mb: MandelBox, start, end, detail_scale: float,
@@ -164,3 +271,162 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
 
 
 march_occlusion_chained.launches = 0
+
+
+def occlusion_phase1_plain(mb: MandelBox, start, end, detail_scale: float,
+                           max_steps: int, active):
+    """Plain twin of the occlusion phase-1 kernel (ops/march.py)."""
+    return march_ops.occlusion_phase1(mb, start, end, detail_scale,
+                                      max_steps, active)
+
+
+def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
+                     max_steps: int, active):
+    """(occluded [M] bool, t1 [M] f32, resolved [M] bool): every segment
+    start -> end marched at most `max_steps` (>= 0) relax-1 steps with no
+    bounding-sphere clip; resolved where it hit or is past its end."""
+    if start.device.type == "cpu":
+        return occlusion_phase1_plain(mb, start, end, detail_scale,
+                                      max_steps, active)
+    dev = _cuda_device(start, "occlusion_phase1")
+    m = start.shape[0]
+    out = torch.empty((m,), dtype=torch.bool, device=dev)
+    t1 = torch.empty((m,), dtype=torch.float32, device=dev)
+    resolved = torch.empty((m,), dtype=torch.bool, device=dev)
+    args = _occl_args(mb, start, end, active, out, detail_scale, max_steps,
+                      1.0, 0.0, m, 1, (m,), dev, least_steps=0,
+                      t1=t1.data_ptr(), resolved=resolved.data_ptr())
+    _build.launch("rayn_occl_phase1", args, dev)
+    occlusion_phase1.launches += 1
+    return out, t1, resolved
+
+
+occlusion_phase1.launches = 0
+
+
+def occlusion_resume_plain(mb: MandelBox, start, end, detail_scale: float,
+                           max_steps: int, occluded, t1, resolved, order):
+    """Plain twin of the occlusion resume kernel (ops/march.py)."""
+    return march_ops.occlusion_resume(mb, start, end, detail_scale,
+                                      max_steps, occluded, t1, resolved,
+                                      order)
+
+
+def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
+                     max_steps: int, occluded, t1, resolved, order):
+    """A copy of phase 1's verdicts in which the segments listed in
+    `order` (int64 indices) that phase 1 left unresolved have marched on
+    from t1 for at most `max_steps` more relax-1 steps; thread i of the
+    kernel works on segment order[i]."""
+    if start.device.type == "cpu":
+        return occlusion_resume_plain(mb, start, end, detail_scale,
+                                      max_steps, occluded, t1, resolved,
+                                      order)
+    dev = _cuda_device(start, "occlusion_resume")
+    m = start.shape[0]
+    check(occluded, "occluded", torch.bool, (m,), dev)
+    out = occluded.clone()
+    args = _occl_args(mb, start, end, None, out, detail_scale, max_steps,
+                      1.0, 0.0, m, 1, (m,), dev, least_steps=0,
+                      t1=check(t1, "t1", torch.float32, (m,), dev),
+                      **_lane_order(order, resolved, dev))
+    _build.launch("rayn_occl_resume", args, dev)
+    occlusion_resume.launches += 1
+    return out
+
+
+occlusion_resume.launches = 0
+
+
+# ------------------------------------------------ the two-phase functions
+def _check_split(phase1_steps: int) -> None:
+    if phase1_steps < 0:
+        raise ValueError(f"phase1_steps must be >= 0, got {phase1_steps}")
+
+
+def partition_order(resolved):
+    """Lane order with the unresolved lanes first, each group in lane
+    order (march_pallas.py:465-471, :641-647)."""
+    return torch.argsort(resolved.to(torch.uint8), stable=True)
+
+
+def sorted_order(resolved, length, t1, phase1_steps: int):
+    """Lane order by predicted remaining steps, resolved lanes first:
+    the length left over phase 1's speed (march_pallas.py:209-213,
+    :740-746)."""
+    speed = torch.clamp(t1, min=1e-20) / float(phase1_steps)
+    return torch.argsort(torch.where(resolved, -1.0, (length - t1) / speed))
+
+
+def _march_two_phase(sort: bool, mb, origin, direction, t_max, eps_const,
+                     eps_abs, eps_lin, max_steps, active, phase1_steps):
+    _check_split(phase1_steps)
+    t1, resolved = march_phase1(mb, origin, direction, t_max, eps_const,
+                                eps_abs, eps_lin,
+                                min(phase1_steps, max_steps), active)
+    if phase1_steps >= max_steps:
+        return t1
+    order = (sorted_order(resolved, t_max, t1, phase1_steps) if sort
+             else partition_order(resolved))
+    return march_resume(mb, origin, direction, t_max, eps_const, eps_abs,
+                        eps_lin, max_steps - phase1_steps, t1, resolved,
+                        order)
+
+
+def march_sorted(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, max_steps: int, active,
+                 phase1_steps: int = 8) -> torch.Tensor:
+    """march_pallas.march_sorted: phase 1, a sort by predicted remaining
+    steps, the resume. Equal to `march` at relax 1."""
+    return _march_two_phase(True, mb, origin, direction, t_max, eps_const,
+                            eps_abs, eps_lin, max_steps, active,
+                            phase1_steps)
+
+
+def march_phased(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                 eps_abs, eps_lin, max_steps: int, active,
+                 phase1_steps: int = 32) -> torch.Tensor:
+    """march_pallas.march_phased: phase 1, the unresolved lanes first,
+    the resume. Equal to `march` at relax 1."""
+    return _march_two_phase(False, mb, origin, direction, t_max, eps_const,
+                            eps_abs, eps_lin, max_steps, active,
+                            phase1_steps)
+
+
+def _occlusion_two_phase(sort: bool, mb, start, end, detail_scale,
+                         max_steps, active, phase1_steps):
+    _check_split(phase1_steps)
+    occ, t1, resolved = occlusion_phase1(mb, start, end, detail_scale,
+                                         min(phase1_steps, max_steps),
+                                         active)
+    if phase1_steps >= max_steps:
+        return occ
+    if sort:
+        seg = end - start
+        order = sorted_order(resolved, torch.sqrt((seg * seg).sum(-1)), t1,
+                              phase1_steps)
+    else:
+        order = partition_order(resolved)
+    return occlusion_resume(mb, start, end, detail_scale,
+                            max_steps - phase1_steps, occ, t1, resolved,
+                            order)
+
+
+def march_occlusion_phased(mb: MandelBox, start, end, detail_scale: float,
+                           max_steps: int, active,
+                           phase1_steps: int = 16) -> torch.Tensor:
+    """march_pallas.march_occlusion_phased: phase 1, the unresolved
+    segments first, the resume. Equal to `march_occlusion` at relax 1
+    with no bounding-sphere clip."""
+    return _occlusion_two_phase(False, mb, start, end, detail_scale,
+                                max_steps, active, phase1_steps)
+
+
+def march_occlusion_sorted(mb: MandelBox, start, end, detail_scale: float,
+                           max_steps: int, active,
+                           phase1_steps: int = 8) -> torch.Tensor:
+    """march_pallas.march_occlusion_sorted: phase 1, a sort by predicted
+    remaining steps, the resume. Equal to `march_occlusion` at relax 1
+    with no bounding-sphere clip."""
+    return _occlusion_two_phase(True, mb, start, end, detail_scale,
+                                max_steps, active, phase1_steps)

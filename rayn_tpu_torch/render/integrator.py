@@ -5,7 +5,8 @@ One bounce at depth d:
 1. at d >= 1, the pre-intersect chunk cost sort (`sorted_intersect`);
 2. closest hit + shading info: the fused intersect kernel, or with
    relaxed marching or `use_fused_intersect=False` the unfused
-   intersect.closest_hit (march kernel) + shading_info;
+   intersect.closest_hit (the march kernel, or at relax 1 with
+   `march_sort_steps` the two-phase march_sorted) + shading_info;
 3. per-lane shading values (`_derive_shading`);
 4. the bounce tail, chosen as JAX chooses it:
    - fused (plain marching and `use_fused_shadows`): in a scene with
@@ -20,8 +21,9 @@ One bounce at depth d:
        lights), then `_finish_bounce`, so (radiance + emission) + delta;
    - the segment queue (relaxed marching or `use_fused_shadows=False`):
      emission, then every NEE and volume shadow segment of the bounce in
-     one batched `intersect.test_occluded` (occlusion kernels), the
-     contributions times visibility, then `_finish_bounce`;
+     one batched `intersect.test_occluded` (occlusion kernels; at relax
+     1 with `occl_sort_steps` or `occl_phase1_steps` the two-phase
+     ones), the contributions times visibility, then `_finish_bounce`;
    with `mis`, every branch weights NEE of paired lights and, at d >= 1,
    BSDF-hit emission of paired spheres by the power heuristic;
 5. the unsort back to pixel-major order.

@@ -10,7 +10,9 @@ the real kernel inputs of the default scene at 2^14 rays (128x128 at
 gates are the JAX package's fused-vs-unfused gates
 (tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
 The occlusion kernels take 12 x 2^14 seeded random segments, gated on
->= 99.9% equal verdicts.
+>= 99.9% equal verdicts. The two-phase kernels (march and occlusion
+phase 1 and resume) equal their twins bit for bit on the same inputs,
+and the four two-phase functions equal the single-phase kernels.
 """
 
 import numpy as np
@@ -242,3 +244,91 @@ def test_chained_occlusion_kernel_matches_plain(cuda):
     assert march_cuda.march_occlusion_chained.launches == before + 1
     assert got.shape == act.shape
     assert want.any() and (got == want).float().mean().item() >= 0.999
+
+
+def _same_bits(got, want):
+    """Equal bit for bit (NaNs of any payload count as equal)."""
+    if got.dtype == torch.bool:
+        return torch.equal(got, want)
+    return bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _march_inputs(cuda):
+    """(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin),
+    max_steps and active of the default scene's camera rays."""
+    data, static, s, _t, state, (ha, hl) = _wavefront(cuda, 0)
+    t_max = torch.full((ha.shape[0],), 2.0 * s.world_radius, device=cuda)
+    detail = s.sdf_detail_scale
+    return ((data.sdf_params, state.origin, state.direction, t_max,
+             5e-5 * detail, 0.05 * detail * ha, 0.05 * detail * hl),
+            s.max_marches, state.alive)
+
+
+def _launched(fn, before):
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("split", [8, 32])
+def test_march_phase_kernels_match_plain(cuda, split):
+    head, max_steps, alive = _march_inputs(cuda)
+    before = march_cuda.march_phase1.launches
+    t1, res = march_cuda.march_phase1(*head, split, alive)
+    _launched(march_cuda.march_phase1, before)
+    t1_p, res_p = march_cuda.march_phase1_plain(*head, split, alive)
+    assert _same_bits(t1, t1_p) and _same_bits(res, res_p)
+    assert 0 < int(res_p.sum()) < res_p.numel()
+    order = march_cuda.sorted_order(res_p, head[3], t1_p, split)
+    args = (*head, max_steps - split, t1_p, res_p, order)
+    before = march_cuda.march_resume.launches
+    got = march_cuda.march_resume(*args)
+    _launched(march_cuda.march_resume, before)
+    assert _same_bits(got, march_cuda.march_resume_plain(*args))
+
+
+@pytest.mark.parametrize("name", ["march_sorted", "march_phased"])
+def test_two_phase_march_matches_march_kernel(cuda, name):
+    head, max_steps, alive = _march_inputs(cuda)
+    got = getattr(march_cuda, name)(*head, max_steps, alive, phase1_steps=8)
+    want = march_cuda.march(*head, max_steps, alive)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
+def _queue(cuda):
+    data, _static, _cam = presets.default_scene(resolution=RES, device=cuda)
+    start, end, act = _segments(cuda, 12, RES[0] * RES[1])
+    return (data.sdf_params, start.reshape(-1, 3), end.reshape(-1, 3), 0.5,
+            100, act.reshape(-1))
+
+
+@pytest.mark.parametrize("split", [8, 16])
+def test_occlusion_phase_kernels_match_plain(cuda, split):
+    mb, start, end, detail, max_steps, act = _queue(cuda)
+    head = (mb, start, end, detail)
+    before = march_cuda.occlusion_phase1.launches
+    got1 = march_cuda.occlusion_phase1(*head, split, act)
+    _launched(march_cuda.occlusion_phase1, before)
+    want1 = march_cuda.occlusion_phase1_plain(*head, split, act)
+    assert all(_same_bits(g, w) for g, w in zip(got1, want1))
+    occ, t1, res = want1
+    assert 0 < int(res.sum()) < res.numel()
+    args = (*head, max_steps - split, occ, t1, res,
+            march_cuda.partition_order(res))
+    before = march_cuda.occlusion_resume.launches
+    got = march_cuda.occlusion_resume(*args)
+    _launched(march_cuda.occlusion_resume, before)
+    assert _same_bits(got, march_cuda.occlusion_resume_plain(*args))
+
+
+@pytest.mark.parametrize("name", ["march_occlusion_phased",
+                                  "march_occlusion_sorted"])
+def test_two_phase_occlusion_matches_occlusion_kernel(cuda, name):
+    mb, start, end, detail, max_steps, act = _queue(cuda)
+    got = getattr(march_cuda, name)(mb, start, end, detail, max_steps, act,
+                                    phase1_steps=8)
+    want = march_cuda.march_occlusion(mb, start, end, detail, max_steps, act,
+                                      bound_radius=0.0)
+    torch.cuda.synchronize()
+    assert want.any() and _same_bits(got, want)
