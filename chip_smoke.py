@@ -11,15 +11,26 @@ Phases (any failed gate raises and the script exits non-zero):
    and shared memory.
 3. Kernels against their plain twins: one 2^20-ray pass of the 1920x1080
    default scene runs through the plain twins on each of five paths and
-   records the real inputs of the eight kernels at depths 0 and 1 (sort
-   key: 1 and 2): the fused path (intersect, sort key, bounce tail), the
-   fused path with MIS (bounce tail), the split tail with MIS (shadow
-   radiance, finish), the relaxed segment queue (march and occlusion at
+   records the real inputs of the kernels at depths 0 and 1 (sort key: 1
+   and 2): the fused path (intersect, sort key, the bounce tail's
+   segments, march and tail-sum kernels), the fused path with MIS (the
+   same tail), the split tail with MIS (segments, march, shadow-sum and
+   finish kernels), the relaxed segment queue (march and occlusion at
    relax 1.5) and the relax-1 unfused segment queue (march and chained
-   occlusion). Each kernel then runs on those inputs beside its twin,
-   gated by the JAX package's fused-vs-unfused gates; kernel and twin are
+   occlusion); and the inputs of the two functions on the shadow kernels,
+   bounce_tail and shadow_radiance. Each kernel then runs on those inputs
+   beside its twin, gated by the JAX package's fused-vs-unfused gates;
+   the four shadow kernels must equal their twins bit for bit (the
+   segments kernel's queue as a set), and the two functions their
+   one-piece plain versions, in every output column. Kernel and twin are
    timed with CUDA events, and the twin's DE count (the finish kernel:
-   its bytes) gives the kernel's bound. Then the two-phase marches on
+   its bytes) gives the kernel's bound. On the bounce tail's shadow queue
+   at depths 0 and 1, the DEs of each segment (march.occlusion_steps) give
+   the DE steps per 32-lane warp of three schedules (one thread per ray,
+   the TPU's chaining, lanes that refill from the queue), printed beside
+   the times of the refill march, the one-segment occlusion kernel and
+   march_occlusion_phased at 16 steps on the same segments. Then the
+   two-phase marches on
    the relax-1 unfused path's inputs: the closest-hit march at depths 0
    and 1 and the chained [12, N] shadow queue as the [12N] queue that
    test_occluded passes. At phase-1 steps 8 and 32 (march) and 8 and 16
@@ -35,7 +46,8 @@ Phases (any failed gate raises and the script exits non-zero):
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
-   fused path must have launched; the film must hold w*h*spp samples,
+   fused path must have launched (the shadow-sum and finish kernels
+   not); the film must hold w*h*spp samples,
    finite colour and coverage around the image centre.
 5. Invariants: sorted and unsorted films equal bit for bit (256x256,
    4 spp); pass sizes 2^16 and 2^15 agree to atol 2e-5, on the fused
@@ -74,16 +86,17 @@ Phases (any failed gate raises and the script exits non-zero):
    the same view angles); the march and chained occlusion kernels must
    have launched, with the film gates.
 10. The split tail with MIS: phase 4's workload with `mis=True` and
-   `use_fused_bounce_tail=False`; the intersect, sort-key, shadow and
-   finish kernels must have launched (the bounce-tail kernel not), with
-   phase 4's film gates.
+   `use_fused_bounce_tail=False`; the intersect, sort-key, segments,
+   march, shadow-sum and finish kernels must have launched (the tail-sum
+   kernel not), with phase 4's film gates.
 11. The smaller paths, each gated on its own kernels and the film gates:
-   `use_fused_finish=False` with MIS at 480x270 (intersect, key and
-   shadow; no finish kernel); the default scene without its lights and
-   their emissive bodies at 960x540 (intersect and finish; no shadow, key
-   or tail kernel); MIS at relaxation 1.5 at 480x270 (march and
-   occlusion); the spheres scene with MIS at 480x270 on the bounce tail
-   and on the split tail (no SDF, so no sort key).
+   `use_fused_finish=False` with MIS at 480x270 (intersect, key,
+   segments, march and shadow sum; no finish kernel); the default scene
+   without its lights and their emissive bodies at 960x540 (intersect and
+   finish; no shadow, key or tail kernel); MIS at relaxation 1.5 at
+   480x270 (march and occlusion); the spheres scene with MIS at 480x270
+   on the bounce tail and on the split tail (no SDF, so no sort key; the
+   march wrapper launches nothing there).
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
    with `march_sort_steps=8` and `occl_phase1_steps=16`; the march and
@@ -141,8 +154,10 @@ def de_flops(iterations: int) -> int:
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading"),
     ("key", "shade_cuda", "shadow_sort_key"),
-    ("tail", "shade_cuda", "bounce_tail"),
-    ("shadow", "shade_cuda", "shadow_radiance"),
+    ("seg", "shade_cuda", "shadow_segments"),
+    ("smarch", "shade_cuda", "shadow_march"),
+    ("ssum", "shade_cuda", "shadow_sum"),
+    ("tsum", "shade_cuda", "tail_sum"),
     ("finish", "shade_cuda", "finish_bounce"),
     ("march", "march_cuda", "march"),
     ("occl", "march_cuda", "march_occlusion"),
@@ -152,6 +167,9 @@ CUDA_KERNELS = (
     ("occl_p1", "march_cuda", "occlusion_phase1"),
     ("occl_resume", "march_cuda", "occlusion_resume"),
 )
+# Functions of shade_cuda over those kernels, each with a `_plain`
+# version in one piece: key, wrapper name.
+TAIL_FUNCTIONS = (("tail", "bounce_tail"), ("shadow", "shadow_radiance"))
 
 # The TPU kernels (every function that reaches pl.pallas_call): its name
 # in the kernels line, the port's source, its file:line, and the keys of
@@ -163,9 +181,9 @@ KERNEL_ROWS = (
     ("shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
      "rayn_tpu/ops/shade_pallas.py:1971", ("key",)),
     ("bounce_tail_fused", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1711", ("tail",)),
+     "rayn_tpu/ops/shade_pallas.py:1711", ("tsum", "seg", "smarch")),
     ("shadow_radiance", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1886", ("shadow",)),
+     "rayn_tpu/ops/shade_pallas.py:1886", ("ssum", "seg", "smarch")),
     ("finish_bounce_fused", "rayn_tpu_torch/csrc/shade.cu",
      "rayn_tpu/ops/shade_pallas.py:1562", ("finish",)),
     ("march", MD, f"{MP}:124", ("march",)),
@@ -176,6 +194,9 @@ KERNEL_ROWS = (
     ("march_occlusion_sorted", MD, f"{MP}:677", ("occl_p1", "occl_resume")),
     ("march_phased", MD, f"{MP}:421", ("march_p1", "march_resume")),
 )
+# The rows computed by a function of TAIL_FUNCTIONS (its time and bound
+# are the function's; its launches its first kernel's).
+ROW_FUNCTION = {"bounce_tail_fused": "tail", "shadow_radiance": "shadow"}
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
 # defaults; the sorted ones are also phase 12's settings).
 SPLITS = {"march_sorted": (8, 32), "march_phased": (8, 32),
@@ -281,25 +302,42 @@ def io_tensors(key, a, kw, out):
         return list(a[3:8]), [hit.t, hit.obj, *info]
     if key == "key":
         return [*a[2:11], *a[11]], [out]
-    if key in ("tail", "shadow", "finish"):
-        if key == "shadow":
+    if key == "smarch":   # the queued segments' start and end, the queue
+        segs = a[1]
+        count = int(segs.count[0])
+        return ([segs.geom.reshape(6, -1)[:, :count], segs.queue[:count],
+                 segs.count], [out])
+    if key == "ssum":
+        segs, verdict = a
+        return [segs.k, segs.active, verdict], [out]
+    if key in ("tail", "shadow", "finish", "seg", "tsum"):
+        if key in ("shadow", "seg"):
             (_cfg, _tabs, state, info, mat, live, recv, vtr, vd, vp) = a
         elif key == "tail":
             (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, vd,
              vp) = a
+        elif key == "tsum":
+            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, segs,
+             verdict) = a
         else:
             (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, rad) = a
         ins = [info.point, info.normal, info.offset_by, state.origin,
                state.direction, state.throughput, state.sample_idx,
                state.pixel, mat.kind, mat.color_a, mat.power, live, recv,
                vtr]
-        if key != "shadow":   # the finish half's columns
+        if key not in ("shadow", "seg"):   # the finish half's columns
             ins += [hit.obj, state.color_out, state.bg_out, state.alpha_out,
                     state.normal_out, state.prev_pdf, mat.color_b, mat.ior,
                     rad if key == "finish" else state.radiance]
         if key == "finish":
             return ins, list(out.values())
+        if key == "tsum":
+            return ins + [segs.k, segs.active, verdict], list(out.values())
         ins += [*vd, *vp]
+        if key == "seg":
+            count = int(out.count[0])
+            return ins, [out.geom, out.k, out.active, out.queue[:count],
+                         out.count]
         return ins, (list(out.values()) if key == "tail" else [out])
     if key == "march":
         return [a[1], a[2], a[3], kw["eps_abs"], kw["eps_lin"],
@@ -362,7 +400,7 @@ def main(argv=None) -> int:
     log(f"[2 build] {build_s:.1f} s")
     for entry, p in ptx.items():
         log(f"[2 build] {entry}: {p}")
-    gate(len(ptx) >= len(CUDA_KERNELS),
+    gate(len(ptx) == len(CUDA_KERNELS),
          f"ptxas reported {len(ptx)} kernels, expected {len(CUDA_KERNELS)}")
     record["build"] = dict(seconds=build_s, ptxas=ptx)
 
@@ -388,11 +426,20 @@ def main(argv=None) -> int:
                 for key, mod, attr in CUDA_KERNELS}
     kernels = {key: getattr(mod, attr)
                for key, (mod, attr, _p) in wrappers.items()}
+    functions = {key: getattr(shade_cuda, attr)
+                 for key, attr in TAIL_FUNCTIONS}
+    # each key's CUDA path (a kernel wrapper or a tail function) and its
+    # plain version (a kernel's twin, a function's one-piece twin)
+    impl = {**kernels, **functions}
+    twin = {**{key: p for key, (_m, _a, p) in wrappers.items()},
+            **{key: getattr(shade_cuda, attr + "_plain")
+               for key, attr in TAIL_FUNCTIONS}}
 
     @contextlib.contextmanager
     def plain_twins(capture=None):
         """Route the render path's kernel calls to their plain twins
-        (recording the first two calls of each into `capture`)."""
+        (recording the first two calls of each kernel and of each tail
+        function into `capture`)."""
         def recorder(key, fn):
             def call(*a, **kw):
                 if capture is not None and len(capture[key]) < 2:
@@ -402,25 +449,31 @@ def main(argv=None) -> int:
 
         for key, (mod, attr, plain) in wrappers.items():
             setattr(mod, attr, recorder(key, plain))
+        if capture is not None:   # the functions run on the twins above
+            for key, attr in TAIL_FUNCTIONS:
+                setattr(shade_cuda, attr, recorder(key, functions[key]))
         try:
             yield
         finally:
             for key, (mod, attr, _p) in wrappers.items():
                 setattr(mod, attr, kernels[key])
+            for key, attr in TAIL_FUNCTIONS:
+                setattr(shade_cuda, attr, functions[key])
 
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
     tables = rng.build_sample_tables(main_s, 1)
-    # (path settings, kernels whose inputs it records, name of the march
-    # kernel's inputs on that path)
-    paths = (("fused", main_s, ("intersect", "key", "tail")),
-             ("fused mis", mis_s, ("tail",)),
-             ("split mis", split_s, ("shadow", "finish")),
+    # (path, settings, kernels and functions whose inputs it records)
+    tail_keys = ("tail", "seg", "smarch", "tsum")
+    paths = (("fused", main_s, ("intersect", "key", *tail_keys)),
+             ("fused mis", mis_s, tail_keys),
+             ("split mis", split_s, ("shadow", "seg", "smarch", "ssum",
+                                     "finish")),
              ("relaxed", relax_s, ("march", "occl")),
              ("unfused", unfused_s, ("march", "chained")))
     captured = {}
     for path, s, keys in paths:
-        cap = {k: [] for k in wrappers}
+        cap = {k: [] for k in impl}
         t0 = time.perf_counter()
         with plain_twins(cap):
             renderer.render_pass(film_mod.new_film(W * H, device=dev), data,
@@ -468,7 +521,7 @@ def main(argv=None) -> int:
         """MandelBox DEs the kernel needs on these inputs, counted from
         the plain twin's lanes at each step (plus the intersect's four
         normal taps per SDF hit)."""
-        n_de = count_des(wrappers[key][2], a, kw)
+        n_de = count_des(twin[key], a, kw)
         if key == "intersect":
             n_de += 4 * int((out[0].obj == static.n_spheres).sum())
         return n_de
@@ -481,6 +534,22 @@ def main(argv=None) -> int:
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
         return (max(ops_ms, bytes_ms),
                 "operations" if ops_ms >= bytes_ms else "bytes", n_bytes)
+
+    def same_bits(got, want):
+        """Equal bit for bit (float NaNs of any payload count as equal)."""
+        if got.dtype == torch.bool:
+            return torch.equal(got, want)
+        return bool(((got.view(torch.int32) == want.view(torch.int32))
+                     | (torch.isnan(got) & torch.isnan(want))).all())
+
+    def max_diff(got, want):
+        """max |got - want| where neither is NaN (verdicts: 1.0 if any
+        differs)."""
+        if got.dtype == torch.bool:
+            return float(bool((got != want).any()))
+        d = (got - want).abs()
+        d = d[~torch.isnan(d)]
+        return d.max().item() if d.numel() else 0.0
 
     def check_march(label, got, want, t_max, act):
         hit_g, hit_w = got < t_max, want < t_max
@@ -546,10 +615,36 @@ def main(argv=None) -> int:
             log(f"[3 kernels] sort key depth {depth}: within rtol 1e-4 "
                 f"on {frac:.6f}, max |d| {err:.3g}")
             return err
+        label = f"{key} {path} depth {depth}"
         if key == "shadow":
-            return check_radiance(f"shadow {path} depth {depth}", got, want)
-        if key in ("tail", "finish"):
-            label = f"{key} {path} depth {depth}"
+            err = check_radiance(label, got, want)
+            gate(same_bits(got, want), f"{label}: differs from "
+                 "shadow_radiance_plain")
+            return err
+        if key == "ssum":
+            gate(same_bits(got, want), f"{label}: differs from its twin")
+            log(f"[3 kernels] {label}: equal to its twin bit for bit")
+            return max_diff(got, want)
+        if key == "seg":
+            count = int(want.count[0])
+            same = (all(same_bits(getattr(got, f), getattr(want, f))
+                        for f in ("geom", "k", "active", "count"))
+                    and torch.equal(got.queue[:count].sort().values,
+                                    want.queue[:count].sort().values))
+            gate(same, f"{label}: segments differ from the twin's")
+            log(f"[3 kernels] {label}: {count} of {want.active.numel()} "
+                "segments queued; segments and queue (as a set) equal to "
+                "the twin's bit for bit")
+            return max(max_diff(got.geom, want.geom),
+                       max_diff(got.k, want.k))
+        if key == "smarch":
+            gate(same_bits(got, want), f"{label}: verdicts differ from the "
+                 "twin's")
+            log(f"[3 kernels] {label}: verdicts equal to the twin's bit for "
+                f"bit ({int(a[1].count[0])} queued, {int(want.sum())} "
+                "occluded)")
+            return max_diff(got, want)
+        if key in ("tail", "finish", "tsum"):
             err = check_radiance(label, got["radiance"], want["radiance"])
             tfrac = 1.0 - torch.isclose(
                 got["throughput"], want["throughput"], rtol=1e-4,
@@ -559,12 +654,13 @@ def main(argv=None) -> int:
             afrac = (got["alive"] != want["alive"]).float().mean().item()
             gate(afrac < (1e-3 if depth == 0 else 1e-2),
                  f"{label}: alive differs on {afrac}")
-            same = all(torch.equal(got[f], want[f]) for f in got)
+            same = all(same_bits(got[f], want[f]) for f in got)
             log(f"[3 kernels] {label}: throughput diverged {tfrac:.2e}, "
                 f"alive differs {afrac:.2e}, every column bit for bit: "
                 f"{same}")
+            gate(same or key == "finish", f"{label}: a column differs from "
+                 "its plain version")
             return err
-        label = f"{key} {path} depth {depth}"
         if key == "march":
             return check_march(label, got, want, a[3], kw["active"])
         act = a[5] if len(a) > 5 else kw["active"]
@@ -576,19 +672,19 @@ def main(argv=None) -> int:
             errs = []
             for i, (a, kw) in enumerate(captured[(path, key)]):
                 depth = i + (1 if key == "key" else 0)
-                got = kernels[key](*a, **kw)
-                want = wrappers[key][2](*a, **kw)
+                got = impl[key](*a, **kw)
+                want = twin[key](*a, **kw)
                 torch.cuda.synchronize()
                 errs.append(check(key, path, depth, a, kw, got, want))
             a, kw = captured[(path, key)][1]
-            out = kernels[key](*a, **kw)
+            out = impl[key](*a, **kw)
             ins, outs = io_tensors(key, a, kw, out)
             n_bytes = sum(t.numel() * t.element_size() for t in ins + outs)
             n_de = de_evals(key, a, kw, out)
             ops_ms = n_de * flops_per_de / PEAK_F32_FLOPS * 1e3
             bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-            ms = timed(kernels[key], a, kw, reps=5)
-            plain_ms = timed(wrappers[key][2], a, kw, reps=1)
+            ms = timed(impl[key], a, kw, reps=5)
+            plain_ms = timed(twin[key], a, kw, reps=1)
             log(f"[3 kernels] {key} ({path}): kernel {ms:.3f} ms, plain twin "
                 f"{plain_ms:.3f} ms per call at {MAIN_PASS} rays; {n_de} DEs "
                 f"-> {ops_ms:.3f} ms at {PEAK_F32_FLOPS:.3g} flop/s, "
@@ -602,23 +698,50 @@ def main(argv=None) -> int:
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
     del got, want
 
+    # -------- 3, continued: the tail's shadow queue, warp steps and designs
+    # Per segment, the DEs of the plain march (occlusion_steps); per warp
+    # of 32 rays, what three schedules cost in DE steps: one thread per
+    # ray marching its segments in turn (sum over segments of the slowest
+    # lane), the TPU's chaining (the slowest lane's sum), and lanes that
+    # refill from a queue (total / 32, the drain aside). The refill march
+    # is timed beside the one-segment kernel and the stable partition of
+    # march_occlusion_phased (the fastest two-phase route, unclipped) on
+    # the same segments.
+    tail_queue = {}
+    for depth, (a, kw) in enumerate(captured[("fused", "smarch")]):
+        cfg, segs = a
+        S, n = segs.active.shape
+        g = segs.geom.reshape(6, -1).T
+        start, end = g[:, :3].contiguous(), g[:, 3:].contiguous()
+        act = segs.active.reshape(-1)
+        steps = march_ops.occlusion_steps(
+            cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
+            cfg.bv_r).reshape(S, n // 32, 32).long()
+        total = int(steps.sum())
+        q = dict(segments=S * n, queued=int(segs.count[0]), des=total,
+                 sequential=int(steps.max(-1).values.sum()),
+                 chained=int(steps.sum(0).max(-1).values.sum()),
+                 ideal=total / 32,
+                 march_ms=timed(kernels["smarch"], a, kw, reps=5),
+                 one_segment_ms=timed(
+                     kernels["occl"], (cfg.mb, start, end, cfg.detail,
+                                       cfg.max_steps, act, 1.0, cfg.bv_r),
+                     {}, reps=5),
+                 partition_ms=timed(
+                     march_cuda.march_occlusion_phased,
+                     (cfg.mb, start, end, cfg.detail, cfg.max_steps, act),
+                     dict(phase1_steps=16), reps=5))
+        log(f"[3 tail queue] depth {depth}: {q['queued']} of {q['segments']} "
+            f"segments queued, {total} DEs; 32-lane warp steps: sequential "
+            f"{q['sequential']}, chained {q['chained']}, ideal {q['ideal']}; "
+            f"refill march {q['march_ms']:.3f} ms, one-segment kernel "
+            f"{q['one_segment_ms']:.3f} ms, partition at 16 (unclipped) "
+            f"{q['partition_ms']:.3f} ms")
+        tail_queue[depth] = q
+        del segs, g, start, end, act, steps
+    record["tail_queue"] = tail_queue
+
     # ----------------- 3, continued: the two-phase marches, same inputs
-    def same_bits(got, want):
-        """Equal bit for bit (float NaNs of any payload count as equal)."""
-        if got.dtype == torch.bool:
-            return torch.equal(got, want)
-        return bool(((got.view(torch.int32) == want.view(torch.int32))
-                     | (torch.isnan(got) & torch.isnan(want))).all())
-
-    def max_diff(got, want):
-        """max |got - want| where neither is NaN (verdicts: 1.0 if any
-        differs)."""
-        if got.dtype == torch.bool:
-            return float(bool((got != want).any()))
-        d = (got - want).abs()
-        d = d[~torch.isnan(d)]
-        return d.max().item() if d.numel() else 0.0
-
     def phase_pair(label, p1, resume, head, steps, act, split, order_of):
         """Phase 1 and the resume, each kernel against its twin bit for
         bit on the same inputs (the resume on the twin's phase-1 outputs
@@ -771,7 +894,8 @@ def main(argv=None) -> int:
 
     # -------------------------------------------------------- 4. main path
     record["main"] = main_path("4 main", main_s, MAIN_RES,
-                               ("intersect", "key", "tail"))
+                               ("intersect", "key", "seg", "smarch", "tsum"),
+                               absent=("ssum", "finish"))
 
     # ------------------------------------------------------ 5. invariants
     res5 = INV_RES
@@ -889,8 +1013,8 @@ def main(argv=None) -> int:
 
     # ------------------------------- 10. split tail with MIS, full width
     record["split"] = main_path("10 split mis", split_s, MAIN_RES,
-                                ("intersect", "key", "shadow", "finish"),
-                                absent=("tail",))
+                                ("intersect", "key", "seg", "smarch", "ssum",
+                                 "finish"), absent=("tsum",))
 
     # ------------------------------------------ 11. the smaller paths
     def no_lights_scene(resolution, device):
@@ -918,24 +1042,25 @@ def main(argv=None) -> int:
         "no_fused_finish_mis": main_path(
             "11 use_fused_finish=False, mis", dataclasses.replace(
                 small, use_fused_finish=False), SMALL_RES,
-            ("intersect", "key", "shadow"), absent=("finish", "tail")),
+            ("intersect", "key", "seg", "smarch", "ssum"),
+            absent=("finish", "tsum")),
         "no_lights": main_path(
             "11 no lights", dataclasses.replace(
                 main_s, resolution=UNFUSED_RES), UNFUSED_RES,
             ("intersect", "finish"), scene=no_lights_scene,
-            absent=("shadow", "key", "tail")),
+            absent=("seg", "smarch", "ssum", "tsum", "key")),
         "relaxed_mis": main_path(
             "11 relaxed, mis", dataclasses.replace(
                 small, march_relaxation=RELAX), SMALL_RES,
-            ("march", "occl"), absent=("tail", "shadow", "finish")),
+            ("march", "occl"), absent=("seg", "tsum", "ssum", "finish")),
         "spheres_mis": main_path(
-            "11 spheres, mis", small, SMALL_RES, ("intersect", "tail"),
+            "11 spheres, mis", small, SMALL_RES, ("intersect", "seg", "tsum"),
             scene=presets.spheres_scene, absent=("key",)),
         "spheres_split_mis": main_path(
             "11 spheres, split tail, mis", dataclasses.replace(
                 small, use_fused_bounce_tail=False), SMALL_RES,
-            ("intersect", "shadow", "finish"), scene=presets.spheres_scene,
-            absent=("key", "tail")),
+            ("intersect", "seg", "ssum", "finish"),
+            scene=presets.spheres_scene, absent=("key", "tsum")),
     }
 
     # ------------------------------------------ 12. the two-phase marches
@@ -1012,9 +1137,11 @@ def main(argv=None) -> int:
     # carries the larger error of its two paths. A two-phase function's
     # launches are its phase-1 kernel's on the phase-12 path that takes it
     # (march_phased: no setting reaches it, in the JAX package either;
-    # its kernels are march_sorted's).
-    phase_of = {"intersect": "main", "key": "main", "tail": "main",
-                "shadow": "split", "finish": "split", "march": "relaxed",
+    # its kernels are march_sorted's). The bounce tail and shadow radiance
+    # give their function's time and bound, the largest error of the
+    # function and its kernels, and their sum kernel's launches.
+    phase_of = {"intersect": "main", "key": "main", "tsum": "main",
+                "ssum": "split", "finish": "split", "march": "relaxed",
                 "occl": "relaxed", "chained": "unfused"}
     phase12_of = {"march_sorted": "sorted", "march_phased": "sorted",
                   "march_occlusion_sorted": "sorted",
@@ -1029,9 +1156,10 @@ def main(argv=None) -> int:
         else:
             path = {"main": "fused", "split": "split mis"}.get(
                 phase_of[key], phase_of[key])
-            r = results[(path, key)]
+            fkey = ROW_FUNCTION.get(kname, key)
+            r = results[(path, fkey)]
             err = max(v["max_abs_err"] for (_p, k), v in results.items()
-                      if k == key)
+                      if k in (fkey, *keys))
             launches = record[phase_of[key]]["launches"][key]
         kern.append(dict(
             name=kname, route="cuda", source=src, replaces=rep,

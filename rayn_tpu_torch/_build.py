@@ -29,8 +29,9 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # amplify any ulp difference, shade_pallas.py:34-45).
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC")
-KERNELS = ("rayn_closest_hit", "rayn_bounce_tail", "rayn_shadow_radiance",
-           "rayn_finish_bounce", "rayn_shadow_sort_key", "rayn_march",
+KERNELS = ("rayn_closest_hit", "rayn_shadow_segments", "rayn_shadow_march",
+           "rayn_shadow_sum", "rayn_tail_sum", "rayn_finish_bounce",
+           "rayn_shadow_sort_key", "rayn_march",
            "rayn_march_occlusion", "rayn_march_occlusion_chained",
            "rayn_march_phase1", "rayn_march_resume", "rayn_occl_phase1",
            "rayn_occl_resume")

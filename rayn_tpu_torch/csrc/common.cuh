@@ -474,19 +474,15 @@ __device__ __forceinline__ void segment_dir(float sx, float sy, float sz,
   dz = gz * inv;
 }
 
-// march_pallas._segment_entry (reference src/sdf.rs:25-57) for segment
-// s->e: its direction d, its march length md (clipped to the bounding
-// sphere when bv_r > 0) and its first march distance t0. False when the
-// segment resolves at entry: a NaN first DE, or a miss of the bounding
-// sphere.
-__device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
-                                              float bv_r2, float sx, float sy,
-                                              float sz, float ex, float ey,
-                                              float ez, float& dx, float& dy,
-                                              float& dz, float& md,
+// The entry of segment s->e with direction d (segment_dir) once its first
+// DE dist0, taken at s, is known: md clipped to the bounding sphere when
+// bv_r > 0, and the first march distance t0. False when the segment
+// resolves at entry: a NaN first DE, or a miss of the bounding sphere.
+__device__ __forceinline__ bool entry_from_de(float bv_r, float bv_r2,
+                                              float sx, float sy, float sz,
+                                              float dx, float dy, float dz,
+                                              float dist0, float& md,
                                               float& t0) {
-  segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
-  const float dist0 = mandelbox_de(mb, sx, sy, sz);
   if (isnan(dist0)) return false;
   t0 = dist0;
   if (bv_r > 0.0f) {
@@ -500,6 +496,36 @@ __device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
     t0 = nmax(dist0, nmax(-b - sq, 0.0f));
   }
   return true;
+}
+
+// march_pallas._segment_entry (reference src/sdf.rs:25-57) for segment
+// s->e: its direction d, its march length md and its first march
+// distance t0 (entry_from_de on the DE at s).
+__device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
+                                              float bv_r2, float sx, float sy,
+                                              float sz, float ex, float ey,
+                                              float ez, float& dx, float& dy,
+                                              float& dz, float& md,
+                                              float& t0) {
+  segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
+  return entry_from_de(bv_r, bv_r2, sx, sy, sz, dx, dy, dz,
+                       mandelbox_de(mb, sx, sy, sz), md, t0);
+}
+
+// Relax-1 occlusion step number `step` at t, whose DE `dist` at s + t*d
+// has been taken: true when the segment resolves here, with `occ` its
+// verdict (hit before its end; a segment past its end or out of steps is
+// unblocked); else t advances by dist.
+__device__ __forceinline__ bool occl_step(float dist, float md, float eps_c,
+                                          float eps_l, int step,
+                                          int max_steps, float& t,
+                                          bool& occ) {
+  const bool gt_end = t > md;
+  const bool hit = fabsf(dist) < nmax(eps_c, eps_l * t);
+  occ = hit && !gt_end;
+  if (hit || gt_end || step + 1 >= max_steps) return true;
+  t = t + dist;
+  return false;
 }
 
 // The chained occlusion core's verdict (march_pallas._chained_occl_core)
@@ -516,12 +542,10 @@ __device__ __forceinline__ bool sdf_occluded(const MBox& mb, float bv_r,
                      t))
     return false;
   for (int step = 0;; ++step) {
-    const bool gt_end = t > md;
-    const float dist = mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz);
-    const bool hit = fabsf(dist) < nmax(eps_c, eps_l * t);
-    if (hit || gt_end) return hit && !gt_end;
-    if (step + 1 >= max_steps) return false;
-    t = t + dist;
+    bool occ;
+    if (occl_step(mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz), md,
+                  eps_c, eps_l, step, max_steps, t, occ))
+      return occ;
   }
 }
 

@@ -1,42 +1,58 @@
-// Bounce tail, its two halves, and the shadow sort key for Hopper (sm_90a).
+// The bounce tail, its two halves, and the shadow sort key for Hopper
+// (sm_90a).
 //
-// Three kernels share two __device__ bodies, as the Pallas kernels of
-// rayn_tpu/ops/shade_pallas.py share _shadow_delta and _finish_tail:
-// - shadow_radiance_kernel replaces shadow_radiance (_shadow_kernel ->
-//   _shadow_delta, inlining march_pallas._segment_entry and
-//   _chained_occl_core): per ray, L NEE light picks with cone samples, the
-//   BSDF, the NEE MIS weight of paired lights, and VM*L equi-angular volume
-//   sites (distances and pdfs come in precomputed); each segment is tested
-//   against the spheres and marched through the MandelBox with the
-//   bounding-sphere clip; the radiance delta [N, 3] is accumulated in the
-//   JAX segment order (NEE 0..L-1, then volume sites march-major).
-// - finish_bounce_kernel replaces finish_bounce_fused (_finish_kernel ->
-//   _finish_tail): emission with its MIS weight, BSDF scatter, Russian
-//   roulette, the depth-0 AOVs and termination write the next PathState
-//   from the pre-emission radiance.
-// - bounce_tail_kernel replaces bounce_tail_fused (_bounce_tail_kernel):
-//   shadow_delta, then finish_tail on (state radiance + delta), with the
-//   delta kept in registers.
-//
+// The shadow half of rayn_tpu/ops/shade_pallas.py's bounce_tail_fused
+// (_bounce_tail_kernel) and shadow_radiance (_shadow_kernel), that is
+// _shadow_delta with march_pallas._segment_entry and _chained_occl_core
+// inlined, runs here as three kernels over a segment scratch:
+// - shadow_segments_kernel, one thread per ray: for each NEE site (L) and
+//   each volume site (VM*L, march-major), the light pick, the cone
+//   sample, the BSDF, the NEE MIS weight of paired lights (before
+//   `worth`), `worth` and the sphere test. It writes each segment's start,
+//   end and contribution k to a struct-of-arrays scratch [., S, N] (S =
+//   L + VM*L), its active flag (worth marching and no sphere in the way),
+//   and appends the id j*N + i of every active segment to a compacted
+//   queue, one atomicAdd per warp.
+// - shadow_march_kernel: the SDF verdict of every queued segment (the
+//   bounding-sphere clip, sdf_occluded's relax-1 step sequence and
+//   verdict rule), written to the segment's own slot.
+// - shadow_sum_kernel / tail_sum_kernel, one thread per ray: k * visible
+//   summed over the segments in the JAX order (NEE 0..L-1, then volume
+//   sites march-major) from 0; the first writes the radiance delta [N, 3]
+//   (shadow_radiance), the second runs finish_tail on (state radiance +
+//   delta) (bounce_tail_fused).
+// finish_bounce_kernel replaces finish_bounce_fused (_finish_kernel ->
+// _finish_tail): emission with its MIS weight, BSDF scatter, Russian
+// roulette, the depth-0 AOVs and termination write the next PathState
+// from the pre-emission radiance.
 // shadow_sort_key_kernel replaces shade_pallas.shadow_sort_key
 // (_shadow_key_kernel -> _shadow_cost_key -> _segment_cost): the same
 // segments, each priced at min(length / first DE, max_steps).
 //
-// What bounds them on the H100: float32 ALU and warp divergence. A ray
-// marches up to 12 shadow segments of up to max_vis_marches MandelBox DEs
-// each (~400 flops per DE), against ~60 floats of memory traffic per ray
-// per bounce, and lanes of a warp march different numbers of steps. The
-// finish half alone is loop-free and bound by its ~64 columns of traffic.
-// What the design does about it: one thread per ray; the segments are
-// built and marched one after another inside the thread, so only one
-// segment's registers are live at a time (register pressure is the main
-// risk of a kernel this long; the TPU's chained scheduling, which only
-// changed block iteration counts and never a verdict, is not carried
-// over). A segment whose weighted contribution is zero or that a sphere
-// blocks is never marched. Scene constants (lights [NL, 8], spheres
-// [K, 4], the per-sphere MIS table [K, 5]) come in as small device
-// buffers that stay in L1. The host sorts rays by the sort key in chunks
-// so that warps hold rays of similar cost.
+// What bounds them on the H100: float32 ALU and warp divergence. A ray has
+// up to 12 shadow segments of up to max_vis_marches MandelBox DEs each
+// (~400 flops per DE), against ~60 floats of memory traffic per ray per
+// bounce; the segments of a warp's lanes take different numbers of steps,
+// and most are not marched at all (inactive). A thread that marched its
+// ray's segments one after another cost its warp the sum over segments of
+// the slowest lane's steps, and held the whole ray in registers across the
+// march (96 registers).
+// What the design does about it: the march kernel runs persistent blocks
+// whose lanes each take a segment id from the queue, march it, write its
+// verdict and take the next, so a warp costs about its lanes' total steps
+// / 32 plus the drain at the end (the GPU form of the TPU's chaining).
+// A warp takes 32 queue slots with one atomicAdd and hands them to its
+// idle lanes by shuffles. Every loop iteration evaluates exactly one DE
+// per busy lane: a new segment's first DE, at its start, is an iteration
+// of the same loop. The marching lane holds only the segment (start,
+// direction, length, t), so the kernel needs few registers and the SM
+// keeps many warps in flight to hide the DE's dependent chain. Sampling
+// and the finish tail run once per ray in the loop-free kernels. The
+// scratch (~0.5 GB at 2^20 rays and S = 12) costs ~0.3 ms of traffic.
+// Scene constants (lights [NL, 8], spheres [K, 4], the per-sphere MIS
+// table [K, 5]) come in as small device buffers that stay in L1. No
+// kernel waits on the host: the march reads the queue length on the
+// device.
 #include "common.cuh"
 
 namespace rayn {
@@ -90,18 +106,52 @@ struct FinishCols {  // ops/shade_cuda.py _FinishCols
   float *o_prev_pdf, *o_color_out, *o_bg_out, *o_alpha_out, *o_normal_out;
 };
 
-struct TailArgs {  // ops/shade_cuda.py _TailArgs
+struct SegCols {  // ops/shade_cuda.py _SegCols: the segment scratch
+  float* geom;    // [6, S, N] start xyz, end xyz
+  float* k;       // [3, S, N] contribution rgb
+  bool* active;   // [S, N] worth marching and not blocked by a sphere
+  int* queue;     // [S*N] ids j*N + i of the active segments, any order
+  int* count;     // [1] ids in the queue (0 at launch)
+};
+
+struct SegArgs {  // ops/shade_cuda.py _SegArgs
   RayCols r;
   ShadowCols s;
-  FinishCols f;
+  SegCols g;
   long long n;
   ShadowScalars sc;
 };
 
-struct ShadowArgs {  // ops/shade_cuda.py _ShadowArgs
-  RayCols r;
-  ShadowCols s;
+struct SegMarchArgs {  // ops/shade_cuda.py _SegMarchArgs
+  const float* geom;   // [6, M]
+  const int* queue;    // [M]
+  const int* count;    // [1]
+  int* head;           // [1] queue slots handed out (0 at launch)
+  bool* verdict;       // [M] out: the SDF blocks the segment (false at launch)
+  long long m;         // M = S*N
+  int max_steps;
+  MBox mb;
+  float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
+  float bv_r, bv_r2;   // bounding-sphere clip radius (0 = none) and its square
+};
+
+struct SumCols {  // ops/shade_cuda.py _SumCols
+  const float* k;        // [3, S, N]
+  const bool* active;    // [S, N]
+  const bool* verdict;   // [S, N]
+  int S;
+};
+
+struct ShadowSumArgs {  // ops/shade_cuda.py _ShadowSumArgs
+  SumCols s;
   float* o_delta;  // [N, 3]
+  long long n;
+};
+
+struct TailSumArgs {  // ops/shade_cuda.py _TailSumArgs
+  RayCols r;
+  FinishCols f;
+  SumCols s;
   long long n;
   ShadowScalars sc;
 };
@@ -203,18 +253,54 @@ __device__ __forceinline__ Ray load_ray(const RayCols& c, long long i) {
   return r;
 }
 
-// Steps 3 + 4 of a bounce (shade_pallas._shadow_delta): the radiance
-// delta of the NEE and volume single-scattering segments.
-__device__ __forceinline__ void shadow_delta(const ShadowScalars& sc,
-                                             const ShadowCols& s, long long n,
-                                             long long i, const Ray& r,
-                                             float& rad_r, float& rad_g,
-                                             float& rad_b) {
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Appends the ids of the warp's active segments to the queue with one
+// atomicAdd on the shared count. Every lane of the warp calls it.
+__device__ __forceinline__ void enqueue(bool act, int id, int* count,
+                                        int* queue) {
+  const unsigned m = __ballot_sync(FULL_MASK, act);
+  if (m == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(FULL_MASK, base, leader);
+  if (act) queue[base + __popc(m & ((1u << lane) - 1u))] = id;
+}
+
+__device__ __forceinline__ void put_segment(const SegCols& g, long long m,
+                                            long long id, float sx, float sy,
+                                            float sz, float ex, float ey,
+                                            float ez, float kr, float kg,
+                                            float kb, bool act) {
+  g.geom[id] = sx;
+  g.geom[m + id] = sy;
+  g.geom[2 * m + id] = sz;
+  g.geom[3 * m + id] = ex;
+  g.geom[4 * m + id] = ey;
+  g.geom[5 * m + id] = ez;
+  g.k[id] = kr;
+  g.k[m + id] = kg;
+  g.k[2 * m + id] = kb;
+  g.active[id] = act;
+}
+
+// Steps 3 + 4 of a bounce up to the SDF march (shade_pallas._shadow_delta):
+// the NEE and volume single-scattering segments of ray i, each written
+// to the scratch and, when active, queued. Lanes past the end (in =
+// false) compute ray n-1 and store nothing, so that every lane of a warp
+// reaches enqueue.
+__global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i0 < a.n;
+  const long long i = in ? i0 : a.n - 1;
+  const ShadowScalars& sc = a.sc;
+  const ShadowCols& s = a.s;
+  const long long m = (long long)(sc.L + sc.VM * sc.L) * a.n;
+  const Ray r = load_ray(a.r, i);
   const float3 p = r.p, nrm = r.nrm, tp = r.tp;
   const float wox = -r.d.x, woy = -r.d.y, woz = -r.d.z;
-  rad_r = 0.0f;
-  rad_g = 0.0f;
-  rad_b = 0.0f;
   for (int j = 0; j < sc.L; ++j) {
     float ex, ey, ez, pdf;
     const int l = nee_site(sc, s.lights, j, r.sidx, r.pix, p.x, p.y, p.z, ex,
@@ -250,19 +336,15 @@ __device__ __forceinline__ void shadow_delta(const ShadowScalars& sc,
     }
     const bool worth =
         r.receives && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    bool vis = worth && !sphere_occluded(s.spheres, sc.K, sx, sy, sz, ex, ey,
-                                         ez);
-    if (vis && sc.has_sdf)
-      vis = !sdf_occluded(sc.mb, sc.bv_r, sc.bv_r2, sc.max_steps, sc.eps_c,
-                          sc.eps_l, sx, sy, sz, ex, ey, ez);
-    const float v = vis ? 1.0f : 0.0f;
-    rad_r = rad_r + kr * v;
-    rad_g = rad_g + kg * v;
-    rad_b = rad_b + kb * v;
+    const bool act = worth && !sphere_occluded(s.spheres, sc.K, sx, sy, sz,
+                                               ex, ey, ez);
+    const long long id = (long long)j * a.n + i;
+    if (in) put_segment(a.g, m, id, sx, sy, sz, ex, ey, ez, kr, kg, kb, act);
+    enqueue(in && act, (int)id, a.g.count, a.g.queue);
   }
   for (int j = 0; j < sc.VM * sc.L; ++j) {
-    const float vd = s.vol_dist[(long long)j * n + i];
-    const float vp = s.vol_pdf[(long long)j * n + i];
+    const float vd = s.vol_dist[(long long)j * a.n + i];
+    const float vp = s.vol_pdf[(long long)j * a.n + i];
     float spx, spy, spz, ex, ey, ez, light_pdf;
     const int l = vol_site(sc, s.lights, j, r.sidx, r.pix, vd, r.o.x, r.o.y,
                            r.o.z, r.d.x, r.d.y, r.d.z, spx, spy, spz, ex, ey,
@@ -278,15 +360,106 @@ __device__ __forceinline__ void shadow_delta(const ShadowScalars& sc,
     const float kg = r.alive ? lr[5] * scale * tp.y : 0.0f;
     const float kb = r.alive ? lr[6] * scale * tp.z : 0.0f;
     const bool worth = r.alive && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    bool vis = worth && !sphere_occluded(s.spheres, sc.K, spx, spy, spz, ex,
-                                         ey, ez);
-    if (vis && sc.has_sdf)
-      vis = !sdf_occluded(sc.mb, sc.bv_r, sc.bv_r2, sc.max_steps, sc.eps_c,
-                          sc.eps_l, spx, spy, spz, ex, ey, ez);
-    const float v = vis ? 1.0f : 0.0f;
-    rad_r = rad_r + kr * v;
-    rad_g = rad_g + kg * v;
-    rad_b = rad_b + kb * v;
+    const bool act = worth && !sphere_occluded(s.spheres, sc.K, spx, spy,
+                                               spz, ex, ey, ez);
+    const long long id = (long long)(sc.L + j) * a.n + i;
+    if (in)
+      put_segment(a.g, m, id, spx, spy, spz, ex, ey, ez, kr, kg, kb, act);
+    enqueue(in && act, (int)id, a.g.count, a.g.queue);
+  }
+}
+
+// The SDF verdict of every queued segment. Persistent blocks: each lane
+// takes a segment id from the queue, marches it (the entry of
+// segment_entry, then occl_step until it resolves), writes its verdict
+// and takes the next id. A warp takes 32 queue slots at a time with one
+// atomicAdd and hands them to its idle lanes in lane order. Every
+// iteration evaluates one DE per busy lane; the first DE of a segment is
+// taken at its start (s + 0*d would be NaN for a zero-length segment).
+__global__ void __launch_bounds__(128) shadow_march_kernel(
+    const SegMarchArgs a) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int total = *a.count;
+  const long long m = a.m;
+  int id = -1;         // this lane's segment, -1 while idle
+  bool entry = false;  // its next DE is the entry DE, at the start
+  int step = 0;
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f,
+        md = 0.0f, t = 0.0f;
+  // the warp's batch of queue slots: `batch` ids, the one of slot `lane`
+  // in `mine`; slots below `taken` are handed out
+  int mine = -1, batch = 0, taken = 0;
+  bool drained = false;
+  for (;;) {
+    unsigned idle = __ballot_sync(FULL_MASK, id < 0);
+    while (idle != 0u && !drained) {
+      if (taken == batch) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(a.head, 32);
+        base = __shfl_sync(FULL_MASK, base, 0);
+        batch = min(32, total - base);
+        if (batch <= 0) {
+          drained = true;
+          break;
+        }
+        taken = 0;
+        mine = lane < batch ? a.queue[base + lane] : -1;
+      }
+      const int slot = taken + __popc(idle & below);
+      const int got = __shfl_sync(FULL_MASK, mine, slot & 31);
+      if (id < 0 && slot < batch) {
+        id = got;
+        entry = true;
+        step = 0;
+        sx = a.geom[id];
+        sy = a.geom[m + id];
+        sz = a.geom[2 * m + id];
+        segment_dir(sx, sy, sz, a.geom[3 * m + id], a.geom[4 * m + id],
+                    a.geom[5 * m + id], dx, dy, dz, md);
+      }
+      taken = min(batch, taken + __popc(idle));
+      idle = __ballot_sync(FULL_MASK, id < 0);
+    }
+    if (idle == FULL_MASK) return;  // the queue is drained
+    if (id >= 0) {
+      const float px = entry ? sx : sx + t * dx;
+      const float py = entry ? sy : sy + t * dy;
+      const float pz = entry ? sz : sz + t * dz;
+      const float dist = mandelbox_de(a.mb, px, py, pz);
+      bool done, occ = false;
+      if (entry) {
+        entry = false;
+        done = !entry_from_de(a.bv_r, a.bv_r2, sx, sy, sz, dx, dy, dz, dist,
+                              md, t);
+      } else {
+        done = occl_step(dist, md, a.eps_c, a.eps_l, step, a.max_steps, t,
+                         occ);
+        ++step;
+      }
+      if (done) {
+        a.verdict[id] = occ;
+        id = -1;
+      }
+    }
+  }
+}
+
+// k * visible of ray i's segments, summed from 0 in the JAX order (NEE
+// 0..L-1, then volume sites march-major): the radiance delta.
+__device__ __forceinline__ void segment_sum(const SumCols& c, long long n,
+                                            long long i, float& rad_r,
+                                            float& rad_g, float& rad_b) {
+  const long long m = (long long)c.S * n;
+  rad_r = 0.0f;
+  rad_g = 0.0f;
+  rad_b = 0.0f;
+  for (int j = 0; j < c.S; ++j) {
+    const long long id = (long long)j * n + i;
+    const float v = (c.active[id] && !c.verdict[id]) ? 1.0f : 0.0f;
+    rad_r = rad_r + c.k[id] * v;
+    rad_g = rad_g + c.k[m + id] * v;
+    rad_b = rad_b + c.k[2 * m + id] * v;
   }
 }
 
@@ -400,25 +573,23 @@ __device__ __forceinline__ void finish_tail(const ShadowScalars& sc,
   }
 }
 
-__global__ void __launch_bounds__(128)
-    bounce_tail_kernel(const TailArgs a) {
+__global__ void __launch_bounds__(128) tail_sum_kernel(const TailSumArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const Ray r = load_ray(a.r, i);
   float dr, dg, db;
-  shadow_delta(a.sc, a.s, a.n, i, r, dr, dg, db);
+  segment_sum(a.s, a.n, i, dr, dg, db);
   // the two-kernel association order: (state radiance + delta) + emission
   const float3 rin = ld3(a.f.radiance, i);
   finish_tail(a.sc, a.f, i, r, rin.x + dr, rin.y + dg, rin.z + db);
 }
 
 __global__ void __launch_bounds__(128)
-    shadow_radiance_kernel(const ShadowArgs a) {
+    shadow_sum_kernel(const ShadowSumArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const Ray r = load_ray(a.r, i);
   float dr, dg, db;
-  shadow_delta(a.sc, a.s, a.n, i, r, dr, dg, db);
+  segment_sum(a.s, a.n, i, dr, dg, db);
   st3(a.o_delta, i, dr, dg, db);
 }
 
@@ -470,23 +641,52 @@ __global__ void __launch_bounds__(128)
   a.key[i] = key;
 }
 
+__host__ inline unsigned blocks_of(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
 }  // namespace rayn
 
-extern "C" cudaError_t rayn_bounce_tail(const rayn::TailArgs* args,
-                                        cudaStream_t stream) {
+extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
+                                            cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  const int threads = 128;
-  const long long blocks = (args->n + threads - 1) / threads;
-  rayn::bounce_tail_kernel<<<(unsigned)blocks, threads, 0, stream>>>(*args);
+  rayn::shadow_segments_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
+                                 stream>>>(*args);
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t rayn_shadow_radiance(const rayn::ShadowArgs* args,
-                                             cudaStream_t stream) {
+// Persistent: as many blocks as fit on the card at once (fewer for a
+// short scratch); each runs until the queue is drained.
+extern "C" cudaError_t rayn_shadow_march(const rayn::SegMarchArgs* args,
+                                         cudaStream_t stream) {
+  if (args->m <= 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rayn::shadow_march_kernel, 128, 0);
+  if (err != cudaSuccess) return err;
+  const unsigned resident = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
+  const unsigned needed = rayn::blocks_of(args->m, 128);
+  const unsigned blocks = resident < needed ? resident : needed;
+  rayn::shadow_march_kernel<<<blocks, 128, 0, stream>>>(*args);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t rayn_shadow_sum(const rayn::ShadowSumArgs* args,
+                                       cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  const int threads = 128;
-  const long long blocks = (args->n + threads - 1) / threads;
-  rayn::shadow_radiance_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+  rayn::shadow_sum_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
+      *args);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t rayn_tail_sum(const rayn::TailSumArgs* args,
+                                     cudaStream_t stream) {
+  if (args->n <= 0) return cudaSuccess;
+  rayn::tail_sum_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
       *args);
   return cudaGetLastError();
 }

@@ -25,6 +25,10 @@ resume that finishes the others from phase 1's t: `march_phase1` /
 `march_resume` and `occlusion_phase1` / `occlusion_resume` are the plain
 twins of their four kernels. Each lane takes the same steps as in one
 uncapped march, so the composition is bit-identical to it.
+
+`occlusion_steps` counts the DEs each segment takes in the relax-1
+occlusion march: the work a schedule of the march has to pack into
+warps.
 """
 
 from __future__ import annotations
@@ -169,17 +173,20 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
 
 
 def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
-                steps: int):
+                steps: int, n_de=None):
     """At most `steps` relax-1 occlusion steps of the segments `live`,
     with t advanced in place: at each, a segment whose DE meets
     max(eps_c, eps_l * t) before its end is occluded (set in `occ`), one
     that hits or is past its end is done, and the others step on.
-    Returns the segments not done."""
+    Returns the segments not done. `n_de`, if given, counts each
+    segment's DEs in place."""
     eps_c = 1e-4 * detail_scale
     eps_l = 1e-5 * detail_scale
     for _ in range(steps):
         if live.numel() == 0:
             break
+        if n_de is not None:
+            n_de[live] += 1
         tl = t[live]
         gt_end = tl > md[live]
         r = _de_at(mb, start, d, live, tl)
@@ -189,6 +196,31 @@ def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
         live = live[step_on]
         t[live] = tl[step_on] + r[step_on]
     return live
+
+
+def _occl_march(mb, start, end, detail_scale: float, max_steps: int,
+                active, bound_radius: float, n_de=None):
+    """The relax-1 occlusion march of march_occlusion; `n_de`, if given,
+    counts each segment's DEs in place (its first DE, taken for every
+    active segment, and one per step)."""
+    d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
+    occ = torch.zeros_like(nan)
+    if n_de is not None:
+        n_de += active.to(n_de.dtype)
+    _occl_steps(mb, start, d, md, detail_scale, t.clone(), occ,
+                torch.nonzero(~nan).squeeze(1), max(max_steps, 1), n_de)
+    return occ
+
+
+def occlusion_steps(mb: MandelBox, start, end, detail_scale: float,
+                    max_steps: int, active, bound_radius: float = 0.0):
+    """int32 [N]: the MandelBox DEs each segment takes in the relax-1
+    march_occlusion (its first DE plus one per step; 0 when inactive),
+    the work that a lane spends on it."""
+    n_de = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
+    _occl_march(mb, start, end, detail_scale, max_steps, active,
+                bound_radius, n_de)
+    return n_de
 
 
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
@@ -201,14 +233,13 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     lane resolves, and False for a lane that resolves at entry or runs
     out of steps (the verdict of the JAX march_occlusion; reference
     src/sdf.rs:25-57). A relaxed step that overshoots is never a hit."""
+    if relax == 1.0:
+        return _occl_march(mb, start, end, detail_scale, max_steps, active,
+                           bound_radius)
     d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
     occ = torch.zeros_like(nan)
     live = torch.nonzero(~nan).squeeze(1)
     t = t.clone()
-    if relax == 1.0:
-        _occl_steps(mb, start, d, md, detail_scale, t, occ, live,
-                    max(max_steps, 1))
-        return occ
     eps_c = 1e-4 * detail_scale
     eps_l = 1e-5 * detail_scale
     t_prev = torch.zeros_like(t)

@@ -16,18 +16,27 @@ render paths:
   AOVs and termination, from the pre-emission radiance. Returns the next
   PathState.
 - `bounce_tail` replaces `bounce_tail_fused` (`_bounce_tail_kernel`):
-  both bodies in one kernel, on (state radiance + delta).
+  both halves, the finish on (state radiance + delta).
 - `shadow_sort_key` replaces `shadow_sort_key` (`_shadow_key_kernel` ->
   `_shadow_cost_key` -> `_segment_cost`): per ray, the summed estimate
   min(segment length / first DE, max_steps) over the same segments.
 
-Each wrapper launches its CUDA kernel (csrc/shade.cu) for CUDA tensors,
-counts the launch in its `launches` attribute, and raises on anything
-the kernel does not take. For CPU tensors it calls its `_plain` twin,
-which mirrors the kernel body formula for formula (the JAX fused body,
-not the unfused integrator path), so kernel and twin differ only in the
-compiler's float choices. The equi-angular distances and pdfs stay in
-torch outside the kernels, exactly as in JAX.
+`shadow_radiance` and `bounce_tail` are functions over three kernels:
+`shadow_segments` builds every segment once into a scratch and queues
+the active ones, `shadow_march` marches the queue (persistent lanes that
+refill from it), and `shadow_sum` / `tail_sum` sum k * visible in the
+JAX segment order (the latter then runs the finish tail).
+
+Each kernel wrapper launches its CUDA kernel (csrc/shade.cu) for CUDA
+tensors, counts the launch in its `launches` attribute, and raises on
+anything the kernel does not take. For CPU tensors it calls its `_plain`
+twin, which mirrors the kernel body formula for formula (the JAX fused
+body, not the unfused integrator path), so kernel and twin differ only
+in the compiler's float choices. `bounce_tail_plain` and
+`shadow_radiance_plain` are the same pipeline in one piece
+(`_shadow_delta_plain`: the segment loop, the verdicts, the ordered
+sum). The equi-angular distances and pdfs stay in torch outside the
+kernels, exactly as in JAX.
 """
 
 from __future__ import annotations
@@ -450,9 +459,10 @@ def _stack(*cols):
 
 
 def _sdf_verdicts(cfg, segs):
-    """Occlusion verdict of every segment: all segments march as one
-    batch, each with its own per-segment step sequence (scheduling never
-    changes a verdict). segs: list of (start xyz, end xyz, active)."""
+    """Occlusion verdict of every segment (march_ops.march_occlusion with
+    the bounding-sphere clip): all segments march as one batch, each with
+    its own step sequence (scheduling never changes a verdict). segs:
+    list of (start xyz, end xyz, active)."""
     if cfg.mb is None or not segs:
         return [torch.zeros_like(a) for (_s, _e, a) in segs]
     n = segs[0][2].shape[0]
@@ -462,6 +472,21 @@ def _sdf_verdicts(cfg, segs):
     occ = march_ops.march_occlusion(cfg.mb, start, end, cfg.detail,
                                     cfg.max_steps, act, cfg.bv_r)
     return list(occ.split(n))
+
+
+def _ordered_sum(ks, vis, like):
+    """sum of k * visible over the segments in their order, from 0 (the
+    JAX order: NEE 0..L-1, then volume sites march-major). ks: (r, g, b)
+    per segment; vis: a bool [N] per segment."""
+    rad_r = torch.zeros_like(like)
+    rad_g = torch.zeros_like(like)
+    rad_b = torch.zeros_like(like)
+    for (kr, kg, kb), v in zip(ks, vis):
+        v = v.to(torch.float32)
+        rad_r = rad_r + kr * v
+        rad_g = rad_g + kg * v
+        rad_b = rad_b + kb * v
+    return rad_r, rad_g, rad_b
 
 
 def _lane_values(state, info, mat, live, receives):
@@ -476,11 +501,14 @@ def _lane_values(state, info, mat, live, receives):
         wo=(-d[0], -d[1], -d[2]))
 
 
-def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
-    """The per-bounce shadow pipeline (shade_pallas._shadow_delta):
-    radiance delta (r, g, b), accumulated NEE 0..L-1 then volume sites
-    march-major; with `mis`, the NEE of a paired light is weighted before
-    `worth` decides whether its segment is marched."""
+def _segment_loop(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+    """Steps 3 + 4 of a bounce up to the SDF march (shade_pallas
+    ._shadow_delta): the NEE sites 0..L-1, then the volume sites
+    march-major. Returns (segs, ks): per segment (start xyz, end xyz,
+    active) and its contribution k (r, g, b). With `mis`, the NEE of a
+    paired light is weighted before `worth` decides whether its segment
+    is marched; a segment is active when it is worth marching and no
+    sphere blocks it."""
     p_x, p_y, p_z = v["p"]
     n_x, n_y, n_z = v["n"]
     off = v["off"]
@@ -488,7 +516,7 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
     wo_x, wo_y, wo_z = v["wo"]
     c_r, c_g, c_b = v["ca"]
     receives, alive = v["recv"], v["alive"]
-    segs, pend = [], []
+    segs, ks = [], []
     for i in range(cfg.L):
         ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, lights, i, v)
         wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
@@ -518,7 +546,7 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
         blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
         m_act = worth & ~blocked
         segs.append(((sx, sy, sz), (ex, ey, ez), m_act))
-        pend.append((kr, kg, kb, m_act))
+        ks.append((kr, kg, kb))
     if cfg.VM:
         inv_4pi = 1.0 / (4.0 * _PI)
         for j in range(cfg.VM * cfg.L):
@@ -541,17 +569,19 @@ def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
             blocked = _sphere_occluded(spheres, spx, spy, spz, ex, ey, ez)
             m_act = worth & ~blocked
             segs.append(((spx, spy, spz), (ex, ey, ez), m_act))
-            pend.append((kr, kg, kb, m_act))
+            ks.append((kr, kg, kb))
+    return segs, ks
+
+
+def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+    """The per-bounce shadow pipeline (shade_pallas._shadow_delta):
+    radiance delta (r, g, b) of the segment loop's segments, each marched
+    where active, summed in segment order."""
+    segs, ks = _segment_loop(cfg, lights, spheres, v, vtr, vol_dist,
+                             vol_pdf)
     occ = _sdf_verdicts(cfg, segs)
-    rad_r = torch.zeros_like(p_x)
-    rad_g = torch.zeros_like(p_x)
-    rad_b = torch.zeros_like(p_x)
-    for (kr, kg, kb, m_act), o in zip(pend, occ):
-        vis = (m_act & ~o).to(torch.float32)
-        rad_r = rad_r + kr * vis
-        rad_g = rad_g + kg * vis
-        rad_b = rad_b + kb * vis
-    return rad_r, rad_g, rad_b
+    return _ordered_sum(ks, [a & ~o for (_s, _e, a), o in zip(segs, occ)],
+                        v["p"][0])
 
 
 def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
@@ -653,8 +683,8 @@ def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
 
 def shadow_radiance_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
                           mat, live, receives, vol_trans, vol_dist, vol_pdf):
-    """Plain twin of the shadow-radiance kernel: the [N, 3] radiance
-    delta of one bounce's NEE and volume segments."""
+    """Plain version of `shadow_radiance`: the [N, 3] radiance delta of
+    one bounce's NEE and volume segments."""
     v = _lane_values(state, info, mat, live, receives)
     return _stack(*_shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
                                        vol_trans, vol_dist, vol_pdf))
@@ -671,13 +701,92 @@ def finish_bounce_plain(cfg: ShadowCfg, tables: SceneTables, state, hit,
 
 def bounce_tail_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
                       mat, live, receives, vol_trans, vol_dist, vol_pdf):
-    """Plain twin of the bounce-tail kernel: the next PathState fields
-    as a dict (origin, direction, throughput, radiance, alive, prev_pdf,
+    """Plain version of `bounce_tail`: the next PathState fields as a
+    dict (origin, direction, throughput, radiance, alive, prev_pdf,
     color_out, bg_out, alpha_out, normal_out). Association order is the
     two-kernel path's: (state.radiance + shadow delta) + emission."""
     v = _lane_values(state, info, mat, live, receives)
     dr, dg, db = _shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
                                      vol_trans, vol_dist, vol_pdf)
+    rx, ry, rz = state.radiance.unbind(-1)
+    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
+                         (rx + dr, ry + dg, rz + db))
+
+
+class ShadowSegments(NamedTuple):
+    """The shadow segments of one bounce, S = L + VM*L per ray, segment j
+    of ray i at j*N + i (NEE sites, then volume sites march-major)."""
+    geom: torch.Tensor     # [6, S, N] f32: start xyz, end xyz
+    k: torch.Tensor        # [3, S, N] f32: contribution rgb
+    active: torch.Tensor   # [S, N] bool: worth marching, no sphere in the way
+    queue: torch.Tensor    # [S*N] i32: ids of the active segments first
+    count: torch.Tensor    # [1] i32: how many ids the queue holds
+
+
+def _planes(cols, rows, x):
+    """[rows, S, N] stack of S per-segment tuples of `rows` [N] columns
+    like x."""
+    if not cols:
+        return x.new_empty((rows, 0, x.shape[0]))
+    return torch.stack([torch.stack(c) for c in cols], dim=1)
+
+
+def shadow_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
+                          mat, live, receives, vol_trans, vol_dist,
+                          vol_pdf) -> ShadowSegments:
+    """Plain twin of the segments kernel: the segment loop's segments,
+    with the active ones queued in id order."""
+    v = _lane_values(state, info, mat, live, receives)
+    segs, ks = _segment_loop(cfg, tables.lights, tables.spheres, v,
+                             vol_trans, vol_dist, vol_pdf)
+    n = state.origin.shape[0]
+    x = v["p"][0]
+    active = (torch.stack([a for (_s, _e, a) in segs]) if segs else
+              torch.zeros((0, n), dtype=torch.bool, device=x.device))
+    ids = torch.nonzero(active.reshape(-1)).squeeze(1).to(torch.int32)
+    queue = torch.zeros((active.numel(),), dtype=torch.int32, device=x.device)
+    queue[:ids.numel()] = ids
+    return ShadowSegments(
+        geom=_planes([(*s, *e) for (s, e, _a) in segs], 6, x),
+        k=_planes(ks, 3, x), active=active, queue=queue,
+        count=torch.full((1,), ids.numel(), dtype=torch.int32,
+                         device=x.device))
+
+
+def shadow_march_plain(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
+    """Plain twin of the march kernel: [S, N] bool, True where the SDF
+    blocks a queued segment (the relax-1 march_occlusion verdict with the
+    bounding-sphere clip); False elsewhere."""
+    S, n = segs.active.shape
+    verdict = torch.zeros((S * n,), dtype=torch.bool,
+                          device=segs.active.device)
+    if cfg.mb is not None:
+        ids = segs.queue[:int(segs.count[0])].long()
+        g = segs.geom.reshape(6, -1)[:, ids].T
+        verdict[ids] = march_ops.march_occlusion(
+            cfg.mb, g[:, :3], g[:, 3:], cfg.detail, cfg.max_steps,
+            torch.ones_like(ids, dtype=torch.bool), cfg.bv_r)
+    return verdict.reshape(S, n)
+
+
+def _segment_sum(segs: ShadowSegments, verdict):
+    return _ordered_sum(zip(*segs.k), segs.active & ~verdict,
+                        segs.k.new_zeros(segs.k.shape[2]))
+
+
+def shadow_sum_plain(segs: ShadowSegments, verdict) -> torch.Tensor:
+    """Plain twin of the shadow-sum kernel: the [N, 3] radiance delta,
+    k * (active and not blocked) summed over the segments in order."""
+    return _stack(*_segment_sum(segs, verdict))
+
+
+def tail_sum_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
+                   mat, live, receives, vol_trans, segs: ShadowSegments,
+                   verdict) -> dict:
+    """Plain twin of the tail-sum kernel: the finish tail (as
+    bounce_tail_plain) on state radiance + the segments' delta."""
+    v = _lane_values(state, info, mat, live, receives)
+    dr, dg, db = _segment_sum(segs, verdict)
     rx, ry, rz = state.radiance.unbind(-1)
     return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
@@ -783,13 +892,33 @@ class _FinishCols(ctypes.Structure):
                      *(f"o_{name}" for name in _OUT))
 
 
-class _TailArgs(ctypes.Structure):
-    _fields_ = [("r", _RayCols), ("s", _ShadowCols), ("f", _FinishCols),
+class _SegCols(ctypes.Structure):
+    _fields_ = _ptrs(*ShadowSegments._fields)
+
+
+class _SegArgs(ctypes.Structure):
+    _fields_ = [("r", _RayCols), ("s", _ShadowCols), ("g", _SegCols),
                 ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
 
 
-class _ShadowArgs(ctypes.Structure):
-    _fields_ = [("r", _RayCols), ("s", _ShadowCols), ("o_delta", _P),
+class _SegMarchArgs(ctypes.Structure):
+    _fields_ = _ptrs("geom", "queue", "count", "head", "verdict") + [
+        ("m", ctypes.c_int64), ("max_steps", ctypes.c_int),
+        ("mb", _build.MBox), ("eps_c", ctypes.c_float),
+        ("eps_l", ctypes.c_float), ("bv_r", ctypes.c_float),
+        ("bv_r2", ctypes.c_float)]
+
+
+class _SumCols(ctypes.Structure):
+    _fields_ = _ptrs("k", "active", "verdict") + [("S", ctypes.c_int)]
+
+
+class _ShadowSumArgs(ctypes.Structure):
+    _fields_ = [("s", _SumCols), ("o_delta", _P), ("n", ctypes.c_int64)]
+
+
+class _TailSumArgs(ctypes.Structure):
+    _fields_ = [("r", _RayCols), ("f", _FinishCols), ("s", _SumCols),
                 ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
 
 
@@ -919,57 +1048,149 @@ def _finish_cols(cfg, tables, state, hit, mat, radiance, dev):
     return cols, out
 
 
-def bounce_tail(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
-                live, receives, vol_trans, vol_dist, vol_pdf) -> dict:
-    """Whole bounce tail of one bounce. vol_dist/vol_pdf: sequences of
-    VM*L [N] tensors (march-major). Returns the next PathState fields
-    (see bounce_tail_plain)."""
-    dev = _device("bounce_tail", state.origin)
+def _seg_cols(segs: ShadowSegments, dev) -> dict:
+    """Pointers of a segment scratch, shapes checked; S and N from
+    `active`."""
+    S, n = segs.active.shape
+    f32, i32 = torch.float32, torch.int32
+    return dict(geom=check(segs.geom, "geom", f32, (6, S, n), dev),
+                k=check(segs.k, "k", f32, (3, S, n), dev),
+                active=check(segs.active, "active", torch.bool, (S, n), dev),
+                queue=check(segs.queue, "queue", i32, (S * n,), dev),
+                count=check(segs.count, "count", i32, (1,), dev))
+
+
+def _sum_cols(segs: ShadowSegments, verdict, n, dev) -> _SumCols:
+    S = segs.active.shape[0]
+    cols = _seg_cols(segs, dev)
+    return _SumCols(k=cols["k"], active=cols["active"],
+                    verdict=check(verdict, "verdict", torch.bool, (S, n),
+                                  dev), S=S)
+
+
+def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
+                    live, receives, vol_trans, vol_dist, vol_pdf
+                    ) -> ShadowSegments:
+    """The shadow segments of one bounce (see ShadowSegments), the active
+    ones queued in any order. vol_dist/vol_pdf: sequences of VM*L [N]
+    tensors (march-major)."""
+    dev = _device("shadow_segments", state.origin)
     if dev is None:
-        return bounce_tail_plain(cfg, tables, state, hit, info, mat, live,
-                                 receives, vol_trans, vol_dist, vol_pdf)
+        return shadow_segments_plain(cfg, tables, state, info, mat, live,
+                                     receives, vol_trans, vol_dist, vol_pdf)
     if cfg.NL < 1:
-        raise NotImplementedError("bounce_tail needs a scene with lights")
+        raise NotImplementedError("the shadow kernels need a scene with "
+                                  "lights")
     n = state.origin.shape[0]
+    S = cfg.L + cfg.VM * cfg.L
+    if S * n >= 2 ** 31:
+        raise ValueError(f"{S} x {n} shadow segments overflow int32 ids")
     vd = _vol_cols(vol_dist, n, cfg.VM * cfg.L, dev)
     vp = _vol_cols(vol_pdf, n, cfg.VM * cfg.L, dev)
+    f32 = torch.float32
+    segs = ShadowSegments(
+        geom=torch.empty((6, S, n), dtype=f32, device=dev),
+        k=torch.empty((3, S, n), dtype=f32, device=dev),
+        active=torch.empty((S, n), dtype=torch.bool, device=dev),
+        queue=torch.empty((S * n,), dtype=torch.int32, device=dev),
+        count=torch.zeros((1,), dtype=torch.int32, device=dev))
+    args = _SegArgs(
+        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
+        s=_shadow_cols(cfg, tables, vd, vp, dev),
+        g=_SegCols(**_seg_cols(segs, dev)), n=n, sc=_scalars(cfg))
+    _build.launch("rayn_shadow_segments", args, dev)
+    shadow_segments.launches += 1
+    return segs
+
+
+shadow_segments.launches = 0
+
+
+def shadow_march(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
+    """[S, N] bool: True where the SDF blocks a queued segment (False
+    for every segment of a scene without an SDF, with no launch)."""
+    dev = _device("shadow_march", segs.active)
+    if dev is None:
+        return shadow_march_plain(cfg, segs)
+    S, n = segs.active.shape
+    verdict = torch.zeros((S, n), dtype=torch.bool, device=dev)
+    if cfg.mb is None:
+        return verdict
+    cols = _seg_cols(segs, dev)
+    head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = _SegMarchArgs(
+        geom=cols["geom"], queue=cols["queue"], count=cols["count"],
+        head=head.data_ptr(), verdict=verdict.data_ptr(), m=S * n,
+        max_steps=cfg.max_steps, mb=mbox_struct(cfg.mb), eps_c=cfg.eps_c,
+        eps_l=cfg.eps_l, bv_r=cfg.bv_r, bv_r2=float(cfg.bv_r * cfg.bv_r))
+    _build.launch("rayn_shadow_march", args, dev)
+    shadow_march.launches += 1
+    return verdict
+
+
+shadow_march.launches = 0
+
+
+def shadow_sum(segs: ShadowSegments, verdict) -> torch.Tensor:
+    """[N, 3] radiance delta: k * (active and not blocked) summed over the
+    segments in order."""
+    dev = _device("shadow_sum", segs.active)
+    if dev is None:
+        return shadow_sum_plain(segs, verdict)
+    n = segs.active.shape[1]
+    delta = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    args = _ShadowSumArgs(s=_sum_cols(segs, verdict, n, dev),
+                          o_delta=delta.data_ptr(), n=n)
+    _build.launch("rayn_shadow_sum", args, dev)
+    shadow_sum.launches += 1
+    return delta
+
+
+shadow_sum.launches = 0
+
+
+def tail_sum(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
+             live, receives, vol_trans, segs: ShadowSegments,
+             verdict) -> dict:
+    """The next PathState fields (see bounce_tail_plain) from state
+    radiance + the segments' delta."""
+    dev = _device("tail_sum", state.origin)
+    if dev is None:
+        return tail_sum_plain(cfg, tables, state, hit, info, mat, live,
+                              receives, vol_trans, segs, verdict)
+    n = state.origin.shape[0]
     fcols, out = _finish_cols(cfg, tables, state, hit, mat, state.radiance,
                               dev)
-    args = _TailArgs(
+    args = _TailSumArgs(
         r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
-        s=_shadow_cols(cfg, tables, vd, vp, dev), f=fcols, n=n,
-        sc=_scalars(cfg))
-    _build.launch("rayn_bounce_tail", args, dev)
-    bounce_tail.launches += 1
+        f=fcols, s=_sum_cols(segs, verdict, n, dev), n=n, sc=_scalars(cfg))
+    _build.launch("rayn_tail_sum", args, dev)
+    tail_sum.launches += 1
     return out
 
 
-bounce_tail.launches = 0
+tail_sum.launches = 0
+
+
+def bounce_tail(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
+                live, receives, vol_trans, vol_dist, vol_pdf) -> dict:
+    """Whole bounce tail of one bounce: segments, march, sum and finish.
+    vol_dist/vol_pdf: sequences of VM*L [N] tensors (march-major).
+    Returns the next PathState fields (see bounce_tail_plain)."""
+    segs = shadow_segments(cfg, tables, state, info, mat, live, receives,
+                           vol_trans, vol_dist, vol_pdf)
+    return tail_sum(cfg, tables, state, hit, info, mat, live, receives,
+                    vol_trans, segs, shadow_march(cfg, segs))
 
 
 def shadow_radiance(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
                     live, receives, vol_trans, vol_dist, vol_pdf
                     ) -> torch.Tensor:
-    """[N, 3] radiance delta of one bounce's NEE and volume segments
-    (see shadow_radiance_plain)."""
-    dev = _device("shadow_radiance", state.origin)
-    if dev is None:
-        return shadow_radiance_plain(cfg, tables, state, info, mat, live,
-                                     receives, vol_trans, vol_dist, vol_pdf)
-    n = state.origin.shape[0]
-    vd = _vol_cols(vol_dist, n, cfg.VM * cfg.L, dev)
-    vp = _vol_cols(vol_pdf, n, cfg.VM * cfg.L, dev)
-    delta = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    args = _ShadowArgs(
-        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
-        s=_shadow_cols(cfg, tables, vd, vp, dev), o_delta=delta.data_ptr(),
-        n=n, sc=_scalars(cfg))
-    _build.launch("rayn_shadow_radiance", args, dev)
-    shadow_radiance.launches += 1
-    return delta
-
-
-shadow_radiance.launches = 0
+    """[N, 3] radiance delta of one bounce's NEE and volume segments:
+    segments, march, sum (see shadow_radiance_plain)."""
+    segs = shadow_segments(cfg, tables, state, info, mat, live, receives,
+                           vol_trans, vol_dist, vol_pdf)
+    return shadow_sum(segs, shadow_march(cfg, segs))
 
 
 def finish_bounce(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,

@@ -8,7 +8,11 @@ Without CUDA the `cuda` fixture skips every test here. The inputs are
 the real kernel inputs of the default scene at 2^14 rays (128x128 at
 1 spp), depths 0 and 1, with MIS off and on for the tail kernels; the
 gates are the JAX package's fused-vs-unfused gates
-(tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95).
+(tests/test_fused_intersect.py:52-68, test_fused_shadows.py:69-95),
+except for the shadow kernels (segments, march, the two sums) and the
+functions on them (`bounce_tail`, `shadow_radiance`), which equal their
+plain twins bit for bit, also on adversarial segments and on a scene
+with no medium and one NEE sample.
 The occlusion kernels take 12 x 2^14 seeded random segments, gated on
 >= 99.9% equal verdicts. The two-phase kernels (march and occlusion
 phase 1 and resume) equal their twins bit for bit on the same inputs,
@@ -37,14 +41,15 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _wavefront(dev, depth, mis=False):
+def _wavefront(dev, depth, mis=False, volume=True, nee=4):
     """(scene, settings, tables, state, hps) of the default scene's
     wavefront at `depth` (depth 1 = the bounce rays of a plain depth-0
     bounce)."""
     s = RenderSettings(resolution=RES, spp=1, max_marches=128,
                        max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
-                       mis=mis)
-    data, static, cam = presets.default_scene(resolution=RES, device=dev)
+                       mis=mis, nee_light_samples=nee)
+    data, static, cam = presets.default_scene(resolution=RES, device=dev,
+                                              volume=volume)
     tables = rng.build_sample_tables(s, 1)
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
@@ -94,8 +99,9 @@ def test_closest_hit_kernel_matches_plain(cuda, depth):
                                atol=1e-5)
 
 
-def _tail_inputs(cuda, depth, mis=False):
-    data, static, s, tables, state, hps = _wavefront(cuda, depth, mis)
+def _tail_inputs(cuda, depth, mis=False, **scene):
+    data, static, s, tables, state, hps = _wavefront(cuda, depth, mis,
+                                                     **scene)
     hit, info = _hit(data, static, s, state, hps,
                      intersect_cuda.closest_hit_shading_plain)
     live, mat, recv, vtr = integrator._derive_shading(data, static, state,
@@ -122,39 +128,189 @@ def _check_state(got, want, depth):
     assert afrac < (1e-3 if depth == 0 else 1e-2)
 
 
-def _bounce_tail_vs_plain(cuda, depth, mis):
-    args = _tail_inputs(cuda, depth, mis)
-    before = shade_cuda.bounce_tail.launches
+def _same_bits(got, want):
+    """Equal bit for bit (NaNs of any payload count as equal)."""
+    if got.dtype == torch.bool:
+        return torch.equal(got, want)
+    return bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _launched(fn, before):
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+_SEGMENT_KERNELS = (shade_cuda.shadow_segments, shade_cuda.shadow_march)
+
+
+def _launches(*fns):
+    return [fn.launches for fn in fns]
+
+
+def _bounce_tail_vs_plain(args):
+    fns = (*_SEGMENT_KERNELS, shade_cuda.tail_sum)
+    before = _launches(*fns)
     got = shade_cuda.bounce_tail(*args)
     want = shade_cuda.bounce_tail_plain(*args)
     torch.cuda.synchronize()
-    assert shade_cuda.bounce_tail.launches == before + 1
-    _check_state(got, want, depth)
+    assert _launches(*fns) == [n + 1 for n in before]
+    assert want["radiance"].abs().max().item() > 0.0
+    assert all(_same_bits(got[f], want[f]) for f in want)
+
+
+def _shadow_radiance_vs_plain(args):
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = args
+    args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    fns = (*_SEGMENT_KERNELS, shade_cuda.shadow_sum)
+    before = _launches(*fns)
+    got = shade_cuda.shadow_radiance(*args)
+    want = shade_cuda.shadow_radiance_plain(*args)
+    torch.cuda.synchronize()
+    assert _launches(*fns) == [n + 1 for n in before]
+    assert want.abs().max().item() > 0.0
+    assert _same_bits(got, want)
 
 
 @pytest.mark.parametrize("depth", [0, 1])
 def test_bounce_tail_kernel_matches_plain(cuda, depth):
-    _bounce_tail_vs_plain(cuda, depth, False)
+    _bounce_tail_vs_plain(_tail_inputs(cuda, depth))
 
 
 @pytest.mark.parametrize("depth", [0, 1])
 def test_bounce_tail_kernel_with_mis_matches_plain(cuda, depth):
-    _bounce_tail_vs_plain(cuda, depth, True)
+    _bounce_tail_vs_plain(_tail_inputs(cuda, depth, True))
 
 
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_shadow_radiance_kernel_matches_plain(cuda, depth, mis):
+    _shadow_radiance_vs_plain(_tail_inputs(cuda, depth, mis))
+
+
+def _same_segments(got, want):
+    """Two ShadowSegments hold the same segments and queue the same ids
+    (in any order)."""
+    count = int(want.count[0])
+    return (all(_same_bits(getattr(got, f), getattr(want, f))
+                for f in ("geom", "k", "active", "count"))
+            and torch.equal(got.queue[:count].sort().values,
+                            want.queue[:count].sort().values))
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_shadow_segments_kernel_matches_plain(cuda, depth, mis):
     cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
         _tail_inputs(cuda, depth, mis))
     args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
-    before = shade_cuda.shadow_radiance.launches
-    got = shade_cuda.shadow_radiance(*args)
-    want = shade_cuda.shadow_radiance_plain(*args)
+    before = shade_cuda.shadow_segments.launches
+    got = shade_cuda.shadow_segments(*args)
+    _launched(shade_cuda.shadow_segments, before)
+    want = shade_cuda.shadow_segments_plain(*args)
+    assert int(want.count[0]) > 0 and _same_segments(got, want)
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_shadow_march_kernel_matches_plain(cuda, depth, mis):
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, mis))
+    segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
+                                            live, recv, vtr, vd, vp)
+    before = shade_cuda.shadow_march.launches
+    got = shade_cuda.shadow_march(cfg, segs)
+    _launched(shade_cuda.shadow_march, before)
+    want = shade_cuda.shadow_march_plain(cfg, segs)
+    assert want.any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_shadow_sum_kernels_match_plain(cuda, depth, mis):
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, mis))
+    segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
+                                            live, recv, vtr, vd, vp)
+    verdict = shade_cuda.shadow_march_plain(cfg, segs)
+    before = shade_cuda.shadow_sum.launches
+    got = shade_cuda.shadow_sum(segs, verdict)
+    _launched(shade_cuda.shadow_sum, before)
+    assert _same_bits(got, shade_cuda.shadow_sum_plain(segs, verdict))
+    tail = (cfg, tabs, state, hit, info, mat, live, recv, vtr, segs, verdict)
+    before = shade_cuda.tail_sum.launches
+    got = shade_cuda.tail_sum(*tail)
+    _launched(shade_cuda.tail_sum, before)
+    want = shade_cuda.tail_sum_plain(*tail)
+    assert all(_same_bits(got[f], want[f]) for f in want)
+
+
+def _adversarial_segments(dev, queue):
+    """A scratch of 2 x 4096 segments: seeded random ones, ones of zero
+    length (rays 0-63) and ones that start at NaN (rays 64-127), about
+    half of them active; rays 128-191 have none. queue: "shuffled" queues
+    every active segment in a seeded random order, "three" only the
+    first three, so that most warps find no work."""
+    g = np.random.default_rng(5)
+    S, n = 2, 4096
+    start = g.uniform(-3.0, 3.0, (S, n, 3)).astype(np.float32)
+    d = g.normal(size=(S, n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    end = start + d * g.uniform(0.2, 6.0, (S, n, 1)).astype(np.float32)
+    end[:, :64] = start[:, :64]
+    start[:, 64:128, 0] = np.nan
+    act = g.uniform(size=(S, n)) > 0.5
+    act[:, :128] |= g.uniform(size=(S, 128)) > 0.2
+    act[:, 128:192] = False
+    ids = np.flatnonzero(act)
+    ids = g.permutation(ids) if queue == "shuffled" else ids[:3]
+    if queue == "three":
+        act[:] = False
+        act.reshape(-1)[ids] = True
+    q = np.zeros(S * n, np.int32)
+    q[:ids.size] = ids
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return shade_cuda.ShadowSegments(
+        geom=T(np.concatenate([start, end], -1).transpose(2, 0, 1)),
+        k=T(g.uniform(0.0, 1.0, (3, S, n)).astype(np.float32)),
+        active=T(act), queue=T(q),
+        count=T(np.array([ids.size], np.int32)))
+
+
+@pytest.mark.parametrize("queue", ["shuffled", "three"])
+def test_shadow_march_kernel_on_adversarial_segments(cuda, queue):
+    data, static, _cam = presets.default_scene(resolution=RES, device=cuda)
+    cfg = shade_cuda.shadow_cfg(data, static, RenderSettings(
+        resolution=RES, spp=1, max_vis_marches=64), rng.SampleTables(1), 0)
+    segs = _adversarial_segments(cuda, queue)
+    got = shade_cuda.shadow_march(cfg, segs)
+    want = shade_cuda.shadow_march_plain(cfg, segs)
     torch.cuda.synchronize()
-    assert shade_cuda.shadow_radiance.launches == before + 1
-    assert want.abs().max().item() > 0.0
-    _check_radiance(got, want)
+    assert _same_bits(got, want)
+    assert want.any() or queue == "three"
+    assert _same_bits(shade_cuda.shadow_sum(segs, got),
+                      shade_cuda.shadow_sum_plain(segs, want))
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_tail_kernels_without_medium_one_nee_sample(cuda, depth):
+    """VM = 0 and L = 1, and the first 64 rays (two warps) with no
+    active segment: both functions and the segments kernel bit for bit."""
+    args = list(_tail_inputs(cuda, depth, True, volume=False, nee=1))
+    cfg = args[0]
+    assert (cfg.L, cfg.VM) == (1, 0)
+    for j in (6, 7):     # live, receives
+        args[j] = args[j].clone()
+        args[j][:64] = False
+    _bounce_tail_vs_plain(args)
+    _shadow_radiance_vs_plain(args)
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = args
+    shadow_args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    got = shade_cuda.shadow_segments(*shadow_args)
+    want = shade_cuda.shadow_segments_plain(*shadow_args)
+    torch.cuda.synchronize()
+    assert got.geom.shape[1] == 1 and _same_segments(got, want)
+    assert not want.active[:, :64].any()
 
 
 @pytest.mark.parametrize("mis", [False, True])
@@ -246,14 +402,6 @@ def test_chained_occlusion_kernel_matches_plain(cuda):
     assert want.any() and (got == want).float().mean().item() >= 0.999
 
 
-def _same_bits(got, want):
-    """Equal bit for bit (NaNs of any payload count as equal)."""
-    if got.dtype == torch.bool:
-        return torch.equal(got, want)
-    return bool(((got.view(torch.int32) == want.view(torch.int32))
-                 | (torch.isnan(got) & torch.isnan(want))).all())
-
-
 def _march_inputs(cuda):
     """(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin),
     max_steps and active of the default scene's camera rays."""
@@ -263,11 +411,6 @@ def _march_inputs(cuda):
     return ((data.sdf_params, state.origin, state.direction, t_max,
              5e-5 * detail, 0.05 * detail * ha, 0.05 * detail * hl),
             s.max_marches, state.alive)
-
-
-def _launched(fn, before):
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
 
 
 @pytest.mark.parametrize("split", [8, 32])
