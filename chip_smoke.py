@@ -10,39 +10,48 @@ Phases (any failed gate raises and the script exits non-zero):
    source; prints the build seconds and each kernel's registers, spills
    and shared memory.
 3. Kernels against their plain twins: one 2^20-ray pass of the 1920x1080
-   default scene runs through the plain twins on each of five paths and
+   default scene runs through the plain twins on each of seven paths and
    records the real inputs of the kernels at depths 0 and 1 (sort key: 1
    and 2): the fused path (intersect, sort key, the bounce tail's
    segments, march and tail-sum kernels), the fused path with MIS (the
    same tail), the split tail with MIS (segments, march, shadow-sum and
-   finish kernels), the relaxed segment queue (march and occlusion at
-   relax 1.5) and the relax-1 unfused segment queue (march and chained
-   occlusion); and the inputs of the two functions on the shadow kernels,
+   finish kernels), the relaxed segment queue (relax 1.5) and the relax-1
+   unfused segment queue (the march kernel, and the queue-segments,
+   refill-march and queue-sum kernels with the segment-queue tail that
+   runs them), and those two with MIS (max_bounces 1: depths 0 and 1
+   only); and the inputs of the two functions on the shadow kernels,
    bounce_tail and shadow_radiance. Each kernel then runs on those inputs
    beside its twin, gated by the JAX package's fused-vs-unfused gates;
-   the four shadow kernels must equal their twins bit for bit (the
-   segments kernel's queue as a set), and the two functions their
-   one-piece plain versions, in every output column. Kernel and twin are
-   timed with CUDA events, and the twin's DE count (the finish kernel:
-   its bytes) gives the kernel's bound. On the bounce tail's shadow queue
-   at depths 0 and 1, the DEs of each segment (march.occlusion_steps) give
-   the DE steps per 32-lane warp of three schedules (one thread per ray,
-   the TPU's chaining, lanes that refill from the queue), printed beside
-   the times of the refill march, the one-segment occlusion kernel and
-   march_occlusion_phased at 16 steps on the same segments. Then the
-   two-phase marches on
+   the shadow and queue kernels must equal their twins bit for bit (a
+   segments kernel's queue as a set), the two functions their one-piece
+   plain versions, and the segment-queue tail the same tail on the plain
+   twins, in every output column. Kernel and twin are timed with CUDA
+   events, the short kernels (sort key, finish, segments, sums, enqueue)
+   by their device time in torch.profiler, and the twin's DE count (the
+   finish kernel: its bytes) gives the kernel's bound. Rows 7 and 8,
+   march_occlusion and march_occlusion_chained (the enqueue kernel, then
+   the refill march on [M, 3] segments), run on the queue paths'
+   segments at depths 0 and 1, at relax 1 and 1.5 with and without the
+   bounding-sphere clip, and must equal their one-piece twins bit for
+   bit, the enqueue kernel its twin (as a set). On the shadow queues of
+   the bounce tail and of the two queue paths at depths 0 and 1, the DEs
+   of each segment (march.occlusion_steps, relaxed on the relaxed path)
+   give the DE steps per 32-lane warp of three schedules (one thread per
+   ray or per segment, the TPU's chaining, lanes that refill from the
+   queue), printed beside the times of the refill march on the scratch,
+   of march_occlusion on the same segments and, at relax 1, of
+   march_occlusion_phased at 16 steps. Then the two-phase marches on
    the relax-1 unfused path's inputs: the closest-hit march at depths 0
-   and 1 and the chained [12, N] shadow queue as the [12N] queue that
-   test_occluded passes. At phase-1 steps 8 and 32 (march) and 8 and 16
-   (occlusion), each function's phase-1 and resume kernels equal their
-   twins bit for bit (the resume on the twin's phase-1 outputs in the
-   function's lane order), and march_sorted and march_phased equal the
-   march kernel, march_occlusion_phased and march_occlusion_sorted the
-   occlusion kernel with no clip, bit for bit. On the depth-1 inputs, at
-   each function's JAX default split, phase 1, the resume, the whole
-   function (its sort or partition included), the single-phase kernel
-   and the plain function are timed; the script prints how many of the
-   queue's verdicts the bounding-sphere clip changes.
+   and 1 and its [12N] shadow queue. At phase-1 steps 8 and 32 (march)
+   and 8 and 16 (occlusion), each function's phase-1 and resume kernels
+   equal their twins bit for bit (the resume on the twin's phase-1
+   outputs in the function's lane order), and march_sorted and
+   march_phased equal the march kernel, march_occlusion_phased and
+   march_occlusion_sorted march_occlusion with no clip, bit for bit. On
+   the depth-1 inputs, at each function's JAX default split, phase 1,
+   the resume, the whole function (its sort or partition included),
+   march_occlusion and the plain function are timed; the script prints
+   how many of the queue's verdicts the bounding-sphere clip changes.
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
@@ -57,8 +66,10 @@ Phases (any failed gate raises and the script exits non-zero):
 6. Image gates at 64x64, 32 spp, RMSE <= 1.5x a seed-swap null (plain
    twins at frame 101) and mean relative difference <= 1e-3
    (bench.py:117-151): the kernels against the plain twins on the fused
-   path, on the relaxed path and on the split tail with MIS, and the
-   relax-1 unfused path against the fused image; the sorted two-phase
+   path, on the relaxed and relax-1 unfused paths and on the split tail
+   with MIS, and the relax-1 unfused path against the fused image (the
+   films of the three segment-queue paths must also equal their
+   plain-twin films bit for bit); the sorted two-phase
    path (`march_sort_steps=8`, `occl_sort_steps=8`, unfused), kernels
    against plain twins, and by RMSE only against the clipped unfused
    image (its occlusion marches are unclipped). The MIS image's mean
@@ -79,12 +90,14 @@ Phases (any failed gate raises and the script exits non-zero):
    phase-10 split tail with MIS and on phase 12's sorted path; then the
    fused, fused-MIS, split-MIS, unfused and sorted passes timed in turns.
 8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
-   which takes the segment queue; the march and occlusion kernels must
-   have launched, with phase 4's film gates.
+   which takes the segment queue; the march, queue-segments, refill-march
+   and queue-sum kernels must have launched (and not the enqueue and
+   [M, 3] march kernels, which only intersect.test_occluded runs), with
+   phase 4's film gates.
 9. The relax-1 unfused path: use_fused_intersect and use_fused_shadows
    off, 960x540 at 4 spp (phase 4's aspect, so its centre crop covers
-   the same view angles); the march and chained occlusion kernels must
-   have launched, with the film gates.
+   the same view angles); the same kernels as phase 8 must have
+   launched, with the film gates.
 10. The split tail with MIS: phase 4's workload with `mis=True` and
    `use_fused_bounce_tail=False`; the intersect, sort-key, segments,
    march, shadow-sum and finish kernels must have launched (the tail-sum
@@ -94,14 +107,16 @@ Phases (any failed gate raises and the script exits non-zero):
    segments, march and shadow sum; no finish kernel); the default scene
    without its lights and their emissive bodies at 960x540 (intersect and
    finish; no shadow, key or tail kernel); MIS at relaxation 1.5 at
-   480x270 (march and occlusion); the spheres scene with MIS at 480x270
+   480x270 (march and the queue kernels); the spheres scene with MIS at
+   480x270
    on the bounce tail and on the split tail (no SDF, so no sort key; the
    march wrapper launches nothing there).
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
    with `march_sort_steps=8` and `occl_phase1_steps=16`; the march and
-   occlusion phase-1 and resume kernels must have launched and the
-   march, occlusion and chained kernels not, with the film gates. At
+   occlusion phase-1 and resume kernels and the queue-segments and
+   queue-sum kernels must have launched and the march, refill-march and
+   enqueue kernels not, with the film gates. At
    256x256, 4 spp: the film with `march_sort_steps=8` alone equals the
    unfused film bit for bit, the film with `occl_sort_steps=8` equals the
    one with `occl_phase1_steps=16`, and the sorted path's films at pass
@@ -150,53 +165,86 @@ def de_flops(iterations: int) -> int:
 
 
 # The port's CUDA kernels: key, module of rayn_tpu_torch.ops, wrapper
-# name (each wrapper counts its launches and has a `_plain` twin).
+# name (each wrapper counts its launches and has a `_plain` twin), and
+# the kernel entries the wrapper launches.
 CUDA_KERNELS = (
-    ("intersect", "intersect_cuda", "closest_hit_shading"),
-    ("key", "shade_cuda", "shadow_sort_key"),
-    ("seg", "shade_cuda", "shadow_segments"),
-    ("smarch", "shade_cuda", "shadow_march"),
-    ("ssum", "shade_cuda", "shadow_sum"),
-    ("tsum", "shade_cuda", "tail_sum"),
-    ("finish", "shade_cuda", "finish_bounce"),
-    ("march", "march_cuda", "march"),
-    ("occl", "march_cuda", "march_occlusion"),
-    ("chained", "march_cuda", "march_occlusion_chained"),
-    ("march_p1", "march_cuda", "march_phase1"),
-    ("march_resume", "march_cuda", "march_resume"),
-    ("occl_p1", "march_cuda", "occlusion_phase1"),
-    ("occl_resume", "march_cuda", "occlusion_resume"),
+    ("intersect", "intersect_cuda", "closest_hit_shading",
+     ("closest_hit_kernel",)),
+    ("key", "shade_cuda", "shadow_sort_key", ("shadow_sort_key_kernel",)),
+    ("seg", "shade_cuda", "shadow_segments", ("shadow_segments_kernel",)),
+    ("smarch", "shade_cuda", "shadow_march",
+     ("shadow_march_kernel", "shadow_march_relaxed_kernel")),
+    ("ssum", "shade_cuda", "shadow_sum", ("shadow_sum_kernel",)),
+    ("tsum", "shade_cuda", "tail_sum", ("tail_sum_kernel",)),
+    ("finish", "shade_cuda", "finish_bounce", ("finish_bounce_kernel",)),
+    ("qseg", "shade_cuda", "queue_segments", ("queue_segments_kernel",)),
+    ("qsum", "shade_cuda", "queue_sum", ("queue_sum_kernel",)),
+    ("march", "march_cuda", "march", ("march_kernel",)),
+    ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
+    ("omarch", "march_cuda", "occlusion_march",
+     ("occl_march_kernel", "occl_march_relaxed_kernel")),
+    ("march_p1", "march_cuda", "march_phase1", ("march_phase1_kernel",)),
+    ("march_resume", "march_cuda", "march_resume", ("march_resume_kernel",)),
+    ("occl_p1", "march_cuda", "occlusion_phase1", ("occl_phase1_kernel",)),
+    ("occl_resume", "march_cuda", "occlusion_resume",
+     ("occl_resume_kernel",)),
 )
-# Functions of shade_cuda over those kernels, each with a `_plain`
-# version in one piece: key, wrapper name.
-TAIL_FUNCTIONS = (("tail", "bounce_tail"), ("shadow", "shadow_radiance"))
+ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
+# Functions over those kernels, each with a `_plain` version in one
+# piece: key, module, name.
+FUNCTIONS = (("tail", "shade_cuda", "bounce_tail"),
+             ("shadow", "shade_cuda", "shadow_radiance"),
+             ("occl", "march_cuda", "march_occlusion"),
+             ("chained", "march_cuda", "march_occlusion_chained"))
+# Kernels timed by their device time in torch.profiler (and the enqueue
+# kernel, phase 3's rows 7-8): under ~0.5 ms, CUDA events around the
+# wrapper would count its host work between launches as kernel time.
+DEVICE_TIMED = ("key", "seg", "ssum", "tsum", "finish", "qseg", "qsum")
 
-# The TPU kernels (every function that reaches pl.pallas_call): its name
-# in the kernels line, the port's source, its file:line, and the keys of
-# the CUDA kernels that compute it.
+# The TPU kernels (every function that reaches pl.pallas_call), then the
+# two kernels of the segment queue that replace XLA code of the JAX
+# integrator: the name in the kernels line, the port's source, the
+# file:line it replaces, the key whose time and bound the row gives (a
+# kernel's or a function's), the main path and kernel key whose launches
+# it gives, and the keys of the CUDA kernels that compute it.
 MD, MP = "rayn_tpu_torch/csrc/march.cu", "rayn_tpu/ops/march_pallas.py"
+SH, SP = "rayn_tpu_torch/csrc/shade.cu", "rayn_tpu/ops/shade_pallas.py"
+JI = "rayn_tpu/render/integrator.py"
+# Rows 7 and 8 on the segment-queue bounce: their segments come from the
+# queue-segments kernel and their verdicts from the same refill march on
+# the scratch (shadow_march_relaxed_kernel at relax 1.5, phase 8;
+# shadow_march_kernel at relax 1, phase 9), so their launches are that
+# kernel's; march_occlusion and march_occlusion_chained (enqueue + the
+# [M, 3] refill march) serve intersect.test_occluded and are timed on
+# the same segments.
 KERNEL_ROWS = (
     ("closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
-     "rayn_tpu/ops/intersect_pallas.py:225", ("intersect",)),
-    ("shadow_sort_key", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1971", ("key",)),
-    ("bounce_tail_fused", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1711", ("tsum", "seg", "smarch")),
-    ("shadow_radiance", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1886", ("ssum", "seg", "smarch")),
-    ("finish_bounce_fused", "rayn_tpu_torch/csrc/shade.cu",
-     "rayn_tpu/ops/shade_pallas.py:1562", ("finish",)),
-    ("march", MD, f"{MP}:124", ("march",)),
-    ("march_occlusion", MD, f"{MP}:780", ("occl",)),
-    ("march_occlusion_chained", MD, f"{MP}:959", ("chained",)),
-    ("march_sorted", MD, f"{MP}:163", ("march_p1", "march_resume")),
-    ("march_occlusion_phased", MD, f"{MP}:582", ("occl_p1", "occl_resume")),
-    ("march_occlusion_sorted", MD, f"{MP}:677", ("occl_p1", "occl_resume")),
-    ("march_phased", MD, f"{MP}:421", ("march_p1", "march_resume")),
+     "rayn_tpu/ops/intersect_pallas.py:225", "intersect",
+     ("main", "intersect"), ("intersect",)),
+    ("shadow_sort_key", SH, f"{SP}:1971", "key", ("main", "key"), ("key",)),
+    ("bounce_tail_fused", SH, f"{SP}:1711", "tail", ("main", "tsum"),
+     ("seg", "smarch", "tsum")),
+    ("shadow_radiance", SH, f"{SP}:1886", "shadow", ("split", "ssum"),
+     ("seg", "smarch", "ssum")),
+    ("finish_bounce_fused", SH, f"{SP}:1562", "finish", ("split", "finish"),
+     ("finish",)),
+    ("march", MD, f"{MP}:124", "march", ("relaxed", "march"), ("march",)),
+    ("march_occlusion", MD, f"{MP}:780", "occl", ("relaxed", "smarch"),
+     ("enqueue", "omarch", "smarch")),
+    ("march_occlusion_chained", MD, f"{MP}:959", "chained",
+     ("unfused", "smarch"), ("enqueue", "omarch", "smarch")),
+    ("march_sorted", MD, f"{MP}:163", "march_sorted", ("sorted", "march_p1"),
+     ("march_p1", "march_resume")),
+    ("march_occlusion_phased", MD, f"{MP}:582", "march_occlusion_phased",
+     ("phased", "occl_p1"), ("occl_p1", "occl_resume")),
+    ("march_occlusion_sorted", MD, f"{MP}:677", "march_occlusion_sorted",
+     ("sorted", "occl_p1"), ("occl_p1", "occl_resume")),
+    ("march_phased", MD, f"{MP}:421", "march_phased", ("sorted", "march_p1"),
+     ("march_p1", "march_resume")),
+    ("queue_segments", SH, f"{JI}:420", "qseg", ("relaxed", "qseg"),
+     ("qseg",)),
+    ("queue_sum", SH, f"{JI}:512", "qsum", ("relaxed", "qsum"), ("qsum",)),
 )
-# The rows computed by a function of TAIL_FUNCTIONS (its time and bound
-# are the function's; its launches its first kernel's).
-ROW_FUNCTION = {"bounce_tail_fused": "tail", "shadow_radiance": "shadow"}
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
 # defaults; the sorted ones are also phase 12's settings).
 SPLITS = {"march_sorted": (8, 32), "march_phased": (8, 32),
@@ -310,8 +358,11 @@ def io_tensors(key, a, kw, out):
     if key == "ssum":
         segs, verdict = a
         return [segs.k, segs.active, verdict], [out]
-    if key in ("tail", "shadow", "finish", "seg", "tsum"):
-        if key in ("shadow", "seg"):
+    if key == "qsum":
+        radiance, segs, verdict = a
+        return [radiance, segs.k, segs.active, verdict], [out]
+    if key in ("tail", "shadow", "finish", "seg", "qseg", "tsum"):
+        if key in ("shadow", "seg", "qseg"):
             (_cfg, _tabs, state, info, mat, live, recv, vtr, vd, vp) = a
         elif key == "tail":
             (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, vd,
@@ -325,7 +376,7 @@ def io_tensors(key, a, kw, out):
                state.direction, state.throughput, state.sample_idx,
                state.pixel, mat.kind, mat.color_a, mat.power, live, recv,
                vtr]
-        if key not in ("shadow", "seg"):   # the finish half's columns
+        if key not in ("shadow", "seg", "qseg"):  # the finish's columns
             ins += [hit.obj, state.color_out, state.bg_out, state.alpha_out,
                     state.normal_out, state.prev_pdf, mat.color_b, mat.ior,
                     rad if key == "finish" else state.radiance]
@@ -334,7 +385,7 @@ def io_tensors(key, a, kw, out):
         if key == "tsum":
             return ins + [segs.k, segs.active, verdict], list(out.values())
         ins += [*vd, *vp]
-        if key == "seg":
+        if key in ("seg", "qseg"):
             count = int(out.count[0])
             return ins, [out.geom, out.k, out.active, out.queue[:count],
                          out.count]
@@ -342,7 +393,7 @@ def io_tensors(key, a, kw, out):
     if key == "march":
         return [a[1], a[2], a[3], kw["eps_abs"], kw["eps_lin"],
                 kw["active"]], [out]
-    return [a[1], a[2], a[5]], [out]     # occl, chained
+    return [a[1], a[2], a[5]], [out]     # occl, chained: start, end, act
 
 
 def main(argv=None) -> int:
@@ -369,7 +420,7 @@ def main(argv=None) -> int:
     from rayn_tpu_torch.ops import sdf as sdf_ops
     from rayn_tpu_torch.ops import shade_cuda
     from rayn_tpu_torch.render import film as film_mod
-    from rayn_tpu_torch.render import renderer
+    from rayn_tpu_torch.render import integrator, renderer
     from rayn_tpu_torch.render.camera import PinholeCamera
     from rayn_tpu_torch.scene import presets
     from rayn_tpu_torch.scene.scene import SceneBuilder
@@ -400,8 +451,10 @@ def main(argv=None) -> int:
     log(f"[2 build] {build_s:.1f} s")
     for entry, p in ptx.items():
         log(f"[2 build] {entry}: {p}")
-    gate(len(ptx) == len(CUDA_KERNELS),
-         f"ptxas reported {len(ptx)} kernels, expected {len(CUDA_KERNELS)}")
+    entries = [e for es in ENTRIES.values() for e in es]
+    gate(len(ptx) == len(entries)
+         and all(any(f"{len(e)}{e}" in name for name in ptx) for e in entries),
+         f"ptxas reported kernels {sorted(ptx)}, expected {entries}")
     record["build"] = dict(seconds=build_s, ptxas=ptx)
 
     W, H = MAIN_RES
@@ -413,6 +466,9 @@ def main(argv=None) -> int:
     split_s = dataclasses.replace(mis_s, use_fused_bounce_tail=False)
     unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
                                     use_fused_shadows=False)
+    # the queue paths with MIS, captured at depths 0 and 1 only
+    relax_mis_s = dataclasses.replace(relax_s, mis=True, max_bounces=1)
+    unfused_mis_s = dataclasses.replace(unfused_s, mis=True, max_bounces=1)
     sorted_kw = dict(march_sort_steps=8, occl_sort_steps=8)
     sorted_s = dataclasses.replace(unfused_s, **sorted_kw)
     data, static, cam = presets.default_scene(resolution=(W, H),
@@ -423,23 +479,39 @@ def main(argv=None) -> int:
     mods = {"intersect_cuda": intersect_cuda, "shade_cuda": shade_cuda,
             "march_cuda": march_cuda}
     wrappers = {key: (mods[mod], attr, getattr(mods[mod], attr + "_plain"))
-                for key, mod, attr in CUDA_KERNELS}
+                for key, mod, attr, _e in CUDA_KERNELS}
     kernels = {key: getattr(mod, attr)
                for key, (mod, attr, _p) in wrappers.items()}
-    functions = {key: getattr(shade_cuda, attr)
-                 for key, attr in TAIL_FUNCTIONS}
-    # each key's CUDA path (a kernel wrapper or a tail function) and its
-    # plain version (a kernel's twin, a function's one-piece twin)
-    impl = {**kernels, **functions}
+    functions = {key: getattr(mods[mod], attr)
+                 for key, mod, attr in FUNCTIONS}
+    queue_tail = integrator._segment_queue_tail
+
+    def queue_tail_plain(*a, **kw):
+        """The segment-queue tail on the plain twins."""
+        with plain_twins():
+            return queue_tail(*a, **kw)
+
+    # each key's CUDA path (a kernel wrapper, a function over kernels, the
+    # segment-queue tail) and its plain version (a kernel's twin, a
+    # function's one-piece twin, the tail on the twins)
+    impl = {**kernels, **functions, "qtail": queue_tail}
     twin = {**{key: p for key, (_m, _a, p) in wrappers.items()},
-            **{key: getattr(shade_cuda, attr + "_plain")
-               for key, attr in TAIL_FUNCTIONS}}
+            **{key: getattr(mods[mod], attr + "_plain")
+               for key, mod, attr in FUNCTIONS},
+            "qtail": queue_tail_plain}
+    # the callables that plain_twins replaces: (module, name, CUDA path)
+    recordable = {**{key: (mod, attr, kernels[key])
+                     for key, (mod, attr, _p) in wrappers.items()},
+                  "tail": (shade_cuda, "bounce_tail", functions["tail"]),
+                  "shadow": (shade_cuda, "shadow_radiance",
+                             functions["shadow"]),
+                  "qtail": (integrator, "_segment_queue_tail", queue_tail)}
 
     @contextlib.contextmanager
     def plain_twins(capture=None):
         """Route the render path's kernel calls to their plain twins
-        (recording the first two calls of each kernel and of each tail
-        function into `capture`)."""
+        (recording the first two calls of each kernel, of each function
+        over kernels and of the segment-queue tail into `capture`)."""
         def recorder(key, fn):
             def call(*a, **kw):
                 if capture is not None and len(capture[key]) < 2:
@@ -449,28 +521,30 @@ def main(argv=None) -> int:
 
         for key, (mod, attr, plain) in wrappers.items():
             setattr(mod, attr, recorder(key, plain))
-        if capture is not None:   # the functions run on the twins above
-            for key, attr in TAIL_FUNCTIONS:
-                setattr(shade_cuda, attr, recorder(key, functions[key]))
+        if capture is not None:   # these run on the twins above
+            for key in ("tail", "shadow", "qtail"):
+                mod, attr, fn = recordable[key]
+                setattr(mod, attr, recorder(key, fn))
         try:
             yield
         finally:
-            for key, (mod, attr, _p) in wrappers.items():
-                setattr(mod, attr, kernels[key])
-            for key, attr in TAIL_FUNCTIONS:
-                setattr(shade_cuda, attr, functions[key])
+            for mod, attr, fn in recordable.values():
+                setattr(mod, attr, fn)
 
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
     tables = rng.build_sample_tables(main_s, 1)
     # (path, settings, kernels and functions whose inputs it records)
     tail_keys = ("tail", "seg", "smarch", "tsum")
+    queue_keys = ("qtail", "qseg", "smarch", "qsum")
     paths = (("fused", main_s, ("intersect", "key", *tail_keys)),
              ("fused mis", mis_s, tail_keys),
              ("split mis", split_s, ("shadow", "seg", "smarch", "ssum",
                                      "finish")),
-             ("relaxed", relax_s, ("march", "occl")),
-             ("unfused", unfused_s, ("march", "chained")))
+             ("relaxed", relax_s, ("march", *queue_keys)),
+             ("relaxed mis", relax_mis_s, queue_keys),
+             ("unfused", unfused_s, ("march", *queue_keys)),
+             ("unfused mis", unfused_mis_s, queue_keys))
     captured = {}
     for path, s, keys in paths:
         cap = {k: [] for k in impl}
@@ -499,6 +573,33 @@ def main(argv=None) -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, a, kw, entries, reps=10):
+        """Device time of one launch of the kernel `entries` that
+        fn(*a, **kw) launches once a call, from torch.profiler (so no
+        host time between launches counts), with the 50 MB L2 cache
+        overwritten before each call, as a render pass leaves it: the
+        mean over the launches the profiler recorded, or None if it
+        recorded none."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn(*a, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scrub.zero_()
+                fn(*a, **kw)
+            torch.cuda.synchronize()
+        tags = [t for e in entries for t in (f"rayn::{e}(", f"{len(e)}{e}E")]
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and any(t in e.name for t in tags)]
+        if not ev:
+            return None
+        return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
 
     def count_des(fn, a, kw):
         """MandelBox DEs of fn(*a, **kw), a plain twin or a function of
@@ -621,11 +722,19 @@ def main(argv=None) -> int:
             gate(same_bits(got, want), f"{label}: differs from "
                  "shadow_radiance_plain")
             return err
-        if key == "ssum":
+        if key in ("ssum", "qsum"):
             gate(same_bits(got, want), f"{label}: differs from its twin")
             log(f"[3 kernels] {label}: equal to its twin bit for bit")
             return max_diff(got, want)
-        if key == "seg":
+        if key == "qtail":
+            same = {f: same_bits(getattr(got, f), getattr(want, f))
+                    for f in got._fields}
+            gate(all(same.values()), f"{label}: columns {same} against the "
+                 "tail on the plain twins")
+            log(f"[3 kernels] {label}: every output column equal to the "
+                "tail on the plain twins bit for bit")
+            return max_diff(got.radiance, want.radiance)
+        if key in ("seg", "qseg"):
             count = int(want.count[0])
             same = (all(same_bits(getattr(got, f), getattr(want, f))
                         for f in ("geom", "k", "active", "count"))
@@ -676,6 +785,9 @@ def main(argv=None) -> int:
                 want = twin[key](*a, **kw)
                 torch.cuda.synchronize()
                 errs.append(check(key, path, depth, a, kw, got, want))
+            if key == "qtail":   # a bounce's tail, not a kernel: no time
+                results[(path, key)] = dict(max_abs_err=max(errs))
+                continue
             a, kw = captured[(path, key)][1]
             out = impl[key](*a, **kw)
             ins, outs = io_tensors(key, a, kw, out)
@@ -685,61 +797,139 @@ def main(argv=None) -> int:
             bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
             ms = timed(impl[key], a, kw, reps=5)
             plain_ms = timed(twin[key], a, kw, reps=1)
-            log(f"[3 kernels] {key} ({path}): kernel {ms:.3f} ms, plain twin "
+            dev_ms = (device_ms(impl[key], a, kw, ENTRIES[key])
+                      if key in DEVICE_TIMED else None)
+            log(f"[3 kernels] {key} ({path}): kernel {ms:.3f} ms (CUDA "
+                f"events), device time {dev_ms} ms (profiler), plain twin "
                 f"{plain_ms:.3f} ms per call at {MAIN_PASS} rays; {n_de} DEs "
                 f"-> {ops_ms:.3f} ms at {PEAK_F32_FLOPS:.3g} flop/s, "
                 f"{n_bytes} B -> {bytes_ms:.3f} ms at {PEAK_BYTES_PER_S:.3g} "
                 "B/s")
             results[(path, key)] = dict(
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                de_evals=n_de, bytes=n_bytes, bound_ms=max(ops_ms, bytes_ms),
+                max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, de_evals=n_de, bytes=n_bytes,
+                bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             del out, ins, outs
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
     del got, want
 
-    # -------- 3, continued: the tail's shadow queue, warp steps and designs
-    # Per segment, the DEs of the plain march (occlusion_steps); per warp
-    # of 32 rays, what three schedules cost in DE steps: one thread per
-    # ray marching its segments in turn (sum over segments of the slowest
+    # -------- 3, continued: the shadow queues, warp steps and designs
+    # Per segment, the DEs of the plain twin's march (occlusion_steps, at
+    # the path's relaxation); per warp of 32 rays, what three schedules
+    # cost in DE steps: one thread per ray marching its segments in turn,
+    # or one per segment (both: the sum over segments of the slowest
     # lane), the TPU's chaining (the slowest lane's sum), and lanes that
     # refill from a queue (total / 32, the drain aside). The refill march
-    # is timed beside the one-segment kernel and the stable partition of
+    # on the scratch is timed beside march_occlusion (enqueue and the
+    # [M, 3] refill march) and, at relax 1, the stable partition of
     # march_occlusion_phased (the fastest two-phase route, unclipped) on
     # the same segments.
-    tail_queue = {}
-    for depth, (a, kw) in enumerate(captured[("fused", "smarch")]):
-        cfg, segs = a
-        S, n = segs.active.shape
+    def aos(segs):
+        """(start, end [M, 3], active [M]) of a segment scratch."""
         g = segs.geom.reshape(6, -1).T
-        start, end = g[:, :3].contiguous(), g[:, 3:].contiguous()
-        act = segs.active.reshape(-1)
-        steps = march_ops.occlusion_steps(
-            cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
-            cfg.bv_r).reshape(S, n // 32, 32).long()
-        total = int(steps.sum())
-        q = dict(segments=S * n, queued=int(segs.count[0]), des=total,
-                 sequential=int(steps.max(-1).values.sum()),
-                 chained=int(steps.sum(0).max(-1).values.sum()),
-                 ideal=total / 32,
-                 march_ms=timed(kernels["smarch"], a, kw, reps=5),
-                 one_segment_ms=timed(
-                     kernels["occl"], (cfg.mb, start, end, cfg.detail,
-                                       cfg.max_steps, act, 1.0, cfg.bv_r),
-                     {}, reps=5),
-                 partition_ms=timed(
-                     march_cuda.march_occlusion_phased,
-                     (cfg.mb, start, end, cfg.detail, cfg.max_steps, act),
-                     dict(phase1_steps=16), reps=5))
-        log(f"[3 tail queue] depth {depth}: {q['queued']} of {q['segments']} "
-            f"segments queued, {total} DEs; 32-lane warp steps: sequential "
-            f"{q['sequential']}, chained {q['chained']}, ideal {q['ideal']}; "
-            f"refill march {q['march_ms']:.3f} ms, one-segment kernel "
-            f"{q['one_segment_ms']:.3f} ms, partition at 16 (unclipped) "
-            f"{q['partition_ms']:.3f} ms")
-        tail_queue[depth] = q
-        del segs, g, start, end, act, steps
-    record["tail_queue"] = tail_queue
+        return (g[:, :3].contiguous(), g[:, 3:].contiguous(),
+                segs.active.reshape(-1))
+
+    shadow_queues = {}
+    for path in ("fused", "relaxed", "unfused"):
+        for depth, (a, kw) in enumerate(captured[(path, "smarch")]):
+            cfg, segs = a[:2]
+            relax = a[2] if len(a) > 2 else 1.0
+            S, n = segs.active.shape
+            start, end, act = aos(segs)
+            steps = march_ops.occlusion_steps(
+                cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
+                cfg.bv_r, relax).reshape(S, n // 32, 32).long()
+            total = int(steps.sum())
+            occl_args = (cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
+                         relax, cfg.bv_r)
+            q = dict(segments=S * n, queued=int(segs.count[0]), des=total,
+                     relax=relax,
+                     sequential=int(steps.max(-1).values.sum()),
+                     chained=int(steps.sum(0).max(-1).values.sum()),
+                     ideal=total / 32,
+                     march_ms=timed(kernels["smarch"], a, kw, reps=5),
+                     march_occlusion_ms=timed(functions["occl"], occl_args,
+                                              {}, reps=5))
+            if relax == 1.0:
+                q["partition_ms"] = timed(
+                    march_cuda.march_occlusion_phased, occl_args[:6],
+                    dict(phase1_steps=16), reps=5)
+            log(f"[3 shadow queue] {path} depth {depth} (relax {relax}): "
+                f"{q['queued']} of {q['segments']} segments queued, {total} "
+                f"DEs; 32-lane warp steps: sequential {q['sequential']}, "
+                f"chained {q['chained']}, ideal {q['ideal']}; refill march "
+                f"{q['march_ms']:.3f} ms, march_occlusion "
+                f"{q['march_occlusion_ms']:.3f} ms, partition at 16 "
+                f"(unclipped) {q.get('partition_ms')} ms")
+            shadow_queues[f"{path} depth {depth}"] = q
+            del segs, start, end, act, steps, occl_args
+    record["shadow_queues"] = shadow_queues
+
+    # ------------ 3, continued: rows 7 and 8 on the queue paths' segments
+    # march_occlusion and march_occlusion_chained (the enqueue kernel and
+    # the refill march on [M, 3] segments) against their one-piece plain
+    # versions bit for bit, at relax 1 and 1.5 with and without the clip,
+    # and the enqueue kernel against its twin (the queue as a set); then
+    # each row's time and bound on the depth-1 inputs of its path (row 7:
+    # relaxed at 1.5, clipped; row 8: unfused, clipped).
+    occl_err = {"occl": 0.0, "chained": 0.0}
+    for path, depth in (("relaxed", 0), ("relaxed", 1), ("unfused", 0),
+                        ("unfused", 1)):
+        (cfg, segs, _relax), _kw = captured[(path, "smarch")][depth]
+        S, n = segs.active.shape
+        start, end, act = aos(segs)
+        head = (cfg.mb, start, end, cfg.detail, cfg.max_steps)
+        q_got, c_got = kernels["enqueue"](act)
+        q_want, c_want = wrappers["enqueue"][2](act)
+        n_queued = int(c_want[0])
+        gate(torch.equal(c_got, c_want) and torch.equal(
+            q_got[:n_queued].sort().values, q_want[:n_queued].sort().values),
+             f"enqueue {path} depth {depth}: the queue differs from its twin")
+        checks = ([("occl", (*head, act, relax, bv), {})
+                   for relax in (1.0, RELAX) for bv in (cfg.bv_r, 0.0)]
+                  if path == "relaxed" else
+                  [("chained", (cfg.mb, start.reshape(S, n, 3),
+                                end.reshape(S, n, 3), cfg.detail,
+                                cfg.max_steps, act.reshape(S, n), bv), {})
+                   for bv in (cfg.bv_r, 0.0)])
+        for key, a, kw in checks:
+            got, want = functions[key](*a, **kw), twin[key](*a, **kw)
+            gate(same_bits(got, want), f"{key} {path} depth {depth} at "
+                 f"(relax, clip) {a[6:]}: differs from its one-piece twin")
+            occl_err[key] = max(occl_err[key], max_diff(got, want))
+        log(f"[3 rows 7-8] {path} depth {depth}: enqueue ({n_queued} of "
+            f"{act.numel()} queued) and {checks[0][0]} at (relax, clip) or "
+            f"(clip) {[c[1][6:] for c in checks]} equal to their twins bit "
+            "for bit")
+        if depth == 1:
+            # relaxed: relax 1.5, clipped; unfused: clipped
+            key, a, kw = checks[2 if path == "relaxed" else 0]
+            got = functions[key](*a, **kw)
+            with plain_twins():
+                n_de = count_des(twin[key], a, kw)
+            b_ms, b_by, n_bytes = bound(n_de, [start, end, act], [got])
+            r = dict(max_abs_err=occl_err[key], ms=timed(functions[key], a,
+                                                         kw, reps=5),
+                     plain_ms=timed(twin[key], a, kw, reps=1),
+                     de_evals=n_de, bytes=n_bytes, bound_ms=b_ms,
+                     bound_by=b_by,
+                     enqueue_ms=device_ms(kernels["enqueue"], (act,), {},
+                                          ENTRIES["enqueue"]),
+                     enqueue_bound_ms=bound(0, [act], [q_want[:n_queued],
+                                                       c_want])[0],
+                     march_ms=device_ms(functions[key], a, kw,
+                                        ENTRIES["omarch"]))
+            results[(path, key)] = r
+            log(f"[3 rows 7-8] {key} ({path}, depth 1): {r['ms']:.3f} ms "
+                f"(enqueue {r['enqueue_ms']} ms device time, bound "
+                f"{r['enqueue_bound_ms']:.4f} ms by bytes; refill march "
+                f"{r['march_ms']} ms device time), plain {r['plain_ms']:.3f} "
+                f"ms; {n_de} DEs, bound {b_ms:.3f} ms by {b_by}")
+        del segs, start, end, act, head, q_got, q_want, checks
+    record["rows_7_8"] = {f"{p} {k}": r for (p, k), r in results.items()
+                          if k in ("occl", "chained")}
 
     # ----------------- 3, continued: the two-phase marches, same inputs
     def phase_pair(label, p1, resume, head, steps, act, split, order_of):
@@ -769,11 +959,13 @@ def main(argv=None) -> int:
         mb, act, steps = a[0], kw["active"], kw["max_steps"]
         mhead = (*a, kw["eps_const"], kw["eps_abs"], kw["eps_lin"])
         single = kernels["march"](*mhead, steps, act)
-        a, kw = captured[("unfused", "chained")][depth]
-        ohead = (mb, a[1].reshape(-1, 3), a[2].reshape(-1, 3), a[3])
-        oact, osteps = a[5].reshape(-1), a[4]
-        unclipped = kernels["occl"](*ohead, osteps, oact, bound_radius=0.0)
-        clipped = kernels["chained"](*a, **kw).reshape(-1)
+        (cfg, segs, _relax), _kw = captured[("unfused", "smarch")][depth]
+        start, end, oact = aos(segs)
+        ohead, osteps = (mb, start, end, cfg.detail), cfg.max_steps
+        unclipped = functions["occl"](*ohead, osteps, oact, bound_radius=0.0)
+        clipped = functions["occl"](*ohead, osteps, oact,
+                                    bound_radius=cfg.bv_r)
+        del segs, start, end
         clip_changes[depth] = int(((unclipped != clipped) & oact).sum())
         log(f"[3 two-phase] depth {depth}: the bounding-sphere clip changes "
             f"{clip_changes[depth]} of {int(oact.sum())} active verdicts of "
@@ -803,12 +995,12 @@ def main(argv=None) -> int:
                 rest, err = phase_pair(label, p1, res_k, head, steps_, act_,
                                        split, order_of)
                 got = fn(*head, steps_, act_, phase1_steps=split)
-                gate(same_bits(got, want),
-                     f"{label}: differs from the single-phase kernel")
+                gate(same_bits(got, want), f"{label}: differs from the "
+                     "single-phase march (march_occlusion, unclipped)")
                 two_phase_err[fname] = max(two_phase_err[fname], err,
                                            max_diff(got, want))
                 log(f"[3 two-phase] {label}: equal to the single-phase "
-                    "kernel bit for bit")
+                    "march bit for bit")
                 if depth == 0 or split != ROW_SPLIT[fname]:
                     continue
                 # times and bound on the depth-1 inputs at the row's split
@@ -822,8 +1014,8 @@ def main(argv=None) -> int:
                 b_ms, b_by, n_bytes = bound(n_de, ins, [got])
                 r = dict(ms=timed(fn, (*head, steps_, act_),
                                   dict(phase1_steps=split), reps=5),
-                         single_ms=timed(kernels["march" if is_march
-                                                 else "occl"],
+                         single_ms=timed(impl["march" if is_march
+                                              else "occl"],
                                          (*head, steps_, act_),
                                          {} if is_march else
                                          dict(bound_radius=0.0), reps=5),
@@ -836,14 +1028,14 @@ def main(argv=None) -> int:
                 log(f"[3 two-phase] {fname} (depth 1, split {split}): "
                     f"{r['ms']:.3f} ms with its lane order, phase 1 "
                     f"{r['phase1_ms']:.3f} ms, resume {r['resume_ms']:.3f} "
-                    f"ms; single-phase kernel {r['single_ms']:.3f} ms; plain "
+                    f"ms; single-phase march {r['single_ms']:.3f} ms; plain "
                     f"{plain_ms:.3f} ms; {n_de} DEs, bound {b_ms:.3f} ms by "
                     f"{b_by}")
         del single, unclipped, clipped, got, want, seg_len, length
     record["two_phase"] = dict(two_phase, clip_changes=clip_changes,
                                max_abs_err=two_phase_err)
     # drop the last captured inputs too, or they count in phase 4's peak
-    del captured, a, kw, mhead, ohead, head, rest, act, oact, act_
+    del captured, a, kw, mhead, ohead, head, rest, act, oact, act_, scrub
     torch.cuda.empty_cache()
 
     def reset_launches():
@@ -893,9 +1085,11 @@ def main(argv=None) -> int:
                     peak_bytes=peak, launches=launches)
 
     # -------------------------------------------------------- 4. main path
+    queue_path = ("march", "qseg", "smarch", "qsum")
+    not_queue = ("qseg", "qsum", "enqueue", "omarch")
     record["main"] = main_path("4 main", main_s, MAIN_RES,
                                ("intersect", "key", "seg", "smarch", "tsum"),
-                               absent=("ssum", "finish"))
+                               absent=("ssum", "finish", *not_queue))
 
     # ------------------------------------------------------ 5. invariants
     res5 = INV_RES
@@ -969,6 +1163,15 @@ def main(argv=None) -> int:
         img_rp = render6(1, **relaxed)
         img_sp = render6(1, **split_mis)
         img_tp = render6(1, **two_phase6)
+        img_up = render6(1, **unfused)
+    # the segment queue's paths (phases 8, 9 and 12) run kernels that
+    # equal their twins bit for bit, so their films must too
+    queue_same = {label: bool(np.array_equal(x, y)) for label, x, y in (
+        ("relaxed", img_rk, img_rp), ("unfused", img_uk, img_up),
+        ("sorted two-phase", img_tk, img_tp))}
+    log(f"[6 image] queue paths, kernel film equal to the plain-twin film "
+        f"bit for bit: {queue_same}")
+    gate(all(queue_same.values()), f"queue paths: films {queue_same}")
     mis_ratio = float(img_sk.mean() / img_k.mean())
     log(f"[6 image] mis=True against mis=False at {res6[0]}x{res6[1]} @ "
         f"{spp6} spp: mean ratio {mis_ratio:.6f} (not gated: MIS removes "
@@ -993,6 +1196,10 @@ def main(argv=None) -> int:
             gate_mean=False),
         "unfused_vs_fused": image_gate(
             "relax-1 unfused path vs fused path", img_uk, img_k, null),
+        "unfused_kernels_vs_plain": image_gate(
+            "relax-1 unfused path, kernels vs plain twins", img_uk, img_up,
+            null),
+        "queue_paths_bit_for_bit": queue_same,
         "two_phase_kernels_vs_plain": image_gate(
             "sorted two-phase path, kernels vs plain twins", img_tk, img_tp,
             null),
@@ -1003,18 +1210,20 @@ def main(argv=None) -> int:
             null, gate_mean=False)}
 
     # ------------------------------------------- 8. relaxed main path
+    not_fused = ("intersect", "key", "seg", "ssum", "tsum", "finish",
+                 "enqueue", "omarch")
     record["relaxed"] = main_path("8 relaxed", relax_s, MAIN_RES,
-                                  ("march", "occl"))
+                                  queue_path, absent=not_fused)
 
     # --------------------------------------- 9. relax-1 unfused path
     unf = dataclasses.replace(unfused_s, resolution=UNFUSED_RES)
     record["unfused"] = main_path("9 unfused", unf, UNFUSED_RES,
-                                  ("march", "chained"))
+                                  queue_path, absent=not_fused)
 
     # ------------------------------- 10. split tail with MIS, full width
     record["split"] = main_path("10 split mis", split_s, MAIN_RES,
                                 ("intersect", "key", "seg", "smarch", "ssum",
-                                 "finish"), absent=("tsum",))
+                                 "finish"), absent=("tsum", *not_queue))
 
     # ------------------------------------------ 11. the smaller paths
     def no_lights_scene(resolution, device):
@@ -1052,7 +1261,7 @@ def main(argv=None) -> int:
         "relaxed_mis": main_path(
             "11 relaxed, mis", dataclasses.replace(
                 small, march_relaxation=RELAX), SMALL_RES,
-            ("march", "occl"), absent=("seg", "tsum", "ssum", "finish")),
+            queue_path, absent=not_fused),
         "spheres_mis": main_path(
             "11 spheres, mis", small, SMALL_RES, ("intersect", "seg", "tsum"),
             scene=presets.spheres_scene, absent=("key",)),
@@ -1064,8 +1273,9 @@ def main(argv=None) -> int:
     }
 
     # ------------------------------------------ 12. the two-phase marches
-    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume")
-    absent12 = ("march", "occl", "chained")
+    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume", "qseg",
+              "qsum")
+    absent12 = ("march", "smarch", "enqueue", "omarch")
     record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
                                  absent=absent12)
     record["phased"] = main_path(
@@ -1132,40 +1342,33 @@ def main(argv=None) -> int:
         record["profile"]["interleaved_walls_ms"] = walls7
         del film7
 
-    # each kernel's launches come from the main path that runs it; the
-    # march kernel is timed and bounded on the relaxed path's inputs and
-    # carries the larger error of its two paths. A two-phase function's
-    # launches are its phase-1 kernel's on the phase-12 path that takes it
-    # (march_phased: no setting reaches it, in the JAX package either;
-    # its kernels are march_sorted's). The bounce tail and shadow radiance
-    # give their function's time and bound, the largest error of the
-    # function and its kernels, and their sum kernel's launches.
-    phase_of = {"intersect": "main", "key": "main", "tsum": "main",
-                "ssum": "split", "finish": "split", "march": "relaxed",
-                "occl": "relaxed", "chained": "unfused"}
-    phase12_of = {"march_sorted": "sorted", "march_phased": "sorted",
-                  "march_occlusion_sorted": "sorted",
-                  "march_occlusion_phased": "phased"}
+    # Each row's launches come from the main path that runs it (its
+    # KERNEL_ROWS entry), its time and bound from phase 3: the march
+    # kernel on the relaxed path's inputs (its error the larger of its two
+    # paths'), rows 7 and 8 on the queue paths' segments, the two-phase
+    # functions at their row's split, the others on the path named by
+    # their launches. The bounce tail and shadow radiance give their
+    # function's time and bound and the largest error of the function and
+    # its kernels. A short kernel's time is its device time.
+    path_of = {"main": "fused", "split": "split mis", "relaxed": "relaxed",
+               "unfused": "unfused"}
     kern = []
-    for kname, src, rep, keys in KERNEL_ROWS:
-        key = keys[0]
+    for kname, src, rep, tkey, (phase, lkey), keys in KERNEL_ROWS:
         if kname in two_phase:
-            r = two_phase[kname]
-            err = two_phase_err[kname]
-            launches = record[phase12_of[kname]]["launches"][key]
+            r, err = two_phase[kname], two_phase_err[kname]
         else:
-            path = {"main": "fused", "split": "split mis"}.get(
-                phase_of[key], phase_of[key])
-            fkey = ROW_FUNCTION.get(kname, key)
-            r = results[(path, fkey)]
+            r = results[(path_of[phase], tkey)]
             err = max(v["max_abs_err"] for (_p, k), v in results.items()
-                      if k in (fkey, *keys))
-            launches = record[phase_of[key]]["launches"][key]
+                      if k == tkey or k in keys)
+        ms = r["ms"]
+        if tkey in DEVICE_TIMED and r.get("device_ms") is not None:
+            ms = r["device_ms"]
         kern.append(dict(
             name=kname, route="cuda", source=src, replaces=rep,
-            launches=launches, max_abs_err=err, ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            launches=record[phase]["launches"][lkey], max_abs_err=err,
+            ms=ms, plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None,
+            cuda_kernels=[e for k in keys for e in ENTRIES[k]]))
     record["kernels"] = kern
     if args.json:
         with open(args.json, "w") as fh:
@@ -1173,7 +1376,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kern}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": record["device"]["name"],
+        "count": record["device"]["count"]}}))
     return 0
 
 

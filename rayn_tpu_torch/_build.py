@@ -31,8 +31,8 @@ FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC")
 KERNELS = ("rayn_closest_hit", "rayn_shadow_segments", "rayn_shadow_march",
            "rayn_shadow_sum", "rayn_tail_sum", "rayn_finish_bounce",
-           "rayn_shadow_sort_key", "rayn_march",
-           "rayn_march_occlusion", "rayn_march_occlusion_chained",
+           "rayn_shadow_sort_key", "rayn_queue_segments", "rayn_queue_sum",
+           "rayn_march", "rayn_enqueue", "rayn_occl_march",
            "rayn_march_phase1", "rayn_march_resume", "rayn_occl_phase1",
            "rayn_occl_resume")
 
@@ -131,6 +131,31 @@ class MBox(ctypes.Structure):
     _fields_ = [("iters", ctypes.c_int), ("scale", ctypes.c_float),
                 ("box_l", ctypes.c_float), ("min_rad_sq", ctypes.c_float),
                 ("fixed_rad_sq", ctypes.c_float)]
+
+
+class QueueMarch(ctypes.Structure):
+    """csrc/common.cuh QueueMarch: the refill march's queue, verdicts and
+    scalars."""
+    _fields_ = [(name, ctypes.c_void_p)
+                for name in ("queue", "count", "head", "verdict")] + [
+        ("m", ctypes.c_int64), ("max_steps", ctypes.c_int), ("mb", MBox),
+        ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float),
+        ("relax", ctypes.c_float), ("bv_r", ctypes.c_float),
+        ("bv_r2", ctypes.c_float)]
+
+
+def queue_march(queue: int, count: int, head, verdict, mb, detail: float,
+                max_steps: int, relax: float,
+                bound_radius: float) -> QueueMarch:
+    """The QueueMarch of a refill march over M = verdict.numel() segments
+    (queue and count: checked pointers; head: a zeroed [1] int32 tensor;
+    verdict: a zeroed [M] bool tensor)."""
+    return QueueMarch(
+        queue=queue, count=count, head=head.data_ptr(),
+        verdict=verdict.data_ptr(), m=verdict.numel(), max_steps=max_steps,
+        mb=mbox_struct(mb), eps_c=1e-4 * detail, eps_l=1e-5 * detail,
+        relax=relax, bv_r=bound_radius,
+        bv_r2=float(bound_radius * bound_radius))
 
 
 def mbox_struct(mb) -> MBox:

@@ -1,6 +1,8 @@
-// Device helpers shared by the port's kernels (intersect.cu, shade.cu).
+// Device helpers shared by the port's kernels (intersect.cu, march.cu,
+// shade.cu).
 //
-// Every function here mirrors a body of rayn_tpu's Pallas kernels
+// Every function here mirrors a body of rayn_tpu's Pallas kernels (the
+// `kDivide` and `_unfused` variants: the unfused bounce's torch ops)
 // formula for formula, in the same association order, so that with
 // --fmad=false and IEEE division/sqrt a kernel differs from its plain
 // torch twin only where a transcendental (sin, cos, exp, pow) rounds
@@ -165,7 +167,11 @@ __device__ __forceinline__ int pick_light(float u, int NL) {
   return idx < 0 ? 0 : (idx > NL - 1 ? NL - 1 : idx);
 }
 
-// shade_pallas._sample_cone (reference src/light.rs:38-72).
+// shade_pallas._sample_cone (reference src/light.rs:38-72). kDivide:
+// ops/lights.sample_cone, the unfused bounce's sampler, which divides the
+// direction to the light by its length where the fused body multiplies
+// by the reciprocal.
+template <bool kDivide = false>
 __device__ __forceinline__ void sample_cone(float u1, float u2, float lx,
                                             float ly, float lz, float lrad,
                                             float px, float py, float pz,
@@ -174,8 +180,17 @@ __device__ __forceinline__ void sample_cone(float u1, float u2, float lx,
   const float dlx = lx - px, dly = ly - py, dlz = lz - pz;
   const float dist_sq = dlx * dlx + dly * dly + dlz * dlz;
   const float dist = sqrtf(dist_sq);
-  const float inv = 1.0f / dist;
-  const float nx = -(dlx * inv), ny = -(dly * inv), nz = -(dlz * inv);
+  float nx, ny, nz;
+  if (kDivide) {
+    nx = -(dlx / dist);
+    ny = -(dly / dist);
+    nz = -(dlz / dist);
+  } else {
+    const float inv = 1.0f / dist;
+    nx = -(dlx * inv);
+    ny = -(dly * inv);
+    nz = -(dlz * inv);
+  }
   float uu[3], vv[3];
   onb(nx, ny, nz, uu, vv);
   const float r2 = lrad * lrad;
@@ -197,14 +212,26 @@ __device__ __forceinline__ void sample_cone(float u1, float u2, float lx,
 }
 
 // shade_pallas._sphere_occluded: any of K spheres [x, y, z, r] blocks s->e.
+// kDivide: ops/spheres.occluded (the unfused bounce), whose unit
+// direction is (e - s) / |e - s|.
+template <bool kDivide = false>
 __device__ __forceinline__ bool sphere_occluded(const float* __restrict__ sph,
                                                 int K, float sx, float sy,
                                                 float sz, float ex, float ey,
                                                 float ez) {
   const float dx = ex - sx, dy = ey - sy, dz = ez - sz;
   const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
-  const float inv = 1.0f / dist;
-  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
+  float ux, uy, uz;
+  if (kDivide) {
+    ux = dx / dist;
+    uy = dy / dist;
+    uz = dz / dist;
+  } else {
+    const float inv = 1.0f / dist;
+    ux = dx * inv;
+    uy = dy * inv;
+    uz = dz * inv;
+  }
   bool occ = false;
   for (int k = 0; k < K; ++k) {
     const float ocx = sx - sph[4 * k], ocy = sy - sph[4 * k + 1],
@@ -270,6 +297,45 @@ __device__ __forceinline__ void eval_f(int kind, float car, float cag,
     const float diel = spec_f + c[ch] * INV_PI_F * one_minus_f;
     const float met = (c[ch] + (1.0f - c[ch]) * om5) * spec_factor;
     f[ch] = is_lam * lam + is_diel * diel + is_met * met;
+  }
+  fr = f[0];
+  fg = f[1];
+  fb = f[2];
+}
+
+// ops/bsdf.eval_f, the unfused bounce's NEE BSDF, in its own op order:
+// c / pi, the half vector divided by its clamped length, (1 - d)^5 as
+// powf(1 - d, schlick_exp) with schlick_exp = 5 at run time (torch's CUDA
+// pow of a tensor by the scalar 5), and the lobe picked by kind.
+__device__ __forceinline__ void eval_f_unfused(
+    int kind, float car, float cag, float cab, float power,
+    float schlick_exp, float wox, float woy, float woz, float wix,
+    float wiy, float wiz, float nx, float ny, float nz, float& fr,
+    float& fg, float& fb) {
+  const float d = nmax(0.0f, wix * nx + wiy * ny + wiz * nz);
+  const float m = 1.0f - d;
+  const float m2 = m * m;
+  const float fresnel = F0_F + ONE_MINUS_F0_F * (m2 * m2 * m);
+  const float hx = wox + wix, hy = woy + wiy, hz = woz + wiz;
+  const float hmag = nmax(sqrtf(hx * hx + hy * hy + hz * hz), 1e-20f);
+  const float hdn =
+      nmax((hx / hmag) * nx + (hy / hmag) * ny + (hz / hmag) * nz, 0.0f);
+  const float spec_factor = powf(hdn, power) * (power + 2.0f) / TWO_PI_F;
+  const float spec_f = spec_factor * fresnel;
+  const float m5 = powf(m, schlick_exp);
+  const float c[3] = {car, cag, cab};
+  float f[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float lam = c[ch] / PI_F;
+    if (kind == 0)
+      f[ch] = lam;
+    else if (kind == 1)
+      f[ch] = spec_f + lam * (1.0f - fresnel);
+    else if (kind == 4)
+      f[ch] = (c[ch] + (1.0f - c[ch]) * m5) * spec_factor;
+    else
+      f[ch] = 0.0f;
   }
   fr = f[0];
   fg = f[1];
@@ -528,25 +594,30 @@ __device__ __forceinline__ bool occl_step(float dist, float md, float eps_c,
   return false;
 }
 
-// The chained occlusion core's verdict (march_pallas._chained_occl_core)
-// for one segment: True iff the SDF blocks s->e. A segment resolved at
-// entry is unblocked; so is one that runs out of steps. Per-segment step
-// sequences are the JAX ones.
-__device__ __forceinline__ bool sdf_occluded(const MBox& mb, float bv_r,
-                                             float bv_r2, int max_steps,
-                                             float eps_c, float eps_l,
-                                             float sx, float sy, float sz,
-                                             float ex, float ey, float ez) {
-  float dx, dy, dz, md, t;
-  if (!segment_entry(mb, bv_r, bv_r2, sx, sy, sz, ex, ey, ez, dx, dy, dz, md,
-                     t))
-    return false;
-  for (int step = 0;; ++step) {
-    bool occ;
-    if (occl_step(mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz), md,
-                  eps_c, eps_l, step, max_steps, t, occ))
-      return occ;
+// Relaxed occlusion step number `step` (march.py march_occlusion's
+// relaxed branch, march_pallas._occl_kernel body_r) at t, whose DE `dist`
+// at s + t*d has been taken; t_prev and r_prev are the last accepted t and
+// its DE (0 and the first t at entry). True when the segment resolves
+// here, with `occ` its verdict: a hit (never on an overshoot) before its
+// end; a segment past its end (tested on t before the step) or out of
+// steps is unblocked. Else t advances by relax * dist, or falls back to
+// t_prev + r_prev after an overshoot.
+__device__ __forceinline__ bool occl_step_relaxed(
+    float dist, float md, float eps_c, float eps_l, float relax, int step,
+    int max_steps, float& t, float& t_prev, float& r_prev, bool& occ) {
+  const bool gt_end = t > md;
+  const bool overshoot = (t - t_prev) > (fabsf(r_prev) + fabsf(dist));
+  const bool hit = fabsf(dist) < nmax(eps_c, eps_l * t) && !overshoot;
+  occ = hit && !gt_end;
+  if (hit || gt_end || step + 1 >= max_steps) return true;
+  if (overshoot) {
+    t = t_prev + r_prev;
+  } else {
+    t_prev = t;
+    r_prev = dist;
+    t = t + relax * dist;
   }
+  return false;
 }
 
 // The sort key's price of one segment (shade_pallas._segment_cost):
@@ -563,6 +634,197 @@ __device__ __forceinline__ float segment_cost(const MBox& mb, float bv_r,
       t0 > md)
     return 1.0f;
   return nmin(md / nmax(t0, 1e-6f), (float)max_steps);
+}
+
+// ------------------------------------------------ compacted queue, refill
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Appends the ids of the warp's active segments to the queue with one
+// atomicAdd on the shared count. Every lane of the warp calls it.
+__device__ __forceinline__ void enqueue(bool act, int id, int* count,
+                                        int* queue) {
+  const unsigned m = __ballot_sync(FULL_MASK, act);
+  if (m == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(FULL_MASK, base, leader);
+  if (act) queue[base + __popc(m & ((1u << lane) - 1u))] = id;
+}
+
+// The refill march's queue, verdicts and scalars (ops/shade_cuda.py and
+// ops/march_cuda.py _QueueMarch).
+struct QueueMarch {
+  const int* queue;    // [M] ids of the segments to march, any order
+  const int* count;    // [1] ids in the queue
+  int* head;           // [1] queue slots handed out (0 at launch)
+  bool* verdict;       // [M] out: the SDF blocks the segment (false at launch)
+  long long m;         // M
+  int max_steps;
+  MBox mb;
+  float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
+  float relax;
+  float bv_r, bv_r2;   // bounding-sphere clip radius (0 = none) and its square
+};
+
+// Segment loaders of the refill march: the segment scratch [6, M]
+// (start xyz, end xyz; shade.cu), or start and end [M, 3] (march.cu).
+struct SoaSegments {
+  const float* geom;
+  long long m;
+  __device__ __forceinline__ void load(int id, float& sx, float& sy,
+                                       float& sz, float& ex, float& ey,
+                                       float& ez) const {
+    sx = geom[id];
+    sy = geom[m + id];
+    sz = geom[2 * m + id];
+    ex = geom[3 * m + id];
+    ey = geom[4 * m + id];
+    ez = geom[5 * m + id];
+  }
+};
+
+struct AosSegments {
+  const float* start;
+  const float* end;
+  __device__ __forceinline__ void load(int id, float& sx, float& sy,
+                                       float& sz, float& ex, float& ey,
+                                       float& ez) const {
+    const long long j = 3LL * id;
+    sx = start[j];
+    sy = start[j + 1];
+    sz = start[j + 2];
+    ex = end[j];
+    ey = end[j + 1];
+    ez = end[j + 2];
+  }
+};
+
+// Step policies of the refill march: a lane's step state past its t.
+struct PlainStep {
+  __device__ __forceinline__ void enter(float) {}
+  __device__ __forceinline__ bool operator()(float dist, float md,
+                                             float eps_c, float eps_l,
+                                             int step, int max_steps,
+                                             float& t, bool& occ) {
+    return occl_step(dist, md, eps_c, eps_l, step, max_steps, t, occ);
+  }
+};
+
+struct RelaxedStep {
+  float relax, t_prev, r_prev;
+  __device__ __forceinline__ void enter(float t0) {
+    t_prev = 0.0f;
+    r_prev = t0;
+  }
+  __device__ __forceinline__ bool operator()(float dist, float md,
+                                             float eps_c, float eps_l,
+                                             int step, int max_steps,
+                                             float& t, bool& occ) {
+    return occl_step_relaxed(dist, md, eps_c, eps_l, relax, step, max_steps,
+                             t, t_prev, r_prev, occ);
+  }
+};
+
+// The SDF verdict of every queued segment, written to the segment's own
+// slot, so the queue's order never changes a result. Persistent blocks:
+// each lane takes a segment id from the queue, marches it (the entry of
+// segment_entry, then one step of the policy until it resolves), writes
+// its verdict and takes the next id. A warp takes 32 queue slots at a
+// time with one atomicAdd and hands them to its idle lanes in lane order.
+// Every iteration evaluates one DE per busy lane; the first DE of a
+// segment is taken at its start (s + 0*d would be NaN for a zero-length
+// segment). The queue's length is read on the device.
+template <class Segments, class Step>
+__device__ __forceinline__ void refill_march(const Segments& segs,
+                                             const QueueMarch& a, Step st) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int total = *a.count;
+  int id = -1;         // this lane's segment, -1 while idle
+  bool entry = false;  // its next DE is the entry DE, at the start
+  int step = 0;
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f,
+        md = 0.0f, t = 0.0f;
+  // the warp's batch of queue slots: `batch` ids, the one of slot `lane`
+  // in `mine`; slots below `taken` are handed out
+  int mine = -1, batch = 0, taken = 0;
+  bool drained = false;
+  for (;;) {
+    unsigned idle = __ballot_sync(FULL_MASK, id < 0);
+    while (idle != 0u && !drained) {
+      if (taken == batch) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(a.head, 32);
+        base = __shfl_sync(FULL_MASK, base, 0);
+        batch = min(32, total - base);
+        if (batch <= 0) {
+          drained = true;
+          break;
+        }
+        taken = 0;
+        mine = lane < batch ? a.queue[base + lane] : -1;
+      }
+      const int slot = taken + __popc(idle & below);
+      const int got = __shfl_sync(FULL_MASK, mine, slot & 31);
+      if (id < 0 && slot < batch) {
+        id = got;
+        entry = true;
+        step = 0;
+        float ex, ey, ez;
+        segs.load(id, sx, sy, sz, ex, ey, ez);
+        segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
+      }
+      taken = min(batch, taken + __popc(idle));
+      idle = __ballot_sync(FULL_MASK, id < 0);
+    }
+    if (idle == FULL_MASK) return;  // the queue is drained
+    if (id >= 0) {
+      const float px = entry ? sx : sx + t * dx;
+      const float py = entry ? sy : sy + t * dy;
+      const float pz = entry ? sz : sz + t * dz;
+      const float dist = mandelbox_de(a.mb, px, py, pz);
+      bool done, occ = false;
+      if (entry) {
+        entry = false;
+        done = !entry_from_de(a.bv_r, a.bv_r2, sx, sy, sz, dx, dy, dz, dist,
+                              md, t);
+        st.enter(t);
+      } else {
+        done = st(dist, md, a.eps_c, a.eps_l, step, a.max_steps, t, occ);
+        ++step;
+      }
+      if (done) {
+        a.verdict[id] = occ;
+        id = -1;
+      }
+    }
+  }
+}
+
+__host__ inline unsigned blocks_of(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+// Launches a refill-march kernel of 128 threads a block on as many
+// blocks as fit on the card at once (fewer for a short queue); each
+// block runs until the queue is drained.
+template <class Args>
+__host__ cudaError_t launch_persistent(void (*kernel)(Args), const Args& a,
+                                       long long m, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 128,
+                                                        0);
+  if (err != cudaSuccess) return err;
+  const unsigned resident = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
+  const unsigned needed = blocks_of(m, 128);
+  kernel<<<resident < needed ? resident : needed, 128, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace rayn

@@ -5,25 +5,28 @@
 // bounded by its t_max, with the cone threshold max(eps_const, eps_abs +
 // eps_lin * t), plain (relax = 1) or over-relaxed (Keinert's overshoot
 // test and conservative fallback, frozen t_prev / r_prev).
-// march_occlusion_kernel replaces march_pallas.march_occlusion
-// (_occl_kernel with _segment_entry): one shadow segment per thread with
-// the bounding-sphere clip, plain or over-relaxed.
-// march_occlusion_chained_kernel replaces
-// march_pallas.march_occlusion_chained (_chained_occl_core): the K
-// segments of a ray, marched one after another by one thread; each
-// verdict is the relax-1 march_occlusion verdict of that segment.
+// enqueue_kernel and occl_march_kernel / occl_march_relaxed_kernel
+// replace march_pallas.march_occlusion (_occl_kernel with
+// _segment_entry: one shadow segment per lane with the bounding-sphere
+// clip, plain or over-relaxed) and march_occlusion_chained
+// (_chained_occl_core: the K segments of a ray, each with the relax-1
+// march_occlusion verdict), which march_cuda.py runs as the same pair on
+// K*N segments: the enqueue kernel compacts the ids of the active
+// segments (one atomicAdd per warp), and the refill march (common.cuh
+// refill_march, the march of the bounce tail's shadow queue) marches
+// them from the [M, 3] start and end tensors, writing each verdict to the
+// segment's own slot.
 //
 // What bounds them on the H100: float32 ALU. A step is one 12-iteration
 // MandelBox DE (~400 flops) and a lane takes up to max_steps of them,
 // against 12-40 bytes in and 1-4 bytes out per segment or ray; lanes of a
 // warp also march different numbers of steps.
-// What the design does about it: one thread per ray or segment, reading
-// the [N, 3] / [N] tensors in place; each thread stops the moment its own
-// lane resolves (on the TPU a block ran until its slowest lane was done,
-// which only decided when the loop stopped, never a result), and
-// inactive or entry-resolved lanes evaluate no DE. The TPU's chained
-// scheduling and advance groups only packed block iterations; here a
-// thread simply walks its K segments in order.
+// What the design does about it: the march kernel's persistent lanes
+// each take a queued segment, march it and take the next, so a warp
+// costs about its lanes' total steps / 32 plus the drain (one thread per
+// segment or per ray cost each warp its slowest lane's steps; the TPU's
+// chaining only packed block iterations). Inactive segments never reach
+// the queue, and the march reads the queue's length on the device.
 //
 // The two-phase kernels replace march_pallas.py's _march_phase1_kernel
 // and _march_resume_kernel (march_sorted, march_phased) and
@@ -41,8 +44,8 @@
 // and t1 where they lie and writes its result back to that lane: one
 // indirect load per input instead of the TPU's payload sort of 11-13
 // columns and its un-permute. Every lane takes the steps of one uncapped
-// march (march_plain and occl_steps round as march_ray and sdf_occluded
-// do), so the result is bit-identical to the single-phase kernels.
+// march (march_plain and occl_steps round as march_ray and occl_step
+// do), so the result is bit-identical to the single-phase marches.
 #include "common.cuh"
 
 namespace rayn {
@@ -66,21 +69,31 @@ struct MarchArgs {  // ops/march_cuda.py _MarchArgs
 };
 
 struct OcclArgs {  // ops/march_cuda.py _OcclArgs
-  const float* start;  // [M, 3] ([K, N, 3] for the chained kernel)
+  const float* start;  // [M, 3]
   const float* end;    // [M, 3]
   const bool* active;  // [M] (not read by the resume kernel)
   bool* occluded;      // [M] out (resume: phase 1's, finished in place)
   float* t1;           // [M] phase 1 out, resume in
   bool* resolved;      // [M] phase 1 out, resume in
   const long long* order;  // [n_order] segments of the resume kernel
-  long long n;         // M, or N rays of K segments each
+  long long n;         // M
   long long n_order;
-  int K;               // segments per ray (chained kernel only)
   int max_steps;
   MBox mb;
   float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
-  float relax;
-  float bv_r, bv_r2;   // bounding-sphere clip radius (0 = none) and its square
+};
+
+struct EnqueueArgs {  // ops/march_cuda.py _EnqueueArgs
+  const bool* active;  // [M]
+  int* queue;          // [M] out: ids of the active segments, any order
+  int* count;          // [1] out: ids in the queue (0 at launch)
+  long long n;         // M
+};
+
+struct OcclMarchArgs {  // ops/march_cuda.py _OcclMarchArgs
+  const float* start;  // [M, 3]
+  const float* end;    // [M, 3]
+  QueueMarch q;
 };
 
 // The plain (relax 1) march of one ray for at most `steps` steps from t,
@@ -132,34 +145,6 @@ __device__ __forceinline__ float march_ray(const MBox& mb, float ox, float oy,
   return t;
 }
 
-// march.py march_occlusion relax branch / march_pallas._occl_kernel body_r
-// for one segment: True iff the SDF blocks s->e.
-__device__ __forceinline__ bool sdf_occluded_relaxed(
-    const MBox& mb, float bv_r, float bv_r2, int max_steps, float eps_c,
-    float eps_l, float relax, float sx, float sy, float sz, float ex,
-    float ey, float ez) {
-  float dx, dy, dz, md, t;
-  if (!segment_entry(mb, bv_r, bv_r2, sx, sy, sz, ex, ey, ez, dx, dy, dz, md,
-                     t))
-    return false;
-  float t_prev = 0.0f, r_prev = t;
-  for (int step = 0;; ++step) {
-    const bool gt_end = t > md;
-    const float r = mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz);
-    const bool overshoot = (t - t_prev) > (fabsf(r_prev) + fabsf(r));
-    const bool hit = fabsf(r) < nmax(eps_c, eps_l * t) && !overshoot;
-    if (hit || gt_end) return hit && !gt_end;
-    if (step + 1 >= max_steps) return false;
-    if (overshoot) {
-      t = t_prev + r_prev;
-    } else {
-      t_prev = t;
-      r_prev = r;
-      t = t + relax * r;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -181,34 +166,22 @@ __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
                      a.max_steps, a.relax);
 }
 
-__device__ __forceinline__ bool occluded_at(const OcclArgs& a, long long j) {
-  if (!a.active[j]) return false;
-  const float* s = a.start + 3 * j;
-  const float* e = a.end + 3 * j;
-  if (a.relax == 1.0f)
-    return sdf_occluded(a.mb, a.bv_r, a.bv_r2, a.max_steps, a.eps_c, a.eps_l,
-                        s[0], s[1], s[2], e[0], e[1], e[2]);
-  return sdf_occluded_relaxed(a.mb, a.bv_r, a.bv_r2, a.max_steps, a.eps_c,
-                              a.eps_l, a.relax, s[0], s[1], s[2], e[0], e[1],
-                              e[2]);
-}
-
-__global__ void __launch_bounds__(128)
-    march_occlusion_kernel(const OcclArgs a) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.n) return;
-  a.occluded[j] = occluded_at(a, j);
-}
-
-// relax is 1 here (the wrapper sets it): chaining needs the plain march
-__global__ void __launch_bounds__(128)
-    march_occlusion_chained_kernel(const OcclArgs a) {
+// Appends the id of every active segment to the queue.
+__global__ void __launch_bounds__(128) enqueue_kernel(const EnqueueArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  for (int k = 0; k < a.K; ++k) {
-    const long long j = (long long)k * a.n + i;
-    a.occluded[j] = occluded_at(a, j);
-  }
+  enqueue(i < a.n && a.active[i], (int)i, a.count, a.queue);
+}
+
+// The SDF verdict of every queued segment start -> end (refill_march).
+__global__ void __launch_bounds__(128) occl_march_kernel(
+    const OcclMarchArgs a) {
+  refill_march(AosSegments{a.start, a.end}, a.q, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) occl_march_relaxed_kernel(
+    const OcclMarchArgs a) {
+  refill_march(AosSegments{a.start, a.end}, a.q,
+               RelaxedStep{a.q.relax, 0.0f, 0.0f});
 }
 
 // The relax-1 occlusion loop of _occl_phase1_kernel / _occl_resume_kernel
@@ -307,10 +280,6 @@ __global__ void __launch_bounds__(128) occl_resume_kernel(const OcclArgs a) {
   a.occluded[j] = hit && !(t > md);
 }
 
-__host__ inline unsigned blocks_of(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
-}
-
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_march(const rayn::MarchArgs* args,
@@ -321,20 +290,22 @@ extern "C" cudaError_t rayn_march(const rayn::MarchArgs* args,
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t rayn_march_occlusion(const rayn::OcclArgs* args,
-                                            cudaStream_t stream) {
+extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
+                                    cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  rayn::march_occlusion_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                                 stream>>>(*args);
+  rayn::enqueue_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
+      *args);
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t rayn_march_occlusion_chained(
-    const rayn::OcclArgs* args, cudaStream_t stream) {
-  if (args->n <= 0 || args->K <= 0) return cudaSuccess;
-  rayn::march_occlusion_chained_kernel<<<rayn::blocks_of(args->n, 128), 128,
-                                         0, stream>>>(*args);
-  return cudaGetLastError();
+// Persistent (launch_persistent); plain steps at relax 1, else relaxed.
+extern "C" cudaError_t rayn_occl_march(const rayn::OcclMarchArgs* args,
+                                       cudaStream_t stream) {
+  if (args->q.m <= 0) return cudaSuccess;
+  return rayn::launch_persistent(args->q.relax == 1.0f
+                                     ? rayn::occl_march_kernel
+                                     : rayn::occl_march_relaxed_kernel,
+                                 *args, args->q.m, stream);
 }
 
 extern "C" cudaError_t rayn_march_phase1(const rayn::MarchArgs* args,

@@ -14,8 +14,10 @@
 //   and appends the id j*N + i of every active segment to a compacted
 //   queue, one atomicAdd per warp.
 // - shadow_march_kernel: the SDF verdict of every queued segment (the
-//   bounding-sphere clip, sdf_occluded's relax-1 step sequence and
-//   verdict rule), written to the segment's own slot.
+//   bounding-sphere clip, the relax-1 step sequence and verdict rule of
+//   march_occlusion), written to the segment's own slot: refill_march
+//   (common.cuh) on the scratch; shadow_march_relaxed_kernel is the same
+//   march with the relaxed step, for the segment queue at relax != 1.
 // - shadow_sum_kernel / tail_sum_kernel, one thread per ray: k * visible
 //   summed over the segments in the JAX order (NEE 0..L-1, then volume
 //   sites march-major) from 0; the first writes the radiance delta [N, 3]
@@ -28,6 +30,16 @@
 // shadow_sort_key_kernel replaces shade_pallas.shadow_sort_key
 // (_shadow_key_kernel -> _shadow_cost_key -> _segment_cost): the same
 // segments, each priced at min(length / first DE, max_steps).
+// The segment-queue bounce (rayn_tpu/render/integrator.py:420-514, the
+// unfused path whose occlusion the TPU ran in march_pallas's
+// march_occlusion and march_occlusion_chained) runs here as:
+// - queue_segments_kernel: shadow_segments_kernel's loop with the
+//   unfused bounce's op order (lights.sample_cone, bsdf.eval_f, its
+//   contribution products, spheres.occluded), into the same scratch;
+// - shadow_march_kernel / shadow_march_relaxed_kernel on that scratch;
+// - queue_sum_kernel: radiance + k_0 * visible_0 + k_1 * visible_1 + ...
+//   in segment order from the emission-added radiance (the queue's
+//   order, not the fused tail's delta from 0).
 //
 // What bounds them on the H100: float32 ALU and warp divergence. A ray has
 // up to 12 shadow segments of up to max_vis_marches MandelBox DEs each
@@ -77,6 +89,9 @@ struct ShadowScalars {  // ops/shade_cuda.py _ShadowScalars
   // march-major); bases, not arrays, so no kernel-parameter array is
   // indexed at run time
   int set_pick0, set_nee0, set_vol_pick0, set_vol0;
+  // 5: the exponent of bsdf.eval_f's (1 - d) ** 5, read at run time as
+  // torch's CUDA pow reads it (eval_f_unfused)
+  float schlick_exp;
 };
 
 struct RayCols {  // ops/shade_cuda.py _RayCols: read by every tail kernel
@@ -123,16 +138,8 @@ struct SegArgs {  // ops/shade_cuda.py _SegArgs
 };
 
 struct SegMarchArgs {  // ops/shade_cuda.py _SegMarchArgs
-  const float* geom;   // [6, M]
-  const int* queue;    // [M]
-  const int* count;    // [1]
-  int* head;           // [1] queue slots handed out (0 at launch)
-  bool* verdict;       // [M] out: the SDF blocks the segment (false at launch)
-  long long m;         // M = S*N
-  int max_steps;
-  MBox mb;
-  float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
-  float bv_r, bv_r2;   // bounding-sphere clip radius (0 = none) and its square
+  const float* geom;   // [6, M], M = S*N
+  QueueMarch q;
 };
 
 struct SumCols {  // ops/shade_cuda.py _SumCols
@@ -145,6 +152,13 @@ struct SumCols {  // ops/shade_cuda.py _SumCols
 struct ShadowSumArgs {  // ops/shade_cuda.py _ShadowSumArgs
   SumCols s;
   float* o_delta;  // [N, 3]
+  long long n;
+};
+
+struct QueueSumArgs {  // ops/shade_cuda.py _QueueSumArgs
+  SumCols s;
+  const float* radiance;  // [N, 3] the emission-added radiance
+  float* o_radiance;      // [N, 3]
   long long n;
 };
 
@@ -175,7 +189,9 @@ struct KeyArgs {  // ops/shade_cuda.py _KeyArgs
 };
 
 // Light pick + cone sample of NEE site i from point p (shade_pallas
-// _shadow_delta / _shadow_cost_key, shared so both price one segment).
+// _shadow_delta / _shadow_cost_key, shared so both price one segment;
+// kDivide: the unfused bounce's cone sample).
+template <bool kDivide = false>
 __device__ __forceinline__ int nee_site(const ShadowScalars& sc,
                                         const float* __restrict__ lights,
                                         int i, uint32_t sidx, uint32_t pix,
@@ -187,12 +203,13 @@ __device__ __forceinline__ int nee_site(const ShadowScalars& sc,
   const float* lr = lights + 8 * l;
   float u1, u2;
   sample_2d(sc.smp, sc.set_nee0 + i, sidx, pix, u1, u2);
-  sample_cone(u1, u2, lr[0], lr[1], lr[2], lr[3], px, py, pz, ex, ey, ez,
-              pdf);
+  sample_cone<kDivide>(u1, u2, lr[0], lr[1], lr[2], lr[3], px, py, pz, ex,
+                       ey, ez, pdf);
   return l;
 }
 
 // Light pick + scatter point + cone sample of volume site j.
+template <bool kDivide = false>
 __device__ __forceinline__ int vol_site(const ShadowScalars& sc,
                                         const float* __restrict__ lights,
                                         int j, uint32_t sidx, uint32_t pix,
@@ -209,8 +226,8 @@ __device__ __forceinline__ int vol_site(const ShadowScalars& sc,
   spz = oz + vd * dz;
   float u1, u2;
   sample_2d(sc.smp, sc.set_vol0 + j, sidx, pix, u1, u2);
-  sample_cone(u1, u2, lr[0], lr[1], lr[2], lr[3], spx, spy, spz, ex, ey, ez,
-              pdf);
+  sample_cone<kDivide>(u1, u2, lr[0], lr[1], lr[2], lr[3], spx, spy, spz, ex,
+                       ey, ez, pdf);
   return l;
 }
 
@@ -253,22 +270,6 @@ __device__ __forceinline__ Ray load_ray(const RayCols& c, long long i) {
   return r;
 }
 
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// Appends the ids of the warp's active segments to the queue with one
-// atomicAdd on the shared count. Every lane of the warp calls it.
-__device__ __forceinline__ void enqueue(bool act, int id, int* count,
-                                        int* queue) {
-  const unsigned m = __ballot_sync(FULL_MASK, act);
-  if (m == 0u) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(FULL_MASK, base, leader);
-  if (act) queue[base + __popc(m & ((1u << lane) - 1u))] = id;
-}
-
 __device__ __forceinline__ void put_segment(const SegCols& g, long long m,
                                             long long id, float sx, float sy,
                                             float sz, float ex, float ey,
@@ -290,8 +291,10 @@ __device__ __forceinline__ void put_segment(const SegCols& g, long long m,
 // the NEE and volume single-scattering segments of ray i, each written
 // to the scratch and, when active, queued. Lanes past the end (in =
 // false) compute ray n-1 and store nothing, so that every lane of a warp
-// reaches enqueue.
-__global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
+// reaches enqueue. kUnfused: the same segments in the op order of the
+// unfused bounce's torch build (shade_cuda.queue_segments_plain).
+template <bool kUnfused>
+__device__ __forceinline__ void segments(const SegArgs& a) {
   const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i0 < a.n;
   const long long i = in ? i0 : a.n - 1;
@@ -303,26 +306,47 @@ __global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
   const float wox = -r.d.x, woy = -r.d.y, woz = -r.d.z;
   for (int j = 0; j < sc.L; ++j) {
     float ex, ey, ez, pdf;
-    const int l = nee_site(sc, s.lights, j, r.sidx, r.pix, p.x, p.y, p.z, ex,
-                           ey, ez, pdf);
+    const int l = nee_site<kUnfused>(sc, s.lights, j, r.sidx, r.pix, p.x, p.y,
+                                     p.z, ex, ey, ez, pdf);
     const float* lr = s.lights + 8 * l;
     const float wfx = ex - p.x, wfy = ey - p.y, wfz = ez - p.z;
     const float dist = sqrtf(wfx * wfx + wfy * wfy + wfz * wfz);
-    const float dinv = 1.0f / dist;
-    const float wix = wfx * dinv, wiy = wfy * dinv, wiz = wfz * dinv;
+    float wix, wiy, wiz;
+    if (kUnfused) {
+      wix = wfx / dist;
+      wiy = wfy / dist;
+      wiz = wfz / dist;
+    } else {
+      const float dinv = 1.0f / dist;
+      wix = wfx * dinv;
+      wiy = wfy * dinv;
+      wiz = wfz * dinv;
+    }
     const float ndw = nrm.x * wix + nrm.y * wiy + nrm.z * wiz;
     const float bias = signbit(ndw) ? -r.off : r.off;
     const float sx = p.x + nrm.x * bias, sy = p.y + nrm.y * bias,
                 sz = p.z + nrm.z * bias;
-    float fr, fg, fb;
-    eval_f(r.kind, r.ca.x, r.ca.y, r.ca.z, r.pw, wox, woy, woz, wix, wiy, wiz,
-           nrm.x, nrm.y, nrm.z, fr, fg, fb);
     const float ndl = nmax(0.0f, ndw);
     const float seg_trans = sc.has_ext ? expf(-sc.sigma_t * dist) : 1.0f;
-    const float scale = (seg_trans / pdf) * (sc.correction * r.vtr);
-    float kr = r.receives ? lr[4] * fr * ndl * scale * tp.x : 0.0f;
-    float kg = r.receives ? lr[5] * fg * ndl * scale * tp.y : 0.0f;
-    float kb = r.receives ? lr[6] * fb * ndl * scale * tp.z : 0.0f;
+    float fr, fg, fb, kr, kg, kb;
+    if (kUnfused) {
+      // li * (f * ndl) * (seg_trans / pdf) * tp * (correction * vol_trans)
+      eval_f_unfused(r.kind, r.ca.x, r.ca.y, r.ca.z, r.pw, sc.schlick_exp,
+                     wox, woy, woz, wix, wiy, wiz, nrm.x, nrm.y, nrm.z, fr,
+                     fg, fb);
+      const float st_pdf = seg_trans / pdf;
+      const float cv = sc.correction * r.vtr;
+      kr = r.receives ? lr[4] * (fr * ndl) * st_pdf * tp.x * cv : 0.0f;
+      kg = r.receives ? lr[5] * (fg * ndl) * st_pdf * tp.y * cv : 0.0f;
+      kb = r.receives ? lr[6] * (fb * ndl) * st_pdf * tp.z * cv : 0.0f;
+    } else {
+      eval_f(r.kind, r.ca.x, r.ca.y, r.ca.z, r.pw, wox, woy, woz, wix, wiy,
+             wiz, nrm.x, nrm.y, nrm.z, fr, fg, fb);
+      const float scale = (seg_trans / pdf) * (sc.correction * r.vtr);
+      kr = r.receives ? lr[4] * fr * ndl * scale * tp.x : 0.0f;
+      kg = r.receives ? lr[5] * fg * ndl * scale * tp.y : 0.0f;
+      kb = r.receives ? lr[6] * fb * ndl * scale * tp.z : 0.0f;
+    }
     if (sc.mis && lr[7] > 0.0f) {
       // NEE of a paired light, weighted against the BSDF strategy
       const float p_bsdf =
@@ -336,8 +360,8 @@ __global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
     }
     const bool worth =
         r.receives && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    const bool act = worth && !sphere_occluded(s.spheres, sc.K, sx, sy, sz,
-                                               ex, ey, ez);
+    const bool act = worth && !sphere_occluded<kUnfused>(s.spheres, sc.K, sx,
+                                                         sy, sz, ex, ey, ez);
     const long long id = (long long)j * a.n + i;
     if (in) put_segment(a.g, m, id, sx, sy, sz, ex, ey, ez, kr, kg, kb, act);
     enqueue(in && act, (int)id, a.g.count, a.g.queue);
@@ -346,9 +370,9 @@ __global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
     const float vd = s.vol_dist[(long long)j * a.n + i];
     const float vp = s.vol_pdf[(long long)j * a.n + i];
     float spx, spy, spz, ex, ey, ez, light_pdf;
-    const int l = vol_site(sc, s.lights, j, r.sidx, r.pix, vd, r.o.x, r.o.y,
-                           r.o.z, r.d.x, r.d.y, r.d.z, spx, spy, spz, ex, ey,
-                           ez, light_pdf);
+    const int l = vol_site<kUnfused>(sc, s.lights, j, r.sidx, r.pix, vd, r.o.x,
+                                     r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, spx,
+                                     spy, spz, ex, ey, ez, light_pdf);
     const float* lr = s.lights + 8 * l;
     const float sgx = ex - spx, sgy = ey - spy, sgz = ez - spz;
     const float dist_pl = sqrtf(sgx * sgx + sgy * sgy + sgz * sgz);
@@ -360,8 +384,8 @@ __global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
     const float kg = r.alive ? lr[5] * scale * tp.y : 0.0f;
     const float kb = r.alive ? lr[6] * scale * tp.z : 0.0f;
     const bool worth = r.alive && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    const bool act = worth && !sphere_occluded(s.spheres, sc.K, spx, spy,
-                                               spz, ex, ey, ez);
+    const bool act = worth && !sphere_occluded<kUnfused>(s.spheres, sc.K, spx,
+                                                         spy, spz, ex, ey, ez);
     const long long id = (long long)(sc.L + j) * a.n + i;
     if (in)
       put_segment(a.g, m, id, spx, spy, spz, ex, ey, ez, kr, kg, kb, act);
@@ -369,80 +393,24 @@ __global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
   }
 }
 
-// The SDF verdict of every queued segment. Persistent blocks: each lane
-// takes a segment id from the queue, marches it (the entry of
-// segment_entry, then occl_step until it resolves), writes its verdict
-// and takes the next id. A warp takes 32 queue slots at a time with one
-// atomicAdd and hands them to its idle lanes in lane order. Every
-// iteration evaluates one DE per busy lane; the first DE of a segment is
-// taken at its start (s + 0*d would be NaN for a zero-length segment).
+__global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
+  segments<false>(a);
+}
+
+__global__ void __launch_bounds__(128) queue_segments_kernel(const SegArgs a) {
+  segments<true>(a);
+}
+
+// The SDF verdict of every queued segment of the scratch (refill_march).
 __global__ void __launch_bounds__(128) shadow_march_kernel(
     const SegMarchArgs a) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const int total = *a.count;
-  const long long m = a.m;
-  int id = -1;         // this lane's segment, -1 while idle
-  bool entry = false;  // its next DE is the entry DE, at the start
-  int step = 0;
-  float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f,
-        md = 0.0f, t = 0.0f;
-  // the warp's batch of queue slots: `batch` ids, the one of slot `lane`
-  // in `mine`; slots below `taken` are handed out
-  int mine = -1, batch = 0, taken = 0;
-  bool drained = false;
-  for (;;) {
-    unsigned idle = __ballot_sync(FULL_MASK, id < 0);
-    while (idle != 0u && !drained) {
-      if (taken == batch) {
-        int base = 0;
-        if (lane == 0) base = atomicAdd(a.head, 32);
-        base = __shfl_sync(FULL_MASK, base, 0);
-        batch = min(32, total - base);
-        if (batch <= 0) {
-          drained = true;
-          break;
-        }
-        taken = 0;
-        mine = lane < batch ? a.queue[base + lane] : -1;
-      }
-      const int slot = taken + __popc(idle & below);
-      const int got = __shfl_sync(FULL_MASK, mine, slot & 31);
-      if (id < 0 && slot < batch) {
-        id = got;
-        entry = true;
-        step = 0;
-        sx = a.geom[id];
-        sy = a.geom[m + id];
-        sz = a.geom[2 * m + id];
-        segment_dir(sx, sy, sz, a.geom[3 * m + id], a.geom[4 * m + id],
-                    a.geom[5 * m + id], dx, dy, dz, md);
-      }
-      taken = min(batch, taken + __popc(idle));
-      idle = __ballot_sync(FULL_MASK, id < 0);
-    }
-    if (idle == FULL_MASK) return;  // the queue is drained
-    if (id >= 0) {
-      const float px = entry ? sx : sx + t * dx;
-      const float py = entry ? sy : sy + t * dy;
-      const float pz = entry ? sz : sz + t * dz;
-      const float dist = mandelbox_de(a.mb, px, py, pz);
-      bool done, occ = false;
-      if (entry) {
-        entry = false;
-        done = !entry_from_de(a.bv_r, a.bv_r2, sx, sy, sz, dx, dy, dz, dist,
-                              md, t);
-      } else {
-        done = occl_step(dist, md, a.eps_c, a.eps_l, step, a.max_steps, t,
-                         occ);
-        ++step;
-      }
-      if (done) {
-        a.verdict[id] = occ;
-        id = -1;
-      }
-    }
-  }
+  refill_march(SoaSegments{a.geom, a.q.m}, a.q, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) shadow_march_relaxed_kernel(
+    const SegMarchArgs a) {
+  refill_march(SoaSegments{a.geom, a.q.m}, a.q,
+               RelaxedStep{a.q.relax, 0.0f, 0.0f});
 }
 
 // k * visible of ray i's segments, summed from 0 in the JAX order (NEE
@@ -593,6 +561,25 @@ __global__ void __launch_bounds__(128)
   st3(a.o_delta, i, dr, dg, db);
 }
 
+// The segment queue's radiance (rayn_tpu/render/integrator.py:512-514):
+// the emission-added radiance plus k * visible of ray i's segments, one
+// at a time, in segment order.
+__global__ void __launch_bounds__(128) queue_sum_kernel(const QueueSumArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const SumCols& c = a.s;
+  const long long m = (long long)c.S * a.n;
+  float3 rad = ld3(a.radiance, i);
+  for (int j = 0; j < c.S; ++j) {
+    const long long id = (long long)j * a.n + i;
+    const float v = (c.active[id] && !c.verdict[id]) ? 1.0f : 0.0f;
+    rad.x = rad.x + c.k[id] * v;
+    rad.y = rad.y + c.k[m + id] * v;
+    rad.z = rad.z + c.k[2 * m + id] * v;
+  }
+  st3(a.o_radiance, i, rad.x, rad.y, rad.z);
+}
+
 __global__ void __launch_bounds__(128)
     finish_bounce_kernel(const FinishArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -641,10 +628,6 @@ __global__ void __launch_bounds__(128)
   a.key[i] = key;
 }
 
-__host__ inline unsigned blocks_of(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
-}
-
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
@@ -655,24 +638,22 @@ extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
   return cudaGetLastError();
 }
 
-// Persistent: as many blocks as fit on the card at once (fewer for a
-// short scratch); each runs until the queue is drained.
+extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
+                                           cudaStream_t stream) {
+  if (args->n <= 0) return cudaSuccess;
+  rayn::queue_segments_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
+                                stream>>>(*args);
+  return cudaGetLastError();
+}
+
+// Persistent (launch_persistent); plain steps at relax 1, else relaxed.
 extern "C" cudaError_t rayn_shadow_march(const rayn::SegMarchArgs* args,
                                          cudaStream_t stream) {
-  if (args->m <= 0) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rayn::shadow_march_kernel, 128, 0);
-  if (err != cudaSuccess) return err;
-  const unsigned resident = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
-  const unsigned needed = rayn::blocks_of(args->m, 128);
-  const unsigned blocks = resident < needed ? resident : needed;
-  rayn::shadow_march_kernel<<<blocks, 128, 0, stream>>>(*args);
-  return cudaGetLastError();
+  if (args->q.m <= 0) return cudaSuccess;
+  return rayn::launch_persistent(args->q.relax == 1.0f
+                                     ? rayn::shadow_march_kernel
+                                     : rayn::shadow_march_relaxed_kernel,
+                                 *args, args->q.m, stream);
 }
 
 extern "C" cudaError_t rayn_shadow_sum(const rayn::ShadowSumArgs* args,
@@ -687,6 +668,14 @@ extern "C" cudaError_t rayn_tail_sum(const rayn::TailSumArgs* args,
                                      cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
   rayn::tail_sum_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
+      *args);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t rayn_queue_sum(const rayn::QueueSumArgs* args,
+                                      cudaStream_t stream) {
+  if (args->n <= 0) return cudaSuccess;
+  rayn::queue_sum_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
       *args);
   return cudaGetLastError();
 }

@@ -89,10 +89,11 @@ def test_occluded(data: SceneData, static: SceneStatic,
       whatever `shadow_bv_clip` says, as in the JAX package;
     - plain marching, `chained_shadow_march` and segments > 1 (the queue
       is `segments` equal groups concatenated segment-major, segment k of
-      ray i at k * M / segments + i): the chained kernel, one thread per
-      ray walking its segments;
-    - else the one-segment kernel.
-    The chained and one-segment kernels give the same verdicts."""
+      ray i at k * M / segments + i): march_occlusion_chained;
+    - else march_occlusion.
+    Both run the enqueue kernel and the refill march on the segments, so
+    they give the same verdicts. The segment-queue bounce no longer calls
+    this function (it marches its own scratch, integrator._queue_verdicts)."""
     s = settings
     m = start.shape[0]
     occluded = torch.zeros((m,), dtype=torch.bool, device=start.device)

@@ -26,9 +26,9 @@ resume that finishes the others from phase 1's t: `march_phase1` /
 twins of their four kernels. Each lane takes the same steps as in one
 uncapped march, so the composition is bit-identical to it.
 
-`occlusion_steps` counts the DEs each segment takes in the relax-1
-occlusion march: the work a schedule of the march has to pack into
-warps.
+`occlusion_steps` counts the DEs each segment takes in the occlusion
+march, plain or relaxed: the work a schedule of the march has to pack
+into warps.
 """
 
 from __future__ import annotations
@@ -213,31 +213,35 @@ def _occl_march(mb, start, end, detail_scale: float, max_steps: int,
 
 
 def occlusion_steps(mb: MandelBox, start, end, detail_scale: float,
-                    max_steps: int, active, bound_radius: float = 0.0):
-    """int32 [N]: the MandelBox DEs each segment takes in the relax-1
-    march_occlusion (its first DE plus one per step; 0 when inactive),
-    the work that a lane spends on it."""
+                    max_steps: int, active, bound_radius: float = 0.0,
+                    relax: float = 1.0):
+    """int32 [N]: the MandelBox DEs each segment takes in march_occlusion
+    at `relax` (its first DE plus one per step; 0 when inactive), the
+    work that a lane spends on it."""
     n_de = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
-    _occl_march(mb, start, end, detail_scale, max_steps, active,
-                bound_radius, n_de)
+    march_occlusion(mb, start, end, detail_scale, max_steps, active,
+                    bound_radius, relax, n_de)
     return n_de
 
 
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
                     max_steps: int, active, bound_radius: float = 0.0,
-                    relax: float = 1.0):
+                    relax: float = 1.0, n_de=None):
     """Shadow march; bool [N], True where the SDF blocks the segment.
 
     Per lane: from t0, test |DE| < max(eps_c, eps_l * t) and t > md at
     each step; the verdict is `hit and not past the end` at the step the
     lane resolves, and False for a lane that resolves at entry or runs
     out of steps (the verdict of the JAX march_occlusion; reference
-    src/sdf.rs:25-57). A relaxed step that overshoots is never a hit."""
+    src/sdf.rs:25-57). A relaxed step that overshoots is never a hit.
+    `n_de`, if given, counts each segment's DEs in place."""
     if relax == 1.0:
         return _occl_march(mb, start, end, detail_scale, max_steps, active,
-                           bound_radius)
+                           bound_radius, n_de)
     d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
     occ = torch.zeros_like(nan)
+    if n_de is not None:
+        n_de += active.to(n_de.dtype)
     live = torch.nonzero(~nan).squeeze(1)
     t = t.clone()
     eps_c = 1e-4 * detail_scale
@@ -247,6 +251,8 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     for step in range(max(max_steps, 1)):
         if live.numel() == 0:
             break
+        if n_de is not None:
+            n_de[live] += 1
         tl = t[live]
         gt_end = tl > md[live]
         r = _de_at(mb, start, d, live, tl)

@@ -1,16 +1,22 @@
 """Sphere-tracing kernels of the segment-queue bounce: CUDA and plain twins.
 
-Port of the three `rayn_tpu.ops.march_pallas` kernels that the unfused
-bounce runs (csrc/march.cu):
+Port of the `rayn_tpu.ops.march_pallas` kernels that the unfused bounce
+runs (csrc/march.cu):
 
 - `march` replaces `march` (`_march_kernel`): the closest-hit march of
   the SDF along each ray, plain or over-relaxed (`relax`).
-- `march_occlusion` replaces `march_occlusion` (`_occl_kernel`): one
-  shadow segment per lane with the bounding-sphere clip, plain or
-  over-relaxed.
+- `march_occlusion` replaces `march_occlusion` (`_occl_kernel`): shadow
+  segments with the bounding-sphere clip, plain or over-relaxed. It is a
+  function over two kernels: `enqueue` compacts the ids of the active
+  segments into a queue (one atomicAdd per warp), and `occlusion_march`
+  marches the queue with persistent lanes that each take a segment,
+  march it and take the next (the refill march of the bounce tail's
+  shadow queue, csrc/common.cuh), writing each verdict to the segment's
+  own slot.
 - `march_occlusion_chained` replaces `march_occlusion_chained`
   (`_chained_occl_core`): K segments per ray, each with the relax-1
-  verdict of `march_occlusion`.
+  verdict of `march_occlusion`: the same two kernels on the K*N
+  segments (the TPU's chaining was a schedule, never a result).
 - `march_phase1` and `march_resume` replace `_march_phase1_kernel` and
   `_march_resume_kernel`; `occlusion_phase1` and `occlusion_resume`
   replace `_occl_phase1_kernel` and `_occl_resume_kernel`. Phase 1
@@ -31,7 +37,8 @@ takes the same steps, only the warps that run them change.
 Each kernel wrapper launches its kernel for CUDA tensors, counts the
 launch in its `launches` attribute, and raises on anything the kernel
 does not take. For CPU tensors it calls its `_plain` twin, which is the
-plain torch march of ops/march.py.
+plain torch march of ops/march.py. `march_occlusion_plain` and
+`march_occlusion_chained_plain` are the two functions in one piece.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ import ctypes
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import MBox, check, mbox_struct
+from rayn_tpu_torch._build import (MBox, QueueMarch, check, mbox_struct,
+                                   queue_march)
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops.sdf import MandelBox
 
@@ -61,10 +69,17 @@ class _OcclArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "start", "end", "active", "occluded", "t1", "resolved", "order")] + [
         ("n", ctypes.c_int64), ("n_order", ctypes.c_int64),
-        ("K", ctypes.c_int), ("max_steps", ctypes.c_int), ("mb", MBox),
-        ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float),
-        ("relax", ctypes.c_float), ("bv_r", ctypes.c_float),
-        ("bv_r2", ctypes.c_float)]
+        ("max_steps", ctypes.c_int), ("mb", MBox),
+        ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float)]
+
+
+class _EnqueueArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in ("active", "queue", "count")] + [
+        ("n", ctypes.c_int64)]
+
+
+class _OcclMarchArgs(ctypes.Structure):
+    _fields_ = [("start", _P), ("end", _P), ("q", QueueMarch)]
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
@@ -198,27 +213,109 @@ def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
 march_resume.launches = 0
 
 
-def _occl_args(mb, start, end, active, out, detail_scale, max_steps, relax,
-               bound_radius, n, K, seg_shape, dev, least_steps=1,
+def _occl_args(mb, start, end, active, out, detail_scale, max_steps, dev,
                **fields) -> _OcclArgs:
+    """The two-phase occlusion kernels' arguments over M segments."""
     f32 = torch.float32
+    m = start.shape[0]
     if active is not None:
-        fields["active"] = check(active, "active", torch.bool, seg_shape, dev)
+        fields["active"] = check(active, "active", torch.bool, (m,), dev)
     return _OcclArgs(
-        start=check(start, "start", f32, seg_shape + (3,), dev),
-        end=check(end, "end", f32, seg_shape + (3,), dev),
-        occluded=out.data_ptr(), n=n, K=K,
-        max_steps=_steps_at_least(max_steps, least_steps,
-                                  "the occlusion kernel"),
+        start=check(start, "start", f32, (m, 3), dev),
+        end=check(end, "end", f32, (m, 3), dev),
+        occluded=out.data_ptr(), n=m,
+        max_steps=_steps_at_least(max_steps, 0, "the occlusion kernel"),
         mb=mbox_struct(mb), eps_c=1e-4 * detail_scale,
-        eps_l=1e-5 * detail_scale, relax=relax, bv_r=bound_radius,
-        bv_r2=float(bound_radius * bound_radius), **fields)
+        eps_l=1e-5 * detail_scale, **fields)
+
+
+def _int32_ids(m: int, name: str) -> int:
+    if m >= 2 ** 31:
+        raise ValueError(f"{name}: {m} segments overflow int32 ids")
+    return m
+
+
+def enqueue_plain(active):
+    """Plain twin of the enqueue kernel: the ids of the True entries of
+    `active` in id order, then zeros ([M] int32), and their count ([1]
+    int32)."""
+    ids = torch.nonzero(active).squeeze(1).to(torch.int32)
+    queue = torch.zeros(active.shape, dtype=torch.int32,
+                        device=active.device)
+    queue[:ids.numel()] = ids
+    return queue, torch.full((1,), ids.numel(), dtype=torch.int32,
+                             device=active.device)
+
+
+def enqueue(active):
+    """(queue [M] int32, count [1] int32): the ids of the True entries of
+    the [M] bool `active`, in any order, first in the queue, and how
+    many there are."""
+    if active.device.type == "cpu":
+        return enqueue_plain(active)
+    dev = _cuda_device(active, "enqueue")
+    m = _int32_ids(active.shape[0], "enqueue")
+    queue = torch.empty((m,), dtype=torch.int32, device=dev)
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = _EnqueueArgs(active=check(active, "active", torch.bool, (m,), dev),
+                        queue=queue.data_ptr(), count=count.data_ptr(), n=m)
+    _build.launch("rayn_enqueue", args, dev)
+    enqueue.launches += 1
+    return queue, count
+
+
+enqueue.launches = 0
+
+
+def occlusion_march_plain(mb: MandelBox, start, end, detail_scale: float,
+                          max_steps: int, queue, count, relax: float = 1.0,
+                          bound_radius: float = 0.0) -> torch.Tensor:
+    """Plain twin of the refill march: the march_occlusion verdicts
+    (ops/march.py) of the queued segments, False elsewhere."""
+    verdict = torch.zeros((start.shape[0],), dtype=torch.bool,
+                          device=start.device)
+    ids = queue[:int(count[0])].long()
+    verdict[ids] = march_ops.march_occlusion(
+        mb, start[ids], end[ids], detail_scale, max_steps,
+        torch.ones_like(ids, dtype=torch.bool), bound_radius, relax)
+    return verdict
+
+
+def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
+                    max_steps: int, queue, count, relax: float = 1.0,
+                    bound_radius: float = 0.0) -> torch.Tensor:
+    """[M] bool: True where the SDF blocks segment start -> end, for the
+    segments whose ids are the first `count` entries of `queue` ([M]
+    int32, any order); False for the others."""
+    if start.device.type == "cpu":
+        return occlusion_march_plain(mb, start, end, detail_scale,
+                                     max_steps, queue, count, relax,
+                                     bound_radius)
+    dev = _cuda_device(start, "occlusion_march")
+    m = _int32_ids(start.shape[0], "occlusion_march")
+    f32, i32 = torch.float32, torch.int32
+    verdict = torch.zeros((m,), dtype=torch.bool, device=dev)
+    head = torch.zeros((1,), dtype=i32, device=dev)
+    args = _OcclMarchArgs(
+        start=check(start, "start", f32, (m, 3), dev),
+        end=check(end, "end", f32, (m, 3), dev),
+        q=queue_march(check(queue, "queue", i32, (m,), dev),
+                      check(count, "count", i32, (1,), dev), head, verdict,
+                      mb, detail_scale,
+                      _steps_at_least(max_steps, 1, "occlusion_march"),
+                      relax, bound_radius))
+    _build.launch("rayn_occl_march", args, dev)
+    occlusion_march.launches += 1
+    return verdict
+
+
+occlusion_march.launches = 0
 
 
 def march_occlusion_plain(mb: MandelBox, start, end, detail_scale: float,
                           max_steps: int, active, relax: float = 1.0,
                           bound_radius: float = 0.0) -> torch.Tensor:
-    """Plain twin of the occlusion kernel (ops/march.py)."""
+    """Plain version of `march_occlusion` in one piece (ops/march.py)."""
     return march_ops.march_occlusion(mb, start, end, detail_scale, max_steps,
                                      active, bound_radius, relax)
 
@@ -226,28 +323,20 @@ def march_occlusion_plain(mb: MandelBox, start, end, detail_scale: float,
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
                     max_steps: int, active, relax: float = 1.0,
                     bound_radius: float = 0.0) -> torch.Tensor:
-    """[M] bool: True where the SDF blocks segment start -> end."""
-    if start.device.type == "cpu":
-        return march_occlusion_plain(mb, start, end, detail_scale, max_steps,
-                                     active, relax, bound_radius)
-    dev = _cuda_device(start, "march_occlusion")
-    m = start.shape[0]
-    out = torch.empty((m,), dtype=torch.bool, device=dev)
-    args = _occl_args(mb, start, end, active, out, detail_scale, max_steps,
-                      relax, bound_radius, m, 1, (m,), dev)
-    _build.launch("rayn_march_occlusion", args, dev)
-    march_occlusion.launches += 1
-    return out
-
-
-march_occlusion.launches = 0
+    """[M] bool: True where the SDF blocks segment start -> end (active
+    segments; False for the others): the enqueue kernel, then the refill
+    march of the queue."""
+    queue, count = enqueue(active)
+    return occlusion_march(mb, start, end, detail_scale, max_steps, queue,
+                           count, relax, bound_radius)
 
 
 def march_occlusion_chained_plain(mb: MandelBox, start, end,
                                   detail_scale: float, max_steps: int,
                                   active,
                                   bound_radius: float = 0.0) -> torch.Tensor:
-    """Plain twin of the chained kernel (ops/march.py)."""
+    """Plain version of `march_occlusion_chained` in one piece
+    (ops/march.py)."""
     return march_ops.march_occlusion_chained(mb, start, end, detail_scale,
                                              max_steps, active, bound_radius)
 
@@ -256,21 +345,13 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
                             max_steps: int, active,
                             bound_radius: float = 0.0) -> torch.Tensor:
     """[K, N] bool verdicts of K segments per ray (start/end [K, N, 3],
-    active [K, N]), each that of `march_occlusion` at relax 1."""
-    if start.device.type == "cpu":
-        return march_occlusion_chained_plain(mb, start, end, detail_scale,
-                                             max_steps, active, bound_radius)
-    dev = _cuda_device(start, "march_occlusion_chained")
+    active [K, N]), each that of `march_occlusion` at relax 1: the same
+    two kernels on the K*N segments."""
     k, n = start.shape[0], start.shape[1]
-    out = torch.empty((k, n), dtype=torch.bool, device=dev)
-    args = _occl_args(mb, start, end, active, out, detail_scale, max_steps,
-                      1.0, bound_radius, n, k, (k, n), dev)
-    _build.launch("rayn_march_occlusion_chained", args, dev)
-    march_occlusion_chained.launches += 1
-    return out
-
-
-march_occlusion_chained.launches = 0
+    return march_occlusion(mb, start.reshape(k * n, 3),
+                           end.reshape(k * n, 3), detail_scale, max_steps,
+                           active.reshape(k * n), 1.0,
+                           bound_radius).reshape(k, n)
 
 
 def occlusion_phase1_plain(mb: MandelBox, start, end, detail_scale: float,
@@ -294,8 +375,7 @@ def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
     t1 = torch.empty((m,), dtype=torch.float32, device=dev)
     resolved = torch.empty((m,), dtype=torch.bool, device=dev)
     args = _occl_args(mb, start, end, active, out, detail_scale, max_steps,
-                      1.0, 0.0, m, 1, (m,), dev, least_steps=0,
-                      t1=t1.data_ptr(), resolved=resolved.data_ptr())
+                      dev, t1=t1.data_ptr(), resolved=resolved.data_ptr())
     _build.launch("rayn_occl_phase1", args, dev)
     occlusion_phase1.launches += 1
     return out, t1, resolved
@@ -327,8 +407,7 @@ def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
     check(occluded, "occluded", torch.bool, (m,), dev)
     out = occluded.clone()
     args = _occl_args(mb, start, end, None, out, detail_scale, max_steps,
-                      1.0, 0.0, m, 1, (m,), dev, least_steps=0,
-                      t1=check(t1, "t1", torch.float32, (m,), dev),
+                      dev, t1=check(t1, "t1", torch.float32, (m,), dev),
                       **_lane_order(order, resolved, dev))
     _build.launch("rayn_occl_resume", args, dev)
     occlusion_resume.launches += 1

@@ -27,6 +27,13 @@ the active ones, `shadow_march` marches the queue (persistent lanes that
 refill from it), and `shadow_sum` / `tail_sum` sum k * visible in the
 JAX segment order (the latter then runs the finish tail).
 
+The segment-queue bounce (relaxed marching or `use_fused_shadows=False`,
+render/integrator._segment_queue_tail) runs on the same scratch:
+`queue_segments` builds the segments of the unfused JAX integrator
+(its op order, not the fused body's), `shadow_march` marches them (with
+the relaxed step at `relax` != 1), and `queue_sum` adds k * visible to
+the emission-added radiance one segment at a time, in segment order.
+
 Each kernel wrapper launches its CUDA kernel (csrc/shade.cu) for CUDA
 tensors, counts the launch in its `launches` attribute, and raises on
 anything the kernel does not take. For CPU tensors it calls its `_plain`
@@ -42,17 +49,23 @@ kernels, exactly as in JAX.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from rayn_tpu_torch import _build
 from rayn_tpu_torch._build import check, mbox_struct
+from rayn_tpu_torch.ops import bsdf as bsdf_ops
+from rayn_tpu_torch.ops import lights as light_ops
 from rayn_tpu_torch.ops import march as march_ops
+from rayn_tpu_torch.ops import march_cuda
+from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import MandelBox
 from rayn_tpu_torch.scene.scene import (DIELECTRIC, EMISSIVE, LAMBERT,
                                         METALLIC, REFRACTIVE, SKY)
 from rayn_tpu_torch.utils import rng as rng_mod
+from rayn_tpu_torch.utils import vecmath
 from rayn_tpu_torch.utils.sampling import power_heuristic
 from rayn_tpu_torch.utils.vecmath import div as _div
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
@@ -100,6 +113,12 @@ class ShadowCfg(NamedTuple):
     aov: bool
     mis: bool       # weight NEE of paired lights
     mis_on: bool    # weight BSDF-hit emission of paired spheres
+
+    @property
+    def compat_spec_reflect(self) -> bool:
+        """The reflection convention under the settings' name, for
+        bsdf.eval_pdf."""
+        return self.compat_reflect
 
 
 def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
@@ -743,20 +762,17 @@ def shadow_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
     x = v["p"][0]
     active = (torch.stack([a for (_s, _e, a) in segs]) if segs else
               torch.zeros((0, n), dtype=torch.bool, device=x.device))
-    ids = torch.nonzero(active.reshape(-1)).squeeze(1).to(torch.int32)
-    queue = torch.zeros((active.numel(),), dtype=torch.int32, device=x.device)
-    queue[:ids.numel()] = ids
+    queue, count = march_cuda.enqueue_plain(active.reshape(-1))
     return ShadowSegments(
         geom=_planes([(*s, *e) for (s, e, _a) in segs], 6, x),
-        k=_planes(ks, 3, x), active=active, queue=queue,
-        count=torch.full((1,), ids.numel(), dtype=torch.int32,
-                         device=x.device))
+        k=_planes(ks, 3, x), active=active, queue=queue, count=count)
 
 
-def shadow_march_plain(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
+def shadow_march_plain(cfg: ShadowCfg, segs: ShadowSegments,
+                       relax: float = 1.0) -> torch.Tensor:
     """Plain twin of the march kernel: [S, N] bool, True where the SDF
-    blocks a queued segment (the relax-1 march_occlusion verdict with the
-    bounding-sphere clip); False elsewhere."""
+    blocks a queued segment (the march_occlusion verdict at `relax` with
+    the bounding-sphere clip); False elsewhere."""
     S, n = segs.active.shape
     verdict = torch.zeros((S * n,), dtype=torch.bool,
                           device=segs.active.device)
@@ -765,7 +781,7 @@ def shadow_march_plain(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
         g = segs.geom.reshape(6, -1)[:, ids].T
         verdict[ids] = march_ops.march_occlusion(
             cfg.mb, g[:, :3], g[:, 3:], cfg.detail, cfg.max_steps,
-            torch.ones_like(ids, dtype=torch.bool), cfg.bv_r)
+            torch.ones_like(ids, dtype=torch.bool), cfg.bv_r, relax)
     return verdict.reshape(S, n)
 
 
@@ -790,6 +806,122 @@ def tail_sum_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
     rx, ry, rz = state.radiance.unbind(-1)
     return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
+
+
+def _queue_segment_loop(cfg, tables, state, info, mat, live, receives,
+                        vol_trans, vol_dist, vol_pdf):
+    """Steps 3 + 4 of the unfused bounce (JAX integrator.py:420-501), its
+    torch build as the segment queue ran it op by op: the L NEE segments
+    (MIS-weighted for paired lights), then the VM*L equi-angular volume
+    segments (march-major; distances and pdfs from
+    integrator._equi_angular_samples). Returns per segment its start,
+    end, contribution [N, 3] and `worth_it` mask. The sampler, light and
+    sphere values come from `cfg` and `tables` (the constant channels;
+    the renderer refuses animated ones)."""
+    wo = -state.direction
+    tp = state.throughput
+    sidx, pix = state.sample_idx, state.pixel
+    lights = tables.lights
+    ones = torch.ones_like(vol_trans)
+
+    def light(set_id):
+        u_pick = _s1(cfg, set_id, sidx, pix)
+        lidx = torch.clamp(torch.floor(u_pick * cfg.NL).to(torch.int64), 0,
+                           cfg.NL - 1)
+        row = lights[lidx]
+        return row[:, :3], row[:, 3], row[:, 4:7], row[:, 7]
+
+    def u2(set_id):
+        return rng_mod.sample_2d(cfg, rng_mod.SampleTables(cfg.frame),
+                                 set_id, sidx, pix)
+
+    starts, ends, acts, contribs = [], [], [], []
+    for i in range(cfg.L):
+        lp, lr, lem, paired = light(cfg.set_pick[i])
+        end_point, li, pdf = light_ops.sample_cone(u2(cfg.set_nee[i]), lp,
+                                                   lr, info.point, lem)
+        wi_full = end_point - info.point
+        dist = vecmath.length(wi_full)
+        wi = wi_full / dist[:, None]
+        ndw = vecmath.dot(info.normal, wi)
+        occ_origin = info.point + info.normal * (
+            torch.copysign(ones, ndw) * info.offset_by)[:, None]
+        f = (bsdf_ops.eval_f(mat, wo, wi, info.normal)
+             * torch.clamp(ndw, min=0.0)[:, None])
+        seg_trans = torch.exp(-cfg.sigma_t * dist) if cfg.has_ext else ones
+        contrib = (li * f * (seg_trans / pdf)[:, None] * tp
+                   * (cfg.correction * vol_trans)[..., None])
+        contrib = torch.where(receives[:, None], contrib, 0.0)
+        if cfg.mis:
+            # unpaired lights are invisible to BSDF rays: weight 1
+            p_bsdf = bsdf_ops.eval_pdf(mat, cfg, wo, wi, info.normal)
+            w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
+                                      1.0, p_bsdf)
+            contrib = contrib * torch.where(paired > 0.0, w_light,
+                                            1.0)[:, None]
+        starts.append(occ_origin)
+        ends.append(end_point)
+        acts.append(receives & (contrib != 0.0).any(dim=-1))
+        contribs.append(contrib)
+
+    phase_f = 1.0 / (4.0 * math.pi)
+    for j in range(cfg.VM * cfg.L):
+        lp, lr, lem, _paired = light(cfg.set_vol_pick[j])
+        vd, vp = vol_dist[j], vol_pdf[j]
+        sampled = state.origin + vd[:, None] * state.direction
+        end_point, li, light_pdf = light_ops.sample_cone(
+            u2(cfg.set_vol[j]), lp, lr, sampled, lem)
+        dist_pl = vecmath.length(end_point - sampled)
+        if cfg.has_ext:
+            seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
+            to_point = torch.exp(-cfg.sigma_t * vd)
+        else:
+            seg_trans = to_point = ones
+        scale = (phase_f * seg_trans / (vp * light_pdf) * cfg.vm_correction
+                 * cfg.sigma_s * to_point)
+        contrib = torch.where(live[:, None], li * scale[:, None] * tp, 0.0)
+        starts.append(sampled)
+        ends.append(end_point)
+        acts.append(live & (contrib != 0.0).any(dim=-1))
+        contribs.append(contrib)
+    return starts, ends, contribs, acts
+
+
+def queue_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
+                         mat, live, receives, vol_trans, vol_dist,
+                         vol_pdf) -> ShadowSegments:
+    """Plain twin of the queue-segments kernel: the unfused bounce's
+    segments (_queue_segment_loop) with the sphere test of
+    intersect.test_occluded, as a segment scratch (see ShadowSegments);
+    a segment is active when it is worth marching and no sphere blocks
+    it, and the active ones are queued in id order."""
+    starts, ends, contribs, acts = _queue_segment_loop(
+        cfg, tables, state, info, mat, live, receives, vol_trans, vol_dist,
+        vol_pdf)
+    n = state.origin.shape[0]
+    start, end = torch.stack(starts), torch.stack(ends)      # [S, N, 3]
+    active = torch.stack(acts)
+    if cfg.K:
+        centers = tables.spheres[None, :, :3].expand(n, cfg.K, 3)
+        for j in range(start.shape[0]):
+            blocked = sphere_ops.occluded(start[j], end[j], centers,
+                                          tables.spheres[:, 3]).any(dim=1)
+            active[j] = active[j] & ~blocked
+    queue, count = march_cuda.enqueue_plain(active.reshape(-1))
+    return ShadowSegments(
+        geom=torch.cat([start, end], dim=-1).permute(2, 0, 1).contiguous(),
+        k=torch.stack(contribs).permute(2, 0, 1).contiguous(),
+        active=active, queue=queue, count=count)
+
+
+def queue_sum_plain(radiance, segs: ShadowSegments, verdict) -> torch.Tensor:
+    """Plain twin of the queue-sum kernel: the segment queue's radiance
+    (JAX integrator.py:512-514), radiance [N, 3] + k_j * visible_j for
+    each segment j in turn, visible_j = active and not blocked."""
+    vis = (segs.active & ~verdict).to(torch.float32)
+    for j in range(vis.shape[0]):
+        radiance = radiance + segs.k[:, j].T * vis[j][:, None]
+    return radiance
 
 
 def _segment_cost(cfg, start, end, act):
@@ -861,7 +993,7 @@ class _ShadowScalars(ctypes.Structure):
         ("aov", ctypes.c_int), ("mis", ctypes.c_int), ("mis_on", ctypes.c_int),
         ("set_pick0", ctypes.c_int),
         ("set_nee0", ctypes.c_int), ("set_vol_pick0", ctypes.c_int),
-        ("set_vol0", ctypes.c_int)]
+        ("set_vol0", ctypes.c_int), ("schlick_exp", ctypes.c_float)]
 
 
 _P = ctypes.c_void_p
@@ -902,11 +1034,7 @@ class _SegArgs(ctypes.Structure):
 
 
 class _SegMarchArgs(ctypes.Structure):
-    _fields_ = _ptrs("geom", "queue", "count", "head", "verdict") + [
-        ("m", ctypes.c_int64), ("max_steps", ctypes.c_int),
-        ("mb", _build.MBox), ("eps_c", ctypes.c_float),
-        ("eps_l", ctypes.c_float), ("bv_r", ctypes.c_float),
-        ("bv_r2", ctypes.c_float)]
+    _fields_ = [("geom", _P), ("q", _build.QueueMarch)]
 
 
 class _SumCols(ctypes.Structure):
@@ -915,6 +1043,11 @@ class _SumCols(ctypes.Structure):
 
 class _ShadowSumArgs(ctypes.Structure):
     _fields_ = [("s", _SumCols), ("o_delta", _P), ("n", ctypes.c_int64)]
+
+
+class _QueueSumArgs(ctypes.Structure):
+    _fields_ = [("s", _SumCols), ("radiance", _P), ("o_radiance", _P),
+                ("n", ctypes.c_int64)]
 
 
 class _TailSumArgs(ctypes.Structure):
@@ -972,7 +1105,8 @@ def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
         terminate_all=int(cfg.terminate_all), aov=int(cfg.aov),
         mis=int(cfg.mis), mis_on=int(cfg.mis_on),
         set_pick0=_base(cfg.set_pick), set_nee0=_base(cfg.set_nee),
-        set_vol_pick0=_base(cfg.set_vol_pick), set_vol0=_base(cfg.set_vol))
+        set_vol_pick0=_base(cfg.set_vol_pick), set_vol0=_base(cfg.set_vol),
+        schlick_exp=5.0)
 
 
 def _vol_cols(vol, n, sites, device):
@@ -1068,19 +1202,12 @@ def _sum_cols(segs: ShadowSegments, verdict, n, dev) -> _SumCols:
                                   dev), S=S)
 
 
-def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
-                    live, receives, vol_trans, vol_dist, vol_pdf
-                    ) -> ShadowSegments:
-    """The shadow segments of one bounce (see ShadowSegments), the active
-    ones queued in any order. vol_dist/vol_pdf: sequences of VM*L [N]
-    tensors (march-major)."""
-    dev = _device("shadow_segments", state.origin)
-    if dev is None:
-        return shadow_segments_plain(cfg, tables, state, info, mat, live,
-                                     receives, vol_trans, vol_dist, vol_pdf)
+def _segment_scratch(name, cfg, tables, state, info, mat, live, receives,
+                     vol_trans, vol_dist, vol_pdf, dev):
+    """(a fresh segment scratch, the _SegArgs of a segments kernel that
+    fills it)."""
     if cfg.NL < 1:
-        raise NotImplementedError("the shadow kernels need a scene with "
-                                  "lights")
+        raise NotImplementedError(f"{name} needs a scene with lights")
     n = state.origin.shape[0]
     S = cfg.L + cfg.VM * cfg.L
     if S * n >= 2 ** 31:
@@ -1098,6 +1225,22 @@ def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
         r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
         s=_shadow_cols(cfg, tables, vd, vp, dev),
         g=_SegCols(**_seg_cols(segs, dev)), n=n, sc=_scalars(cfg))
+    return segs, args
+
+
+def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
+                    live, receives, vol_trans, vol_dist, vol_pdf
+                    ) -> ShadowSegments:
+    """The shadow segments of one bounce (see ShadowSegments), the active
+    ones queued in any order. vol_dist/vol_pdf: sequences of VM*L [N]
+    tensors (march-major)."""
+    dev = _device("shadow_segments", state.origin)
+    if dev is None:
+        return shadow_segments_plain(cfg, tables, state, info, mat, live,
+                                     receives, vol_trans, vol_dist, vol_pdf)
+    segs, args = _segment_scratch("shadow_segments", cfg, tables, state,
+                                  info, mat, live, receives, vol_trans,
+                                  vol_dist, vol_pdf, dev)
     _build.launch("rayn_shadow_segments", args, dev)
     shadow_segments.launches += 1
     return segs
@@ -1106,12 +1249,14 @@ def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
 shadow_segments.launches = 0
 
 
-def shadow_march(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
-    """[S, N] bool: True where the SDF blocks a queued segment (False
-    for every segment of a scene without an SDF, with no launch)."""
+def shadow_march(cfg: ShadowCfg, segs: ShadowSegments,
+                 relax: float = 1.0) -> torch.Tensor:
+    """[S, N] bool: True where the SDF blocks a queued segment, marched
+    plain at `relax` 1 and over-relaxed otherwise (False for every
+    segment of a scene without an SDF, with no launch)."""
     dev = _device("shadow_march", segs.active)
     if dev is None:
-        return shadow_march_plain(cfg, segs)
+        return shadow_march_plain(cfg, segs, relax)
     S, n = segs.active.shape
     verdict = torch.zeros((S, n), dtype=torch.bool, device=dev)
     if cfg.mb is None:
@@ -1119,10 +1264,10 @@ def shadow_march(cfg: ShadowCfg, segs: ShadowSegments) -> torch.Tensor:
     cols = _seg_cols(segs, dev)
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
     args = _SegMarchArgs(
-        geom=cols["geom"], queue=cols["queue"], count=cols["count"],
-        head=head.data_ptr(), verdict=verdict.data_ptr(), m=S * n,
-        max_steps=cfg.max_steps, mb=mbox_struct(cfg.mb), eps_c=cfg.eps_c,
-        eps_l=cfg.eps_l, bv_r=cfg.bv_r, bv_r2=float(cfg.bv_r * cfg.bv_r))
+        geom=cols["geom"],
+        q=_build.queue_march(cols["queue"], cols["count"], head, verdict,
+                             cfg.mb, cfg.detail, cfg.max_steps, relax,
+                             cfg.bv_r))
     _build.launch("rayn_shadow_march", args, dev)
     shadow_march.launches += 1
     return verdict
@@ -1170,6 +1315,48 @@ def tail_sum(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
 
 
 tail_sum.launches = 0
+
+
+def queue_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
+                   live, receives, vol_trans, vol_dist, vol_pdf
+                   ) -> ShadowSegments:
+    """The shadow segments of one segment-queue bounce (see
+    ShadowSegments and queue_segments_plain), the active ones queued in
+    any order. vol_dist/vol_pdf: sequences of VM*L [N] tensors
+    (march-major)."""
+    dev = _device("queue_segments", state.origin)
+    if dev is None:
+        return queue_segments_plain(cfg, tables, state, info, mat, live,
+                                    receives, vol_trans, vol_dist, vol_pdf)
+    segs, args = _segment_scratch("queue_segments", cfg, tables, state, info,
+                                  mat, live, receives, vol_trans, vol_dist,
+                                  vol_pdf, dev)
+    _build.launch("rayn_queue_segments", args, dev)
+    queue_segments.launches += 1
+    return segs
+
+
+queue_segments.launches = 0
+
+
+def queue_sum(radiance, segs: ShadowSegments, verdict) -> torch.Tensor:
+    """[N, 3]: radiance + k * (active and not blocked) of each segment in
+    turn, in segment order."""
+    dev = _device("queue_sum", segs.active)
+    if dev is None:
+        return queue_sum_plain(radiance, segs, verdict)
+    n = segs.active.shape[1]
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    args = _QueueSumArgs(
+        s=_sum_cols(segs, verdict, n, dev),
+        radiance=check(radiance, "radiance", torch.float32, (n, 3), dev),
+        o_radiance=out.data_ptr(), n=n)
+    _build.launch("rayn_queue_sum", args, dev)
+    queue_sum.launches += 1
+    return out
+
+
+queue_sum.launches = 0
 
 
 def bounce_tail(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,

@@ -20,10 +20,13 @@ One bounce at depth d:
      - else: emission in torch, the shadow-radiance kernel (with
        lights), then `_finish_bounce`, so (radiance + emission) + delta;
    - the segment queue (relaxed marching or `use_fused_shadows=False`):
-     emission, then every NEE and volume shadow segment of the bounce in
-     one batched `intersect.test_occluded` (occlusion kernels; at relax
-     1 with `occl_sort_steps` or `occl_phase1_steps` the two-phase
-     ones), the contributions times visibility, then `_finish_bounce`;
+     emission; in a scene with lights, every NEE and volume shadow
+     segment of the bounce built into a scratch by the queue-segments
+     kernel (with the sphere test), their SDF verdicts from the refill
+     march (plain or relaxed; at relax 1 with `occl_sort_steps` or
+     `occl_phase1_steps` the two-phase marches), and the queue-sum
+     kernel's radiance + contribution * visibility in segment order;
+     then `_finish_bounce`;
    with `mis`, every branch weights NEE of paired lights and, at d >= 1,
    BSDF-hit emission of paired spheres by the power heuristic;
 5. the unsort back to pixel-major order.
@@ -35,14 +38,14 @@ outputs. `compact` is not ported yet.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
-from rayn_tpu_torch.ops import intersect, intersect_cuda, lights, shade_cuda
+from rayn_tpu_torch.ops import (intersect, intersect_cuda, lights, march_cuda,
+                                shade_cuda)
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import dist
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
@@ -90,9 +93,14 @@ def _sort_chunk(n: int) -> int:
     return 0
 
 
-def _chunk_of(s: RenderSettings, n: int) -> int:
+def _chunk_of(s: RenderSettings, n: int, strict: bool = True) -> int:
+    """The sort chunk of a pass of n rays, resolved where a sort runs (as
+    JAX resolves it, integrator.py:245-250 and :314-318): `sorted_chunk`
+    must divide n (ValueError; 0, no sort, when not `strict`)."""
     chunk = s.sorted_chunk or _sort_chunk(n)
     if s.sorted_chunk and n % chunk:
+        if not strict:
+            return 0
         raise ValueError(f"sorted_chunk={chunk} must divide rays_per_pass={n}")
     return chunk
 
@@ -166,12 +174,6 @@ def _pick_lights(static: SceneStatic, u: torch.Tensor) -> torch.Tensor:
                        static.n_lights - 1)
 
 
-def _gather_lights(data: SceneData, time, lidx):
-    """Per-ray light position [N,3], radius [N] and emission [N,3]."""
-    return (light_position_of(data, lidx, time), data.light_radii[lidx],
-            data.light_emission[lidx])
-
-
 def _equi_angular_samples(data, static, s, tables, state, hit, depth):
     """(vol_dists, vol_pdfs): VM*L [N] tensors each, march-major, in torch
     outside the kernels exactly as in JAX (integrator.py:521-544)."""
@@ -209,11 +211,12 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         hps_lin = torch.full((n,), 2e-4 * depth, dtype=torch.float32,
                              device=dev)
 
-    chunk = _chunk_of(s, n)
-    pre_perm = None
-    if s.sorted_intersect and depth > 0 and static.has_sdf and chunk:
-        (state,), pre_perm = _sort_tree_by_cost(
-            (state,), _intersect_cost_key(data, static, s, state), chunk)
+    pre_perm, chunk = None, 0
+    if s.sorted_intersect and depth > 0 and static.has_sdf:
+        chunk = _chunk_of(s, n)
+        if chunk:
+            (state,), pre_perm = _sort_tree_by_cost(
+                (state,), _intersect_cost_key(data, static, s, state), chunk)
 
     plain_march = s.march_relaxation == 1.0
     if s.use_fused_intersect and plain_march:
@@ -231,28 +234,33 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
                                       hps_lin)
     live, mat, receives, vol_trans = _derive_shading(data, static, state,
                                                      hit, info)
+    tabs = scene_tables or shade_cuda.scene_tables(data, static)
+    cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
     if not (s.use_fused_shadows and plain_march):
-        out = _segment_queue_tail(data, static, s, tables, state, depth,
-                                  hit, info, mat, live, receives, vol_trans)
+        out = _segment_queue_tail(data, static, s, tables, cfg, tabs, state,
+                                  depth, hit, info, mat, live, receives,
+                                  vol_trans)
         return out if pre_perm is None else _unsort_state(out, pre_perm,
                                                           chunk)
 
-    tabs = scene_tables or shade_cuda.scene_tables(data, static)
-    cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
-
     shadow_perm = None
     if (s.sorted_shadow_march and s.chained_shadow_march and depth > 0
-            and static.has_sdf and static.n_lights > 0 and chunk):
-        vd0, _ = _equi_angular_samples(data, static, s, tables, state, hit,
-                                       depth)
-        cost = shade_cuda.shadow_sort_key(
-            cfg, tabs.lights, info.point, info.normal, info.offset_by,
-            state.origin, state.direction, live, receives, state.sample_idx,
-            state.pixel, vd0)
-        (state, hit, info), shadow_perm = _sort_tree_by_cost(
-            (state, hit, info), cost, chunk)
-        live, mat, receives, vol_trans = _derive_shading(data, static, state,
-                                                         hit, info)
+            and static.has_sdf and static.n_lights > 0):
+        # JAX sorts the shadow segments only before the fused finish; the
+        # port also sorts before the split finish, and raises only where
+        # JAX does
+        chunk = _chunk_of(s, n, strict=s.use_fused_finish)
+        if chunk:
+            vd0, _ = _equi_angular_samples(data, static, s, tables, state,
+                                           hit, depth)
+            cost = shade_cuda.shadow_sort_key(
+                cfg, tabs.lights, info.point, info.normal, info.offset_by,
+                state.origin, state.direction, live, receives,
+                state.sample_idx, state.pixel, vd0)
+            (state, hit, info), shadow_perm = _sort_tree_by_cost(
+                (state, hit, info), cost, chunk)
+            live, mat, receives, vol_trans = _derive_shading(
+                data, static, state, hit, info)
 
     vol_dists, vol_pdfs = _equi_angular_samples(data, static, s, tables,
                                                 state, hit, depth)
@@ -313,105 +321,54 @@ def _emission(data, static, s, state, depth, hit, mat, live, wo, vol_trans):
         live[:, None], le * state.throughput * vol_trans[:, None], 0.0)
 
 
-def _segment_queue_tail(data, static, s, tables, state, depth, hit, info,
-                        mat, live, receives, vol_trans) -> PathState:
+def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
+                        hit, info, mat, live, receives,
+                        vol_trans) -> PathState:
     """Steps 2-7 of the unfused bounce (JAX integrator.py:374-518):
-    emission; the L NEE segments (MIS-weighted for paired lights), then
-    the VM*L equi-angular volume segments, each with its contribution and
-    `worth_it` mask, tested in one batched `test_occluded` call
-    (segment-major queue); radiance += contribution * visibility in
-    segment order; then `_finish_bounce`."""
-    n = state.origin.shape[0]
+    emission; in a scene with lights, the L NEE segments (MIS-weighted
+    for paired lights) and the VM*L equi-angular volume segments, built
+    with their contributions and the sphere test by the queue-segments
+    kernel, their SDF verdicts (`_queue_verdicts`), and radiance +=
+    contribution * visibility in segment order (the queue-sum kernel);
+    then `_finish_bounce`."""
     wo = -state.direction
-    tp = state.throughput
     radiance = _emission(data, static, s, state, depth, hit, mat, live, wo,
                          vol_trans)
-
-    starts, ends, acts, contribs = [], [], [], []
-    ones = torch.ones_like(vol_trans)
     if static.n_lights > 0:
-        correction = static.n_lights / s.nee_light_samples
-        for i in range(s.nee_light_samples):
-            u_pick = rng.sample_1d(s, tables,
-                                   rng.set1d_light_pick(s, depth, i),
-                                   state.sample_idx, state.pixel)
-            lidx = _pick_lights(static, u_pick)
-            lp, lr, lem = _gather_lights(data, state.time, lidx)
-            u2 = rng.sample_2d(s, tables, rng.set2d_nee(s, depth, i),
-                               state.sample_idx, state.pixel)
-            end_point, li, pdf = lights.sample_cone(u2, lp, lr, info.point,
-                                                    lem)
-            wi_full = end_point - info.point
-            dist = vecmath.length(wi_full)
-            wi = wi_full / dist[:, None]
-            ndw = vecmath.dot(info.normal, wi)
-            occ_origin = info.point + info.normal * (
-                torch.copysign(ones, ndw) * info.offset_by)[:, None]
-            f = (bsdf_ops.eval_f(mat, wo, wi, info.normal)
-                 * torch.clamp(ndw, min=0.0)[:, None])
-            seg_trans = (torch.exp(-data.volume_sigma_t * dist)
-                         if static.has_extinction else ones)
-            contrib = (li * f * (seg_trans / pdf)[:, None] * tp
-                       * (correction * vol_trans)[..., None])
-            contrib = torch.where(receives[:, None], contrib, 0.0)
-            if s.mis:
-                # unpaired lights are invisible to BSDF rays: weight 1
-                p_bsdf = bsdf_ops.eval_pdf(mat, s, wo, wi, info.normal)
-                w_light = sampling.power_heuristic(
-                    float(s.nee_light_samples),
-                    vecmath.div(pdf, float(static.n_lights)), 1.0, p_bsdf)
-                paired = data.light_paired[lidx]
-                contrib = contrib * torch.where(paired > 0.0, w_light,
-                                                1.0)[:, None]
-            starts.append(occ_origin)
-            ends.append(end_point)
-            acts.append(receives & (contrib != 0.0).any(dim=-1))
-            contribs.append(contrib)
-
-    if static.has_scattering and static.n_lights > 0 and s.volume_marches:
-        vm_correction = (static.n_lights / s.nee_light_samples
-                         / s.volume_marches)
-        phase_f = 1.0 / (4.0 * math.pi)
-        for m in range(s.volume_marches):
-            u_dist = rng.sample_1d(s, tables, rng.set1d_vol_dist(s, depth, m),
-                                   state.sample_idx, state.pixel)
-            for i in range(s.nee_light_samples):
-                u_pick = rng.sample_1d(
-                    s, tables, rng.set1d_vol_pick(s, depth, m, i),
-                    state.sample_idx, state.pixel)
-                lp, lr, lem = _gather_lights(data, state.time,
-                                             _pick_lights(static, u_pick))
-                vol_dist, vol_pdf = lights.sample_equi_angular(
-                    u_dist, lp, state.origin, state.direction, hit.t)
-                sampled = state.origin + vol_dist[:, None] * state.direction
-                u2 = rng.sample_2d(s, tables, rng.set2d_vol(s, depth, m, i),
-                                   state.sample_idx, state.pixel)
-                end_point, li, light_pdf = lights.sample_cone(
-                    u2, lp, lr, sampled, lem)
-                dist_pl = vecmath.length(end_point - sampled)
-                if static.has_extinction:
-                    seg_trans = torch.exp(-data.volume_sigma_t * dist_pl)
-                    to_point = torch.exp(-data.volume_sigma_t * vol_dist)
-                else:
-                    seg_trans = to_point = ones
-                scale = (phase_f * seg_trans / (vol_pdf * light_pdf)
-                         * vm_correction * data.volume_sigma_s * to_point)
-                contrib = torch.where(live[:, None],
-                                      li * scale[:, None] * tp, 0.0)
-                starts.append(sampled)
-                ends.append(end_point)
-                acts.append(live & (contrib != 0.0).any(dim=-1))
-                contribs.append(contrib)
-
-    if starts:
-        k = len(starts)
-        vis = intersect.test_occluded(
-            data, static, s, torch.cat(starts), torch.cat(ends),
-            state.time.repeat(k), torch.cat(acts), segments=k)
-        for j, contrib in enumerate(contribs):
-            radiance = radiance + contrib * vis[j * n:(j + 1) * n, None]
+        vol_dists, vol_pdfs = _equi_angular_samples(data, static, s, tables,
+                                                    state, hit, depth)
+        segs = shade_cuda.queue_segments(cfg, tabs, state, info, mat, live,
+                                         receives, vol_trans, vol_dists,
+                                         vol_pdfs)
+        radiance = shade_cuda.queue_sum(radiance, segs,
+                                        _queue_verdicts(s, cfg, segs))
     return _finish_bounce(s, tables, state, depth, info, mat, live,
                           receives, wo, vol_trans, radiance)
+
+
+def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
+    """[S, N] SDF verdicts of the queued segments, routed as
+    intersect.test_occluded routes them (JAX intersect.py:153-199): at
+    plain marching with `occl_sort_steps` > 0, march_occlusion_sorted,
+    else with `occl_phase1_steps` > 0 march_occlusion_phased, both on
+    the scratch's columns and unclipped whatever `shadow_bv_clip` says;
+    otherwise the refill march on the scratch, plain or relaxed, with
+    the bounding-sphere clip as `shadow_bv_clip` says (the verdicts of
+    the one-segment and chained marches)."""
+    two_phase = (s.occl_sort_steps > 0 or s.occl_phase1_steps > 0)
+    if cfg.mb is None or s.march_relaxation != 1.0 or not two_phase:
+        return shade_cuda.shadow_march(cfg, segs, s.march_relaxation)
+    S, n = segs.active.shape
+    g = segs.geom.reshape(6, S * n)
+    args = (cfg.mb, g[:3].T.contiguous(), g[3:].T.contiguous(), cfg.detail,
+            cfg.max_steps, segs.active.reshape(S * n))
+    if s.occl_sort_steps > 0:
+        occ = march_cuda.march_occlusion_sorted(
+            *args, phase1_steps=s.occl_sort_steps)
+    else:
+        occ = march_cuda.march_occlusion_phased(
+            *args, phase1_steps=s.occl_phase1_steps)
+    return occ.reshape(S, n)
 
 
 def _finish_bounce(s, tables, state, depth, info, mat, live, receives, wo,

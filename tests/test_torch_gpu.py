@@ -13,11 +13,20 @@ except for the shadow kernels (segments, march, the two sums) and the
 functions on them (`bounce_tail`, `shadow_radiance`), which equal their
 plain twins bit for bit, also on adversarial segments and on a scene
 with no medium and one NEE sample.
-The occlusion kernels take 12 x 2^14 seeded random segments, gated on
->= 99.9% equal verdicts. The two-phase kernels (march and occlusion
-phase 1 and resume) equal their twins bit for bit on the same inputs,
-and the four two-phase functions equal the single-phase kernels.
+The occlusion functions (the enqueue kernel, then the refill march on
+[M, 3] segments) take 12 x 2^14 seeded random segments and equal their
+one-piece twins bit for bit, plain and relaxed, with and without the
+clip, also on adversarial segments (zero length, NaN start, an empty
+queue, a queue of one, relaxed steps that overshoot past the end). The
+segment queue's kernels (queue segments, the refill march on the
+scratch at relax 1 and 1.5, queue sum) equal their twins bit for bit,
+and the segment-queue tail the same tail on the twins. The two-phase
+kernels (march and occlusion phase 1 and resume) equal their twins bit
+for bit on the same inputs, and the four two-phase functions equal the
+single-phase march.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,6 +34,8 @@ import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda, shade_cuda
+from rayn_tpu_torch.ops import march as march_ops
+from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
 from rayn_tpu_torch.utils import rng
@@ -313,6 +324,89 @@ def test_tail_kernels_without_medium_one_nee_sample(cuda, depth):
     assert not want.active[:, :64].any()
 
 
+def _queue_args(cuda, depth, mis, **scene):
+    """queue_segments' arguments on the default scene's wavefront."""
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, mis, **scene))
+    return cfg, tabs, state, info, mat, live, recv, vtr, vd, vp
+
+
+@pytest.mark.parametrize("mis", [False, True])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_queue_segments_kernel_matches_plain(cuda, depth, mis):
+    args = _queue_args(cuda, depth, mis)
+    before = shade_cuda.queue_segments.launches
+    got = shade_cuda.queue_segments(*args)
+    _launched(shade_cuda.queue_segments, before)
+    want = shade_cuda.queue_segments_plain(*args)
+    assert int(want.count[0]) > 0 and _same_segments(got, want)
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_queue_segments_kernel_without_medium_one_nee_sample(cuda, depth):
+    """VM = 0 and L = 1, with MIS, and the first 64 rays (two warps)
+    with no segment worth marching."""
+    args = list(_queue_args(cuda, depth, True, volume=False, nee=1))
+    assert (args[0].L, args[0].VM) == (1, 0)
+    for j in (5, 6):     # live, receives
+        args[j] = args[j].clone()
+        args[j][:64] = False
+    got = shade_cuda.queue_segments(*args)
+    want = shade_cuda.queue_segments_plain(*args)
+    torch.cuda.synchronize()
+    assert got.geom.shape[1] == 1 and _same_segments(got, want)
+    assert not want.active[:, :64].any()
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_queue_march_and_sum_kernels_match_plain(cuda, depth, relax):
+    """The refill march on the queue path's scratch, plain and relaxed,
+    then the queue sum on the emission-added radiance."""
+    args = _queue_args(cuda, depth, True)
+    cfg, state = args[0], args[2]
+    segs = shade_cuda.queue_segments_plain(*args)
+    before = shade_cuda.shadow_march.launches
+    got = shade_cuda.shadow_march(cfg, segs, relax)
+    _launched(shade_cuda.shadow_march, before)
+    verdict = shade_cuda.shadow_march_plain(cfg, segs, relax)
+    assert verdict.any() and _same_bits(got, verdict)
+    radiance = state.radiance + 0.25
+    before = shade_cuda.queue_sum.launches
+    got = shade_cuda.queue_sum(radiance, segs, verdict)
+    _launched(shade_cuda.queue_sum, before)
+    want = shade_cuda.queue_sum_plain(radiance, segs, verdict)
+    assert (want != radiance).any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("change", [
+    dict(march_relaxation=1.5), dict(use_fused_shadows=False),
+    dict(march_relaxation=1.5, mis=True),
+    dict(use_fused_shadows=False, march_sort_steps=8, occl_sort_steps=8)])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_queue_tail_matches_plain_twins(cuda, depth, change, monkeypatch):
+    """The segment-queue bounce at a depth with its queue kernels and
+    with their plain twins (the intersect on the kernels both times):
+    every output column bit for bit."""
+    data, static, s, tables, state, hps = _wavefront(cuda, depth)
+    s = dataclasses.replace(s, **change)
+    args = (data, static, s, tables, state, depth, *(float(h[0]) for h in hps))
+    fns = (shade_cuda.queue_segments, shade_cuda.queue_sum)
+    before = _launches(*fns)
+    got = integrator.bounce(*args)
+    torch.cuda.synchronize()
+    assert _launches(*fns) == [n + 1 for n in before]
+    for mod, names in ((shade_cuda, ("queue_segments", "shadow_march",
+                                     "queue_sum")),
+                       (march_cuda, ("occlusion_phase1",
+                                     "occlusion_resume"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, getattr(mod, name + "_plain"))
+    want = integrator.bounce(*args)
+    assert all(_same_bits(getattr(got, f), getattr(want, f))
+               for f in want._fields)
+
+
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_finish_bounce_kernel_matches_plain(cuda, depth, mis):
@@ -375,31 +469,124 @@ def _segments(dev, k, n):
             torch.from_numpy(act).to(dev))
 
 
+_OCCL_KERNELS = (march_cuda.enqueue, march_cuda.occlusion_march)
+
+
+@pytest.mark.parametrize("bound", [0.0, 3.6])
 @pytest.mark.parametrize("relax", [1.0, 1.5])
-def test_march_occlusion_kernel_matches_plain(cuda, relax):
+def test_march_occlusion_kernel_matches_plain(cuda, relax, bound):
     data, static, cam = presets.default_scene(resolution=RES, device=cuda)
     start, end, act = _segments(cuda, 12, RES[0] * RES[1])
     args = (data.sdf_params, start.reshape(-1, 3), end.reshape(-1, 3), 0.5,
-            100, act.reshape(-1), relax, 3.6)
-    before = march_cuda.march_occlusion.launches
+            100, act.reshape(-1), relax, bound)
+    before = _launches(*_OCCL_KERNELS)
     got = march_cuda.march_occlusion(*args)
     want = march_cuda.march_occlusion_plain(*args)
     torch.cuda.synchronize()
-    assert march_cuda.march_occlusion.launches == before + 1
-    assert want.any() and (got == want).float().mean().item() >= 0.999
+    assert _launches(*_OCCL_KERNELS) == [n + 1 for n in before]
+    assert want.any() and _same_bits(got, want)
 
 
-def test_chained_occlusion_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("bound", [0.0, 3.6])
+def test_chained_occlusion_kernel_matches_plain(cuda, bound):
     data, static, cam = presets.default_scene(resolution=RES, device=cuda)
     start, end, act = _segments(cuda, 12, RES[0] * RES[1])
-    args = (data.sdf_params, start, end, 0.5, 100, act, 3.6)
-    before = march_cuda.march_occlusion_chained.launches
+    args = (data.sdf_params, start, end, 0.5, 100, act, bound)
+    before = _launches(*_OCCL_KERNELS)
     got = march_cuda.march_occlusion_chained(*args)
     want = march_cuda.march_occlusion_chained_plain(*args)
     torch.cuda.synchronize()
-    assert march_cuda.march_occlusion_chained.launches == before + 1
+    assert _launches(*_OCCL_KERNELS) == [n + 1 for n in before]
     assert got.shape == act.shape
-    assert want.any() and (got == want).float().mean().item() >= 0.999
+    assert want.any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case", ["random", "none", "one", "all"])
+def test_enqueue_kernel_matches_plain(cuda, case):
+    """The queue holds the ids of the active entries (in any order) and
+    `count` says how many: random, all inactive (an empty queue), one
+    active, all active, over a length that is no multiple of 32."""
+    g = np.random.default_rng(3)
+    m = 12 * 4099
+    act = {"random": g.uniform(size=m) > 0.4, "none": np.zeros(m, bool),
+           "all": np.ones(m, bool),
+           "one": np.arange(m) == m - 7}[case]
+    act = torch.from_numpy(act).to(cuda)
+    before = march_cuda.enqueue.launches
+    queue, count = march_cuda.enqueue(act)
+    _launched(march_cuda.enqueue, before)
+    q_want, c_want = march_cuda.enqueue_plain(act)
+    n = int(c_want[0])
+    assert torch.equal(count, c_want) and queue.shape == (m,)
+    assert torch.equal(queue[:n].sort().values, q_want[:n].sort().values)
+
+
+def _past_end_overshoots(mb, start, end, detail, steps, relax, act):
+    """How many segments take a relaxed step at which t is past the
+    segment's end while that step overshot: march_occlusion's relaxed
+    loop tests the end first, so such a segment is unblocked and never
+    falls back (a torch walk of ops/march.py's relaxed branch)."""
+    d, md, t, nan, _ = march_ops.segment_entry(mb, 0.0, start, end, act)
+    t, t_prev, r_prev = t.clone(), torch.zeros_like(t), t.clone()
+    live = torch.nonzero(~nan).squeeze(1)
+    eps_c, eps_l = 1e-4 * detail, 1e-5 * detail
+    hits = 0
+    for _ in range(steps):
+        tl, s, dl = t[live], start[live], d[live]
+        r = sdf_ops.dist_c(mb, s[:, 0] + tl * dl[:, 0],
+                           s[:, 1] + tl * dl[:, 1], s[:, 2] + tl * dl[:, 2])
+        gt_end = tl > md[live]
+        tp, rp = t_prev[live], r_prev[live]
+        over = (tl - tp) > (torch.abs(rp) + torch.abs(r))
+        hits += int((gt_end & over).sum())
+        hit = (torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)) & ~over
+        on = ~(hit | gt_end)
+        adv = on & ~over
+        t_prev[live[adv]], r_prev[live[adv]] = tl[adv], r[adv]
+        nxt = torch.where(over, tp + rp, tl + relax * r)
+        live = live[on]
+        t[live] = nxt[on]
+    return hits
+
+
+@pytest.mark.parametrize("queue", ["adversarial", "one", "empty",
+                                   "overshoot"])
+def test_occlusion_march_kernel_on_adversarial_segments(cuda, queue):
+    """The [M, 3] refill march against its twin bit for bit, plain and
+    relaxed, clipped and not: zero-length and NaN-start segments in a
+    shuffled queue, a queue of one, an empty queue, and short segments
+    at relax 1.9 whose relaxed steps overshoot past their end."""
+    data, _static, _cam = presets.default_scene(resolution=RES, device=cuda)
+    mb = data.sdf_params
+    segs = _adversarial_segments(cuda, "shuffled")
+    g = segs.geom.reshape(6, -1).T
+    start, end = g[:, :3].contiguous(), g[:, 3:].contiguous()
+    act = segs.active.reshape(-1)
+    relaxes = (1.0, 1.5)
+    if queue == "one":
+        act = torch.zeros_like(act)
+        act[70] = True    # a NaN-start segment
+    elif queue == "empty":
+        act = torch.zeros_like(act)
+    elif queue == "overshoot":
+        gen = np.random.default_rng(9)
+        d = gen.normal(size=(8192, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        s0 = gen.uniform(-2.5, 2.5, (8192, 3)).astype(np.float32)
+        e0 = s0 + d * gen.uniform(0.02, 0.6, (8192, 1)).astype(np.float32)
+        start = torch.from_numpy(s0).to(cuda)
+        end = torch.from_numpy(e0).to(cuda)
+        act = torch.ones((8192,), dtype=torch.bool, device=cuda)
+        relaxes = (1.9,)
+        assert _past_end_overshoots(mb, start, end, 0.5, 64, 1.9, act) > 0
+    for relax in relaxes:
+        for bound in (0.0, 3.6):
+            args = (mb, start, end, 0.5, 64, act, relax, bound)
+            got = march_cuda.march_occlusion(*args)
+            want = march_cuda.march_occlusion_plain(*args)
+            torch.cuda.synchronize()
+            assert _same_bits(got, want), (relax, bound)
+    assert want.any() or queue in ("one", "empty")
 
 
 def _march_inputs(cuda):

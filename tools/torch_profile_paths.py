@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Profile 2^20-ray passes of the port's render paths on one NVIDIA GPU.
+
+    python3 tools/torch_profile_paths.py [--root DIR] [--paths P,...]
+                                         [--label NAME] [--json PATH]
+
+Imports rayn_tpu_torch from --root (default: this checkout), so that two
+trees can be compared in turns from separate processes in one call on
+one card (parent, change, change, parent), builds its kernels, and for
+each path (fused, relaxed, unfused, sorted: chip_smoke.py phase 4's
+workload, the 1080p default scene at 2^20 rays per pass, max_marches 256,
+max_vis_marches 100, as phase 7 runs them) calls chip_smoke.profile_pass:
+five unprofiled passes timed on the host clock up to
+`torch.cuda.synchronize()`, then one pass under torch.profiler for the
+device busy time, the idle share of the median unprofiled wall, the
+launch count and the device time by kernel. Prints the card's name and
+power limit and one JSON line; exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE),
+                    help="checkout whose rayn_tpu_torch is profiled")
+    ap.add_argument("--paths", default="fused,relaxed,unfused,sorted")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_profile_paths: no CUDA device", file=sys.stderr)
+        return 1
+    from rayn_tpu_torch import _build
+    from rayn_tpu_torch.config import RenderSettings
+    from rayn_tpu_torch.ops import filters
+    from rayn_tpu_torch.render import film as film_mod
+    from rayn_tpu_torch.render import renderer
+    from rayn_tpu_torch.scene import presets
+    from rayn_tpu_torch.utils import rng
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    _build.load()
+    (w, h), n = smoke.MAIN_RES, smoke.MAIN_PASS
+    main_s = RenderSettings(resolution=(w, h), spp=smoke.MAIN_SPP,
+                            rays_per_pass=n, max_marches=256,
+                            max_vis_marches=100)
+    unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
+                                    use_fused_shadows=False)
+    settings = {
+        "fused": main_s,
+        "relaxed": dataclasses.replace(main_s,
+                                       march_relaxation=smoke.RELAX),
+        "unfused": unfused_s,
+        "sorted": dataclasses.replace(unfused_s, march_sort_steps=8,
+                                      occl_sort_steps=8)}
+    data, static, cam = presets.default_scene(resolution=(w, h), device=dev)
+    fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
+                                  device=dev)
+    tables = rng.build_sample_tables(main_s, 1)
+    film = film_mod.new_film(w * h, device=dev)
+    out = {"root": str(Path(args.root).resolve()), "label": args.label,
+           "smi": smi, "paths": {}}
+    for path in args.paths.split(","):
+        s = settings[path]
+        out["paths"][path] = smoke.profile_pass(
+            lambda s=s: renderer.render_pass(film, data, static, s, tables,
+                                             cam, fis, 0, n, 1.0 / 24,
+                                             2.0 / 24),
+            f"{args.label} {path}".strip())
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(out, fh, indent=1)
+    print(smi)
+    print(json.dumps({k: v for k, v in out.items() if k != "paths"}
+                     | {"paths": {p: {k: r[k] for k in (
+                         "pass_wall_ms", "busy_ms", "idle_share",
+                         "launches")} for p, r in out["paths"].items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
