@@ -11,24 +11,34 @@ Phases (any failed gate raises and the script exits non-zero):
    and shared memory.
 3. Kernels against their plain twins: one 2^20-ray pass of the 1920x1080
    default scene runs through the plain twins on each of seven paths and
-   records the real inputs of the kernels at depths 0 and 1 (sort key: 1
-   and 2): the fused path (intersect, sort key, the bounce tail's
-   segments, march and tail-sum kernels), the fused path with MIS (the
+   records the real inputs of the kernels at depths 0 and 1 (sort key and
+   cost key: 1 and 2): the fused path (intersect, cost key, sort key,
+   equi-angular, the bounce tail's segments, march and tail-sum kernels),
+   the fused path with MIS (the
    same tail), the split tail with MIS (segments, march, shadow-sum and
    finish kernels), the relaxed segment queue (relax 1.5) and the relax-1
-   unfused segment queue (the march kernel, and the queue-segments,
-   refill-march and queue-sum kernels with the segment-queue tail that
-   runs them), and those two with MIS (max_bounces 1: depths 0 and 1
+   unfused segment queue (the march and equi-angular kernels, the cost
+   key on the unfused path, and the queue-segments, refill-march and
+   queue-sum kernels with the segment-queue tail that runs them), and
+   those two with MIS (max_bounces 1: depths 0 and 1
    only); and the inputs of the two functions on the shadow kernels,
    bounce_tail and shadow_radiance. Each kernel then runs on those inputs
    beside its twin, gated by the JAX package's fused-vs-unfused gates;
-   the shadow and queue kernels must equal their twins bit for bit (a
+   the intersect (all six columns), cost-key, sort-key, equi-angular,
+   shadow and queue kernels must equal their twins bit for bit (a
    segments kernel's queue as a set), the two functions their one-piece
    plain versions, and the segment-queue tail the same tail on the plain
    twins, in every output column. Kernel and twin are timed with CUDA
-   events, the short kernels (sort key, finish, segments, sums, enqueue)
-   by their device time in torch.profiler, and the twin's DE count (the
-   finish kernel: its bytes) gives the kernel's bound. Rows 7 and 8,
+   events, the short kernels (cost key, sort key, equi-angular, finish,
+   segments, sums, enqueue) by their device time in torch.profiler, and
+   the twin's DE count (the finish and equi-angular kernels: their bytes)
+   gives the kernel's bound. On the fused path's intersect inputs at
+   depths 0 and 1, the DEs of each ray (march.march_steps: entry DE,
+   march steps, normal taps) give the DE steps per 32-lane warp of one
+   thread per ray (sequential) and the ideal Σ / 32, printed beside the
+   loop steps the refill kernel's warps took (its counter) and its time;
+   likewise the sort key's DEs (one per active segment) at depths 1 and
+   2 give its sequential and ideal steps. Rows 7 and 8,
    march_occlusion and march_occlusion_chained (the enqueue kernel, then
    the refill march on [M, 3] segments), run on the queue paths'
    segments at depths 0 and 1, at relax 1 and 1.5 with and without the
@@ -55,7 +65,8 @@ Phases (any failed gate raises and the script exits non-zero):
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
-   fused path must have launched (the shadow-sum and finish kernels
+   fused path (intersect, cost key, sort key, equi-angular, segments,
+   march, tail sum) must have launched (the shadow-sum and finish kernels
    not); the film must hold w*h*spp samples,
    finite colour and coverage around the image centre.
 5. Invariants: sorted and unsorted films equal bit for bit (256x256,
@@ -88,10 +99,13 @@ Phases (any failed gate raises and the script exits non-zero):
    device time by kernel name. The same again for the phase-8 workload
    and for phase 4's workload on the relax-1 unfused path, on the
    phase-10 split tail with MIS and on phase 12's sorted path; then the
-   fused, fused-MIS, split-MIS, unfused and sorted passes timed in turns.
+   fused, fused-MIS, split-MIS, unfused and sorted passes timed in turns,
+   and the fused pass with `sorted_intersect` and `sorted_shadow_march`
+   on and off.
 8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
-   which takes the segment queue; the march, queue-segments, refill-march
-   and queue-sum kernels must have launched (and not the enqueue and
+   which takes the segment queue; the march, cost-key, equi-angular,
+   queue-segments, refill-march and queue-sum kernels must have launched
+   (and not the enqueue and
    [M, 3] march kernels, which only intersect.test_occluded runs), with
    phase 4's film gates.
 9. The relax-1 unfused path: use_fused_intersect and use_fused_shadows
@@ -99,23 +113,27 @@ Phases (any failed gate raises and the script exits non-zero):
    the same view angles); the same kernels as phase 8 must have
    launched, with the film gates.
 10. The split tail with MIS: phase 4's workload with `mis=True` and
-   `use_fused_bounce_tail=False`; the intersect, sort-key, segments,
-   march, shadow-sum and finish kernels must have launched (the tail-sum
+   `use_fused_bounce_tail=False`; the intersect, cost-key, sort-key,
+   equi-angular, segments, march, shadow-sum and finish kernels must have
+   launched (the tail-sum
    kernel not), with phase 4's film gates.
 11. The smaller paths, each gated on its own kernels and the film gates:
    `use_fused_finish=False` with MIS at 480x270 (intersect, key,
    segments, march and shadow sum; no finish kernel); the default scene
    without its lights and their emissive bodies at 960x540 (intersect and
-   finish; no shadow, key or tail kernel); MIS at relaxation 1.5 at
+   finish; no shadow, key, equi-angular or tail kernel); MIS at
+   relaxation 1.5 at
    480x270 (march and the queue kernels); the spheres scene with MIS at
    480x270
-   on the bounce tail and on the split tail (no SDF, so no sort key; the
-   march wrapper launches nothing there).
+   on the bounce tail and on the split tail (no SDF, so no sort or cost
+   key, and no medium, so no equi-angular kernel; the march wrapper
+   launches nothing there).
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
    with `march_sort_steps=8` and `occl_phase1_steps=16`; the march and
-   occlusion phase-1 and resume kernels and the queue-segments and
-   queue-sum kernels must have launched and the march, refill-march and
+   occlusion phase-1 and resume kernels and the cost-key, equi-angular,
+   queue-segments and queue-sum kernels must have launched and the
+   march, refill-march and
    enqueue kernels not, with the film gates. At
    256x256, 4 spp: the film with `march_sort_steps=8` alone equals the
    unfused film bit for bit, the film with `occl_sort_steps=8` equals the
@@ -170,6 +188,8 @@ def de_flops(iterations: int) -> int:
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
      ("closest_hit_kernel",)),
+    ("costkey", "intersect_cuda", "intersect_cost_key", ("cost_key_kernel",)),
+    ("equi", "shade_cuda", "equi_angular", ("equi_angular_kernel",)),
     ("key", "shade_cuda", "shadow_sort_key", ("shadow_sort_key_kernel",)),
     ("seg", "shade_cuda", "shadow_segments", ("shadow_segments_kernel",)),
     ("smarch", "shade_cuda", "shadow_march",
@@ -199,11 +219,13 @@ FUNCTIONS = (("tail", "shade_cuda", "bounce_tail"),
 # Kernels timed by their device time in torch.profiler (and the enqueue
 # kernel, phase 3's rows 7-8): under ~0.5 ms, CUDA events around the
 # wrapper would count its host work between launches as kernel time.
-DEVICE_TIMED = ("key", "seg", "ssum", "tsum", "finish", "qseg", "qsum")
+DEVICE_TIMED = ("costkey", "key", "equi", "seg", "ssum", "tsum", "finish",
+                "qseg", "qsum")
 
 # The TPU kernels (every function that reaches pl.pallas_call), then the
-# two kernels of the segment queue that replace XLA code of the JAX
-# integrator: the name in the kernels line, the port's source, the
+# four kernels that replace XLA code of the JAX integrator (the segment
+# queue's two, the cost key, the equi-angular samples): the name in the
+# kernels line, the port's source, the
 # file:line it replaces, the key whose time and bound the row gives (a
 # kernel's or a function's), the main path and kernel key whose launches
 # it gives, and the keys of the CUDA kernels that compute it.
@@ -244,6 +266,10 @@ KERNEL_ROWS = (
     ("queue_segments", SH, f"{JI}:420", "qseg", ("relaxed", "qseg"),
      ("qseg",)),
     ("queue_sum", SH, f"{JI}:512", "qsum", ("relaxed", "qsum"), ("qsum",)),
+    ("intersect_cost_key", "rayn_tpu_torch/csrc/intersect.cu", f"{JI}:144",
+     "costkey", ("main", "costkey"), ("costkey",)),
+    ("equi_angular_samples", SH, f"{JI}:521", "equi", ("main", "equi"),
+     ("equi",)),
 )
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
 # defaults; the sorted ones are also phase 12's settings).
@@ -348,8 +374,12 @@ def io_tensors(key, a, kw, out):
     if key == "intersect":
         hit, info = out
         return list(a[3:8]), [hit.t, hit.obj, *info]
-    if key == "key":
-        return [*a[2:11], *a[11]], [out]
+    if key == "key":      # point .. pixel: the NEE and volume sites' rays
+        return list(a[2:12]), [out]
+    if key == "costkey":  # origin, direction, alive
+        return [a[3], a[4], a[6]], [out]
+    if key == "equi":     # origin, direction, t_hit, sample_idx, pixel
+        return list(a[2:7]), list(out)
     if key == "smarch":   # the queued segments' start and end, the queue
         segs = a[1]
         count = int(segs.count[0])
@@ -537,13 +567,15 @@ def main(argv=None) -> int:
     # (path, settings, kernels and functions whose inputs it records)
     tail_keys = ("tail", "seg", "smarch", "tsum")
     queue_keys = ("qtail", "qseg", "smarch", "qsum")
-    paths = (("fused", main_s, ("intersect", "key", *tail_keys)),
+    paths = (("fused", main_s, ("intersect", "costkey", "key", "equi",
+                                *tail_keys)),
              ("fused mis", mis_s, tail_keys),
              ("split mis", split_s, ("shadow", "seg", "smarch", "ssum",
                                      "finish")),
-             ("relaxed", relax_s, ("march", *queue_keys)),
+             ("relaxed", relax_s, ("march", "equi", *queue_keys)),
              ("relaxed mis", relax_mis_s, queue_keys),
-             ("unfused", unfused_s, ("march", *queue_keys)),
+             ("unfused", unfused_s, ("march", "costkey", "equi",
+                                     *queue_keys)),
              ("unfused mis", unfused_mis_s, queue_keys))
     captured = {}
     for path, s, keys in paths:
@@ -618,14 +650,26 @@ def main(argv=None) -> int:
             march_ops.dist_c = orig
         return n_de[0]
 
+    def hit_steps(a):
+        """[N] DEs of each ray's closest hit (march.march_steps on the
+        sphere fold's bound) for closest_hit_shading's arguments `a`."""
+        d_, st_, s_, o, d, h_abs, h_lin, act = a
+        bound_t, _obj = intersect_cuda.sphere_fold(d_, st_, s_, o, d)
+        detail = s_.sdf_detail_scale
+        return march_ops.march_steps(
+            d_.sdf_params, o, d, bound_t, 5e-5 * detail,
+            0.05 * detail * h_abs, 0.05 * detail * h_lin, s_.max_marches,
+            act)
+
     def de_evals(key, a, kw, out):
-        """MandelBox DEs the kernel needs on these inputs, counted from
-        the plain twin's lanes at each step (plus the intersect's four
-        normal taps per SDF hit)."""
-        n_de = count_des(twin[key], a, kw)
+        """MandelBox DEs the kernel needs on these inputs: the intersect's
+        march_steps, the cost key's one per live ray, else counted from
+        the plain twin's lanes at each step."""
         if key == "intersect":
-            n_de += 4 * int((out[0].obj == static.n_spheres).sum())
-        return n_de
+            return int(hit_steps(a).sum())
+        if key == "costkey":
+            return int(a[6].sum())
+        return count_des(twin[key], a, kw)
 
     def bound(n_de, ins, outs):
         """(bound ms, what bounds it, bytes) of a call that needs n_de DEs
@@ -690,33 +734,33 @@ def main(argv=None) -> int:
         return err
 
     def check(key, path, depth, a, kw, got, want):
-        if key == "intersect":
-            (gh, gi), (wh, wi) = got, want
-            same = (gh.obj == wh.obj) & (gh.valid == wh.valid)
-            frac = same.float().mean().item()
-            gate(frac >= 0.999, f"intersect depth {depth}: obj/valid "
-                 f"agree on {frac:.5f} < 0.999 of lanes")
-            ok_t = torch.isclose(gh.t[same], wh.t[same], rtol=1e-4,
-                                 atol=1e-5)
-            ok_p = torch.isclose(gi.point[same], wi.point[same],
-                                 rtol=1e-4, atol=1e-5)
-            gate(bool(ok_t.all()) and bool(ok_p.all()),
-                 f"intersect depth {depth}: t/point out of tolerance on "
-                 f"{int((~ok_t).sum())}/{int((~ok_p).sum())} values")
-            err = (gh.t[same] - wh.t[same]).abs().max().item()
-            log(f"[3 kernels] intersect depth {depth}: obj/valid agree "
-                f"{frac:.6f}, max |dt| {err:.3g}")
-            return err
-        if key == "key":
-            ok = torch.isclose(got, want, rtol=1e-4, atol=0.0)
-            frac = ok.float().mean().item()
-            gate(frac >= 0.999, f"sort key depth {depth}: {frac:.5f} "
-                 "< 0.999 of lanes within rtol 1e-4")
-            err = (got - want).abs().max().item()
-            log(f"[3 kernels] sort key depth {depth}: within rtol 1e-4 "
-                f"on {frac:.6f}, max |d| {err:.3g}")
-            return err
         label = f"{key} {path} depth {depth}"
+        if key == "intersect":
+            cols = {f"{c}.{f}": same_bits(getattr(g, f), getattr(w, f))
+                    for c, g, w in (("hit", got[0], want[0]),
+                                    ("info", got[1], want[1]))
+                    for f in g._fields}
+            gate(all(cols.values()), f"{label}: columns {cols} against "
+                 "closest_hit_shading_plain")
+            log(f"[3 kernels] {label}: t, obj, valid, point, normal, "
+                "offset and material equal to the twin's bit for bit "
+                f"({int((want[0].obj == static.n_spheres).sum())} SDF hits)")
+            return max(max_diff(g, w) for g, w in zip(got[1], want[1])
+                       if g.dtype == torch.float32)
+        if key in ("key", "costkey"):
+            gate(same_bits(got, want), f"{label}: differs from its twin")
+            log(f"[3 kernels] {label}: equal to its twin bit for bit (mean "
+                f"key {want.mean().item():.4f})")
+            return max_diff(got, want)
+        if key == "equi":
+            n_diff = [int((~((g.view(torch.int32) == w.view(torch.int32))
+                             | (torch.isnan(g) & torch.isnan(w)))).sum())
+                      for g, w in zip(got, want)]
+            gate(n_diff == [0, 0], f"{label}: distances and pdfs differ "
+                 f"from the twin's on {n_diff} of {want[0].numel()} sites")
+            log(f"[3 kernels] {label}: {want[0].numel()} distances and pdfs "
+                "equal to the twin's bit for bit")
+            return max(max_diff(got[0], want[0]), max_diff(got[1], want[1]))
         if key == "shadow":
             err = check_radiance(label, got, want)
             gate(same_bits(got, want), f"{label}: differs from "
@@ -780,7 +824,7 @@ def main(argv=None) -> int:
         for key in keys:
             errs = []
             for i, (a, kw) in enumerate(captured[(path, key)]):
-                depth = i + (1 if key == "key" else 0)
+                depth = i + (1 if key in ("key", "costkey") else 0)
                 got = impl[key](*a, **kw)
                 want = twin[key](*a, **kw)
                 torch.cuda.synchronize()
@@ -813,6 +857,41 @@ def main(argv=None) -> int:
             del out, ins, outs
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
     del got, want
+
+    # ------- 3, continued: the closest hit's and the sort key's DE steps
+    # Per ray, the DEs of its closest hit (march_steps: the entry DE, the
+    # march steps, the normal taps of an SDF hit) and of its sort key (one
+    # per active segment, at its start); per warp of 32 rays, what one
+    # thread per ray costs (the slowest lane) against the ideal total / 32;
+    # for the closest hit beside the loop steps the refill kernel's warps
+    # took (its counter) and its time at that depth, on the fused path's
+    # inputs.
+    de_steps = {}
+    for depth, (a, kw) in enumerate(captured[("fused", "intersect")]):
+        w = hit_steps(a).reshape(-1, 32).long()
+        counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        kernels["intersect"](*a, warp_steps=counter)
+        q = dict(des=int(w.sum()), sequential=int(w.max(-1).values.sum()),
+                 ideal=int(w.sum()) / 32, refill=int(counter[0]),
+                 ms=timed(kernels["intersect"], a, kw, reps=5))
+        de_steps[f"intersect depth {depth}"] = q
+        log(f"[3 DE steps] intersect depth {depth}: {q['des']} DEs over "
+            f"{w.numel()} rays; 32-lane warp steps: sequential "
+            f"{q['sequential']}, ideal {q['ideal']}, refill kernel "
+            f"{q['refill']}; {q['ms']:.3f} ms")
+    for depth, (a, kw) in zip((1, 2), captured[("fused", "key")]):
+        n_de = torch.zeros(a[2].shape[0], dtype=torch.int32, device=dev)
+        wrappers["key"][2](*a, n_de=n_de)
+        w = n_de.reshape(-1, 32).long()
+        q = dict(des=int(w.sum()), sequential=int(w.max(-1).values.sum()),
+                 ideal=int(w.sum()) / 32,
+                 device_ms=device_ms(kernels["key"], a, kw, ENTRIES["key"]))
+        de_steps[f"key depth {depth}"] = q
+        log(f"[3 DE steps] sort key depth {depth}: {q['des']} DEs; 32-lane "
+            f"warp steps: sequential {q['sequential']}, ideal "
+            f"{q['ideal']}; {q['device_ms']} ms device time")
+        del n_de, w
+    record["de_steps"] = de_steps
 
     # -------- 3, continued: the shadow queues, warp steps and designs
     # Per segment, the DEs of the plain twin's march (occlusion_steps, at
@@ -1085,10 +1164,11 @@ def main(argv=None) -> int:
                     peak_bytes=peak, launches=launches)
 
     # -------------------------------------------------------- 4. main path
-    queue_path = ("march", "qseg", "smarch", "qsum")
+    queue_path = ("march", "costkey", "equi", "qseg", "smarch", "qsum")
     not_queue = ("qseg", "qsum", "enqueue", "omarch")
     record["main"] = main_path("4 main", main_s, MAIN_RES,
-                               ("intersect", "key", "seg", "smarch", "tsum"),
+                               ("intersect", "costkey", "key", "equi", "seg",
+                                "smarch", "tsum"),
                                absent=("ssum", "finish", *not_queue))
 
     # ------------------------------------------------------ 5. invariants
@@ -1222,8 +1302,9 @@ def main(argv=None) -> int:
 
     # ------------------------------- 10. split tail with MIS, full width
     record["split"] = main_path("10 split mis", split_s, MAIN_RES,
-                                ("intersect", "key", "seg", "smarch", "ssum",
-                                 "finish"), absent=("tsum", *not_queue))
+                                ("intersect", "costkey", "key", "equi", "seg",
+                                 "smarch", "ssum", "finish"),
+                                absent=("tsum", *not_queue))
 
     # ------------------------------------------ 11. the smaller paths
     def no_lights_scene(resolution, device):
@@ -1251,30 +1332,31 @@ def main(argv=None) -> int:
         "no_fused_finish_mis": main_path(
             "11 use_fused_finish=False, mis", dataclasses.replace(
                 small, use_fused_finish=False), SMALL_RES,
-            ("intersect", "key", "seg", "smarch", "ssum"),
-            absent=("finish", "tsum")),
+            ("intersect", "costkey", "key", "equi", "seg", "smarch",
+             "ssum"), absent=("finish", "tsum")),
         "no_lights": main_path(
             "11 no lights", dataclasses.replace(
                 main_s, resolution=UNFUSED_RES), UNFUSED_RES,
-            ("intersect", "finish"), scene=no_lights_scene,
-            absent=("seg", "smarch", "ssum", "tsum", "key")),
+            ("intersect", "costkey", "finish"), scene=no_lights_scene,
+            absent=("seg", "smarch", "ssum", "tsum", "key", "equi")),
         "relaxed_mis": main_path(
             "11 relaxed, mis", dataclasses.replace(
                 small, march_relaxation=RELAX), SMALL_RES,
             queue_path, absent=not_fused),
         "spheres_mis": main_path(
             "11 spheres, mis", small, SMALL_RES, ("intersect", "seg", "tsum"),
-            scene=presets.spheres_scene, absent=("key",)),
+            scene=presets.spheres_scene, absent=("key", "costkey", "equi")),
         "spheres_split_mis": main_path(
             "11 spheres, split tail, mis", dataclasses.replace(
                 small, use_fused_bounce_tail=False), SMALL_RES,
             ("intersect", "seg", "ssum", "finish"),
-            scene=presets.spheres_scene, absent=("key", "tsum")),
+            scene=presets.spheres_scene,
+            absent=("key", "costkey", "equi", "tsum")),
     }
 
     # ------------------------------------------ 12. the two-phase marches
-    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume", "qseg",
-              "qsum")
+    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume", "costkey",
+              "equi", "qseg", "qsum")
     absent12 = ("march", "smarch", "enqueue", "omarch")
     record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
                                  absent=absent12)
@@ -1323,11 +1405,16 @@ def main(argv=None) -> int:
         # the fused pass with MIS, the split tail with MIS, the relax-1
         # unfused pass and the sorted two-phase pass are also timed
         # alternately, the order reversed every other round.
-        walls7 = {"fused": [], "fused mis": [], "split mis": [],
-                  "unfused": [], "sorted": []}
+        sorts_off = {"fused, no sorts": dict(sorted_intersect=False,
+                                             sorted_shadow_march=False),
+                     "fused, no intersect sort": dict(sorted_intersect=False),
+                     "fused, no shadow sort": dict(sorted_shadow_march=False)}
         fns7 = {"fused": pass7(main_s), "fused mis": pass7(mis_s),
                 "split mis": pass7(split_s), "unfused": pass7(unfused_s),
-                "sorted": pass7(sorted_s)}
+                "sorted": pass7(sorted_s),
+                **{label: pass7(dataclasses.replace(main_s, **kw))
+                   for label, kw in sorts_off.items()}}
+        walls7 = {label: [] for label in fns7}
         for r in range(8):
             for label in (list(walls7) if r % 2 == 0 else
                           list(walls7)[::-1]):

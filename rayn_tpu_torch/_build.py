@@ -29,7 +29,8 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # amplify any ulp difference, shade_pallas.py:34-45).
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC")
-KERNELS = ("rayn_closest_hit", "rayn_shadow_segments", "rayn_shadow_march",
+KERNELS = ("rayn_closest_hit", "rayn_cost_key", "rayn_equi_angular",
+           "rayn_shadow_segments", "rayn_shadow_march",
            "rayn_shadow_sum", "rayn_tail_sum", "rayn_finish_bounce",
            "rayn_shadow_sort_key", "rayn_queue_segments", "rayn_queue_sum",
            "rayn_march", "rayn_enqueue", "rayn_occl_march",
@@ -164,6 +165,17 @@ def mbox_struct(mb) -> MBox:
         return MBox(0, 0.0, 0.0, 0.0, 0.0)
     return MBox(mb.iterations, mb.scale, mb.box_l, mb.min_rad_sq,
                  mb.fixed_rad_sq)
+
+
+def device_of(name: str, t: torch.Tensor):
+    """The CUDA device of a kernel wrapper's operand `t`, or None when it
+    lies on the CPU (the wrapper then runs its plain twin); raises for
+    any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> int:

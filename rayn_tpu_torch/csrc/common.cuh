@@ -167,6 +167,35 @@ __device__ __forceinline__ int pick_light(float u, int NL) {
   return idx < 0 ? 0 : (idx > NL - 1 ? NL - 1 : idx);
 }
 
+// The equi-angular distance sample of one volume site (integrator
+// ._equi_angular_samples with lights.sample_equi_angular, reference
+// src/light.rs:75-102), in torch's op order: the distance draw u of the
+// site's march (set_dist), the light picked by set_pick from the constant
+// light table [NL, 8], then delta, closest, d, the two angles, the
+// distance delta + d * tan(th) along o + s*d and its pdf. atan2f and tanf
+// equal torch's CUDA atan2 and tan bit for bit on the H100, under either
+// --fmad setting (tools/torch_probe_trig.py counts the lanes that differ).
+__device__ __forceinline__ void equi_angular_site(
+    const Sampler& smp, int set_dist, int set_pick, int NL,
+    const float* __restrict__ lights, uint32_t sidx, uint32_t pix, float ox,
+    float oy, float oz, float dx, float dy, float dz, float max_distance,
+    float& dist, float& pdf) {
+  const float u = sample_1d(smp, set_dist, sidx, pix);
+  const float* lr =
+      lights + 8 * pick_light(sample_1d(smp, set_pick, sidx, pix), NL);
+  const float delta =
+      (lr[0] - ox) * dx + (lr[1] - oy) * dy + (lr[2] - oz) * dz;
+  const float cx = (ox + delta * dx) - lr[0], cy = (oy + delta * dy) - lr[1],
+              cz = (oz + delta * dz) - lr[2];
+  const float d = sqrtf(cx * cx + cy * cy + cz * cz);
+  const float theta_a = atan2f(-delta, d);
+  const float theta_b = atan2f(max_distance - delta, d);
+  const float th = theta_a + (theta_b - theta_a) * u;
+  const float t = d * tanf(th);
+  dist = delta + t;
+  pdf = d / ((theta_b - theta_a) * (d * d + t * t));
+}
+
 // shade_pallas._sample_cone (reference src/light.rs:38-72). kDivide:
 // ops/lights.sample_cone, the unfused bounce's sampler, which divides the
 // direction to the light by its length where the fused body multiplies
@@ -808,11 +837,13 @@ __host__ inline unsigned blocks_of(long long n, int threads) {
 }
 
 // Launches a refill-march kernel of 128 threads a block on as many
-// blocks as fit on the card at once (fewer for a short queue); each
-// block runs until the queue is drained.
+// blocks as fit on the card at once, at most max_per_sm an SM when it is
+// above 0 (fewer for a short queue); each block runs until the queue is
+// drained.
 template <class Args>
 __host__ cudaError_t launch_persistent(void (*kernel)(Args), const Args& a,
-                                       long long m, cudaStream_t stream) {
+                                       long long m, cudaStream_t stream,
+                                       int max_per_sm = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -821,6 +852,7 @@ __host__ cudaError_t launch_persistent(void (*kernel)(Args), const Args& a,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 128,
                                                         0);
   if (err != cudaSuccess) return err;
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
   const unsigned resident = (unsigned)(sms * (per_sm > 0 ? per_sm : 1));
   const unsigned needed = blocks_of(m, 128);
   kernel<<<resident < needed ? resident : needed, 128, 0, stream>>>(a);

@@ -1,20 +1,45 @@
-// Fused closest hit + shading info for Hopper (sm_90a).
+// Fused closest hit + shading info, and the pre-intersect cost key, for
+// Hopper (sm_90a).
 //
-// Replaces rayn_tpu/ops/intersect_pallas.py closest_hit_shading
-// (_intersect_kernel): per ray, the closest root over the K spheres, the
-// MandelBox march bounded by that running closest t (threshold
-// max(eps_const, eps_abs + eps_lin * t), at most max_steps steps), then
-// the point, the sphere or tetrahedral normal, the shading offset and the
-// material id.
+// closest_hit_kernel replaces rayn_tpu/ops/intersect_pallas.py
+// closest_hit_shading (_intersect_kernel): per ray, the closest root over
+// the K spheres, the MandelBox march bounded by that running closest t
+// (threshold max(eps_const, eps_abs + eps_lin * t), at most max_steps
+// steps), then the point, the sphere or tetrahedral normal, the shading
+// offset and the material id.
 //
-// What bounds it on the H100: float32 ALU. A march step is one 12-
-// iteration MandelBox DE (~200 flops) and a ray takes up to 256 steps,
-// while the ray reads ~40 bytes and writes ~48; warps also diverge,
-// because each lane marches its own number of steps.
-// What the design does about it: one thread per ray reading the [N,3] /
-// [N] tensors in place (the TPU's (8,128) row tiling is gone), each
-// thread stops the moment its own ray resolves (the TPU kernel ran a
-// block until every lane was done), and inactive lanes skip the march.
+// What bounds it on the H100: float32 ALU and warp divergence. A ray takes
+// its entry DE, up to max_steps (256) march DEs and, on an SDF hit, four
+// normal taps: one 12-iteration MandelBox DE is ~400 flops, against ~40
+// bytes read and ~48 written per ray. Marched one thread per ray, a warp
+// costs its slowest lane's march plus four DEs if any lane hits the SDF.
+// What the design does about it: the refill march of the shadow queue
+// (refill_march in common.cuh) over the wavefront itself. Persistent
+// blocks; each lane takes a ray, runs it to the end and writes every
+// output to the ray's own slot, then takes the next. Every loop iteration
+// evaluates exactly one DE per busy lane, and a lane's stages are the
+// entry DE at the origin, the march steps, then the four normal taps of
+// an SDF hit, so a warp costs about its lanes' total DEs / 32 plus the
+// drain. The take is a batch: a warp claims 32 ray ids with one atomicAdd
+// on a device counter, and each lane loads one of them (coalesced) and
+// folds it over the spheres, all 32 at once; a ray that needs no DE (an
+// inactive ray, or a scene without an SDF) is written there and then,
+// and the others are handed to idle lanes by shuffles, so a take costs no
+// memory round trip and no fold run by one lane while 31 wait (a take
+// that loaded and folded one ray per idle lane left the kernel no faster
+// than one thread per ray). Compacting the live rays first (an enqueue
+// kernel, the march, a shading kernel) was the alternative; the batch
+// needs no queue and no scratch because every ray's id is its slot, and
+// keeps the fold and the shading in the one launch. Each ray's arithmetic
+// is the one-thread-per-ray body's, in the same order, so the order in
+// which rays are taken changes no bit.
+//
+// cost_key_kernel replaces the XLA fusion of rayn_tpu/render/
+// integrator.py _intersect_cost_key (the chunk sort's key before the
+// intersect at depths >= 1): the sphere fold's closest t, clamped to
+// t_max0, over the first DE at the origin, clamped to max_steps; 1 for a
+// dead ray or a NaN first DE. One thread per ray; bounded by one DE per
+// live ray.
 // Scene constants (K spheres as [x, y, z, r, mat]) come in as a small
 // device buffer that stays in L1.
 #include "common.cuh"
@@ -28,6 +53,10 @@ struct IntersectArgs {
   const float* hps_lin;    // [N]
   const bool* active;      // [N]
   const float* spheres;    // [K, 5]
+  int* head;               // [1] ray ids handed out (0 at launch)
+  // [1] or null: the loop iterations of every warp are added here (each
+  // iteration evaluates one DE per busy lane; for measurement)
+  unsigned long long* warp_steps;
   float* t;                // [N]
   int* obj;                // [N]
   float* point;            // [N, 3]
@@ -46,50 +75,46 @@ struct IntersectArgs {
   float detail;
 };
 
-__global__ void __launch_bounds__(128)
-    closest_hit_kernel(const IntersectArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1],
-              oz = a.origin[3 * i + 2];
-  const float dx = a.direction[3 * i], dy = a.direction[3 * i + 1],
-              dz = a.direction[3 * i + 2];
-  const float hps_abs = a.hps_abs[i], hps_lin = a.hps_lin[i];
-  const bool active = a.active[i];
+struct CostKeyArgs {
+  const float* origin;     // [N, 3]
+  const float* direction;  // [N, 3]
+  const bool* alive;       // [N]
+  const float* spheres;    // [K, 5]
+  float* key;              // [N]
+  long long n;
+  int K;
+  int max_steps;
+  MBox mb;
+  float t_max0;
+};
 
-  // sphere closest-hit fold (ops/spheres.hit + closest select)
-  float best_t = a.t_max0;
-  int best_obj = -1;
-  for (int k = 0; k < a.K; ++k) {
-    const float tk = sphere_hit(ox, oy, oz, dx, dy, dz, a.spheres + 5 * k,
-                                a.t_max0);
+// The sphere closest-hit fold (ops/spheres.hit + closest select).
+__device__ __forceinline__ void sphere_fold(const float* __restrict__ spheres,
+                                            int K, float t_max0, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float& best_t,
+                                            int& best_obj) {
+  best_t = t_max0;
+  best_obj = -1;
+  for (int k = 0; k < K; ++k) {
+    const float tk = sphere_hit(ox, oy, oz, dx, dy, dz, spheres + 5 * k,
+                                t_max0);
     if (tk < best_t) {
       best_t = tk;
       best_obj = k;
     }
   }
+}
 
-  // SDF march bounded by the running closest (march_pallas relax=1 body)
-  if (a.has_sdf && active) {
-    const float t_max = best_t;
-    const float eps_abs = a.eps_k * hps_abs, eps_lin = a.eps_k * hps_lin;
-    float t = mandelbox_de(a.mb, ox, oy, oz);
-    if (!isnan(t)) {
-      for (int step = 0; step < a.max_steps; ++step) {
-        if (t > t_max) break;
-        const float dist = mandelbox_de(a.mb, ox + t * dx, oy + t * dy,
-                                        oz + t * dz);
-        if (fabsf(dist) < nmax(a.eps_const, eps_abs + eps_lin * t)) break;
-        t = t + dist;
-      }
-      if (t < best_t) {
-        best_t = t;
-        best_obj = a.K;
-      }
-    }
-  }
-
-  // shading info (ops/intersect.shading_info)
+// The shading info of ray i (ops/intersect.shading_info) from its closest
+// t and object: a sphere's normal, or for the SDF (best_obj == K) the
+// normalised tap gradient g with offset hps; every output written.
+__device__ __forceinline__ void write_hit(const IntersectArgs& a, long long i,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float best_t, int best_obj,
+                                          float hps, float gx, float gy,
+                                          float gz) {
   const float px = ox + best_t * dx, py = oy + best_t * dy,
               pz = oz + best_t * dz;
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, off = 0.0f;
@@ -104,20 +129,6 @@ __global__ void __launch_bounds__(128)
     nz = vz * vinv;
     mat = (int)s[4];
   } else if (best_obj == a.K) {
-    const float hps = nmax(1e-4f, a.detail * (hps_abs + hps_lin * best_t));
-    // sdfu normals_fast taps, in ops/sdf.py TETRA_TAPS order
-    const float taps[4][3] = {{1.f, -1.f, -1.f}, {-1.f, 1.f, -1.f},
-                              {-1.f, -1.f, 1.f}, {1.f, 1.f, 1.f}};
-    float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float dk = mandelbox_de(a.mb, px + taps[k][0] * hps,
-                                    py + taps[k][1] * hps,
-                                    pz + taps[k][2] * hps);
-      gx = gx + taps[k][0] * dk;
-      gy = gy + taps[k][1] * dk;
-      gz = gz + taps[k][2] * dk;
-    }
     const float glen = sqrtf(gx * gx + gy * gy + gz * gz);
     const float ginv = 1.0f / nmax(glen, 1e-20f);
     nx = gx * ginv;
@@ -138,13 +149,219 @@ __global__ void __launch_bounds__(128)
   a.mat[i] = mat;
 }
 
+// A lane's stage: the entry DE, the march, or normal tap 0..3 (sdfu
+// normals_fast taps in ops/sdf.py TETRA_TAPS order: the sign of x is +
+// for taps 0 and 3, of y for 1 and 3, of z for 2 and 3).
+constexpr int kEntry = -2, kMarch = -1;
+
+__device__ __forceinline__ float tap_sign(int tap, int axis) {
+  return (tap == axis || tap == 3) ? 1.0f : -1.0f;
+}
+
+__global__ void __launch_bounds__(128)
+    closest_hit_kernel(const IntersectArgs a) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int id = -1;  // this lane's ray, -1 while idle
+  int stage = kEntry, step = 0, best_obj = -1;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float hps_abs = 0.0f, hps_lin = 0.0f, t = 0.0f, best_t = 0.0f, hps = 0.0f;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  // The warp's batch: slot `lane` holds ray bi, loaded and folded;
+  // `pending` marks the slots whose ray still waits for a lane.
+  int bi = -1, b_obj = -1;
+  float b_ox = 0.0f, b_oy = 0.0f, b_oz = 0.0f, b_dx = 0.0f, b_dy = 0.0f,
+        b_dz = 0.0f, b_ha = 0.0f, b_hl = 0.0f, b_t = 0.0f;
+  unsigned pending = 0u;
+  bool drained = false;
+  unsigned long long iters = 0;
+  for (;;) {
+    unsigned idle = __ballot_sync(FULL_MASK, id < 0);
+    while (idle != 0u && !drained) {
+      if (pending == 0u) {  // the next 32 rays, one per lane
+        int b = 0;
+        if (lane == 0) b = atomicAdd(a.head, 32);
+        b = __shfl_sync(FULL_MASK, b, 0);
+        if ((long long)b >= a.n) {
+          drained = true;
+          break;
+        }
+        bi = b + lane;
+        bool needs_de = false;
+        if ((long long)bi < a.n) {
+          const long long i3 = 3LL * bi;
+          b_ox = a.origin[i3];
+          b_oy = a.origin[i3 + 1];
+          b_oz = a.origin[i3 + 2];
+          b_dx = a.direction[i3];
+          b_dy = a.direction[i3 + 1];
+          b_dz = a.direction[i3 + 2];
+          sphere_fold(a.spheres, a.K, a.t_max0, b_ox, b_oy, b_oz, b_dx, b_dy,
+                      b_dz, b_t, b_obj);
+          needs_de = a.has_sdf && a.active[bi];
+          if (needs_de) {
+            b_ha = a.hps_abs[bi];
+            b_hl = a.hps_lin[bi];
+          } else {  // no DE to take: done the moment it is folded
+            write_hit(a, bi, b_ox, b_oy, b_oz, b_dx, b_dy, b_dz, b_t, b_obj,
+                      0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+        pending = __ballot_sync(FULL_MASK, needs_de);
+        continue;
+      }
+      // the r-th idle lane takes the r-th pending slot
+      unsigned m = pending;
+      for (int r = __popc(idle & below); r > 0 && m != 0u; --r) m &= m - 1u;
+      const bool take = id < 0 && m != 0u;
+      const int src = take ? __ffs(m) - 1 : lane;
+      const int v_id = __shfl_sync(FULL_MASK, bi, src);
+      const int v_obj = __shfl_sync(FULL_MASK, b_obj, src);
+      const float v_ox = __shfl_sync(FULL_MASK, b_ox, src);
+      const float v_oy = __shfl_sync(FULL_MASK, b_oy, src);
+      const float v_oz = __shfl_sync(FULL_MASK, b_oz, src);
+      const float v_dx = __shfl_sync(FULL_MASK, b_dx, src);
+      const float v_dy = __shfl_sync(FULL_MASK, b_dy, src);
+      const float v_dz = __shfl_sync(FULL_MASK, b_dz, src);
+      const float v_ha = __shfl_sync(FULL_MASK, b_ha, src);
+      const float v_hl = __shfl_sync(FULL_MASK, b_hl, src);
+      const float v_t = __shfl_sync(FULL_MASK, b_t, src);
+      if (take) {
+        id = v_id;
+        best_obj = v_obj;
+        best_t = v_t;
+        ox = v_ox;
+        oy = v_oy;
+        oz = v_oz;
+        dx = v_dx;
+        dy = v_dy;
+        dz = v_dz;
+        hps_abs = v_ha;
+        hps_lin = v_hl;
+        stage = kEntry;
+      }
+      // the lowest min(idle, pending) pending slots are handed out
+      for (int k = min(__popc(idle), __popc(pending)); k > 0; --k)
+        pending &= pending - 1u;
+      idle = __ballot_sync(FULL_MASK, id < 0);
+    }
+    if (idle == FULL_MASK) {  // every ray is taken and written
+      if (a.warp_steps != nullptr && lane == 0)
+        atomicAdd(a.warp_steps, iters);
+      return;
+    }
+    ++iters;
+    if (id < 0) continue;
+    float px, py, pz;
+    if (stage == kEntry) {
+      px = ox;
+      py = oy;
+      pz = oz;
+    } else if (stage == kMarch) {
+      px = ox + t * dx;
+      py = oy + t * dy;
+      pz = oz + t * dz;
+    } else {
+      px = (ox + best_t * dx) + tap_sign(stage, 0) * hps;
+      py = (oy + best_t * dy) + tap_sign(stage, 1) * hps;
+      pz = (oz + best_t * dz) + tap_sign(stage, 2) * hps;
+    }
+    const float dist = mandelbox_de(a.mb, px, py, pz);
+    bool march_done = false;
+    if (stage == kEntry) {
+      // a NaN first DE ends the march with no hit (NaN < best_t is false)
+      t = dist;
+      march_done = isnan(t) || a.max_steps <= 0 || t > best_t;
+      stage = kMarch;
+      step = 0;
+    } else if (stage == kMarch) {
+      const float eps_abs = a.eps_k * hps_abs, eps_lin = a.eps_k * hps_lin;
+      if (fabsf(dist) < nmax(a.eps_const, eps_abs + eps_lin * t)) {
+        march_done = true;
+      } else {
+        t = t + dist;
+        ++step;
+        march_done = step >= a.max_steps || t > best_t;
+      }
+    } else {
+      gx = gx + tap_sign(stage, 0) * dist;
+      gy = gy + tap_sign(stage, 1) * dist;
+      gz = gz + tap_sign(stage, 2) * dist;
+      if (stage == 3) {
+        write_hit(a, id, ox, oy, oz, dx, dy, dz, best_t, best_obj, hps, gx,
+                  gy, gz);
+        id = -1;
+      } else {
+        ++stage;
+      }
+    }
+    if (march_done) {
+      if (t < best_t) {  // an SDF hit: its four normal taps follow
+        best_t = t;
+        best_obj = a.K;
+        hps = nmax(1e-4f, a.detail * (hps_abs + hps_lin * best_t));
+        gx = 0.0f;
+        gy = 0.0f;
+        gz = 0.0f;
+        stage = 0;
+      } else {
+        write_hit(a, id, ox, oy, oz, dx, dy, dz, best_t, best_obj, 0.0f,
+                  0.0f, 0.0f, 0.0f);
+        id = -1;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  float key = 1.0f;
+  if (a.alive[i]) {
+    const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1],
+                oz = a.origin[3 * i + 2];
+    const float dx = a.direction[3 * i], dy = a.direction[3 * i + 1],
+                dz = a.direction[3 * i + 2];
+    // min over the spheres (NaN-propagating, as torch's min), then t_max0
+    float bound = a.t_max0;
+    if (a.K > 0) {
+      float m = sphere_hit(ox, oy, oz, dx, dy, dz, a.spheres, a.t_max0);
+      for (int k = 1; k < a.K; ++k)
+        m = nmin(m, sphere_hit(ox, oy, oz, dx, dy, dz, a.spheres + 5 * k,
+                               a.t_max0));
+      bound = nmin(m, a.t_max0);
+    }
+    const float d0 = mandelbox_de(a.mb, ox, oy, oz);
+    if (!isnan(d0))
+      key = nmin(bound / nmax(d0, 1e-6f), (float)a.max_steps);
+  }
+  a.key[i] = key;
+}
+
 }  // namespace rayn
 
+// Blocks an SM of the closest hit's persistent grid: four (16 warps), not
+// the nine that fit. A warp then gets ~500 rays of a 2^20-ray pass, so the
+// drain (lanes that idle while the warp's last rays finish) is a smaller
+// share of its steps, and 16 warps still hide the DE's latency.
+// tools/torch_probe_hit_grid.py builds other values and times each depth.
+#ifndef RAYN_HIT_BLOCKS_PER_SM
+#define RAYN_HIT_BLOCKS_PER_SM 4
+#endif
+
+// Persistent (launch_persistent): every block runs until all rays are
+// taken.
 extern "C" cudaError_t rayn_closest_hit(const rayn::IntersectArgs* args,
                                         cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  const int threads = 128;
-  const long long blocks = (args->n + threads - 1) / threads;
-  rayn::closest_hit_kernel<<<(unsigned)blocks, threads, 0, stream>>>(*args);
+  return rayn::launch_persistent(rayn::closest_hit_kernel, *args, args->n,
+                                 stream, RAYN_HIT_BLOCKS_PER_SM);
+}
+
+extern "C" cudaError_t rayn_cost_key(const rayn::CostKeyArgs* args,
+                                     cudaStream_t stream) {
+  if (args->n <= 0) return cudaSuccess;
+  rayn::cost_key_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
+      *args);
   return cudaGetLastError();
 }

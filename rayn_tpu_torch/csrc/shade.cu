@@ -29,7 +29,14 @@
 // from the pre-emission radiance.
 // shadow_sort_key_kernel replaces shade_pallas.shadow_sort_key
 // (_shadow_key_kernel -> _shadow_cost_key -> _segment_cost): the same
-// segments, each priced at min(length / first DE, max_steps).
+// segments, each priced at min(length / first DE, max_steps). It draws its
+// volume sites' equi-angular distances itself (equi_angular_site), which
+// the TPU kernel took from outside because Mosaic lowers neither arctan2
+// nor tan.
+// equi_angular_kernel replaces the XLA ops of rayn_tpu/render/
+// integrator.py _equi_angular_samples: one thread per ray writes the
+// [VM*L, N] distances and pdfs (equi_angular_site) that the segments and
+// queue-segments kernels read.
 // The segment-queue bounce (rayn_tpu/render/integrator.py:420-514, the
 // unfused path whose occlusion the TPU ran in march_pallas's
 // march_occlusion and march_occlusion_chained) runs here as:
@@ -89,6 +96,8 @@ struct ShadowScalars {  // ops/shade_cuda.py _ShadowScalars
   // march-major); bases, not arrays, so no kernel-parameter array is
   // indexed at run time
   int set_pick0, set_nee0, set_vol_pick0, set_vol0;
+  // set id of the equi-angular distance draw of march m: set_vol_dist0 + m
+  int set_vol_dist0;
   // 5: the exponent of bsdf.eval_f's (1 - d) ** 5, read at run time as
   // torch's CUDA pow reads it (eval_f_unfused)
   float schlick_exp;
@@ -179,14 +188,34 @@ struct FinishArgs {  // ops/shade_cuda.py _FinishArgs
 
 struct KeyArgs {  // ops/shade_cuda.py _KeyArgs
   const float *point, *normal, *offset_by, *origin, *direction;
+  const float* t_hit;  // [N] the closest hit's t: the volume sites' range
   const int *sample_idx, *pixel;
   const bool *live, *recv;
-  const float* vol_dist;
   const float* lights;
   float* key;
   long long n;
   ShadowScalars sc;
 };
+
+struct EquiArgs {  // ops/shade_cuda.py _EquiArgs
+  const float *origin, *direction, *t_hit;
+  const int *sample_idx, *pixel;
+  const float* lights;
+  float *o_dist, *o_pdf;  // [VM*L, N]
+  long long n;
+  ShadowScalars sc;
+};
+
+// The equi-angular sample of volume site j (march-major: march j / L).
+__device__ __forceinline__ void vol_sample(const ShadowScalars& sc,
+                                           const float* __restrict__ lights,
+                                           int j, uint32_t sidx, uint32_t pix,
+                                           float3 o, float3 d, float t_hit,
+                                           float& dist, float& pdf) {
+  equi_angular_site(sc.smp, sc.set_vol_dist0 + j / sc.L,
+                    sc.set_vol_pick0 + j, sc.NL, lights, sidx, pix, o.x, o.y,
+                    o.z, d.x, d.y, d.z, t_hit, dist, pdf);
+}
 
 // Light pick + cone sample of NEE site i from point p (shade_pallas
 // _shadow_delta / _shadow_cost_key, shared so both price one segment;
@@ -616,8 +645,10 @@ __global__ void __launch_bounds__(128)
                                ez);
     }
     const float3 o = ld3(a.origin, i), d = ld3(a.direction, i);
+    const float t_hit = a.t_hit[i];
     for (int j = 0; j < sc.VM * sc.L; ++j) {
-      const float vd = a.vol_dist[(long long)j * a.n + i];
+      float vd, vp;
+      vol_sample(sc, a.lights, j, sidx, pix, o, d, t_hit, vd, vp);
       float spx, spy, spz, ex, ey, ez, pdf;
       vol_site(sc, a.lights, j, sidx, pix, vd, o.x, o.y, o.z, d.x, d.y,
                d.z, spx, spy, spz, ex, ey, ez, pdf);
@@ -626,6 +657,21 @@ __global__ void __launch_bounds__(128)
     }
   }
   a.key[i] = key;
+}
+
+__global__ void __launch_bounds__(128) equi_angular_kernel(const EquiArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const ShadowScalars& sc = a.sc;
+  const float3 o = ld3(a.origin, i), d = ld3(a.direction, i);
+  const float t_hit = a.t_hit[i];
+  const uint32_t sidx = (uint32_t)a.sample_idx[i], pix = (uint32_t)a.pixel[i];
+  for (int j = 0; j < sc.VM * sc.L; ++j) {
+    float vd, vp;
+    vol_sample(sc, a.lights, j, sidx, pix, o, d, t_hit, vd, vp);
+    a.o_dist[(long long)j * a.n + i] = vd;
+    a.o_pdf[(long long)j * a.n + i] = vp;
+  }
 }
 
 }  // namespace rayn
@@ -697,5 +743,13 @@ extern "C" cudaError_t rayn_shadow_sort_key(const rayn::KeyArgs* args,
   const long long blocks = (args->n + threads - 1) / threads;
   rayn::shadow_sort_key_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       *args);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t rayn_equi_angular(const rayn::EquiArgs* args,
+                                         cudaStream_t stream) {
+  if (args->n <= 0) return cudaSuccess;
+  rayn::equi_angular_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
+                              stream>>>(*args);
   return cudaGetLastError();
 }

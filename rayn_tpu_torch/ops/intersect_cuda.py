@@ -1,12 +1,22 @@
-"""Fused closest hit + shading info: CUDA kernel and plain twin.
+"""Fused closest hit + shading info, and the pre-intersect cost key:
+CUDA kernels and plain twins (csrc/intersect.cu).
 
-Port of `rayn_tpu.ops.intersect_pallas.closest_hit_shading`
-(`_intersect_kernel`): the sphere fold, the MandelBox march bounded by
-the running closest t, the tetrahedral normal and the shading selects
-in one pass (csrc/intersect.cu). `closest_hit_shading` launches the
-kernel for CUDA tensors, counts the launch in its `launches` attribute,
-and raises on anything the kernel does not take; for CPU tensors it
-calls `closest_hit_shading_plain`, which mirrors the kernel body.
+- `closest_hit_shading` replaces
+  `rayn_tpu.ops.intersect_pallas.closest_hit_shading`
+  (`_intersect_kernel`): the sphere fold, the MandelBox march bounded by
+  the running closest t, the tetrahedral normal and the shading selects.
+  The kernel is a refill march over the wavefront: persistent lanes each
+  take a ray, run it to the end (entry DE, march steps, normal taps, one
+  DE per loop iteration) and write its outputs to its own slot, so the
+  order in which rays are taken changes no bit.
+- `intersect_cost_key` replaces the XLA ops of
+  `rayn_tpu.render.integrator._intersect_cost_key`: the pre-intersect
+  chunk sort's estimate of each ray's march steps.
+
+Each wrapper launches its kernel for CUDA tensors, counts the launch in
+its `launches` attribute, and raises on anything the kernel does not
+take; for CPU tensors it calls its `_plain` twin, which mirrors the
+kernel's arithmetic.
 """
 
 from __future__ import annotations
@@ -16,11 +26,13 @@ import ctypes
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import MBox, check, mbox_struct
+from rayn_tpu_torch._build import MBox, check, device_of, mbox_struct
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops.intersect import Hit, ShadingInfo
-from rayn_tpu_torch.ops.sdf import TETRA_TAPS, dist_c
+from rayn_tpu_torch.ops import spheres as sphere_ops
+from rayn_tpu_torch.ops.sdf import TETRA_TAPS, dist, dist_c
 from rayn_tpu_torch.ops.spheres import MISS
+from rayn_tpu_torch.scene.scene import sphere_centers_at
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 
@@ -33,19 +45,18 @@ def sphere_table(data) -> torch.Tensor:
                      dim=-1).contiguous()
 
 
-def closest_hit_shading_plain(data, static, settings, origin, direction,
-                              hps_abs, hps_lin, active):
-    """Plain twin of the kernel (intersect_pallas._intersect_kernel body)."""
-    K = static.n_spheres
+def sphere_fold(data, static, settings, origin, direction):
+    """(best t, best object) of the closest-hit sphere fold: the nearest
+    sphere root in (1e-4, t_max0] (object -1 and t_max0 on a miss), the
+    bound of the SDF march."""
     t_max0 = 2.0 * settings.world_radius
-    detail = settings.sdf_detail_scale
     ox, oy, oz = origin.unbind(-1)
     dx, dy, dz = direction.unbind(-1)
     best_t = torch.full_like(ox, t_max0)
     best_obj = torch.full(ox.shape, -1, dtype=torch.int32,
                           device=ox.device)
     spheres = sphere_table(data)
-    for k in range(K):
+    for k in range(static.n_spheres):
         cx, cy, cz, rad, _mat = spheres[k].unbind(-1)
         ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
         b = ocx * dx + ocy * dy + ocz * dz
@@ -61,6 +72,18 @@ def closest_hit_shading_plain(data, static, settings, origin, direction,
         closer = tk < best_t
         best_t = torch.where(closer, tk, best_t)
         best_obj = torch.where(closer, k, best_obj)
+    return best_t, best_obj
+
+
+def closest_hit_shading_plain(data, static, settings, origin, direction,
+                              hps_abs, hps_lin, active):
+    """Plain twin of the kernel (intersect_pallas._intersect_kernel body):
+    the sphere fold, the SDF march bounded by it, the four normal taps,
+    then `write_hit_plain`."""
+    K = static.n_spheres
+    detail = settings.sdf_detail_scale
+    best_t, best_obj = sphere_fold(data, static, settings, origin, direction)
+    hps = g = None
     if static.has_sdf:
         t_sdf = march_ops.march(
             data.sdf_params, origin, direction, best_t,
@@ -70,14 +93,37 @@ def closest_hit_shading_plain(data, static, settings, origin, direction,
         closer = t_sdf < best_t
         best_t = torch.where(closer, t_sdf, best_t)
         best_obj = torch.where(closer, K, best_obj)
+        hps = torch.clamp(detail * (hps_abs + hps_lin * best_t), min=1e-4)
+        ox, oy, oz = origin.unbind(-1)
+        dx, dy, dz = direction.unbind(-1)
+        px, py, pz = ox + best_t * dx, oy + best_t * dy, oz + best_t * dz
+        gx = gy = gz = torch.zeros_like(px)
+        for (kx, ky, kz) in TETRA_TAPS:
+            dk = dist_c(data.sdf_params, px + kx * hps, py + ky * hps,
+                        pz + kz * hps)
+            gx, gy, gz = gx + kx * dk, gy + ky * dk, gz + kz * dk
+        g = torch.stack([gx, gy, gz], -1)
+    return write_hit_plain(data, static, origin, direction, active, best_t,
+                           best_obj, hps, g)
 
+
+def write_hit_plain(data, static, origin, direction, active, best_t,
+                    best_obj, hps, g):
+    """(Hit, ShadingInfo) of each ray from its closest t and object (the
+    kernel's write_hit): the point; a sphere's normal and material; for
+    the SDF (object K) the normalised tap gradient g [N, 3], its material
+    and the offset hps (both None in a scene without an SDF); zeros on a
+    miss."""
+    K = static.n_spheres
+    ox, oy, oz = origin.unbind(-1)
+    dx, dy, dz = direction.unbind(-1)
     px, py, pz = ox + best_t * dx, oy + best_t * dy, oz + best_t * dz
     zero = torch.zeros_like(px)
     nx, ny, nz, off = zero, zero, zero, zero
     mat = torch.zeros_like(best_obj)
     if K:
         is_sph = (best_obj >= 0) & (best_obj < K)
-        row = spheres[torch.clamp(best_obj, 0, K - 1).long()]
+        row = sphere_table(data)[torch.clamp(best_obj, 0, K - 1).long()]
         vx, vy, vz = px - row[:, 0], py - row[:, 1], pz - row[:, 2]
         vlen = _sqrt(vx * vx + vy * vy + vz * vz)
         vinv = 1.0 / torch.clamp(vlen, min=1e-20)
@@ -86,13 +132,8 @@ def closest_hit_shading_plain(data, static, settings, origin, direction,
         nz = torch.where(is_sph, vz * vinv, nz)
         mat = torch.where(is_sph, row[:, 4].to(torch.int32), mat)
     if static.has_sdf:
-        hps = torch.clamp(detail * (hps_abs + hps_lin * best_t), min=1e-4)
         is_sdf = best_obj == K
-        gx, gy, gz = zero, zero, zero
-        for (kx, ky, kz) in TETRA_TAPS:
-            dk = dist_c(data.sdf_params, px + kx * hps, py + ky * hps,
-                        pz + kz * hps)
-            gx, gy, gz = gx + kx * dk, gy + ky * dk, gz + kz * dk
+        gx, gy, gz = g.unbind(-1)
         glen = _sqrt(gx * gx + gy * gy + gz * gz)
         ginv = 1.0 / torch.clamp(glen, min=1e-20)
         nx = torch.where(is_sdf, gx * ginv, nx)
@@ -106,13 +147,38 @@ def closest_hit_shading_plain(data, static, settings, origin, direction,
     return hit, info
 
 
+def intersect_cost_key_plain(data, static, settings, origin, direction,
+                             time, alive):
+    """Plain twin of the cost-key kernel (JAX integrator.py:144-175):
+    estimated primary-march steps per ray before the intersect, the
+    sphere-fold closest t (at most t_max0) over the first DE, at most
+    max_marches; 1 for a dead ray or a NaN first DE."""
+    n = origin.shape[0]
+    t_max0 = 2.0 * settings.world_radius
+    full = torch.full((n,), t_max0, dtype=torch.float32,
+                      device=origin.device)
+    if static.n_spheres:
+        ts = sphere_ops.hit(origin, direction,
+                            sphere_centers_at(data, time),
+                            data.sphere_radii, full)
+        bound = torch.clamp(ts.min(dim=-1).values, max=t_max0)
+    else:
+        bound = full
+    d0 = dist(data.sdf_params, origin)
+    est = torch.clamp(bound / torch.clamp(d0, min=1e-6),
+                      max=float(settings.max_marches))
+    ok = alive & ~torch.isnan(d0)
+    return torch.where(ok, est, torch.ones_like(est))
+
+
 _P = ctypes.c_void_p
 
 
 class _IntersectArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "origin", "direction", "hps_abs", "hps_lin", "active", "spheres",
-        "t", "obj", "point", "normal", "offset_by", "mat")] + [
+        "head", "warp_steps", "t", "obj", "point", "normal", "offset_by",
+        "mat")] + [
         ("n", ctypes.c_int64), ("K", ctypes.c_int), ("has_sdf", ctypes.c_int),
         ("sdf_mat", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("mb", MBox), ("t_max0", ctypes.c_float),
@@ -120,17 +186,27 @@ class _IntersectArgs(ctypes.Structure):
         ("detail", ctypes.c_float)]
 
 
+class _CostKeyArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "origin", "direction", "alive", "spheres", "key")] + [
+        ("n", ctypes.c_int64), ("K", ctypes.c_int),
+        ("max_steps", ctypes.c_int), ("mb", MBox), ("t_max0", ctypes.c_float)]
+
+
 def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
-                        hps_lin, active):
+                        hps_lin, active, warp_steps=None):
     """(Hit, ShadingInfo) of the closest hit along each ray. Sphere
-    channels must be constant (the port has no animated scenes yet)."""
-    if origin.device.type == "cpu":
+    channels must be constant (the port has no animated scenes yet).
+    warp_steps: for measurement, a [1] int64 CUDA tensor to which the
+    kernel adds the loop iterations of its warps (each iteration one DE
+    per busy lane)."""
+    dev = device_of("closest_hit_shading", origin)
+    if dev is None:
         return closest_hit_shading_plain(data, static, settings, origin,
                                          direction, hps_abs, hps_lin, active)
-    dev = origin.device
-    if dev.type != "cuda":
-        raise ValueError(f"closest_hit_shading: unsupported device {dev}")
     n = origin.shape[0]
+    if n >= 2 ** 31 - 32:
+        raise ValueError(f"{n} rays overflow the kernel's int32 ray ids")
     f32 = torch.float32
     spheres = sphere_table(data)
     t = torch.empty((n,), dtype=f32, device=dev)
@@ -140,6 +216,7 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
     off = torch.empty((n,), dtype=f32, device=dev)
     mat = torch.empty((n,), dtype=torch.int32, device=dev)
     detail = settings.sdf_detail_scale
+    head = torch.zeros((1,), dtype=torch.int32, device=dev)
     args = _IntersectArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
@@ -147,6 +224,9 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
         hps_lin=check(hps_lin, "hps_lin", f32, (n,), dev),
         active=check(active, "active", torch.bool, (n,), dev),
         spheres=check(spheres, "spheres", f32, (static.n_spheres, 5), dev),
+        head=head.data_ptr(),
+        warp_steps=(None if warp_steps is None else
+                    check(warp_steps, "warp_steps", torch.int64, (1,), dev)),
         t=t.data_ptr(), obj=obj.data_ptr(), point=point.data_ptr(),
         normal=normal.data_ptr(), offset_by=off.data_ptr(),
         mat=mat.data_ptr(), n=n, K=static.n_spheres,
@@ -162,3 +242,36 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
 
 
 closest_hit_shading.launches = 0
+
+
+def intersect_cost_key(data, static, settings, origin, direction, time,
+                       alive) -> torch.Tensor:
+    """[N] f32 estimate of each ray's primary-march steps, the key of the
+    pre-intersect chunk sort (scheduling only). The scene must have an
+    SDF; sphere channels must be constant (`time` is read by the twin
+    only)."""
+    dev = device_of("intersect_cost_key", origin)
+    if dev is None:
+        return intersect_cost_key_plain(data, static, settings, origin,
+                                        direction, time, alive)
+    if not static.has_sdf:
+        raise NotImplementedError("intersect_cost_key needs a scene with an "
+                                  "SDF")
+    n = origin.shape[0]
+    f32 = torch.float32
+    spheres = sphere_table(data)
+    key = torch.empty((n,), dtype=f32, device=dev)
+    args = _CostKeyArgs(
+        origin=check(origin, "origin", f32, (n, 3), dev),
+        direction=check(direction, "direction", f32, (n, 3), dev),
+        alive=check(alive, "alive", torch.bool, (n,), dev),
+        spheres=check(spheres, "spheres", f32, (static.n_spheres, 5), dev),
+        key=key.data_ptr(), n=n, K=static.n_spheres,
+        max_steps=settings.max_marches, mb=mbox_struct(data.sdf_params),
+        t_max0=2.0 * settings.world_radius)
+    _build.launch("rayn_cost_key", args, dev)
+    intersect_cost_key.launches += 1
+    return key
+
+
+intersect_cost_key.launches = 0

@@ -27,8 +27,9 @@ twins of their four kernels. Each lane takes the same steps as in one
 uncapped march, so the composition is bit-identical to it.
 
 `occlusion_steps` counts the DEs each segment takes in the occlusion
-march, plain or relaxed: the work a schedule of the march has to pack
-into warps.
+march, plain or relaxed, and `march_steps` those of each ray's
+closest-hit march in the intersect kernel: the work a schedule of the
+march has to pack into warps.
 """
 
 from __future__ import annotations
@@ -46,14 +47,18 @@ def _de_at(mb, origin, direction, idx, t):
 
 
 def _march_steps(mb, origin, direction, t_max, eps_const: float, eps_abs,
-                 eps_lin, t, live, steps: int):
+                 eps_lin, t, live, steps: int, n_de=None):
     """At most `steps` plain (relax 1) steps of the lanes `live`, with t
     advanced in place; returns the lanes that neither met their
-    threshold nor passed t_max in them."""
+    threshold nor passed t_max in them. `n_de`, if given, counts in place
+    the DEs each lane takes in the CUDA march, which stops a lane past
+    t_max before its DE (this loop takes that DE and then stops it)."""
     for _ in range(steps):
         if live.numel() == 0:
             break
         tl = t[live]
+        if n_de is not None:
+            n_de[live[~(tl > t_max[live])]] += 1
         r = _de_at(mb, origin, direction, live, tl)
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
                              min=eps_const)
@@ -107,6 +112,21 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
         live = live[step]
         t[live] = nxt[step]
     return t
+
+
+def march_steps(mb: MandelBox, origin, direction, t_max, eps_const: float,
+                eps_abs, eps_lin, max_steps: int, active) -> torch.Tensor:
+    """int32 [N]: the MandelBox DEs each ray's closest-hit march takes in
+    the intersect kernel: the entry DE at the origin (active rays), one
+    per relax-1 step begun at t <= t_max, and the four normal taps of a
+    ray whose march ends before t_max (an SDF hit): the work a schedule
+    of the closest hit has to pack into warps."""
+    n_de = active.to(torch.int32)
+    t = _first_de(mb, origin, t_max, active)
+    live = torch.nonzero(active & (t <= t_max)).squeeze(1)
+    _march_steps(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+                 t, live, max_steps, n_de)
+    return n_de + 4 * (active & (t < t_max)).to(torch.int32)
 
 
 def march_phase1(mb: MandelBox, origin, direction, t_max, eps_const: float,

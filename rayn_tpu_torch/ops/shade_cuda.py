@@ -19,7 +19,12 @@ render paths:
   both halves, the finish on (state radiance + delta).
 - `shadow_sort_key` replaces `shadow_sort_key` (`_shadow_key_kernel` ->
   `_shadow_cost_key` -> `_segment_cost`): per ray, the summed estimate
-  min(segment length / first DE, max_steps) over the same segments.
+  min(segment length / first DE, max_steps) over the same segments. It
+  draws the volume sites' equi-angular distances itself.
+- `equi_angular` replaces the XLA ops of the JAX integrator's
+  `_equi_angular_samples`: the [VM*L, N] equi-angular distances and pdfs
+  of the volume sites, which every tail reads. The TPU kernels took them
+  from outside only because Mosaic lowers neither arctan2 nor tan.
 
 `shadow_radiance` and `bounce_tail` are functions over three kernels:
 `shadow_segments` builds every segment once into a scratch and queues
@@ -42,8 +47,8 @@ body, not the unfused integrator path), so kernel and twin differ only
 in the compiler's float choices. `bounce_tail_plain` and
 `shadow_radiance_plain` are the same pipeline in one piece
 (`_shadow_delta_plain`: the segment loop, the verdicts, the ordered
-sum). The equi-angular distances and pdfs stay in torch outside the
-kernels, exactly as in JAX.
+sum). `equi_angular_plain` is the JAX integrator's torch code for the
+equi-angular samples.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import check, mbox_struct
+from rayn_tpu_torch._build import check, device_of, mbox_struct
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
 from rayn_tpu_torch.ops import lights as light_ops
 from rayn_tpu_torch.ops import march as march_ops
@@ -104,6 +109,7 @@ class ShadowCfg(NamedTuple):
     set_nee: tuple
     set_vol_pick: tuple    # VM*L, march-major
     set_vol: tuple
+    set_vol_dist: tuple    # VM: the equi-angular distance draw of march m
     set_fres: int
     set_diff: int
     set_spec: int
@@ -149,6 +155,8 @@ def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
                            for m in range(VM) for i in range(L)),
         set_vol=tuple(rng_mod.set2d_vol(s, depth, m, i)
                       for m in range(VM) for i in range(L)),
+        set_vol_dist=tuple(rng_mod.set1d_vol_dist(s, depth, m)
+                           for m in range(VM)),
         set_fres=rng_mod.set1d_fresnel(s, depth),
         set_diff=rng_mod.set2d_diffuse(s, depth),
         set_spec=rng_mod.set2d_spec(s, depth),
@@ -934,18 +942,60 @@ def _segment_cost(cfg, start, end, act):
     return torch.where(nan | (t0 > md), 1.0, est)
 
 
+def equi_angular_plain(cfg: ShadowCfg, lights, origin, direction, t_hit,
+                       sample_idx, pixel):
+    """Plain twin of the equi-angular kernel: the JAX integrator's
+    `_equi_angular_samples` (integrator.py:521-544) in torch. Returns
+    (vol_dist, vol_pdf), [VM*L, N] each, march-major: for march m the
+    distance draw, for each site the light pick from the constant light
+    table and lights.sample_equi_angular along each ray up to its closest
+    hit t_hit."""
+    dists, pdfs = [], []
+    for m in range(cfg.VM):
+        u_dist = _s1(cfg, cfg.set_vol_dist[m], sample_idx, pixel)
+        for i in range(cfg.L):
+            u_pick = _s1(cfg, cfg.set_vol_pick[m * cfg.L + i], sample_idx,
+                         pixel)
+            light_pos = torch.stack(_pick_light(u_pick, lights)[:3], -1)
+            vd, vp = light_ops.sample_equi_angular(u_dist, light_pos, origin,
+                                                   direction, t_hit)
+            dists.append(vd)
+            pdfs.append(vp)
+    if not dists:
+        empty = torch.empty((0, origin.shape[0]), dtype=torch.float32,
+                            device=origin.device)
+        return empty, empty.clone()
+    return torch.stack(dists), torch.stack(pdfs)
+
+
 def shadow_sort_key_plain(cfg: ShadowCfg, lights, point, normal, offset_by,
-                          origin, direction, live, receives, sample_idx,
-                          pixel, vol_dist):
-    """Plain twin of the sort-key kernel (shade_pallas._shadow_cost_key)."""
+                          origin, direction, t_hit, live, receives,
+                          sample_idx, pixel, n_de=None):
+    """Plain twin of the sort-key kernel: `_shadow_cost_key` on the
+    volume sites' distances of `equi_angular_plain`. `n_de`, if given,
+    counts in place the DEs each ray's key takes (one per active segment,
+    at its start)."""
+    if cfg.mb is None:
+        return torch.zeros_like(offset_by)
+    vol_dist, _ = equi_angular_plain(cfg, lights, origin, direction, t_hit,
+                                     sample_idx, pixel)
+    return _shadow_cost_key(cfg, lights, point, normal, offset_by, origin,
+                            direction, live, receives, sample_idx, pixel,
+                            vol_dist, n_de)
+
+
+def _shadow_cost_key(cfg: ShadowCfg, lights, point, normal, offset_by,
+                     origin, direction, live, receives, sample_idx, pixel,
+                     vol_dist, n_de=None):
+    """shade_pallas._shadow_cost_key: the summed segment costs of the NEE
+    sites and of the volume sites at distances `vol_dist` ([VM*L] rows of
+    [N]). The scene must have an SDF."""
     d = direction.unbind(-1)
     v = dict(p=point.unbind(-1), n=normal.unbind(-1), off=offset_by,
              o=origin.unbind(-1), d=d, sidx=sample_idx, pix=pixel)
     p_x, p_y, p_z = v["p"]
     n_x, n_y, n_z = v["n"]
     key = torch.zeros_like(p_x)
-    if cfg.mb is None:
-        return key
     for i in range(cfg.L):
         ex, ey, ez, _pdf, _em, _pair = _nee_site(cfg, lights, i, v)
         wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
@@ -954,12 +1004,15 @@ def shadow_sort_key_plain(cfg: ShadowCfg, lights, point, normal, offset_by,
         ndw = n_x * wfx * dinv + n_y * wfy * dinv + n_z * wfz * dinv
         bias = torch.where(torch.signbit(ndw), -offset_by, offset_by)
         start = (p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias)
-        key = key + _segment_cost(cfg, start, (ex, ey, ez),
-                                  receives & (ndw > 0.0))
-    if cfg.VM:
-        for j in range(cfg.VM * cfg.L):
-            sp, e, _pdf, _em = _vol_site(cfg, lights, j, vol_dist[j], v)
-            key = key + _segment_cost(cfg, sp, e, live)
+        act = receives & (ndw > 0.0)
+        key = key + _segment_cost(cfg, start, (ex, ey, ez), act)
+        if n_de is not None:
+            n_de += act.to(n_de.dtype)
+    for j in range(cfg.VM * cfg.L):
+        sp, e, _pdf, _em = _vol_site(cfg, lights, j, vol_dist[j], v)
+        key = key + _segment_cost(cfg, sp, e, live)
+        if n_de is not None:
+            n_de += live.to(n_de.dtype)
     return key
 
 
@@ -993,7 +1046,8 @@ class _ShadowScalars(ctypes.Structure):
         ("aov", ctypes.c_int), ("mis", ctypes.c_int), ("mis_on", ctypes.c_int),
         ("set_pick0", ctypes.c_int),
         ("set_nee0", ctypes.c_int), ("set_vol_pick0", ctypes.c_int),
-        ("set_vol0", ctypes.c_int), ("schlick_exp", ctypes.c_float)]
+        ("set_vol0", ctypes.c_int), ("set_vol_dist0", ctypes.c_int),
+        ("schlick_exp", ctypes.c_float)]
 
 
 _P = ctypes.c_void_p
@@ -1062,8 +1116,14 @@ class _FinishArgs(ctypes.Structure):
 
 class _KeyArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
-        "point", "normal", "offset_by", "origin", "direction", "sample_idx",
-        "pixel", "live", "recv", "vol_dist", "lights", "key")] + [
+        "point", "normal", "offset_by", "origin", "direction", "t_hit",
+        "sample_idx", "pixel", "live", "recv", "lights", "key")] + [
+        ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
+
+
+class _EquiArgs(ctypes.Structure):
+    _fields_ = _ptrs("origin", "direction", "t_hit", "sample_idx", "pixel",
+                     "lights", "o_dist", "o_pdf") + [
         ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
 
 
@@ -1106,26 +1166,20 @@ def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
         mis=int(cfg.mis), mis_on=int(cfg.mis_on),
         set_pick0=_base(cfg.set_pick), set_nee0=_base(cfg.set_nee),
         set_vol_pick0=_base(cfg.set_vol_pick), set_vol0=_base(cfg.set_vol),
-        schlick_exp=5.0)
+        set_vol_dist0=_base(cfg.set_vol_dist), schlick_exp=5.0)
 
 
 def _vol_cols(vol, n, sites, device):
-    """The volume sites' [N] columns as one [sites, N] tensor (a dummy
-    row when the scene has no scattering medium)."""
+    """The volume sites' columns as one [sites, N] tensor (a dummy row
+    when the scene has no scattering medium). vol: a [sites, N] tensor
+    (equi_angular) or a sequence of [N] tensors."""
     if len(vol) != sites:
         raise ValueError(f"expected {sites} volume sites, got {len(vol)}")
-    if sites:
-        return torch.stack(list(vol)).contiguous()
-    return torch.zeros((1, n), dtype=torch.float32, device=device)
-
-
-def _device(name, t):
-    """The CUDA device of a wrapper's operands (None for the CPU)."""
-    if t.device.type == "cpu":
-        return None
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device
+    if not sites:
+        return torch.zeros((1, n), dtype=torch.float32, device=device)
+    if isinstance(vol, torch.Tensor):
+        return vol
+    return torch.stack(list(vol)).contiguous()
 
 
 def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
@@ -1234,7 +1288,7 @@ def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
     """The shadow segments of one bounce (see ShadowSegments), the active
     ones queued in any order. vol_dist/vol_pdf: sequences of VM*L [N]
     tensors (march-major)."""
-    dev = _device("shadow_segments", state.origin)
+    dev = device_of("shadow_segments", state.origin)
     if dev is None:
         return shadow_segments_plain(cfg, tables, state, info, mat, live,
                                      receives, vol_trans, vol_dist, vol_pdf)
@@ -1254,7 +1308,7 @@ def shadow_march(cfg: ShadowCfg, segs: ShadowSegments,
     """[S, N] bool: True where the SDF blocks a queued segment, marched
     plain at `relax` 1 and over-relaxed otherwise (False for every
     segment of a scene without an SDF, with no launch)."""
-    dev = _device("shadow_march", segs.active)
+    dev = device_of("shadow_march", segs.active)
     if dev is None:
         return shadow_march_plain(cfg, segs, relax)
     S, n = segs.active.shape
@@ -1279,7 +1333,7 @@ shadow_march.launches = 0
 def shadow_sum(segs: ShadowSegments, verdict) -> torch.Tensor:
     """[N, 3] radiance delta: k * (active and not blocked) summed over the
     segments in order."""
-    dev = _device("shadow_sum", segs.active)
+    dev = device_of("shadow_sum", segs.active)
     if dev is None:
         return shadow_sum_plain(segs, verdict)
     n = segs.active.shape[1]
@@ -1299,7 +1353,7 @@ def tail_sum(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
              verdict) -> dict:
     """The next PathState fields (see bounce_tail_plain) from state
     radiance + the segments' delta."""
-    dev = _device("tail_sum", state.origin)
+    dev = device_of("tail_sum", state.origin)
     if dev is None:
         return tail_sum_plain(cfg, tables, state, hit, info, mat, live,
                               receives, vol_trans, segs, verdict)
@@ -1324,7 +1378,7 @@ def queue_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
     ShadowSegments and queue_segments_plain), the active ones queued in
     any order. vol_dist/vol_pdf: sequences of VM*L [N] tensors
     (march-major)."""
-    dev = _device("queue_segments", state.origin)
+    dev = device_of("queue_segments", state.origin)
     if dev is None:
         return queue_segments_plain(cfg, tables, state, info, mat, live,
                                     receives, vol_trans, vol_dist, vol_pdf)
@@ -1342,7 +1396,7 @@ queue_segments.launches = 0
 def queue_sum(radiance, segs: ShadowSegments, verdict) -> torch.Tensor:
     """[N, 3]: radiance + k * (active and not blocked) of each segment in
     turn, in segment order."""
-    dev = _device("queue_sum", segs.active)
+    dev = device_of("queue_sum", segs.active)
     if dev is None:
         return queue_sum_plain(radiance, segs, verdict)
     n = segs.active.shape[1]
@@ -1384,7 +1438,7 @@ def finish_bounce(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
                   live, receives, vol_trans, radiance) -> dict:
     """The next PathState fields from the pre-emission radiance [N, 3]
     (state radiance + shadow delta; see finish_bounce_plain)."""
-    dev = _device("finish_bounce", state.origin)
+    dev = device_of("finish_bounce", state.origin)
     if dev is None:
         return finish_bounce_plain(cfg, tables, state, hit, info, mat, live,
                                    receives, vol_trans, radiance)
@@ -1401,20 +1455,19 @@ finish_bounce.launches = 0
 
 
 def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
-                    direction, live, receives, sample_idx, pixel,
-                    vol_dist) -> torch.Tensor:
+                    direction, t_hit, live, receives, sample_idx,
+                    pixel) -> torch.Tensor:
     """[N] f32 cost key of one bounce's shadow segments (scheduling only:
-    it never feeds a verdict or a radiance term)."""
-    dev = _device("shadow_sort_key", point)
+    it never feeds a verdict or a radiance term). t_hit: the closest
+    hit's t, the range of the volume sites' distances."""
+    dev = device_of("shadow_sort_key", point)
     if dev is None:
         return shadow_sort_key_plain(cfg, lights, point, normal, offset_by,
-                                     origin, direction, live, receives,
-                                     sample_idx, pixel, vol_dist)
+                                     origin, direction, t_hit, live,
+                                     receives, sample_idx, pixel)
     if cfg.NL < 1:
         raise NotImplementedError("shadow_sort_key needs a scene with lights")
     n = point.shape[0]
-    sites = cfg.VM * cfg.L
-    vd = _vol_cols(vol_dist, n, sites, dev)
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     key = torch.empty((n,), dtype=f32, device=dev)
     v3, v1 = (n, 3), (n,)
@@ -1424,11 +1477,11 @@ def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
         offset_by=check(offset_by, "offset_by", f32, v1, dev),
         origin=check(origin, "origin", f32, v3, dev),
         direction=check(direction, "direction", f32, v3, dev),
+        t_hit=check(t_hit, "t_hit", f32, v1, dev),
         sample_idx=check(sample_idx, "sample_idx", i32, v1, dev),
         pixel=check(pixel, "pixel", i32, v1, dev),
         live=check(live, "live", b8, v1, dev),
         recv=check(receives, "receives", b8, v1, dev),
-        vol_dist=check(vd, "vol_dist", f32, (max(sites, 1), n), dev),
         lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
         key=key.data_ptr(), n=n, sc=_scalars(cfg))
     _build.launch("rayn_shadow_sort_key", args, dev)
@@ -1437,3 +1490,36 @@ def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
 
 
 shadow_sort_key.launches = 0
+
+
+def equi_angular(cfg: ShadowCfg, lights, origin, direction, t_hit,
+                 sample_idx, pixel):
+    """(vol_dist, vol_pdf): the [VM*L, N] equi-angular distances and pdfs
+    of one bounce's volume sites, march-major (see equi_angular_plain);
+    [0, N] with no launch when the bounce has no volume sites."""
+    dev = device_of("equi_angular", origin)
+    if dev is None:
+        return equi_angular_plain(cfg, lights, origin, direction, t_hit,
+                                  sample_idx, pixel)
+    n = origin.shape[0]
+    sites = cfg.VM * cfg.L
+    f32, i32 = torch.float32, torch.int32
+    vd = torch.empty((sites, n), dtype=f32, device=dev)
+    vp = torch.empty((sites, n), dtype=f32, device=dev)
+    if not sites:
+        return vd, vp
+    v3, v1 = (n, 3), (n,)
+    args = _EquiArgs(
+        origin=check(origin, "origin", f32, v3, dev),
+        direction=check(direction, "direction", f32, v3, dev),
+        t_hit=check(t_hit, "t_hit", f32, v1, dev),
+        sample_idx=check(sample_idx, "sample_idx", i32, v1, dev),
+        pixel=check(pixel, "pixel", i32, v1, dev),
+        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
+        o_dist=vd.data_ptr(), o_pdf=vp.data_ptr(), n=n, sc=_scalars(cfg))
+    _build.launch("rayn_equi_angular", args, dev)
+    equi_angular.launches += 1
+    return vd, vp
+
+
+equi_angular.launches = 0

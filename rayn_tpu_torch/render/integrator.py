@@ -2,7 +2,8 @@
 `rayn_tpu.render.integrator.bounce` (reference src/integrator.rs:32-281).
 
 One bounce at depth d:
-1. at d >= 1, the pre-intersect chunk cost sort (`sorted_intersect`);
+1. at d >= 1, the pre-intersect chunk cost sort (`sorted_intersect`),
+   its key from the cost-key kernel;
 2. closest hit + shading info: the fused intersect kernel, or with
    relaxed marching or `use_fused_intersect=False` the unfused
    intersect.closest_hit (the march kernel, or at relax 1 with
@@ -10,8 +11,9 @@ One bounce at depth d:
 3. per-lane shading values (`_derive_shading`);
 4. the bounce tail, chosen as JAX chooses it:
    - fused (plain marching and `use_fused_shadows`): in a scene with
-     lights, at d >= 1 the equi-angular samples, the shadow sort-key
-     kernel and the chunk sort (`sorted_shadow_march`); then one of
+     lights, at d >= 1 the shadow sort-key kernel (which draws its own
+     equi-angular samples) and the chunk sort (`sorted_shadow_march`);
+     then the equi-angular kernel and one of
      - the bounce-tail kernel (NEE, volume scattering, emission,
        scatter, roulette, AOVs, termination), with `use_fused_finish`,
        `use_fused_bounce_tail` and lights;
@@ -20,8 +22,9 @@ One bounce at depth d:
      - else: emission in torch, the shadow-radiance kernel (with
        lights), then `_finish_bounce`, so (radiance + emission) + delta;
    - the segment queue (relaxed marching or `use_fused_shadows=False`):
-     emission; in a scene with lights, every NEE and volume shadow
-     segment of the bounce built into a scratch by the queue-segments
+     emission; in a scene with lights, the equi-angular kernel, then
+     every NEE and volume shadow segment of the bounce built into a
+     scratch by the queue-segments
      kernel (with the sphere test), their SDF verdicts from the refill
      march (plain or relaxed; at relax 1 with `occl_sort_steps` or
      `occl_phase1_steps` the two-phase marches), and the queue-sum
@@ -44,12 +47,9 @@ import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
-from rayn_tpu_torch.ops import (intersect, intersect_cuda, lights, march_cuda,
-                                shade_cuda)
-from rayn_tpu_torch.ops import spheres as sphere_ops
-from rayn_tpu_torch.ops.sdf import dist
+from rayn_tpu_torch.ops import intersect, intersect_cuda, march_cuda, shade_cuda
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
-                                        light_position_of, sphere_centers_at)
+                                        light_position_of)
 from rayn_tpu_torch.utils import rng, sampling, vecmath
 from rayn_tpu_torch.utils.rng import SampleTables
 
@@ -133,28 +133,6 @@ def _unsort_state(state: PathState, perm: torch.Tensor, chunk: int):
     return _permute_chunks(state, inv, chunk)
 
 
-def _intersect_cost_key(data: SceneData, static: SceneStatic,
-                        settings: RenderSettings, state: PathState):
-    """Estimated primary-march steps per lane before the intersect:
-    distance to the sphere-fold closest over the first DE step."""
-    n = state.origin.shape[0]
-    t_max0 = 2.0 * settings.world_radius
-    full = torch.full((n,), t_max0, dtype=torch.float32,
-                      device=state.origin.device)
-    if static.n_spheres:
-        ts = sphere_ops.hit(state.origin, state.direction,
-                            sphere_centers_at(data, state.time),
-                            data.sphere_radii, full)
-        bound = torch.clamp(ts.min(dim=-1).values, max=t_max0)
-    else:
-        bound = full
-    d0 = dist(data.sdf_params, state.origin)
-    est = torch.clamp(bound / torch.clamp(d0, min=1e-6),
-                      max=float(settings.max_marches))
-    ok = state.alive & ~torch.isnan(d0)
-    return torch.where(ok, est, torch.ones_like(est))
-
-
 def _derive_shading(data: SceneData, static: SceneStatic, state: PathState,
                     hit, info):
     """(live, material params, receives, vol_trans) of each lane."""
@@ -166,33 +144,6 @@ def _derive_shading(data: SceneData, static: SceneStatic, state: PathState,
     else:
         vol_trans = torch.ones_like(hit.t)
     return live, mat, receives, vol_trans
-
-
-def _pick_lights(static: SceneStatic, u: torch.Tensor) -> torch.Tensor:
-    """Light index clip(floor(u * n_lights), 0, n_lights - 1)."""
-    return torch.clamp(torch.floor(u * static.n_lights).to(torch.int64), 0,
-                       static.n_lights - 1)
-
-
-def _equi_angular_samples(data, static, s, tables, state, hit, depth):
-    """(vol_dists, vol_pdfs): VM*L [N] tensors each, march-major, in torch
-    outside the kernels exactly as in JAX (integrator.py:521-544)."""
-    vol_dists, vol_pdfs = [], []
-    if static.has_scattering and s.volume_marches and static.n_lights > 0:
-        for m in range(s.volume_marches):
-            u_dist = rng.sample_1d(s, tables, rng.set1d_vol_dist(s, depth, m),
-                                   state.sample_idx, state.pixel)
-            for i in range(s.nee_light_samples):
-                u_pick = rng.sample_1d(
-                    s, tables, rng.set1d_vol_pick(s, depth, m, i),
-                    state.sample_idx, state.pixel)
-                lidx = _pick_lights(static, u_pick)
-                lp = light_position_of(data, lidx, state.time)
-                vdist, vpdf = lights.sample_equi_angular(
-                    u_dist, lp, state.origin, state.direction, hit.t)
-                vol_dists.append(vdist)
-                vol_pdfs.append(vpdf)
-    return vol_dists, vol_pdfs
 
 
 def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
@@ -215,8 +166,10 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
     if s.sorted_intersect and depth > 0 and static.has_sdf:
         chunk = _chunk_of(s, n)
         if chunk:
-            (state,), pre_perm = _sort_tree_by_cost(
-                (state,), _intersect_cost_key(data, static, s, state), chunk)
+            key = intersect_cuda.intersect_cost_key(
+                data, static, s, state.origin, state.direction, state.time,
+                state.alive)
+            (state,), pre_perm = _sort_tree_by_cost((state,), key, chunk)
 
     plain_march = s.march_relaxation == 1.0
     if s.use_fused_intersect and plain_march:
@@ -251,19 +204,18 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         # JAX does
         chunk = _chunk_of(s, n, strict=s.use_fused_finish)
         if chunk:
-            vd0, _ = _equi_angular_samples(data, static, s, tables, state,
-                                           hit, depth)
             cost = shade_cuda.shadow_sort_key(
                 cfg, tabs.lights, info.point, info.normal, info.offset_by,
-                state.origin, state.direction, live, receives,
-                state.sample_idx, state.pixel, vd0)
+                state.origin, state.direction, hit.t, live, receives,
+                state.sample_idx, state.pixel)
             (state, hit, info), shadow_perm = _sort_tree_by_cost(
                 (state, hit, info), cost, chunk)
             live, mat, receives, vol_trans = _derive_shading(
                 data, static, state, hit, info)
 
-    vol_dists, vol_pdfs = _equi_angular_samples(data, static, s, tables,
-                                                state, hit, depth)
+    vol_dists, vol_pdfs = shade_cuda.equi_angular(
+        cfg, tabs.lights, state.origin, state.direction, hit.t,
+        state.sample_idx, state.pixel)
     lit = static.n_lights > 0
     if s.use_fused_finish and s.use_fused_bounce_tail and lit:
         out = state._replace(**shade_cuda.bounce_tail(
@@ -335,8 +287,9 @@ def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
     radiance = _emission(data, static, s, state, depth, hit, mat, live, wo,
                          vol_trans)
     if static.n_lights > 0:
-        vol_dists, vol_pdfs = _equi_angular_samples(data, static, s, tables,
-                                                    state, hit, depth)
+        vol_dists, vol_pdfs = shade_cuda.equi_angular(
+            cfg, tabs.lights, state.origin, state.direction, hit.t,
+            state.sample_idx, state.pixel)
         segs = shade_cuda.queue_segments(cfg, tabs, state, info, mat, live,
                                          receives, vol_trans, vol_dists,
                                          vol_pdfs)

@@ -84,8 +84,9 @@ def _tail_from_twins(data, static, s, tables, cfg, tabs, state, depth, hit,
     radiance = integrator._emission(data, static, s, state, depth, hit, mat,
                                     live, wo, vol_trans)
     if static.n_lights > 0:
-        vd, vp = integrator._equi_angular_samples(data, static, s, tables,
-                                                  state, hit, depth)
+        vd, vp = shade_cuda.equi_angular_plain(
+            cfg, tabs.lights, state.origin, state.direction, hit.t,
+            state.sample_idx, state.pixel)
         segs = shade_cuda.queue_segments_plain(cfg, tabs, state, info, mat,
                                                live, receives, vol_trans, vd,
                                                vp)

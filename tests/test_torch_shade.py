@@ -107,9 +107,10 @@ def test_bounce_tail_matches_jax_unfused(volume):
         info = type(jinfo)(*map(T, jinfo))
         live, mat, receives, vtr = integrator._derive_shading(
             tdata, tstatic, tstate, hit, info)
-        vd, vp = integrator._equi_angular_samples(
-            tdata, tstatic, ts, ttables, tstate, hit, depth)
         cfg = shade_cuda.shadow_cfg(tdata, tstatic, ts, ttables, depth)
+        vd, vp = shade_cuda.equi_angular(
+            cfg, tabs.lights, tstate.origin, tstate.direction, hit.t,
+            tstate.sample_idx, tstate.pixel)
         out = shade_cuda.bounce_tail(cfg, tabs, tstate, hit, info, mat,
                                      live, receives, vtr, vd, vp)
         jstate = jint.bounce(jdata, jstatic, js, jtables, jstate, depth,
@@ -159,8 +160,8 @@ def test_shadow_sort_key_matches_pallas_interpret():
     lights = shade_cuda.scene_tables(tdata, tstatic).lights
     got = shade_cuda.shadow_sort_key(
         cfg, lights, T(info.point), T(info.normal), T(info.offset_by),
-        T(jstate.origin), T(jstate.direction), T(live), T(receives),
-        T(jstate.sample_idx), T(jstate.pixel), [T(v) for m in vd for v in m])
+        T(jstate.origin), T(jstate.direction), T(hit.t), T(live),
+        T(receives), T(jstate.sample_idx), T(jstate.pixel))
     assert np.isfinite(want).all() and want.max() > 1.0
     ok = np.isclose(got.numpy(), want, rtol=1e-4, atol=0.0)
     assert ok.mean() >= 0.999, (ok.mean(), np.abs(got.numpy() - want).max())

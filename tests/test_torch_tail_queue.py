@@ -60,11 +60,12 @@ def _tail_args(wavefront, mis):
     tables = rng.build_sample_tables(s, 1)
     live, mat, recv, vtr = integrator._derive_shading(data, static, state,
                                                       hit, info)
-    vd, vp = integrator._equi_angular_samples(data, static, s, tables, state,
-                                              hit, 0)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
-    return (cfg, shade_cuda.scene_tables(data, static), state, hit, info, mat,
-            live, recv, vtr, vd, vp)
+    tabs = shade_cuda.scene_tables(data, static)
+    vd, vp = shade_cuda.equi_angular_plain(cfg, tabs.lights, state.origin,
+                                           state.direction, hit.t,
+                                           state.sample_idx, state.pixel)
+    return (cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp)
 
 
 def _same_bits(got, want):

@@ -2,19 +2,25 @@
 """Profile 2^20-ray passes of the port's render paths on one NVIDIA GPU.
 
     python3 tools/torch_profile_paths.py [--root DIR] [--paths P,...]
-                                         [--label NAME] [--json PATH]
+                                         [--rounds R] [--label NAME]
+                                         [--json PATH]
 
 Imports rayn_tpu_torch from --root (default: this checkout), so that two
 trees can be compared in turns from separate processes in one call on
 one card (parent, change, change, parent), builds its kernels, and for
 each path (fused, relaxed, unfused, sorted: chip_smoke.py phase 4's
 workload, the 1080p default scene at 2^20 rays per pass, max_marches 256,
-max_vis_marches 100, as phase 7 runs them) calls chip_smoke.profile_pass:
-five unprofiled passes timed on the host clock up to
-`torch.cuda.synchronize()`, then one pass under torch.profiler for the
-device busy time, the idle share of the median unprofiled wall, the
-launch count and the device time by kernel. Prints the card's name and
-power limit and one JSON line; exits non-zero without a CUDA device.
+max_vis_marches 100, as phase 7 runs them; fused-nosort,
+fused-nosort-intersect and fused-nosort-shadow: the fused pass with
+`sorted_intersect` and `sorted_shadow_march`, the first or the second
+off) calls chip_smoke.profile_pass: five unprofiled passes timed on the
+host clock up to `torch.cuda.synchronize()`, then one pass under
+torch.profiler for the device busy time, the idle share of the median
+unprofiled wall, the launch count and the device time by kernel. With
+--rounds R the paths' unprofiled walls are then taken in turns, R
+rounds, the order reversed every other round. Prints the card's name
+and power limit and one JSON line; exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -35,6 +42,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose rayn_tpu_torch is profiled")
     ap.add_argument("--paths", default="fused,relaxed,unfused,sorted")
+    ap.add_argument("--rounds", type=int, default=0,
+                    help="then time the paths' walls in turns, R rounds")
     ap.add_argument("--label", default="")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -70,6 +79,12 @@ def main(argv=None) -> int:
                                     use_fused_shadows=False)
     settings = {
         "fused": main_s,
+        "fused-nosort": dataclasses.replace(
+            main_s, sorted_intersect=False, sorted_shadow_march=False),
+        "fused-nosort-intersect": dataclasses.replace(
+            main_s, sorted_intersect=False),
+        "fused-nosort-shadow": dataclasses.replace(
+            main_s, sorted_shadow_march=False),
         "relaxed": dataclasses.replace(main_s,
                                        march_relaxation=smoke.RELAX),
         "unfused": unfused_s,
@@ -82,13 +97,30 @@ def main(argv=None) -> int:
     film = film_mod.new_film(w * h, device=dev)
     out = {"root": str(Path(args.root).resolve()), "label": args.label,
            "smi": smi, "paths": {}}
-    for path in args.paths.split(","):
-        s = settings[path]
+    paths = args.paths.split(",")
+
+    def one_pass(s):
+        return lambda: renderer.render_pass(film, data, static, s, tables,
+                                            cam, fis, 0, n, 1.0 / 24,
+                                            2.0 / 24)
+
+    for path in paths:
         out["paths"][path] = smoke.profile_pass(
-            lambda s=s: renderer.render_pass(film, data, static, s, tables,
-                                             cam, fis, 0, n, 1.0 / 24,
-                                             2.0 / 24),
-            f"{args.label} {path}".strip())
+            one_pass(settings[path]), f"{args.label} {path}".strip())
+    walls = {path: [] for path in paths}
+    for r in range(args.rounds):
+        for path in (paths if r % 2 == 0 else paths[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_pass(settings[path])()
+            torch.cuda.synchronize()
+            walls[path].append((time.perf_counter() - t0) * 1e3)
+    if args.rounds:
+        out["interleaved_walls_ms"] = walls
+        print(f"{args.label} interleaved pass walls ms, {args.rounds} "
+              f"rounds: {walls}; medians "
+              f"{ {p: sorted(w)[len(w) // 2] for p, w in walls.items()} }",
+              flush=True)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(out, fh, indent=1)
