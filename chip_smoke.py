@@ -48,20 +48,26 @@ Phases (any failed gate raises and the script exits non-zero):
    of each segment (march.occlusion_steps, relaxed on the relaxed path)
    give the DE steps per 32-lane warp of three schedules (one thread per
    ray or per segment, the TPU's chaining, lanes that refill from the
-   queue), printed beside the times of the refill march on the scratch,
-   of march_occlusion on the same segments and, at relax 1, of
-   march_occlusion_phased at 16 steps. Then the two-phase marches on
-   the relax-1 unfused path's inputs: the closest-hit march at depths 0
-   and 1 and its [12N] shadow queue. At phase-1 steps 8 and 32 (march)
-   and 8 and 16 (occlusion), each function's phase-1 and resume kernels
-   equal their twins bit for bit (the resume on the twin's phase-1
-   outputs in the function's lane order), and march_sorted and
-   march_phased equal the march kernel, march_occlusion_phased and
-   march_occlusion_sorted march_occlusion with no clip, bit for bit. On
-   the depth-1 inputs, at each function's JAX default split, phase 1,
-   the resume, the whole function (its sort or partition included),
-   march_occlusion and the plain function are timed; the script prints
-   how many of the queue's verdicts the bounding-sphere clip changes.
+   queue), printed beside the times of the refill march on the scratch
+   and of march_occlusion on the same segments. Then the two-phase
+   marches on the relax-1 unfused path's inputs: the closest-hit march at
+   depths 0 and 1 and its [12N] shadow queue. At phase-1 steps 8 and 32,
+   march_sorted's and march_phased's phase-1 and resume kernels equal
+   their twins bit for bit (the resume on the twin's phase-1 outputs in
+   the function's lane order), and the functions equal the march kernel
+   bit for bit. At splits 0, 8 and 16, march_occlusion_phased and
+   march_occlusion_sorted (the enqueue kernel and the refill march with
+   no clip, the first-DE entry at split 0) equal their one-piece plain
+   versions (phase 1, the lane order and the resume in plain torch) bit
+   for bit, and at 8 and 16 march_occlusion with no clip. On the depth-1
+   inputs, at each function's JAX default split, the function, the
+   single-phase march and the plain function are timed, with the
+   march's phase 1 and resume, and the occlusion's enqueue and
+   refill-march kernels by their device time beside the segment queue's
+   route (the refill march on the scratch with no clip); the script
+   prints how many of the queue's verdicts the bounding-sphere clip
+   changes, and the registers and spills of the refill-march kernels
+   (no spill allowed).
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
@@ -130,15 +136,16 @@ Phases (any failed gate raises and the script exits non-zero):
    launches nothing there).
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
-   with `march_sort_steps=8` and `occl_phase1_steps=16`; the march and
-   occlusion phase-1 and resume kernels and the cost-key, equi-angular,
-   queue-segments and queue-sum kernels must have launched and the
-   march, refill-march and
-   enqueue kernels not, with the film gates. At
-   256x256, 4 spp: the film with `march_sort_steps=8` alone equals the
-   unfused film bit for bit, the film with `occl_sort_steps=8` equals the
-   one with `occl_phase1_steps=16`, and the sorted path's films at pass
-   sizes 2^16 and 2^15 agree to atol 2e-5.
+   with `march_sort_steps=8` and `occl_phase1_steps=16`; the march
+   phase-1 and resume kernels, the refill march on the scratch and the
+   cost-key, equi-angular, queue-segments and queue-sum kernels must
+   have launched and the march, enqueue and [M, 3] refill-march kernels
+   not, with the film gates. At 256x256, 4 spp: the film with
+   `march_sort_steps=8` alone equals the unfused film bit for bit, the
+   film with `occl_sort_steps=8` equals the one with
+   `occl_phase1_steps=16` and the unfused film with
+   `shadow_bv_clip=False`, and the sorted path's films at pass sizes
+   2^16 and 2^15 agree to atol 2e-5.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -202,12 +209,10 @@ CUDA_KERNELS = (
     ("march", "march_cuda", "march", ("march_kernel",)),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
     ("omarch", "march_cuda", "occlusion_march",
-     ("occl_march_kernel", "occl_march_relaxed_kernel")),
+     ("occl_march_kernel", "occl_march_relaxed_kernel",
+      "occl_march_first_de_kernel")),
     ("march_p1", "march_cuda", "march_phase1", ("march_phase1_kernel",)),
     ("march_resume", "march_cuda", "march_resume", ("march_resume_kernel",)),
-    ("occl_p1", "march_cuda", "occlusion_phase1", ("occl_phase1_kernel",)),
-    ("occl_resume", "march_cuda", "occlusion_resume",
-     ("occl_resume_kernel",)),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
 # Functions over those kernels, each with a `_plain` version in one
@@ -238,7 +243,10 @@ JI = "rayn_tpu/render/integrator.py"
 # shadow_march_kernel at relax 1, phase 9), so their launches are that
 # kernel's; march_occlusion and march_occlusion_chained (enqueue + the
 # [M, 3] refill march) serve intersect.test_occluded and are timed on
-# the same segments.
+# the same segments. Rows 10 and 11 likewise: on phase 12's paths their
+# verdicts are the scratch's refill march with no clip, and the
+# functions (enqueue + the [M, 3] refill march) are timed on the unfused
+# path's segments.
 KERNEL_ROWS = (
     ("closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
      "rayn_tpu/ops/intersect_pallas.py:225", "intersect",
@@ -258,9 +266,9 @@ KERNEL_ROWS = (
     ("march_sorted", MD, f"{MP}:163", "march_sorted", ("sorted", "march_p1"),
      ("march_p1", "march_resume")),
     ("march_occlusion_phased", MD, f"{MP}:582", "march_occlusion_phased",
-     ("phased", "occl_p1"), ("occl_p1", "occl_resume")),
+     ("phased", "smarch"), ("enqueue", "omarch", "smarch")),
     ("march_occlusion_sorted", MD, f"{MP}:677", "march_occlusion_sorted",
-     ("sorted", "occl_p1"), ("occl_p1", "occl_resume")),
+     ("sorted", "smarch"), ("enqueue", "omarch", "smarch")),
     ("march_phased", MD, f"{MP}:421", "march_phased", ("sorted", "march_p1"),
      ("march_p1", "march_resume")),
     ("queue_segments", SH, f"{JI}:420", "qseg", ("relaxed", "qseg"),
@@ -274,10 +282,16 @@ KERNEL_ROWS = (
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
 # defaults; the sorted ones are also phase 12's settings).
 SPLITS = {"march_sorted": (8, 32), "march_phased": (8, 32),
-          "march_occlusion_phased": (8, 16),
-          "march_occlusion_sorted": (8, 16)}
+          "march_occlusion_phased": (0, 8, 16),
+          "march_occlusion_sorted": (0, 8, 16)}
 ROW_SPLIT = {"march_sorted": 8, "march_phased": 32,
              "march_occlusion_phased": 16, "march_occlusion_sorted": 8}
+# The instantiations of the refill march (csrc/common.cuh refill_march):
+# rows 2 and 5 (the scratch's), 7 and 8 (the [M, 3] one), and the
+# first-DE entry of rows 10 and 11 at split 0.
+REFILL_KERNELS = ("shadow_march_kernel", "shadow_march_relaxed_kernel",
+                  "occl_march_kernel", "occl_march_relaxed_kernel",
+                  "occl_march_first_de_kernel")
 
 
 def gate(cond, what: str) -> None:
@@ -326,11 +340,13 @@ def busy_us(intervals) -> float:
 
 
 def profile_pass(one_pass, label: str) -> dict:
-    """Phase 7: device busy time and idle share of one `label` pass."""
+    """Phase 7: device busy time, idle share and peak device memory (from
+    the first pass on) of one `label` pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.reset_peak_memory_stats()
     one_pass()
     torch.cuda.synchronize()
     walls = []
@@ -355,17 +371,19 @@ def profile_pass(one_pass, label: str) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     launches = sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
     wall = sorted(walls)[len(walls) // 2]
+    peak = torch.cuda.max_memory_allocated()
     log(f"[7 profile] {label}: unprofiled pass wall ms {walls}; device "
         f"busy {busy} ms; idle share {1 - busy / wall} of the median wall "
         f"{wall} ms; "
         f"profiled pass wall {prof_wall} ms; {len(kernels)} kernels, "
-        f"{launches} cudaLaunchKernel calls")
+        f"{launches} cudaLaunchKernel calls; peak device memory {peak} B")
     for name, (ms, calls) in top:
         log(f"[7 profile] {label} {ms:9.3f} ms {100 * ms / busy:6.2f}% "
             f"{calls:6d}x  {name[:90]}")
     return dict(pass_wall_ms=walls, busy_ms=busy, idle_share=1 - busy / wall,
                 profiled_wall_ms=prof_wall, n_kernels=len(kernels),
-                launches=launches, top=[(n, ms, c) for n, (ms, c) in top])
+                launches=launches, peak_bytes=peak,
+                top=[(n, ms, c) for n, (ms, c) in top])
 
 
 def io_tensors(key, a, kw, out):
@@ -901,9 +919,7 @@ def main(argv=None) -> int:
     # lane), the TPU's chaining (the slowest lane's sum), and lanes that
     # refill from a queue (total / 32, the drain aside). The refill march
     # on the scratch is timed beside march_occlusion (enqueue and the
-    # [M, 3] refill march) and, at relax 1, the stable partition of
-    # march_occlusion_phased (the fastest two-phase route, unclipped) on
-    # the same segments.
+    # [M, 3] refill march) on the same segments.
     def aos(segs):
         """(start, end [M, 3], active [M]) of a segment scratch."""
         g = segs.geom.reshape(6, -1).T
@@ -931,17 +947,12 @@ def main(argv=None) -> int:
                      march_ms=timed(kernels["smarch"], a, kw, reps=5),
                      march_occlusion_ms=timed(functions["occl"], occl_args,
                                               {}, reps=5))
-            if relax == 1.0:
-                q["partition_ms"] = timed(
-                    march_cuda.march_occlusion_phased, occl_args[:6],
-                    dict(phase1_steps=16), reps=5)
             log(f"[3 shadow queue] {path} depth {depth} (relax {relax}): "
                 f"{q['queued']} of {q['segments']} segments queued, {total} "
                 f"DEs; 32-lane warp steps: sequential {q['sequential']}, "
                 f"chained {q['chained']}, ideal {q['ideal']}; refill march "
                 f"{q['march_ms']:.3f} ms, march_occlusion "
-                f"{q['march_occlusion_ms']:.3f} ms, partition at 16 "
-                f"(unclipped) {q.get('partition_ms')} ms")
+                f"{q['march_occlusion_ms']:.3f} ms")
             shadow_queues[f"{path} depth {depth}"] = q
             del segs, start, end, act, steps, occl_args
     record["shadow_queues"] = shadow_queues
@@ -1040,81 +1051,120 @@ def main(argv=None) -> int:
         single = kernels["march"](*mhead, steps, act)
         (cfg, segs, _relax), _kw = captured[("unfused", "smarch")][depth]
         start, end, oact = aos(segs)
-        ohead, osteps = (mb, start, end, cfg.detail), cfg.max_steps
-        unclipped = functions["occl"](*ohead, osteps, oact, bound_radius=0.0)
-        clipped = functions["occl"](*ohead, osteps, oact,
-                                    bound_radius=cfg.bv_r)
-        del segs, start, end
+        oargs = (mb, start, end, cfg.detail, cfg.max_steps, oact)
+        unclipped = functions["occl"](*oargs, bound_radius=0.0)
+        clipped = functions["occl"](*oargs, bound_radius=cfg.bv_r)
         clip_changes[depth] = int(((unclipped != clipped) & oact).sum())
         log(f"[3 two-phase] depth {depth}: the bounding-sphere clip changes "
             f"{clip_changes[depth]} of {int(oact.sum())} active verdicts of "
             f"the {oact.numel()}-segment queue")
-        seg = ohead[2] - ohead[1]
-        seg_len = torch.sqrt((seg * seg).sum(-1))
-        del seg
         for fname, splits in SPLITS.items():
             is_march = fname in ("march_sorted", "march_phased")
-            head, act_, steps_, want = ((mhead, act, steps, single) if is_march
-                                        else (ohead, oact, osteps, unclipped))
-            p1, res_k = (("march_p1", "march_resume") if is_march
-                         else ("occl_p1", "occl_resume"))
-            length = mhead[3] if is_march else seg_len
             fn = getattr(march_cuda, fname)
+            fargs = (*mhead, steps, act) if is_march else oargs
             for split in splits:
                 label = f"{fname} depth {depth} split {split}"
+                fkw = dict(phase1_steps=split)
+                got = fn(*fargs, **fkw)
+                if is_march:
+                    def order_of(out1):
+                        """The function's own lane order from phase 1's
+                        (t1, resolved)."""
+                        if fname == "march_sorted":
+                            return march_cuda.sorted_order(
+                                out1[-1], mhead[3], out1[-2], split)
+                        return march_cuda.partition_order(out1[-1])
 
-                def order_of(out1):
-                    """The function's own lane order from phase 1's
-                    (.., t1, resolved)."""
-                    if fname in ("march_sorted", "march_occlusion_sorted"):
-                        return march_cuda.sorted_order(out1[-1], length,
-                                                       out1[-2], split)
-                    return march_cuda.partition_order(out1[-1])
-
-                rest, err = phase_pair(label, p1, res_k, head, steps_, act_,
-                                       split, order_of)
-                got = fn(*head, steps_, act_, phase1_steps=split)
-                gate(same_bits(got, want), f"{label}: differs from the "
-                     "single-phase march (march_occlusion, unclipped)")
-                two_phase_err[fname] = max(two_phase_err[fname], err,
-                                           max_diff(got, want))
-                log(f"[3 two-phase] {label}: equal to the single-phase "
-                    "march bit for bit")
+                    rest, err = phase_pair(label, "march_p1", "march_resume",
+                                           mhead, steps, act, split, order_of)
+                    gate(same_bits(got, single), f"{label}: differs from "
+                         "the march kernel")
+                    err = max(err, max_diff(got, single))
+                    log(f"[3 two-phase] {label}: equal to the march kernel "
+                        "bit for bit")
+                else:
+                    # the enqueue kernel and the refill march against the
+                    # TPU schedule in plain torch, and at splits >= 1
+                    # against the single-phase march with no clip
+                    want = getattr(march_cuda, fname + "_plain")(*fargs,
+                                                                 **fkw)
+                    gate(same_bits(got, want), f"{label}: differs from its "
+                         "one-piece plain version")
+                    n_diff = int(((got != unclipped) & oact).sum())
+                    gate(split == 0 or n_diff == 0, f"{label}: differs from "
+                         "the single-phase march (march_occlusion, "
+                         "unclipped)")
+                    err = max_diff(got, want)
+                    log(f"[3 two-phase] {label}: equal to its one-piece "
+                        f"plain version bit for bit; {n_diff} active "
+                        "verdicts differ from the unclipped single-phase "
+                        f"march's ({int(got.sum())} occluded)")
+                    del want
+                two_phase_err[fname] = max(two_phase_err[fname], err)
                 if depth == 0 or split != ROW_SPLIT[fname]:
                     continue
                 # times and bound on the depth-1 inputs at the row's split
-                with plain_twins():
-                    plain_ms = timed(fn, (*head, steps_, act_),
-                                     dict(phase1_steps=split), reps=1)
-                    n_de = count_des(fn, (*head, steps_, act_),
-                                     dict(phase1_steps=split))
-                ins = ([*head[1:4], *head[5:], act_] if is_march
-                       else [*head[1:3], act_])
+                if is_march:
+                    with plain_twins():
+                        plain_ms = timed(fn, fargs, fkw, reps=1)
+                        n_de = count_des(fn, fargs, fkw)
+                    ins = [*mhead[1:4], *mhead[5:], act]
+                    extra = dict(
+                        single_ms=timed(impl["march"], fargs, {}, reps=5),
+                        phase1_ms=timed(kernels["march_p1"],
+                                        (*mhead, split, act), {}, reps=5),
+                        resume_ms=timed(kernels["march_resume"], rest, {},
+                                        reps=5))
+                    parts = (f"phase 1 {extra['phase1_ms']:.3f} ms, resume "
+                             f"{extra['resume_ms']:.3f} ms")
+                else:
+                    plain_fn = getattr(march_cuda, fname + "_plain")
+                    plain_ms = timed(plain_fn, fargs, fkw, reps=1)
+                    # the refill march's DEs: the unclipped single-phase
+                    # march's (phase 1 skips the DE of a lane that stops
+                    # past its end at the split)
+                    n_de = count_des(twin["occl"], fargs,
+                                     dict(bound_radius=0.0))
+                    ins = [start, end, oact]
+                    # the segment queue's route: the refill march on the
+                    # scratch, unclipped
+                    route = (cfg._replace(bv_r=0.0), segs, 1.0)
+                    extra = dict(
+                        single_ms=timed(impl["occl"], fargs,
+                                        dict(bound_radius=0.0), reps=5),
+                        enqueue_ms=device_ms(fn, fargs, fkw,
+                                             ENTRIES["enqueue"]),
+                        march_ms=device_ms(fn, fargs, fkw,
+                                           ENTRIES["omarch"]),
+                        scratch_ms=timed(kernels["smarch"], route, {},
+                                         reps=5),
+                        scratch_device_ms=device_ms(kernels["smarch"], route,
+                                                    {}, ENTRIES["smarch"]))
+                    parts = (f"enqueue {extra['enqueue_ms']} ms and refill "
+                             f"march {extra['march_ms']} ms device time; the "
+                             f"scratch's refill march {extra['scratch_ms']:.3f}"
+                             f" ms ({extra['scratch_device_ms']} ms device)")
                 b_ms, b_by, n_bytes = bound(n_de, ins, [got])
-                r = dict(ms=timed(fn, (*head, steps_, act_),
-                                  dict(phase1_steps=split), reps=5),
-                         single_ms=timed(impl["march" if is_march
-                                              else "occl"],
-                                         (*head, steps_, act_),
-                                         {} if is_march else
-                                         dict(bound_radius=0.0), reps=5),
-                         plain_ms=plain_ms, de_evals=n_de, bytes=n_bytes,
-                         bound_ms=b_ms, bound_by=b_by, split=split,
-                         phase1_ms=timed(kernels[p1], (*head, split, act_),
-                                         {}, reps=5),
-                         resume_ms=timed(kernels[res_k], rest, {}, reps=5))
+                r = dict(ms=timed(fn, fargs, fkw, reps=5), plain_ms=plain_ms,
+                         de_evals=n_de, bytes=n_bytes, bound_ms=b_ms,
+                         bound_by=b_by, split=split, **extra)
                 two_phase[fname] = r
                 log(f"[3 two-phase] {fname} (depth 1, split {split}): "
-                    f"{r['ms']:.3f} ms with its lane order, phase 1 "
-                    f"{r['phase1_ms']:.3f} ms, resume {r['resume_ms']:.3f} "
-                    f"ms; single-phase march {r['single_ms']:.3f} ms; plain "
-                    f"{plain_ms:.3f} ms; {n_de} DEs, bound {b_ms:.3f} ms by "
-                    f"{b_by}")
-        del single, unclipped, clipped, got, want, seg_len, length
+                    f"{r['ms']:.3f} ms, {parts}; single-phase march "
+                    f"{r['single_ms']:.3f} ms; plain {plain_ms:.3f} ms; "
+                    f"{n_de} DEs, bound {b_ms:.3f} ms by {b_by}")
+        del single, unclipped, clipped, got, segs, start, end, oargs, fargs
+    refill = {e: p for e in REFILL_KERNELS for name, p in ptx.items()
+              if f"{len(e)}{e}E" in name}
+    log(f"[3 two-phase] the refill-march kernels' ptxas report: {refill}")
+    gate(len(refill) == len(REFILL_KERNELS) and not any(
+        p.get("spill_stores") or p.get("spill_loads")
+        for p in refill.values()), f"refill-march kernels spill: {refill}")
     record["two_phase"] = dict(two_phase, clip_changes=clip_changes,
-                               max_abs_err=two_phase_err)
+                               max_abs_err=two_phase_err,
+                               refill_ptxas=refill)
     # drop the last captured inputs too, or they count in phase 4's peak
-    del captured, a, kw, mhead, ohead, head, rest, act, oact, act_, scrub
+    del captured, a, kw, mhead, rest, act, oact, ins, route, scrub
     torch.cuda.empty_cache()
 
     def reset_launches():
@@ -1355,9 +1405,9 @@ def main(argv=None) -> int:
     }
 
     # ------------------------------------------ 12. the two-phase marches
-    need12 = ("march_p1", "march_resume", "occl_p1", "occl_resume", "costkey",
-              "equi", "qseg", "qsum")
-    absent12 = ("march", "smarch", "enqueue", "omarch")
+    need12 = ("march_p1", "march_resume", "smarch", "costkey", "equi",
+              "qseg", "qsum")
+    absent12 = ("march", "enqueue", "omarch")
     record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
                                  absent=absent12)
     record["phased"] = main_path(
@@ -1369,7 +1419,9 @@ def main(argv=None) -> int:
     for label, x_kw, y_kw in (
             ("march_sort_steps=8 vs unfused", dict(march_sort_steps=8), {}),
             ("occl_sort_steps=8 vs occl_phase1_steps=16",
-             dict(occl_sort_steps=8), dict(occl_phase1_steps=16))):
+             dict(occl_sort_steps=8), dict(occl_phase1_steps=16)),
+            ("occl_sort_steps=8 vs unfused, shadow_bv_clip=False",
+             dict(occl_sort_steps=8), dict(shadow_bv_clip=False))):
         x, y = render5(**unf5, **x_kw), render5(**unf5, **y_kw)
         same12[label] = all(torch.equal(u, v) for u, v in zip(x, y))
         gate(same12[label], f"12 invariants: {label}: films differ")

@@ -764,8 +764,12 @@ struct RelaxedStep {
 // time with one atomicAdd and hands them to its idle lanes in lane order.
 // Every iteration evaluates one DE per busy lane; the first DE of a
 // segment is taken at its start (s + 0*d would be NaN for a zero-length
-// segment). The queue's length is read on the device.
-template <class Segments, class Step>
+// segment). The queue's length is read on the device. FirstDe is the
+// entry of the JAX two-phase occlusion with no phase-1 step
+// (march_pallas.py:518): a segment whose first DE is below a literal 1e-4
+// and that does not start past its end is blocked at once, and with
+// max_steps 0 no segment steps on.
+template <class Segments, class Step, bool FirstDe = false>
 __device__ __forceinline__ void refill_march(const Segments& segs,
                                              const QueueMarch& a, Step st) {
   const int lane = threadIdx.x & 31;
@@ -819,6 +823,12 @@ __device__ __forceinline__ void refill_march(const Segments& segs,
         entry = false;
         done = !entry_from_de(a.bv_r, a.bv_r2, sx, sy, sz, dx, dy, dz, dist,
                               md, t);
+        if constexpr (FirstDe) {
+          if (!done) {
+            occ = dist < 1e-4f && !(t > md);
+            done = occ || a.max_steps <= 0;
+          }
+        }
         st.enter(t);
       } else {
         done = st(dist, md, a.eps_c, a.eps_l, step, a.max_steps, t, occ);

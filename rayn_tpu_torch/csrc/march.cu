@@ -15,7 +15,13 @@
 // segments (one atomicAdd per warp), and the refill march (common.cuh
 // refill_march, the march of the bounce tail's shadow queue) marches
 // them from the [M, 3] start and end tensors, writing each verdict to the
-// segment's own slot.
+// segment's own slot. The same pair replaces march_pallas.py
+// march_occlusion_phased and march_occlusion_sorted (phase 1, a regroup
+// of the lanes by a payload sort, the resume): their verdicts are those
+// of the single-phase march with no bounding-sphere clip at every split
+// >= 1, and the refill march regroups lanes as each segment resolves, so
+// no split is needed; at split 0 occl_march_first_de_kernel takes JAX's
+// first-DE verdict (march_pallas.py:518).
 //
 // What bounds them on the H100: float32 ALU. A step is one 12-iteration
 // MandelBox DE (~400 flops) and a lane takes up to max_steps of them,
@@ -29,12 +35,9 @@
 // the queue, and the march reads the queue's length on the device.
 //
 // The two-phase kernels replace march_pallas.py's _march_phase1_kernel
-// and _march_resume_kernel (march_sorted, march_phased) and
-// _occl_phase1_kernel and _occl_resume_kernel (march_occlusion_phased,
-// march_occlusion_sorted): phase 1 marches every lane at most a few
-// plain steps and writes t1 and whether the lane resolved (the
-// occlusion one its verdict too, with no bounding-sphere clip, as on the
-// TPU); the resume kernel finishes the unresolved lanes from t1.
+// and _march_resume_kernel (march_sorted, march_phased): phase 1 marches
+// every lane at most a few plain steps and writes t1 and whether the
+// lane resolved; the resume kernel finishes the unresolved lanes from t1.
 // What bounds them: the same float32 ALU, and a warp runs until its
 // slowest lane is done. What the design does about it: the caller orders
 // the lanes between the phases (a sort by predicted remaining steps, or
@@ -44,8 +47,8 @@
 // and t1 where they lie and writes its result back to that lane: one
 // indirect load per input instead of the TPU's payload sort of 11-13
 // columns and its un-permute. Every lane takes the steps of one uncapped
-// march (march_plain and occl_steps round as march_ray and occl_step
-// do), so the result is bit-identical to the single-phase marches.
+// march (march_plain rounds as march_ray does), so the result is
+// bit-identical to the single-phase march.
 #include "common.cuh"
 
 namespace rayn {
@@ -68,21 +71,6 @@ struct MarchArgs {  // ops/march_cuda.py _MarchArgs
   float relax;
 };
 
-struct OcclArgs {  // ops/march_cuda.py _OcclArgs
-  const float* start;  // [M, 3]
-  const float* end;    // [M, 3]
-  const bool* active;  // [M] (not read by the resume kernel)
-  bool* occluded;      // [M] out (resume: phase 1's, finished in place)
-  float* t1;           // [M] phase 1 out, resume in
-  bool* resolved;      // [M] phase 1 out, resume in
-  const long long* order;  // [n_order] segments of the resume kernel
-  long long n;         // M
-  long long n_order;
-  int max_steps;
-  MBox mb;
-  float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
-};
-
 struct EnqueueArgs {  // ops/march_cuda.py _EnqueueArgs
   const bool* active;  // [M]
   int* queue;          // [M] out: ids of the active segments, any order
@@ -94,6 +82,7 @@ struct OcclMarchArgs {  // ops/march_cuda.py _OcclMarchArgs
   const float* start;  // [M, 3]
   const float* end;    // [M, 3]
   QueueMarch q;
+  int first_de;        // JAX's split-0 entry (relax 1, no clip)
 };
 
 // The plain (relax 1) march of one ray for at most `steps` steps from t,
@@ -184,22 +173,12 @@ __global__ void __launch_bounds__(128) occl_march_relaxed_kernel(
                RelaxedStep{a.q.relax, 0.0f, 0.0f});
 }
 
-// The relax-1 occlusion loop of _occl_phase1_kernel / _occl_resume_kernel
-// for one segment: at most `steps` steps from t, advanced in place. At
-// each, `hit` is set to whether the DE met the threshold, and the segment
-// stops when it hit or t is past md.
-__device__ __forceinline__ void occl_steps(const MBox& mb, float sx, float sy,
-                                           float sz, float dx, float dy,
-                                           float dz, float md, float eps_c,
-                                           float eps_l, int steps, float& t,
-                                           bool& hit) {
-  for (int step = 0; step < steps; ++step) {
-    const bool gt_end = t > md;
-    const float r = mandelbox_de(mb, sx + t * dx, sy + t * dy, sz + t * dz);
-    hit = fabsf(r) < nmax(eps_c, eps_l * t);
-    if (hit || gt_end) return;
-    t = t + r;
-  }
+// The two-phase occlusion at split 0: the first-DE entry, then plain
+// steps.
+__global__ void __launch_bounds__(128) occl_march_first_de_kernel(
+    const OcclMarchArgs a) {
+  refill_march<AosSegments, PlainStep, true>(AosSegments{a.start, a.end},
+                                             a.q, PlainStep{});
 }
 
 // march.py march_phase1: t after at most max_steps plain steps, and
@@ -239,47 +218,6 @@ __global__ void __launch_bounds__(128) march_resume_kernel(const MarchArgs a) {
   a.t[j] = t;
 }
 
-// march.py occlusion_phase1: the verdict, t and resolved flag of a
-// segment after at most max_steps relax-1 steps from its first DE (no
-// clip). A segment that takes no step is occluded where that DE is below
-// a literal 1e-4 (march_pallas.py:518).
-__global__ void __launch_bounds__(128) occl_phase1_kernel(const OcclArgs a) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= a.n) return;
-  const float* s = a.start + 3 * j;
-  const float* e = a.end + 3 * j;
-  float dx, dy, dz, md, t = nan_f();
-  bool hit = false, resolved = true;
-  if (a.active[j] && segment_entry(a.mb, 0.0f, 0.0f, s[0], s[1], s[2], e[0],
-                                   e[1], e[2], dx, dy, dz, md, t)) {
-    hit = t < 1e-4f;
-    occl_steps(a.mb, s[0], s[1], s[2], dx, dy, dz, md, a.eps_c, a.eps_l,
-               a.max_steps, t, hit);
-    const bool past = t > md;
-    resolved = past || hit;
-    hit = hit && !past;
-  }
-  a.occluded[j] = hit;
-  a.t1[j] = t;
-  a.resolved[j] = resolved;
-}
-
-// march.py occlusion_resume: thread i finishes segment order[i] from t1.
-__global__ void __launch_bounds__(128) occl_resume_kernel(const OcclArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n_order) return;
-  const long long j = a.order[i];
-  if (j < 0 || j >= a.n || a.resolved[j]) return;
-  const float* s = a.start + 3 * j;
-  const float* e = a.end + 3 * j;
-  float dx, dy, dz, md, t = a.t1[j];
-  segment_dir(s[0], s[1], s[2], e[0], e[1], e[2], dx, dy, dz, md);
-  bool hit = false;
-  occl_steps(a.mb, s[0], s[1], s[2], dx, dy, dz, md, a.eps_c, a.eps_l,
-             a.max_steps, t, hit);
-  a.occluded[j] = hit && !(t > md);
-}
-
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_march(const rayn::MarchArgs* args,
@@ -298,11 +236,14 @@ extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
   return cudaGetLastError();
 }
 
-// Persistent (launch_persistent); plain steps at relax 1, else relaxed.
+// Persistent (launch_persistent); the first-DE entry where first_de is
+// set, else plain steps at relax 1 and relaxed ones otherwise.
 extern "C" cudaError_t rayn_occl_march(const rayn::OcclMarchArgs* args,
                                        cudaStream_t stream) {
   if (args->q.m <= 0) return cudaSuccess;
-  return rayn::launch_persistent(args->q.relax == 1.0f
+  return rayn::launch_persistent(args->first_de
+                                     ? rayn::occl_march_first_de_kernel
+                                 : args->q.relax == 1.0f
                                      ? rayn::occl_march_kernel
                                      : rayn::occl_march_relaxed_kernel,
                                  *args, args->q.m, stream);
@@ -321,21 +262,5 @@ extern "C" cudaError_t rayn_march_resume(const rayn::MarchArgs* args,
   if (args->n_order <= 0) return cudaSuccess;
   rayn::march_resume_kernel<<<rayn::blocks_of(args->n_order, 128), 128, 0,
                               stream>>>(*args);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t rayn_occl_phase1(const rayn::OcclArgs* args,
-                                        cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  rayn::occl_phase1_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                             stream>>>(*args);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t rayn_occl_resume(const rayn::OcclArgs* args,
-                                        cudaStream_t stream) {
-  if (args->n_order <= 0) return cudaSuccess;
-  rayn::occl_resume_kernel<<<rayn::blocks_of(args->n_order, 128), 128, 0,
-                             stream>>>(*args);
   return cudaGetLastError();
 }

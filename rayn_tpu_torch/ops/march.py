@@ -22,9 +22,12 @@ The two-phase marches (march_pallas.march_sorted, march_phased,
 march_occlusion_phased, march_occlusion_sorted) split the plain march
 into a step-capped phase 1 that reports which lanes resolved, and a
 resume that finishes the others from phase 1's t: `march_phase1` /
-`march_resume` and `occlusion_phase1` / `occlusion_resume` are the plain
-twins of their four kernels. Each lane takes the same steps as in one
-uncapped march, so the composition is bit-identical to it.
+`march_resume` are the plain twins of the march's two kernels, and
+`occlusion_phase1` / `occlusion_resume` the TPU schedule of the
+occlusion in plain torch. Each lane takes the same steps as in one
+uncapped march, so the composition is bit-identical to it; with no
+phase-1 step the occlusion takes JAX's first-DE verdict, which
+`march_occlusion(..., first_de=True)` gives in one march.
 
 `occlusion_steps` counts the DEs each segment takes in the occlusion
 march, plain or relaxed, and `march_steps` those of each ray's
@@ -219,16 +222,23 @@ def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
 
 
 def _occl_march(mb, start, end, detail_scale: float, max_steps: int,
-                active, bound_radius: float, n_de=None):
+                active, bound_radius: float, n_de=None, first_de=False):
     """The relax-1 occlusion march of march_occlusion; `n_de`, if given,
     counts each segment's DEs in place (its first DE, taken for every
     active segment, and one per step)."""
-    d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
+    d, md, t, nan, dist0 = segment_entry(mb, bound_radius, start, end,
+                                         active)
     occ = torch.zeros_like(nan)
     if n_de is not None:
         n_de += active.to(n_de.dtype)
-    _occl_steps(mb, start, d, md, detail_scale, t.clone(), occ,
-                torch.nonzero(~nan).squeeze(1), max(max_steps, 1), n_de)
+    live = torch.nonzero(~nan).squeeze(1)
+    steps = max(max_steps, 1)
+    if first_de:
+        occ[live] = (dist0[live] < 1e-4) & ~(t[live] > md[live])
+        live = live[~occ[live]]
+        steps = max_steps
+    _occl_steps(mb, start, d, md, detail_scale, t.clone(), occ, live, steps,
+                n_de)
     return occ
 
 
@@ -246,7 +256,7 @@ def occlusion_steps(mb: MandelBox, start, end, detail_scale: float,
 
 def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
                     max_steps: int, active, bound_radius: float = 0.0,
-                    relax: float = 1.0, n_de=None):
+                    relax: float = 1.0, n_de=None, first_de: bool = False):
     """Shadow march; bool [N], True where the SDF blocks the segment.
 
     Per lane: from t0, test |DE| < max(eps_c, eps_l * t) and t > md at
@@ -254,10 +264,14 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     lane resolves, and False for a lane that resolves at entry or runs
     out of steps (the verdict of the JAX march_occlusion; reference
     src/sdf.rs:25-57). A relaxed step that overshoots is never a hit.
-    `n_de`, if given, counts each segment's DEs in place."""
+    `n_de`, if given, counts each segment's DEs in place. `first_de`
+    (relax 1) is the entry of the JAX two-phase occlusion with no
+    phase-1 step (march_pallas.py:518): a segment whose first DE is
+    below 1e-4 and that does not start past its end is blocked at once,
+    the others take at most `max_steps` steps (none at 0)."""
     if relax == 1.0:
         return _occl_march(mb, start, end, detail_scale, max_steps, active,
-                           bound_radius, n_de)
+                           bound_radius, n_de, first_de)
     d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
     occ = torch.zeros_like(nan)
     if n_de is not None:

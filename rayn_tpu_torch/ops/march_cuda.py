@@ -18,21 +18,27 @@ runs (csrc/march.cu):
   verdict of `march_occlusion`: the same two kernels on the K*N
   segments (the TPU's chaining was a schedule, never a result).
 - `march_phase1` and `march_resume` replace `_march_phase1_kernel` and
-  `_march_resume_kernel`; `occlusion_phase1` and `occlusion_resume`
-  replace `_occl_phase1_kernel` and `_occl_resume_kernel`. Phase 1
-  marches every lane a capped number of steps and reports which lanes
-  resolved; the resume kernel takes a lane order and finishes the
-  unresolved lanes in place of a copy of phase 1's output, reading each
-  lane's inputs where they lie (on the TPU the stragglers were packed
-  by a payload sort or gathers instead).
-
-On these four stand the TPU functions `march_sorted`, `march_phased`,
-`march_occlusion_phased` and `march_occlusion_sorted`: phase 1, then a
-lane order (a sort by the predicted remaining steps, or a stable
-partition with the unresolved lanes first), then the resume. None of
-them waits for the device. Each is bit-identical to the single-phase
-kernel at relax 1 (the occlusion ones at bound_radius 0): every lane
-takes the same steps, only the warps that run them change.
+  `_march_resume_kernel`. Phase 1 marches every lane a capped number of
+  steps and reports which lanes resolved; the resume kernel takes a lane
+  order and finishes the unresolved lanes in place of a copy of phase
+  1's output, reading each lane's inputs where they lie (on the TPU the
+  stragglers were packed by a payload sort or gathers instead). On these
+  two stand the TPU functions `march_sorted` and `march_phased`: phase
+  1, then a lane order (a sort by the predicted remaining steps, or a
+  stable partition with the unresolved lanes first), then the resume.
+  Neither waits for the device, and each is bit-identical to the march
+  kernel at relax 1: every lane takes the same steps, only the warps
+  that run them change.
+- `march_occlusion_phased` and `march_occlusion_sorted` replace the TPU
+  functions of those names (`_occl_phase1_kernel`, a regroup of the
+  lanes, `_occl_resume_kernel`). Their verdicts are those of
+  `march_occlusion` at relax 1 with no bounding-sphere clip at every
+  split >= 1, and the refill march regroups its lanes as each segment
+  resolves, so both are the enqueue kernel and the refill march; at
+  split 0 the march takes JAX's first-DE verdict (march_pallas.py:518).
+  `march_occlusion_phased_plain` and `march_occlusion_sorted_plain` are
+  the TPU functions' own schedule in plain torch (phase 1, the lane
+  order, the resume), the references the tests hold against JAX.
 
 Each kernel wrapper launches its kernel for CUDA tensors, counts the
 launch in its `launches` attribute, and raises on anything the kernel
@@ -65,21 +71,14 @@ class _MarchArgs(ctypes.Structure):
         ("eps_const", ctypes.c_float), ("relax", ctypes.c_float)]
 
 
-class _OcclArgs(ctypes.Structure):
-    _fields_ = [(name, _P) for name in (
-        "start", "end", "active", "occluded", "t1", "resolved", "order")] + [
-        ("n", ctypes.c_int64), ("n_order", ctypes.c_int64),
-        ("max_steps", ctypes.c_int), ("mb", MBox),
-        ("eps_c", ctypes.c_float), ("eps_l", ctypes.c_float)]
-
-
 class _EnqueueArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in ("active", "queue", "count")] + [
         ("n", ctypes.c_int64)]
 
 
 class _OcclMarchArgs(ctypes.Structure):
-    _fields_ = [("start", _P), ("end", _P), ("q", QueueMarch)]
+    _fields_ = [("start", _P), ("end", _P), ("q", QueueMarch),
+                ("first_de", ctypes.c_int)]
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
@@ -92,15 +91,6 @@ def _steps_at_least(steps: int, least: int, name: str) -> int:
     if steps < least:
         raise ValueError(f"{name} needs at least {least} steps, got {steps}")
     return steps
-
-
-def _lane_order(order, resolved, dev) -> dict:
-    """The resume kernels' lane-order fields (order is 1-D int64)."""
-    n = resolved.shape[0]
-    return dict(resolved=check(resolved, "resolved", torch.bool, (n,), dev),
-                order=check(order, "order", torch.int64, (order.shape[0],),
-                            dev),
-                n_order=order.shape[0])
 
 
 def _march_args(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
@@ -204,29 +194,18 @@ def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
     t = t1.clone()
     args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
                        eps_lin, _steps_at_least(max_steps, 0, "march_resume"),
-                       t, dev, relax=1.0, **_lane_order(order, resolved, dev))
+                       t, dev, relax=1.0,
+                       resolved=check(resolved, "resolved", torch.bool, (n,),
+                                      dev),
+                       order=check(order, "order", torch.int64,
+                                   (order.shape[0],), dev),
+                       n_order=order.shape[0])
     _build.launch("rayn_march_resume", args, dev)
     march_resume.launches += 1
     return t
 
 
 march_resume.launches = 0
-
-
-def _occl_args(mb, start, end, active, out, detail_scale, max_steps, dev,
-               **fields) -> _OcclArgs:
-    """The two-phase occlusion kernels' arguments over M segments."""
-    f32 = torch.float32
-    m = start.shape[0]
-    if active is not None:
-        fields["active"] = check(active, "active", torch.bool, (m,), dev)
-    return _OcclArgs(
-        start=check(start, "start", f32, (m, 3), dev),
-        end=check(end, "end", f32, (m, 3), dev),
-        occluded=out.data_ptr(), n=m,
-        max_steps=_steps_at_least(max_steps, 0, "the occlusion kernel"),
-        mb=mbox_struct(mb), eps_c=1e-4 * detail_scale,
-        eps_l=1e-5 * detail_scale, **fields)
 
 
 def _int32_ids(m: int, name: str) -> int:
@@ -269,7 +248,8 @@ enqueue.launches = 0
 
 def occlusion_march_plain(mb: MandelBox, start, end, detail_scale: float,
                           max_steps: int, queue, count, relax: float = 1.0,
-                          bound_radius: float = 0.0) -> torch.Tensor:
+                          bound_radius: float = 0.0,
+                          first_de: bool = False) -> torch.Tensor:
     """Plain twin of the refill march: the march_occlusion verdicts
     (ops/march.py) of the queued segments, False elsewhere."""
     verdict = torch.zeros((start.shape[0],), dtype=torch.bool,
@@ -277,20 +257,27 @@ def occlusion_march_plain(mb: MandelBox, start, end, detail_scale: float,
     ids = queue[:int(count[0])].long()
     verdict[ids] = march_ops.march_occlusion(
         mb, start[ids], end[ids], detail_scale, max_steps,
-        torch.ones_like(ids, dtype=torch.bool), bound_radius, relax)
+        torch.ones_like(ids, dtype=torch.bool), bound_radius, relax,
+        first_de=first_de)
     return verdict
 
 
 def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
                     max_steps: int, queue, count, relax: float = 1.0,
-                    bound_radius: float = 0.0) -> torch.Tensor:
+                    bound_radius: float = 0.0,
+                    first_de: bool = False) -> torch.Tensor:
     """[M] bool: True where the SDF blocks segment start -> end, for the
     segments whose ids are the first `count` entries of `queue` ([M]
-    int32, any order); False for the others."""
+    int32, any order); False for the others. With `first_de` (relax 1
+    only) a segment whose first DE is below 1e-4 before its end is
+    blocked at once and `max_steps` may be 0 (ops/march.py
+    march_occlusion)."""
+    if first_de and relax != 1.0:
+        raise ValueError(f"the first-DE entry marches at relax 1, got {relax}")
     if start.device.type == "cpu":
         return occlusion_march_plain(mb, start, end, detail_scale,
                                      max_steps, queue, count, relax,
-                                     bound_radius)
+                                     bound_radius, first_de)
     dev = _cuda_device(start, "occlusion_march")
     m = _int32_ids(start.shape[0], "occlusion_march")
     f32, i32 = torch.float32, torch.int32
@@ -302,8 +289,10 @@ def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
         q=queue_march(check(queue, "queue", i32, (m,), dev),
                       check(count, "count", i32, (1,), dev), head, verdict,
                       mb, detail_scale,
-                      _steps_at_least(max_steps, 1, "occlusion_march"),
-                      relax, bound_radius))
+                      _steps_at_least(max_steps, 0 if first_de else 1,
+                                      "occlusion_march"),
+                      relax, bound_radius),
+        first_de=int(first_de))
     _build.launch("rayn_occl_march", args, dev)
     occlusion_march.launches += 1
     return verdict
@@ -352,69 +341,6 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
                            end.reshape(k * n, 3), detail_scale, max_steps,
                            active.reshape(k * n), 1.0,
                            bound_radius).reshape(k, n)
-
-
-def occlusion_phase1_plain(mb: MandelBox, start, end, detail_scale: float,
-                           max_steps: int, active):
-    """Plain twin of the occlusion phase-1 kernel (ops/march.py)."""
-    return march_ops.occlusion_phase1(mb, start, end, detail_scale,
-                                      max_steps, active)
-
-
-def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
-                     max_steps: int, active):
-    """(occluded [M] bool, t1 [M] f32, resolved [M] bool): every segment
-    start -> end marched at most `max_steps` (>= 0) relax-1 steps with no
-    bounding-sphere clip; resolved where it hit or is past its end."""
-    if start.device.type == "cpu":
-        return occlusion_phase1_plain(mb, start, end, detail_scale,
-                                      max_steps, active)
-    dev = _cuda_device(start, "occlusion_phase1")
-    m = start.shape[0]
-    out = torch.empty((m,), dtype=torch.bool, device=dev)
-    t1 = torch.empty((m,), dtype=torch.float32, device=dev)
-    resolved = torch.empty((m,), dtype=torch.bool, device=dev)
-    args = _occl_args(mb, start, end, active, out, detail_scale, max_steps,
-                      dev, t1=t1.data_ptr(), resolved=resolved.data_ptr())
-    _build.launch("rayn_occl_phase1", args, dev)
-    occlusion_phase1.launches += 1
-    return out, t1, resolved
-
-
-occlusion_phase1.launches = 0
-
-
-def occlusion_resume_plain(mb: MandelBox, start, end, detail_scale: float,
-                           max_steps: int, occluded, t1, resolved, order):
-    """Plain twin of the occlusion resume kernel (ops/march.py)."""
-    return march_ops.occlusion_resume(mb, start, end, detail_scale,
-                                      max_steps, occluded, t1, resolved,
-                                      order)
-
-
-def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
-                     max_steps: int, occluded, t1, resolved, order):
-    """A copy of phase 1's verdicts in which the segments listed in
-    `order` (int64 indices) that phase 1 left unresolved have marched on
-    from t1 for at most `max_steps` more relax-1 steps; thread i of the
-    kernel works on segment order[i]."""
-    if start.device.type == "cpu":
-        return occlusion_resume_plain(mb, start, end, detail_scale,
-                                      max_steps, occluded, t1, resolved,
-                                      order)
-    dev = _cuda_device(start, "occlusion_resume")
-    m = start.shape[0]
-    check(occluded, "occluded", torch.bool, (m,), dev)
-    out = occluded.clone()
-    args = _occl_args(mb, start, end, None, out, detail_scale, max_steps,
-                      dev, t1=check(t1, "t1", torch.float32, (m,), dev),
-                      **_lane_order(order, resolved, dev))
-    _build.launch("rayn_occl_resume", args, dev)
-    occlusion_resume.launches += 1
-    return out
-
-
-occlusion_resume.launches = 0
 
 
 # ------------------------------------------------ the two-phase functions
@@ -472,40 +398,71 @@ def march_phased(mb: MandelBox, origin, direction, t_max, eps_const: float,
                             phase1_steps)
 
 
-def _occlusion_two_phase(sort: bool, mb, start, end, detail_scale,
-                         max_steps, active, phase1_steps):
+def march_occlusion_phased_plain(mb: MandelBox, start, end,
+                                 detail_scale: float, max_steps: int, active,
+                                 phase1_steps: int = 16) -> torch.Tensor:
+    """march_pallas.march_occlusion_phased in plain torch, in one piece:
+    phase 1, the unresolved segments first, the resume."""
+    return _occlusion_two_phase_plain(False, mb, start, end, detail_scale,
+                                      max_steps, active, phase1_steps)
+
+
+def march_occlusion_sorted_plain(mb: MandelBox, start, end,
+                                 detail_scale: float, max_steps: int, active,
+                                 phase1_steps: int = 8) -> torch.Tensor:
+    """march_pallas.march_occlusion_sorted in plain torch, in one piece:
+    phase 1, a sort by predicted remaining steps, the resume."""
+    return _occlusion_two_phase_plain(True, mb, start, end, detail_scale,
+                                      max_steps, active, phase1_steps)
+
+
+def _occlusion_two_phase_plain(sort: bool, mb, start, end, detail_scale,
+                               max_steps, active, phase1_steps):
     _check_split(phase1_steps)
-    occ, t1, resolved = occlusion_phase1(mb, start, end, detail_scale,
-                                         min(phase1_steps, max_steps),
-                                         active)
+    occ, t1, resolved = march_ops.occlusion_phase1(
+        mb, start, end, detail_scale, min(phase1_steps, max_steps), active)
     if phase1_steps >= max_steps:
         return occ
     if sort:
         seg = end - start
         order = sorted_order(resolved, torch.sqrt((seg * seg).sum(-1)), t1,
-                              phase1_steps)
+                             phase1_steps)
     else:
         order = partition_order(resolved)
-    return occlusion_resume(mb, start, end, detail_scale,
-                            max_steps - phase1_steps, occ, t1, resolved,
-                            order)
+    return march_ops.occlusion_resume(mb, start, end, detail_scale,
+                                      max_steps - phase1_steps, occ, t1,
+                                      resolved, order)
+
+
+def _occlusion_refill(mb, start, end, detail_scale, max_steps, active,
+                      phase1_steps):
+    """The enqueue kernel and the unclipped relax-1 refill march, with
+    the first-DE entry where phase 1 would take no step."""
+    _check_split(phase1_steps)
+    queue, count = enqueue(active)
+    return occlusion_march(mb, start, end, detail_scale, max_steps, queue,
+                           count, first_de=min(phase1_steps, max_steps) == 0)
 
 
 def march_occlusion_phased(mb: MandelBox, start, end, detail_scale: float,
                            max_steps: int, active,
                            phase1_steps: int = 16) -> torch.Tensor:
-    """march_pallas.march_occlusion_phased: phase 1, the unresolved
-    segments first, the resume. Equal to `march_occlusion` at relax 1
-    with no bounding-sphere clip."""
-    return _occlusion_two_phase(False, mb, start, end, detail_scale,
-                                max_steps, active, phase1_steps)
+    """[M] bool verdicts of march_pallas.march_occlusion_phased: those of
+    `march_occlusion` at relax 1 with no bounding-sphere clip, from the
+    enqueue kernel and the refill march. `phase1_steps` (>= 0) only
+    selects JAX's verdict at split 0 (no phase-1 step: a segment whose
+    first DE is below 1e-4 before its end is blocked, the others march
+    in full); on the CPU the same two twins run."""
+    return _occlusion_refill(mb, start, end, detail_scale, max_steps,
+                             active, phase1_steps)
 
 
 def march_occlusion_sorted(mb: MandelBox, start, end, detail_scale: float,
                            max_steps: int, active,
                            phase1_steps: int = 8) -> torch.Tensor:
-    """march_pallas.march_occlusion_sorted: phase 1, a sort by predicted
-    remaining steps, the resume. Equal to `march_occlusion` at relax 1
-    with no bounding-sphere clip."""
-    return _occlusion_two_phase(True, mb, start, end, detail_scale,
-                                max_steps, active, phase1_steps)
+    """[M] bool verdicts of march_pallas.march_occlusion_sorted, the same
+    as march_occlusion_phased's at the same split (the lane order never
+    changes a verdict): the enqueue kernel and the refill march, with
+    `phase1_steps` (>= 0) only selecting the split-0 verdict."""
+    return _occlusion_refill(mb, start, end, detail_scale, max_steps,
+                             active, phase1_steps)

@@ -27,7 +27,8 @@ One bounce at depth d:
      scratch by the queue-segments
      kernel (with the sphere test), their SDF verdicts from the refill
      march (plain or relaxed; at relax 1 with `occl_sort_steps` or
-     `occl_phase1_steps` the two-phase marches), and the queue-sum
+     `occl_phase1_steps` unclipped, the two-phase marches' verdicts),
+     and the queue-sum
      kernel's radiance + contribution * visibility in segment order;
      then `_finish_bounce`;
    with `mis`, every branch weights NEE of paired lights and, at d >= 1,
@@ -47,7 +48,7 @@ import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
-from rayn_tpu_torch.ops import intersect, intersect_cuda, march_cuda, shade_cuda
+from rayn_tpu_torch.ops import intersect, intersect_cuda, shade_cuda
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of)
 from rayn_tpu_torch.utils import rng, sampling, vecmath
@@ -300,28 +301,17 @@ def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
 
 
 def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
-    """[S, N] SDF verdicts of the queued segments, routed as
-    intersect.test_occluded routes them (JAX intersect.py:153-199): at
-    plain marching with `occl_sort_steps` > 0, march_occlusion_sorted,
-    else with `occl_phase1_steps` > 0 march_occlusion_phased, both on
-    the scratch's columns and unclipped whatever `shadow_bv_clip` says;
-    otherwise the refill march on the scratch, plain or relaxed, with
-    the bounding-sphere clip as `shadow_bv_clip` says (the verdicts of
-    the one-segment and chained marches)."""
+    """[S, N] SDF verdicts of the queued segments from the refill march
+    on the scratch, plain or relaxed, with the bounding-sphere clip as
+    `shadow_bv_clip` says (the verdicts of the one-segment and chained
+    marches); at plain marching with `occl_sort_steps` or
+    `occl_phase1_steps` > 0 unclipped whatever `shadow_bv_clip` says, as
+    JAX's two-phase occlusion marches (intersect.py:153-199), whose
+    verdicts at a split >= 1 are those of the unclipped march."""
     two_phase = (s.occl_sort_steps > 0 or s.occl_phase1_steps > 0)
-    if cfg.mb is None or s.march_relaxation != 1.0 or not two_phase:
-        return shade_cuda.shadow_march(cfg, segs, s.march_relaxation)
-    S, n = segs.active.shape
-    g = segs.geom.reshape(6, S * n)
-    args = (cfg.mb, g[:3].T.contiguous(), g[3:].T.contiguous(), cfg.detail,
-            cfg.max_steps, segs.active.reshape(S * n))
-    if s.occl_sort_steps > 0:
-        occ = march_cuda.march_occlusion_sorted(
-            *args, phase1_steps=s.occl_sort_steps)
-    else:
-        occ = march_cuda.march_occlusion_phased(
-            *args, phase1_steps=s.occl_phase1_steps)
-    return occ.reshape(S, n)
+    if s.march_relaxation == 1.0 and two_phase:
+        cfg = cfg._replace(bv_r=0.0)
+    return shade_cuda.shadow_march(cfg, segs, s.march_relaxation)
 
 
 def _finish_bounce(s, tables, state, depth, info, mat, live, receives, wo,

@@ -21,9 +21,13 @@ queue, a queue of one, relaxed steps that overshoot past the end). The
 segment queue's kernels (queue segments, the refill march on the
 scratch at relax 1 and 1.5, queue sum) equal their twins bit for bit,
 and the segment-queue tail the same tail on the twins. The two-phase
-kernels (march and occlusion phase 1 and resume) equal their twins bit
-for bit on the same inputs, and the four two-phase functions equal the
-single-phase march.
+march kernels (phase 1 and resume) equal their twins bit for bit on the
+same inputs, and the two-phase marches equal the march kernel. The
+two-phase occlusion functions (the enqueue kernel and the refill march,
+nothing else) equal their one-piece plain versions at splits 0, 8 and
+16, on random segments and on segments that start on the fractal, and
+march_occlusion with no clip at splits 8 and 16; on the segment queue
+their settings launch the scratch's refill march and nothing else.
 """
 
 import dataclasses
@@ -468,12 +472,9 @@ def test_queue_tail_matches_plain_twins(cuda, depth, change, monkeypatch):
     got = integrator.bounce(*args)
     torch.cuda.synchronize()
     assert _launches(*fns) == [n + 1 for n in before]
-    for mod, names in ((shade_cuda, ("queue_segments", "shadow_march",
-                                     "queue_sum")),
-                       (march_cuda, ("occlusion_phase1",
-                                     "occlusion_resume"))):
-        for name in names:
-            monkeypatch.setattr(mod, name, getattr(mod, name + "_plain"))
+    for name in ("queue_segments", "shadow_march", "queue_sum"):
+        monkeypatch.setattr(shade_cuda, name,
+                            getattr(shade_cuda, name + "_plain"))
     want = integrator.bounce(*args)
     assert all(_same_bits(getattr(got, f), getattr(want, f))
                for f in want._fields)
@@ -706,23 +707,77 @@ def _queue(cuda):
             100, act.reshape(-1))
 
 
-@pytest.mark.parametrize("split", [8, 16])
-def test_occlusion_phase_kernels_match_plain(cuda, split):
-    mb, start, end, detail, max_steps, act = _queue(cuda)
-    head = (mb, start, end, detail)
-    before = march_cuda.occlusion_phase1.launches
-    got1 = march_cuda.occlusion_phase1(*head, split, act)
-    _launched(march_cuda.occlusion_phase1, before)
-    want1 = march_cuda.occlusion_phase1_plain(*head, split, act)
-    assert all(_same_bits(g, w) for g, w in zip(got1, want1))
-    occ, t1, res = want1
-    assert 0 < int(res.sum()) < res.numel()
-    args = (*head, max_steps - split, occ, t1, res,
-            march_cuda.partition_order(res))
-    before = march_cuda.occlusion_resume.launches
-    got = march_cuda.occlusion_resume(*args)
-    _launched(march_cuda.occlusion_resume, before)
-    assert _same_bits(got, march_cuda.occlusion_resume_plain(*args))
+def _all_launches():
+    """{wrapper name: launches} of every kernel wrapper of the port."""
+    return {f"{mod.__name__}.{name}": fn.launches
+            for mod in (intersect_cuda, march_cuda, shade_cuda)
+            for name, fn in vars(mod).items()
+            if callable(fn) and hasattr(fn, "launches")}
+
+
+def _launched_only(before, *fns):
+    """Since `before`, each of `fns` launched once and no other
+    wrapper launched."""
+    torch.cuda.synchronize()
+    after = _all_launches()
+    names = {f"{fn.__module__}.{fn.__name__}" for fn in fns}
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {k: 1 for k in names}
+
+
+def _surface_queue(cuda):
+    """_queue's head with segments that start where the camera rays hit
+    the fractal (so that the first DE is often below 1e-4), 0.2-3 long
+    in random directions."""
+    head, max_steps, alive = _march_inputs(cuda)
+    t = march_cuda.march_plain(*head, max_steps, alive)
+    o, d = head[1], head[2]
+    hit = alive & (t < head[3])
+    start = (o + t[:, None] * d)[hit]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    dirs = torch.randn(start.shape, generator=g).to(cuda)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    length = 0.2 + 2.8 * torch.rand((start.shape[0], 1), generator=g)
+    end = start + dirs * length.to(cuda)
+    act = torch.rand((start.shape[0],), generator=g).to(cuda) > 0.1
+    return (head[0], start.contiguous(), end.contiguous(), 0.5, 100, act)
+
+
+@pytest.mark.parametrize("segments", ["random", "surface"])
+@pytest.mark.parametrize("split", [0, 8, 16])
+@pytest.mark.parametrize("name", ["march_occlusion_phased",
+                                  "march_occlusion_sorted"])
+def test_two_phase_occlusion_matches_plain(cuda, name, split, segments):
+    """The enqueue kernel and the refill march (the first-DE entry at
+    split 0), and no other kernel: equal to the one-piece plain version
+    bit for bit, and to march_occlusion with no clip at splits >= 1."""
+    args = _queue(cuda) if segments == "random" else _surface_queue(cuda)
+    before = _all_launches()
+    got = getattr(march_cuda, name)(*args, phase1_steps=split)
+    _launched_only(before, march_cuda.enqueue, march_cuda.occlusion_march)
+    want = getattr(march_cuda, name + "_plain")(*args, phase1_steps=split)
+    assert want.any() and _same_bits(got, want)
+    if split:
+        assert _same_bits(got, march_cuda.march_occlusion(
+            *args, bound_radius=0.0))
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_two_phase_queue_route_launches_the_scratch_march(cuda, depth):
+    """With `occl_sort_steps=8` the segment queue's verdicts come from
+    one launch of the scratch's refill march, unclipped, and from no
+    other kernel."""
+    cfg, tabs, state, _hit, info, mat, live, recv, vtr, vd, vp = (
+        _tail_inputs(cuda, depth, False))
+    segs = shade_cuda.queue_segments_plain(cfg, tabs, state, info, mat,
+                                           live, recv, vtr, vd, vp)
+    s = RenderSettings(resolution=RES, spp=1, max_vis_marches=64,
+                       occl_sort_steps=8)
+    before = _all_launches()
+    got = integrator._queue_verdicts(s, cfg, segs)
+    _launched_only(before, shade_cuda.shadow_march)
+    assert cfg.bv_r > 0.0 and got.any() and _same_bits(
+        got, shade_cuda.shadow_march_plain(cfg._replace(bv_r=0.0), segs))
 
 
 @pytest.mark.parametrize("name", ["march_occlusion_phased",

@@ -146,9 +146,6 @@ def test_march_wrappers_reject_other_devices():
              (z3, z3, z, 1e-4, z, z, 8, z, z.bool(), order)),
             (march_cuda.march_sorted, (z3, z3, z, 1e-4, z, z, 8, z.bool())),
             (march_cuda.march_phased, (z3, z3, z, 1e-4, z, z, 8, z.bool())),
-            (march_cuda.occlusion_phase1, (z3, z3, DETAIL, 8, z.bool())),
-            (march_cuda.occlusion_resume,
-             (z3, z3, DETAIL, 8, z.bool(), z, z.bool(), order)),
             (march_cuda.march_occlusion_phased,
              (z3, z3, DETAIL, 8, z.bool())),
             (march_cuda.march_occlusion_sorted,

@@ -6,13 +6,21 @@ twins on the CPU) against its single-phase marches and against rayn_tpu.
   each function equals the port's single-phase twin bit for bit (the
   march by int32 view; the occlusion ones against march_occlusion with no
   bounding-sphere clip, which is how the JAX functions march).
+- The occlusion functions are the enqueue kernel and the refill march,
+  with JAX's first-DE entry at split 0. Their composed twins
+  (enqueue_plain -> occlusion_march_plain, unclipped) equal the
+  one-piece plain versions, which keep the TPU schedule (phase 1, the
+  lane order, the resume), bit for bit at every split, on random
+  segments and on segments that start on the fractal's surface; at
+  splits >= 1 both equal march_occlusion_plain with no clip.
 - Against the JAX functions in interpret mode at splits 1 and 8:
   occlusion verdicts equal; for the march, hits and misses equal and t
   within rtol/atol 1e-5 on >= 99% of lanes (the gate of
   test_torch_march.test_relaxed_march_matches_pallas_interpret:
   interpret mode contracts a*b+c into FMAs). At split 0 the occlusion
   verdict of a segment is JAX's `first DE < 1e-4`, held on segments that
-  start on the fractal's surface.
+  start on the fractal's surface. The one-piece plain occlusion versions
+  equal the JAX functions at splits 1 and 8 too.
 - intersect.test_occluded with `occl_sort_steps` ignores
   `shadow_bv_clip`, as the JAX package does: its verdicts equal the
   sphere fold plus JAX's unclipped march_occlusion_sorted.
@@ -58,6 +66,25 @@ def _occl_inputs():
     return _segments((N,), 11)
 
 
+@functools.lru_cache(maxsize=None)
+def _surface_inputs():
+    """(start, end, active) of 256 segments that start where the rays
+    of _march_inputs hit the fractal, 0.2-3 long in random directions."""
+    r = _march_inputs()
+    t = _single_phase("march")
+    on = (t < r["t_max"]) & r["act"]
+    start = (r["o"] + t[:, None] * r["d"])[on][:256]
+    g = np.random.default_rng(5)
+    d = g.normal(size=start.shape)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    end = (start + d * g.uniform(0.2, 3.0, (len(start), 1))).astype(
+        np.float32)
+    return start.astype(np.float32), end, g.uniform(size=len(start)) > 0.1
+
+
+INPUTS = {"random": _occl_inputs, "surface": _surface_inputs}
+
+
 def _port(name, split, max_steps=MAX_STEPS, inputs=None):
     """The port's two-phase function `name` (numpy result)."""
     mb, fn = tsdf.mandelbox(**MB_ARGS), getattr(march_cuda, name)
@@ -83,6 +110,12 @@ def _jax(name, split, inputs=None):
     return np.asarray(fn(mb, jnp.asarray(start), jnp.asarray(end), DETAIL,
                          MAX_STEPS, jnp.asarray(act), phase1_steps=split,
                          interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_default(name, split):
+    """_jax on the default inputs, once per worker."""
+    return _jax(name, split)
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,7 +150,7 @@ def test_two_phase_equals_single_phase(name, split):
 @pytest.mark.parametrize("split", [1, 8])
 @pytest.mark.parametrize("name", MARCHES + OCCLUSIONS)
 def test_two_phase_matches_pallas_interpret(name, split):
-    got, want = _port(name, split), _jax(name, split)
+    got, want = _port(name, split), _jax_default(name, split)
     if name in OCCLUSIONS:
         np.testing.assert_array_equal(got, want)
         return
@@ -132,16 +165,7 @@ def test_occlusion_split_zero_takes_the_first_de_verdict():
     below 1e-4 (march_pallas.py:518), not where a step would hit: on
     segments that start on the fractal's surface, the port's phased
     occlusion at split 0 equals JAX's."""
-    r = _march_inputs()
-    t = _single_phase("march")
-    on = (t < r["t_max"]) & r["act"]
-    start = (r["o"] + t[:, None] * r["d"])[on][:256]
-    g = np.random.default_rng(5)
-    d = g.normal(size=start.shape)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    end = (start + d * g.uniform(0.2, 3.0, (len(start), 1))).astype(
-        np.float32)
-    inputs = (start.astype(np.float32), end, g.uniform(size=len(start)) > 0.1)
+    inputs = _surface_inputs()
     dist0 = tsdf.dist_c(tsdf.mandelbox(**MB_ARGS),
                         *torch.from_numpy(inputs[0]).T).numpy()
     assert (dist0 < 1e-4).sum() >= 16
@@ -177,3 +201,37 @@ def test_occluded_two_phase_route_is_unclipped():
         jnp.asarray(act & ~sph), phase1_steps=8, interpret=True))
     assert sph.any() and sdf.any()
     np.testing.assert_array_equal(got, np.where(sph | sdf, 0.0, 1.0))
+
+
+@pytest.mark.parametrize("inputs", sorted(INPUTS))
+@pytest.mark.parametrize("split", [0, 1, 8, MAX_STEPS, MAX_STEPS + 20])
+@pytest.mark.parametrize("name", OCCLUSIONS)
+def test_occlusion_twins_equal_one_piece_plain(name, split, inputs):
+    """The function on the CPU, and its twins composed by hand, equal
+    the one-piece plain version bit for bit; at splits >= 1 also the
+    unclipped single-phase march."""
+    mb = tsdf.mandelbox(**MB_ARGS)
+    start, end, act = (torch.from_numpy(a) for a in INPUTS[inputs]())
+    head = (mb, start, end, DETAIL, MAX_STEPS)
+    queue, count = march_cuda.enqueue_plain(act)
+    composed = march_cuda.occlusion_march_plain(*head, queue, count,
+                                                first_de=split == 0)
+    got = getattr(march_cuda, name)(*head, act, phase1_steps=split)
+    want = getattr(march_cuda, name + "_plain")(*head, act,
+                                                phase1_steps=split)
+    assert want.any() and (~want & act).any()
+    assert torch.equal(composed, want) and torch.equal(got, want)
+    if split >= 1:
+        assert torch.equal(want, march_cuda.march_occlusion_plain(
+            *head, act, bound_radius=0.0))
+
+
+@pytest.mark.parametrize("split", [1, 8])
+@pytest.mark.parametrize("name", OCCLUSIONS)
+def test_one_piece_plain_occlusion_matches_pallas_interpret(name, split):
+    mb = tsdf.mandelbox(**MB_ARGS)
+    start, end, act = (torch.from_numpy(a) for a in _occl_inputs())
+    got = getattr(march_cuda, name + "_plain")(mb, start, end, DETAIL,
+                                               MAX_STEPS, act,
+                                               phase1_steps=split)
+    np.testing.assert_array_equal(got.numpy(), _jax_default(name, split))

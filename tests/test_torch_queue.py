@@ -26,6 +26,10 @@ k * visible to the emission-added radiance in segment order. Here:
   delta from 0;
 - march_occlusion, the enqueue and refill-march twins composed, equals
   its one-piece twin, plain and relaxed, with and without the clip;
+- with `occl_sort_steps` and `shadow_bv_clip=True` the queue's verdicts
+  are the refill march's on the scratch without the clip, on segments
+  where the clip changes verdicts, and equal JAX's
+  march_occlusion_sorted of the queued segments;
 - the new wrappers refuse tensors that are neither on the CPU nor on a
   CUDA device;
 - `sorted_chunk` is resolved where a sort runs, as in JAX: a 64-ray
@@ -42,6 +46,7 @@ import torch
 
 from rayn_tpu.config import RenderSettings as JSettings
 from rayn_tpu.ops import filters as jfilters
+from rayn_tpu.ops import march_pallas as jpallas
 from rayn_tpu.render import film as jfilm
 from rayn_tpu.render import integrator as jint
 from rayn_tpu.render import renderer as jrenderer
@@ -196,6 +201,42 @@ def test_march_occlusion_twins_compose(relax, bound):
     want = march_cuda.march_occlusion_plain(*args)
     assert want.any() and torch.equal(got, want)
     assert torch.equal(march_cuda.march_occlusion(*args), want)
+
+
+def test_two_phase_route_marches_the_scratch_unclipped():
+    """With `occl_sort_steps=8` and `shadow_bv_clip=True`, _queue_verdicts
+    equals the refill march's twin on the same scratch at bv_r 0, and
+    JAX's march_occlusion_sorted of the queued segments: 2 x 512 random
+    segments through the fractal, under a clip radius of 1.5 in place of
+    the scene's 3.6, so that the clip changes verdicts."""
+    jdata, jstatic, _ = jpresets.default_scene(resolution=RES)
+    data, static = convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
+                                 sdf_iterations=12, device="cpu")
+    s = RenderSettings(resolution=RES, spp=1, max_vis_marches=32,
+                       shadow_bv_clip=True, occl_sort_steps=8)
+    cfg = shade_cuda.shadow_cfg(data, static, s, rng.SampleTables(1), 0)
+    cfg = cfg._replace(bv_r=1.5)
+    g = np.random.default_rng(8)
+    S, n = 2, 512
+    start = g.uniform(-3.0, 3.0, (S * n, 3))
+    end = g.uniform(-3.0, 3.0, (S * n, 3))
+    act = g.uniform(size=S * n) > 0.2
+    queue, count = march_cuda.enqueue_plain(torch.from_numpy(act))
+    geom = np.concatenate([start, end], -1).astype(np.float32)
+    segs = shade_cuda.ShadowSegments(
+        geom=torch.from_numpy(geom.T.reshape(6, S, n).copy()),
+        k=torch.ones((3, S, n)), active=torch.from_numpy(act.reshape(S, n)),
+        queue=queue, count=count)
+    got = integrator._queue_verdicts(s, cfg, segs)
+    want = shade_cuda.shadow_march_plain(cfg._replace(bv_r=0.0), segs, 1.0)
+    clipped = shade_cuda.shadow_march_plain(cfg, segs, 1.0)
+    assert want.any() and (want != clipped).any()
+    assert torch.equal(got, want)
+    (prog, _mat, _bv), = jstatic.sdf_instances(jdata)
+    jwant = jpallas.march_occlusion_sorted(
+        prog, jnp.asarray(geom[:, :3]), jnp.asarray(geom[:, 3:]), cfg.detail,
+        cfg.max_steps, jnp.asarray(act), phase1_steps=8, interpret=True)
+    np.testing.assert_array_equal(got.numpy().ravel(), np.asarray(jwant))
 
 
 def test_queue_wrappers_reject_other_devices():

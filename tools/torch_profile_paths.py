@@ -16,7 +16,8 @@ fused-nosort-intersect and fused-nosort-shadow: the fused pass with
 off) calls chip_smoke.profile_pass: five unprofiled passes timed on the
 host clock up to `torch.cuda.synchronize()`, then one pass under
 torch.profiler for the device busy time, the idle share of the median
-unprofiled wall, the launch count and the device time by kernel. With
+unprofiled wall, the launch count, the device time by kernel and the
+peak device memory. With
 --rounds R the paths' unprofiled walls are then taken in turns, R
 rounds, the order reversed every other round. Prints the card's name
 and power limit and one JSON line; exits non-zero without a CUDA
@@ -128,7 +129,8 @@ def main(argv=None) -> int:
     print(json.dumps({k: v for k, v in out.items() if k != "paths"}
                      | {"paths": {p: {k: r[k] for k in (
                          "pass_wall_ms", "busy_ms", "idle_share",
-                         "launches")} for p, r in out["paths"].items()}}))
+                         "launches", "peak_bytes")}
+                         for p, r in out["paths"].items()}}))
     return 0
 
 
