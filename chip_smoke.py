@@ -25,7 +25,7 @@ Phases (any failed gate raises and the script exits non-zero):
    bounce_tail and shadow_radiance. Each kernel then runs on those inputs
    beside its twin, gated by the JAX package's fused-vs-unfused gates;
    the intersect (all six columns), cost-key, sort-key, equi-angular,
-   shadow and queue kernels must equal their twins bit for bit (a
+   march, shadow and queue kernels must equal their twins bit for bit (a
    segments kernel's queue as a set), the two functions their one-piece
    plain versions, and the segment-queue tail the same tail on the plain
    twins, in every output column. Kernel and twin are timed with CUDA
@@ -51,23 +51,28 @@ Phases (any failed gate raises and the script exits non-zero):
    queue), printed beside the times of the refill march on the scratch
    and of march_occlusion on the same segments. Then the two-phase
    marches on the relax-1 unfused path's inputs: the closest-hit march at
-   depths 0 and 1 and its [12N] shadow queue. At phase-1 steps 8 and 32,
-   march_sorted's and march_phased's phase-1 and resume kernels equal
-   their twins bit for bit (the resume on the twin's phase-1 outputs in
-   the function's lane order), and the functions equal the march kernel
-   bit for bit. At splits 0, 8 and 16, march_occlusion_phased and
+   depths 0 and 1 and its [12N] shadow queue. At phase-1 steps 0, 8 and
+   32, march_sorted and march_phased (one launch of the march kernel)
+   equal their one-piece plain versions (phase 1, the lane order and
+   the resume in plain torch) and the march kernel bit for bit. The
+   march kernel (a refill march over the wavefront) equals its twin bit
+   for bit on the relaxed path's inputs (relax 1.5) and the unfused
+   path's (relax 1) at depths 0 and 1, and on those inputs its warps'
+   loop steps (its counter) are printed beside the ideal Σ DEs / 32
+   (DEs per ray from march's `n_de`) and the slowest lane's per warp.
+   At splits 0, 8 and 16, march_occlusion_phased and
    march_occlusion_sorted (the enqueue kernel and the refill march with
    no clip, the first-DE entry at split 0) equal their one-piece plain
    versions (phase 1, the lane order and the resume in plain torch) bit
    for bit, and at 8 and 16 march_occlusion with no clip. On the depth-1
    inputs, at each function's JAX default split, the function, the
    single-phase march and the plain function are timed, with the
-   march's phase 1 and resume, and the occlusion's enqueue and
+   occlusion's enqueue and
    refill-march kernels by their device time beside the segment queue's
    route (the refill march on the scratch with no clip); the script
    prints how many of the queue's verdicts the bounding-sphere clip
-   changes, and the registers and spills of the refill-march kernels
-   (no spill allowed).
+   changes, and the registers and spills of the refill-march kernels,
+   the closest-hit march's among them (no spill allowed).
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
@@ -137,9 +142,9 @@ Phases (any failed gate raises and the script exits non-zero):
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
    with `march_sort_steps=8` and `occl_phase1_steps=16`; the march
-   phase-1 and resume kernels, the refill march on the scratch and the
-   cost-key, equi-angular, queue-segments and queue-sum kernels must
-   have launched and the march, enqueue and [M, 3] refill-march kernels
+   kernel (march_sorted's one launch), the refill march on the scratch
+   and the cost-key, equi-angular, queue-segments and queue-sum kernels
+   must have launched and the enqueue and [M, 3] refill-march kernels
    not, with the film gates. At 256x256, 4 spp: the film with
    `march_sort_steps=8` alone equals the unfused film bit for bit, the
    film with `occl_sort_steps=8` equals the one with
@@ -206,13 +211,11 @@ CUDA_KERNELS = (
     ("finish", "shade_cuda", "finish_bounce", ("finish_bounce_kernel",)),
     ("qseg", "shade_cuda", "queue_segments", ("queue_segments_kernel",)),
     ("qsum", "shade_cuda", "queue_sum", ("queue_sum_kernel",)),
-    ("march", "march_cuda", "march", ("march_kernel",)),
+    ("march", "march_cuda", "march", ("march_kernel", "march_relaxed_kernel")),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
     ("omarch", "march_cuda", "occlusion_march",
      ("occl_march_kernel", "occl_march_relaxed_kernel",
       "occl_march_first_de_kernel")),
-    ("march_p1", "march_cuda", "march_phase1", ("march_phase1_kernel",)),
-    ("march_resume", "march_cuda", "march_resume", ("march_resume_kernel",)),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
 # Functions over those kernels, each with a `_plain` version in one
@@ -246,7 +249,9 @@ JI = "rayn_tpu/render/integrator.py"
 # the same segments. Rows 10 and 11 likewise: on phase 12's paths their
 # verdicts are the scratch's refill march with no clip, and the
 # functions (enqueue + the [M, 3] refill march) are timed on the unfused
-# path's segments.
+# path's segments. Rows 9 and 12 are one launch of the march kernel (row
+# 6's), so their launches are the march kernel's on phase 12's sorted
+# path; row 12 has no setting of its own.
 KERNEL_ROWS = (
     ("closest_hit_shading", "rayn_tpu_torch/csrc/intersect.cu",
      "rayn_tpu/ops/intersect_pallas.py:225", "intersect",
@@ -263,14 +268,14 @@ KERNEL_ROWS = (
      ("enqueue", "omarch", "smarch")),
     ("march_occlusion_chained", MD, f"{MP}:959", "chained",
      ("unfused", "smarch"), ("enqueue", "omarch", "smarch")),
-    ("march_sorted", MD, f"{MP}:163", "march_sorted", ("sorted", "march_p1"),
-     ("march_p1", "march_resume")),
+    ("march_sorted", MD, f"{MP}:163", "march_sorted", ("sorted", "march"),
+     ("march",)),
     ("march_occlusion_phased", MD, f"{MP}:582", "march_occlusion_phased",
      ("phased", "smarch"), ("enqueue", "omarch", "smarch")),
     ("march_occlusion_sorted", MD, f"{MP}:677", "march_occlusion_sorted",
      ("sorted", "smarch"), ("enqueue", "omarch", "smarch")),
-    ("march_phased", MD, f"{MP}:421", "march_phased", ("sorted", "march_p1"),
-     ("march_p1", "march_resume")),
+    ("march_phased", MD, f"{MP}:421", "march_phased", ("sorted", "march"),
+     ("march",)),
     ("queue_segments", SH, f"{JI}:420", "qseg", ("relaxed", "qseg"),
      ("qseg",)),
     ("queue_sum", SH, f"{JI}:512", "qsum", ("relaxed", "qsum"), ("qsum",)),
@@ -280,18 +285,20 @@ KERNEL_ROWS = (
      ("equi",)),
 )
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
-# defaults; the sorted ones are also phase 12's settings).
-SPLITS = {"march_sorted": (8, 32), "march_phased": (8, 32),
+# defaults and 0; the sorted ones are also phase 12's settings).
+SPLITS = {"march_sorted": (0, 8, 32), "march_phased": (0, 8, 32),
           "march_occlusion_phased": (0, 8, 16),
           "march_occlusion_sorted": (0, 8, 16)}
 ROW_SPLIT = {"march_sorted": 8, "march_phased": 32,
              "march_occlusion_phased": 16, "march_occlusion_sorted": 8}
-# The instantiations of the refill march (csrc/common.cuh refill_march):
-# rows 2 and 5 (the scratch's), 7 and 8 (the [M, 3] one), and the
-# first-DE entry of rows 10 and 11 at split 0.
+# The refill marches: the instantiations of csrc/common.cuh refill_march
+# (rows 2 and 5, the scratch's; 7 and 8, the [M, 3] one; the first-DE
+# entry of rows 10 and 11 at split 0) and the closest-hit march of rows
+# 6, 9 and 12 (csrc/march.cu march_refill, plain and relaxed).
 REFILL_KERNELS = ("shadow_march_kernel", "shadow_march_relaxed_kernel",
                   "occl_march_kernel", "occl_march_relaxed_kernel",
-                  "occl_march_first_de_kernel")
+                  "occl_march_first_de_kernel", "march_kernel",
+                  "march_relaxed_kernel")
 
 
 def gate(cond, what: str) -> None:
@@ -714,23 +721,6 @@ def main(argv=None) -> int:
         d = d[~torch.isnan(d)]
         return d.max().item() if d.numel() else 0.0
 
-    def check_march(label, got, want, t_max, act):
-        hit_g, hit_w = got < t_max, want < t_max
-        agree = (hit_g == hit_w) & act
-        frac = (agree.sum() / act.sum().clamp(min=1)).item()
-        gate(frac >= 0.999, f"march {label}: hits agree on {frac:.5f} < "
-             "0.999 of active lanes")
-        ok = torch.isclose(got[agree], want[agree], rtol=1e-5, atol=1e-5,
-                           equal_nan=True)
-        gate(bool(ok.all()), f"march {label}: t out of tolerance on "
-             f"{int((~ok).sum())} lanes")
-        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-        d = (got[agree] - want[agree]).abs()
-        err = d[~torch.isnan(d)].max().item() if d.numel() else 0.0
-        log(f"[3 kernels] march {label}: hits agree {frac:.6f}, max |dt| "
-            f"{err:.3g}, bit for bit: {bool(same.all())}")
-        return err
-
     def check_verdicts(label, got, want, act):
         n_act = max(int(act.sum()), 1)
         bad = int(((got != want) & act).sum())
@@ -833,7 +823,11 @@ def main(argv=None) -> int:
                  "its plain version")
             return err
         if key == "march":
-            return check_march(label, got, want, a[3], kw["active"])
+            gate(same_bits(got, want), f"{label}: differs from its twin")
+            hits = int(((want < a[3]) & kw["active"]).sum())
+            log(f"[3 kernels] {label}: equal to its twin bit for bit "
+                f"({hits} hits)")
+            return max_diff(got, want)
         act = a[5] if len(a) > 5 else kw["active"]
         return check_verdicts(label, got, want, act)
 
@@ -909,6 +903,32 @@ def main(argv=None) -> int:
             f"warp steps: sequential {q['sequential']}, ideal "
             f"{q['ideal']}; {q['device_ms']} ms device time")
         del n_de, w
+    # The closest-hit march of the queue paths (rows 6, 9 and 12): the
+    # march kernel's DEs per ray (march's n_de: the entry DE, one per
+    # step) on the relaxed (relax 1.5) and unfused (relax 1) paths'
+    # inputs, the warp steps of one thread per ray and the ideal, beside
+    # the refill kernel's counter and its time.
+    for path in ("relaxed", "unfused"):
+        for depth, (a, kw) in enumerate(captured[(path, "march")]):
+            n_de = torch.zeros(kw["active"].shape, dtype=torch.int32,
+                               device=dev)
+            march_ops.march(*a, **kw, n_de=n_de)
+            w = n_de.reshape(-1, 32).long()
+            counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+            kernels["march"](*a, **kw, warp_steps=counter)
+            q = dict(des=int(w.sum()), sequential=int(w.max(-1).values.sum()),
+                     ideal=int(w.sum()) / 32, refill=int(counter[0]),
+                     relax=kw.get("relax", 1.0),
+                     ms=timed(kernels["march"], a, kw, reps=5))
+            q["refill_per_ideal"] = q["refill"] / max(q["ideal"], 1.0)
+            de_steps[f"march {path} depth {depth}"] = q
+            log(f"[3 DE steps] march {path} depth {depth} (relax "
+                f"{q['relax']}): {q['des']} DEs over {w.numel()} rays; "
+                f"32-lane warp steps: sequential {q['sequential']}, ideal "
+                f"{q['ideal']}, refill kernel {q['refill']} "
+                f"({q['refill_per_ideal']:.3f} of the ideal); "
+                f"{q['ms']:.3f} ms")
+            del n_de, w
     record["de_steps"] = de_steps
 
     # -------- 3, continued: the shadow queues, warp steps and designs
@@ -1022,26 +1042,6 @@ def main(argv=None) -> int:
                           if k in ("occl", "chained")}
 
     # ----------------- 3, continued: the two-phase marches, same inputs
-    def phase_pair(label, p1, resume, head, steps, act, split, order_of):
-        """Phase 1 and the resume, each kernel against its twin bit for
-        bit on the same inputs (the resume on the twin's phase-1 outputs
-        in the function's lane order). Returns the resume's arguments and
-        the largest difference."""
-        got1 = kernels[p1](*head, split, act)
-        want1 = wrappers[p1][2](*head, split, act)
-        gate(all(same_bits(g, w) for g, w in zip(got1, want1)),
-             f"{label}: phase-1 kernel differs from its twin")
-        rest = (*head, steps - split, *want1, order_of(want1))
-        got2, want2 = kernels[resume](*rest), wrappers[resume][2](*rest)
-        gate(same_bits(got2, want2),
-             f"{label}: resume kernel differs from its twin")
-        n_act = max(int(act.sum()), 1)
-        log(f"[3 two-phase] {label}: phase 1 and resume equal their twins "
-            f"bit for bit; {int((~want1[-1]).sum())} of {n_act} active "
-            f"lanes unresolved after {split} steps")
-        return rest, max([max_diff(g, w) for g, w in zip(got1, want1)]
-                         + [max_diff(got2, want2)])
-
     two_phase, clip_changes = {}, {}
     two_phase_err = {fname: 0.0 for fname in SPLITS}
     for depth in (0, 1):
@@ -1065,31 +1065,25 @@ def main(argv=None) -> int:
             for split in splits:
                 label = f"{fname} depth {depth} split {split}"
                 fkw = dict(phase1_steps=split)
+                # the function against the TPU schedule in plain torch
+                # (phase 1, the lane order, the resume)
                 got = fn(*fargs, **fkw)
+                plain_fn = getattr(march_cuda, fname + "_plain")
+                want = plain_fn(*fargs, **fkw)
+                gate(same_bits(got, want), f"{label}: differs from its "
+                     "one-piece plain version")
                 if is_march:
-                    def order_of(out1):
-                        """The function's own lane order from phase 1's
-                        (t1, resolved)."""
-                        if fname == "march_sorted":
-                            return march_cuda.sorted_order(
-                                out1[-1], mhead[3], out1[-2], split)
-                        return march_cuda.partition_order(out1[-1])
-
-                    rest, err = phase_pair(label, "march_p1", "march_resume",
-                                           mhead, steps, act, split, order_of)
+                    # one launch of the march kernel, which the
+                    # single-phase march is too
                     gate(same_bits(got, single), f"{label}: differs from "
                          "the march kernel")
-                    err = max(err, max_diff(got, single))
-                    log(f"[3 two-phase] {label}: equal to the march kernel "
-                        "bit for bit")
+                    err = max(max_diff(got, want), max_diff(got, single))
+                    log(f"[3 two-phase] {label}: equal to its one-piece "
+                        "plain version and the march kernel bit for bit "
+                        f"({int((got < mhead[3]).sum())} hits)")
                 else:
-                    # the enqueue kernel and the refill march against the
-                    # TPU schedule in plain torch, and at splits >= 1
-                    # against the single-phase march with no clip
-                    want = getattr(march_cuda, fname + "_plain")(*fargs,
-                                                                 **fkw)
-                    gate(same_bits(got, want), f"{label}: differs from its "
-                         "one-piece plain version")
+                    # the enqueue kernel and the refill march; at splits
+                    # >= 1 the single-phase march with no clip too
                     n_diff = int(((got != unclipped) & oact).sum())
                     gate(split == 0 or n_diff == 0, f"{label}: differs from "
                          "the single-phase march (march_occlusion, "
@@ -1099,27 +1093,20 @@ def main(argv=None) -> int:
                         f"plain version bit for bit; {n_diff} active "
                         "verdicts differ from the unclipped single-phase "
                         f"march's ({int(got.sum())} occluded)")
-                    del want
+                del want
                 two_phase_err[fname] = max(two_phase_err[fname], err)
                 if depth == 0 or split != ROW_SPLIT[fname]:
                     continue
                 # times and bound on the depth-1 inputs at the row's split
+                plain_ms = timed(plain_fn, fargs, fkw, reps=1)
                 if is_march:
-                    with plain_twins():
-                        plain_ms = timed(fn, fargs, fkw, reps=1)
-                        n_de = count_des(fn, fargs, fkw)
+                    # the DEs of the TPU schedule in plain torch
+                    n_de = count_des(plain_fn, fargs, fkw)
                     ins = [*mhead[1:4], *mhead[5:], act]
                     extra = dict(
-                        single_ms=timed(impl["march"], fargs, {}, reps=5),
-                        phase1_ms=timed(kernels["march_p1"],
-                                        (*mhead, split, act), {}, reps=5),
-                        resume_ms=timed(kernels["march_resume"], rest, {},
-                                        reps=5))
-                    parts = (f"phase 1 {extra['phase1_ms']:.3f} ms, resume "
-                             f"{extra['resume_ms']:.3f} ms")
+                        single_ms=timed(impl["march"], fargs, {}, reps=5))
+                    parts = "one launch of the march kernel"
                 else:
-                    plain_fn = getattr(march_cuda, fname + "_plain")
-                    plain_ms = timed(plain_fn, fargs, fkw, reps=1)
                     # the refill march's DEs: the unclipped single-phase
                     # march's (phase 1 skips the DE of a lane that stops
                     # past its end at the split)
@@ -1164,7 +1151,7 @@ def main(argv=None) -> int:
                                max_abs_err=two_phase_err,
                                refill_ptxas=refill)
     # drop the last captured inputs too, or they count in phase 4's peak
-    del captured, a, kw, mhead, rest, act, oact, ins, route, scrub
+    del captured, a, kw, mhead, act, oact, ins, route, scrub
     torch.cuda.empty_cache()
 
     def reset_launches():
@@ -1405,9 +1392,10 @@ def main(argv=None) -> int:
     }
 
     # ------------------------------------------ 12. the two-phase marches
-    need12 = ("march_p1", "march_resume", "smarch", "costkey", "equi",
-              "qseg", "qsum")
-    absent12 = ("march", "enqueue", "omarch")
+    # march_sort_steps launches the march kernel (march_sorted); the
+    # two-phase march kernels are gone, and no [M, 3] occlusion runs
+    need12 = ("march", "smarch", "costkey", "equi", "qseg", "qsum")
+    absent12 = ("enqueue", "omarch")
     record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
                                  absent=absent12)
     record["phased"] = main_path(

@@ -33,8 +33,7 @@ KERNELS = ("rayn_closest_hit", "rayn_cost_key", "rayn_equi_angular",
            "rayn_shadow_segments", "rayn_shadow_march",
            "rayn_shadow_sum", "rayn_tail_sum", "rayn_finish_bounce",
            "rayn_shadow_sort_key", "rayn_queue_segments", "rayn_queue_sum",
-           "rayn_march", "rayn_enqueue", "rayn_occl_march",
-           "rayn_march_phase1", "rayn_march_resume")
+           "rayn_march", "rayn_enqueue", "rayn_occl_march")
 
 _lib = None
 build_log = ""

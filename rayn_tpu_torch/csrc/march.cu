@@ -1,10 +1,17 @@
 // Sphere-tracing kernels of the segment-queue bounce for Hopper (sm_90a).
 //
-// march_kernel replaces rayn_tpu/ops/march_pallas.py march
-// (_march_kernel): the closest-hit march of the MandelBox along each ray,
-// bounded by its t_max, with the cone threshold max(eps_const, eps_abs +
-// eps_lin * t), plain (relax = 1) or over-relaxed (Keinert's overshoot
-// test and conservative fallback, frozen t_prev / r_prev).
+// march_kernel / march_relaxed_kernel replace rayn_tpu/ops/
+// march_pallas.py march (_march_kernel): the closest-hit march of the
+// MandelBox along each ray, bounded by its t_max, with the cone
+// threshold max(eps_const, eps_abs + eps_lin * t), plain (relax = 1) or
+// over-relaxed (Keinert's overshoot test and conservative fallback,
+// t_prev / r_prev per ray). The same kernel replaces march_pallas.py
+// march_sorted and march_phased (_march_phase1_kernel, a regroup of the
+// lanes by a sort or a partition, _march_resume_kernel): every lane of
+// the two-phase march takes the steps of one uncapped plain march, so at
+// every split its result is the march's at relax 1, bit for bit
+// (march_pallas.py:171), and the refill march regroups its lanes as each
+// ray resolves, so no split, sort or resume is needed.
 // enqueue_kernel and occl_march_kernel / occl_march_relaxed_kernel
 // replace march_pallas.march_occlusion (_occl_kernel with
 // _segment_entry: one shadow segment per lane with the bounding-sphere
@@ -23,32 +30,31 @@
 // no split is needed; at split 0 occl_march_first_de_kernel takes JAX's
 // first-DE verdict (march_pallas.py:518).
 //
-// What bounds them on the H100: float32 ALU. A step is one 12-iteration
-// MandelBox DE (~400 flops) and a lane takes up to max_steps of them,
-// against 12-40 bytes in and 1-4 bytes out per segment or ray; lanes of a
-// warp also march different numbers of steps.
-// What the design does about it: the march kernel's persistent lanes
-// each take a queued segment, march it and take the next, so a warp
-// costs about its lanes' total steps / 32 plus the drain (one thread per
-// segment or per ray cost each warp its slowest lane's steps; the TPU's
-// chaining only packed block iterations). Inactive segments never reach
-// the queue, and the march reads the queue's length on the device.
-//
-// The two-phase kernels replace march_pallas.py's _march_phase1_kernel
-// and _march_resume_kernel (march_sorted, march_phased): phase 1 marches
-// every lane at most a few plain steps and writes t1 and whether the
-// lane resolved; the resume kernel finishes the unresolved lanes from t1.
-// What bounds them: the same float32 ALU, and a warp runs until its
-// slowest lane is done. What the design does about it: the caller orders
-// the lanes between the phases (a sort by predicted remaining steps, or
-// the unresolved lanes first), and thread i of the resume kernel takes
-// lane order[i], so a warp holds lanes of like remaining work, and a warp
-// of resolved lanes exits at once. The thread reads its lane's inputs
-// and t1 where they lie and writes its result back to that lane: one
-// indirect load per input instead of the TPU's payload sort of 11-13
-// columns and its un-permute. Every lane takes the steps of one uncapped
-// march (march_plain rounds as march_ray does), so the result is
-// bit-identical to the single-phase march.
+// What bounds them on the H100: float32 ALU and the drain. A step is one
+// 12-iteration MandelBox DE (~400 flops) and a lane takes up to
+// max_steps of them, against 12-40 bytes in and 1-4 bytes out per
+// segment or ray; lanes of a warp march different numbers of steps, and
+// the warp's last rays run with idle lanes beside them.
+// What the design does about it: persistent lanes that each take a ray
+// or a queued segment, march it to the end, write its result to its own
+// slot and take the next, so a warp costs about its lanes' total steps /
+// 32 plus the drain (one thread per segment or per ray cost each warp
+// its slowest lane's steps; the TPU's chaining only packed block
+// iterations, and its two-phase regroup only grouped lanes by a guess at
+// their remaining steps). Every loop iteration evaluates exactly one DE
+// per busy lane. Inactive segments never reach the queue, and the march
+// reads the queue's length on the device. The closest-hit march needs no
+// queue: its warps take the wavefront itself, 32 ray ids at a time with
+// one atomicAdd on a device counter; each lane loads one ray (coalesced),
+// an inactive ray is written there and then, and the live ones are
+// handed to idle lanes by shuffles, so a take costs one memory round
+// trip for 32 rays (the batch take of intersect.cu closest_hit_kernel).
+// The take is a copy of that kernel's, not a shared function: the two
+// carry different payloads (the sphere fold's closest t and object there,
+// t_max and the cone terms here), and closest_hit_kernel stays as it was
+// measured (56 registers). Each ray's arithmetic is the one-thread-per-
+// ray body's, in the same order, so the order in which rays are taken
+// changes no bit.
 #include "common.cuh"
 
 namespace rayn {
@@ -59,12 +65,15 @@ struct MarchArgs {  // ops/march_cuda.py _MarchArgs
   const float* t_max;      // [N]
   const float* eps_abs;    // [N]
   const float* eps_lin;    // [N]
-  const bool* active;      // [N] (not read by the resume kernel)
-  float* t;                // [N] out (resume: phase 1's t, finished in place)
-  bool* resolved;          // [N] phase 1 out, resume in
-  const long long* order;  // [n_order] lanes of the resume kernel
+  const bool* active;      // [N]
+  // [1] ray ids handed out (0 at launch); unsigned, so the takes past
+  // n < 2^31 of the last warps cannot wrap
+  unsigned* head;
+  // [1] or null: the loop iterations of every warp are added here (each
+  // iteration evaluates one DE per busy lane; for measurement)
+  unsigned long long* warp_steps;
+  float* t;                // [N] out
   long long n;
-  long long n_order;
   int max_steps;
   MBox mb;
   float eps_const;
@@ -85,74 +94,181 @@ struct OcclMarchArgs {  // ops/march_cuda.py _OcclMarchArgs
   int first_de;        // JAX's split-0 entry (relax 1, no clip)
 };
 
-// The plain (relax 1) march of one ray for at most `steps` steps from t,
-// advanced in place; true iff the ray resolved within them: it passed
-// t_max or its DE met the threshold.
-__device__ __forceinline__ bool march_plain(const MBox& mb, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, float& t,
-                                            float t_max, float eps_const,
-                                            float eps_abs, float eps_lin,
-                                            int steps) {
-  for (int step = 0; step < steps; ++step) {
-    if (t > t_max) return true;
-    const float r = mandelbox_de(mb, ox + t * dx, oy + t * dy, oz + t * dz);
-    if (fabsf(r) < nmax(eps_const, eps_abs + eps_lin * t)) return true;
-    t = t + r;
+// Step policies of the closest-hit march: one step of a ray past its
+// entry DE, whose DE `dist` at o + t*d has been taken and whose cone
+// threshold at t is `thresh`; `step` counts the steps taken. True when
+// the ray is done (t final); else t has advanced.
+// march.py march at relax 1 (march_pallas._march_kernel): a DE below the
+// threshold ends the march; else t advances by it, and the march ends
+// after max_steps steps or past t_max (the test that precedes the next
+// step's DE).
+struct PlainMarch {
+  __device__ __forceinline__ void enter(float) {}
+  __device__ __forceinline__ bool operator()(float dist, float thresh,
+                                             float t_max, int& step,
+                                             int max_steps, float& t) {
+    if (fabsf(dist) < thresh) return true;
+    t = t + dist;
+    ++step;
+    return step >= max_steps || t > t_max;
   }
-  return false;
-}
+};
 
-// march.py march / march_pallas._march_kernel for one active ray whose
-// first DE is t (already known not to be NaN).
-__device__ __forceinline__ float march_ray(const MBox& mb, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float t, float t_max,
-                                           float eps_const, float eps_abs,
-                                           float eps_lin, int max_steps,
-                                           float relax) {
-  if (relax == 1.0f) {
-    march_plain(mb, ox, oy, oz, dx, dy, dz, t, t_max, eps_const, eps_abs,
-                eps_lin, max_steps);
-    return t;
+// The over-relaxed march: a DE below the threshold or a t past t_max ends
+// the march unless the step overshot (t - t_prev > |r_prev| + |dist|),
+// which falls back to t_prev + r_prev; else t advances by relax * dist.
+// t_prev and r_prev are 0 and the entry DE at entry.
+struct RelaxedMarch {
+  float relax, t_prev, r_prev;
+  __device__ __forceinline__ void enter(float t0) {
+    t_prev = 0.0f;
+    r_prev = t0;
   }
-  float t_prev = 0.0f, r_prev = t;
-  for (int step = 0; step < max_steps; ++step) {
-    const float r = mandelbox_de(mb, ox + t * dx, oy + t * dy, oz + t * dz);
-    const bool overshoot = (t - t_prev) > (fabsf(r_prev) + fabsf(r));
-    const bool done =
-        (fabsf(r) < nmax(eps_const, eps_abs + eps_lin * t)) || (t > t_max);
-    if (done && !overshoot) break;
+  __device__ __forceinline__ bool operator()(float dist, float thresh,
+                                             float t_max, int& step,
+                                             int max_steps, float& t) {
+    const bool overshoot = (t - t_prev) > (fabsf(r_prev) + fabsf(dist));
+    const bool done = (fabsf(dist) < thresh) || (t > t_max);
+    if (done && !overshoot) return true;
     if (overshoot) {
       t = t_prev + r_prev;
     } else {
       t_prev = t;
-      r_prev = r;
-      t = t + relax * r;
+      r_prev = dist;
+      t = t + relax * dist;
+    }
+    ++step;
+    return step >= max_steps;
+  }
+};
+
+// The closest-hit march of every ray (march.py march), written to the
+// ray's own slot: t_max + 1 for an inactive ray, NaN where the entry DE
+// is, else t after the march. Persistent blocks; each lane takes a ray
+// from the warp's batch, takes its entry DE at the origin, then one step
+// of the policy per loop iteration until it is done, writes t and takes
+// the next. An entry DE that is NaN or past t_max ends the march there:
+// no step can move t (a plain step tests t_max before its DE, and a
+// relaxed first step cannot overshoot, since t0 - 0 <= |t0| + |dist|).
+template <class Step>
+__device__ __forceinline__ void march_refill(const MarchArgs& a, Step st) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int id = -1;         // this lane's ray, -1 while idle
+  bool entry = false;  // its next DE is the entry DE, at the origin
+  int step = 0;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float t_max = 0.0f, eps_abs = 0.0f, eps_lin = 0.0f, t = 0.0f;
+  // The warp's batch: slot `lane` holds ray bi, loaded; `pending` marks
+  // the slots whose ray still waits for a lane.
+  int bi = -1;
+  float b_ox = 0.0f, b_oy = 0.0f, b_oz = 0.0f, b_dx = 0.0f, b_dy = 0.0f,
+        b_dz = 0.0f, b_tm = 0.0f, b_ea = 0.0f, b_el = 0.0f;
+  unsigned pending = 0u;
+  bool drained = false;
+  unsigned long long iters = 0;
+  for (;;) {
+    unsigned idle = __ballot_sync(FULL_MASK, id < 0);
+    while (idle != 0u && !drained) {
+      if (pending == 0u) {  // the next 32 rays, one per lane
+        unsigned b = 0u;
+        if (lane == 0) b = atomicAdd(a.head, 32u);
+        b = __shfl_sync(FULL_MASK, b, 0);
+        if ((long long)b >= a.n) {
+          drained = true;
+          break;
+        }
+        bi = (int)b + lane;
+        bool live = false;
+        if ((long long)bi < a.n) {
+          b_tm = a.t_max[bi];
+          live = a.active[bi];
+          if (live) {
+            const long long i3 = 3LL * bi;
+            b_ox = a.origin[i3];
+            b_oy = a.origin[i3 + 1];
+            b_oz = a.origin[i3 + 2];
+            b_dx = a.direction[i3];
+            b_dy = a.direction[i3 + 1];
+            b_dz = a.direction[i3 + 2];
+            b_ea = a.eps_abs[bi];
+            b_el = a.eps_lin[bi];
+          } else {  // no DE to take: done the moment it is loaded
+            a.t[bi] = b_tm + 1.0f;
+          }
+        }
+        pending = __ballot_sync(FULL_MASK, live);
+        continue;
+      }
+      // the r-th idle lane takes the r-th pending slot
+      unsigned m = pending;
+      for (int r = __popc(idle & below); r > 0 && m != 0u; --r) m &= m - 1u;
+      const bool take = id < 0 && m != 0u;
+      const int src = take ? __ffs(m) - 1 : lane;
+      const int v_id = __shfl_sync(FULL_MASK, bi, src);
+      const float v_ox = __shfl_sync(FULL_MASK, b_ox, src);
+      const float v_oy = __shfl_sync(FULL_MASK, b_oy, src);
+      const float v_oz = __shfl_sync(FULL_MASK, b_oz, src);
+      const float v_dx = __shfl_sync(FULL_MASK, b_dx, src);
+      const float v_dy = __shfl_sync(FULL_MASK, b_dy, src);
+      const float v_dz = __shfl_sync(FULL_MASK, b_dz, src);
+      const float v_tm = __shfl_sync(FULL_MASK, b_tm, src);
+      const float v_ea = __shfl_sync(FULL_MASK, b_ea, src);
+      const float v_el = __shfl_sync(FULL_MASK, b_el, src);
+      if (take) {
+        id = v_id;
+        ox = v_ox;
+        oy = v_oy;
+        oz = v_oz;
+        dx = v_dx;
+        dy = v_dy;
+        dz = v_dz;
+        t_max = v_tm;
+        eps_abs = v_ea;
+        eps_lin = v_el;
+        entry = true;
+      }
+      // the lowest min(idle, pending) pending slots are handed out
+      for (int k = min(__popc(idle), __popc(pending)); k > 0; --k)
+        pending &= pending - 1u;
+      idle = __ballot_sync(FULL_MASK, id < 0);
+    }
+    if (idle == FULL_MASK) {  // every ray is taken and written
+      if (a.warp_steps != nullptr && lane == 0)
+        atomicAdd(a.warp_steps, iters);
+      return;
+    }
+    ++iters;
+    if (id < 0) continue;
+    const float px = entry ? ox : ox + t * dx;
+    const float py = entry ? oy : oy + t * dy;
+    const float pz = entry ? oz : oz + t * dz;
+    const float dist = mandelbox_de(a.mb, px, py, pz);
+    bool done;
+    if (entry) {
+      entry = false;
+      t = dist;
+      step = 0;
+      done = isnan(t) || a.max_steps <= 0 || t > t_max;
+      st.enter(t);
+    } else {
+      done = st(dist, nmax(a.eps_const, eps_abs + eps_lin * t), t_max, step,
+                a.max_steps, t);
+    }
+    if (done) {
+      a.t[id] = t;
+      id = -1;
     }
   }
-  return t;
 }
 
 __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const float t_max = a.t_max[i];
-  if (!a.active[i]) {
-    a.t[i] = t_max + 1.0f;
-    return;
-  }
-  const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1],
-              oz = a.origin[3 * i + 2];
-  const float t0 = mandelbox_de(a.mb, ox, oy, oz);
-  if (isnan(t0)) {
-    a.t[i] = t0;
-    return;
-  }
-  a.t[i] = march_ray(a.mb, ox, oy, oz, a.direction[3 * i],
-                     a.direction[3 * i + 1], a.direction[3 * i + 2], t0,
-                     t_max, a.eps_const, a.eps_abs[i], a.eps_lin[i],
-                     a.max_steps, a.relax);
+  march_refill(a, PlainMarch{});
+}
+
+__global__ void __launch_bounds__(128)
+    march_relaxed_kernel(const MarchArgs a) {
+  march_refill(a, RelaxedMarch{a.relax, 0.0f, 0.0f});
 }
 
 // Appends the id of every active segment to the queue.
@@ -181,51 +297,25 @@ __global__ void __launch_bounds__(128) occl_march_first_de_kernel(
                                              a.q, PlainStep{});
 }
 
-// march.py march_phase1: t after at most max_steps plain steps, and
-// whether the lane resolved (inactive and NaN-entry lanes are).
-__global__ void __launch_bounds__(128) march_phase1_kernel(const MarchArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const float t_max = a.t_max[i];
-  if (!a.active[i]) {
-    a.t[i] = t_max + 1.0f;
-    a.resolved[i] = true;
-    return;
-  }
-  const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1],
-              oz = a.origin[3 * i + 2];
-  float t = mandelbox_de(a.mb, ox, oy, oz);
-  const bool resolved =
-      isnan(t) || march_plain(a.mb, ox, oy, oz, a.direction[3 * i],
-                              a.direction[3 * i + 1], a.direction[3 * i + 2],
-                              t, t_max, a.eps_const, a.eps_abs[i],
-                              a.eps_lin[i], a.max_steps);
-  a.t[i] = t;
-  a.resolved[i] = resolved;
-}
-
-// march.py march_resume: thread i finishes lane order[i] from its t.
-__global__ void __launch_bounds__(128) march_resume_kernel(const MarchArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n_order) return;
-  const long long j = a.order[i];
-  if (j < 0 || j >= a.n || a.resolved[j]) return;
-  float t = a.t[j];
-  march_plain(a.mb, a.origin[3 * j], a.origin[3 * j + 1], a.origin[3 * j + 2],
-              a.direction[3 * j], a.direction[3 * j + 1],
-              a.direction[3 * j + 2], t, a.t_max[j], a.eps_const,
-              a.eps_abs[j], a.eps_lin[j], a.max_steps);
-  a.t[j] = t;
-}
-
 }  // namespace rayn
 
+// Blocks an SM of the closest-hit march's persistent grid (0: as many as
+// fit). tools/torch_probe_hit_grid.py --kernel march builds other values
+// and times each depth.
+#ifndef RAYN_MARCH_BLOCKS_PER_SM
+#define RAYN_MARCH_BLOCKS_PER_SM 4
+#endif
+
+// Persistent (launch_persistent): every block runs until all rays are
+// taken; plain steps at relax 1, relaxed ones otherwise.
 extern "C" cudaError_t rayn_march(const rayn::MarchArgs* args,
                                   cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  rayn::march_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
-      *args);
-  return cudaGetLastError();
+  return rayn::launch_persistent(args->relax == 1.0f
+                                     ? rayn::march_kernel
+                                     : rayn::march_relaxed_kernel,
+                                 *args, args->n, stream,
+                                 RAYN_MARCH_BLOCKS_PER_SM);
 }
 
 extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
@@ -247,20 +337,4 @@ extern "C" cudaError_t rayn_occl_march(const rayn::OcclMarchArgs* args,
                                      ? rayn::occl_march_kernel
                                      : rayn::occl_march_relaxed_kernel,
                                  *args, args->q.m, stream);
-}
-
-extern "C" cudaError_t rayn_march_phase1(const rayn::MarchArgs* args,
-                                         cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  rayn::march_phase1_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                              stream>>>(*args);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t rayn_march_resume(const rayn::MarchArgs* args,
-                                         cudaStream_t stream) {
-  if (args->n_order <= 0) return cudaSuccess;
-  rayn::march_resume_kernel<<<rayn::blocks_of(args->n_order, 128), 128, 0,
-                              stream>>>(*args);
-  return cudaGetLastError();
 }

@@ -22,17 +22,18 @@ The two-phase marches (march_pallas.march_sorted, march_phased,
 march_occlusion_phased, march_occlusion_sorted) split the plain march
 into a step-capped phase 1 that reports which lanes resolved, and a
 resume that finishes the others from phase 1's t: `march_phase1` /
-`march_resume` are the plain twins of the march's two kernels, and
-`occlusion_phase1` / `occlusion_resume` the TPU schedule of the
-occlusion in plain torch. Each lane takes the same steps as in one
-uncapped march, so the composition is bit-identical to it; with no
-phase-1 step the occlusion takes JAX's first-DE verdict, which
-`march_occlusion(..., first_de=True)` gives in one march.
+`march_resume` and `occlusion_phase1` / `occlusion_resume` are the TPU
+schedules of the march and the occlusion in plain torch. Each lane
+takes the same steps as in one uncapped march, so the composition is
+bit-identical to it; with no phase-1 step the occlusion takes JAX's
+first-DE verdict, which `march_occlusion(..., first_de=True)` gives in
+one march.
 
 `occlusion_steps` counts the DEs each segment takes in the occlusion
-march, plain or relaxed, and `march_steps` those of each ray's
-closest-hit march in the intersect kernel: the work a schedule of the
-march has to pack into warps.
+march, plain or relaxed, `march(..., n_de=)` those of each ray in the
+march kernel, and `march_steps` those of each ray's closest-hit march
+in the intersect kernel: the work a schedule of the march has to pack
+into warps.
 """
 
 from __future__ import annotations
@@ -82,24 +83,31 @@ def _first_de(mb, origin, t_max, act):
 
 def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
           eps_abs, eps_lin, max_steps: int, active=None,
-          relax: float = 1.0) -> torch.Tensor:
+          relax: float = 1.0, n_de=None) -> torch.Tensor:
     """Primary-ray sphere trace; per-ray t (>= t_max on a miss). Lanes
     that are inactive return t_max + 1; a NaN DE at the origin freezes
-    the lane at NaN (reference src/sdf.rs:59-83)."""
+    the lane at NaN (reference src/sdf.rs:59-83). `n_de`, if given,
+    counts in place the DEs each lane takes in the CUDA march kernel:
+    the entry DE of an active lane, then one per step (a plain step
+    begun past t_max takes none)."""
     act = (torch.ones_like(t_max, dtype=torch.bool) if active is None
            else active)
     t = _first_de(mb, origin, t_max, act)
+    if n_de is not None:
+        n_de += act.to(n_de.dtype)
     # NaN and past-the-end lanes are done at their first step
     live = torch.nonzero(act & (t <= t_max)).squeeze(1)
     if relax == 1.0:
         _march_steps(mb, origin, direction, t_max, eps_const, eps_abs,
-                     eps_lin, t, live, max_steps)
+                     eps_lin, t, live, max_steps, n_de)
         return t
     t_prev = torch.zeros_like(t)
     r_prev = t.clone()
     for _ in range(max_steps):
         if live.numel() == 0:
             break
+        if n_de is not None:
+            n_de[live] += 1
         tl = t[live]
         r = _de_at(mb, origin, direction, live, tl)
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
@@ -120,15 +128,14 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
 def march_steps(mb: MandelBox, origin, direction, t_max, eps_const: float,
                 eps_abs, eps_lin, max_steps: int, active) -> torch.Tensor:
     """int32 [N]: the MandelBox DEs each ray's closest-hit march takes in
-    the intersect kernel: the entry DE at the origin (active rays), one
-    per relax-1 step begun at t <= t_max, and the four normal taps of a
-    ray whose march ends before t_max (an SDF hit): the work a schedule
-    of the closest hit has to pack into warps."""
-    n_de = active.to(torch.int32)
-    t = _first_de(mb, origin, t_max, active)
-    live = torch.nonzero(active & (t <= t_max)).squeeze(1)
-    _march_steps(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
-                 t, live, max_steps, n_de)
+    the intersect kernel: those of the relax-1 march kernel (`march`'s
+    `n_de`), and the four normal taps of a ray whose march ends before
+    t_max (an SDF hit): the work a schedule of the closest hit has to
+    pack into warps."""
+    n_de = torch.zeros(active.shape, dtype=torch.int32,
+                       device=active.device)
+    t = march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+              max_steps, active, n_de=n_de)
     return n_de + 4 * (active & (t < t_max)).to(torch.int32)
 
 

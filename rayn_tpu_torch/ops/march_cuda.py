@@ -4,7 +4,10 @@ Port of the `rayn_tpu.ops.march_pallas` kernels that the unfused bounce
 runs (csrc/march.cu):
 
 - `march` replaces `march` (`_march_kernel`): the closest-hit march of
-  the SDF along each ray, plain or over-relaxed (`relax`).
+  the SDF along each ray, plain or over-relaxed (`relax`). The kernel is
+  a refill march over the wavefront: persistent lanes that each take a
+  ray (a warp claims 32 ray ids at a time from a device counter), march
+  it and write its t to the ray's own slot, then take the next.
 - `march_occlusion` replaces `march_occlusion` (`_occl_kernel`): shadow
   segments with the bounding-sphere clip, plain or over-relaxed. It is a
   function over two kernels: `enqueue` compacts the ids of the active
@@ -17,18 +20,16 @@ runs (csrc/march.cu):
   (`_chained_occl_core`): K segments per ray, each with the relax-1
   verdict of `march_occlusion`: the same two kernels on the K*N
   segments (the TPU's chaining was a schedule, never a result).
-- `march_phase1` and `march_resume` replace `_march_phase1_kernel` and
-  `_march_resume_kernel`. Phase 1 marches every lane a capped number of
-  steps and reports which lanes resolved; the resume kernel takes a lane
-  order and finishes the unresolved lanes in place of a copy of phase
-  1's output, reading each lane's inputs where they lie (on the TPU the
-  stragglers were packed by a payload sort or gathers instead). On these
-  two stand the TPU functions `march_sorted` and `march_phased`: phase
-  1, then a lane order (a sort by the predicted remaining steps, or a
-  stable partition with the unresolved lanes first), then the resume.
-  Neither waits for the device, and each is bit-identical to the march
-  kernel at relax 1: every lane takes the same steps, only the warps
-  that run them change.
+- `march_sorted` and `march_phased` replace the TPU functions of those
+  names (`_march_phase1_kernel`, a regroup of the lanes by a sort or a
+  partition, `_march_resume_kernel`). Every lane of the two-phase march
+  takes the steps of one uncapped plain march, so at every split the
+  result is `march`'s at relax 1 bit for bit, and the refill march
+  regroups its lanes as each ray resolves: both are one launch of the
+  march kernel, with `phase1_steps` checked and selecting nothing.
+  `march_sorted_plain` and `march_phased_plain` are the TPU functions'
+  own schedule in plain torch (phase 1, the lane order, the resume), the
+  references the tests hold against JAX.
 - `march_occlusion_phased` and `march_occlusion_sorted` replace the TPU
   functions of those names (`_occl_phase1_kernel`, a regroup of the
   lanes, `_occl_resume_kernel`). Their verdicts are those of
@@ -65,9 +66,8 @@ _P = ctypes.c_void_p
 class _MarchArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "origin", "direction", "t_max", "eps_abs", "eps_lin", "active",
-        "t", "resolved", "order")] + [
-        ("n", ctypes.c_int64), ("n_order", ctypes.c_int64),
-        ("max_steps", ctypes.c_int), ("mb", MBox),
+        "head", "warp_steps", "t")] + [
+        ("n", ctypes.c_int64), ("max_steps", ctypes.c_int), ("mb", MBox),
         ("eps_const", ctypes.c_float), ("relax", ctypes.c_float)]
 
 
@@ -93,18 +93,10 @@ def _steps_at_least(steps: int, least: int, name: str) -> int:
     return steps
 
 
-def _march_args(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
-                max_steps, t, dev, **fields) -> _MarchArgs:
-    n = origin.shape[0]
-    f32 = torch.float32
-    return _MarchArgs(
-        origin=check(origin, "origin", f32, (n, 3), dev),
-        direction=check(direction, "direction", f32, (n, 3), dev),
-        t_max=check(t_max, "t_max", f32, (n,), dev),
-        eps_abs=check(eps_abs, "eps_abs", f32, (n,), dev),
-        eps_lin=check(eps_lin, "eps_lin", f32, (n,), dev),
-        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mbox_struct(mb),
-        eps_const=eps_const, **fields)
+def _int32_ids(m: int, name: str) -> int:
+    if m >= 2 ** 31:
+        raise ValueError(f"{name}: {m} ids overflow int32")
+    return m
 
 
 def march_plain(mb: MandelBox, origin, direction, t_max, eps_const: float,
@@ -116,102 +108,38 @@ def march_plain(mb: MandelBox, origin, direction, t_max, eps_const: float,
 
 
 def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
-          eps_abs, eps_lin, max_steps: int, active,
-          relax: float = 1.0) -> torch.Tensor:
+          eps_abs, eps_lin, max_steps: int, active, relax: float = 1.0,
+          warp_steps=None) -> torch.Tensor:
     """[N] f32 t of the closest SDF hit along each ray (>= t_max on a
-    miss, t_max + 1 on an inactive lane, NaN where the first DE is)."""
+    miss, t_max + 1 on an inactive lane, NaN where the first DE is).
+    `warp_steps`, a [1] int64 CUDA tensor, has the kernel's warps add
+    their loop iterations to it (one DE per busy lane each)."""
     if origin.device.type == "cpu":
         return march_plain(mb, origin, direction, t_max, eps_const, eps_abs,
                            eps_lin, max_steps, active, relax)
     dev = _cuda_device(origin, "march")
-    n = origin.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
-                       eps_lin, max_steps, t, dev, relax=relax,
-                       active=check(active, "active", torch.bool, (n,), dev))
+    n = _int32_ids(origin.shape[0], "march")
+    f32 = torch.float32
+    t = torch.empty((n,), dtype=f32, device=dev)
+    head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    args = _MarchArgs(
+        origin=check(origin, "origin", f32, (n, 3), dev),
+        direction=check(direction, "direction", f32, (n, 3), dev),
+        t_max=check(t_max, "t_max", f32, (n,), dev),
+        eps_abs=check(eps_abs, "eps_abs", f32, (n,), dev),
+        eps_lin=check(eps_lin, "eps_lin", f32, (n,), dev),
+        active=check(active, "active", torch.bool, (n,), dev),
+        head=head.data_ptr(),
+        warp_steps=(None if warp_steps is None else check(
+            warp_steps, "warp_steps", torch.int64, (1,), dev)),
+        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mbox_struct(mb),
+        eps_const=eps_const, relax=relax)
     _build.launch("rayn_march", args, dev)
     march.launches += 1
     return t
 
 
 march.launches = 0
-
-
-def march_phase1_plain(mb: MandelBox, origin, direction, t_max,
-                       eps_const: float, eps_abs, eps_lin, max_steps: int,
-                       active):
-    """Plain twin of the march phase-1 kernel (ops/march.py)."""
-    return march_ops.march_phase1(mb, origin, direction, t_max, eps_const,
-                                  eps_abs, eps_lin, max_steps, active)
-
-
-def march_phase1(mb: MandelBox, origin, direction, t_max, eps_const: float,
-                 eps_abs, eps_lin, max_steps: int, active):
-    """(t1 [N] f32, resolved [N] bool): every lane marched at most
-    `max_steps` (>= 0) plain steps; resolved where it is inactive, NaN at
-    its first DE, or met its threshold or passed t_max."""
-    if origin.device.type == "cpu":
-        return march_phase1_plain(mb, origin, direction, t_max, eps_const,
-                                  eps_abs, eps_lin, max_steps, active)
-    dev = _cuda_device(origin, "march_phase1")
-    n = origin.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    resolved = torch.empty((n,), dtype=torch.bool, device=dev)
-    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
-                       eps_lin, _steps_at_least(max_steps, 0, "march_phase1"),
-                       t, dev, relax=1.0, resolved=resolved.data_ptr(),
-                       active=check(active, "active", torch.bool, (n,), dev))
-    _build.launch("rayn_march_phase1", args, dev)
-    march_phase1.launches += 1
-    return t, resolved
-
-
-march_phase1.launches = 0
-
-
-def march_resume_plain(mb: MandelBox, origin, direction, t_max,
-                       eps_const: float, eps_abs, eps_lin, max_steps: int,
-                       t1, resolved, order):
-    """Plain twin of the march resume kernel (ops/march.py)."""
-    return march_ops.march_resume(mb, origin, direction, t_max, eps_const,
-                                  eps_abs, eps_lin, max_steps, t1, resolved,
-                                  order)
-
-
-def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
-                 eps_abs, eps_lin, max_steps: int, t1, resolved, order):
-    """A copy of phase 1's t1 in which the lanes listed in `order`
-    (int64 lane indices) that phase 1 left unresolved have marched on
-    for at most `max_steps` more plain steps; thread i of the kernel
-    works on lane order[i]."""
-    if origin.device.type == "cpu":
-        return march_resume_plain(mb, origin, direction, t_max, eps_const,
-                                  eps_abs, eps_lin, max_steps, t1, resolved,
-                                  order)
-    dev = _cuda_device(origin, "march_resume")
-    n = origin.shape[0]
-    check(t1, "t1", torch.float32, (n,), dev)
-    t = t1.clone()
-    args = _march_args(mb, origin, direction, t_max, eps_const, eps_abs,
-                       eps_lin, _steps_at_least(max_steps, 0, "march_resume"),
-                       t, dev, relax=1.0,
-                       resolved=check(resolved, "resolved", torch.bool, (n,),
-                                      dev),
-                       order=check(order, "order", torch.int64,
-                                   (order.shape[0],), dev),
-                       n_order=order.shape[0])
-    _build.launch("rayn_march_resume", args, dev)
-    march_resume.launches += 1
-    return t
-
-
-march_resume.launches = 0
-
-
-def _int32_ids(m: int, name: str) -> int:
-    if m >= 2 ** 31:
-        raise ValueError(f"{name}: {m} segments overflow int32 ids")
-    return m
 
 
 def enqueue_plain(active):
@@ -363,39 +291,62 @@ def sorted_order(resolved, length, t1, phase1_steps: int):
     return torch.argsort(torch.where(resolved, -1.0, (length - t1) / speed))
 
 
-def _march_two_phase(sort: bool, mb, origin, direction, t_max, eps_const,
-                     eps_abs, eps_lin, max_steps, active, phase1_steps):
+def _march_two_phase_plain(sort: bool, mb, origin, direction, t_max,
+                           eps_const, eps_abs, eps_lin, max_steps, active,
+                           phase1_steps):
     _check_split(phase1_steps)
-    t1, resolved = march_phase1(mb, origin, direction, t_max, eps_const,
-                                eps_abs, eps_lin,
-                                min(phase1_steps, max_steps), active)
+    head = (mb, origin, direction, t_max, eps_const, eps_abs, eps_lin)
+    t1, resolved = march_ops.march_phase1(
+        *head, min(phase1_steps, max_steps), active)
     if phase1_steps >= max_steps:
         return t1
     order = (sorted_order(resolved, t_max, t1, phase1_steps) if sort
              else partition_order(resolved))
-    return march_resume(mb, origin, direction, t_max, eps_const, eps_abs,
-                        eps_lin, max_steps - phase1_steps, t1, resolved,
-                        order)
+    return march_ops.march_resume(*head, max_steps - phase1_steps, t1,
+                                  resolved, order)
+
+
+def march_sorted_plain(mb: MandelBox, origin, direction, t_max,
+                       eps_const: float, eps_abs, eps_lin, max_steps: int,
+                       active, phase1_steps: int = 8) -> torch.Tensor:
+    """march_pallas.march_sorted in plain torch, in one piece: phase 1,
+    a sort by predicted remaining steps, the resume."""
+    return _march_two_phase_plain(True, mb, origin, direction, t_max,
+                                  eps_const, eps_abs, eps_lin, max_steps,
+                                  active, phase1_steps)
+
+
+def march_phased_plain(mb: MandelBox, origin, direction, t_max,
+                       eps_const: float, eps_abs, eps_lin, max_steps: int,
+                       active, phase1_steps: int = 32) -> torch.Tensor:
+    """march_pallas.march_phased in plain torch, in one piece: phase 1,
+    the unresolved lanes first, the resume."""
+    return _march_two_phase_plain(False, mb, origin, direction, t_max,
+                                  eps_const, eps_abs, eps_lin, max_steps,
+                                  active, phase1_steps)
 
 
 def march_sorted(mb: MandelBox, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, max_steps: int, active,
                  phase1_steps: int = 8) -> torch.Tensor:
-    """march_pallas.march_sorted: phase 1, a sort by predicted remaining
-    steps, the resume. Equal to `march` at relax 1."""
-    return _march_two_phase(True, mb, origin, direction, t_max, eps_const,
-                            eps_abs, eps_lin, max_steps, active,
-                            phase1_steps)
+    """[N] t of march_pallas.march_sorted: `march`'s at relax 1, from one
+    launch of the march kernel (`march_plain` on the CPU).
+    `phase1_steps` (>= 0) selects nothing: every split gives the same
+    bits."""
+    _check_split(phase1_steps)
+    return march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+                 max_steps, active)
 
 
 def march_phased(mb: MandelBox, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, max_steps: int, active,
                  phase1_steps: int = 32) -> torch.Tensor:
-    """march_pallas.march_phased: phase 1, the unresolved lanes first,
-    the resume. Equal to `march` at relax 1."""
-    return _march_two_phase(False, mb, origin, direction, t_max, eps_const,
-                            eps_abs, eps_lin, max_steps, active,
-                            phase1_steps)
+    """[N] t of march_pallas.march_phased, the same as march_sorted's:
+    one launch of the march kernel, `phase1_steps` (>= 0) selecting
+    nothing."""
+    _check_split(phase1_steps)
+    return march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+                 max_steps, active)
 
 
 def march_occlusion_phased_plain(mb: MandelBox, start, end,

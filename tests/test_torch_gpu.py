@@ -20,9 +20,13 @@ clip, also on adversarial segments (zero length, NaN start, an empty
 queue, a queue of one, relaxed steps that overshoot past the end). The
 segment queue's kernels (queue segments, the refill march on the
 scratch at relax 1 and 1.5, queue sum) equal their twins bit for bit,
-and the segment-queue tail the same tail on the twins. The two-phase
-march kernels (phase 1 and resume) equal their twins bit for bit on the
-same inputs, and the two-phase marches equal the march kernel. The
+and the segment-queue tail the same tail on the twins. The march
+kernel (the refill march over the wavefront, plain and relaxed) equals
+its twin bit for bit at depths 0 and 1 and on adversarial batches (no
+ray, fewer than a warp, a ragged count, none active, NaN entry DEs,
+entry DEs past t_max). The two-phase marches (one launch of the march
+kernel, no argsort) equal their one-piece plain versions and the march
+kernel at splits 0, 8 and 32. The
 two-phase occlusion functions (the enqueue kernel and the refill march,
 nothing else) equal their one-piece plain versions at splits 0, 8 and
 16, on random segments and on segments that start on the fractal, and
@@ -512,24 +516,64 @@ def test_shadow_sort_key_kernel_matches_plain(cuda):
     assert _same_bits(got, want)
 
 
-@pytest.mark.parametrize("relax", [1.0, 1.5])
-def test_march_kernel_matches_plain(cuda, relax):
-    data, static, s, _t, state, (ha, hl) = _wavefront(cuda, 0)
-    n = ha.shape[0]
+# Adversarial batches of the march kernel's take: no ray, fewer rays
+# than a warp, a count that is not a multiple of 32, every lane
+# inactive, NaN entry DEs (NaN origins), entry DEs past t_max.
+MARCH_CASES = ("camera", "bounce", "empty", "few", "ragged", "inactive",
+               "nan entry", "entry past t_max")
+
+
+def _march_case(cuda, case):
+    """(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin),
+    max_steps and active of the march kernel's inputs in `case`: the
+    default scene's camera rays (depth 0) or bounce rays (depth 1),
+    bounded by twice the world radius, cut or altered."""
+    data, static, s, _t, state, (ha, hl) = _wavefront(
+        cuda, 1 if case == "bounce" else 0)
+    o, d, alive = state.origin, state.direction, state.alive
+    n = o.shape[0]
     t_max = torch.full((n,), 2.0 * s.world_radius, device=cuda)
     detail = s.sdf_detail_scale
-    args = (data.sdf_params, state.origin, state.direction, t_max,
-            5e-5 * detail, 0.05 * detail * ha, 0.05 * detail * hl,
-            s.max_marches, state.alive, relax)
+    ea, el = 0.05 * detail * ha, 0.05 * detail * hl
+    cut = {"empty": 0, "few": 17, "ragged": 32 * 37 + 5}.get(case)
+    if cut is not None:
+        o, d, t_max, ea, el, alive = (x[:cut].contiguous() for x in (
+            o, d, t_max, ea, el, alive))
+    lane = torch.arange(o.shape[0], device=cuda)
+    if case == "inactive":
+        alive = torch.zeros_like(alive)
+    elif case == "nan entry":
+        o = torch.where((lane % 3 == 0)[:, None], float("nan"), o)
+    elif case == "entry past t_max":
+        t_max = torch.where(lane % 2 == 0, 1e-3, t_max)
+    return ((data.sdf_params, o, d, t_max, 5e-5 * detail, ea, el),
+            s.max_marches, alive)
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+@pytest.mark.parametrize("case", MARCH_CASES)
+def test_march_kernel_matches_plain(cuda, case, relax):
+    """The refill march equals its twin bit for bit, plain and relaxed;
+    its warps take at least the ideal Σ DEs / 32 loop steps (DEs per ray
+    from march's `n_de`)."""
+    head, max_steps, alive = _march_case(cuda, case)
+    args = (*head, max_steps, alive, relax)
     before = march_cuda.march.launches
-    got = march_cuda.march(*args)
-    want = march_cuda.march_plain(*args)
+    steps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    got = march_cuda.march(*args, warp_steps=steps)
+    n_de = torch.zeros(alive.shape, dtype=torch.int32, device=cuda)
+    want = march_ops.march(*args, n_de=n_de)
     torch.cuda.synchronize()
     assert march_cuda.march.launches == before + 1
-    agree = ((got < t_max) == (want < t_max)) & state.alive
-    assert agree.sum() >= 0.999 * state.alive.sum()
-    torch.testing.assert_close(got[agree], want[agree], rtol=1e-5,
-                               atol=1e-5, equal_nan=True)
+    assert _same_bits(got, want) and _same_bits(
+        want, march_cuda.march_plain(*args))
+    assert int(steps[0]) >= int(n_de.sum()) / 32
+    if case in ("camera", "bounce"):
+        assert 0 < int(((want < head[3]) & alive).sum()) < int(alive.sum())
+    if case == "nan entry":
+        assert bool(torch.isnan(got).any())
+    if case == "entry past t_max":
+        assert bool((alive & (got > head[3])).any())
 
 
 def _segments(dev, k, n):
@@ -674,21 +718,23 @@ def _march_inputs(cuda):
             s.max_marches, state.alive)
 
 
-@pytest.mark.parametrize("split", [8, 32])
-def test_march_phase_kernels_match_plain(cuda, split):
+@pytest.mark.parametrize("split", [0, 8, 32])
+@pytest.mark.parametrize("name", ["march_sorted", "march_phased"])
+def test_two_phase_march_matches_plain(cuda, name, split, monkeypatch):
+    """One launch of the march kernel, no other kernel and no argsort:
+    equal to the one-piece plain version (the TPU schedule) and to
+    march_plain bit for bit."""
     head, max_steps, alive = _march_inputs(cuda)
-    before = march_cuda.march_phase1.launches
-    t1, res = march_cuda.march_phase1(*head, split, alive)
-    _launched(march_cuda.march_phase1, before)
-    t1_p, res_p = march_cuda.march_phase1_plain(*head, split, alive)
-    assert _same_bits(t1, t1_p) and _same_bits(res, res_p)
-    assert 0 < int(res_p.sum()) < res_p.numel()
-    order = march_cuda.sorted_order(res_p, head[3], t1_p, split)
-    args = (*head, max_steps - split, t1_p, res_p, order)
-    before = march_cuda.march_resume.launches
-    got = march_cuda.march_resume(*args)
-    _launched(march_cuda.march_resume, before)
-    assert _same_bits(got, march_cuda.march_resume_plain(*args))
+    before = _all_launches()
+    with monkeypatch.context() as m:
+        m.setattr(torch, "argsort", None)
+        got = getattr(march_cuda, name)(*head, max_steps, alive,
+                                        phase1_steps=split)
+    _launched_only(before, march_cuda.march)
+    want = getattr(march_cuda, name + "_plain")(*head, max_steps, alive,
+                                                phase1_steps=split)
+    assert _same_bits(got, want)
+    assert _same_bits(want, march_cuda.march_plain(*head, max_steps, alive))
 
 
 @pytest.mark.parametrize("name", ["march_sorted", "march_phased"])

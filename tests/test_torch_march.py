@@ -139,11 +139,7 @@ def test_march_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         march_cuda.march_occlusion_chained(mb, z3[None], z3[None], DETAIL,
                                            8, z.bool()[None])
-    order = torch.zeros((4,), dtype=torch.int64, device="meta")
     for fn, args in (
-            (march_cuda.march_phase1, (z3, z3, z, 1e-4, z, z, 8, z.bool())),
-            (march_cuda.march_resume,
-             (z3, z3, z, 1e-4, z, z, 8, z, z.bool(), order)),
             (march_cuda.march_sorted, (z3, z3, z, 1e-4, z, z, 8, z.bool())),
             (march_cuda.march_phased, (z3, z3, z, 1e-4, z, z, 8, z.bool())),
             (march_cuda.march_occlusion_phased,

@@ -6,6 +6,11 @@ twins on the CPU) against its single-phase marches and against rayn_tpu.
   each function equals the port's single-phase twin bit for bit (the
   march by int32 view; the occlusion ones against march_occlusion with no
   bounding-sphere clip, which is how the JAX functions march).
+- The marches are one launch of the march kernel: on the CPU the
+  functions run march_plain, and their one-piece plain versions
+  (march_sorted_plain, march_phased_plain), which keep the TPU schedule
+  (phase 1, the lane order, the resume), equal it bit for bit at every
+  split.
 - The occlusion functions are the enqueue kernel and the refill march,
   with JAX's first-DE entry at split 0. Their composed twins
   (enqueue_plain -> occlusion_march_plain, unclipped) equal the
@@ -14,9 +19,9 @@ twins on the CPU) against its single-phase marches and against rayn_tpu.
   segments and on segments that start on the fractal's surface; at
   splits >= 1 both equal march_occlusion_plain with no clip.
 - Against the JAX functions in interpret mode at splits 1 and 8:
-  occlusion verdicts equal; for the march, hits and misses equal and t
-  within rtol/atol 1e-5 on >= 99% of lanes (the gate of
-  test_torch_march.test_relaxed_march_matches_pallas_interpret:
+  occlusion verdicts equal; for the march's one-piece plain versions,
+  hits and misses equal and t within rtol/atol 1e-5 on >= 99% of lanes
+  (the gate of test_torch_march.test_relaxed_march_matches_pallas_interpret:
   interpret mode contracts a*b+c into FMAs). At split 0 the occlusion
   verdict of a segment is JAX's `first DE < 1e-4`, held on segments that
   start on the fractal's surface. The one-piece plain occlusion versions
@@ -86,9 +91,10 @@ INPUTS = {"random": _occl_inputs, "surface": _surface_inputs}
 
 
 def _port(name, split, max_steps=MAX_STEPS, inputs=None):
-    """The port's two-phase function `name` (numpy result)."""
+    """The port's two-phase function `name`, or its one-piece plain
+    version `name`_plain (numpy result)."""
     mb, fn = tsdf.mandelbox(**MB_ARGS), getattr(march_cuda, name)
-    if name in MARCHES:
+    if name.removesuffix("_plain") in MARCHES:
         r = {k: torch.from_numpy(v) for k, v in _march_inputs().items()}
         return fn(mb, r["o"], r["d"], r["t_max"], EPS_CONST, r["eps_abs"],
                   r["eps_lin"], max_steps, r["act"],
@@ -119,6 +125,13 @@ def _jax_default(name, split):
 
 
 @functools.lru_cache(maxsize=None)
+def _one_piece_march(name, split):
+    """The march `name`'s one-piece plain version on the default inputs,
+    once per worker."""
+    return _port(name + "_plain", split)
+
+
+@functools.lru_cache(maxsize=None)
 def _single_phase(kind):
     mb = tsdf.mandelbox(**MB_ARGS)
     if kind == "march":
@@ -141,6 +154,9 @@ def test_two_phase_equals_single_phase(name, split):
         hits = want < _march_inputs()["t_max"]
         assert 0.2 < hits.mean() < 0.95, hits.mean()
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        one_piece = _one_piece_march(name, split)
+        np.testing.assert_array_equal(one_piece.view(np.int32),
+                                      want.view(np.int32))
     else:
         want = _single_phase("occlusion")
         assert want.any() and (~want).any()
@@ -150,10 +166,11 @@ def test_two_phase_equals_single_phase(name, split):
 @pytest.mark.parametrize("split", [1, 8])
 @pytest.mark.parametrize("name", MARCHES + OCCLUSIONS)
 def test_two_phase_matches_pallas_interpret(name, split):
-    got, want = _port(name, split), _jax_default(name, split)
     if name in OCCLUSIONS:
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_port(name, split),
+                                      _jax_default(name, split))
         return
+    got, want = _one_piece_march(name, split), _jax_default(name, split)
     t_max = _march_inputs()["t_max"]
     np.testing.assert_array_equal(got < t_max, want < t_max)
     close = np.isclose(got, want, rtol=1e-5, atol=1e-5)
