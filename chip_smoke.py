@@ -13,25 +13,28 @@ Phases (any failed gate raises and the script exits non-zero):
    default scene runs through the plain twins on each of seven paths and
    records the real inputs of the kernels at depths 0 and 1 (sort key and
    cost key: 1 and 2): the fused path (intersect, cost key, sort key,
-   equi-angular, the bounce tail's segments, march and tail-sum kernels),
+   the bounce tail's segments, march and tail-sum kernels),
    the fused path with MIS (the
    same tail), the split tail with MIS (segments, march, shadow-sum and
    finish kernels), the relaxed segment queue (relax 1.5) and the relax-1
-   unfused segment queue (the march and equi-angular kernels, the cost
+   unfused segment queue (the march kernel, the cost
    key on the unfused path, and the queue-segments, refill-march and
    queue-sum kernels with the segment-queue tail that runs them), and
    those two with MIS (max_bounces 1: depths 0 and 1
    only); and the inputs of the two functions on the shadow kernels,
    bounce_tail and shadow_radiance. Each kernel then runs on those inputs
    beside its twin, gated by the JAX package's fused-vs-unfused gates;
-   the intersect (all six columns), cost-key, sort-key, equi-angular,
+   the intersect (all six columns), cost-key, sort-key,
    march, shadow and queue kernels must equal their twins bit for bit (a
-   segments kernel's queue as a set), the two functions their one-piece
+   segments kernel's queue as a set, its volume sites drawn from the
+   closest hit's t as equi_angular_plain draws them; the atomicAdds on
+   the queue's count, one per warp of 32 rays with an active segment,
+   are printed), the two functions their one-piece
    plain versions, and the segment-queue tail the same tail on the plain
    twins, in every output column. Kernel and twin are timed with CUDA
-   events, the short kernels (cost key, sort key, equi-angular, finish,
+   events, the short kernels (cost key, sort key, finish,
    segments, sums, enqueue) by their device time in torch.profiler, and
-   the twin's DE count (the finish and equi-angular kernels: their bytes)
+   the twin's DE count (the finish and segments kernels: their bytes)
    gives the kernel's bound. On the fused path's intersect inputs at
    depths 0 and 1, the DEs of each ray (march.march_steps: entry DE,
    march steps, normal taps) give the DE steps per 32-lane warp of one
@@ -76,7 +79,7 @@ Phases (any failed gate raises and the script exits non-zero):
 4. Main path: render_frame on the default scene at 1920x1080, 4 spp,
    2^20 rays per pass, max_marches 256, max_vis_marches 100 (bench.py's
    headline workload with spp cut from 16 to 4); every kernel of the
-   fused path (intersect, cost key, sort key, equi-angular, segments,
+   fused path (intersect, cost key, sort key, segments,
    march, tail sum) must have launched (the shadow-sum and finish kernels
    not); the film must hold w*h*spp samples,
    finite colour and coverage around the image centre.
@@ -114,7 +117,7 @@ Phases (any failed gate raises and the script exits non-zero):
    and the fused pass with `sorted_intersect` and `sorted_shadow_march`
    on and off.
 8. The relaxed main path: phase 4's workload at march_relaxation 1.5,
-   which takes the segment queue; the march, cost-key, equi-angular,
+   which takes the segment queue; the march, cost-key,
    queue-segments, refill-march and queue-sum kernels must have launched
    (and not the enqueue and
    [M, 3] march kernels, which only intersect.test_occluded runs), with
@@ -125,25 +128,24 @@ Phases (any failed gate raises and the script exits non-zero):
    launched, with the film gates.
 10. The split tail with MIS: phase 4's workload with `mis=True` and
    `use_fused_bounce_tail=False`; the intersect, cost-key, sort-key,
-   equi-angular, segments, march, shadow-sum and finish kernels must have
+   segments, march, shadow-sum and finish kernels must have
    launched (the tail-sum
    kernel not), with phase 4's film gates.
 11. The smaller paths, each gated on its own kernels and the film gates:
    `use_fused_finish=False` with MIS at 480x270 (intersect, key,
    segments, march and shadow sum; no finish kernel); the default scene
    without its lights and their emissive bodies at 960x540 (intersect and
-   finish; no shadow, key, equi-angular or tail kernel); MIS at
+   finish; no shadow, key or tail kernel); MIS at
    relaxation 1.5 at
    480x270 (march and the queue kernels); the spheres scene with MIS at
    480x270
    on the bounce tail and on the split tail (no SDF, so no sort or cost
-   key, and no medium, so no equi-angular kernel; the march wrapper
-   launches nothing there).
+   key; the march wrapper launches nothing there).
 12. The two-phase marches: phase 9's path at phase 4's size (1080p, 4
    spp) with `march_sort_steps=8` and `occl_sort_steps=8`, and at 960x540
    with `march_sort_steps=8` and `occl_phase1_steps=16`; the march
    kernel (march_sorted's one launch), the refill march on the scratch
-   and the cost-key, equi-angular, queue-segments and queue-sum kernels
+   and the cost-key, queue-segments and queue-sum kernels
    must have launched and the enqueue and [M, 3] refill-march kernels
    not, with the film gates. At 256x256, 4 spp: the film with
    `march_sort_steps=8` alone equals the unfused film bit for bit, the
@@ -201,7 +203,6 @@ CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
      ("closest_hit_kernel",)),
     ("costkey", "intersect_cuda", "intersect_cost_key", ("cost_key_kernel",)),
-    ("equi", "shade_cuda", "equi_angular", ("equi_angular_kernel",)),
     ("key", "shade_cuda", "shadow_sort_key", ("shadow_sort_key_kernel",)),
     ("seg", "shade_cuda", "shadow_segments", ("shadow_segments_kernel",)),
     ("smarch", "shade_cuda", "shadow_march",
@@ -227,12 +228,14 @@ FUNCTIONS = (("tail", "shade_cuda", "bounce_tail"),
 # Kernels timed by their device time in torch.profiler (and the enqueue
 # kernel, phase 3's rows 7-8): under ~0.5 ms, CUDA events around the
 # wrapper would count its host work between launches as kernel time.
-DEVICE_TIMED = ("costkey", "key", "equi", "seg", "ssum", "tsum", "finish",
-                "qseg", "qsum")
+DEVICE_TIMED = ("costkey", "key", "seg", "ssum", "tsum", "finish", "qseg",
+                "qsum")
 
-# The TPU kernels (every function that reaches pl.pallas_call), then the
-# four kernels that replace XLA code of the JAX integrator (the segment
-# queue's two, the cost key, the equi-angular samples): the name in the
+# The TPU kernels (every function that reaches pl.pallas_call), the
+# segments kernel of rows 2 and 5 (the segment loop of their
+# _shadow_delta), then the kernels that replace XLA code of the JAX
+# integrator (the segment queue's two, the cost key) and the equi-angular
+# samples, which the segments kernels draw: the name in the
 # kernels line, the port's source, the
 # file:line it replaces, the key whose time and bound the row gives (a
 # kernel's or a function's), the main path and kernel key whose launches
@@ -276,13 +279,14 @@ KERNEL_ROWS = (
      ("sorted", "smarch"), ("enqueue", "omarch", "smarch")),
     ("march_phased", MD, f"{MP}:421", "march_phased", ("sorted", "march"),
      ("march",)),
+    ("shadow_segments", SH, f"{SP}:763", "seg", ("main", "seg"), ("seg",)),
     ("queue_segments", SH, f"{JI}:420", "qseg", ("relaxed", "qseg"),
      ("qseg",)),
     ("queue_sum", SH, f"{JI}:512", "qsum", ("relaxed", "qsum"), ("qsum",)),
     ("intersect_cost_key", "rayn_tpu_torch/csrc/intersect.cu", f"{JI}:144",
      "costkey", ("main", "costkey"), ("costkey",)),
-    ("equi_angular_samples", SH, f"{JI}:521", "equi", ("main", "equi"),
-     ("equi",)),
+    ("equi_angular_samples", SH, f"{JI}:521", "seg", ("main", "seg"),
+     ("seg", "qseg")),
 )
 # The phase-1 steps of the two-phase functions in phase 3 (the JAX
 # defaults and 0; the sorted ones are also phase 12's settings).
@@ -403,8 +407,6 @@ def io_tensors(key, a, kw, out):
         return list(a[2:12]), [out]
     if key == "costkey":  # origin, direction, alive
         return [a[3], a[4], a[6]], [out]
-    if key == "equi":     # origin, direction, t_hit, sample_idx, pixel
-        return list(a[2:7]), list(out)
     if key == "smarch":   # the queued segments' start and end, the queue
         segs = a[1]
         count = int(segs.count[0])
@@ -418,10 +420,9 @@ def io_tensors(key, a, kw, out):
         return [radiance, segs.k, segs.active, verdict], [out]
     if key in ("tail", "shadow", "finish", "seg", "qseg", "tsum"):
         if key in ("shadow", "seg", "qseg"):
-            (_cfg, _tabs, state, info, mat, live, recv, vtr, vd, vp) = a
+            (_cfg, _tabs, state, info, mat, live, recv, vtr, t_hit) = a
         elif key == "tail":
-            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, vd,
-             vp) = a
+            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, t_hit) = a
         elif key == "tsum":
             (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, segs,
              verdict) = a
@@ -439,7 +440,7 @@ def io_tensors(key, a, kw, out):
             return ins, list(out.values())
         if key == "tsum":
             return ins + [segs.k, segs.active, verdict], list(out.values())
-        ins += [*vd, *vp]
+        ins.append(t_hit)
         if key in ("seg", "qseg"):
             count = int(out.count[0])
             return ins, [out.geom, out.k, out.active, out.queue[:count],
@@ -592,15 +593,13 @@ def main(argv=None) -> int:
     # (path, settings, kernels and functions whose inputs it records)
     tail_keys = ("tail", "seg", "smarch", "tsum")
     queue_keys = ("qtail", "qseg", "smarch", "qsum")
-    paths = (("fused", main_s, ("intersect", "costkey", "key", "equi",
-                                *tail_keys)),
+    paths = (("fused", main_s, ("intersect", "costkey", "key", *tail_keys)),
              ("fused mis", mis_s, tail_keys),
              ("split mis", split_s, ("shadow", "seg", "smarch", "ssum",
                                      "finish")),
-             ("relaxed", relax_s, ("march", "equi", *queue_keys)),
+             ("relaxed", relax_s, ("march", *queue_keys)),
              ("relaxed mis", relax_mis_s, queue_keys),
-             ("unfused", unfused_s, ("march", "costkey", "equi",
-                                     *queue_keys)),
+             ("unfused", unfused_s, ("march", "costkey", *queue_keys)),
              ("unfused mis", unfused_mis_s, queue_keys))
     captured = {}
     for path, s, keys in paths:
@@ -741,6 +740,8 @@ def main(argv=None) -> int:
             f"{err:.3g}, bit for bit: {bool(torch.equal(rg, rw))}")
         return err
 
+    seg_atomics = {}
+
     def check(key, path, depth, a, kw, got, want):
         label = f"{key} {path} depth {depth}"
         if key == "intersect":
@@ -760,15 +761,6 @@ def main(argv=None) -> int:
             log(f"[3 kernels] {label}: equal to its twin bit for bit (mean "
                 f"key {want.mean().item():.4f})")
             return max_diff(got, want)
-        if key == "equi":
-            n_diff = [int((~((g.view(torch.int32) == w.view(torch.int32))
-                             | (torch.isnan(g) & torch.isnan(w)))).sum())
-                      for g, w in zip(got, want)]
-            gate(n_diff == [0, 0], f"{label}: distances and pdfs differ "
-                 f"from the twin's on {n_diff} of {want[0].numel()} sites")
-            log(f"[3 kernels] {label}: {want[0].numel()} distances and pdfs "
-                "equal to the twin's bit for bit")
-            return max(max_diff(got[0], want[0]), max_diff(got[1], want[1]))
         if key == "shadow":
             err = check_radiance(label, got, want)
             gate(same_bits(got, want), f"{label}: differs from "
@@ -793,9 +785,14 @@ def main(argv=None) -> int:
                     and torch.equal(got.queue[:count].sort().values,
                                     want.queue[:count].sort().values))
             gate(same, f"{label}: segments differ from the twin's")
+            S, n = want.active.shape
+            warps = torch.nn.functional.pad(want.active, (0, -n % 32))
+            atomics = int(warps.reshape(S, -1, 32).any(-1).any(0).sum())
+            seg_atomics[label] = atomics
             log(f"[3 kernels] {label}: {count} of {want.active.numel()} "
                 "segments queued; segments and queue (as a set) equal to "
-                "the twin's bit for bit")
+                f"the twin's bit for bit; {atomics} atomicAdds on the count "
+                "(warps of 32 rays with an active segment)")
             return max(max_diff(got.geom, want.geom),
                        max_diff(got.k, want.k))
         if key == "smarch":
@@ -868,6 +865,7 @@ def main(argv=None) -> int:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             del out, ins, outs
     record["kernel_checks"] = {f"{p} {k}": r for (p, k), r in results.items()}
+    record["segment_atomics"] = seg_atomics
     del got, want
 
     # ------- 3, continued: the closest hit's and the sort key's DE steps
@@ -1201,10 +1199,10 @@ def main(argv=None) -> int:
                     peak_bytes=peak, launches=launches)
 
     # -------------------------------------------------------- 4. main path
-    queue_path = ("march", "costkey", "equi", "qseg", "smarch", "qsum")
+    queue_path = ("march", "costkey", "qseg", "smarch", "qsum")
     not_queue = ("qseg", "qsum", "enqueue", "omarch")
     record["main"] = main_path("4 main", main_s, MAIN_RES,
-                               ("intersect", "costkey", "key", "equi", "seg",
+                               ("intersect", "costkey", "key", "seg",
                                 "smarch", "tsum"),
                                absent=("ssum", "finish", *not_queue))
 
@@ -1339,7 +1337,7 @@ def main(argv=None) -> int:
 
     # ------------------------------- 10. split tail with MIS, full width
     record["split"] = main_path("10 split mis", split_s, MAIN_RES,
-                                ("intersect", "costkey", "key", "equi", "seg",
+                                ("intersect", "costkey", "key", "seg",
                                  "smarch", "ssum", "finish"),
                                 absent=("tsum", *not_queue))
 
@@ -1369,32 +1367,32 @@ def main(argv=None) -> int:
         "no_fused_finish_mis": main_path(
             "11 use_fused_finish=False, mis", dataclasses.replace(
                 small, use_fused_finish=False), SMALL_RES,
-            ("intersect", "costkey", "key", "equi", "seg", "smarch",
-             "ssum"), absent=("finish", "tsum")),
+            ("intersect", "costkey", "key", "seg", "smarch", "ssum"),
+            absent=("finish", "tsum")),
         "no_lights": main_path(
             "11 no lights", dataclasses.replace(
                 main_s, resolution=UNFUSED_RES), UNFUSED_RES,
             ("intersect", "costkey", "finish"), scene=no_lights_scene,
-            absent=("seg", "smarch", "ssum", "tsum", "key", "equi")),
+            absent=("seg", "smarch", "ssum", "tsum", "key")),
         "relaxed_mis": main_path(
             "11 relaxed, mis", dataclasses.replace(
                 small, march_relaxation=RELAX), SMALL_RES,
             queue_path, absent=not_fused),
         "spheres_mis": main_path(
             "11 spheres, mis", small, SMALL_RES, ("intersect", "seg", "tsum"),
-            scene=presets.spheres_scene, absent=("key", "costkey", "equi")),
+            scene=presets.spheres_scene, absent=("key", "costkey")),
         "spheres_split_mis": main_path(
             "11 spheres, split tail, mis", dataclasses.replace(
                 small, use_fused_bounce_tail=False), SMALL_RES,
             ("intersect", "seg", "ssum", "finish"),
             scene=presets.spheres_scene,
-            absent=("key", "costkey", "equi", "tsum")),
+            absent=("key", "costkey", "tsum")),
     }
 
     # ------------------------------------------ 12. the two-phase marches
     # march_sort_steps launches the march kernel (march_sorted); the
     # two-phase march kernels are gone, and no [M, 3] occlusion runs
-    need12 = ("march", "smarch", "costkey", "equi", "qseg", "qsum")
+    need12 = ("march", "smarch", "costkey", "qseg", "qsum")
     absent12 = ("enqueue", "omarch")
     record["sorted"] = main_path("12 sorted", sorted_s, MAIN_RES, need12,
                                  absent=absent12)

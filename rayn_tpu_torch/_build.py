@@ -29,7 +29,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # amplify any ulp difference, shade_pallas.py:34-45).
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
          "-Xcompiler", "-fPIC")
-KERNELS = ("rayn_closest_hit", "rayn_cost_key", "rayn_equi_angular",
+KERNELS = ("rayn_closest_hit", "rayn_cost_key",
            "rayn_shadow_segments", "rayn_shadow_march",
            "rayn_shadow_sum", "rayn_tail_sum", "rayn_finish_bounce",
            "rayn_shadow_sort_key", "rayn_queue_segments", "rayn_queue_sum",

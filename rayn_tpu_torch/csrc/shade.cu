@@ -6,13 +6,14 @@
 // _shadow_delta with march_pallas._segment_entry and _chained_occl_core
 // inlined, runs here as three kernels over a segment scratch:
 // - shadow_segments_kernel, one thread per ray: for each NEE site (L) and
-//   each volume site (VM*L, march-major), the light pick, the cone
-//   sample, the BSDF, the NEE MIS weight of paired lights (before
-//   `worth`), `worth` and the sphere test. It writes each segment's start,
-//   end and contribution k to a struct-of-arrays scratch [., S, N] (S =
-//   L + VM*L), its active flag (worth marching and no sphere in the way),
-//   and appends the id j*N + i of every active segment to a compacted
-//   queue, one atomicAdd per warp.
+//   each volume site (VM*L, march-major), the light pick, the cone sample
+//   (a volume site's scatter point at the equi-angular distance it draws
+//   itself from the closest hit's t), the BSDF, the NEE MIS weight of
+//   paired lights (before `worth`), `worth` and the sphere test. It writes
+//   each segment's start, end and contribution k to a struct-of-arrays
+//   scratch [., S, N] (S = L + VM*L), its active flag (worth marching and
+//   no sphere in the way), and appends the id j*N + i of every active
+//   segment to a compacted queue, one atomicAdd per warp.
 // - shadow_march_kernel: the SDF verdict of every queued segment (the
 //   bounding-sphere clip, the relax-1 step sequence and verdict rule of
 //   march_occlusion), written to the segment's own slot: refill_march
@@ -33,14 +34,13 @@
 // volume sites' equi-angular distances itself (equi_angular_site), which
 // the TPU kernel took from outside because Mosaic lowers neither arctan2
 // nor tan.
-// equi_angular_kernel replaces the XLA ops of rayn_tpu/render/
-// integrator.py _equi_angular_samples: one thread per ray writes the
-// [VM*L, N] distances and pdfs (equi_angular_site) that the segments and
-// queue-segments kernels read.
+// The XLA ops of rayn_tpu/render/integrator.py _equi_angular_samples
+// (:521) run inside the segments kernels (vol_sample, equi_angular_site),
+// which the TPU kernels took from outside for the same reason.
 // The segment-queue bounce (rayn_tpu/render/integrator.py:420-514, the
 // unfused path whose occlusion the TPU ran in march_pallas's
 // march_occlusion and march_occlusion_chained) runs here as:
-// - queue_segments_kernel: shadow_segments_kernel's loop with the
+// - queue_segments_kernel: shadow_segments_kernel's sites with the
 //   unfused bounce's op order (lights.sample_cone, bsdf.eval_f, its
 //   contribution products, spheres.occluded), into the same scratch;
 // - shadow_march_kernel / shadow_march_relaxed_kernel on that scratch;
@@ -68,6 +68,25 @@
 // keeps many warps in flight to hide the DE's dependent chain. Sampling
 // and the finish tail run once per ray in the loop-free kernels. The
 // scratch (~0.5 GB at 2^20 rays and S = 12) costs ~0.3 ms of traffic.
+// The segments kernels are bound by neither: they move ~560-580 B a ray
+// (0.175 ms at 2^20 rays) and take no DE, but each site is a chain of
+// IEEE divisions and square roots, sinf/cosf, expf, powf and, for a
+// volume site, atan2f/tanf, issued one operation at a time under
+// --fmad=false (tools/torch_probe_segments.py on an H100: ~0.44 ms at
+// depth 1 with the queue appends compiled out). The probe ruled out
+// what else could hold them: the appends cost 0.02-0.03 ms
+// (one atomicAdd per warp and site or per warp alike); a register
+// budget for 6 blocks an SM changed nothing, one for 8 spilled and ran
+// slower; and one thread per (ray, site), one warp per site in blocks of
+// 32 rays (12x the threads, each reloading its ray and its sampler
+// state), ran 36% slower than one thread per ray. So a thread keeps its
+// ray in registers across its sites; a warp stages its active ids in
+// shared memory and appends them with one atomicAdd (a warp's 32 rays,
+// not 32 rays per site); a volume site draws its equi-angular sample
+// in the thread (no [VM*L, N] distances and pdfs written by one kernel
+// and read by the next: 64 B a ray and a launch a bounce); and a lane
+// whose ray takes no light skips the BSDF and the transmittances, work
+// its zero contribution never reads.
 // Scene constants (lights [NL, 8], spheres [K, 4], the per-sphere MIS
 // table [K, 5]) come in as small device buffers that stay in L1. No
 // kernel waits on the host: the march reads the queue length on the
@@ -113,8 +132,9 @@ struct RayCols {  // ops/shade_cuda.py _RayCols: read by every tail kernel
 };
 
 struct ShadowCols {  // ops/shade_cuda.py _ShadowCols
-  const float *vol_dist, *vol_pdf;  // [VM*L, N]
-  const float *lights, *spheres;    // [NL, 8], [K, 4]
+  const float* t_hit;             // [N] the closest hit's t: the volume
+                                  // sites' range
+  const float *lights, *spheres;  // [NL, 8], [K, 4]
 };
 
 struct FinishCols {  // ops/shade_cuda.py _FinishCols
@@ -193,15 +213,6 @@ struct KeyArgs {  // ops/shade_cuda.py _KeyArgs
   const bool *live, *recv;
   const float* lights;
   float* key;
-  long long n;
-  ShadowScalars sc;
-};
-
-struct EquiArgs {  // ops/shade_cuda.py _EquiArgs
-  const float *origin, *direction, *t_hit;
-  const int *sample_idx, *pixel;
-  const float* lights;
-  float *o_dist, *o_pdf;  // [VM*L, N]
   long long n;
   ShadowScalars sc;
 };
@@ -316,48 +327,49 @@ __device__ __forceinline__ void put_segment(const SegCols& g, long long m,
   g.active[id] = act;
 }
 
-// Steps 3 + 4 of a bounce up to the SDF march (shade_pallas._shadow_delta):
-// the NEE and volume single-scattering segments of ray i, each written
-// to the scratch and, when active, queued. Lanes past the end (in =
-// false) compute ray n-1 and store nothing, so that every lane of a warp
-// reaches enqueue. kUnfused: the same segments in the op order of the
-// unfused bounce's torch build (shade_cuda.queue_segments_plain).
+// Threads a block of a segments kernel: one ray each.
+constexpr int kSegThreads = 128;
+
+// NEE site j of ray r (shade_pallas._shadow_delta's NEE body; kUnfused:
+// the op order of the unfused bounce's torch build), written to slot
+// j*N + i of the scratch when `store`. Returns its active flag. A lane
+// whose ray receives no light skips the BSDF and the transmittance: its
+// contribution is 0 whatever they are (the MIS weight still multiplies
+// it, so a NaN weight stays NaN as in the twin).
 template <bool kUnfused>
-__device__ __forceinline__ void segments(const SegArgs& a) {
-  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i0 < a.n;
-  const long long i = in ? i0 : a.n - 1;
+__device__ __forceinline__ bool nee_segment(const SegArgs& a, const Ray& r,
+                                            int j, long long i, long long m,
+                                            bool store) {
   const ShadowScalars& sc = a.sc;
-  const ShadowCols& s = a.s;
-  const long long m = (long long)(sc.L + sc.VM * sc.L) * a.n;
-  const Ray r = load_ray(a.r, i);
+  const float* lights = a.s.lights;
   const float3 p = r.p, nrm = r.nrm, tp = r.tp;
   const float wox = -r.d.x, woy = -r.d.y, woz = -r.d.z;
-  for (int j = 0; j < sc.L; ++j) {
-    float ex, ey, ez, pdf;
-    const int l = nee_site<kUnfused>(sc, s.lights, j, r.sidx, r.pix, p.x, p.y,
-                                     p.z, ex, ey, ez, pdf);
-    const float* lr = s.lights + 8 * l;
-    const float wfx = ex - p.x, wfy = ey - p.y, wfz = ez - p.z;
-    const float dist = sqrtf(wfx * wfx + wfy * wfy + wfz * wfz);
-    float wix, wiy, wiz;
-    if (kUnfused) {
-      wix = wfx / dist;
-      wiy = wfy / dist;
-      wiz = wfz / dist;
-    } else {
-      const float dinv = 1.0f / dist;
-      wix = wfx * dinv;
-      wiy = wfy * dinv;
-      wiz = wfz * dinv;
-    }
-    const float ndw = nrm.x * wix + nrm.y * wiy + nrm.z * wiz;
-    const float bias = signbit(ndw) ? -r.off : r.off;
-    const float sx = p.x + nrm.x * bias, sy = p.y + nrm.y * bias,
-                sz = p.z + nrm.z * bias;
+  float ex, ey, ez, pdf;
+  const int l = nee_site<kUnfused>(sc, lights, j, r.sidx, r.pix, p.x, p.y,
+                                   p.z, ex, ey, ez, pdf);
+  const float* lr = lights + 8 * l;
+  const float wfx = ex - p.x, wfy = ey - p.y, wfz = ez - p.z;
+  const float dist = sqrtf(wfx * wfx + wfy * wfy + wfz * wfz);
+  float wix, wiy, wiz;
+  if (kUnfused) {
+    wix = wfx / dist;
+    wiy = wfy / dist;
+    wiz = wfz / dist;
+  } else {
+    const float dinv = 1.0f / dist;
+    wix = wfx * dinv;
+    wiy = wfy * dinv;
+    wiz = wfz * dinv;
+  }
+  const float ndw = nrm.x * wix + nrm.y * wiy + nrm.z * wiz;
+  const float bias = signbit(ndw) ? -r.off : r.off;
+  const float sx = p.x + nrm.x * bias, sy = p.y + nrm.y * bias,
+              sz = p.z + nrm.z * bias;
+  float kr = 0.0f, kg = 0.0f, kb = 0.0f;
+  if (r.receives) {
     const float ndl = nmax(0.0f, ndw);
     const float seg_trans = sc.has_ext ? expf(-sc.sigma_t * dist) : 1.0f;
-    float fr, fg, fb, kr, kg, kb;
+    float fr, fg, fb;
     if (kUnfused) {
       // li * (f * ndl) * (seg_trans / pdf) * tp * (correction * vol_trans)
       eval_f_unfused(r.kind, r.ca.x, r.ca.y, r.ca.z, r.pw, sc.schlick_exp,
@@ -365,69 +377,156 @@ __device__ __forceinline__ void segments(const SegArgs& a) {
                      fg, fb);
       const float st_pdf = seg_trans / pdf;
       const float cv = sc.correction * r.vtr;
-      kr = r.receives ? lr[4] * (fr * ndl) * st_pdf * tp.x * cv : 0.0f;
-      kg = r.receives ? lr[5] * (fg * ndl) * st_pdf * tp.y * cv : 0.0f;
-      kb = r.receives ? lr[6] * (fb * ndl) * st_pdf * tp.z * cv : 0.0f;
+      kr = lr[4] * (fr * ndl) * st_pdf * tp.x * cv;
+      kg = lr[5] * (fg * ndl) * st_pdf * tp.y * cv;
+      kb = lr[6] * (fb * ndl) * st_pdf * tp.z * cv;
     } else {
       eval_f(r.kind, r.ca.x, r.ca.y, r.ca.z, r.pw, wox, woy, woz, wix, wiy,
              wiz, nrm.x, nrm.y, nrm.z, fr, fg, fb);
       const float scale = (seg_trans / pdf) * (sc.correction * r.vtr);
-      kr = r.receives ? lr[4] * fr * ndl * scale * tp.x : 0.0f;
-      kg = r.receives ? lr[5] * fg * ndl * scale * tp.y : 0.0f;
-      kb = r.receives ? lr[6] * fb * ndl * scale * tp.z : 0.0f;
+      kr = lr[4] * fr * ndl * scale * tp.x;
+      kg = lr[5] * fg * ndl * scale * tp.y;
+      kb = lr[6] * fb * ndl * scale * tp.z;
     }
-    if (sc.mis && lr[7] > 0.0f) {
-      // NEE of a paired light, weighted against the BSDF strategy
-      const float p_bsdf =
-          eval_pdf(sc.compat_reflect, r.kind, r.pw, wox, woy, woz, wix, wiy,
-                   wiz, nrm.x, nrm.y, nrm.z);
-      const float w =
-          power_heuristic((float)sc.L, pdf / (float)sc.NL, 1.0f, p_bsdf);
-      kr = kr * w;
-      kg = kg * w;
-      kb = kb * w;
-    }
-    const bool worth =
-        r.receives && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    const bool act = worth && !sphere_occluded<kUnfused>(s.spheres, sc.K, sx,
-                                                         sy, sz, ex, ey, ez);
-    const long long id = (long long)j * a.n + i;
-    if (in) put_segment(a.g, m, id, sx, sy, sz, ex, ey, ez, kr, kg, kb, act);
-    enqueue(in && act, (int)id, a.g.count, a.g.queue);
   }
-  for (int j = 0; j < sc.VM * sc.L; ++j) {
-    const float vd = s.vol_dist[(long long)j * a.n + i];
-    const float vp = s.vol_pdf[(long long)j * a.n + i];
-    float spx, spy, spz, ex, ey, ez, light_pdf;
-    const int l = vol_site<kUnfused>(sc, s.lights, j, r.sidx, r.pix, vd, r.o.x,
-                                     r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, spx,
-                                     spy, spz, ex, ey, ez, light_pdf);
-    const float* lr = s.lights + 8 * l;
+  if (sc.mis && lr[7] > 0.0f) {
+    // NEE of a paired light, weighted against the BSDF strategy
+    const float p_bsdf = eval_pdf(sc.compat_reflect, r.kind, r.pw, wox, woy,
+                                  woz, wix, wiy, wiz, nrm.x, nrm.y, nrm.z);
+    const float w =
+        power_heuristic((float)sc.L, pdf / (float)sc.NL, 1.0f, p_bsdf);
+    kr = kr * w;
+    kg = kg * w;
+    kb = kb * w;
+  }
+  const bool worth = r.receives && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
+  const bool act = worth && !sphere_occluded<kUnfused>(a.s.spheres, sc.K, sx,
+                                                       sy, sz, ex, ey, ez);
+  if (store)
+    put_segment(a.g, m, (long long)j * a.n + i, sx, sy, sz, ex, ey, ez, kr,
+                kg, kb, act);
+  return act;
+}
+
+// Volume site j of ray r (march-major), its equi-angular distance and pdf
+// drawn here from the closest hit's t_hit (vol_sample), written to slot
+// (L + j)*N + i of the scratch when `store`. Returns its active flag. A
+// lane whose ray is not alive skips the transmittances: its contribution
+// is 0.
+template <bool kUnfused>
+__device__ __forceinline__ bool vol_segment(const SegArgs& a, const Ray& r,
+                                            float t_hit, int j, long long i,
+                                            long long m, bool store) {
+  const ShadowScalars& sc = a.sc;
+  const float* lights = a.s.lights;
+  float vd, vp;
+  vol_sample(sc, lights, j, r.sidx, r.pix, r.o, r.d, t_hit, vd, vp);
+  float spx, spy, spz, ex, ey, ez, light_pdf;
+  const int l = vol_site<kUnfused>(sc, lights, j, r.sidx, r.pix, vd, r.o.x,
+                                   r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, spx,
+                                   spy, spz, ex, ey, ez, light_pdf);
+  const float* lr = lights + 8 * l;
+  float kr = 0.0f, kg = 0.0f, kb = 0.0f;
+  if (r.alive) {
     const float sgx = ex - spx, sgy = ey - spy, sgz = ez - spz;
     const float dist_pl = sqrtf(sgx * sgx + sgy * sgy + sgz * sgz);
     const float seg_trans = sc.has_ext ? expf(-sc.sigma_t * dist_pl) : 1.0f;
     const float to_point = sc.has_ext ? expf(-sc.sigma_t * vd) : 1.0f;
     const float scale = INV_4PI_F * seg_trans / (vp * light_pdf) *
                         sc.vm_correction * sc.sigma_s * to_point;
-    const float kr = r.alive ? lr[4] * scale * tp.x : 0.0f;
-    const float kg = r.alive ? lr[5] * scale * tp.y : 0.0f;
-    const float kb = r.alive ? lr[6] * scale * tp.z : 0.0f;
-    const bool worth = r.alive && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-    const bool act = worth && !sphere_occluded<kUnfused>(s.spheres, sc.K, spx,
-                                                         spy, spz, ex, ey, ez);
-    const long long id = (long long)(sc.L + j) * a.n + i;
-    if (in)
-      put_segment(a.g, m, id, spx, spy, spz, ex, ey, ez, kr, kg, kb, act);
-    enqueue(in && act, (int)id, a.g.count, a.g.queue);
+    kr = lr[4] * scale * r.tp.x;
+    kg = lr[5] * scale * r.tp.y;
+    kb = lr[6] * scale * r.tp.z;
   }
+  const bool worth = r.alive && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
+  const bool act = worth && !sphere_occluded<kUnfused>(a.s.spheres, sc.K, spx,
+                                                       spy, spz, ex, ey, ez);
+  if (store)
+    put_segment(a.g, m, (long long)(sc.L + j) * a.n + i, spx, spy, spz, ex,
+                ey, ez, kr, kg, kb, act);
+  return act;
 }
 
-__global__ void __launch_bounds__(128) shadow_segments_kernel(const SegArgs a) {
+// Stages the ids of a warp's active segments in its list `ids`, after
+// the `staged` ids already there (a count every lane holds); every lane
+// of the warp calls it.
+__device__ __forceinline__ void enqueue_stage(bool act, int id, int* ids,
+                                              int& staged) {
+  const unsigned m = __ballot_sync(FULL_MASK, act);
+  if (act) ids[staged + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = id;
+  staged += __popc(m);
+}
+
+// Appends a warp's staged ids to the queue: one atomicAdd on the count,
+// then one coalesced copy. Every lane of the warp calls it.
+__device__ __forceinline__ void enqueue_flush(const int* ids, int staged,
+                                              int* count, int* queue) {
+  if (staged == 0) return;
+  __syncwarp();
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(count, staged);
+  base = __shfl_sync(FULL_MASK, base, 0);
+  for (int k = lane; k < staged; k += 32) queue[base + k] = ids[k];
+}
+
+// Steps 3 + 4 of a bounce up to the SDF march (shade_pallas._shadow_delta):
+// the NEE and volume single-scattering segments of ray i, each written to
+// the scratch and, when active, queued: a warp stages the ids of its 32
+// rays' active segments in shared memory and appends them with one
+// atomicAdd. Lanes past the end (in = false) compute ray n-1 and store
+// nothing, so that every lane of a warp stages. kUnfused: the same
+// segments in the op order of the unfused bounce's torch build
+// (shade_cuda.queue_segments_plain).
+template <bool kUnfused>
+__device__ __forceinline__ void segments(const SegArgs& a) {
+  extern __shared__ int s_ids[];  // 32 * S ids a warp
+  const int L = a.sc.L, S = L + a.sc.VM * L;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i0 < a.n;
+  const long long i = in ? i0 : a.n - 1;
+  const long long m = (long long)S * a.n;
+  int* ids = s_ids + (threadIdx.x >> 5) * 32 * S;
+  int staged = 0;
+  const Ray r = load_ray(a.r, i);
+  for (int j = 0; j < L; ++j) {
+    const bool act = nee_segment<kUnfused>(a, r, j, i, m, in);
+    const int id = (int)((long long)j * a.n + i);
+    enqueue_stage(in && act, id, ids, staged);
+  }
+  const float t_hit = a.s.t_hit[i];
+  for (int j = 0; j < S - L; ++j) {
+    const bool act = vol_segment<kUnfused>(a, r, t_hit, j, i, m, in);
+    const int id = (int)((long long)(L + j) * a.n + i);
+    enqueue_stage(in && act, id, ids, staged);
+  }
+  enqueue_flush(ids, staged, a.g.count, a.g.queue);
+}
+
+__global__ void __launch_bounds__(kSegThreads)
+    shadow_segments_kernel(const SegArgs a) {
   segments<false>(a);
 }
 
-__global__ void __launch_bounds__(128) queue_segments_kernel(const SegArgs a) {
+__global__ void __launch_bounds__(kSegThreads)
+    queue_segments_kernel(const SegArgs a) {
   segments<true>(a);
+}
+
+// One thread per ray, kSegThreads a block, with shared memory for the
+// ids of all their segments.
+__host__ cudaError_t launch_segments(void (*kernel)(SegArgs),
+                                     const SegArgs& a, cudaStream_t stream) {
+  const int S = a.sc.L + a.sc.VM * a.sc.L;
+  if (a.n <= 0 || S <= 0) return cudaSuccess;
+  const int smem = (int)sizeof(int) * kSegThreads * S;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks_of(a.n, kSegThreads), kSegThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // The SDF verdict of every queued segment of the scratch (refill_march).
@@ -659,37 +758,16 @@ __global__ void __launch_bounds__(128)
   a.key[i] = key;
 }
 
-__global__ void __launch_bounds__(128) equi_angular_kernel(const EquiArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const ShadowScalars& sc = a.sc;
-  const float3 o = ld3(a.origin, i), d = ld3(a.direction, i);
-  const float t_hit = a.t_hit[i];
-  const uint32_t sidx = (uint32_t)a.sample_idx[i], pix = (uint32_t)a.pixel[i];
-  for (int j = 0; j < sc.VM * sc.L; ++j) {
-    float vd, vp;
-    vol_sample(sc, a.lights, j, sidx, pix, o, d, t_hit, vd, vp);
-    a.o_dist[(long long)j * a.n + i] = vd;
-    a.o_pdf[(long long)j * a.n + i] = vp;
-  }
-}
-
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
                                             cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  rayn::shadow_segments_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                                 stream>>>(*args);
-  return cudaGetLastError();
+  return rayn::launch_segments(rayn::shadow_segments_kernel, *args, stream);
 }
 
 extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
                                            cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  rayn::queue_segments_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                                stream>>>(*args);
-  return cudaGetLastError();
+  return rayn::launch_segments(rayn::queue_segments_kernel, *args, stream);
 }
 
 // Persistent (launch_persistent); plain steps at relax 1, else relaxed.
@@ -743,13 +821,5 @@ extern "C" cudaError_t rayn_shadow_sort_key(const rayn::KeyArgs* args,
   const long long blocks = (args->n + threads - 1) / threads;
   rayn::shadow_sort_key_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
       *args);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t rayn_equi_angular(const rayn::EquiArgs* args,
-                                         cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  rayn::equi_angular_kernel<<<rayn::blocks_of(args->n, 128), 128, 0,
-                              stream>>>(*args);
   return cudaGetLastError();
 }

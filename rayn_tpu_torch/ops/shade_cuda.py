@@ -19,18 +19,20 @@ render paths:
   both halves, the finish on (state radiance + delta).
 - `shadow_sort_key` replaces `shadow_sort_key` (`_shadow_key_kernel` ->
   `_shadow_cost_key` -> `_segment_cost`): per ray, the summed estimate
-  min(segment length / first DE, max_steps) over the same segments. It
-  draws the volume sites' equi-angular distances itself.
-- `equi_angular` replaces the XLA ops of the JAX integrator's
-  `_equi_angular_samples`: the [VM*L, N] equi-angular distances and pdfs
-  of the volume sites, which every tail reads. The TPU kernels took them
-  from outside only because Mosaic lowers neither arctan2 nor tan.
+  min(segment length / first DE, max_steps) over the same segments.
+
+The sort key and the segments kernels below draw the volume sites'
+equi-angular distances and pdfs themselves from the closest hit's t
+(the XLA ops of the JAX integrator's `_equi_angular_samples`), which the
+TPU kernels took from outside only because Mosaic lowers neither arctan2
+nor tan.
 
 `shadow_radiance` and `bounce_tail` are functions over three kernels:
-`shadow_segments` builds every segment once into a scratch and queues
-the active ones, `shadow_march` marches the queue (persistent lanes that
-refill from it), and `shadow_sum` / `tail_sum` sum k * visible in the
-JAX segment order (the latter then runs the finish tail).
+`shadow_segments` builds every segment once into a scratch (one thread
+per ray) and queues the active ones (one atomicAdd a warp),
+`shadow_march` marches the queue (persistent lanes that refill from
+it), and `shadow_sum` / `tail_sum` sum k * visible in the JAX segment
+order (the latter then runs the finish tail).
 
 The segment-queue bounce (relaxed marching or `use_fused_shadows=False`,
 render/integrator._segment_queue_tail) runs on the same scratch:
@@ -47,8 +49,8 @@ body, not the unfused integrator path), so kernel and twin differ only
 in the compiler's float choices. `bounce_tail_plain` and
 `shadow_radiance_plain` are the same pipeline in one piece
 (`_shadow_delta_plain`: the segment loop, the verdicts, the ordered
-sum). `equi_angular_plain` is the JAX integrator's torch code for the
-equi-angular samples.
+sum). Every twin draws the equi-angular samples with
+`equi_angular_plain`, the JAX integrator's torch code for them.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 _PI = 3.14159265358979     # shade_pallas._PI (same float32 as math.pi)
 _TWO_PI = 2.0 * _PI
+_INV_4PI = 1.0 / (4.0 * _PI)
 _F0 = 0.04
 F32_EPS = 1.1920929e-07    # f32::EPSILON (reference src/material.rs:236)
 
@@ -528,76 +531,83 @@ def _lane_values(state, info, mat, live, receives):
         wo=(-d[0], -d[1], -d[2]))
 
 
-def _segment_loop(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
-    """Steps 3 + 4 of a bounce up to the SDF march (shade_pallas
-    ._shadow_delta): the NEE sites 0..L-1, then the volume sites
-    march-major. Returns (segs, ks): per segment (start xyz, end xyz,
-    active) and its contribution k (r, g, b). With `mis`, the NEE of a
-    paired light is weighted before `worth` decides whether its segment
-    is marched; a segment is active when it is worth marching and no
-    sphere blocks it."""
+def _nee_segment(cfg, lights, spheres, v, vtr, i):
+    """NEE site i of each ray (shade_pallas._shadow_delta's NEE body):
+    ((start xyz, end xyz, active), contribution k (r, g, b)). With `mis`,
+    the NEE of a paired light is weighted before `worth` decides whether
+    its segment is marched; a segment is active when it is worth
+    marching and no sphere blocks it."""
     p_x, p_y, p_z = v["p"]
     n_x, n_y, n_z = v["n"]
     off = v["off"]
     tp_x, tp_y, tp_z = v["tp"]
     wo_x, wo_y, wo_z = v["wo"]
     c_r, c_g, c_b = v["ca"]
-    receives, alive = v["recv"], v["alive"]
-    segs, ks = [], []
-    for i in range(cfg.L):
-        ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, lights, i, v)
-        wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
-        dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
-        dinv = 1.0 / dist
-        wix, wiy, wiz = wfx * dinv, wfy * dinv, wfz * dinv
-        ndw = n_x * wix + n_y * wiy + n_z * wiz
-        bias = torch.where(torch.signbit(ndw), -off, off)
-        sx, sy, sz = p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias
-        fr, fg, fb = _eval_f(v["kind"], c_r, c_g, c_b, v["pw"],
-                             wo_x, wo_y, wo_z, wix, wiy, wiz, n_x, n_y, n_z)
-        ndl = torch.clamp(ndw, min=0.0)
-        seg_trans = (torch.exp(-cfg.sigma_t * dist) if cfg.has_ext
-                     else 1.0)
-        scale = _div(seg_trans, pdf) * (cfg.correction * vtr)
-        kr = torch.where(receives, er * fr * ndl * scale * tp_x, 0.0)
-        kg = torch.where(receives, eg * fg * ndl * scale * tp_y, 0.0)
-        kb = torch.where(receives, eb * fb * ndl * scale * tp_z, 0.0)
-        if cfg.mis:
-            p_bsdf = _eval_pdf(cfg, v["kind"], v["pw"], wo_x, wo_y, wo_z,
-                               wix, wiy, wiz, n_x, n_y, n_z)
-            w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
-                                      1.0, p_bsdf)
-            w = torch.where(pair > 0.0, w_light, 1.0)
-            kr, kg, kb = kr * w, kg * w, kb * w
-        worth = receives & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
-        blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
-        m_act = worth & ~blocked
-        segs.append(((sx, sy, sz), (ex, ey, ez), m_act))
-        ks.append((kr, kg, kb))
-    if cfg.VM:
-        inv_4pi = 1.0 / (4.0 * _PI)
-        for j in range(cfg.VM * cfg.L):
-            vd, vp = vol_dist[j], vol_pdf[j]
-            (spx, spy, spz), (ex, ey, ez), light_pdf, (er, eg, eb) = \
-                _vol_site(cfg, lights, j, vd, v)
-            sgx, sgy, sgz = ex - spx, ey - spy, ez - spz
-            dist_pl = _sqrt(sgx * sgx + sgy * sgy + sgz * sgz)
-            if cfg.has_ext:
-                seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
-                to_point = torch.exp(-cfg.sigma_t * vd)
-            else:
-                seg_trans = to_point = 1.0
-            scale = (_div(inv_4pi * seg_trans, vp * light_pdf)
-                     * cfg.vm_correction * cfg.sigma_s * to_point)
-            kr = torch.where(alive, er * scale * tp_x, 0.0)
-            kg = torch.where(alive, eg * scale * tp_y, 0.0)
-            kb = torch.where(alive, eb * scale * tp_z, 0.0)
-            worth = alive & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
-            blocked = _sphere_occluded(spheres, spx, spy, spz, ex, ey, ez)
-            m_act = worth & ~blocked
-            segs.append(((spx, spy, spz), (ex, ey, ez), m_act))
-            ks.append((kr, kg, kb))
-    return segs, ks
+    receives = v["recv"]
+    ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, lights, i, v)
+    wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
+    dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
+    dinv = 1.0 / dist
+    wix, wiy, wiz = wfx * dinv, wfy * dinv, wfz * dinv
+    ndw = n_x * wix + n_y * wiy + n_z * wiz
+    bias = torch.where(torch.signbit(ndw), -off, off)
+    sx, sy, sz = p_x + n_x * bias, p_y + n_y * bias, p_z + n_z * bias
+    fr, fg, fb = _eval_f(v["kind"], c_r, c_g, c_b, v["pw"],
+                         wo_x, wo_y, wo_z, wix, wiy, wiz, n_x, n_y, n_z)
+    ndl = torch.clamp(ndw, min=0.0)
+    seg_trans = (torch.exp(-cfg.sigma_t * dist) if cfg.has_ext
+                 else 1.0)
+    scale = _div(seg_trans, pdf) * (cfg.correction * vtr)
+    kr = torch.where(receives, er * fr * ndl * scale * tp_x, 0.0)
+    kg = torch.where(receives, eg * fg * ndl * scale * tp_y, 0.0)
+    kb = torch.where(receives, eb * fb * ndl * scale * tp_z, 0.0)
+    if cfg.mis:
+        p_bsdf = _eval_pdf(cfg, v["kind"], v["pw"], wo_x, wo_y, wo_z,
+                           wix, wiy, wiz, n_x, n_y, n_z)
+        w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
+                                  1.0, p_bsdf)
+        w = torch.where(pair > 0.0, w_light, 1.0)
+        kr, kg, kb = kr * w, kg * w, kb * w
+    worth = receives & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
+    blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
+    return ((sx, sy, sz), (ex, ey, ez), worth & ~blocked), (kr, kg, kb)
+
+
+def _vol_segment(cfg, lights, spheres, v, j, vd, vp):
+    """Volume site j of each ray (march-major) at its equi-angular
+    distance vd and pdf vp: ((start xyz, end xyz, active), contribution
+    k (r, g, b))."""
+    tp_x, tp_y, tp_z = v["tp"]
+    alive = v["alive"]
+    (spx, spy, spz), (ex, ey, ez), light_pdf, (er, eg, eb) = \
+        _vol_site(cfg, lights, j, vd, v)
+    sgx, sgy, sgz = ex - spx, ey - spy, ez - spz
+    dist_pl = _sqrt(sgx * sgx + sgy * sgy + sgz * sgz)
+    if cfg.has_ext:
+        seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
+        to_point = torch.exp(-cfg.sigma_t * vd)
+    else:
+        seg_trans = to_point = 1.0
+    scale = (_div(_INV_4PI * seg_trans, vp * light_pdf)
+             * cfg.vm_correction * cfg.sigma_s * to_point)
+    kr = torch.where(alive, er * scale * tp_x, 0.0)
+    kg = torch.where(alive, eg * scale * tp_y, 0.0)
+    kb = torch.where(alive, eb * scale * tp_z, 0.0)
+    worth = alive & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
+    blocked = _sphere_occluded(spheres, spx, spy, spz, ex, ey, ez)
+    return ((spx, spy, spz), (ex, ey, ez), worth & ~blocked), (kr, kg, kb)
+
+
+def _segment_loop(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+    """Steps 3 + 4 of a bounce up to the SDF march (shade_pallas
+    ._shadow_delta): the NEE sites 0..L-1, then the volume sites
+    march-major. Returns (segs, ks): per segment (start xyz, end xyz,
+    active) and its contribution k (r, g, b)."""
+    out = [_nee_segment(cfg, lights, spheres, v, vtr, i)
+           for i in range(cfg.L)]
+    out += [_vol_segment(cfg, lights, spheres, v, j, vol_dist[j], vol_pdf[j])
+            for j in range(cfg.VM * cfg.L)]
+    return [seg for seg, _k in out], [k for _seg, k in out]
 
 
 def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
@@ -708,13 +718,23 @@ def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
         color_out=co, bg_out=bg, alpha_out=al, normal_out=nout)
 
 
+def _vol_samples(cfg: ShadowCfg, tables: SceneTables, state, t_hit):
+    """(vol_dist, vol_pdf), [VM*L, N] each: the volume sites' equi-angular
+    samples along each ray up to its closest hit t_hit."""
+    return equi_angular_plain(cfg, tables.lights, state.origin,
+                              state.direction, t_hit, state.sample_idx,
+                              state.pixel)
+
+
 def shadow_radiance_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
-                          mat, live, receives, vol_trans, vol_dist, vol_pdf):
+                          mat, live, receives, vol_trans, t_hit):
     """Plain version of `shadow_radiance`: the [N, 3] radiance delta of
     one bounce's NEE and volume segments."""
     v = _lane_values(state, info, mat, live, receives)
     return _stack(*_shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
-                                       vol_trans, vol_dist, vol_pdf))
+                                       vol_trans,
+                                       *_vol_samples(cfg, tables, state,
+                                                     t_hit)))
 
 
 def finish_bounce_plain(cfg: ShadowCfg, tables: SceneTables, state, hit,
@@ -727,14 +747,15 @@ def finish_bounce_plain(cfg: ShadowCfg, tables: SceneTables, state, hit,
 
 
 def bounce_tail_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
-                      mat, live, receives, vol_trans, vol_dist, vol_pdf):
+                      mat, live, receives, vol_trans, t_hit):
     """Plain version of `bounce_tail`: the next PathState fields as a
     dict (origin, direction, throughput, radiance, alive, prev_pdf,
     color_out, bg_out, alpha_out, normal_out). Association order is the
     two-kernel path's: (state.radiance + shadow delta) + emission."""
     v = _lane_values(state, info, mat, live, receives)
     dr, dg, db = _shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
-                                     vol_trans, vol_dist, vol_pdf)
+                                     vol_trans,
+                                     *_vol_samples(cfg, tables, state, t_hit))
     rx, ry, rz = state.radiance.unbind(-1)
     return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
@@ -759,13 +780,14 @@ def _planes(cols, rows, x):
 
 
 def shadow_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
-                          mat, live, receives, vol_trans, vol_dist,
-                          vol_pdf) -> ShadowSegments:
+                          mat, live, receives, vol_trans,
+                          t_hit) -> ShadowSegments:
     """Plain twin of the segments kernel: the segment loop's segments,
     with the active ones queued in id order."""
     v = _lane_values(state, info, mat, live, receives)
     segs, ks = _segment_loop(cfg, tables.lights, tables.spheres, v,
-                             vol_trans, vol_dist, vol_pdf)
+                             vol_trans,
+                             *_vol_samples(cfg, tables, state, t_hit))
     n = state.origin.shape[0]
     x = v["p"][0]
     active = (torch.stack([a for (_s, _e, a) in segs]) if segs else
@@ -816,110 +838,124 @@ def tail_sum_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
                          (rx + dr, ry + dg, rz + db))
 
 
+def _queue_light(cfg, lights, set_id, sidx, pix):
+    """The light that sampler set `set_id` picks for each lane, from the
+    constant light table: position [N, 3], radius, emission [N, 3],
+    paired flag."""
+    u_pick = _s1(cfg, set_id, sidx, pix)
+    lidx = torch.clamp(torch.floor(u_pick * cfg.NL).to(torch.int64), 0,
+                       cfg.NL - 1)
+    row = lights[lidx]
+    return row[:, :3], row[:, 3], row[:, 4:7], row[:, 7]
+
+
+def _queue_u2(cfg, set_id, state):
+    return rng_mod.sample_2d(cfg, rng_mod.SampleTables(cfg.frame), set_id,
+                             state.sample_idx, state.pixel)
+
+
+def _queue_blocked(cfg, tables, start, end):
+    """[N] bool: a sphere blocks the segment start -> end (the sphere test
+    of intersect.test_occluded)."""
+    if not cfg.K:
+        return torch.zeros(start.shape[:1], dtype=torch.bool,
+                           device=start.device)
+    centers = tables.spheres[None, :, :3].expand(start.shape[0], cfg.K, 3)
+    return sphere_ops.occluded(start, end, centers,
+                               tables.spheres[:, 3]).any(dim=1)
+
+
+def _queue_nee_segment(cfg, tables, state, info, mat, receives, vol_trans,
+                       i):
+    """NEE site i of the unfused bounce (JAX integrator.py:420-483), its
+    torch build as the segment queue ran it op by op, MIS-weighted for
+    paired lights: (start, end, contribution [N, 3], active: worth
+    marching and no sphere in the way)."""
+    wo = -state.direction
+    ones = torch.ones_like(vol_trans)
+    lp, lr, lem, paired = _queue_light(cfg, tables.lights, cfg.set_pick[i],
+                                       state.sample_idx, state.pixel)
+    end_point, li, pdf = light_ops.sample_cone(
+        _queue_u2(cfg, cfg.set_nee[i], state), lp, lr, info.point, lem)
+    wi_full = end_point - info.point
+    dist = vecmath.length(wi_full)
+    wi = wi_full / dist[:, None]
+    ndw = vecmath.dot(info.normal, wi)
+    occ_origin = info.point + info.normal * (
+        torch.copysign(ones, ndw) * info.offset_by)[:, None]
+    f = (bsdf_ops.eval_f(mat, wo, wi, info.normal)
+         * torch.clamp(ndw, min=0.0)[:, None])
+    seg_trans = torch.exp(-cfg.sigma_t * dist) if cfg.has_ext else ones
+    contrib = (li * f * (seg_trans / pdf)[:, None] * state.throughput
+               * (cfg.correction * vol_trans)[..., None])
+    contrib = torch.where(receives[:, None], contrib, 0.0)
+    if cfg.mis:
+        # unpaired lights are invisible to BSDF rays: weight 1
+        p_bsdf = bsdf_ops.eval_pdf(mat, cfg, wo, wi, info.normal)
+        w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
+                                  1.0, p_bsdf)
+        contrib = contrib * torch.where(paired > 0.0, w_light, 1.0)[:, None]
+    act = receives & (contrib != 0.0).any(dim=-1)
+    return (occ_origin, end_point, contrib,
+            act & ~_queue_blocked(cfg, tables, occ_origin, end_point))
+
+
+def _queue_vol_segment(cfg, tables, state, live, j, vd, vp):
+    """Volume site j (march-major) of the unfused bounce (JAX
+    integrator.py:485-501) at its equi-angular distance vd and pdf vp:
+    (start, end, contribution [N, 3], active)."""
+    ones = torch.ones_like(vd)
+    lp, lr, lem, _paired = _queue_light(cfg, tables.lights,
+                                        cfg.set_vol_pick[j],
+                                        state.sample_idx, state.pixel)
+    sampled = state.origin + vd[:, None] * state.direction
+    end_point, li, light_pdf = light_ops.sample_cone(
+        _queue_u2(cfg, cfg.set_vol[j], state), lp, lr, sampled, lem)
+    dist_pl = vecmath.length(end_point - sampled)
+    if cfg.has_ext:
+        seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
+        to_point = torch.exp(-cfg.sigma_t * vd)
+    else:
+        seg_trans = to_point = ones
+    scale = (1.0 / (4.0 * math.pi) * seg_trans / (vp * light_pdf)
+             * cfg.vm_correction * cfg.sigma_s * to_point)
+    contrib = torch.where(live[:, None],
+                          li * scale[:, None] * state.throughput, 0.0)
+    act = live & (contrib != 0.0).any(dim=-1)
+    return (sampled, end_point, contrib,
+            act & ~_queue_blocked(cfg, tables, sampled, end_point))
+
+
 def _queue_segment_loop(cfg, tables, state, info, mat, live, receives,
                         vol_trans, vol_dist, vol_pdf):
-    """Steps 3 + 4 of the unfused bounce (JAX integrator.py:420-501), its
-    torch build as the segment queue ran it op by op: the L NEE segments
-    (MIS-weighted for paired lights), then the VM*L equi-angular volume
-    segments (march-major; distances and pdfs from
-    integrator._equi_angular_samples). Returns per segment its start,
-    end, contribution [N, 3] and `worth_it` mask. The sampler, light and
-    sphere values come from `cfg` and `tables` (the constant channels;
-    the renderer refuses animated ones)."""
-    wo = -state.direction
-    tp = state.throughput
-    sidx, pix = state.sample_idx, state.pixel
-    lights = tables.lights
-    ones = torch.ones_like(vol_trans)
-
-    def light(set_id):
-        u_pick = _s1(cfg, set_id, sidx, pix)
-        lidx = torch.clamp(torch.floor(u_pick * cfg.NL).to(torch.int64), 0,
-                           cfg.NL - 1)
-        row = lights[lidx]
-        return row[:, :3], row[:, 3], row[:, 4:7], row[:, 7]
-
-    def u2(set_id):
-        return rng_mod.sample_2d(cfg, rng_mod.SampleTables(cfg.frame),
-                                 set_id, sidx, pix)
-
-    starts, ends, acts, contribs = [], [], [], []
-    for i in range(cfg.L):
-        lp, lr, lem, paired = light(cfg.set_pick[i])
-        end_point, li, pdf = light_ops.sample_cone(u2(cfg.set_nee[i]), lp,
-                                                   lr, info.point, lem)
-        wi_full = end_point - info.point
-        dist = vecmath.length(wi_full)
-        wi = wi_full / dist[:, None]
-        ndw = vecmath.dot(info.normal, wi)
-        occ_origin = info.point + info.normal * (
-            torch.copysign(ones, ndw) * info.offset_by)[:, None]
-        f = (bsdf_ops.eval_f(mat, wo, wi, info.normal)
-             * torch.clamp(ndw, min=0.0)[:, None])
-        seg_trans = torch.exp(-cfg.sigma_t * dist) if cfg.has_ext else ones
-        contrib = (li * f * (seg_trans / pdf)[:, None] * tp
-                   * (cfg.correction * vol_trans)[..., None])
-        contrib = torch.where(receives[:, None], contrib, 0.0)
-        if cfg.mis:
-            # unpaired lights are invisible to BSDF rays: weight 1
-            p_bsdf = bsdf_ops.eval_pdf(mat, cfg, wo, wi, info.normal)
-            w_light = power_heuristic(float(cfg.L), _div(pdf, float(cfg.NL)),
-                                      1.0, p_bsdf)
-            contrib = contrib * torch.where(paired > 0.0, w_light,
-                                            1.0)[:, None]
-        starts.append(occ_origin)
-        ends.append(end_point)
-        acts.append(receives & (contrib != 0.0).any(dim=-1))
-        contribs.append(contrib)
-
-    phase_f = 1.0 / (4.0 * math.pi)
-    for j in range(cfg.VM * cfg.L):
-        lp, lr, lem, _paired = light(cfg.set_vol_pick[j])
-        vd, vp = vol_dist[j], vol_pdf[j]
-        sampled = state.origin + vd[:, None] * state.direction
-        end_point, li, light_pdf = light_ops.sample_cone(
-            u2(cfg.set_vol[j]), lp, lr, sampled, lem)
-        dist_pl = vecmath.length(end_point - sampled)
-        if cfg.has_ext:
-            seg_trans = torch.exp(-cfg.sigma_t * dist_pl)
-            to_point = torch.exp(-cfg.sigma_t * vd)
-        else:
-            seg_trans = to_point = ones
-        scale = (phase_f * seg_trans / (vp * light_pdf) * cfg.vm_correction
-                 * cfg.sigma_s * to_point)
-        contrib = torch.where(live[:, None], li * scale[:, None] * tp, 0.0)
-        starts.append(sampled)
-        ends.append(end_point)
-        acts.append(live & (contrib != 0.0).any(dim=-1))
-        contribs.append(contrib)
-    return starts, ends, contribs, acts
+    """Steps 3 + 4 of the unfused bounce (JAX integrator.py:420-501): the
+    L NEE segments, then the VM*L equi-angular volume segments
+    (march-major), each (start, end, contribution [N, 3], active). The
+    sampler, light and sphere values come from `cfg` and `tables` (the
+    constant channels; the renderer refuses animated ones)."""
+    return ([_queue_nee_segment(cfg, tables, state, info, mat, receives,
+                                vol_trans, i) for i in range(cfg.L)]
+            + [_queue_vol_segment(cfg, tables, state, live, j, vol_dist[j],
+                                  vol_pdf[j])
+               for j in range(cfg.VM * cfg.L)])
 
 
 def queue_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
-                         mat, live, receives, vol_trans, vol_dist,
-                         vol_pdf) -> ShadowSegments:
+                         mat, live, receives, vol_trans,
+                         t_hit) -> ShadowSegments:
     """Plain twin of the queue-segments kernel: the unfused bounce's
     segments (_queue_segment_loop) with the sphere test of
     intersect.test_occluded, as a segment scratch (see ShadowSegments);
     a segment is active when it is worth marching and no sphere blocks
     it, and the active ones are queued in id order."""
-    starts, ends, contribs, acts = _queue_segment_loop(
-        cfg, tables, state, info, mat, live, receives, vol_trans, vol_dist,
-        vol_pdf)
-    n = state.origin.shape[0]
-    start, end = torch.stack(starts), torch.stack(ends)      # [S, N, 3]
-    active = torch.stack(acts)
-    if cfg.K:
-        centers = tables.spheres[None, :, :3].expand(n, cfg.K, 3)
-        for j in range(start.shape[0]):
-            blocked = sphere_ops.occluded(start[j], end[j], centers,
-                                          tables.spheres[:, 3]).any(dim=1)
-            active[j] = active[j] & ~blocked
+    start, end, k, active = (torch.stack(c) for c in zip(*_queue_segment_loop(
+        cfg, tables, state, info, mat, live, receives, vol_trans,
+        *_vol_samples(cfg, tables, state, t_hit))))
     queue, count = march_cuda.enqueue_plain(active.reshape(-1))
     return ShadowSegments(
         geom=torch.cat([start, end], dim=-1).permute(2, 0, 1).contiguous(),
-        k=torch.stack(contribs).permute(2, 0, 1).contiguous(),
-        active=active, queue=queue, count=count)
+        k=k.permute(2, 0, 1).contiguous(), active=active, queue=queue,
+        count=count)
 
 
 def queue_sum_plain(radiance, segs: ShadowSegments, verdict) -> torch.Tensor:
@@ -944,8 +980,10 @@ def _segment_cost(cfg, start, end, act):
 
 def equi_angular_plain(cfg: ShadowCfg, lights, origin, direction, t_hit,
                        sample_idx, pixel):
-    """Plain twin of the equi-angular kernel: the JAX integrator's
-    `_equi_angular_samples` (integrator.py:521-544) in torch. Returns
+    """The volume sites' equi-angular samples, as the segments and
+    sort-key kernels draw them (csrc/common.cuh equi_angular_site): the
+    JAX integrator's `_equi_angular_samples` (integrator.py:521-544) in
+    torch. Returns
     (vol_dist, vol_pdf), [VM*L, N] each, march-major: for march m the
     distance draw, for each site the light pick from the constant light
     table and lights.sample_equi_angular along each ray up to its closest
@@ -1064,7 +1102,7 @@ class _RayCols(ctypes.Structure):
 
 
 class _ShadowCols(ctypes.Structure):
-    _fields_ = _ptrs("vol_dist", "vol_pdf", "lights", "spheres")
+    _fields_ = _ptrs("t_hit", "lights", "spheres")
 
 
 # output columns in PathState order, each with its csrc/shade.cu name
@@ -1121,12 +1159,6 @@ class _KeyArgs(ctypes.Structure):
         ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
 
 
-class _EquiArgs(ctypes.Structure):
-    _fields_ = _ptrs("origin", "direction", "t_hit", "sample_idx", "pixel",
-                     "lights", "o_dist", "o_pdf") + [
-        ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
-
-
 def sampler_struct(frame: int, sampler_hash: bool, num_1d_sets: int):
     M = rng_mod.M32
     a2 = rng_mod.A2
@@ -1169,19 +1201,6 @@ def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
         set_vol_dist0=_base(cfg.set_vol_dist), schlick_exp=5.0)
 
 
-def _vol_cols(vol, n, sites, device):
-    """The volume sites' columns as one [sites, N] tensor (a dummy row
-    when the scene has no scattering medium). vol: a [sites, N] tensor
-    (equi_angular) or a sequence of [N] tensors."""
-    if len(vol) != sites:
-        raise ValueError(f"expected {sites} volume sites, got {len(vol)}")
-    if not sites:
-        return torch.zeros((1, n), dtype=torch.float32, device=device)
-    if isinstance(vol, torch.Tensor):
-        return vol
-    return torch.stack(list(vol)).contiguous()
-
-
 def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
     n = state.origin.shape[0]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -1203,12 +1222,10 @@ def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
         recv=check(receives, "receives", b8, v1, dev))
 
 
-def _shadow_cols(cfg, tables, vd, vp, dev):
-    """vd, vp: the [max(VM*L, 1), N] volume columns of _vol_cols."""
+def _shadow_cols(cfg, tables, t_hit, n, dev):
     f32 = torch.float32
     return _ShadowCols(
-        vol_dist=check(vd, "vol_dist", f32, vd.shape, dev),
-        vol_pdf=check(vp, "vol_pdf", f32, vd.shape, dev),
+        t_hit=check(t_hit, "t_hit", f32, (n,), dev),
         lights=check(tables.lights, "lights", f32, (cfg.NL, 8), dev),
         spheres=check(tables.spheres, "spheres", f32, (cfg.K, 4), dev))
 
@@ -1257,7 +1274,7 @@ def _sum_cols(segs: ShadowSegments, verdict, n, dev) -> _SumCols:
 
 
 def _segment_scratch(name, cfg, tables, state, info, mat, live, receives,
-                     vol_trans, vol_dist, vol_pdf, dev):
+                     vol_trans, t_hit, dev):
     """(a fresh segment scratch, the _SegArgs of a segments kernel that
     fills it)."""
     if cfg.NL < 1:
@@ -1266,8 +1283,6 @@ def _segment_scratch(name, cfg, tables, state, info, mat, live, receives,
     S = cfg.L + cfg.VM * cfg.L
     if S * n >= 2 ** 31:
         raise ValueError(f"{S} x {n} shadow segments overflow int32 ids")
-    vd = _vol_cols(vol_dist, n, cfg.VM * cfg.L, dev)
-    vp = _vol_cols(vol_pdf, n, cfg.VM * cfg.L, dev)
     f32 = torch.float32
     segs = ShadowSegments(
         geom=torch.empty((6, S, n), dtype=f32, device=dev),
@@ -1277,24 +1292,23 @@ def _segment_scratch(name, cfg, tables, state, info, mat, live, receives,
         count=torch.zeros((1,), dtype=torch.int32, device=dev))
     args = _SegArgs(
         r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
-        s=_shadow_cols(cfg, tables, vd, vp, dev),
+        s=_shadow_cols(cfg, tables, t_hit, n, dev),
         g=_SegCols(**_seg_cols(segs, dev)), n=n, sc=_scalars(cfg))
     return segs, args
 
 
 def shadow_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
-                    live, receives, vol_trans, vol_dist, vol_pdf
-                    ) -> ShadowSegments:
+                    live, receives, vol_trans, t_hit) -> ShadowSegments:
     """The shadow segments of one bounce (see ShadowSegments), the active
-    ones queued in any order. vol_dist/vol_pdf: sequences of VM*L [N]
-    tensors (march-major)."""
+    ones queued in any order. t_hit: [N] the closest hit's t, the range
+    of the volume sites' equi-angular distances."""
     dev = device_of("shadow_segments", state.origin)
     if dev is None:
         return shadow_segments_plain(cfg, tables, state, info, mat, live,
-                                     receives, vol_trans, vol_dist, vol_pdf)
+                                     receives, vol_trans, t_hit)
     segs, args = _segment_scratch("shadow_segments", cfg, tables, state,
                                   info, mat, live, receives, vol_trans,
-                                  vol_dist, vol_pdf, dev)
+                                  t_hit, dev)
     _build.launch("rayn_shadow_segments", args, dev)
     shadow_segments.launches += 1
     return segs
@@ -1372,19 +1386,16 @@ tail_sum.launches = 0
 
 
 def queue_segments(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
-                   live, receives, vol_trans, vol_dist, vol_pdf
-                   ) -> ShadowSegments:
+                   live, receives, vol_trans, t_hit) -> ShadowSegments:
     """The shadow segments of one segment-queue bounce (see
     ShadowSegments and queue_segments_plain), the active ones queued in
-    any order. vol_dist/vol_pdf: sequences of VM*L [N] tensors
-    (march-major)."""
+    any order. t_hit: [N] the closest hit's t."""
     dev = device_of("queue_segments", state.origin)
     if dev is None:
         return queue_segments_plain(cfg, tables, state, info, mat, live,
-                                    receives, vol_trans, vol_dist, vol_pdf)
+                                    receives, vol_trans, t_hit)
     segs, args = _segment_scratch("queue_segments", cfg, tables, state, info,
-                                  mat, live, receives, vol_trans, vol_dist,
-                                  vol_pdf, dev)
+                                  mat, live, receives, vol_trans, t_hit, dev)
     _build.launch("rayn_queue_segments", args, dev)
     queue_segments.launches += 1
     return segs
@@ -1414,23 +1425,23 @@ queue_sum.launches = 0
 
 
 def bounce_tail(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
-                live, receives, vol_trans, vol_dist, vol_pdf) -> dict:
+                live, receives, vol_trans, t_hit) -> dict:
     """Whole bounce tail of one bounce: segments, march, sum and finish.
-    vol_dist/vol_pdf: sequences of VM*L [N] tensors (march-major).
-    Returns the next PathState fields (see bounce_tail_plain)."""
+    t_hit: [N] the closest hit's t. Returns the next PathState fields
+    (see bounce_tail_plain)."""
     segs = shadow_segments(cfg, tables, state, info, mat, live, receives,
-                           vol_trans, vol_dist, vol_pdf)
+                           vol_trans, t_hit)
     return tail_sum(cfg, tables, state, hit, info, mat, live, receives,
                     vol_trans, segs, shadow_march(cfg, segs))
 
 
 def shadow_radiance(cfg: ShadowCfg, tables: SceneTables, state, info, mat,
-                    live, receives, vol_trans, vol_dist, vol_pdf
-                    ) -> torch.Tensor:
+                    live, receives, vol_trans, t_hit) -> torch.Tensor:
     """[N, 3] radiance delta of one bounce's NEE and volume segments:
-    segments, march, sum (see shadow_radiance_plain)."""
+    segments, march, sum (see shadow_radiance_plain). t_hit: [N] the
+    closest hit's t."""
     segs = shadow_segments(cfg, tables, state, info, mat, live, receives,
-                           vol_trans, vol_dist, vol_pdf)
+                           vol_trans, t_hit)
     return shadow_sum(segs, shadow_march(cfg, segs))
 
 
@@ -1490,36 +1501,3 @@ def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
 
 
 shadow_sort_key.launches = 0
-
-
-def equi_angular(cfg: ShadowCfg, lights, origin, direction, t_hit,
-                 sample_idx, pixel):
-    """(vol_dist, vol_pdf): the [VM*L, N] equi-angular distances and pdfs
-    of one bounce's volume sites, march-major (see equi_angular_plain);
-    [0, N] with no launch when the bounce has no volume sites."""
-    dev = device_of("equi_angular", origin)
-    if dev is None:
-        return equi_angular_plain(cfg, lights, origin, direction, t_hit,
-                                  sample_idx, pixel)
-    n = origin.shape[0]
-    sites = cfg.VM * cfg.L
-    f32, i32 = torch.float32, torch.int32
-    vd = torch.empty((sites, n), dtype=f32, device=dev)
-    vp = torch.empty((sites, n), dtype=f32, device=dev)
-    if not sites:
-        return vd, vp
-    v3, v1 = (n, 3), (n,)
-    args = _EquiArgs(
-        origin=check(origin, "origin", f32, v3, dev),
-        direction=check(direction, "direction", f32, v3, dev),
-        t_hit=check(t_hit, "t_hit", f32, v1, dev),
-        sample_idx=check(sample_idx, "sample_idx", i32, v1, dev),
-        pixel=check(pixel, "pixel", i32, v1, dev),
-        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
-        o_dist=vd.data_ptr(), o_pdf=vp.data_ptr(), n=n, sc=_scalars(cfg))
-    _build.launch("rayn_equi_angular", args, dev)
-    equi_angular.launches += 1
-    return vd, vp
-
-
-equi_angular.launches = 0

@@ -11,9 +11,8 @@ One bounce at depth d:
 3. per-lane shading values (`_derive_shading`);
 4. the bounce tail, chosen as JAX chooses it:
    - fused (plain marching and `use_fused_shadows`): in a scene with
-     lights, at d >= 1 the shadow sort-key kernel (which draws its own
-     equi-angular samples) and the chunk sort (`sorted_shadow_march`);
-     then the equi-angular kernel and one of
+     lights, at d >= 1 the shadow sort-key kernel and the chunk sort
+     (`sorted_shadow_march`); then one of
      - the bounce-tail kernel (NEE, volume scattering, emission,
        scatter, roulette, AOVs, termination), with `use_fused_finish`,
        `use_fused_bounce_tail` and lights;
@@ -22,9 +21,8 @@ One bounce at depth d:
      - else: emission in torch, the shadow-radiance kernel (with
        lights), then `_finish_bounce`, so (radiance + emission) + delta;
    - the segment queue (relaxed marching or `use_fused_shadows=False`):
-     emission; in a scene with lights, the equi-angular kernel, then
-     every NEE and volume shadow segment of the bounce built into a
-     scratch by the queue-segments
+     emission; in a scene with lights, every NEE and volume shadow
+     segment of the bounce built into a scratch by the queue-segments
      kernel (with the sphere test), their SDF verdicts from the refill
      march (plain or relaxed; at relax 1 with `occl_sort_steps` or
      `occl_phase1_steps` unclipped, the two-phase marches' verdicts),
@@ -32,7 +30,9 @@ One bounce at depth d:
      kernel's radiance + contribution * visibility in segment order;
      then `_finish_bounce`;
    with `mis`, every branch weights NEE of paired lights and, at d >= 1,
-   BSDF-hit emission of paired spheres by the power heuristic;
+   BSDF-hit emission of paired spheres by the power heuristic; the
+   sort-key and segments kernels draw the volume sites' equi-angular
+   samples themselves from the closest hit's t;
 5. the unsort back to pixel-major order.
 
 Sorting moves whole chunks of lanes and every per-lane result is
@@ -214,20 +214,17 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
             live, mat, receives, vol_trans = _derive_shading(
                 data, static, state, hit, info)
 
-    vol_dists, vol_pdfs = shade_cuda.equi_angular(
-        cfg, tabs.lights, state.origin, state.direction, hit.t,
-        state.sample_idx, state.pixel)
     lit = static.n_lights > 0
     if s.use_fused_finish and s.use_fused_bounce_tail and lit:
         out = state._replace(**shade_cuda.bounce_tail(
             cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
-            vol_dists, vol_pdfs))
+            hit.t))
     elif s.use_fused_finish:
         radiance = state.radiance
         if lit:
             radiance = radiance + shade_cuda.shadow_radiance(
                 cfg, tabs, state, info, mat, live, receives, vol_trans,
-                vol_dists, vol_pdfs)
+                hit.t)
         out = state._replace(**shade_cuda.finish_bounce(
             cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
             radiance))
@@ -238,7 +235,7 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         if lit:
             radiance = radiance + shade_cuda.shadow_radiance(
                 cfg, tabs, state, info, mat, live, receives, vol_trans,
-                vol_dists, vol_pdfs)
+                hit.t)
         out = _finish_bounce(s, tables, state, depth, info, mat, live,
                              receives, wo, vol_trans, radiance)
     perm = pre_perm
@@ -288,12 +285,8 @@ def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
     radiance = _emission(data, static, s, state, depth, hit, mat, live, wo,
                          vol_trans)
     if static.n_lights > 0:
-        vol_dists, vol_pdfs = shade_cuda.equi_angular(
-            cfg, tabs.lights, state.origin, state.direction, hit.t,
-            state.sample_idx, state.pixel)
         segs = shade_cuda.queue_segments(cfg, tabs, state, info, mat, live,
-                                         receives, vol_trans, vol_dists,
-                                         vol_pdfs)
+                                         receives, vol_trans, hit.t)
         radiance = shade_cuda.queue_sum(radiance, segs,
                                         _queue_verdicts(s, cfg, segs))
     return _finish_bounce(s, tables, state, depth, info, mat, live,

@@ -12,7 +12,9 @@ gates are the JAX package's fused-vs-unfused gates
 except for the shadow kernels (segments, march, the two sums) and the
 functions on them (`bounce_tail`, `shadow_radiance`), which equal their
 plain twins bit for bit, also on adversarial segments and on a scene
-with no medium and one NEE sample.
+with no medium and one NEE sample; the segments kernels also on ragged
+batches and with 24 sites a ray, and their volume sites (the
+equi-angular samples they draw from t_hit) under both samplers.
 The occlusion functions (the enqueue kernel, then the refill march on
 [M, 3] segments) take 12 x 2^14 seeded random segments and equal their
 one-piece twins bit for bit, plain and relaxed, with and without the
@@ -86,11 +88,8 @@ def _wavefront(dev, depth, mis=False, volume=True, nee=4):
                                                           state, hit, info)
         cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
         tabs = shade_cuda.scene_tables(data, static)
-        vd, vp = shade_cuda.equi_angular_plain(
-            cfg, tabs.lights, state.origin, state.direction, hit.t,
-            state.sample_idx, state.pixel)
         out = shade_cuda.bounce_tail_plain(cfg, tabs, state, hit, info, mat,
-                                           live, recv, vtr, vd, vp)
+                                           live, recv, vtr, hit.t)
         state = state._replace(**out)
         ha, hl = 0.0, 2e-4
     hps = (torch.full((n,), ha, device=dev), torch.full((n,), hl, device=dev))
@@ -175,18 +174,46 @@ def test_cost_key_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("sampler", ["rd", "hash"])
 @pytest.mark.parametrize("depth", [0, 1])
-def test_equi_angular_kernel_matches_plain(cuda, depth, sampler):
-    cfg, tabs, state, hit, *_rest = _tail_inputs(cuda, depth)
+def test_equi_angular_sites_match_plain(cuda, depth, sampler):
+    """Both segments kernels draw their volume sites' equi-angular
+    samples from t_hit: their volume segments (start at the scatter
+    point, k through the pdf) equal the twins', drawn with
+    equi_angular_plain, bit for bit under either sampler."""
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = (
+        _tail_inputs(cuda, depth))
     cfg = cfg._replace(sampler=sampler)
-    args = (cfg, tabs.lights, state.origin, state.direction, hit.t,
-            state.sample_idx, state.pixel)
-    before = shade_cuda.equi_angular.launches
-    got = shade_cuda.equi_angular(*args)
-    want = shade_cuda.equi_angular_plain(*args)
-    torch.cuda.synchronize()
-    assert shade_cuda.equi_angular.launches == before + 1
-    assert got[0].shape == (cfg.VM * cfg.L, state.origin.shape[0])
-    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
+    for fn in (shade_cuda.shadow_segments, shade_cuda.queue_segments):
+        before = fn.launches
+        got = fn(*args)
+        _launched(fn, before)
+        want = getattr(shade_cuda, fn.__name__ + "_plain")(*args)
+        assert cfg.VM * cfg.L > 0 and want.active[cfg.L:].any()
+        assert _same_segments(got, want)
+
+
+@pytest.mark.parametrize("nee", [4, 8])
+@pytest.mark.parametrize("n", [0, 17, 1189])
+def test_segments_kernels_on_ragged_batches(cuda, n, nee):
+    """No ray, fewer rays than a warp, a count that is not a multiple of
+    32; with 8 NEE samples S = 24 sites (twice the staged ids a warp):
+    both segments kernels equal their twins bit for bit."""
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = (
+        _tail_inputs(cuda, 1, True, nee=nee))
+    assert cfg.L + cfg.VM * cfg.L == 3 * nee
+
+    def cut(x):
+        return type(x)(*(t[:n] for t in x))
+
+    args = (cfg, tabs, cut(state), cut(info), cut(mat), live[:n], recv[:n],
+            vtr[:n], t_hit[:n])
+    for fn in (shade_cuda.shadow_segments, shade_cuda.queue_segments):
+        got = fn(*args)
+        want = getattr(shade_cuda, fn.__name__ + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert got.geom.shape == (6, 3 * nee, n)
+        assert _same_segments(got, want)
+        assert n == 0 or int(want.count[0]) > 0
 
 
 def _tail_inputs(cuda, depth, mis=False, **scene):
@@ -198,10 +225,7 @@ def _tail_inputs(cuda, depth, mis=False, **scene):
                                                       hit, info)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
     tabs = shade_cuda.scene_tables(data, static)
-    vd, vp = shade_cuda.equi_angular_plain(cfg, tabs.lights, state.origin,
-                                           state.direction, hit.t,
-                                           state.sample_idx, state.pixel)
-    return cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp
+    return cfg, tabs, state, hit, info, mat, live, recv, vtr, hit.t
 
 
 def _check_radiance(got, want):
@@ -251,8 +275,8 @@ def _bounce_tail_vs_plain(args):
 
 
 def _shadow_radiance_vs_plain(args):
-    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = args
-    args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = args
+    args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
     fns = (*_SEGMENT_KERNELS, shade_cuda.shadow_sum)
     before = _launches(*fns)
     got = shade_cuda.shadow_radiance(*args)
@@ -292,9 +316,9 @@ def _same_segments(got, want):
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_shadow_segments_kernel_matches_plain(cuda, depth, mis):
-    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, mis))
-    args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
     before = shade_cuda.shadow_segments.launches
     got = shade_cuda.shadow_segments(*args)
     _launched(shade_cuda.shadow_segments, before)
@@ -305,10 +329,10 @@ def test_shadow_segments_kernel_matches_plain(cuda, depth, mis):
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_shadow_march_kernel_matches_plain(cuda, depth, mis):
-    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, mis))
     segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
-                                            live, recv, vtr, vd, vp)
+                                            live, recv, vtr, t_hit)
     before = shade_cuda.shadow_march.launches
     got = shade_cuda.shadow_march(cfg, segs)
     _launched(shade_cuda.shadow_march, before)
@@ -319,10 +343,10 @@ def test_shadow_march_kernel_matches_plain(cuda, depth, mis):
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_shadow_sum_kernels_match_plain(cuda, depth, mis):
-    cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, mis))
     segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
-                                            live, recv, vtr, vd, vp)
+                                            live, recv, vtr, t_hit)
     verdict = shade_cuda.shadow_march_plain(cfg, segs)
     before = shade_cuda.shadow_sum.launches
     got = shade_cuda.shadow_sum(segs, verdict)
@@ -395,8 +419,8 @@ def test_tail_kernels_without_medium_one_nee_sample(cuda, depth):
         args[j][:64] = False
     _bounce_tail_vs_plain(args)
     _shadow_radiance_vs_plain(args)
-    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = args
-    shadow_args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = args
+    shadow_args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
     got = shade_cuda.shadow_segments(*shadow_args)
     want = shade_cuda.shadow_segments_plain(*shadow_args)
     torch.cuda.synchronize()
@@ -406,9 +430,9 @@ def test_tail_kernels_without_medium_one_nee_sample(cuda, depth):
 
 def _queue_args(cuda, depth, mis, **scene):
     """queue_segments' arguments on the default scene's wavefront."""
-    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, _hit_, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, mis, **scene))
-    return cfg, tabs, state, info, mat, live, recv, vtr, vd, vp
+    return cfg, tabs, state, info, mat, live, recv, vtr, t_hit
 
 
 @pytest.mark.parametrize("mis", [False, True])
@@ -487,10 +511,10 @@ def test_queue_tail_matches_plain_twins(cuda, depth, change, monkeypatch):
 @pytest.mark.parametrize("mis", [False, True])
 @pytest.mark.parametrize("depth", [0, 1])
 def test_finish_bounce_kernel_matches_plain(cuda, depth, mis):
-    cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, mis))
     radiance = state.radiance + shade_cuda.shadow_radiance_plain(
-        cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+        cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
     args = (cfg, tabs, state, hit, info, mat, live, recv, vtr, radiance)
     before = shade_cuda.finish_bounce.launches
     got = shade_cuda.finish_bounce(*args)
@@ -503,7 +527,7 @@ def test_finish_bounce_kernel_matches_plain(cuda, depth, mis):
 def test_shadow_sort_key_kernel_matches_plain(cuda):
     """The key draws its volume sites' distances itself: equal to the
     twin bit for bit."""
-    cfg, tabs, state, hit, info, _mat, live, recv, _vtr, _vd, _vp = (
+    cfg, tabs, state, hit, info, _mat, live, recv, _vtr, _t_hit = (
         _tail_inputs(cuda, 1))
     args = (cfg, tabs.lights, info.point, info.normal, info.offset_by,
             state.origin, state.direction, hit.t, live, recv,
@@ -813,10 +837,10 @@ def test_two_phase_queue_route_launches_the_scratch_march(cuda, depth):
     """With `occl_sort_steps=8` the segment queue's verdicts come from
     one launch of the scratch's refill march, unclipped, and from no
     other kernel."""
-    cfg, tabs, state, _hit, info, mat, live, recv, vtr, vd, vp = (
+    cfg, tabs, state, _hit, info, mat, live, recv, vtr, t_hit = (
         _tail_inputs(cuda, depth, False))
     segs = shade_cuda.queue_segments_plain(cfg, tabs, state, info, mat,
-                                           live, recv, vtr, vd, vp)
+                                           live, recv, vtr, t_hit)
     s = RenderSettings(resolution=RES, spp=1, max_vis_marches=64,
                        occl_sort_steps=8)
     before = _all_launches()

@@ -83,11 +83,8 @@ def wavefronts():
                                                           state, hit, info)
         cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
         tabs = shade_cuda.scene_tables(data, static)
-        vd, vp = shade_cuda.equi_angular_plain(
-            cfg, tabs.lights, state.origin, state.direction, hit.t,
-            state.sample_idx, state.pixel)
         state = state._replace(**shade_cuda.bounce_tail_plain(
-            cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp))
+            cfg, tabs, state, hit, info, mat, live, recv, vtr, hit.t))
     return (jdata, jstatic), (data, static, s, tables), out
 
 
@@ -268,10 +265,10 @@ def test_cost_key_twin_matches_jax(wavefronts):
 
 @pytest.mark.parametrize("depth", [0, 1])
 def test_equi_angular_twin_matches_jax(wavefronts, depth):
-    """The equi-angular twin (and its wrapper on the CPU) against JAX's
-    _equi_angular_samples op by op: the same sampler draws and light
-    picks, then atan2 and tan, whose CPU implementations in XLA and torch
-    may round differently. Distances within rtol 1e-5 or atol 2e-5 (a
+    """The equi-angular twin (whose distances the segments twin draws
+    from t_hit) against JAX's _equi_angular_samples op by op: the same
+    sampler draws and light picks, then atan2 and tan, whose CPU
+    implementations in XLA and torch may round differently. Distances within rtol 1e-5 or atol 2e-5 (a
     sample near the ray's origin is delta + t with delta and t large and
     opposite: the error is an ulp of |delta| <= 2 * world_radius) on
     every site. Pdfs within rtol 1e-4 on >= 99.5% of sites and within
@@ -280,14 +277,21 @@ def test_equi_angular_twin_matches_jax(wavefronts, depth):
     pdf's 1 / (theta_b - theta_a) turns an ulp of the angles into
     percents."""
     (jdata, jstatic), (data, static, s, tables), out = wavefronts
-    state, _ha, _hl, hit, _info = out[depth]
+    state, _ha, _hl, hit, info = out[depth]
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
-    lights_tab = shade_cuda.scene_tables(data, static).lights
-    args = (cfg, lights_tab, state.origin, state.direction, hit.t,
+    tabs = shade_cuda.scene_tables(data, static)
+    args = (cfg, tabs.lights, state.origin, state.direction, hit.t,
             state.sample_idx, state.pixel)
     vd, vp = shade_cuda.equi_angular_plain(*args)
-    wd, wp = shade_cuda.equi_angular(*args)
-    assert _same_bits(vd, wd) and _same_bits(vp, wp)
+    # the volume sites' start points that the segments twin draws from
+    # t_hit are the scatter points at these distances
+    live, mat, recv, vtr = integrator._derive_shading(data, static, state,
+                                                      hit, info)
+    segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
+                                            live, recv, vtr, hit.t)
+    wd = segs.geom[:3, cfg.L:].permute(1, 2, 0)
+    wp = state.origin + vd[:, :, None] * state.direction
+    assert _same_bits(wd, wp)
     assert vd.shape == (cfg.VM * cfg.L, N) and cfg.VM * cfg.L > 0
     js = JSettings(**KW)
     jstate, jhit = _jax_state(state, hit.t)
@@ -359,9 +363,10 @@ def test_new_wrappers_refuse_other_devices():
                                           z.bool())
     cfg = shade_cuda.shadow_cfg(data, static, s, rng.SampleTables(1), 1)
     tabs = shade_cuda.scene_tables(data, static)
+    state = integrator.PathState(*(z3,) * len(integrator.PathState._fields))
     with pytest.raises(ValueError):
-        shade_cuda.equi_angular(cfg, tabs.lights, z3, z3, z, z.int(),
-                                z.int())
+        shade_cuda.shadow_segments(cfg, tabs, state, None, None, z.bool(),
+                                   z.bool(), z, z)
     with pytest.raises(ValueError):
         intersect_cuda.closest_hit_shading(
             data, static, s, z3, z3, z, z, z.bool(),

@@ -87,10 +87,10 @@ def test_wrappers_reject_other_devices():
         shade_cuda.shadow_sort_key(cfg, tabs.lights, z3, z3, z, z3, z3, z,
                                    z.bool(), z.bool(), z.int(), z.int())
     state = integrator.PathState(*(z3,) * len(integrator.PathState._fields))
-    for wrapper, tail in ((shade_cuda.bounce_tail, (None, [], [])),
+    for wrapper, tail in ((shade_cuda.bounce_tail, (None, z)),
                           (shade_cuda.finish_bounce, (None, z3))):
         with pytest.raises(ValueError):
             wrapper(cfg, tabs, state, None, None, None, z, z, *tail)
     with pytest.raises(ValueError):
         shade_cuda.shadow_radiance(cfg, tabs, state, None, None, z, z, z,
-                                   [], [])
+                                   z)

@@ -89,12 +89,9 @@ def _tail_from_twins(data, static, s, tables, cfg, tabs, state, depth, hit,
     radiance = integrator._emission(data, static, s, state, depth, hit, mat,
                                     live, wo, vol_trans)
     if static.n_lights > 0:
-        vd, vp = shade_cuda.equi_angular_plain(
-            cfg, tabs.lights, state.origin, state.direction, hit.t,
-            state.sample_idx, state.pixel)
         segs = shade_cuda.queue_segments_plain(cfg, tabs, state, info, mat,
-                                               live, receives, vol_trans, vd,
-                                               vp)
+                                               live, receives, vol_trans,
+                                               hit.t)
         verdict = shade_cuda.shadow_march_plain(cfg, segs,
                                                 s.march_relaxation)
         radiance = shade_cuda.queue_sum_plain(radiance, segs, verdict)
@@ -258,7 +255,7 @@ def test_queue_wrappers_reject_other_devices():
         torch.zeros((1,), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         shade_cuda.queue_segments(cfg, tabs, state, None, None, z, z, z,
-                                  [], [])
+                                  z)
     with pytest.raises(ValueError):
         shade_cuda.queue_sum(z3, segs, segs.active)
     with pytest.raises(ValueError):

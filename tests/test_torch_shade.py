@@ -108,11 +108,8 @@ def test_bounce_tail_matches_jax_unfused(volume):
         live, mat, receives, vtr = integrator._derive_shading(
             tdata, tstatic, tstate, hit, info)
         cfg = shade_cuda.shadow_cfg(tdata, tstatic, ts, ttables, depth)
-        vd, vp = shade_cuda.equi_angular(
-            cfg, tabs.lights, tstate.origin, tstate.direction, hit.t,
-            tstate.sample_idx, tstate.pixel)
         out = shade_cuda.bounce_tail(cfg, tabs, tstate, hit, info, mat,
-                                     live, receives, vtr, vd, vp)
+                                     live, receives, vtr, hit.t)
         jstate = jint.bounce(jdata, jstatic, js, jtables, jstate, depth,
                              ha, hl)
         ra, rb = _np(jstate.radiance), out["radiance"].numpy()

@@ -198,8 +198,7 @@ def test_shadow_twin_matches_pallas_interpret():
     got = shade_cuda.shadow_radiance_plain(
         cfg, shade_cuda.scene_tables(tdata, tstatic), _to_port(jstate),
         type(info)(*map(_T, info)), bsdf.MatParams(*map(_T, mat)), _T(live),
-        _T(recv), _T(vtr), [_T(v) for m in vd for v in m],
-        [_T(v) for m in vp for v in m]).numpy()
+        _T(recv), _T(vtr), _T(hit.t)).numpy()
     assert (want > 0.0).any(-1).mean() > 0.1
     close = np.isclose(got, want, rtol=2e-4, atol=2e-5)
     assert close.mean() >= 0.985, close.mean()

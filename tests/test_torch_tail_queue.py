@@ -62,10 +62,7 @@ def _tail_args(wavefront, mis):
                                                       hit, info)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
     tabs = shade_cuda.scene_tables(data, static)
-    vd, vp = shade_cuda.equi_angular_plain(cfg, tabs.lights, state.origin,
-                                           state.direction, hit.t,
-                                           state.sample_idx, state.pixel)
-    return (cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp)
+    return (cfg, tabs, state, hit, info, mat, live, recv, vtr, hit.t)
 
 
 def _same_bits(got, want):
@@ -79,8 +76,8 @@ def _same_bits(got, want):
 @pytest.mark.parametrize("mis", [False, True])
 def test_composed_twins_match_one_piece_twins(wavefront, mis):
     args = _tail_args(wavefront, mis)
-    cfg, tabs, state, hit, info, mat, live, recv, vtr, vd, vp = args
-    shadow_args = (cfg, tabs, state, info, mat, live, recv, vtr, vd, vp)
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, t_hit = args
+    shadow_args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
     segs = shade_cuda.shadow_segments_plain(*shadow_args)
     S = cfg.L + cfg.VM * cfg.L
     assert S == 12 and segs.geom.shape == (6, S, N)
@@ -104,10 +101,10 @@ def test_composed_twins_match_one_piece_twins(wavefront, mis):
 
 
 def test_permuted_queue_gives_same_verdicts(wavefront):
-    cfg, tabs, state, _hit, info, mat, live, recv, vtr, vd, vp = _tail_args(
+    cfg, tabs, state, _hit, info, mat, live, recv, vtr, t_hit = _tail_args(
         wavefront, True)
     segs = shade_cuda.shadow_segments_plain(cfg, tabs, state, info, mat,
-                                            live, recv, vtr, vd, vp)
+                                            live, recv, vtr, t_hit)
     count = int(segs.count[0])
     perm = torch.from_numpy(np.random.default_rng(3).permutation(count))
     queue = segs.queue.clone()
@@ -171,7 +168,7 @@ def test_segment_wrappers_reject_other_devices():
         torch.zeros((1,), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         shade_cuda.shadow_segments(cfg, tabs, state, None, None, z, z, z,
-                                   [], [])
+                                   z)
     with pytest.raises(ValueError):
         shade_cuda.shadow_march(cfg, segs)
     with pytest.raises(ValueError):
