@@ -154,8 +154,29 @@ Phases (any failed gate raises and the script exits non-zero):
    `shadow_bv_clip=False`, and the sorted path's films at pass sizes
    2^16 and 2^15 agree to atol 2e-5.
 
-The last three lines of standard output are the kernels' JSON record,
-the nvidia-smi line, and {"ok": true, "device": {...}}.
+13. Motion and lenses (rays over [0, 2] s): render_frame on
+   `default_scene(animated_geo=True)` at 8 and 64 knots, 1080p, 4 spp,
+   2^20 rays a pass, on the fused path, with phase 4's gates (the same
+   kernels launched, the film gates). Then the inputs of one 2^20-ray
+   pass of the static scene and of the animated-geo scene at 8 and at 64
+   knots, recorded at depths 0 and 1 (the keys 1 and 2) on the fused path
+   with MIS, the split tail with MIS and the relaxed queue with MIS: each
+   changed kernel and function equals its twin as in phase 3 (closest
+   hit, cost key and sort key, both segments kernels with their queue as
+   a set, the march, the sums, the bounce tail, shadow radiance and the
+   queue tail bit for bit; the finish to its gates); the animated inputs
+   run the `_anim_kernel` instantiations (the profiler must see them) and
+   give other results at time 0 (knot 0); each one's depth-1 time on the
+   animated inputs is printed beside its time on the static inputs of the
+   same call. Last, `default_scene(animated=True)` and a thin-lens
+   camera (aperture 0.35, focused at its look-at point) at 1080p, 4 spp,
+   and an orthographic camera (6 units tall) at 960x540, each with the
+   film gates.
+
+The last three lines of standard output are the kernels' JSON record
+(rows 1-5, the cost key and both segments kernels with `ms_animated`,
+their depth-1 time on the 8-knot animated-geo inputs, and the 64-knot
+one), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -179,6 +200,10 @@ UNFUSED_RES = (960, 540)
 SMALL_RES = (480, 270)
 RELAX = 1.5
 DEVICE = "cuda"
+# phase 13: the shutter interval of the animated scenes (their channels
+# span [0, 2] s) and the knot counts of the animated-geo scene
+ANIM_TIME = (0.0, 2.0)
+ANIM_KNOTS = (8, 64)
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores
 # and HBM3 bandwidth; a kernel's bound is the larger of its MandelBox DE
@@ -199,18 +224,26 @@ def de_flops(iterations: int) -> int:
 # The port's CUDA kernels: key, module of rayn_tpu_torch.ops, wrapper
 # name (each wrapper counts its launches and has a `_plain` twin), and
 # the kernel entries the wrapper launches.
+# A kernel that reads scene positions has a second instantiation for
+# animated scenes, `_anim_kernel` (ANIM_ENTRIES).
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
-     ("closest_hit_kernel",)),
-    ("costkey", "intersect_cuda", "intersect_cost_key", ("cost_key_kernel",)),
-    ("key", "shade_cuda", "shadow_sort_key", ("shadow_sort_key_kernel",)),
-    ("seg", "shade_cuda", "shadow_segments", ("shadow_segments_kernel",)),
+     ("closest_hit_kernel", "closest_hit_anim_kernel")),
+    ("costkey", "intersect_cuda", "intersect_cost_key",
+     ("cost_key_kernel", "cost_key_anim_kernel")),
+    ("key", "shade_cuda", "shadow_sort_key",
+     ("shadow_sort_key_kernel", "shadow_sort_key_anim_kernel")),
+    ("seg", "shade_cuda", "shadow_segments",
+     ("shadow_segments_kernel", "shadow_segments_anim_kernel")),
     ("smarch", "shade_cuda", "shadow_march",
      ("shadow_march_kernel", "shadow_march_relaxed_kernel")),
     ("ssum", "shade_cuda", "shadow_sum", ("shadow_sum_kernel",)),
-    ("tsum", "shade_cuda", "tail_sum", ("tail_sum_kernel",)),
-    ("finish", "shade_cuda", "finish_bounce", ("finish_bounce_kernel",)),
-    ("qseg", "shade_cuda", "queue_segments", ("queue_segments_kernel",)),
+    ("tsum", "shade_cuda", "tail_sum",
+     ("tail_sum_kernel", "tail_sum_anim_kernel")),
+    ("finish", "shade_cuda", "finish_bounce",
+     ("finish_bounce_kernel", "finish_bounce_anim_kernel")),
+    ("qseg", "shade_cuda", "queue_segments",
+     ("queue_segments_kernel", "queue_segments_anim_kernel")),
     ("qsum", "shade_cuda", "queue_sum", ("queue_sum_kernel",)),
     ("march", "march_cuda", "march", ("march_kernel", "march_relaxed_kernel")),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
@@ -219,6 +252,11 @@ CUDA_KERNELS = (
       "occl_march_first_de_kernel")),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
+# each key's kernels for the constant scene and for an animated one
+STATIC_ENTRIES = {k: tuple(e for e in es if "_anim_" not in e)
+                  for k, es in ENTRIES.items()}
+ANIM_ENTRIES = {k: tuple(e for e in es if "_anim_" in e) or es
+                for k, es in ENTRIES.items()}
 # Functions over those kernels, each with a `_plain` version in one
 # piece: key, module, name.
 FUNCTIONS = (("tail", "shade_cuda", "bounce_tail"),
@@ -399,14 +437,17 @@ def profile_pass(one_pass, label: str) -> dict:
 
 def io_tensors(key, a, kw, out):
     """(inputs, outputs) of one kernel call: the tensors the kernel reads
-    and writes, each counted once for its bound."""
+    and writes, each counted once for its bound (with each ray's time
+    where the scene is animated)."""
     if key == "intersect":
         hit, info = out
-        return list(a[3:8]), [hit.t, hit.obj, *info]
+        moving = a[0].sphere_centers.knots > 1
+        return list(a[3:9] if moving else a[3:8]), [hit.t, hit.obj, *info]
     if key == "key":      # point .. pixel: the NEE and volume sites' rays
-        return list(a[2:12]), [out]
+        return list(a[2:13] if a[1].animated else a[2:12]), [out]
     if key == "costkey":  # origin, direction, alive
-        return [a[3], a[4], a[6]], [out]
+        moving = a[0].sphere_centers.knots > 1
+        return [a[3], a[4], a[6]] + ([a[5]] if moving else []), [out]
     if key == "smarch":   # the queued segments' start and end, the queue
         segs = a[1]
         count = int(segs.count[0])
@@ -420,18 +461,18 @@ def io_tensors(key, a, kw, out):
         return [radiance, segs.k, segs.active, verdict], [out]
     if key in ("tail", "shadow", "finish", "seg", "qseg", "tsum"):
         if key in ("shadow", "seg", "qseg"):
-            (_cfg, _tabs, state, info, mat, live, recv, vtr, t_hit) = a
+            (_cfg, tabs_, state, info, mat, live, recv, vtr, t_hit) = a
         elif key == "tail":
-            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, t_hit) = a
+            (_cfg, tabs_, state, hit, info, mat, live, recv, vtr, t_hit) = a
         elif key == "tsum":
-            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, segs,
+            (_cfg, tabs_, state, hit, info, mat, live, recv, vtr, segs,
              verdict) = a
         else:
-            (_cfg, _tabs, state, hit, info, mat, live, recv, vtr, rad) = a
+            (_cfg, tabs_, state, hit, info, mat, live, recv, vtr, rad) = a
         ins = [info.point, info.normal, info.offset_by, state.origin,
                state.direction, state.throughput, state.sample_idx,
                state.pixel, mat.kind, mat.color_a, mat.power, live, recv,
-               vtr]
+               vtr] + ([state.time] if tabs_.animated else [])
         if key not in ("shadow", "seg", "qseg"):  # the finish's columns
             ins += [hit.obj, state.color_out, state.bg_out, state.alpha_out,
                     state.normal_out, state.prev_pdf, mat.color_b, mat.ior,
@@ -477,7 +518,8 @@ def main(argv=None) -> int:
     from rayn_tpu_torch.ops import shade_cuda
     from rayn_tpu_torch.render import film as film_mod
     from rayn_tpu_torch.render import integrator, renderer
-    from rayn_tpu_torch.render.camera import PinholeCamera
+    from rayn_tpu_torch.render.camera import (OrthographicCamera,
+                                              PinholeCamera, ThinLensCamera)
     from rayn_tpu_torch.scene import presets
     from rayn_tpu_torch.scene.scene import SceneBuilder
     from rayn_tpu_torch.utils import rng
@@ -633,6 +675,8 @@ def main(argv=None) -> int:
     scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
 
     def device_ms(fn, a, kw, entries, reps=10):
+        # (phase 13 passes one instantiation's entries: None then also
+        # says that this instantiation did not run)
         """Device time of one launch of the kernel `entries` that
         fn(*a, **kw) launches once a call, from torch.profiler (so no
         host time between launches counts), with the 50 MB L2 cache
@@ -677,8 +721,10 @@ def main(argv=None) -> int:
     def hit_steps(a):
         """[N] DEs of each ray's closest hit (march.march_steps on the
         sphere fold's bound) for closest_hit_shading's arguments `a`."""
-        d_, st_, s_, o, d, h_abs, h_lin, act = a
-        bound_t, _obj = intersect_cuda.sphere_fold(d_, st_, s_, o, d)
+        d_, st_, s_, o, d, h_abs, h_lin, act = a[:8]
+        bound_t, _obj = intersect_cuda.sphere_fold(d_, st_, s_, o, d,
+                                                   a[8] if len(a) > 8 else
+                                                   None)
         detail = s_.sdf_detail_scale
         return march_ops.march_steps(
             d_.sdf_params, o, d, bound_t, 5e-5 * detail,
@@ -1156,11 +1202,12 @@ def main(argv=None) -> int:
         for fn in kernels.values():
             fn.launches = 0
 
-    def main_path(phase, s, res, need, scene=None, absent=()):
+    def main_path(phase, s, res, need, scene=None, absent=(),
+                  time_range=None):
         """Render one frame of `s` on `scene` (default: the default scene
-        at `res`); gate that the kernels `need` launched and the kernels
-        `absent` did not, the sample count, finite colour and centre
-        coverage."""
+        at `res`) over `time_range` (default: frame 1's shutter); gate
+        that the kernels `need` launched and the kernels `absent` did
+        not, the sample count, finite colour and centre coverage."""
         w, h = res
         if scene is None:
             scene = (presets.default_scene if res != MAIN_RES else
@@ -1170,7 +1217,8 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f = renderer.render_frame(d_, st_, s, c_, frame=1)
+        f = renderer.render_frame(d_, st_, s, c_, frame=1,
+                                  time_range=time_range)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
@@ -1423,6 +1471,143 @@ def main(argv=None) -> int:
         f"{same12}")
     record["invariants"]["two_phase"] = same12
 
+    # ------------------------------------------ 13. motion and lenses
+    def geo_scene(knots):
+        def scene(resolution, device):
+            return presets.default_scene(resolution=resolution,
+                                         device=device, animated_geo=True,
+                                         geo_knots=knots)
+        return scene
+
+    fused_need = ("intersect", "costkey", "key", "seg", "smarch", "tsum")
+    fused_absent = ("ssum", "finish", *not_queue)
+    motion = {f"animated_geo_{k}": main_path(
+        f"13 animated-geo, {k} knots", main_s, MAIN_RES, fused_need,
+        scene=geo_scene(k), absent=fused_absent, time_range=ANIM_TIME)
+        for k in ANIM_KNOTS}
+
+    # The inputs of one pass of the static scene and of the animated-geo
+    # scene at each knot count, kernel against twin (phase 3's checks);
+    # on the animated inputs at depth 1, the kernels that read positions
+    # give other results at time 0; each one's depth-1 time, by phase 3's
+    # method, on the static inputs and the animated ones of this call.
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    paths13 = (("fused mis", dataclasses.replace(mis_s, max_bounces=2),
+                ("intersect", "costkey", "key", "tail", "seg", "smarch",
+                 "tsum")),
+               ("split mis", dataclasses.replace(split_s, max_bounces=1),
+                ("shadow", "ssum", "finish")),
+               ("relaxed mis", relax_mis_s, ("qtail", "qseg", "smarch",
+                                              "qsum")))
+    reads_positions = ("intersect", "costkey", "key", "tail", "seg", "tsum",
+                       "shadow", "finish", "qseg")
+    time_arg = {"intersect": 8, "costkey": 5, "key": 12}
+
+    def at_time0(key, a):
+        a = list(a)
+        if key in time_arg:
+            a[time_arg[key]] = a[time_arg[key]] * 0.0
+        else:
+            a[2] = a[2]._replace(time=a[2].time * 0.0)
+        return a
+
+    def tensors_of(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            x = list(x.values())
+        return [t for y in x for t in tensors_of(y)]
+
+    scenes13 = [("static", lambda resolution, device: (data, static, cam))]
+    scenes13 += [(f"{k} knots", geo_scene(k)) for k in ANIM_KNOTS]
+    times13, bounds13 = {}, {}
+    for label, scene in scenes13:
+        d13, st13, c13 = scene(resolution=(W, H), device=dev)
+        moving = label != "static"
+        for path, s13, keys in paths13:
+            cap = {k: [] for k in impl}
+            with plain_twins(cap):
+                renderer.render_pass(film_mod.new_film(W * H, device=dev),
+                                     d13, st13, s13, tables, c13, fis, 0,
+                                     MAIN_PASS, *ANIM_TIME)
+            torch.cuda.synchronize()
+            gate(all(len(cap[k]) == 2 for k in keys),
+                 f"13 {label} {path}: captured "
+                 f"{[len(cap[k]) for k in keys]} calls")
+            for key in keys:
+                for i, (a, kw) in enumerate(cap[key]):
+                    depth = i + (1 if key in time_arg and key != "intersect"
+                                 else 0)
+                    got = impl[key](*a, **kw)
+                    want = twin[key](*a, **kw)
+                    torch.cuda.synchronize()
+                    check(key, f"{label} {path}", depth, a, kw, got, want)
+                    if moving and depth == 1 and key in reads_positions:
+                        got0 = impl[key](*at_time0(key, a), **kw)
+                        torch.cuda.synchronize()
+                        gate(not all(same_bits(g, w) for g, w in zip(
+                            tensors_of(got), tensors_of(got0))),
+                            f"13 {label} {path} {key}: the same results at "
+                            "time 0 (knot 0)")
+                        del got0
+                    del got, want
+                if key not in reads_positions:
+                    continue
+                a, kw = cap[key][0 if key in ("key", "costkey") else 1]
+                entries = (ANIM_ENTRIES if moving else
+                           STATIC_ENTRIES).get(key)
+                dev_ms = None
+                if entries is not None:
+                    dev_ms = device_ms(impl[key], a, kw, entries)
+                    gate(dev_ms is not None, f"13 {label} {path} {key}: the "
+                         f"profiler saw none of {entries}")
+                ms = (dev_ms if key in DEVICE_TIMED else
+                      timed(impl[key], a, kw, reps=5))
+                times13[(label, key)] = ms
+                if moving:
+                    out = impl[key](*a, **kw)
+                    ins, outs = io_tensors(key, a, kw, out)
+                    bounds13[(label, key)] = bound(
+                        de_evals(key, a, kw, out), ins, outs)[:2]
+                    del out, ins, outs
+                    ref = times13[("static", key)]
+                    log(f"[13 motion] {key} ({path}), depth 1: {label} "
+                        f"{ms:.4f} ms, static scene {ref:.4f} ms (ratio "
+                        f"{ms / ref:.3f}); bound "
+                        f"{bounds13[(label, key)][0]:.4f} ms "
+                        f"({bounds13[(label, key)][1]})")
+            del cap, a, kw
+            torch.cuda.empty_cache()
+    del scrub
+    record["motion_kernels"] = {
+        f"{label} {key}": dict(ms=ms, bound=bounds13.get((label, key)))
+        for (label, key), ms in times13.items()}
+
+    def camera_scene(kind):
+        def scene(resolution, device):
+            d_, st_, c_ = presets.default_scene(
+                resolution=resolution, device=device,
+                animated=kind == "animated camera")
+            origin = tuple(float(x) * 2.25 for x in (-0.45, 0.2, 2.0))
+            at, up = (0.6, 0.4, 0.0), (0.0, 1.0, 0.0)
+            if kind == "thin lens":
+                c_ = ThinLensCamera.make(resolution, 60.0, 0.35, origin, at,
+                                         up, at, device=device)
+            elif kind == "orthographic":
+                c_ = OrthographicCamera.make(resolution, 6.0, origin, at, up,
+                                             device=device)
+            return d_, st_, c_
+        return scene
+
+    for kind, res in (("animated camera", MAIN_RES),
+                      ("thin lens", MAIN_RES),
+                      ("orthographic", UNFUSED_RES)):
+        motion[kind.replace(" ", "_")] = main_path(
+            f"13 {kind}", dataclasses.replace(main_s, resolution=res), res,
+            fused_need, scene=camera_scene(kind), absent=fused_absent,
+            time_range=ANIM_TIME)
+    record["motion"] = motion
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -1488,12 +1673,19 @@ def main(argv=None) -> int:
         ms = r["ms"]
         if tkey in DEVICE_TIMED and r.get("device_ms") is not None:
             ms = r["device_ms"]
-        kern.append(dict(
+        row = dict(
             name=kname, route="cuda", source=src, replaces=rep,
             launches=record[phase]["launches"][lkey], max_abs_err=err,
             ms=ms, plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
-            cuda_kernels=[e for k in keys for e in ENTRIES[k]]))
+            cuda_kernels=[e for k in keys for e in ENTRIES[k]])
+        if ("8 knots", tkey) in times13:   # a kernel that reads positions
+            row.update(
+                ms_animated=times13[("8 knots", tkey)],
+                ms_animated_64=times13[("64 knots", tkey)],
+                ms_static_same_call=times13[("static", tkey)],
+                bound_ms_animated=bounds13[("8 knots", tkey)][0])
+        kern.append(row)
     record["kernels"] = kern
     if args.json:
         with open(args.json, "w") as fh:

@@ -157,6 +157,31 @@ def queue_march(queue: int, count: int, head, verdict, mb, detail: float,
         bv_r2=float(bound_radius * bound_radius))
 
 
+class Track(ctypes.Structure):
+    """csrc/common.cuh Track: a channel of positions [count, T, 3]."""
+    _fields_ = [("knots", ctypes.c_void_p), ("T", ctypes.c_int),
+                ("t0", ctypes.c_float), ("span", ctypes.c_float)]
+
+
+class Anim(ctypes.Structure):
+    """csrc/common.cuh Anim: the scene's light, sphere and MIS-light
+    position tracks."""
+    _fields_ = [("lights", Track), ("spheres", Track), ("mis", Track)]
+
+
+def track(ch, name: str, count: int, device) -> Track:
+    """The Track of an AnimChannel with values [count, T, 3] on `device`
+    (None: an empty constant track). span is t1 - t0 rounded to float32,
+    the divisor animation._lerp_state divides by."""
+    import torch
+
+    if ch is None:
+        return Track(None, 1, 0.0, 1.0)
+    T = int(ch.values.shape[1])
+    knots = check(ch.values, name, torch.float32, (count, T, 3), device)
+    return Track(knots, T, ch.t0, ch.t1 - ch.t0)
+
+
 def mbox_struct(mb) -> MBox:
     """MBox of an ops.sdf.MandelBox (zeros for no SDF)."""
     if mb is None:

@@ -4,7 +4,8 @@
 (`jax.tree.map(np.asarray, data)`), the JAX `SceneStatic` for its plain
 facts (counts, flags, SDF material, bound radius) and the MandelBox
 iteration count, which the JAX package keeps inside a closure. `camera`
-takes the JAX `PinholeCamera` with numpy leaves. Both packages then
+takes a JAX `PinholeCamera`, `ThinLensCamera` or `OrthographicCamera`
+with numpy leaves. Both packages then
 render the same scene. Nothing here imports JAX: the inputs are read by
 attribute name. Like every entry point of the port, both place their
 tensors on the CUDA card unless the caller asks for another device.
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from rayn_tpu_torch.ops.sdf import MandelBox
-from rayn_tpu_torch.render.camera import PinholeCamera
+from rayn_tpu_torch.render.camera import (Camera, OrthographicCamera,
+                                          PinholeCamera, ThinLensCamera)
 from rayn_tpu_torch.scene.animation import AnimChannel
 from rayn_tpu_torch.scene.scene import Materials, SceneData, SceneStatic
 
@@ -75,12 +77,17 @@ def scene(data, static, sdf_iterations: int, device="cuda"):
     return out, st
 
 
-def camera(cam, device="cuda") -> PinholeCamera:
-    """The port's PinholeCamera from the JAX one (numpy leaves)."""
-    if tuple(getattr(cam, "_fields", ())) != PinholeCamera._fields:
+_CAMERAS = {cls.__name__: cls for cls in (PinholeCamera, ThinLensCamera,
+                                           OrthographicCamera)}
+
+
+def camera(cam, device="cuda") -> Camera:
+    """The port's camera of the same class from the JAX one (numpy
+    leaves): every channel carried over, every scalar rounded to
+    float32."""
+    cls = _CAMERAS.get(type(cam).__name__)
+    if cls is None or tuple(getattr(cam, "_fields", ())) != cls._fields:
         raise NotImplementedError(
-            f"{type(cam).__name__}: only PinholeCamera is ported")
-    return PinholeCamera(
-        _channel(cam.origin, device), _channel(cam.at, device),
-        _channel(cam.up, device), _f32(cam.half_w), _f32(cam.half_h),
-        _f32(cam.hps))
+            f"{type(cam).__name__}: only {sorted(_CAMERAS)} are ported")
+    return cls(*(_channel(v, device) if hasattr(v, "values") else _f32(v)
+                 for v in cam))

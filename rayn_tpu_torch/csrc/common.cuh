@@ -81,6 +81,97 @@ __device__ __forceinline__ float mandelbox_de(const MBox& mb, float x,
   return sqrtf(x * x + y * y + z * z) / fabsf(dr);
 }
 
+// ------------------------------------------------------ animated positions
+// A channel of positions over time (scene/animation.py AnimChannel,
+// values [count, T, 3]): T knots on a uniform grid over [t0, t0 + span].
+// T == 1 is a constant channel.
+struct Track {
+  const float* knots;  // [count, T, 3]
+  int T;
+  float t0, span;  // t0 and float32(t1 - t0)
+};
+
+// The scene's animated positions: lights [NL, TL, 3], sphere centers
+// [K, TS, 3], and the knots of the light paired with each sphere [K, TL, 3]
+// (the MIS table's position column; same t0 and span as the lights').
+struct Anim {
+  Track lights, spheres, mis;
+};
+
+// A lane's place in a track (animation._lerp_state): u = (t - t0) / span *
+// (T - 1) with one IEEE division, clamped to [0, T - 1]; its floor clamped
+// to [0, T - 2]; the fraction u - i0. Unfused, as torch's ops round
+// (--fmad=false).
+struct Lerp {
+  int i0;
+  float frac;
+};
+
+__device__ __forceinline__ Lerp lerp_state(const Track& c, float t) {
+  if (c.T <= 1) return Lerp{0, 0.0f};
+  const float top = (float)(c.T - 1);
+  const float u = fminf(fmaxf((t - c.t0) / c.span * top, 0.0f), top);
+  const int i0 = min(max((int)floorf(u), 0), c.T - 2);
+  return Lerp{i0, u - (float)i0};
+}
+
+// Object k's position at the lane's Lerp (animation.sample_batched_at):
+// v[k, i0] * (1 - frac) + v[k, i0 + 1] * frac, per component; knot 0 of a
+// constant track. The knots are read through the read-only cache.
+__device__ __forceinline__ float3 track_at(const Track& c, int k, Lerp s) {
+  const float* v = c.knots + 3 * ((long long)k * c.T + s.i0);
+  if (c.T <= 1) return make_float3(__ldg(v), __ldg(v + 1), __ldg(v + 2));
+  const float w0 = 1.0f - s.frac;
+  return make_float3(__ldg(v) * w0 + __ldg(v + 3) * s.frac,
+                     __ldg(v + 1) * w0 + __ldg(v + 4) * s.frac,
+                     __ldg(v + 2) * w0 + __ldg(v + 5) * s.frac);
+}
+
+// Where a kernel reads a scene position for one lane. At<false>, the
+// constant scene: the rows of the constant tables (lights [NL, 8] and the
+// MIS table [K, 5] as shade.cu lays them out, spheres with kStride floats
+// a row), as before animated channels existed. At<true>: the knot lerp at
+// the lane's time; a kernel instantiated with it takes the lane's time
+// once and a Lerp a track.
+template <bool kAnim>
+struct At;
+
+template <>
+struct At<false> {
+  __device__ __forceinline__ At(const Anim&, float) {}
+  __device__ __forceinline__ float3 light(const float* lights, int l) const {
+    const float* r = lights + 8 * l;
+    return make_float3(r[0], r[1], r[2]);
+  }
+  template <int kStride>
+  __device__ __forceinline__ float3 sphere(const float* sph, int k) const {
+    const float* r = sph + kStride * k;
+    return make_float3(r[0], r[1], r[2]);
+  }
+  __device__ __forceinline__ float3 mis_light(const float* mis, int k) const {
+    const float* r = mis + 5 * k;
+    return make_float3(r[2], r[3], r[4]);
+  }
+};
+
+template <>
+struct At<true> {
+  const Anim& a;
+  Lerp l, s;
+  __device__ __forceinline__ At(const Anim& an, float t)
+      : a(an), l(lerp_state(an.lights, t)), s(lerp_state(an.spheres, t)) {}
+  __device__ __forceinline__ float3 light(const float*, int i) const {
+    return track_at(a.lights, i, l);
+  }
+  template <int kStride>
+  __device__ __forceinline__ float3 sphere(const float*, int k) const {
+    return track_at(a.spheres, k, s);
+  }
+  __device__ __forceinline__ float3 mis_light(const float*, int k) const {
+    return track_at(a.mis, k, l);
+  }
+};
+
 // ------------------------------------------------------------------ sampler
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -170,23 +261,25 @@ __device__ __forceinline__ int pick_light(float u, int NL) {
 // The equi-angular distance sample of one volume site (integrator
 // ._equi_angular_samples with lights.sample_equi_angular, reference
 // src/light.rs:75-102), in torch's op order: the distance draw u of the
-// site's march (set_dist), the light picked by set_pick from the constant
-// light table [NL, 8], then delta, closest, d, the two angles, the
-// distance delta + d * tan(th) along o + s*d and its pdf. atan2f and tanf
-// equal torch's CUDA atan2 and tan bit for bit on the H100, under either
-// --fmad setting (tools/torch_probe_trig.py counts the lanes that differ).
+// site's march (set_dist), the light picked by set_pick from the light
+// table [NL, 8] (its position at the lane's time: `at`), then delta,
+// closest, d, the two angles, the distance delta + d * tan(th) along
+// o + s*d and its pdf. atan2f and tanf equal torch's CUDA atan2 and tan
+// bit for bit on the H100, under either --fmad setting
+// (tools/torch_probe_trig.py counts the lanes that differ).
+template <class Pos>
 __device__ __forceinline__ void equi_angular_site(
-    const Sampler& smp, int set_dist, int set_pick, int NL,
+    const Sampler& smp, const Pos& at, int set_dist, int set_pick, int NL,
     const float* __restrict__ lights, uint32_t sidx, uint32_t pix, float ox,
     float oy, float oz, float dx, float dy, float dz, float max_distance,
     float& dist, float& pdf) {
   const float u = sample_1d(smp, set_dist, sidx, pix);
-  const float* lr =
-      lights + 8 * pick_light(sample_1d(smp, set_pick, sidx, pix), NL);
+  const float3 lp =
+      at.light(lights, pick_light(sample_1d(smp, set_pick, sidx, pix), NL));
   const float delta =
-      (lr[0] - ox) * dx + (lr[1] - oy) * dy + (lr[2] - oz) * dz;
-  const float cx = (ox + delta * dx) - lr[0], cy = (oy + delta * dy) - lr[1],
-              cz = (oz + delta * dz) - lr[2];
+      (lp.x - ox) * dx + (lp.y - oy) * dy + (lp.z - oz) * dz;
+  const float cx = (ox + delta * dx) - lp.x, cy = (oy + delta * dy) - lp.y,
+              cz = (oz + delta * dz) - lp.z;
   const float d = sqrtf(cx * cx + cy * cy + cz * cz);
   const float theta_a = atan2f(-delta, d);
   const float theta_b = atan2f(max_distance - delta, d);
@@ -240,11 +333,12 @@ __device__ __forceinline__ void sample_cone(float u1, float u2, float lx,
   pdf = 1.0f / (TWO_PI_F * (1.0f - cos_theta_max));
 }
 
-// shade_pallas._sphere_occluded: any of K spheres [x, y, z, r] blocks s->e.
-// kDivide: ops/spheres.occluded (the unfused bounce), whose unit
-// direction is (e - s) / |e - s|.
-template <bool kDivide = false>
-__device__ __forceinline__ bool sphere_occluded(const float* __restrict__ sph,
+// shade_pallas._sphere_occluded: any of K spheres [x, y, z, r] blocks s->e
+// (their centers at the lane's time: `at`). kDivide: ops/spheres.occluded
+// (the unfused bounce), whose unit direction is (e - s) / |e - s|.
+template <bool kDivide = false, class Pos>
+__device__ __forceinline__ bool sphere_occluded(const Pos& at,
+                                                const float* __restrict__ sph,
                                                 int K, float sx, float sy,
                                                 float sz, float ex, float ey,
                                                 float ez) {
@@ -263,11 +357,12 @@ __device__ __forceinline__ bool sphere_occluded(const float* __restrict__ sph,
   }
   bool occ = false;
   for (int k = 0; k < K; ++k) {
-    const float ocx = sx - sph[4 * k], ocy = sy - sph[4 * k + 1],
-                ocz = sz - sph[4 * k + 2], rad = sph[4 * k + 3];
+    const float3 c = at.template sphere<4>(sph, k);
+    const float ocx = sx - c.x, ocy = sy - c.y, ocz = sz - c.z,
+                rad = sph[4 * k + 3];
     const float b = ocx * ux + ocy * uy + ocz * uz;
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-    const float descrim = b * b - c;
+    const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float descrim = b * b - c2;
     const float dsq = sqrtf(nmax(descrim, 0.0f));
     const float t1 = -b - dsq, t2 = -b + dsq;
     occ = occ || ((nmin(t1, t2) > 1e-3f) && (t1 <= dist) && (descrim > 0.0f));
@@ -275,17 +370,17 @@ __device__ __forceinline__ bool sphere_occluded(const float* __restrict__ sph,
   return occ;
 }
 
-// ops/spheres.hit for one sphere (reference src/sphere.rs:48-72): the
-// nearer valid root in (1e-4, t_max], else MISS.
+// ops/spheres.hit for one sphere (reference src/sphere.rs:48-72) of
+// center c and radius rad: the nearer valid root in (1e-4, t_max], else
+// MISS.
 __device__ __forceinline__ float sphere_hit(float ox, float oy, float oz,
                                             float dx, float dy, float dz,
-                                            const float* __restrict__ s,
+                                            float3 c, float rad,
                                             float t_max) {
-  const float ocx = ox - s[0], ocy = oy - s[1], ocz = oz - s[2];
-  const float rad = s[3];
+  const float ocx = ox - c.x, ocy = oy - c.y, ocz = oz - c.z;
   const float b = ocx * dx + ocy * dy + ocz * dz;
-  const float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  const float descrim = b * b - c;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float descrim = b * b - cc;
   const bool desc_pos = descrim > 0.0f;
   const float ds = sqrtf(nmax(descrim, 0.0f));
   const float t1 = -b - ds, t2 = -b + ds;

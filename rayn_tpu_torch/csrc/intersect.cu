@@ -41,7 +41,14 @@
 // dead ray or a NaN first DE. One thread per ray; bounded by one DE per
 // live ray.
 // Scene constants (K spheres as [x, y, z, r, mat]) come in as a small
-// device buffer that stays in L1.
+// device buffer that stays in L1. In a scene whose sphere centers are
+// animated (TS > 1) the *_anim_kernel instantiations read each center at
+// the ray's time instead, the lerp of its knots [K, TS, 3] (At<true> in
+// common.cuh; a table of any knot count, read through the read-only
+// cache): each ray computes its Lerp once, then a center costs six loads,
+// three multiplies and an add a component, against ~400 flops a DE. The
+// constant scene's kernels are the At<false> instantiations, the code
+// they had before.
 #include "common.cuh"
 
 namespace rayn {
@@ -52,6 +59,7 @@ struct IntersectArgs {
   const float* hps_abs;    // [N]
   const float* hps_lin;    // [N]
   const bool* active;      // [N]
+  const float* time;       // [N] the ray's time (read when animated)
   const float* spheres;    // [K, 5]
   int* head;               // [1] ray ids handed out (0 at launch)
   // [1] or null: the loop iterations of every warp are added here (each
@@ -73,12 +81,14 @@ struct IntersectArgs {
   float eps_const;  // 5e-5 * detail
   float eps_k;      // 0.05 * detail
   float detail;
+  Anim anim;        // the sphere centers' track (the others unused)
 };
 
 struct CostKeyArgs {
   const float* origin;     // [N, 3]
   const float* direction;  // [N, 3]
   const bool* alive;       // [N]
+  const float* time;       // [N] the ray's time (read when animated)
   const float* spheres;    // [K, 5]
   float* key;              // [N]
   long long n;
@@ -86,10 +96,14 @@ struct CostKeyArgs {
   int max_steps;
   MBox mb;
   float t_max0;
+  Anim anim;               // the sphere centers' track (the others unused)
 };
 
-// The sphere closest-hit fold (ops/spheres.hit + closest select).
-__device__ __forceinline__ void sphere_fold(const float* __restrict__ spheres,
+// The sphere closest-hit fold (ops/spheres.hit + closest select), the
+// centers at the ray's time (`at`).
+template <class Pos>
+__device__ __forceinline__ void sphere_fold(const Pos& at,
+                                            const float* __restrict__ spheres,
                                             int K, float t_max0, float ox,
                                             float oy, float oz, float dx,
                                             float dy, float dz, float& best_t,
@@ -97,8 +111,9 @@ __device__ __forceinline__ void sphere_fold(const float* __restrict__ spheres,
   best_t = t_max0;
   best_obj = -1;
   for (int k = 0; k < K; ++k) {
-    const float tk = sphere_hit(ox, oy, oz, dx, dy, dz, spheres + 5 * k,
-                                t_max0);
+    const float tk =
+        sphere_hit(ox, oy, oz, dx, dy, dz, at.template sphere<5>(spheres, k),
+                   spheres[5 * k + 3], t_max0);
     if (tk < best_t) {
       best_t = tk;
       best_obj = k;
@@ -108,8 +123,11 @@ __device__ __forceinline__ void sphere_fold(const float* __restrict__ spheres,
 
 // The shading info of ray i (ops/intersect.shading_info) from its closest
 // t and object: a sphere's normal, or for the SDF (best_obj == K) the
-// normalised tap gradient g with offset hps; every output written.
-__device__ __forceinline__ void write_hit(const IntersectArgs& a, long long i,
+// normalised tap gradient g with offset hps; every output written. A
+// sphere's center is taken at the ray's time (`at`).
+template <class Pos>
+__device__ __forceinline__ void write_hit(const IntersectArgs& a,
+                                          const Pos& at, long long i,
                                           float ox, float oy, float oz,
                                           float dx, float dy, float dz,
                                           float best_t, int best_obj,
@@ -120,14 +138,14 @@ __device__ __forceinline__ void write_hit(const IntersectArgs& a, long long i,
   float nx = 0.0f, ny = 0.0f, nz = 0.0f, off = 0.0f;
   int mat = 0;
   if (best_obj >= 0 && best_obj < a.K) {
-    const float* s = a.spheres + 5 * best_obj;
-    const float vx = px - s[0], vy = py - s[1], vz = pz - s[2];
+    const float3 c = at.template sphere<5>(a.spheres, best_obj);
+    const float vx = px - c.x, vy = py - c.y, vz = pz - c.z;
     const float vlen = sqrtf(vx * vx + vy * vy + vz * vz);
     const float vinv = 1.0f / nmax(vlen, 1e-20f);
     nx = vx * vinv;
     ny = vy * vinv;
     nz = vz * vinv;
-    mat = (int)s[4];
+    mat = (int)a.spheres[5 * best_obj + 4];
   } else if (best_obj == a.K) {
     const float glen = sqrtf(gx * gx + gy * gy + gz * gz);
     const float ginv = 1.0f / nmax(glen, 1e-20f);
@@ -158,20 +176,21 @@ __device__ __forceinline__ float tap_sign(int tap, int axis) {
   return (tap == axis || tap == 3) ? 1.0f : -1.0f;
 }
 
-__global__ void __launch_bounds__(128)
-    closest_hit_kernel(const IntersectArgs a) {
+template <bool kAnim>
+__device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int id = -1;  // this lane's ray, -1 while idle
   int stage = kEntry, step = 0, best_obj = -1;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float hps_abs = 0.0f, hps_lin = 0.0f, t = 0.0f, best_t = 0.0f, hps = 0.0f;
+  float tm = 0.0f;  // the ray's time (animated scenes)
   float gx = 0.0f, gy = 0.0f, gz = 0.0f;
   // The warp's batch: slot `lane` holds ray bi, loaded and folded;
   // `pending` marks the slots whose ray still waits for a lane.
   int bi = -1, b_obj = -1;
   float b_ox = 0.0f, b_oy = 0.0f, b_oz = 0.0f, b_dx = 0.0f, b_dy = 0.0f,
-        b_dz = 0.0f, b_ha = 0.0f, b_hl = 0.0f, b_t = 0.0f;
+        b_dz = 0.0f, b_ha = 0.0f, b_hl = 0.0f, b_t = 0.0f, b_tm = 0.0f;
   unsigned pending = 0u;
   bool drained = false;
   unsigned long long iters = 0;
@@ -196,15 +215,17 @@ __global__ void __launch_bounds__(128)
           b_dx = a.direction[i3];
           b_dy = a.direction[i3 + 1];
           b_dz = a.direction[i3 + 2];
-          sphere_fold(a.spheres, a.K, a.t_max0, b_ox, b_oy, b_oz, b_dx, b_dy,
-                      b_dz, b_t, b_obj);
+          if (kAnim) b_tm = a.time[bi];
+          const At<kAnim> at(a.anim, b_tm);
+          sphere_fold(at, a.spheres, a.K, a.t_max0, b_ox, b_oy, b_oz, b_dx,
+                      b_dy, b_dz, b_t, b_obj);
           needs_de = a.has_sdf && a.active[bi];
           if (needs_de) {
             b_ha = a.hps_abs[bi];
             b_hl = a.hps_lin[bi];
           } else {  // no DE to take: done the moment it is folded
-            write_hit(a, bi, b_ox, b_oy, b_oz, b_dx, b_dy, b_dz, b_t, b_obj,
-                      0.0f, 0.0f, 0.0f, 0.0f);
+            write_hit(a, at, bi, b_ox, b_oy, b_oz, b_dx, b_dy, b_dz, b_t,
+                      b_obj, 0.0f, 0.0f, 0.0f, 0.0f);
           }
         }
         pending = __ballot_sync(FULL_MASK, needs_de);
@@ -226,6 +247,7 @@ __global__ void __launch_bounds__(128)
       const float v_ha = __shfl_sync(FULL_MASK, b_ha, src);
       const float v_hl = __shfl_sync(FULL_MASK, b_hl, src);
       const float v_t = __shfl_sync(FULL_MASK, b_t, src);
+      const float v_tm = kAnim ? __shfl_sync(FULL_MASK, b_tm, src) : 0.0f;
       if (take) {
         id = v_id;
         best_obj = v_obj;
@@ -238,6 +260,7 @@ __global__ void __launch_bounds__(128)
         dz = v_dz;
         hps_abs = v_ha;
         hps_lin = v_hl;
+        tm = v_tm;
         stage = kEntry;
       }
       // the lowest min(idle, pending) pending slots are handed out
@@ -288,8 +311,8 @@ __global__ void __launch_bounds__(128)
       gy = gy + tap_sign(stage, 1) * dist;
       gz = gz + tap_sign(stage, 2) * dist;
       if (stage == 3) {
-        write_hit(a, id, ox, oy, oz, dx, dy, dz, best_t, best_obj, hps, gx,
-                  gy, gz);
+        write_hit(a, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx, dy, dz,
+                  best_t, best_obj, hps, gx, gy, gz);
         id = -1;
       } else {
         ++stage;
@@ -305,15 +328,26 @@ __global__ void __launch_bounds__(128)
         gz = 0.0f;
         stage = 0;
       } else {
-        write_hit(a, id, ox, oy, oz, dx, dy, dz, best_t, best_obj, 0.0f,
-                  0.0f, 0.0f, 0.0f);
+        write_hit(a, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx, dy, dz,
+                  best_t, best_obj, 0.0f, 0.0f, 0.0f, 0.0f);
         id = -1;
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
+__global__ void __launch_bounds__(128)
+    closest_hit_kernel(const IntersectArgs a) {
+  closest_hit<false>(a);
+}
+
+__global__ void __launch_bounds__(128)
+    closest_hit_anim_kernel(const IntersectArgs a) {
+  closest_hit<true>(a);
+}
+
+template <bool kAnim>
+__device__ __forceinline__ void cost_key(const CostKeyArgs& a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   float key = 1.0f;
@@ -325,10 +359,14 @@ __global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
     // min over the spheres (NaN-propagating, as torch's min), then t_max0
     float bound = a.t_max0;
     if (a.K > 0) {
-      float m = sphere_hit(ox, oy, oz, dx, dy, dz, a.spheres, a.t_max0);
+      const At<kAnim> at(a.anim, kAnim ? a.time[i] : 0.0f);
+      float m = sphere_hit(ox, oy, oz, dx, dy, dz,
+                           at.template sphere<5>(a.spheres, 0), a.spheres[3],
+                           a.t_max0);
       for (int k = 1; k < a.K; ++k)
-        m = nmin(m, sphere_hit(ox, oy, oz, dx, dy, dz, a.spheres + 5 * k,
-                               a.t_max0));
+        m = nmin(m, sphere_hit(ox, oy, oz, dx, dy, dz,
+                               at.template sphere<5>(a.spheres, k),
+                               a.spheres[5 * k + 3], a.t_max0));
       bound = nmin(m, a.t_max0);
     }
     const float d0 = mandelbox_de(a.mb, ox, oy, oz);
@@ -336,6 +374,15 @@ __global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
       key = nmin(bound / nmax(d0, 1e-6f), (float)a.max_steps);
   }
   a.key[i] = key;
+}
+
+__global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
+  cost_key<false>(a);
+}
+
+__global__ void __launch_bounds__(128)
+    cost_key_anim_kernel(const CostKeyArgs a) {
+  cost_key<true>(a);
 }
 
 }  // namespace rayn
@@ -350,18 +397,24 @@ __global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
 #endif
 
 // Persistent (launch_persistent): every block runs until all rays are
-// taken.
+// taken. The *_anim_kernel instantiation when the sphere centers are
+// animated.
 extern "C" cudaError_t rayn_closest_hit(const rayn::IntersectArgs* args,
                                         cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  return rayn::launch_persistent(rayn::closest_hit_kernel, *args, args->n,
-                                 stream, RAYN_HIT_BLOCKS_PER_SM);
+  return rayn::launch_persistent(args->anim.spheres.T > 1
+                                     ? rayn::closest_hit_anim_kernel
+                                     : rayn::closest_hit_kernel,
+                                 *args, args->n, stream,
+                                 RAYN_HIT_BLOCKS_PER_SM);
 }
 
 extern "C" cudaError_t rayn_cost_key(const rayn::CostKeyArgs* args,
                                      cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  rayn::cost_key_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
-      *args);
+  void (*kernel)(rayn::CostKeyArgs) = args->anim.spheres.T > 1
+                                          ? rayn::cost_key_anim_kernel
+                                          : rayn::cost_key_kernel;
+  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
   return cudaGetLastError();
 }

@@ -91,6 +91,17 @@
 // table [K, 5]) come in as small device buffers that stay in L1. No
 // kernel waits on the host: the march reads the queue length on the
 // device.
+// Animated scenes (light or sphere channels with more than one knot): the
+// segments, tail-sum, finish and sort-key kernels have *_anim_kernel
+// instantiations that read every light position, sphere center and MIS
+// light position at the ray's time, the lerp of its knots (At<true> in
+// common.cuh, ShadowScalars::anim), where JAX resolved them outside its
+// kernels because the in-kernel lerp cost Mosaic registers and VMEM. Here
+// a thread computes its ray's Lerp once; a position then costs six loads
+// from a table of a few KB (through the read-only cache) and three
+// multiplies and an add a component, far below a site's transcendentals.
+// The constant scene's kernels are the At<false> instantiations, the code
+// they had before.
 #include "common.cuh"
 
 namespace rayn {
@@ -120,7 +131,13 @@ struct ShadowScalars {  // ops/shade_cuda.py _ShadowScalars
   // 5: the exponent of bsdf.eval_f's (1 - d) ** 5, read at run time as
   // torch's CUDA pow reads it (eval_f_unfused)
   float schlick_exp;
+  Anim anim;  // the scene's position tracks (read by *_anim_kernel)
 };
+
+// True when the scene's light or sphere positions are animated.
+__host__ __forceinline__ bool animated(const ShadowScalars& sc) {
+  return sc.anim.lights.T > 1 || sc.anim.spheres.T > 1;
+}
 
 struct RayCols {  // ops/shade_cuda.py _RayCols: read by every tail kernel
   const float *point, *normal, *offset_by, *origin, *direction, *throughput,
@@ -129,6 +146,7 @@ struct RayCols {  // ops/shade_cuda.py _RayCols: read by every tail kernel
   const float *color_a, *power;
   const int *sample_idx, *pixel;
   const bool *live, *recv;
+  const float* time;  // [N] the ray's time (read when animated)
 };
 
 struct ShadowCols {  // ops/shade_cuda.py _ShadowCols
@@ -211,6 +229,7 @@ struct KeyArgs {  // ops/shade_cuda.py _KeyArgs
   const float* t_hit;  // [N] the closest hit's t: the volume sites' range
   const int *sample_idx, *pixel;
   const bool *live, *recv;
+  const float* time;   // [N] the ray's time (read when animated)
   const float* lights;
   float* key;
   long long n;
@@ -218,21 +237,24 @@ struct KeyArgs {  // ops/shade_cuda.py _KeyArgs
 };
 
 // The equi-angular sample of volume site j (march-major: march j / L).
+template <class Pos>
 __device__ __forceinline__ void vol_sample(const ShadowScalars& sc,
+                                           const Pos& at,
                                            const float* __restrict__ lights,
                                            int j, uint32_t sidx, uint32_t pix,
                                            float3 o, float3 d, float t_hit,
                                            float& dist, float& pdf) {
-  equi_angular_site(sc.smp, sc.set_vol_dist0 + j / sc.L,
+  equi_angular_site(sc.smp, at, sc.set_vol_dist0 + j / sc.L,
                     sc.set_vol_pick0 + j, sc.NL, lights, sidx, pix, o.x, o.y,
                     o.z, d.x, d.y, d.z, t_hit, dist, pdf);
 }
 
 // Light pick + cone sample of NEE site i from point p (shade_pallas
 // _shadow_delta / _shadow_cost_key, shared so both price one segment;
-// kDivide: the unfused bounce's cone sample).
-template <bool kDivide = false>
+// kDivide: the unfused bounce's cone sample; the light at the ray's time).
+template <bool kDivide = false, class Pos>
 __device__ __forceinline__ int nee_site(const ShadowScalars& sc,
+                                        const Pos& at,
                                         const float* __restrict__ lights,
                                         int i, uint32_t sidx, uint32_t pix,
                                         float px, float py, float pz,
@@ -240,17 +262,18 @@ __device__ __forceinline__ int nee_site(const ShadowScalars& sc,
                                         float& pdf) {
   const int l =
       pick_light(sample_1d(sc.smp, sc.set_pick0 + i, sidx, pix), sc.NL);
-  const float* lr = lights + 8 * l;
+  const float3 lp = at.light(lights, l);
   float u1, u2;
   sample_2d(sc.smp, sc.set_nee0 + i, sidx, pix, u1, u2);
-  sample_cone<kDivide>(u1, u2, lr[0], lr[1], lr[2], lr[3], px, py, pz, ex,
-                       ey, ez, pdf);
+  sample_cone<kDivide>(u1, u2, lp.x, lp.y, lp.z, lights[8 * l + 3], px, py,
+                       pz, ex, ey, ez, pdf);
   return l;
 }
 
 // Light pick + scatter point + cone sample of volume site j.
-template <bool kDivide = false>
+template <bool kDivide = false, class Pos>
 __device__ __forceinline__ int vol_site(const ShadowScalars& sc,
+                                        const Pos& at,
                                         const float* __restrict__ lights,
                                         int j, uint32_t sidx, uint32_t pix,
                                         float vd, float ox, float oy, float oz,
@@ -260,14 +283,14 @@ __device__ __forceinline__ int vol_site(const ShadowScalars& sc,
                                         float& pdf) {
   const int l =
       pick_light(sample_1d(sc.smp, sc.set_vol_pick0 + j, sidx, pix), sc.NL);
-  const float* lr = lights + 8 * l;
+  const float3 lp = at.light(lights, l);
   spx = ox + vd * dx;
   spy = oy + vd * dy;
   spz = oz + vd * dz;
   float u1, u2;
   sample_2d(sc.smp, sc.set_vol0 + j, sidx, pix, u1, u2);
-  sample_cone<kDivide>(u1, u2, lr[0], lr[1], lr[2], lr[3], spx, spy, spz, ex,
-                       ey, ez, pdf);
+  sample_cone<kDivide>(u1, u2, lp.x, lp.y, lp.z, lights[8 * l + 3], spx, spy,
+                       spz, ex, ey, ez, pdf);
   return l;
 }
 
@@ -336,17 +359,17 @@ constexpr int kSegThreads = 128;
 // whose ray receives no light skips the BSDF and the transmittance: its
 // contribution is 0 whatever they are (the MIS weight still multiplies
 // it, so a NaN weight stays NaN as in the twin).
-template <bool kUnfused>
-__device__ __forceinline__ bool nee_segment(const SegArgs& a, const Ray& r,
-                                            int j, long long i, long long m,
-                                            bool store) {
+template <bool kUnfused, class Pos>
+__device__ __forceinline__ bool nee_segment(const SegArgs& a, const Pos& at,
+                                            const Ray& r, int j, long long i,
+                                            long long m, bool store) {
   const ShadowScalars& sc = a.sc;
   const float* lights = a.s.lights;
   const float3 p = r.p, nrm = r.nrm, tp = r.tp;
   const float wox = -r.d.x, woy = -r.d.y, woz = -r.d.z;
   float ex, ey, ez, pdf;
-  const int l = nee_site<kUnfused>(sc, lights, j, r.sidx, r.pix, p.x, p.y,
-                                   p.z, ex, ey, ez, pdf);
+  const int l = nee_site<kUnfused>(sc, at, lights, j, r.sidx, r.pix, p.x,
+                                   p.y, p.z, ex, ey, ez, pdf);
   const float* lr = lights + 8 * l;
   const float wfx = ex - p.x, wfy = ey - p.y, wfz = ez - p.z;
   const float dist = sqrtf(wfx * wfx + wfy * wfy + wfz * wfz);
@@ -400,8 +423,8 @@ __device__ __forceinline__ bool nee_segment(const SegArgs& a, const Ray& r,
     kb = kb * w;
   }
   const bool worth = r.receives && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-  const bool act = worth && !sphere_occluded<kUnfused>(a.s.spheres, sc.K, sx,
-                                                       sy, sz, ex, ey, ez);
+  const bool act = worth && !sphere_occluded<kUnfused>(at, a.s.spheres, sc.K,
+                                                       sx, sy, sz, ex, ey, ez);
   if (store)
     put_segment(a.g, m, (long long)j * a.n + i, sx, sy, sz, ex, ey, ez, kr,
                 kg, kb, act);
@@ -413,18 +436,19 @@ __device__ __forceinline__ bool nee_segment(const SegArgs& a, const Ray& r,
 // (L + j)*N + i of the scratch when `store`. Returns its active flag. A
 // lane whose ray is not alive skips the transmittances: its contribution
 // is 0.
-template <bool kUnfused>
-__device__ __forceinline__ bool vol_segment(const SegArgs& a, const Ray& r,
-                                            float t_hit, int j, long long i,
-                                            long long m, bool store) {
+template <bool kUnfused, class Pos>
+__device__ __forceinline__ bool vol_segment(const SegArgs& a, const Pos& at,
+                                            const Ray& r, float t_hit, int j,
+                                            long long i, long long m,
+                                            bool store) {
   const ShadowScalars& sc = a.sc;
   const float* lights = a.s.lights;
   float vd, vp;
-  vol_sample(sc, lights, j, r.sidx, r.pix, r.o, r.d, t_hit, vd, vp);
+  vol_sample(sc, at, lights, j, r.sidx, r.pix, r.o, r.d, t_hit, vd, vp);
   float spx, spy, spz, ex, ey, ez, light_pdf;
-  const int l = vol_site<kUnfused>(sc, lights, j, r.sidx, r.pix, vd, r.o.x,
-                                   r.o.y, r.o.z, r.d.x, r.d.y, r.d.z, spx,
-                                   spy, spz, ex, ey, ez, light_pdf);
+  const int l = vol_site<kUnfused>(sc, at, lights, j, r.sidx, r.pix, vd,
+                                   r.o.x, r.o.y, r.o.z, r.d.x, r.d.y, r.d.z,
+                                   spx, spy, spz, ex, ey, ez, light_pdf);
   const float* lr = lights + 8 * l;
   float kr = 0.0f, kg = 0.0f, kb = 0.0f;
   if (r.alive) {
@@ -439,8 +463,9 @@ __device__ __forceinline__ bool vol_segment(const SegArgs& a, const Ray& r,
     kb = lr[6] * scale * r.tp.z;
   }
   const bool worth = r.alive && (kr != 0.0f || kg != 0.0f || kb != 0.0f);
-  const bool act = worth && !sphere_occluded<kUnfused>(a.s.spheres, sc.K, spx,
-                                                       spy, spz, ex, ey, ez);
+  const bool act = worth && !sphere_occluded<kUnfused>(
+                                at, a.s.spheres, sc.K, spx, spy, spz, ex, ey,
+                                ez);
   if (store)
     put_segment(a.g, m, (long long)(sc.L + j) * a.n + i, spx, spy, spz, ex,
                 ey, ez, kr, kg, kb, act);
@@ -477,8 +502,8 @@ __device__ __forceinline__ void enqueue_flush(const int* ids, int staged,
 // atomicAdd. Lanes past the end (in = false) compute ray n-1 and store
 // nothing, so that every lane of a warp stages. kUnfused: the same
 // segments in the op order of the unfused bounce's torch build
-// (shade_cuda.queue_segments_plain).
-template <bool kUnfused>
+// (shade_cuda.queue_segments_plain). kAnim: positions at the ray's time.
+template <bool kUnfused, bool kAnim>
 __device__ __forceinline__ void segments(const SegArgs& a) {
   extern __shared__ int s_ids[];  // 32 * S ids a warp
   const int L = a.sc.L, S = L + a.sc.VM * L;
@@ -489,14 +514,15 @@ __device__ __forceinline__ void segments(const SegArgs& a) {
   int* ids = s_ids + (threadIdx.x >> 5) * 32 * S;
   int staged = 0;
   const Ray r = load_ray(a.r, i);
+  const At<kAnim> at(a.sc.anim, kAnim ? a.r.time[i] : 0.0f);
   for (int j = 0; j < L; ++j) {
-    const bool act = nee_segment<kUnfused>(a, r, j, i, m, in);
+    const bool act = nee_segment<kUnfused>(a, at, r, j, i, m, in);
     const int id = (int)((long long)j * a.n + i);
     enqueue_stage(in && act, id, ids, staged);
   }
   const float t_hit = a.s.t_hit[i];
   for (int j = 0; j < S - L; ++j) {
-    const bool act = vol_segment<kUnfused>(a, r, t_hit, j, i, m, in);
+    const bool act = vol_segment<kUnfused>(a, at, r, t_hit, j, i, m, in);
     const int id = (int)((long long)(L + j) * a.n + i);
     enqueue_stage(in && act, id, ids, staged);
   }
@@ -505,18 +531,30 @@ __device__ __forceinline__ void segments(const SegArgs& a) {
 
 __global__ void __launch_bounds__(kSegThreads)
     shadow_segments_kernel(const SegArgs a) {
-  segments<false>(a);
+  segments<false, false>(a);
+}
+
+__global__ void __launch_bounds__(kSegThreads)
+    shadow_segments_anim_kernel(const SegArgs a) {
+  segments<false, true>(a);
 }
 
 __global__ void __launch_bounds__(kSegThreads)
     queue_segments_kernel(const SegArgs a) {
-  segments<true>(a);
+  segments<true, false>(a);
+}
+
+__global__ void __launch_bounds__(kSegThreads)
+    queue_segments_anim_kernel(const SegArgs a) {
+  segments<true, true>(a);
 }
 
 // One thread per ray, kSegThreads a block, with shared memory for the
-// ids of all their segments.
+// ids of all their segments; `anim` for an animated scene, else `kernel`.
 __host__ cudaError_t launch_segments(void (*kernel)(SegArgs),
-                                     const SegArgs& a, cudaStream_t stream) {
+                                     void (*anim)(SegArgs), const SegArgs& a,
+                                     cudaStream_t stream) {
+  if (animated(a.sc)) kernel = anim;
   const int S = a.sc.L + a.sc.VM * a.sc.L;
   if (a.n <= 0 || S <= 0) return cudaSuccess;
   const int smem = (int)sizeof(int) * kSegThreads * S;
@@ -562,7 +600,10 @@ __device__ __forceinline__ void segment_sum(const SumCols& c, long long n,
 // Steps 2 and 5-7 of a bounce (shade_pallas._finish_tail) from the
 // pre-emission radiance rad_*: emission with its MIS weight, scatter,
 // roulette, the depth-0 AOVs and termination; writes the next PathState.
+// The MIS light's position is taken at the ray's time (`at`).
+template <class Pos>
 __device__ __forceinline__ void finish_tail(const ShadowScalars& sc,
+                                            const Pos& at,
                                             const FinishCols& f, long long i,
                                             const Ray& r, float rad_r,
                                             float rad_g, float rad_b) {
@@ -588,7 +629,8 @@ __device__ __forceinline__ void finish_tail(const ShadowScalars& sc,
     const float ppdf = f.prev_pdf[i];
     if (obj >= 0 && obj < sc.K && f.mis[5 * obj] > 0.0f && ppdf >= 0.0f) {
       const float* m = f.mis + 5 * obj;
-      const float dlx = m[2] - o.x, dly = m[3] - o.y, dlz = m[4] - o.z;
+      const float3 lp = at.mis_light(f.mis, obj);
+      const float dlx = lp.x - o.x, dly = lp.y - o.y, dlz = lp.z - o.z;
       const float d2 = dlx * dlx + dly * dly + dlz * dlz;
       const float cos_theta_max = sqrtf(nmax(0.0f, 1.0f - m[1] * m[1] / d2));
       const float q =
@@ -669,7 +711,8 @@ __device__ __forceinline__ void finish_tail(const ShadowScalars& sc,
   }
 }
 
-__global__ void __launch_bounds__(128) tail_sum_kernel(const TailSumArgs a) {
+template <bool kAnim>
+__device__ __forceinline__ void tail_sum(const TailSumArgs& a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const Ray r = load_ray(a.r, i);
@@ -677,7 +720,17 @@ __global__ void __launch_bounds__(128) tail_sum_kernel(const TailSumArgs a) {
   segment_sum(a.s, a.n, i, dr, dg, db);
   // the two-kernel association order: (state radiance + delta) + emission
   const float3 rin = ld3(a.f.radiance, i);
-  finish_tail(a.sc, a.f, i, r, rin.x + dr, rin.y + dg, rin.z + db);
+  finish_tail(a.sc, At<kAnim>(a.sc.anim, kAnim ? a.r.time[i] : 0.0f), a.f, i,
+              r, rin.x + dr, rin.y + dg, rin.z + db);
+}
+
+__global__ void __launch_bounds__(128) tail_sum_kernel(const TailSumArgs a) {
+  tail_sum<false>(a);
+}
+
+__global__ void __launch_bounds__(128)
+    tail_sum_anim_kernel(const TailSumArgs a) {
+  tail_sum<true>(a);
 }
 
 __global__ void __launch_bounds__(128)
@@ -708,22 +761,34 @@ __global__ void __launch_bounds__(128) queue_sum_kernel(const QueueSumArgs a) {
   st3(a.o_radiance, i, rad.x, rad.y, rad.z);
 }
 
-__global__ void __launch_bounds__(128)
-    finish_bounce_kernel(const FinishArgs a) {
+template <bool kAnim>
+__device__ __forceinline__ void finish_bounce(const FinishArgs& a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const Ray r = load_ray(a.r, i);
   const float3 rin = ld3(a.f.radiance, i);
-  finish_tail(a.sc, a.f, i, r, rin.x, rin.y, rin.z);
+  finish_tail(a.sc, At<kAnim>(a.sc.anim, kAnim ? a.r.time[i] : 0.0f), a.f, i,
+              r, rin.x, rin.y, rin.z);
 }
 
 __global__ void __launch_bounds__(128)
-    shadow_sort_key_kernel(const KeyArgs a) {
+    finish_bounce_kernel(const FinishArgs a) {
+  finish_bounce<false>(a);
+}
+
+__global__ void __launch_bounds__(128)
+    finish_bounce_anim_kernel(const FinishArgs a) {
+  finish_bounce<true>(a);
+}
+
+template <bool kAnim>
+__device__ __forceinline__ void shadow_sort_key(const KeyArgs& a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const ShadowScalars& sc = a.sc;
   float key = 0.0f;
   if (sc.has_sdf) {
+    const At<kAnim> at(sc.anim, kAnim ? a.time[i] : 0.0f);
     const float3 p = ld3(a.point, i), nrm = ld3(a.normal, i);
     const float off = a.offset_by[i];
     const uint32_t sidx = (uint32_t)a.sample_idx[i],
@@ -731,7 +796,8 @@ __global__ void __launch_bounds__(128)
     const bool alive = a.live[i], receives = a.recv[i];
     for (int s = 0; s < sc.L; ++s) {
       float ex, ey, ez, pdf;
-      nee_site(sc, a.lights, s, sidx, pix, p.x, p.y, p.z, ex, ey, ez, pdf);
+      nee_site(sc, at, a.lights, s, sidx, pix, p.x, p.y, p.z, ex, ey, ez,
+               pdf);
       const float wfx = ex - p.x, wfy = ey - p.y, wfz = ez - p.z;
       const float dist = sqrtf(wfx * wfx + wfy * wfy + wfz * wfz);
       const float dinv = 1.0f / dist;
@@ -747,9 +813,9 @@ __global__ void __launch_bounds__(128)
     const float t_hit = a.t_hit[i];
     for (int j = 0; j < sc.VM * sc.L; ++j) {
       float vd, vp;
-      vol_sample(sc, a.lights, j, sidx, pix, o, d, t_hit, vd, vp);
+      vol_sample(sc, at, a.lights, j, sidx, pix, o, d, t_hit, vd, vp);
       float spx, spy, spz, ex, ey, ez, pdf;
-      vol_site(sc, a.lights, j, sidx, pix, vd, o.x, o.y, o.z, d.x, d.y,
+      vol_site(sc, at, a.lights, j, sidx, pix, vd, o.x, o.y, o.z, d.x, d.y,
                d.z, spx, spy, spz, ex, ey, ez, pdf);
       key = key + segment_cost(sc.mb, sc.bv_r, sc.bv_r2, sc.max_steps,
                                alive, spx, spy, spz, ex, ey, ez);
@@ -758,16 +824,30 @@ __global__ void __launch_bounds__(128)
   a.key[i] = key;
 }
 
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_kernel(const KeyArgs a) {
+  shadow_sort_key<false>(a);
+}
+
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_anim_kernel(const KeyArgs a) {
+  shadow_sort_key<true>(a);
+}
+
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
                                             cudaStream_t stream) {
-  return rayn::launch_segments(rayn::shadow_segments_kernel, *args, stream);
+  return rayn::launch_segments(rayn::shadow_segments_kernel,
+                               rayn::shadow_segments_anim_kernel, *args,
+                               stream);
 }
 
 extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
                                            cudaStream_t stream) {
-  return rayn::launch_segments(rayn::queue_segments_kernel, *args, stream);
+  return rayn::launch_segments(rayn::queue_segments_kernel,
+                               rayn::queue_segments_anim_kernel, *args,
+                               stream);
 }
 
 // Persistent (launch_persistent); plain steps at relax 1, else relaxed.
@@ -791,8 +871,10 @@ extern "C" cudaError_t rayn_shadow_sum(const rayn::ShadowSumArgs* args,
 extern "C" cudaError_t rayn_tail_sum(const rayn::TailSumArgs* args,
                                      cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  rayn::tail_sum_kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(
-      *args);
+  void (*kernel)(rayn::TailSumArgs) = rayn::animated(args->sc)
+                                          ? rayn::tail_sum_anim_kernel
+                                          : rayn::tail_sum_kernel;
+  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
   return cudaGetLastError();
 }
 
@@ -807,19 +889,19 @@ extern "C" cudaError_t rayn_queue_sum(const rayn::QueueSumArgs* args,
 extern "C" cudaError_t rayn_finish_bounce(const rayn::FinishArgs* args,
                                           cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  const int threads = 128;
-  const long long blocks = (args->n + threads - 1) / threads;
-  rayn::finish_bounce_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      *args);
+  void (*kernel)(rayn::FinishArgs) = rayn::animated(args->sc)
+                                         ? rayn::finish_bounce_anim_kernel
+                                         : rayn::finish_bounce_kernel;
+  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
   return cudaGetLastError();
 }
 
 extern "C" cudaError_t rayn_shadow_sort_key(const rayn::KeyArgs* args,
                                             cudaStream_t stream) {
   if (args->n <= 0) return cudaSuccess;
-  const int threads = 128;
-  const long long blocks = (args->n + threads - 1) / threads;
-  rayn::shadow_sort_key_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      *args);
+  void (*kernel)(rayn::KeyArgs) = rayn::animated(args->sc)
+                                      ? rayn::shadow_sort_key_anim_kernel
+                                      : rayn::shadow_sort_key_kernel;
+  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
   return cudaGetLastError();
 }

@@ -13,6 +13,11 @@ CUDA kernels and plain twins (csrc/intersect.cu).
   `rayn_tpu.render.integrator._intersect_cost_key`: the pre-intersect
   chunk sort's estimate of each ray's march steps.
 
+Both take each ray's time: in a scene whose sphere centers are animated
+the kernels (their `_anim_kernel` instantiations) and the twins take
+every center at the ray's time, the lerp of its knots; a constant scene
+never reads the time.
+
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 its `launches` attribute, and raises on anything the kernel does not
 take; for CPU tensors it calls its `_plain` twin, which mirrors the
@@ -32,32 +37,36 @@ from rayn_tpu_torch.ops.intersect import Hit, ShadingInfo
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import TETRA_TAPS, dist, dist_c
 from rayn_tpu_torch.ops.spheres import MISS
-from rayn_tpu_torch.scene.scene import sphere_centers_at
+from rayn_tpu_torch.scene.animation import need_time, rows_at
+from rayn_tpu_torch.scene.scene import sphere_center_of
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 
 def sphere_table(data) -> torch.Tensor:
     """[K, 5] sphere rows (center xyz, radius, material id) on the
-    scene's device, from the constant (knot 0) center channel."""
+    scene's device; the center is knot 0 of its channel, which is the
+    center of a constant channel (animated ones are read from the knots
+    at each ray's time)."""
     return torch.cat([data.sphere_centers.values[:, 0, :],
                       data.sphere_radii[:, None],
                       data.sphere_mats.to(torch.float32)[:, None]],
                      dim=-1).contiguous()
 
 
-def sphere_fold(data, static, settings, origin, direction):
+def sphere_fold(data, static, settings, origin, direction, time=None):
     """(best t, best object) of the closest-hit sphere fold: the nearest
     sphere root in (1e-4, t_max0] (object -1 and t_max0 on a miss), the
-    bound of the SDF march."""
+    bound of the SDF march; the centers at each ray's time."""
     t_max0 = 2.0 * settings.world_radius
     ox, oy, oz = origin.unbind(-1)
     dx, dy, dz = direction.unbind(-1)
     best_t = torch.full_like(ox, t_max0)
     best_obj = torch.full(ox.shape, -1, dtype=torch.int32,
                           device=ox.device)
-    spheres = sphere_table(data)
+    centers = rows_at(data.sphere_centers, time, "sphere_fold")
     for k in range(static.n_spheres):
-        cx, cy, cz, rad, _mat = spheres[k].unbind(-1)
+        cx, cy, cz = centers[..., k, :].unbind(-1)
+        rad = data.sphere_radii[k]
         ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
         b = ocx * dx + ocy * dy + ocz * dz
         c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
@@ -76,13 +85,14 @@ def sphere_fold(data, static, settings, origin, direction):
 
 
 def closest_hit_shading_plain(data, static, settings, origin, direction,
-                              hps_abs, hps_lin, active):
+                              hps_abs, hps_lin, active, time=None):
     """Plain twin of the kernel (intersect_pallas._intersect_kernel body):
     the sphere fold, the SDF march bounded by it, the four normal taps,
-    then `write_hit_plain`."""
+    then `write_hit_plain`; sphere centers at each ray's `time`."""
     K = static.n_spheres
     detail = settings.sdf_detail_scale
-    best_t, best_obj = sphere_fold(data, static, settings, origin, direction)
+    best_t, best_obj = sphere_fold(data, static, settings, origin, direction,
+                                   time)
     hps = g = None
     if static.has_sdf:
         t_sdf = march_ops.march(
@@ -104,16 +114,16 @@ def closest_hit_shading_plain(data, static, settings, origin, direction,
             gx, gy, gz = gx + kx * dk, gy + ky * dk, gz + kz * dk
         g = torch.stack([gx, gy, gz], -1)
     return write_hit_plain(data, static, origin, direction, active, best_t,
-                           best_obj, hps, g)
+                           best_obj, hps, g, time)
 
 
 def write_hit_plain(data, static, origin, direction, active, best_t,
-                    best_obj, hps, g):
+                    best_obj, hps, g, time=None):
     """(Hit, ShadingInfo) of each ray from its closest t and object (the
-    kernel's write_hit): the point; a sphere's normal and material; for
-    the SDF (object K) the normalised tap gradient g [N, 3], its material
-    and the offset hps (both None in a scene without an SDF); zeros on a
-    miss."""
+    kernel's write_hit): the point; a sphere's normal (its center at the
+    ray's time) and material; for the SDF (object K) the normalised tap
+    gradient g [N, 3], its material and the offset hps (both None in a
+    scene without an SDF); zeros on a miss."""
     K = static.n_spheres
     ox, oy, oz = origin.unbind(-1)
     dx, dy, dz = direction.unbind(-1)
@@ -123,8 +133,13 @@ def write_hit_plain(data, static, origin, direction, active, best_t,
     mat = torch.zeros_like(best_obj)
     if K:
         is_sph = (best_obj >= 0) & (best_obj < K)
-        row = sphere_table(data)[torch.clamp(best_obj, 0, K - 1).long()]
-        vx, vy, vz = px - row[:, 0], py - row[:, 1], pz - row[:, 2]
+        idx = torch.clamp(best_obj, 0, K - 1).long()
+        row = sphere_table(data)[idx]
+        if data.sphere_centers.knots > 1:
+            c = sphere_center_of(data, idx, need_time(time, "write_hit"))
+        else:
+            c = row[:, :3]
+        vx, vy, vz = px - c[:, 0], py - c[:, 1], pz - c[:, 2]
         vlen = _sqrt(vx * vx + vy * vy + vz * vz)
         vinv = 1.0 / torch.clamp(vlen, min=1e-20)
         nx = torch.where(is_sph, vx * vinv, nx)
@@ -159,7 +174,7 @@ def intersect_cost_key_plain(data, static, settings, origin, direction,
                       device=origin.device)
     if static.n_spheres:
         ts = sphere_ops.hit(origin, direction,
-                            sphere_centers_at(data, time),
+                            rows_at(data.sphere_centers, time, "cost key"),
                             data.sphere_radii, full)
         bound = torch.clamp(ts.min(dim=-1).values, max=t_max0)
     else:
@@ -176,34 +191,51 @@ _P = ctypes.c_void_p
 
 class _IntersectArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
-        "origin", "direction", "hps_abs", "hps_lin", "active", "spheres",
-        "head", "warp_steps", "t", "obj", "point", "normal", "offset_by",
-        "mat")] + [
+        "origin", "direction", "hps_abs", "hps_lin", "active", "time",
+        "spheres", "head", "warp_steps", "t", "obj", "point", "normal",
+        "offset_by", "mat")] + [
         ("n", ctypes.c_int64), ("K", ctypes.c_int), ("has_sdf", ctypes.c_int),
         ("sdf_mat", ctypes.c_int), ("max_steps", ctypes.c_int),
         ("mb", MBox), ("t_max0", ctypes.c_float),
         ("eps_const", ctypes.c_float), ("eps_k", ctypes.c_float),
-        ("detail", ctypes.c_float)]
+        ("detail", ctypes.c_float), ("anim", _build.Anim)]
 
 
 class _CostKeyArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
-        "origin", "direction", "alive", "spheres", "key")] + [
+        "origin", "direction", "alive", "time", "spheres", "key")] + [
         ("n", ctypes.c_int64), ("K", ctypes.c_int),
-        ("max_steps", ctypes.c_int), ("mb", MBox), ("t_max0", ctypes.c_float)]
+        ("max_steps", ctypes.c_int), ("mb", MBox), ("t_max0", ctypes.c_float),
+        ("anim", _build.Anim)]
+
+
+def _time_and_anim(data, static, time, n, dev, what):
+    """(time pointer, Anim) of a kernel that reads sphere centers: the
+    centers' track, and each ray's time where they are animated (else
+    null: the constant kernels never read it)."""
+    ch = data.sphere_centers
+    anim = _build.Anim(lights=_build.track(None, "", 0, dev),
+                       spheres=_build.track(ch, "sphere knots",
+                                            static.n_spheres, dev),
+                       mis=_build.track(None, "", 0, dev))
+    if ch.knots == 1:
+        return None, anim
+    return check(need_time(time, what), "time", torch.float32, (n,),
+                 dev), anim
 
 
 def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
-                        hps_lin, active, warp_steps=None):
-    """(Hit, ShadingInfo) of the closest hit along each ray. Sphere
-    channels must be constant (the port has no animated scenes yet).
+                        hps_lin, active, time=None, warp_steps=None):
+    """(Hit, ShadingInfo) of the closest hit along each ray; `time` [N]:
+    each ray's time, which a scene with animated sphere centers needs.
     warp_steps: for measurement, a [1] int64 CUDA tensor to which the
     kernel adds the loop iterations of its warps (each iteration one DE
     per busy lane)."""
     dev = device_of("closest_hit_shading", origin)
     if dev is None:
         return closest_hit_shading_plain(data, static, settings, origin,
-                                         direction, hps_abs, hps_lin, active)
+                                         direction, hps_abs, hps_lin, active,
+                                         time)
     n = origin.shape[0]
     if n >= 2 ** 31 - 32:
         raise ValueError(f"{n} rays overflow the kernel's int32 ray ids")
@@ -217,12 +249,14 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
     mat = torch.empty((n,), dtype=torch.int32, device=dev)
     detail = settings.sdf_detail_scale
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    time_p, anim = _time_and_anim(data, static, time, n, dev,
+                                  "closest_hit_shading")
     args = _IntersectArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
         hps_abs=check(hps_abs, "hps_abs", f32, (n,), dev),
         hps_lin=check(hps_lin, "hps_lin", f32, (n,), dev),
-        active=check(active, "active", torch.bool, (n,), dev),
+        active=check(active, "active", torch.bool, (n,), dev), time=time_p,
         spheres=check(spheres, "spheres", f32, (static.n_spheres, 5), dev),
         head=head.data_ptr(),
         warp_steps=(None if warp_steps is None else
@@ -234,7 +268,7 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
         max_steps=settings.max_marches,
         mb=mbox_struct(data.sdf_params if static.has_sdf else None),
         t_max0=2.0 * settings.world_radius, eps_const=5e-5 * detail,
-        eps_k=0.05 * detail, detail=detail)
+        eps_k=0.05 * detail, detail=detail, anim=anim)
     _build.launch("rayn_closest_hit", args, dev)
     closest_hit_shading.launches += 1
     return (Hit(t, obj, active & (obj >= 0)),
@@ -247,9 +281,8 @@ closest_hit_shading.launches = 0
 def intersect_cost_key(data, static, settings, origin, direction, time,
                        alive) -> torch.Tensor:
     """[N] f32 estimate of each ray's primary-march steps, the key of the
-    pre-intersect chunk sort (scheduling only). The scene must have an
-    SDF; sphere channels must be constant (`time` is read by the twin
-    only)."""
+    pre-intersect chunk sort (scheduling only), the sphere centers at
+    each ray's `time`. The scene must have an SDF."""
     dev = device_of("intersect_cost_key", origin)
     if dev is None:
         return intersect_cost_key_plain(data, static, settings, origin,
@@ -261,14 +294,16 @@ def intersect_cost_key(data, static, settings, origin, direction, time,
     f32 = torch.float32
     spheres = sphere_table(data)
     key = torch.empty((n,), dtype=f32, device=dev)
+    time_p, anim = _time_and_anim(data, static, time, n, dev,
+                                  "intersect_cost_key")
     args = _CostKeyArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
-        alive=check(alive, "alive", torch.bool, (n,), dev),
+        alive=check(alive, "alive", torch.bool, (n,), dev), time=time_p,
         spheres=check(spheres, "spheres", f32, (static.n_spheres, 5), dev),
         key=key.data_ptr(), n=n, K=static.n_spheres,
         max_steps=settings.max_marches, mb=mbox_struct(data.sdf_params),
-        t_max0=2.0 * settings.world_radius)
+        t_max0=2.0 * settings.world_radius, anim=anim)
     _build.launch("rayn_cost_key", args, dev)
     intersect_cost_key.launches += 1
     return key

@@ -51,6 +51,14 @@ in the compiler's float choices. `bounce_tail_plain` and
 (`_shadow_delta_plain`: the segment loop, the verdicts, the ordered
 sum). Every twin draws the equi-angular samples with
 `equi_angular_plain`, the JAX integrator's torch code for them.
+
+In a scene whose light or sphere channels are animated, every kernel
+here (its `_anim_kernel` instantiation) and every twin takes each light
+position, sphere center and MIS light position at the ray's time (the
+state's `time`; the sort key's `time` argument), the lerp of the
+channel's knots, as JAX's `_site_light_positions` and
+`scene.sphere_centers_at` resolve them; a constant scene never reads the
+time.
 """
 
 from __future__ import annotations
@@ -69,6 +77,8 @@ from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import march_cuda
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import MandelBox
+from rayn_tpu_torch.scene.animation import (AnimChannel, need_time, rows_at,
+                                            sample_batched_at)
 from rayn_tpu_torch.scene.scene import (DIELECTRIC, EMISSIVE, LAMBERT,
                                         METALLIC, REFRACTIVE, SKY)
 from rayn_tpu_torch.utils import rng as rng_mod
@@ -170,11 +180,21 @@ def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
 
 
 class SceneTables(NamedTuple):
-    """The scene constants the tail kernels read, from the constant
-    (knot 0) channels, on the scene's device."""
+    """The scene tables the tail kernels read, on the scene's device: the
+    constant tables (their positions are knot 0 of each channel, the
+    position of a constant one) and the position channels, whose knots the
+    kernels lerp at each ray's time where a channel is animated."""
     lights: torch.Tensor   # [NL, 8] pos xyz, radius, emission rgb, paired
     spheres: torch.Tensor  # [K, 4] center xyz, radius
     mis: torch.Tensor      # [K, 5] paired flag, paired light radius, pos xyz
+    light_knots: AnimChannel   # [NL, TL, 3] light positions
+    sphere_knots: AnimChannel  # [K, TS, 3] sphere centers
+    mis_knots: AnimChannel     # [K, TL, 3] each sphere's paired light
+
+    @property
+    def animated(self) -> bool:
+        """A light or sphere position moves over time."""
+        return self.light_knots.knots > 1 or self.sphere_knots.knots > 1
 
 
 def scene_tables(data, static) -> SceneTables:
@@ -185,15 +205,25 @@ def scene_tables(data, static) -> SceneTables:
     spheres = torch.cat([data.sphere_centers.values[:, 0, :],
                          data.sphere_radii[:, None]], dim=-1).contiguous()
     pair = data.sphere_light
+    lk = data.light_pos
     if static.n_lights:
         lidx = torch.clamp(pair.long(), 0, static.n_lights - 1)
+        mis_knots = lk.values[lidx]
         mis = torch.cat([(pair >= 0).to(torch.float32)[:, None],
                          data.light_radii[lidx][:, None],
-                         data.light_pos.values[lidx, 0, :]], dim=-1)
+                         mis_knots[:, 0, :]], dim=-1)
     else:
         mis = torch.zeros((pair.shape[0], 5), dtype=torch.float32,
                           device=pair.device)
-    return SceneTables(lights, spheres, mis.contiguous())
+        mis_knots = torch.zeros((pair.shape[0], 1, 3), dtype=torch.float32,
+                                device=pair.device)
+    return SceneTables(
+        lights, spheres, mis.contiguous(),
+        AnimChannel(lk.values.contiguous(), lk.t0, lk.t1),
+        AnimChannel(data.sphere_centers.values.contiguous(),
+                    data.sphere_centers.t0, data.sphere_centers.t1),
+        AnimChannel(mis_knots.contiguous(), lk.t0, lk.t1))
+
 
 
 # --------------------------------------------------------------------------
@@ -220,12 +250,18 @@ def _onb(nx, ny, nz):
             (kb, ks - ny * ny * ka * ks, -ny))
 
 
-def _pick_light(u, lights):
-    """Per-lane light row: clip(floor(u * NL), 0, NL - 1)."""
-    NL = lights.shape[0]
+def _pick_light(u, tables, time):
+    """Per-lane light row, clip(floor(u * NL), 0, NL - 1): the light-table
+    columns (pos xyz, radius, emission rgb, paired), its position at each
+    lane's time."""
+    NL = tables.lights.shape[0]
     idx = torch.clamp(torch.floor(u * NL).to(torch.int64), 0, NL - 1)
-    row = lights[idx]
-    return row.unbind(-1)
+    row = tables.lights[idx].unbind(-1)
+    if tables.light_knots.knots == 1:
+        return row
+    pos = sample_batched_at(tables.light_knots, idx,
+                            need_time(time, "lights"))
+    return (*pos.unbind(-1), *row[3:])
 
 
 def _sample_cone(u1, u2, lx, ly, lz, lrad, px, py, pz):
@@ -310,15 +346,17 @@ def _eval_pdf(cfg, kind, power, wox, woy, woz, wix, wiy, wiz, nx, ny, nz):
     return torch.where(kind == METALLIC, spec_pdf, pdf)
 
 
-def _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez):
-    """Any-sphere segment occlusion (shade_pallas._sphere_occluded)."""
+def _sphere_occluded(centers, radii, sx, sy, sz, ex, ey, ez):
+    """Any-sphere segment occlusion (shade_pallas._sphere_occluded):
+    centers indexed [..., k, :] (animation.rows_at), radii [K]."""
     dx, dy, dz = ex - sx, ey - sy, ez - sz
     dist = _sqrt(dx * dx + dy * dy + dz * dz)
     inv = 1.0 / dist
     ux, uy, uz = dx * inv, dy * inv, dz * inv
     occ = torch.zeros_like(sx, dtype=torch.bool)
-    for k in range(spheres.shape[0]):
-        cx, cy, cz, rad = spheres[k].unbind(-1)
+    for k in range(radii.shape[0]):
+        cx, cy, cz = centers[..., k, :].unbind(-1)
+        rad = radii[k]
         ocx, ocy, ocz = sx - cx, sy - cy, sz - cz
         b = ocx * ux + ocy * uy + ocz * uz
         c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
@@ -459,22 +497,23 @@ def _scatter(cfg, kind, car, cag, cab, power, ior, wox, woy, woz,
     return wix, wiy, wiz, fr, fg, fb, pdf
 
 
-def _nee_site(cfg, lights, i, v):
+def _nee_site(cfg, tables, i, v):
     """Light pick + cone sample of NEE site i: (end xyz, pdf, emission,
     paired flag)."""
     u_pick = _s1(cfg, cfg.set_pick[i], v["sidx"], v["pix"])
-    lx, ly, lz, lrad, er, eg, eb, pair = _pick_light(u_pick, lights)
+    lx, ly, lz, lrad, er, eg, eb, pair = _pick_light(u_pick, tables, v["tm"])
     u1, u2 = _s2(cfg, cfg.set_nee[i], v["sidx"], v["pix"])
     p_x, p_y, p_z = v["p"]
     ex, ey, ez, pdf = _sample_cone(u1, u2, lx, ly, lz, lrad, p_x, p_y, p_z)
     return ex, ey, ez, pdf, (er, eg, eb), pair
 
 
-def _vol_site(cfg, lights, j, vd_j, v):
+def _vol_site(cfg, tables, j, vd_j, v):
     """Light pick + scatter point + cone sample of volume site j
     (march-major): (start xyz, end xyz, light pdf, emission)."""
     u_pick = _s1(cfg, cfg.set_vol_pick[j], v["sidx"], v["pix"])
-    lx, ly, lz, lrad, er, eg, eb, _pair = _pick_light(u_pick, lights)
+    lx, ly, lz, lrad, er, eg, eb, _pair = _pick_light(u_pick, tables,
+                                                      v["tm"])
     (o_x, o_y, o_z), (d_x, d_y, d_z) = v["o"], v["d"]
     spx = o_x + vd_j * d_x
     spy = o_y + vd_j * d_y
@@ -528,10 +567,10 @@ def _lane_values(state, info, mat, live, receives):
         ca=mat.color_a.unbind(-1), cb=mat.color_b.unbind(-1),
         pw=mat.power, ior=mat.ior, sidx=state.sample_idx,
         pix=state.pixel, alive=live, recv=receives,
-        wo=(-d[0], -d[1], -d[2]))
+        wo=(-d[0], -d[1], -d[2]), tm=state.time)
 
 
-def _nee_segment(cfg, lights, spheres, v, vtr, i):
+def _nee_segment(cfg, tables, v, vtr, i):
     """NEE site i of each ray (shade_pallas._shadow_delta's NEE body):
     ((start xyz, end xyz, active), contribution k (r, g, b)). With `mis`,
     the NEE of a paired light is weighted before `worth` decides whether
@@ -544,7 +583,7 @@ def _nee_segment(cfg, lights, spheres, v, vtr, i):
     wo_x, wo_y, wo_z = v["wo"]
     c_r, c_g, c_b = v["ca"]
     receives = v["recv"]
-    ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, lights, i, v)
+    ex, ey, ez, pdf, (er, eg, eb), pair = _nee_site(cfg, tables, i, v)
     wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
     dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
     dinv = 1.0 / dist
@@ -569,18 +608,19 @@ def _nee_segment(cfg, lights, spheres, v, vtr, i):
         w = torch.where(pair > 0.0, w_light, 1.0)
         kr, kg, kb = kr * w, kg * w, kb * w
     worth = receives & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
-    blocked = _sphere_occluded(spheres, sx, sy, sz, ex, ey, ez)
+    blocked = _sphere_occluded(rows_at(tables.sphere_knots, v["tm"], "NEE"),
+                               tables.spheres[:, 3], sx, sy, sz, ex, ey, ez)
     return ((sx, sy, sz), (ex, ey, ez), worth & ~blocked), (kr, kg, kb)
 
 
-def _vol_segment(cfg, lights, spheres, v, j, vd, vp):
+def _vol_segment(cfg, tables, v, j, vd, vp):
     """Volume site j of each ray (march-major) at its equi-angular
     distance vd and pdf vp: ((start xyz, end xyz, active), contribution
     k (r, g, b))."""
     tp_x, tp_y, tp_z = v["tp"]
     alive = v["alive"]
     (spx, spy, spz), (ex, ey, ez), light_pdf, (er, eg, eb) = \
-        _vol_site(cfg, lights, j, vd, v)
+        _vol_site(cfg, tables, j, vd, v)
     sgx, sgy, sgz = ex - spx, ey - spy, ez - spz
     dist_pl = _sqrt(sgx * sgx + sgy * sgy + sgz * sgz)
     if cfg.has_ext:
@@ -594,34 +634,35 @@ def _vol_segment(cfg, lights, spheres, v, j, vd, vp):
     kg = torch.where(alive, eg * scale * tp_y, 0.0)
     kb = torch.where(alive, eb * scale * tp_z, 0.0)
     worth = alive & ((kr != 0.0) | (kg != 0.0) | (kb != 0.0))
-    blocked = _sphere_occluded(spheres, spx, spy, spz, ex, ey, ez)
+    blocked = _sphere_occluded(rows_at(tables.sphere_knots, v["tm"],
+                                       "volume sites"),
+                               tables.spheres[:, 3], spx, spy, spz, ex, ey,
+                               ez)
     return ((spx, spy, spz), (ex, ey, ez), worth & ~blocked), (kr, kg, kb)
 
 
-def _segment_loop(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+def _segment_loop(cfg, tables, v, vtr, vol_dist, vol_pdf):
     """Steps 3 + 4 of a bounce up to the SDF march (shade_pallas
     ._shadow_delta): the NEE sites 0..L-1, then the volume sites
     march-major. Returns (segs, ks): per segment (start xyz, end xyz,
     active) and its contribution k (r, g, b)."""
-    out = [_nee_segment(cfg, lights, spheres, v, vtr, i)
-           for i in range(cfg.L)]
-    out += [_vol_segment(cfg, lights, spheres, v, j, vol_dist[j], vol_pdf[j])
+    out = [_nee_segment(cfg, tables, v, vtr, i) for i in range(cfg.L)]
+    out += [_vol_segment(cfg, tables, v, j, vol_dist[j], vol_pdf[j])
             for j in range(cfg.VM * cfg.L)]
     return [seg for seg, _k in out], [k for _seg, k in out]
 
 
-def _shadow_delta_plain(cfg, lights, spheres, v, vtr, vol_dist, vol_pdf):
+def _shadow_delta_plain(cfg, tables, v, vtr, vol_dist, vol_pdf):
     """The per-bounce shadow pipeline (shade_pallas._shadow_delta):
     radiance delta (r, g, b) of the segment loop's segments, each marched
     where active, summed in segment order."""
-    segs, ks = _segment_loop(cfg, lights, spheres, v, vtr, vol_dist,
-                             vol_pdf)
+    segs, ks = _segment_loop(cfg, tables, v, vtr, vol_dist, vol_pdf)
     occ = _sdf_verdicts(cfg, segs)
     return _ordered_sum(ks, [a & ~o for (_s, _e, a), o in zip(segs, occ)],
                         v["p"][0])
 
 
-def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
+def _finish_plain(cfg, tables, v, vtr, state, obj, rad_in):
     """Steps 2 and 5-7 of a bounce (shade_pallas._finish_tail) from the
     pre-emission radiance rad_in: the 24 output columns as [N,3]/[N]
     tensors in PathState order."""
@@ -648,9 +689,13 @@ def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
     if cfg.mis_on:
         # BSDF-hit emission of a sphere paired with a light, weighted
         # against the NEE strategy that could have sampled it
-        K = mis_tab.shape[0]
-        row = mis_tab[torch.clamp(obj, 0, K - 1).long()]
-        pairf, lrad, lpx, lpy, lpz = row.unbind(-1)
+        K = tables.mis.shape[0]
+        idx = torch.clamp(obj, 0, K - 1).long()
+        pairf, lrad, lpx, lpy, lpz = tables.mis[idx].unbind(-1)
+        if tables.mis_knots.knots > 1:   # the paired light at the time
+            lpx, lpy, lpz = sample_batched_at(
+                tables.mis_knots, idx,
+                need_time(state.time, "mis")).unbind(-1)
         ppdf = state.prev_pdf
         is_paired = (obj >= 0) & (obj < K) & (pairf > 0.0) & (ppdf >= 0.0)
         dlx, dly, dlz = lpx - o_x, lpy - o_y, lpz - o_z
@@ -721,9 +766,9 @@ def _finish_plain(cfg, mis_tab, v, vtr, state, obj, rad_in):
 def _vol_samples(cfg: ShadowCfg, tables: SceneTables, state, t_hit):
     """(vol_dist, vol_pdf), [VM*L, N] each: the volume sites' equi-angular
     samples along each ray up to its closest hit t_hit."""
-    return equi_angular_plain(cfg, tables.lights, state.origin,
-                              state.direction, t_hit, state.sample_idx,
-                              state.pixel)
+    return equi_angular_plain(cfg, tables, state.origin, state.direction,
+                              t_hit, state.sample_idx, state.pixel,
+                              state.time)
 
 
 def shadow_radiance_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
@@ -731,8 +776,7 @@ def shadow_radiance_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
     """Plain version of `shadow_radiance`: the [N, 3] radiance delta of
     one bounce's NEE and volume segments."""
     v = _lane_values(state, info, mat, live, receives)
-    return _stack(*_shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
-                                       vol_trans,
+    return _stack(*_shadow_delta_plain(cfg, tables, v, vol_trans,
                                        *_vol_samples(cfg, tables, state,
                                                      t_hit)))
 
@@ -742,7 +786,7 @@ def finish_bounce_plain(cfg: ShadowCfg, tables: SceneTables, state, hit,
     """Plain twin of the finish kernel: the next PathState fields (as
     bounce_tail_plain) from the pre-emission radiance [N, 3]."""
     v = _lane_values(state, info, mat, live, receives)
-    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
+    return _finish_plain(cfg, tables, v, vol_trans, state, hit.obj,
                          radiance.unbind(-1))
 
 
@@ -753,11 +797,10 @@ def bounce_tail_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
     color_out, bg_out, alpha_out, normal_out). Association order is the
     two-kernel path's: (state.radiance + shadow delta) + emission."""
     v = _lane_values(state, info, mat, live, receives)
-    dr, dg, db = _shadow_delta_plain(cfg, tables.lights, tables.spheres, v,
-                                     vol_trans,
+    dr, dg, db = _shadow_delta_plain(cfg, tables, v, vol_trans,
                                      *_vol_samples(cfg, tables, state, t_hit))
     rx, ry, rz = state.radiance.unbind(-1)
-    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
+    return _finish_plain(cfg, tables, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
 
 
@@ -785,8 +828,7 @@ def shadow_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
     """Plain twin of the segments kernel: the segment loop's segments,
     with the active ones queued in id order."""
     v = _lane_values(state, info, mat, live, receives)
-    segs, ks = _segment_loop(cfg, tables.lights, tables.spheres, v,
-                             vol_trans,
+    segs, ks = _segment_loop(cfg, tables, v, vol_trans,
                              *_vol_samples(cfg, tables, state, t_hit))
     n = state.origin.shape[0]
     x = v["p"][0]
@@ -834,19 +876,17 @@ def tail_sum_plain(cfg: ShadowCfg, tables: SceneTables, state, hit, info,
     v = _lane_values(state, info, mat, live, receives)
     dr, dg, db = _segment_sum(segs, verdict)
     rx, ry, rz = state.radiance.unbind(-1)
-    return _finish_plain(cfg, tables.mis, v, vol_trans, state, hit.obj,
+    return _finish_plain(cfg, tables, v, vol_trans, state, hit.obj,
                          (rx + dr, ry + dg, rz + db))
 
 
-def _queue_light(cfg, lights, set_id, sidx, pix):
-    """The light that sampler set `set_id` picks for each lane, from the
-    constant light table: position [N, 3], radius, emission [N, 3],
-    paired flag."""
-    u_pick = _s1(cfg, set_id, sidx, pix)
-    lidx = torch.clamp(torch.floor(u_pick * cfg.NL).to(torch.int64), 0,
-                       cfg.NL - 1)
-    row = lights[lidx]
-    return row[:, :3], row[:, 3], row[:, 4:7], row[:, 7]
+def _queue_light(cfg, tables, set_id, state):
+    """The light that sampler set `set_id` picks for each lane (_pick_light):
+    position [N, 3] at the lane's time, radius, emission [N, 3], paired
+    flag."""
+    lx, ly, lz, lrad, er, eg, eb, paired = _pick_light(
+        _s1(cfg, set_id, state.sample_idx, state.pixel), tables, state.time)
+    return _stack(lx, ly, lz), lrad, _stack(er, eg, eb), paired
 
 
 def _queue_u2(cfg, set_id, state):
@@ -854,13 +894,14 @@ def _queue_u2(cfg, set_id, state):
                              state.sample_idx, state.pixel)
 
 
-def _queue_blocked(cfg, tables, start, end):
+def _queue_blocked(cfg, tables, start, end, time):
     """[N] bool: a sphere blocks the segment start -> end (the sphere test
-    of intersect.test_occluded)."""
+    of intersect.test_occluded), the centers at each lane's time."""
     if not cfg.K:
         return torch.zeros(start.shape[:1], dtype=torch.bool,
                            device=start.device)
-    centers = tables.spheres[None, :, :3].expand(start.shape[0], cfg.K, 3)
+    centers = rows_at(tables.sphere_knots, time, "queue segments").expand(
+        start.shape[0], cfg.K, 3)
     return sphere_ops.occluded(start, end, centers,
                                tables.spheres[:, 3]).any(dim=1)
 
@@ -873,8 +914,7 @@ def _queue_nee_segment(cfg, tables, state, info, mat, receives, vol_trans,
     marching and no sphere in the way)."""
     wo = -state.direction
     ones = torch.ones_like(vol_trans)
-    lp, lr, lem, paired = _queue_light(cfg, tables.lights, cfg.set_pick[i],
-                                       state.sample_idx, state.pixel)
+    lp, lr, lem, paired = _queue_light(cfg, tables, cfg.set_pick[i], state)
     end_point, li, pdf = light_ops.sample_cone(
         _queue_u2(cfg, cfg.set_nee[i], state), lp, lr, info.point, lem)
     wi_full = end_point - info.point
@@ -897,7 +937,8 @@ def _queue_nee_segment(cfg, tables, state, info, mat, receives, vol_trans,
         contrib = contrib * torch.where(paired > 0.0, w_light, 1.0)[:, None]
     act = receives & (contrib != 0.0).any(dim=-1)
     return (occ_origin, end_point, contrib,
-            act & ~_queue_blocked(cfg, tables, occ_origin, end_point))
+            act & ~_queue_blocked(cfg, tables, occ_origin, end_point,
+                                  state.time))
 
 
 def _queue_vol_segment(cfg, tables, state, live, j, vd, vp):
@@ -905,9 +946,8 @@ def _queue_vol_segment(cfg, tables, state, live, j, vd, vp):
     integrator.py:485-501) at its equi-angular distance vd and pdf vp:
     (start, end, contribution [N, 3], active)."""
     ones = torch.ones_like(vd)
-    lp, lr, lem, _paired = _queue_light(cfg, tables.lights,
-                                        cfg.set_vol_pick[j],
-                                        state.sample_idx, state.pixel)
+    lp, lr, lem, _paired = _queue_light(cfg, tables, cfg.set_vol_pick[j],
+                                        state)
     sampled = state.origin + vd[:, None] * state.direction
     end_point, li, light_pdf = light_ops.sample_cone(
         _queue_u2(cfg, cfg.set_vol[j], state), lp, lr, sampled, lem)
@@ -923,7 +963,8 @@ def _queue_vol_segment(cfg, tables, state, live, j, vd, vp):
                           li * scale[:, None] * state.throughput, 0.0)
     act = live & (contrib != 0.0).any(dim=-1)
     return (sampled, end_point, contrib,
-            act & ~_queue_blocked(cfg, tables, sampled, end_point))
+            act & ~_queue_blocked(cfg, tables, sampled, end_point,
+                                  state.time))
 
 
 def _queue_segment_loop(cfg, tables, state, info, mat, live, receives,
@@ -931,8 +972,8 @@ def _queue_segment_loop(cfg, tables, state, info, mat, live, receives,
     """Steps 3 + 4 of the unfused bounce (JAX integrator.py:420-501): the
     L NEE segments, then the VM*L equi-angular volume segments
     (march-major), each (start, end, contribution [N, 3], active). The
-    sampler, light and sphere values come from `cfg` and `tables` (the
-    constant channels; the renderer refuses animated ones)."""
+    sampler, light and sphere values come from `cfg` and `tables`, the
+    positions at each lane's time."""
     return ([_queue_nee_segment(cfg, tables, state, info, mat, receives,
                                 vol_trans, i) for i in range(cfg.L)]
             + [_queue_vol_segment(cfg, tables, state, live, j, vol_dist[j],
@@ -978,23 +1019,24 @@ def _segment_cost(cfg, start, end, act):
     return torch.where(nan | (t0 > md), 1.0, est)
 
 
-def equi_angular_plain(cfg: ShadowCfg, lights, origin, direction, t_hit,
-                       sample_idx, pixel):
+def equi_angular_plain(cfg: ShadowCfg, tables: SceneTables, origin,
+                       direction, t_hit, sample_idx, pixel, time=None):
     """The volume sites' equi-angular samples, as the segments and
     sort-key kernels draw them (csrc/common.cuh equi_angular_site): the
     JAX integrator's `_equi_angular_samples` (integrator.py:521-544) in
     torch. Returns
     (vol_dist, vol_pdf), [VM*L, N] each, march-major: for march m the
-    distance draw, for each site the light pick from the constant light
-    table and lights.sample_equi_angular along each ray up to its closest
-    hit t_hit."""
+    distance draw, for each site the light pick (its position at each
+    ray's `time`) and lights.sample_equi_angular along each ray up to its
+    closest hit t_hit."""
     dists, pdfs = [], []
     for m in range(cfg.VM):
         u_dist = _s1(cfg, cfg.set_vol_dist[m], sample_idx, pixel)
         for i in range(cfg.L):
             u_pick = _s1(cfg, cfg.set_vol_pick[m * cfg.L + i], sample_idx,
                          pixel)
-            light_pos = torch.stack(_pick_light(u_pick, lights)[:3], -1)
+            light_pos = torch.stack(_pick_light(u_pick, tables, time)[:3],
+                                    -1)
             vd, vp = light_ops.sample_equi_angular(u_dist, light_pos, origin,
                                                    direction, t_hit)
             dists.append(vd)
@@ -1006,36 +1048,36 @@ def equi_angular_plain(cfg: ShadowCfg, lights, origin, direction, t_hit,
     return torch.stack(dists), torch.stack(pdfs)
 
 
-def shadow_sort_key_plain(cfg: ShadowCfg, lights, point, normal, offset_by,
-                          origin, direction, t_hit, live, receives,
-                          sample_idx, pixel, n_de=None):
+def shadow_sort_key_plain(cfg: ShadowCfg, tables: SceneTables, point, normal,
+                          offset_by, origin, direction, t_hit, live,
+                          receives, sample_idx, pixel, time=None, n_de=None):
     """Plain twin of the sort-key kernel: `_shadow_cost_key` on the
-    volume sites' distances of `equi_angular_plain`. `n_de`, if given,
-    counts in place the DEs each ray's key takes (one per active segment,
-    at its start)."""
+    volume sites' distances of `equi_angular_plain`, the lights at each
+    ray's `time`. `n_de`, if given, counts in place the DEs each ray's
+    key takes (one per active segment, at its start)."""
     if cfg.mb is None:
         return torch.zeros_like(offset_by)
-    vol_dist, _ = equi_angular_plain(cfg, lights, origin, direction, t_hit,
-                                     sample_idx, pixel)
-    return _shadow_cost_key(cfg, lights, point, normal, offset_by, origin,
+    vol_dist, _ = equi_angular_plain(cfg, tables, origin, direction, t_hit,
+                                     sample_idx, pixel, time)
+    return _shadow_cost_key(cfg, tables, point, normal, offset_by, origin,
                             direction, live, receives, sample_idx, pixel,
-                            vol_dist, n_de)
+                            vol_dist, n_de, time)
 
 
-def _shadow_cost_key(cfg: ShadowCfg, lights, point, normal, offset_by,
-                     origin, direction, live, receives, sample_idx, pixel,
-                     vol_dist, n_de=None):
+def _shadow_cost_key(cfg: ShadowCfg, tables: SceneTables, point, normal,
+                     offset_by, origin, direction, live, receives,
+                     sample_idx, pixel, vol_dist, n_de=None, time=None):
     """shade_pallas._shadow_cost_key: the summed segment costs of the NEE
     sites and of the volume sites at distances `vol_dist` ([VM*L] rows of
-    [N]). The scene must have an SDF."""
+    [N]), the lights at each ray's `time`. The scene must have an SDF."""
     d = direction.unbind(-1)
     v = dict(p=point.unbind(-1), n=normal.unbind(-1), off=offset_by,
-             o=origin.unbind(-1), d=d, sidx=sample_idx, pix=pixel)
+             o=origin.unbind(-1), d=d, sidx=sample_idx, pix=pixel, tm=time)
     p_x, p_y, p_z = v["p"]
     n_x, n_y, n_z = v["n"]
     key = torch.zeros_like(p_x)
     for i in range(cfg.L):
-        ex, ey, ez, _pdf, _em, _pair = _nee_site(cfg, lights, i, v)
+        ex, ey, ez, _pdf, _em, _pair = _nee_site(cfg, tables, i, v)
         wfx, wfy, wfz = ex - p_x, ey - p_y, ez - p_z
         dist = _sqrt(wfx * wfx + wfy * wfy + wfz * wfz)
         dinv = 1.0 / dist
@@ -1047,7 +1089,7 @@ def _shadow_cost_key(cfg: ShadowCfg, lights, point, normal, offset_by,
         if n_de is not None:
             n_de += act.to(n_de.dtype)
     for j in range(cfg.VM * cfg.L):
-        sp, e, _pdf, _em = _vol_site(cfg, lights, j, vol_dist[j], v)
+        sp, e, _pdf, _em = _vol_site(cfg, tables, j, vol_dist[j], v)
         key = key + _segment_cost(cfg, sp, e, live)
         if n_de is not None:
             n_de += live.to(n_de.dtype)
@@ -1085,7 +1127,7 @@ class _ShadowScalars(ctypes.Structure):
         ("set_pick0", ctypes.c_int),
         ("set_nee0", ctypes.c_int), ("set_vol_pick0", ctypes.c_int),
         ("set_vol0", ctypes.c_int), ("set_vol_dist0", ctypes.c_int),
-        ("schlick_exp", ctypes.c_float)]
+        ("schlick_exp", ctypes.c_float), ("anim", _build.Anim)]
 
 
 _P = ctypes.c_void_p
@@ -1098,7 +1140,7 @@ def _ptrs(*names):
 class _RayCols(ctypes.Structure):
     _fields_ = _ptrs("point", "normal", "offset_by", "origin", "direction",
                      "throughput", "vol_trans", "kind", "color_a", "power",
-                     "sample_idx", "pixel", "live", "recv")
+                     "sample_idx", "pixel", "live", "recv", "time")
 
 
 class _ShadowCols(ctypes.Structure):
@@ -1155,7 +1197,7 @@ class _FinishArgs(ctypes.Structure):
 class _KeyArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "point", "normal", "offset_by", "origin", "direction", "t_hit",
-        "sample_idx", "pixel", "live", "recv", "lights", "key")] + [
+        "sample_idx", "pixel", "live", "recv", "time", "lights", "key")] + [
         ("n", ctypes.c_int64), ("sc", _ShadowScalars)]
 
 
@@ -1179,8 +1221,17 @@ def _base(ids: tuple) -> int:
     return ids[0]
 
 
-def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
-    return _ShadowScalars(
+def _anim(cfg: ShadowCfg, tables: SceneTables, dev):
+    """The kernels' Anim: the light, sphere and MIS-light position
+    tracks."""
+    return _build.Anim(
+        lights=_build.track(tables.light_knots, "light knots", cfg.NL, dev),
+        spheres=_build.track(tables.sphere_knots, "sphere knots", cfg.K, dev),
+        mis=_build.track(tables.mis_knots, "mis knots", cfg.K, dev))
+
+
+def _scalars(cfg: ShadowCfg, tables: SceneTables, dev) -> _ShadowScalars:
+    return _ShadowScalars(anim=_anim(cfg, tables, dev),
         smp=sampler_struct(cfg.frame, cfg.sampler == "hash",
                            cfg.num_1d_sets),
         mb=mbox_struct(cfg.mb), L=cfg.L, VM=cfg.VM,
@@ -1201,7 +1252,16 @@ def _scalars(cfg: ShadowCfg) -> _ShadowScalars:
         set_vol_dist0=_base(cfg.set_vol_dist), schlick_exp=5.0)
 
 
-def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
+def _time_col(tables: SceneTables, time, n, dev):
+    """The time column's pointer: each ray's time, which an animated
+    scene needs (null for a constant scene given none)."""
+    if time is None and not tables.animated:
+        return None
+    return check(need_time(time, "the tail kernels"), "time",
+                 torch.float32, (n,), dev)
+
+
+def _ray_cols(tables, state, info, mat, live, receives, vol_trans, dev):
     n = state.origin.shape[0]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     v3, v1 = (n, 3), (n,)
@@ -1219,7 +1279,8 @@ def _ray_cols(state, info, mat, live, receives, vol_trans, dev):
         sample_idx=check(state.sample_idx, "sample_idx", i32, v1, dev),
         pixel=check(state.pixel, "pixel", i32, v1, dev),
         live=check(live, "live", b8, v1, dev),
-        recv=check(receives, "receives", b8, v1, dev))
+        recv=check(receives, "receives", b8, v1, dev),
+        time=_time_col(tables, state.time, n, dev))
 
 
 def _shadow_cols(cfg, tables, t_hit, n, dev):
@@ -1291,9 +1352,10 @@ def _segment_scratch(name, cfg, tables, state, info, mat, live, receives,
         queue=torch.empty((S * n,), dtype=torch.int32, device=dev),
         count=torch.zeros((1,), dtype=torch.int32, device=dev))
     args = _SegArgs(
-        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
+        r=_ray_cols(tables, state, info, mat, live, receives, vol_trans, dev),
         s=_shadow_cols(cfg, tables, t_hit, n, dev),
-        g=_SegCols(**_seg_cols(segs, dev)), n=n, sc=_scalars(cfg))
+        g=_SegCols(**_seg_cols(segs, dev)), n=n,
+        sc=_scalars(cfg, tables, dev))
     return segs, args
 
 
@@ -1375,8 +1437,9 @@ def tail_sum(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
     fcols, out = _finish_cols(cfg, tables, state, hit, mat, state.radiance,
                               dev)
     args = _TailSumArgs(
-        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
-        f=fcols, s=_sum_cols(segs, verdict, n, dev), n=n, sc=_scalars(cfg))
+        r=_ray_cols(tables, state, info, mat, live, receives, vol_trans, dev),
+        f=fcols, s=_sum_cols(segs, verdict, n, dev), n=n,
+        sc=_scalars(cfg, tables, dev))
     _build.launch("rayn_tail_sum", args, dev)
     tail_sum.launches += 1
     return out
@@ -1455,8 +1518,8 @@ def finish_bounce(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
                                    receives, vol_trans, radiance)
     fcols, out = _finish_cols(cfg, tables, state, hit, mat, radiance, dev)
     args = _FinishArgs(
-        r=_ray_cols(state, info, mat, live, receives, vol_trans, dev),
-        f=fcols, n=state.origin.shape[0], sc=_scalars(cfg))
+        r=_ray_cols(tables, state, info, mat, live, receives, vol_trans, dev),
+        f=fcols, n=state.origin.shape[0], sc=_scalars(cfg, tables, dev))
     _build.launch("rayn_finish_bounce", args, dev)
     finish_bounce.launches += 1
     return out
@@ -1465,17 +1528,18 @@ def finish_bounce(cfg: ShadowCfg, tables: SceneTables, state, hit, info, mat,
 finish_bounce.launches = 0
 
 
-def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
-                    direction, t_hit, live, receives, sample_idx,
-                    pixel) -> torch.Tensor:
+def shadow_sort_key(cfg: ShadowCfg, tables: SceneTables, point, normal,
+                    offset_by, origin, direction, t_hit, live, receives,
+                    sample_idx, pixel, time=None) -> torch.Tensor:
     """[N] f32 cost key of one bounce's shadow segments (scheduling only:
     it never feeds a verdict or a radiance term). t_hit: the closest
-    hit's t, the range of the volume sites' distances."""
+    hit's t, the range of the volume sites' distances; time: each ray's
+    time, which a scene with animated lights needs."""
     dev = device_of("shadow_sort_key", point)
     if dev is None:
-        return shadow_sort_key_plain(cfg, lights, point, normal, offset_by,
+        return shadow_sort_key_plain(cfg, tables, point, normal, offset_by,
                                      origin, direction, t_hit, live,
-                                     receives, sample_idx, pixel)
+                                     receives, sample_idx, pixel, time)
     if cfg.NL < 1:
         raise NotImplementedError("shadow_sort_key needs a scene with lights")
     n = point.shape[0]
@@ -1493,8 +1557,9 @@ def shadow_sort_key(cfg: ShadowCfg, lights, point, normal, offset_by, origin,
         pixel=check(pixel, "pixel", i32, v1, dev),
         live=check(live, "live", b8, v1, dev),
         recv=check(receives, "receives", b8, v1, dev),
-        lights=check(lights, "lights", f32, (cfg.NL, 8), dev),
-        key=key.data_ptr(), n=n, sc=_scalars(cfg))
+        time=_time_col(tables, time, n, dev),
+        lights=check(tables.lights, "lights", f32, (cfg.NL, 8), dev),
+        key=key.data_ptr(), n=n, sc=_scalars(cfg, tables, dev))
     _build.launch("rayn_shadow_sort_key", args, dev)
     shadow_sort_key.launches += 1
     return key

@@ -37,7 +37,10 @@ One bounce at depth d:
 
 Sorting moves whole chunks of lanes and every per-lane result is
 position-independent, so sorted and unsorted bounces give bit-identical
-outputs. `compact` is not ported yet.
+outputs; each lane's `time` moves with it (it is a PathState column), so
+every kernel after a sort reads the lane's own time, and in a scene with
+animated lights, spheres or camera every position a kernel or the torch
+code takes is taken at that time. `compact` is not ported yet.
 """
 
 from __future__ import annotations
@@ -176,7 +179,7 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
     if s.use_fused_intersect and plain_march:
         hit, info = intersect_cuda.closest_hit_shading(
             data, static, s, state.origin, state.direction, hps_abs, hps_lin,
-            state.alive)
+            state.alive, state.time)
     else:
         t_max = torch.full((n,), 2.0 * s.world_radius, dtype=torch.float32,
                            device=dev)
@@ -206,9 +209,9 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
         chunk = _chunk_of(s, n, strict=s.use_fused_finish)
         if chunk:
             cost = shade_cuda.shadow_sort_key(
-                cfg, tabs.lights, info.point, info.normal, info.offset_by,
+                cfg, tabs, info.point, info.normal, info.offset_by,
                 state.origin, state.direction, hit.t, live, receives,
-                state.sample_idx, state.pixel)
+                state.sample_idx, state.pixel, state.time)
             (state, hit, info), shadow_perm = _sort_tree_by_cost(
                 (state, hit, info), cost, chunk)
             live, mat, receives, vol_trans = _derive_shading(

@@ -18,7 +18,7 @@ import torch
 from rayn_tpu_torch.config import RenderSettings, unsupported_reason
 from rayn_tpu_torch.ops import filters as filter_ops
 from rayn_tpu_torch.render import film as film_mod
-from rayn_tpu_torch.render.camera import PinholeCamera
+from rayn_tpu_torch.render.camera import Camera
 from rayn_tpu_torch.render.integrator import init_state, trace
 from rayn_tpu_torch.scene.scene import SceneData, SceneStatic
 from rayn_tpu_torch.utils import rng
@@ -33,7 +33,7 @@ def ray_indices(pass_start: int, pass_size: int, device):
 
 
 def generate_rays(settings: RenderSettings, tables: SampleTables,
-                  camera: PinholeCamera, fis_table: torch.Tensor,
+                  camera: Camera, fis_table: torch.Tensor,
                   ray_idx: torch.Tensor, t0: float, t1: float):
     """Camera rays for flat ray indices (pixel-major, spp-minor): FIS
     pixel offsets, NDC, shutter-time jitter, lens samples (reference
@@ -67,7 +67,7 @@ def generate_rays(settings: RenderSettings, tables: SampleTables,
 
 def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
                 settings: RenderSettings, tables: SampleTables,
-                camera: PinholeCamera, fis_table: torch.Tensor,
+                camera: Camera, fis_table: torch.Tensor,
                 pass_start: int, pass_size: int, t0: float,
                 t1: float) -> film_mod.Film:
     """Render rays [pass_start, pass_start + pass_size) into the film."""
@@ -91,23 +91,16 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
 def check_supported(data: SceneData, static: SceneStatic,
                     settings: RenderSettings, camera) -> None:
     """Raise NotImplementedError naming the first setting or scene
-    feature this port does not implement yet."""
+    feature this port does not implement yet. Every camera class and
+    animated light, sphere and camera channels are ported."""
     reason = unsupported_reason(settings)
-    if reason is None and not isinstance(camera, PinholeCamera):
-        reason = f"{type(camera).__name__} (only PinholeCamera is ported)"
-    if reason is None and (data.light_pos.knots > 1
-                           or data.sphere_centers.knots > 1):
-        reason = "animated light or sphere channels (TL/TS > 1)"
-    if reason is None and any(ch.values.shape[0] > 1 for ch in (
-            camera.origin, camera.at, camera.up)):
-        reason = "animated camera channels"
     if reason is not None:
         raise NotImplementedError(f"rayn_tpu_torch does not implement "
                                   f"{reason} yet")
 
 
 def render_frame(data: SceneData, static: SceneStatic,
-                 settings: RenderSettings, camera: PinholeCamera,
+                 settings: RenderSettings, camera: Camera,
                  frame: int = 1, time_range: tuple[float, float] = None,
                  frame_rate: float = 24.0, shutter_speed: float = 1.0 / 24.0,
                  checkpoint_path: Optional[str] = None,

@@ -2,9 +2,10 @@
 
 `default_scene` is the reference's hard-coded scene (src/setup.rs:46-170):
 sky dome, 12-iteration MandelBox, five sphere lights with co-located
-emissive bodies, a homogeneous volume and a pinhole camera.
-`spheres_scene` has analytic spheres only. The animated variants wait
-for animated channels in the port.
+emissive bodies, a homogeneous volume and a pinhole camera; with
+`animated` its camera orbits over [0, 2] s (64 knots), with
+`animated_geo` four of its lights and their emissive bodies orbit over
+[0, 2] s (`geo_knots` knots). `spheres_scene` has analytic spheres only.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 
 from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render.camera import PinholeCamera
+from rayn_tpu_torch.scene.animation import AnimChannel
 from rayn_tpu_torch.scene.scene import SceneBuilder
 
 
@@ -21,11 +23,31 @@ def _normalized(v):
     return v / np.linalg.norm(v)
 
 
+def _orbit(pos, rate: float, phase: float, knots: int, device):
+    """A channel of `pos` turned about the y axis by rate * t + phase,
+    baked at `knots` knots over [0, 2] s."""
+    x, y, z = np.asarray(pos, np.float32)
+
+    def fn(t):
+        ang = rate * t + phase
+        c, s = np.cos(ang), np.sin(ang)
+        return np.asarray((c * x + s * z, y, -s * x + c * z), np.float32)
+
+    return AnimChannel.from_fn(fn, 0.0, 2.0, knots=knots, device=device)
+
+
 def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
                   fractal_iterations: int = 12, volume: bool = True,
-                  device="cuda"):
+                  animated: bool = False, animated_geo: bool = False,
+                  geo_knots: int = 8, device="cuda"):
     """Returns (scene_data, scene_static, camera), tensors on `device`
-    (the CUDA card unless the caller asks for another device)."""
+    (the CUDA card unless the caller asks for another device).
+
+    `animated`: the camera orbits (0.35 rad/s about y, 64 knots), for
+    camera motion blur. `animated_geo`: the four outer sphere lights and
+    their emissive bodies orbit (0.25 rad/s), each pair on one channel so
+    that the MIS pairing autodetect still pairs them; the kernels lerp
+    their knots at each ray's time."""
     b = SceneBuilder()
     if volume:
         b.set_volume(0.25, 0.035)
@@ -46,9 +68,13 @@ def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
     blue = _normalized((1.5, 3.0, 4.5))
     blue_emissive = b.add_emissive(blue * 3.0)
     green_emissive = b.add_emissive(green * 3.0)
-    for pos, rad in [((1.2, -1.2, 1.2), 0.15), ((-1.2, 1.2, 1.2), 0.15)]:
+    for i, (pos, rad) in enumerate([((1.2, -1.2, 1.2), 0.15),
+                                    ((-1.2, 1.2, 1.2), 0.15)]):
         pos = np.asarray(pos, np.float32)
         green_pos = pos * np.asarray((1.0, -1.0, 1.0), np.float32)
+        if animated_geo:  # staged on the host; build() moves them
+            green_pos = _orbit(green_pos, 0.25, 0.6 * i, geo_knots, "cpu")
+            pos = _orbit(pos, 0.25, 0.3 + 0.6 * i, geo_knots, "cpu")
         b.add_sphere_light(green_pos, rad, green * 40.0)
         b.add_sphere_light(pos, rad, blue * 40.0)
         b.add_sphere(green_pos, rad - 0.01, green_emissive)
@@ -57,6 +83,8 @@ def default_scene(resolution=(1280, 720), world_radius: float = 100.0,
     b.add_sphere((0.0, 0.0, 0.0), 0.24, green_emissive)
 
     origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
+    if animated:
+        origin = _orbit(origin, 0.35, 0.0, 64, device)
     camera = PinholeCamera.make(resolution, 60.0, origin, (0.0, 0.0, 0.0),
                                 (0.0, 1.0, 0.0), device=device)
     data, static = b.build(device)

@@ -34,6 +34,13 @@ nothing else) equal their one-piece plain versions at splits 0, 8 and
 16, on random segments and on segments that start on the fractal, and
 march_occlusion with no clip at splits 8 and 16; on the segment queue
 their settings launch the scratch's refill march and nothing else.
+Animated scenes (`default_scene(animated_geo=True)` at 8 and 64 knots,
+rays over [0, 2] s): the `_anim_kernel` instantiations of the closest
+hit, the cost key, the sort key, both segments kernels, the tail sum and
+the finish equal their twins as on the constant scene (the finish to
+the same gates), and give other results than the same kernels at time
+0, which reads knot 0; the animated camera, the thin lens and the
+orthographic camera render through the kernels.
 """
 
 import dataclasses
@@ -46,6 +53,7 @@ from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda, shade_cuda
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import sdf as sdf_ops
+from rayn_tpu_torch.render import camera as camera_mod
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
 from rayn_tpu_torch.utils import rng
@@ -62,28 +70,31 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _wavefront(dev, depth, mis=False, volume=True, nee=4):
+def _wavefront(dev, depth, mis=False, volume=True, nee=4, knots=0):
     """(scene, settings, tables, state, hps) of the default scene's
     wavefront at `depth` (depth 1 = the bounce rays of a plain depth-0
-    bounce)."""
+    bounce); with `knots`, of the scene with animated lights and spheres
+    (`animated_geo`) at that many knots, its rays over [0, 2] s."""
     s = RenderSettings(resolution=RES, spp=1, max_marches=128,
                        max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
                        mis=mis, nee_light_samples=nee)
-    data, static, cam = presets.default_scene(resolution=RES, device=dev,
-                                              volume=volume)
+    data, static, cam = presets.default_scene(
+        resolution=RES, device=dev, volume=volume, animated_geo=knots > 0,
+        geo_knots=max(knots, 1))
     tables = rng.build_sample_tables(s, 1)
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
     n = RES[0] * RES[1]
     o, d, tm, px, si, ok = renderer.generate_rays(
-        s, tables, cam, fis, renderer.ray_indices(0, n, dev), 1 / 24, 2 / 24)
+        s, tables, cam, fis, renderer.ray_indices(0, n, dev),
+        *((0.0, 2.0) if knots else (1 / 24, 2 / 24)))
     state = integrator.init_state(o, d, tm, px, si, ok)
     ha, hl = cam.half_pixel_size_coeffs()
     if depth == 1:
         hit, info = intersect_cuda.closest_hit_shading_plain(
             data, static, s, state.origin, state.direction,
             torch.full((n,), ha, device=dev), torch.full((n,), hl, device=dev),
-            state.alive)
+            state.alive, state.time)
         live, mat, recv, vtr = integrator._derive_shading(data, static,
                                                           state, hit, info)
         cfg = shade_cuda.shadow_cfg(data, static, s, tables, 0)
@@ -98,7 +109,7 @@ def _wavefront(dev, depth, mis=False, volume=True, nee=4):
 
 def _hit(data, static, s, state, hps, fn):
     return fn(data, static, s, state.origin, state.direction, *hps,
-              state.alive)
+              state.alive, state.time)
 
 
 def _hits_equal(got, want):
@@ -529,7 +540,7 @@ def test_shadow_sort_key_kernel_matches_plain(cuda):
     twin bit for bit."""
     cfg, tabs, state, hit, info, _mat, live, recv, _vtr, _t_hit = (
         _tail_inputs(cuda, 1))
-    args = (cfg, tabs.lights, info.point, info.normal, info.offset_by,
+    args = (cfg, tabs, info.point, info.normal, info.offset_by,
             state.origin, state.direction, hit.t, live, recv,
             state.sample_idx, state.pixel)
     before = shade_cuda.shadow_sort_key.launches
@@ -860,3 +871,114 @@ def test_two_phase_occlusion_matches_occlusion_kernel(cuda, name):
                                       bound_radius=0.0)
     torch.cuda.synchronize()
     assert want.any() and _same_bits(got, want)
+
+
+# ------------------------------------------------------ animated scenes
+@pytest.mark.parametrize("knots", [8, 64])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_animated_intersect_kernels_match_plain(cuda, depth, knots):
+    """The closest hit and the cost key on the animated-geo scene: bit
+    for bit with their twins, and not the results at time 0 (knot 0)."""
+    data, static, s, _t, state, hps = _wavefront(cuda, depth, knots=knots)
+    assert data.sphere_centers.knots == knots
+    got = _hit(data, static, s, state, hps,
+               intersect_cuda.closest_hit_shading)
+    want = _hit(data, static, s, state, hps,
+                intersect_cuda.closest_hit_shading_plain)
+    at0 = _hit(data, static, s, state._replace(time=state.time * 0.0), hps,
+               intersect_cuda.closest_hit_shading)
+    torch.cuda.synchronize()
+    assert _hits_equal(got, want) and not _hits_equal(got, at0)
+    args = (data, static, s, state.origin, state.direction, state.time,
+            state.alive)
+    key = intersect_cuda.intersect_cost_key(*args)
+    assert _same_bits(key, intersect_cuda.intersect_cost_key_plain(*args))
+    key0 = intersect_cuda.intersect_cost_key(*args[:5], state.time * 0.0,
+                                             state.alive)
+    assert not _same_bits(key, key0)
+
+
+def _anim_tail(cuda, depth, knots, mis=True):
+    return _tail_inputs(cuda, depth, mis, knots=knots)
+
+
+@pytest.mark.parametrize("knots", [8, 64])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_animated_tail_kernels_match_plain(cuda, depth, knots):
+    """With MIS on the animated-geo scene: both segments kernels, the
+    bounce tail (segments, march, tail sum) and shadow radiance bit for
+    bit with their twins, the finish within the finish's gates; the
+    segments differ from the ones at time 0."""
+    args = _anim_tail(cuda, depth, knots)
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, t_hit = args
+    assert tabs.animated and tabs.light_knots.knots == knots
+    seg_args = (cfg, tabs, state, info, mat, live, recv, vtr, t_hit)
+    for fn in (shade_cuda.shadow_segments, shade_cuda.queue_segments):
+        before = fn.launches
+        got = fn(*seg_args)
+        _launched(fn, before)
+        want = getattr(shade_cuda, fn.__name__ + "_plain")(*seg_args)
+        assert int(want.count[0]) > 0 and _same_segments(got, want)
+        at0 = fn(cfg, tabs, state._replace(time=state.time * 0.0),
+                 *seg_args[3:])
+        assert not _same_bits(at0.geom, got.geom)
+    _bounce_tail_vs_plain(args)
+    _shadow_radiance_vs_plain(args)
+    radiance = state.radiance + shade_cuda.shadow_radiance_plain(*seg_args)
+    fargs = (cfg, tabs, state, hit, info, mat, live, recv, vtr, radiance)
+    got = shade_cuda.finish_bounce(*fargs)
+    want = shade_cuda.finish_bounce_plain(*fargs)
+    torch.cuda.synchronize()
+    _check_state(got, want, depth)
+
+
+@pytest.mark.parametrize("knots", [8, 64])
+def test_animated_sort_key_kernel_matches_plain(cuda, knots):
+    cfg, tabs, state, hit, info, _mat, live, recv, _vtr, _t_hit = (
+        _anim_tail(cuda, 1, knots))
+    args = (cfg, tabs, info.point, info.normal, info.offset_by,
+            state.origin, state.direction, hit.t, live, recv,
+            state.sample_idx, state.pixel)
+    got = shade_cuda.shadow_sort_key(*args, state.time)
+    want = shade_cuda.shadow_sort_key_plain(*args, state.time)
+    at0 = shade_cuda.shadow_sort_key(*args, state.time * 0.0)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want) and not _same_bits(got, at0)
+    with pytest.raises(ValueError):
+        shade_cuda.shadow_sort_key(*args)
+
+
+def _camera_frame(cuda, cam_kind):
+    res = (96, 54)
+    if cam_kind == "animated":
+        data, static, cam = presets.default_scene(resolution=res,
+                                                  device=cuda, animated=True)
+    else:
+        data, static, _c = presets.default_scene(resolution=res, device=cuda)
+        origin = tuple(float(x) * 2.25 for x in (-0.45, 0.2, 2.0))
+        if cam_kind == "thin lens":
+            cam = camera_mod.ThinLensCamera.make(
+                res, 60.0, 0.35, origin, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                (0.0, 0.0, 0.0), device=cuda)
+        else:
+            cam = camera_mod.OrthographicCamera.make(
+                res, 6.0, origin, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                device=cuda)
+    s = RenderSettings(resolution=res, spp=2, max_marches=64,
+                       max_vis_marches=32)
+    return data, static, s, cam
+
+
+@pytest.mark.parametrize("cam_kind", ["animated", "thin lens",
+                                      "orthographic"])
+def test_cameras_render_through_the_kernels(cuda, cam_kind):
+    """Each camera renders through the closest-hit, segments and
+    tail-sum kernels: finite colour and some coverage."""
+    data, static, s, cam = _camera_frame(cuda, cam_kind)
+    fns = (intersect_cuda.closest_hit_shading, shade_cuda.shadow_segments,
+           shade_cuda.tail_sum)
+    before = _launches(*fns)
+    got = renderer.render_frame(data, static, s, cam, time_range=(0.0, 2.0))
+    torch.cuda.synchronize()
+    assert all(n > b for n, b in zip(_launches(*fns), before))
+    assert torch.isfinite(got.color).all() and got.alpha.sum() > 0

@@ -280,7 +280,7 @@ def test_equi_angular_twin_matches_jax(wavefronts, depth):
     state, _ha, _hl, hit, info = out[depth]
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
     tabs = shade_cuda.scene_tables(data, static)
-    args = (cfg, tabs.lights, state.origin, state.direction, hit.t,
+    args = (cfg, tabs, state.origin, state.direction, hit.t,
             state.sample_idx, state.pixel)
     vd, vp = shade_cuda.equi_angular_plain(*args)
     # the volume sites' start points that the segments twin draws from
@@ -338,7 +338,7 @@ def test_sort_key_twin_draws_the_integrators_distances(wavefronts):
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, 1)
     tabs = shade_cuda.scene_tables(data, static)
     n_de = torch.zeros(N, dtype=torch.int32)
-    head = (cfg, tabs.lights, info.point, info.normal, info.offset_by,
+    head = (cfg, tabs, info.point, info.normal, info.offset_by,
             state.origin, state.direction)
     tail = (live, recv, state.sample_idx, state.pixel)
     got = shade_cuda.shadow_sort_key_plain(*head, hit.t, *tail, n_de=n_de)

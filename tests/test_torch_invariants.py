@@ -84,7 +84,7 @@ def test_wrappers_reject_other_devices():
     cfg = shade_cuda.shadow_cfg(data, static, s, rng.SampleTables(1), 0)
     tabs = shade_cuda.scene_tables(data, static)
     with pytest.raises(ValueError):
-        shade_cuda.shadow_sort_key(cfg, tabs.lights, z3, z3, z, z3, z3, z,
+        shade_cuda.shadow_sort_key(cfg, tabs, z3, z3, z, z3, z3, z,
                                    z.bool(), z.bool(), z.int(), z.int())
     state = integrator.PathState(*(z3,) * len(integrator.PathState._fields))
     for wrapper, tail in ((shade_cuda.bounce_tail, (None, z)),

@@ -125,11 +125,10 @@ def _site(kind, cfg, tabs, args, vd, vp, j):
                                              vd[j - L], vp[j - L])
     v = shade_cuda._lane_values(state, info, mat, live, recv)
     if j < L:
-        (s, e, act), k = shade_cuda._nee_segment(cfg, tabs.lights,
-                                                 tabs.spheres, v, vtr, j)
+        (s, e, act), k = shade_cuda._nee_segment(cfg, tabs, v, vtr, j)
     else:
         (s, e, act), k = shade_cuda._vol_segment(
-            cfg, tabs.lights, tabs.spheres, v, j - L, vd[j - L], vp[j - L])
+            cfg, tabs, v, j - L, vd[j - L], vp[j - L])
     return (torch.stack(s, -1), torch.stack(e, -1), torch.stack(k, -1), act)
 
 

@@ -154,9 +154,9 @@ def test_shadow_sort_key_matches_pallas_interpret():
     T = lambda a: torch.from_numpy(_np(a))  # noqa: E731
     cfg = shade_cuda.shadow_cfg(tdata, tstatic, ts,
                                 rng.build_sample_tables(ts, 1), depth)
-    lights = shade_cuda.scene_tables(tdata, tstatic).lights
+    tabs = shade_cuda.scene_tables(tdata, tstatic)
     got = shade_cuda.shadow_sort_key(
-        cfg, lights, T(info.point), T(info.normal), T(info.offset_by),
+        cfg, tabs, T(info.point), T(info.normal), T(info.offset_by),
         T(jstate.origin), T(jstate.direction), T(hit.t), T(live),
         T(receives), T(jstate.sample_idx), T(jstate.pixel))
     assert np.isfinite(want).all() and want.max() > 1.0
@@ -219,7 +219,8 @@ def test_component_bodies_match_pallas_bodies():
     s = g.uniform(-2, 2, (3, n)).astype(f32)
     e = g.uniform(-2, 2, (3, n)).astype(f32)
     got = shade_cuda._sphere_occluded(
-        torch.from_numpy(spheres), *map(torch.from_numpy, [*s, *e]))
+        torch.from_numpy(spheres[:, :3]), torch.from_numpy(spheres[:, 3]),
+        *map(torch.from_numpy, [*s, *e]))
     want = jshade._sphere_occluded(
         [tuple(jnp.float32(v) for v in row) for row in spheres],
         *map(jnp.asarray, [*s, *e]))

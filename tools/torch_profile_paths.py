@@ -13,15 +13,22 @@ workload, the 1080p default scene at 2^20 rays per pass, max_marches 256,
 max_vis_marches 100, as phase 7 runs them; fused-nosort,
 fused-nosort-intersect and fused-nosort-shadow: the fused pass with
 `sorted_intersect` and `sorted_shadow_march`, the first or the second
-off) calls chip_smoke.profile_pass: five unprofiled passes timed on the
-host clock up to `torch.cuda.synchronize()`, then one pass under
-torch.profiler for the device busy time, the idle share of the median
-unprofiled wall, the launch count, the device time by kernel and the
-peak device memory. With
---rounds R the paths' unprofiled walls are then taken in turns, R
-rounds, the order reversed every other round. Prints the card's name
-and power limit and one JSON line; exits non-zero without a CUDA
-device.
+off; animated-geo and animated: the fused pass on
+`default_scene(animated_geo=True)`, its lights and emissive spheres on
+8-knot channels, and on `default_scene(animated=True)`, its camera on a
+64-knot orbit, both with rays over [0, 2] s, as chip_smoke.py phase 13
+renders them) calls chip_smoke.profile_pass: five unprofiled passes
+timed on the host clock up to `torch.cuda.synchronize()`, then one pass
+under torch.profiler for the device busy time, the idle share of the
+median unprofiled wall, the launch count, the device time by kernel and
+the peak device memory. With --rounds R the paths' unprofiled walls
+are then taken in turns, R rounds, the order reversed every other
+round. With --film PATH it also renders the first path's whole frame
+(`render_frame`, phase 4's 1080p, 4 spp) and saves the film there; with
+--film-ref PATH it renders it and prints whether the film equals the one
+saved there bit for bit (a parent's, to show that a change leaves the
+static scene's images as they were). Prints the card's name and power
+limit and one JSON line; exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +54,10 @@ def main(argv=None) -> int:
                     help="then time the paths' walls in turns, R rounds")
     ap.add_argument("--label", default="")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--film", default=None,
+                    help="save the first path's 1080p film here")
+    ap.add_argument("--film-ref", default=None,
+                    help="compare the first path's film with this one")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -78,7 +89,11 @@ def main(argv=None) -> int:
                             max_vis_marches=100)
     unfused_s = dataclasses.replace(main_s, use_fused_intersect=False,
                                     use_fused_shadows=False)
+    # path: (settings, the default scene's animation, the rays' time range)
+    frame1 = (1.0 / 24, 2.0 / 24)
     settings = {
+        "animated-geo": (main_s, dict(animated_geo=True), smoke.ANIM_TIME),
+        "animated": (main_s, dict(animated=True), smoke.ANIM_TIME),
         "fused": main_s,
         "fused-nosort": dataclasses.replace(
             main_s, sorted_intersect=False, sorted_shadow_march=False),
@@ -91,7 +106,9 @@ def main(argv=None) -> int:
         "unfused": unfused_s,
         "sorted": dataclasses.replace(unfused_s, march_sort_steps=8,
                                       occl_sort_steps=8)}
-    data, static, cam = presets.default_scene(resolution=(w, h), device=dev)
+    settings = {k: v if isinstance(v, tuple) else (v, {}, frame1)
+                for k, v in settings.items()}
+    scenes = {}
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
     tables = rng.build_sample_tables(main_s, 1)
@@ -100,20 +117,25 @@ def main(argv=None) -> int:
            "smi": smi, "paths": {}}
     paths = args.paths.split(",")
 
-    def one_pass(s):
+    def one_pass(path):
+        s, anim, (t0, t1) = settings[path]
+        key = tuple(sorted(anim))
+        if key not in scenes:   # made on first use: a parent tree may
+            scenes[key] = presets.default_scene(   # have no animated scenes
+                resolution=(w, h), device=dev, **anim)
+        data, static, cam = scenes[key]
         return lambda: renderer.render_pass(film, data, static, s, tables,
-                                            cam, fis, 0, n, 1.0 / 24,
-                                            2.0 / 24)
+                                            cam, fis, 0, n, t0, t1)
 
     for path in paths:
         out["paths"][path] = smoke.profile_pass(
-            one_pass(settings[path]), f"{args.label} {path}".strip())
+            one_pass(path), f"{args.label} {path}".strip())
     walls = {path: [] for path in paths}
     for r in range(args.rounds):
         for path in (paths if r % 2 == 0 else paths[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            one_pass(settings[path])()
+            one_pass(path)()
             torch.cuda.synchronize()
             walls[path].append((time.perf_counter() - t0) * 1e3)
     if args.rounds:
@@ -122,6 +144,20 @@ def main(argv=None) -> int:
               f"rounds: {walls}; medians "
               f"{ {p: sorted(w)[len(w) // 2] for p, w in walls.items()} }",
               flush=True)
+    if args.film or args.film_ref:
+        s, anim, t_range = settings[paths[0]]
+        data, static, cam = scenes[tuple(sorted(anim))]
+        fr = renderer.render_frame(data, static, s, cam, frame=1,
+                                   time_range=t_range)
+        cols = {f: getattr(fr, f).cpu() for f in fr._fields}
+        if args.film:
+            torch.save(cols, args.film)
+        if args.film_ref:
+            ref = torch.load(args.film_ref)
+            same = {f: bool(torch.equal(cols[f], ref[f])) for f in cols}
+            out["film_equal_to_ref"] = same
+            print(f"{args.label} {paths[0]} film equal to {args.film_ref} "
+                  f"bit for bit: {same}", flush=True)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(out, fh, indent=1)
