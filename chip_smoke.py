@@ -173,20 +173,54 @@ Phases (any failed gate raises and the script exits non-zero):
    and an orthographic camera (6 units tall) at 960x540, each with the
    film gates.
 
+14. The command line and its surface (after phase 13, before phase 7):
+   (a) `cli.main` in process, `--width 1920 --height 1080 --spp 4
+   --frames 1 2 --filter mitchell_netravali --filter-radius 2` into a
+   temporary directory: exit 0, the fused path's kernels launched (the
+   counts set to 0 just before it), JAX's three default channels written
+   under JAX's names, and the colour PNG (read back by film.read_png)
+   equal to save_channels of render_frame's film with the same settings
+   and filter; the frame's wall and Msamples/s. (b) At 1080p, 4 spp: the
+   frame without and with a checkpoint every 2 passes (walls, films bit
+   for bit), render_frame_resilient(retries=1) with a failure injected
+   after pass 5 (resumed from the last save; the film bit for bit with
+   the uninterrupted one), and a 2-spp checkpoint grown to 4 spp (the
+   flat film to atol 2e-5). (c) `shadow_de_iterations=8`: the inputs of
+   one 2^20-ray pass on the fused path, the split tail with MIS and the
+   relaxed queue, recorded at depths 0 and 1 (sort key 1 and 2); the
+   sort key, bounce tail, shadow radiance, both segments kernels (queue
+   as a set), the march, sums and queue tail against their twins as in
+   phase 3, row 7 (march_occlusion) on the relaxed queue's segments
+   against its one-piece twin; each of rows 2, 3, 5, 7 and the segments
+   kernels timed at depth 1 at 8 iterations and at the scene's 12 on the
+   same inputs, with the DEs each needs at both (the twin's lanes at each
+   step) and its bound at 8; a 1080p 4-spp frame with the film gates, other than the
+   full DE's film. At 256x256 with `max_vis_marches=0`, the fused path's
+   and the relaxed queue's kernels against their twins (the queue's
+   verdicts from the first-DE occlusion march). (d) 1080p at 3 spp in
+   2^20-ray passes (not a multiple of spp): two runs bit for bit, and the
+   film at 3*2^18-ray passes to atol 2e-5.
+
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
 their depth-1 time on the 8-knot animated-geo inputs, and the 64-knot
-one), the nvidia-smi line, and {"ok": true, "device": {...}}.
+one; rows 2, 3, 5, 7 and the segments kernels with `ms_shadow_de_8`,
+`ms_full_de_same_inputs`, their DEs at both and the bound at 8
+iterations), the nvidia-smi line, and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -1203,11 +1237,13 @@ def main(argv=None) -> int:
             fn.launches = 0
 
     def main_path(phase, s, res, need, scene=None, absent=(),
-                  time_range=None):
+                  time_range=None, filter=None, keep=False):
         """Render one frame of `s` on `scene` (default: the default scene
-        at `res`) over `time_range` (default: frame 1's shutter); gate
-        that the kernels `need` launched and the kernels `absent` did
-        not, the sample count, finite colour and centre coverage."""
+        at `res`) over `time_range` (default: frame 1's shutter) with the
+        pixel filter `filter` (default: render_frame's); gate that the
+        kernels `need` launched and the kernels `absent` did not, the
+        sample count, finite colour and centre coverage. With `keep`
+        the film is returned too, as "film"."""
         w, h = res
         if scene is None:
             scene = (presets.default_scene if res != MAIN_RES else
@@ -1218,7 +1254,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         f = renderer.render_frame(d_, st_, s, c_, frame=1,
-                                  time_range=time_range)
+                                  time_range=time_range, filter=filter)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
@@ -1241,10 +1277,13 @@ def main(argv=None) -> int:
         gate(crop.mean() > 0.0, "no coverage around the image centre")
         log(f"[{phase}] mean colour {img.color.mean():.6f}, mean alpha "
             f"{img.alpha.mean():.4f}, centre-crop alpha {crop.mean():.4f}")
+        out = dict(seconds=wall, msamples_per_s=n_samples / wall / 1e6,
+                   peak_bytes=peak, launches=launches)
+        if keep:
+            out["film"] = f
         del f, img
         torch.cuda.empty_cache()
-        return dict(seconds=wall, msamples_per_s=n_samples / wall / 1e6,
-                    peak_bytes=peak, launches=launches)
+        return out
 
     # -------------------------------------------------------- 4. main path
     queue_path = ("march", "costkey", "qseg", "smarch", "qsum")
@@ -1608,6 +1647,279 @@ def main(argv=None) -> int:
             time_range=ANIM_TIME)
     record["motion"] = motion
 
+    # ------------------- 14. the command line, checkpoints, reduced DE
+    from rayn_tpu_torch import cli
+
+    mitchell = filters.mitchell_netravali(2.0)
+    main_pixels = W * H
+
+    def launched(fn):
+        """fn() with every launch count set to 0 just before it; returns
+        (its result, the counts just after, its wall in s)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, {k: fn_.launches for k, fn_ in kernels.items()}, wall
+
+    def gate_fused(label, launches):
+        gate(all(launches[k] > 0 for k in fused_need)
+             and not any(launches[k] for k in fused_absent),
+             f"{label}: launches {launches}, needed {fused_need}, absent "
+             f"{fused_absent}")
+
+    def films_equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def films_diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    rec14 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) python -m rayn_tpu_torch, in process, the default channels
+        argv = ["--device", DEVICE, "--width", str(W), "--height", str(H),
+                "--spp", str(MAIN_SPP), "--rays-per-pass", str(MAIN_PASS),
+                "--frames", "1", "2", "--filter", "mitchell_netravali",
+                "--filter-radius", "2", "--out", f"{tmp}/cli"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, launches, cli_wall = launched(lambda: cli.main(argv))
+        line = re.search(r"Frame 1: done in ([0-9.]+)s \(([0-9.]+) "
+                         r"Msamples/s\)", err.getvalue())
+        gate(rc == 0 and line is not None, f"14 cli: rc {rc}, stderr "
+             f"{err.getvalue()[-400:]!r}")
+        gate_fused("14 cli", launches)
+        names = sorted(os.listdir(f"{tmp}/cli"))
+        want_names = sorted(f"frame0001_{MAIN_SPP}spp_{k}.png"
+                            for k in ("alpha", "normal", "color"))
+        gate(names == want_names, f"14 cli wrote {names}, not {want_names}")
+        ref, _l, ref_wall = launched(lambda: renderer.render_frame(
+            data, static, main_s, cam, frame=1, filter=mitchell))
+        ref_png = film_mod.save_channels(film_mod.resolve(ref, (W, H)),
+                                         f"{tmp}/ref", "ref", ("color",))[0]
+        same_png = np.array_equal(
+            film_mod.read_png(f"{tmp}/cli/frame0001_{MAIN_SPP}spp_color.png"),
+            film_mod.read_png(ref_png))
+        gate(same_png, "14 cli: the colour PNG differs from save_channels "
+             "of render_frame's film")
+        log(f"[14 cli] rc 0, wrote {names}; the CLI printed "
+            f"'{line.group(0)}'; cli.main took {cli_wall} s (scene, render, "
+            f"PNGs); its colour PNG equals save_channels of render_frame's "
+            f"film (Mitchell-Netravali, radius 2), whose frame took "
+            f"{ref_wall} s ({main_pixels * MAIN_SPP / ref_wall / 1e6} "
+            f"Msamples/s); launches {launches}")
+        rec14["cli"] = dict(frame_s_printed=float(line.group(1)),
+                            msamples_per_s_printed=float(line.group(2)),
+                            main_s=cli_wall, launches=launches,
+                            render_frame_s=ref_wall)
+
+        # (b) checkpoints: with and without saving, a failure at pass 5
+        # resumed from the last save, and 2 spp grown to 4
+        n_passes = -(-main_pixels * MAIN_SPP // MAIN_PASS)
+        gate(n_passes >= 6, f"14: {n_passes} passes, the failure needs 6")
+        plain, _l, plain_wall = launched(lambda: renderer.render_frame(
+            data, static, main_s, cam, frame=1, filter=mitchell))
+        saved, launches, ck_wall = launched(lambda: renderer.render_frame(
+            data, static, main_s, cam, frame=1, filter=mitchell,
+            checkpoint_path=f"{tmp}/a.npz", checkpoint_every=2))
+        gate_fused("14 checkpointed", launches)
+        gate(films_equal(plain, ref) and films_equal(saved, ref),
+             "14: the checkpointed film differs from the plain one")
+        failed = []
+
+        def fail_once(p):
+            if p == 5 and not failed:
+                failed.append(p)
+                raise RuntimeError("injected failure after pass 5")
+
+        renderer._FAIL_HOOK = fail_once
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                resumed, _l, resume_wall = launched(
+                    lambda: renderer.render_frame_resilient(
+                        data, static, main_s, cam, retries=1, frame=1,
+                        filter=mitchell, checkpoint_path=f"{tmp}/b.npz",
+                        checkpoint_every=2))
+        finally:
+            renderer._FAIL_HOOK = None
+        gate(failed == [5] and films_equal(resumed, ref),
+             f"14: the resumed film differs from the uninterrupted one "
+             f"(failures {failed})")
+        renderer.render_frame(data, static,
+                              dataclasses.replace(main_s, spp=2), cam,
+                              frame=1, filter=mitchell,
+                              checkpoint_path=f"{tmp}/c.npz",
+                              checkpoint_every=2)
+        grown, _l, grow_wall = launched(lambda: renderer.render_frame(
+            data, static, main_s, cam, frame=1, filter=mitchell,
+            checkpoint_path=f"{tmp}/c.npz", checkpoint_every=2))
+        grow_diff = films_diff(grown, ref)
+        gate(torch.equal(grown.samples, ref.samples) and grow_diff <= 2e-5,
+             f"14: the film grown from 2 spp differs by {grow_diff}")
+        ck_bytes = os.path.getsize(f"{tmp}/a.npz")
+        log(f"[14 checkpoint] {W}x{H} @ {MAIN_SPP} spp, {n_passes} passes: "
+            f"frame {plain_wall} s without a checkpoint, {ck_wall} s saving "
+            f"every 2 passes ({ck_bytes} B a checkpoint), both films bit "
+            f"for bit; failed after pass 5 and resumed: {resume_wall} s, "
+            f"the film bit for bit; grown from 2 to 4 spp: {grow_wall} s, "
+            f"max |d| {grow_diff} against the flat film")
+        rec14["checkpoint"] = dict(
+            passes=n_passes, plain_s=plain_wall, checkpointed_s=ck_wall,
+            checkpoint_bytes=ck_bytes, resumed_s=resume_wall,
+            grown_s=grow_wall, grown_max_abs_diff=grow_diff)
+        del plain, saved, resumed, grown
+
+    # (c) the reduced shadow DE: the kernels that take it against their
+    # twins on one pass's captured inputs, each one's depth-1 time beside
+    # its time at full iterations on the same inputs, and a frame
+    de8 = dict(shadow_de_iterations=8)
+    full_mb = data.sdf_params
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    paths14 = (("fused", dataclasses.replace(main_s, max_bounces=2, **de8),
+                ("key", "tail", "seg", "smarch", "tsum")),
+               ("split mis", dataclasses.replace(split_s, max_bounces=1,
+                                                 **de8),
+                ("shadow", "seg", "smarch", "ssum")),
+               ("relaxed", dataclasses.replace(relax_s, max_bounces=1, **de8),
+                ("qtail", "qseg", "smarch", "qsum")))
+    timed14 = {"fused": ("key", "tail", "seg"), "split mis": ("shadow",),
+               "relaxed": ("qseg", "occl")}
+    ms14, des14 = {}, {}
+
+    def time14(key, a, kw):
+        if key in DEVICE_TIMED:
+            return device_ms(impl[key], a, kw, ENTRIES[key])
+        return timed(impl[key], a, kw, reps=5)
+
+    for path, s14, keys in paths14:
+        cap = {k: [] for k in impl}
+        with plain_twins(cap):
+            renderer.render_pass(film_mod.new_film(W * H, device=dev), data,
+                                 static, s14, tables, cam, fis, 0, MAIN_PASS,
+                                 1.0 / 24, 2.0 / 24)
+        torch.cuda.synchronize()
+        gate(all(len(cap[k]) == 2 for k in keys),
+             f"14 shadow-de {path}: captured {[len(cap[k]) for k in keys]}")
+        gate(cap["smarch"][0][0][0].mb.iterations == 8,
+             f"14 shadow-de {path}: the shadow march's MandelBox has "
+             f"{cap['smarch'][0][0][0].mb.iterations} iterations")
+        for key in keys:
+            for i, (a, kw) in enumerate(cap[key]):
+                depth = i + (1 if key == "key" else 0)
+                got = impl[key](*a, **kw)
+                want = twin[key](*a, **kw)
+                torch.cuda.synchronize()
+                check(key, f"shadow-de-8 {path}", depth, a, kw, got, want)
+                del got, want
+        cfg, segs = cap["smarch"][1][0][:2]
+        start, end, act = aos(segs)
+        calls = {key: cap[key][0 if key == "key" else 1]
+                 for key in timed14[path] if key != "occl"}
+        if path == "relaxed":   # row 7 on the queue's depth-1 segments
+            a = (cfg.mb, start, end, cfg.detail, cfg.max_steps, act, RELAX,
+                 cfg.bv_r)
+            got, want = functions["occl"](*a), twin["occl"](*a)
+            gate(same_bits(got, want), "14 shadow-de occl: differs from its "
+                 "one-piece twin")
+            del got, want
+            calls["occl"] = (a, {})
+        for key, (a, kw) in calls.items():
+            a_full = ((full_mb,) + a[1:] if key == "occl" else
+                      (a[0]._replace(mb=full_mb),) + a[1:])
+            ms14[key] = (time14(key, a, kw), time14(key, a_full, kw))
+            # the DEs each needs (the twin's lanes at each step) and the
+            # bound at 8 iterations: a DE of 8 costs de_flops(8)
+            out = impl[key](*a, **kw)
+            ins, outs = io_tensors(key, a, kw, out)
+            n8, n_full = (count_des(twin[key], x, kw) for x in (a, a_full))
+            bytes_ms = bound(0, ins, outs)[0]
+            ops8 = n8 * de_flops(8) / PEAK_F32_FLOPS * 1e3
+            des14[key] = (n8, n_full, max(ops8, bytes_ms),
+                          "operations" if ops8 >= bytes_ms else "bytes")
+            log(f"[14 shadow-de] {key} ({path}, depth 1): "
+                f"{ms14[key][0]} ms at 8 iterations, {ms14[key][1]} ms at "
+                f"{full_mb.iterations} on the same inputs; {n8} DEs at 8, "
+                f"{n_full} at {full_mb.iterations}; bound at 8 "
+                f"{des14[key][2]} ms ({des14[key][3]})")
+            del out, ins, outs
+        del cap, a, a_full, kw, calls, segs, start, end, act
+        torch.cuda.empty_cache()
+    del scrub
+    de8_frame = main_path("14 shadow-de 8",
+                          dataclasses.replace(main_s, **de8), MAIN_RES,
+                          fused_need, absent=fused_absent, filter=mitchell,
+                          keep=True)
+    de8_diff = films_diff(de8_frame.pop("film"), ref)
+    gate(de8_diff > 0.0, "14: the 8-iteration film equals the full DE's")
+    log(f"[14 shadow-de] the 8-iteration frame differs from the full DE's "
+        f"by max |d| {de8_diff}")
+    rec14["shadow_de_8"] = dict(kernel_ms=ms14, de_evals_bound=des14,
+                                frame=de8_frame,
+                                max_abs_diff_vs_full=de8_diff)
+
+    # max_vis_marches 0 at 256x256: kernel against twin on the fused path
+    # and the relaxed queue (whose verdicts are the first-DE entry's)
+    n0 = INV_RES[0] * INV_RES[1] * 4
+    for path, s0, keys in (
+            ("fused", RenderSettings(resolution=INV_RES, spp=4,
+                                     max_bounces=2, max_vis_marches=0),
+             ("key", "tail", "seg", "smarch", "tsum")),
+            ("relaxed", RenderSettings(resolution=INV_RES, spp=4,
+                                       max_bounces=1, max_vis_marches=0,
+                                       march_relaxation=RELAX),
+             ("qtail", "qseg", "qsum"))):
+        cap = {k: [] for k in impl}
+        with plain_twins(cap):
+            renderer.render_pass(film_mod.new_film(n0 // 4, device=dev), d5,
+                                 s5, s0, tables, c5, fis, 0, n0, 1.0 / 24,
+                                 2.0 / 24)
+        gate(all(len(cap[k]) == 2 for k in keys),
+             f"14 vis-0 {path}: captured {[len(cap[k]) for k in keys]}")
+        reset_launches()
+        for key in keys:
+            for i, (a, kw) in enumerate(cap[key]):
+                got = impl[key](*a, **kw)
+                want = twin[key](*a, **kw)
+                torch.cuda.synchronize()
+                check(key, f"vis-0 {path}", i + (key == "key"), a, kw, got,
+                      want)
+        if path == "relaxed":
+            gate(kernels["omarch"].launches > 0
+                 and not kernels["smarch"].launches,
+                 "14 vis-0 relaxed: the queue's verdicts did not come from "
+                 "the first-DE occlusion march")
+        del cap
+    log("[14 vis-0] max_vis_marches 0 at "
+        f"{INV_RES[0]}x{INV_RES[1]}: the fused path's and the relaxed "
+        "queue's kernels equal their twins")
+
+    # (d) passes that are not a multiple of spp: 3 spp in 2^20-ray passes
+    s3 = dataclasses.replace(main_s, spp=3)
+    odd = []
+    for rays in (MAIN_PASS, MAIN_PASS, 3 * (MAIN_PASS // 4)):
+        f, launches, wall = launched(lambda: renderer.render_frame(
+            data, static, dataclasses.replace(s3, rays_per_pass=rays), cam,
+            frame=1))
+        gate_fused(f"14 spp 3, {rays}-ray passes", launches)
+        gate(int(f.samples.sum().item()) == main_pixels * 3,
+             "14 spp 3: film sample count")
+        odd.append((f, wall))
+    odd_diff = films_diff(odd[0][0], odd[2][0])
+    gate(films_equal(odd[0][0], odd[1][0]) and odd_diff <= 2e-5,
+         f"14 spp 3: the two runs differ, or the 3*2^18-ray film by "
+         f"{odd_diff}")
+    log(f"[14 spp 3] {W}x{H} @ 3 spp in {MAIN_PASS}-ray passes: two runs "
+        f"bit for bit ({odd[0][1]} s, {odd[1][1]} s); against "
+        f"{3 * (MAIN_PASS // 4)}-ray passes ({odd[2][1]} s) max |d| "
+        f"{odd_diff}")
+    rec14["unaligned"] = dict(walls_s=[w for _f, w in odd],
+                              max_abs_diff=odd_diff)
+    record["phase14"] = rec14
+    del odd, ref, de8_frame
+    torch.cuda.empty_cache()
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -1679,6 +1991,12 @@ def main(argv=None) -> int:
             ms=ms, plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None,
             cuda_kernels=[e for k in keys for e in ENTRIES[k]])
+        if tkey in ms14:   # a kernel that takes the reduced shadow DE
+            row.update(ms_shadow_de_8=ms14[tkey][0],
+                       ms_full_de_same_inputs=ms14[tkey][1],
+                       bound_ms_shadow_de_8=des14[tkey][2],
+                       de_evals_shadow_de_8=des14[tkey][0],
+                       de_evals_full_de_same_inputs=des14[tkey][1])
         if ("8 knots", tkey) in times13:   # a kernel that reads positions
             row.update(
                 ms_animated=times13[("8 knots", tkey)],

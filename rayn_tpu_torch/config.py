@@ -95,15 +95,16 @@ def unsupported_reason(s: RenderSettings) -> str | None:
     `march_sort_steps` then sends the unfused closest-hit march, and
     `occl_sort_steps` or `occl_phase1_steps` the segment queue's shadow
     marches, to the two-phase marches, as in the JAX package
-    (ops/intersect.py)."""
+    (ops/intersect.py). `shadow_de_iterations` gives every shadow march
+    (the shadow kernels, their sort key and `intersect.test_occluded`)
+    the MandelBox at that many iterations; `max_vis_marches` 0 takes
+    each occlusion function's JAX verdict with no march step."""
     checks = (
-        (s.shadow_de_iterations != 0, "shadow_de_iterations != 0"),
         (bool(s.extra_aovs), "extra_aovs"),
         (s.compact_bounces, "compact_bounces=True"),
         (not s.use_pallas, "the non-kernel intersect path (use_pallas=False)"),
         (not s.use_pallas_occlusion,
          "the non-kernel occlusion path (use_pallas_occlusion=False)"),
-        (s.max_vis_marches < 1, "max_vis_marches < 1"),
     )
     for bad, what in checks:
         if bad:

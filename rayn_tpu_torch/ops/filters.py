@@ -1,5 +1,7 @@
-"""Reconstruction filter + filter importance sampling (port of
-rayn_tpu.ops.filters; reference src/filter.rs, src/math.rs:136-191).
+"""Reconstruction filters + filter importance sampling (port of
+rayn_tpu.ops.filters; reference src/filter.rs, src/math.rs:136-191):
+Blackman-Harris, Mitchell-Netravali, box and Lanczos-sinc, by name in
+`FILTERS`.
 
 The inverse-CDF table is built on the host in float64 numpy exactly as
 the JAX package builds it, then stored as float32 on the device.
@@ -35,6 +37,41 @@ def blackman_harris(radius: float = 1.5) -> Filter:
     return Filter("blackman_harris", radius, ev)
 
 
+def mitchell_netravali(radius: float = 2.0, b: float = 1.0 / 3.0,
+                       c: float = 1.0 / 3.0) -> Filter:
+    """Reference src/filter.rs:51-108."""
+    def ev(p):
+        x = np.abs(2.0 * np.asarray(p, np.float64) / radius)
+        near = ((12 - 9 * b - 6 * c) * x ** 3
+                + (-18 + 12 * b + 6 * c) * x ** 2 + (6 - 2 * b)) / 6.0
+        far = ((-b - 6 * c) * x ** 3 + (6 * b + 30 * c) * x ** 2
+               + (-12 * b - 48 * c) * x + (8 * b + 24 * c)) / 6.0
+        v = np.where(x > 1.0, far, near)
+        return np.where(x >= 2.0, 0.0, v)
+    return Filter("mitchell_netravali", radius, ev)
+
+
+def box_filter(radius: float = 0.5) -> Filter:
+    """Reference src/filter.rs:110-140."""
+    def ev(p):
+        return np.where(np.abs(np.asarray(p, np.float64)) > radius, 0.0, 1.0)
+    return Filter("box", radius, ev)
+
+
+def lanczos_sinc(radius: float = 3.0, tau: float = 3.0) -> Filter:
+    """Reference src/filter.rs:142-185."""
+    def sinc(x):
+        x = np.abs(x)
+        small = x <= 1e-5
+        return np.where(small, 1.0,
+                        np.sin(np.pi * x) / np.where(small, 1.0, np.pi * x))
+
+    def ev(p):
+        x = np.abs(np.asarray(p, np.float64))
+        return np.where(x > radius, 0.0, sinc(x) * sinc(x / tau))
+    return Filter("lanczos_sinc", radius, ev)
+
+
 def build_fis_table(filt: Filter, table_size: int = 512, *,
                     device) -> torch.Tensor:
     """Inverse-CDF table over (0, radius) (reference src/filter.rs:193-218)."""
@@ -67,3 +104,11 @@ def fis_sample(table: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     lo = table[idx]
     hi = table[idx + 1]
     return mult * (lo * (1.0 - t) + hi * t)
+
+
+FILTERS = {
+    "blackman_harris": blackman_harris,
+    "mitchell_netravali": mitchell_netravali,
+    "box": box_filter,
+    "lanczos_sinc": lanczos_sinc,
+}

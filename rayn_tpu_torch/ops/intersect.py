@@ -92,8 +92,11 @@ def test_occluded(data: SceneData, static: SceneStatic,
       ray i at k * M / segments + i): march_occlusion_chained;
     - else march_occlusion.
     Both run the enqueue kernel and the refill march on the segments, so
-    they give the same verdicts. The segment-queue bounce no longer calls
-    this function (it marches its own scratch, integrator._queue_verdicts)."""
+    they give the same verdicts. Every one marches the MandelBox truncated
+    to `shadow_de_iterations` where that is set (JAX's prog.reduced,
+    rayn_tpu/ops/intersect.py:151). The segment-queue bounce no longer
+    calls this function (it marches its own scratch,
+    integrator._queue_verdicts)."""
     s = settings
     m = start.shape[0]
     occluded = torch.zeros((m,), dtype=torch.bool, device=start.device)
@@ -104,25 +107,26 @@ def test_occluded(data: SceneData, static: SceneStatic,
     if static.has_sdf:
         detail = s.sdf_detail_scale * s.shadow_eps_scale
         bv_r = float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0
+        mb = sdf_ops.reduced(data.sdf_params, s.shadow_de_iterations)
         m_act = active & ~occluded
         if s.march_relaxation == 1.0 and s.occl_sort_steps > 0:
             occ_sdf = march_cuda.march_occlusion_sorted(
-                data.sdf_params, start, end, detail, s.max_vis_marches,
+                mb, start, end, detail, s.max_vis_marches,
                 m_act, phase1_steps=s.occl_sort_steps)
         elif s.march_relaxation == 1.0 and s.occl_phase1_steps > 0:
             occ_sdf = march_cuda.march_occlusion_phased(
-                data.sdf_params, start, end, detail, s.max_vis_marches,
+                mb, start, end, detail, s.max_vis_marches,
                 m_act, phase1_steps=s.occl_phase1_steps)
         elif (1 < segments <= 30 and s.chained_shadow_march
                 and s.march_relaxation == 1.0 and m % segments == 0):
             k, n = segments, m // segments
             occ_sdf = march_cuda.march_occlusion_chained(
-                data.sdf_params, start.reshape(k, n, 3),
+                mb, start.reshape(k, n, 3),
                 end.reshape(k, n, 3), detail, s.max_vis_marches,
                 m_act.reshape(k, n), bound_radius=bv_r).reshape(m)
         else:
             occ_sdf = march_cuda.march_occlusion(
-                data.sdf_params, start, end, detail, s.max_vis_marches,
+                mb, start, end, detail, s.max_vis_marches,
                 m_act, relax=s.march_relaxation, bound_radius=bv_r)
         occluded = occluded | occ_sdf
     return torch.where(occluded, 0.0, 1.0)

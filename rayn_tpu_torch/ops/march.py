@@ -275,7 +275,11 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     (relax 1) is the entry of the JAX two-phase occlusion with no
     phase-1 step (march_pallas.py:518): a segment whose first DE is
     below 1e-4 and that does not start past its end is blocked at once,
-    the others take at most `max_steps` steps (none at 0)."""
+    the others take at most `max_steps` steps (none at 0). Without it a
+    segment takes at least one step, `max_steps` 0 included, as the
+    refill march kernels and JAX's chained core do; JAX's march_occlusion
+    takes none there, which is the `first_de` verdict at 0 steps
+    (march_cuda.march_occlusion routes it so)."""
     if relax == 1.0:
         return _occl_march(mb, start, end, detail_scale, max_steps, active,
                            bound_radius, n_de, first_de)

@@ -233,6 +233,10 @@ def march_occlusion_plain(mb: MandelBox, start, end, detail_scale: float,
                           max_steps: int, active, relax: float = 1.0,
                           bound_radius: float = 0.0) -> torch.Tensor:
     """Plain version of `march_occlusion` in one piece (ops/march.py)."""
+    if max_steps <= 0:
+        return march_ops.march_occlusion(mb, start, end, detail_scale, 0,
+                                         active, bound_radius,
+                                         first_de=True)
     return march_ops.march_occlusion(mb, start, end, detail_scale, max_steps,
                                      active, bound_radius, relax)
 
@@ -242,8 +246,14 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
                     bound_radius: float = 0.0) -> torch.Tensor:
     """[M] bool: True where the SDF blocks segment start -> end (active
     segments; False for the others): the enqueue kernel, then the refill
-    march of the queue."""
+    march of the queue. At `max_steps` 0 no segment steps, at any
+    `relax`: the verdict is the first-DE entry's (first DE below 1e-4
+    before the end), as JAX's march_occlusion and its Pallas kernel give
+    with no loop iteration (ops/march.py:126-170)."""
     queue, count = enqueue(active)
+    if max_steps <= 0:
+        return occlusion_march(mb, start, end, detail_scale, 0, queue, count,
+                               1.0, bound_radius, first_de=True)
     return occlusion_march(mb, start, end, detail_scale, max_steps, queue,
                            count, relax, bound_radius)
 
@@ -263,11 +273,12 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
                             bound_radius: float = 0.0) -> torch.Tensor:
     """[K, N] bool verdicts of K segments per ray (start/end [K, N, 3],
     active [K, N]), each that of `march_occlusion` at relax 1: the same
-    two kernels on the K*N segments."""
+    two kernels on the K*N segments. At `max_steps` 0 every segment takes
+    one step, as in JAX's chained core (march_pallas.py:883-896)."""
     k, n = start.shape[0], start.shape[1]
     return march_occlusion(mb, start.reshape(k * n, 3),
-                           end.reshape(k * n, 3), detail_scale, max_steps,
-                           active.reshape(k * n), 1.0,
+                           end.reshape(k * n, 3), detail_scale,
+                           max(max_steps, 1), active.reshape(k * n), 1.0,
                            bound_radius).reshape(k, n)
 
 

@@ -38,6 +38,14 @@ def mandelbox(iterations: int, box_fold_l: float, sphere_min_rad: float,
                      _f32(sphere_fixed_rad * sphere_fixed_rad))
 
 
+def reduced(mb: MandelBox, iterations: int) -> MandelBox:
+    """The MandelBox at `iterations` iterations, or `mb` itself at 0: the
+    truncated DE that JAX gives every shadow march
+    (RenderSettings.shadow_de_iterations; SdfProgram.reduced and the
+    MandelBox reduce_fn, rayn_tpu/ops/sdf.py:52-57, 87-117)."""
+    return mb._replace(iterations=int(iterations)) if iterations else mb
+
+
 def dist_c(mb: MandelBox, x: torch.Tensor, y: torch.Tensor,
            z: torch.Tensor) -> torch.Tensor:
     """Component-form DE (reference src/sdf.rs:126-141): per iteration a

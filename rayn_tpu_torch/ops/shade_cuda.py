@@ -75,6 +75,7 @@ from rayn_tpu_torch.ops import bsdf as bsdf_ops
 from rayn_tpu_torch.ops import lights as light_ops
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import march_cuda
+from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.ops import spheres as sphere_ops
 from rayn_tpu_torch.ops.sdf import MandelBox
 from rayn_tpu_torch.scene.animation import (AnimChannel, need_time, rows_at,
@@ -142,7 +143,9 @@ class ShadowCfg(NamedTuple):
 
 def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
     """The shadow-kernel configuration of one bounce (mirrors
-    shade_pallas._shadow_cfg_const and the bounce_tail_fused flags)."""
+    shade_pallas._shadow_cfg_const and the bounce_tail_fused flags): its
+    MandelBox is the shadow marches' one, truncated to
+    `shadow_de_iterations` where that is set."""
     NL, K = int(static.n_lights), int(static.n_spheres)
     L = s.nee_light_samples if NL > 0 else 0
     VM = s.volume_marches if (static.has_scattering and NL > 0) else 0
@@ -151,7 +154,8 @@ def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
         sampler=s.sampler, frame=int(tables.frame),
         num_1d_sets=s.num_1d_sets, L=L, VM=VM, NL=NL, K=K,
         has_ext=static.has_extinction,
-        mb=data.sdf_params if static.has_sdf else None,
+        mb=(sdf_ops.reduced(data.sdf_params, s.shadow_de_iterations)
+            if static.has_sdf else None),
         bv_r=float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0,
         eps_c=1e-4 * detail, eps_l=1e-5 * detail, detail=detail,
         max_steps=s.max_vis_marches,

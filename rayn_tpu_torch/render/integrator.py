@@ -51,7 +51,8 @@ import torch
 
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
-from rayn_tpu_torch.ops import intersect, intersect_cuda, shade_cuda
+from rayn_tpu_torch.ops import (intersect, intersect_cuda, march_cuda,
+                                shade_cuda)
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of)
 from rayn_tpu_torch.utils import rng, sampling, vecmath
@@ -303,10 +304,27 @@ def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
     marches); at plain marching with `occl_sort_steps` or
     `occl_phase1_steps` > 0 unclipped whatever `shadow_bv_clip` says, as
     JAX's two-phase occlusion marches (intersect.py:153-199), whose
-    verdicts at a split >= 1 are those of the unclipped march."""
+    verdicts at a split >= 1 are those of the unclipped march.
+
+    With `max_vis_marches` 0 the march JAX would route to decides: its
+    chained march (relax 1, `chained_shadow_march`, 2-30 segments a ray)
+    takes one step, as the scratch's march does; its single-segment and
+    two-phase marches take none, so those verdicts come from
+    march_cuda.march_occlusion's first-DE entry on the scratch's
+    segments."""
     two_phase = (s.occl_sort_steps > 0 or s.occl_phase1_steps > 0)
-    if s.march_relaxation == 1.0 and two_phase:
+    plain = s.march_relaxation == 1.0
+    if plain and two_phase:
         cfg = cfg._replace(bv_r=0.0)
+    n_seg = segs.active.shape[0]
+    chained = (plain and not two_phase and s.chained_shadow_march
+               and 1 < n_seg <= 30)
+    if cfg.max_steps <= 0 and cfg.mb is not None and not chained:
+        g = segs.geom.reshape(6, -1)
+        return march_cuda.march_occlusion(
+            cfg.mb, g[:3].T.contiguous(), g[3:].T.contiguous(), cfg.detail,
+            0, segs.active.reshape(-1),
+            bound_radius=cfg.bv_r).reshape(n_seg, -1)
     return shade_cuda.shadow_march(cfg, segs, s.march_relaxation)
 
 

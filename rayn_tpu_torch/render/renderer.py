@@ -1,22 +1,26 @@
 """Frame renderer: ray generation -> wavefront trace -> film splat (port
 of rayn_tpu.render.renderer: ray_indices, generate_rays, render_pass,
-render_frame; reference src/film.rs:380-628).
+render_frame, render_frame_resilient; reference src/film.rs:380-628).
 
 The frame's (pixel, sample) grid is flattened into one ray index space
 and rendered in passes of `rays_per_pass` rays with a plain loop; the
 last pass may run past the end of the frame, and its extra lanes start
-dead and splat nothing. Checkpoints and multi-device meshes are not
-ported yet.
+dead and splat nothing. A checkpointed render saves the film every few
+passes and resumes where it stopped, growing spp progressively
+(render/checkpoint.py). Multi-device meshes are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
 from typing import Optional
 
 import torch
 
 from rayn_tpu_torch.config import RenderSettings, unsupported_reason
 from rayn_tpu_torch.ops import filters as filter_ops
+from rayn_tpu_torch.render import checkpoint as ckpt
 from rayn_tpu_torch.render import film as film_mod
 from rayn_tpu_torch.render.camera import Camera
 from rayn_tpu_torch.render.integrator import init_state, trace
@@ -34,17 +38,24 @@ def ray_indices(pass_start: int, pass_size: int, device):
 
 def generate_rays(settings: RenderSettings, tables: SampleTables,
                   camera: Camera, fis_table: torch.Tensor,
-                  ray_idx: torch.Tensor, t0: float, t1: float):
+                  ray_idx: torch.Tensor, t0: float, t1: float,
+                  sample_base: int = 0):
     """Camera rays for flat ray indices (pixel-major, spp-minor): FIS
     pixel offsets, NDC, shutter-time jitter, lens samples (reference
     src/film.rs:456-527). Returns (origin, direction, time, pixel,
-    sample_idx, in_range)."""
+    sample_idx, in_range).
+
+    `sample_base` offsets the per-pixel sample index: with settings.spp
+    K and sample_base B these are the rays of sample indices [B, B + K)
+    of every pixel, the same bits as those rays of a flat render of
+    spp >= B + K (the samplers are counter functions of (pixel,
+    sample_idx)): the progressive-spp segments of render_frame."""
     w, h = settings.resolution
     total = w * h * settings.spp
     in_range = ray_idx < total
     safe_idx = torch.clamp(ray_idx, max=total - 1)
     pixel = (safe_idx // settings.spp).to(torch.int32)
-    sample_idx = (safe_idx % settings.spp).to(torch.int32)
+    sample_idx = (safe_idx % settings.spp).to(torch.int32) + sample_base
     x = (pixel % w).to(torch.float32)
     y = (pixel // w).to(torch.float32)
 
@@ -69,23 +80,22 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
                 settings: RenderSettings, tables: SampleTables,
                 camera: Camera, fis_table: torch.Tensor,
                 pass_start: int, pass_size: int, t0: float,
-                t1: float) -> film_mod.Film:
-    """Render rays [pass_start, pass_start + pass_size) into the film."""
-    if pass_size % settings.spp:
-        raise NotImplementedError(
-            "pass sizes that are not a multiple of spp need the scatter "
-            "splat, which is not ported yet")
+                t1: float, sample_base: int = 0) -> film_mod.Film:
+    """Render rays [pass_start, pass_start + pass_size) into the film;
+    `sample_base` shifts their per-pixel sample indices (progressive
+    spp; see generate_rays). `film.splat` adds it, padding a pass that
+    starts or ends inside a pixel to whole pixels (an aligned pass gives
+    `film.splat_aligned`'s bits)."""
     ray_idx = ray_indices(pass_start, pass_size, fis_table.device)
     origin, direction, time, pixel, sample_idx, in_range = generate_rays(
-        settings, tables, camera, fis_table, ray_idx, t0, t1)
+        settings, tables, camera, fis_table, ray_idx, t0, t1, sample_base)
     hps_abs0, hps_lin0 = camera.half_pixel_size_coeffs()
     state = init_state(origin, direction, time, pixel, sample_idx, in_range)
     state = trace(data, static, settings, tables, state, hps_abs0, hps_lin0)
-    return film_mod.splat_aligned(
-        film, pass_start // settings.spp, color=state.color_out,
-        alpha=state.alpha_out, background=state.bg_out,
-        normal=state.normal_out, count=in_range.to(torch.float32),
-        spp=settings.spp)
+    return film_mod.splat(
+        film, pass_start, color=state.color_out, alpha=state.alpha_out,
+        background=state.bg_out, normal=state.normal_out,
+        count=in_range.to(torch.float32), spp=settings.spp)
 
 
 def check_supported(data: SceneData, static: SceneStatic,
@@ -99,19 +109,66 @@ def check_supported(data: SceneData, static: SceneStatic,
                                   f"{reason} yet")
 
 
+# Test-only fault injection point: called with the pass index after every
+# completed pass (tests/test_torch_checkpoint.py uses it to kill a render
+# mid-frame and exercise render_frame_resilient's checkpoint resume).
+_FAIL_HOOK = None
+
+# Errors worth retrying: device and runtime failures (torch raises CUDA
+# errors as RuntimeError) and host I/O hiccups. Programming errors
+# (ValueError, TypeError) and NotImplementedError, a RuntimeError that
+# names a setting the port lacks, are deterministic and re-raise at once.
+_TRANSIENT_ERRORS = (RuntimeError, OSError)
+
+
+def render_frame_resilient(data: SceneData, static: SceneStatic,
+                           settings: RenderSettings, camera: Camera,
+                           retries: int = 2, **kwargs) -> film_mod.Film:
+    """render_frame with failure detection and elastic resume: a failed
+    attempt is retried up to `retries` times (transient runtime and I/O
+    errors only); with a checkpoint_path each retry resumes at the last
+    saved pass instead of ray 0, so a crashed render loses at most
+    `checkpoint_every` passes of work (rayn_tpu/render/renderer.py:
+    182-216)."""
+    for attempt in range(retries + 1):
+        try:
+            return render_frame(data, static, settings, camera, **kwargs)
+        except NotImplementedError:
+            raise
+        except _TRANSIENT_ERRORS as e:
+            if attempt == retries:
+                raise
+            where = ("resuming from checkpoint"
+                     if kwargs.get("checkpoint_path")
+                     else "restarting the frame")
+            print(f"render attempt {attempt + 1} failed ({e!r}); {where}",
+                  file=sys.stderr)
+
+
 def render_frame(data: SceneData, static: SceneStatic,
                  settings: RenderSettings, camera: Camera,
                  frame: int = 1, time_range: tuple[float, float] = None,
+                 filter: Optional[filter_ops.Filter] = None,
                  frame_rate: float = 24.0, shutter_speed: float = 1.0 / 24.0,
                  checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 4,
+                 progress: Optional[callable] = None,
                  mesh=None) -> film_mod.Film:
     """Render a full frame on the scene's device, in passes of
     `settings.rays_per_pass` rays. Frame f covers [f/frame_rate,
-    f/frame_rate + shutter_speed) (reference src/main.rs:47-62), filtered
-    by the Blackman-Harris filter of radius 1.5 (src/main.rs:51)."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "rayn_tpu_torch does not implement checkpoint_path yet")
+    f/frame_rate + shutter_speed) (reference src/main.rs:47-62); the
+    pixel filter is `filter`, Blackman-Harris of radius 1.5 when None
+    (src/main.rs:51).
+
+    With checkpoint_path set, the film is saved every `checkpoint_every`
+    passes and at the end, and a render that stopped resumes where it
+    stopped. Re-run with a higher settings.spp against a checkpoint, it
+    renders only the missing sample indices [spp_done, spp) of every
+    pixel and adds them to the saved film; a checkpoint that already
+    holds spp samples is returned as it is. `progress(done, total)` is
+    called with ray counts after every pass (the reference's progress
+    bar, src/film.rs:636); it reads nothing from the device. Follows
+    rayn_tpu/render/renderer.py:219-397 without its TPU dispatch batching."""
     if mesh is not None:
         raise NotImplementedError("rayn_tpu_torch does not implement mesh "
                                   "(multi-device) rendering yet")
@@ -122,14 +179,54 @@ def render_frame(data: SceneData, static: SceneStatic,
         time_range = (start, start + shutter_speed)
     tables = rng.build_sample_tables(settings, frame)
     fis_table = filter_ops.build_fis_table(
-        filter_ops.blackman_harris(1.5),
+        filter or filter_ops.blackman_harris(1.5),
         settings.filter_table_size, device=data.device)
-    total = w * h * settings.spp
-    pass_size = min(settings.rays_per_pass, total)
-    n_passes = -(-total // pass_size)
+
+    def seg_passes(spp_seg: int) -> tuple[int, int]:
+        """(pass_size, n_passes) of a [*, * + spp_seg) sample segment."""
+        seg_total = w * h * spp_seg
+        size = min(settings.rays_per_pass, seg_total)
+        return size, -(-seg_total // size)
+
+    # Segment plan: (spp_base, spp_target, start_pass). A fresh render is
+    # one segment [0, spp); a resumed one first finishes the checkpoint's
+    # segment, then (if spp grew) adds the segment [ckpt_spp, spp).
+    ck_key = dict(settings=settings, frame=frame, scene=data, camera=camera,
+                  fis_table=fis_table, time_range=time_range)
     film = film_mod.new_film(w * h, device=data.device)
-    for p in range(n_passes):
-        film = render_pass(film, data, static, settings, tables, camera,
-                           fis_table, p * pass_size, pass_size,
-                           time_range[0], time_range[1])
+    segments = [(0, settings.spp, 0)]
+    if checkpoint_path:
+        prog = ckpt.load_progress(checkpoint_path, **ck_key,
+                                  device=data.device)
+        if prog is not None:
+            film, segments = prog.film, []
+            if prog.next_pass < seg_passes(prog.spp - prog.spp_base)[1]:
+                segments.append((prog.spp_base, prog.spp, prog.next_pass))
+            if prog.spp < settings.spp:
+                segments.append((prog.spp, settings.spp, 0))
+
+    grand_total = w * h * max(settings.spp,
+                              segments[-1][1] if segments else 0)
+    if segments:
+        sb0, st0, p00 = segments[0]
+        done = w * h * sb0 + min(p00 * seg_passes(st0 - sb0)[0],
+                                 w * h * (st0 - sb0))
+    else:
+        done = grand_total
+    for sb, st, start_pass in segments:
+        seg_settings = dataclasses.replace(settings, spp=st - sb)
+        pass_size, n_passes = seg_passes(st - sb)
+        for p in range(start_pass, n_passes):
+            film = render_pass(film, data, static, seg_settings, tables,
+                               camera, fis_table, p * pass_size, pass_size,
+                               time_range[0], time_range[1], sample_base=sb)
+            if _FAIL_HOOK is not None:
+                _FAIL_HOOK(p)
+            done = min(done + pass_size, grand_total)
+            if progress is not None:
+                progress(done, grand_total)
+            if checkpoint_path and ((p + 1) % checkpoint_every == 0
+                                    or p + 1 == n_passes):
+                ckpt.save(checkpoint_path, film, next_pass=p + 1,
+                          spp_base=sb, spp=st, **ck_key)
     return film

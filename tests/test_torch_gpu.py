@@ -982,3 +982,51 @@ def test_cameras_render_through_the_kernels(cuda, cam_kind):
     torch.cuda.synchronize()
     assert all(n > b for n, b in zip(_launches(*fns), before))
     assert torch.isfinite(got.color).all() and got.alpha.sum() > 0
+
+
+# ------------------------------------------- zero steps, checkpoints, CLI
+@pytest.mark.parametrize("bound", [0.0, 3.6])
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+def test_march_occlusion_at_zero_steps_matches_plain(cuda, relax, bound):
+    """max_steps 0 takes the first-DE march kernel at any relax: the
+    verdicts of march_occlusion_plain (JAX's march with no loop step)."""
+    data, static, cam = presets.default_scene(resolution=RES, device=cuda)
+    start, end, act = _segments(cuda, 12, RES[0] * RES[1])
+    args = (data.sdf_params, start.reshape(-1, 3), end.reshape(-1, 3), 0.5,
+            0, act.reshape(-1), relax, bound)
+    got = march_cuda.march_occlusion(*args)
+    want = march_cuda.march_occlusion_plain(*args)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+
+
+def test_checkpointed_frame_resumes_bit_for_bit(cuda, tmp_path, monkeypatch):
+    """A frame that fails after pass 3 and resumes from its checkpoint
+    (every 2 passes) gives the uninterrupted film bit for bit, and the
+    checkpoint loads on the CPU."""
+    data, static, cam = presets.default_scene(resolution=RES, device=cuda)
+    s = RenderSettings(resolution=RES, spp=4, max_marches=64,
+                       max_vis_marches=32, rays_per_pass=8192)
+    ref = renderer.render_frame(data, static, s, cam, frame=1)
+    failed = []
+
+    def fail_once(p):
+        if p == 3 and not failed:
+            failed.append(p)
+            raise RuntimeError("injected")
+
+    monkeypatch.setattr(renderer, "_FAIL_HOOK", fail_once)
+    path = str(tmp_path / "ck.npz")
+    got = renderer.render_frame_resilient(data, static, s, cam, frame=1,
+                                          retries=1, checkpoint_path=path,
+                                          checkpoint_every=2)
+    torch.cuda.synchronize()
+    assert failed == [3]
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    from rayn_tpu_torch.render import checkpoint
+    fis = filters.build_fis_table(filters.blackman_harris(1.5), device=cuda)
+    key = dict(scene=data, camera=cam, fis_table=fis,
+               time_range=(1 / 24, 2 / 24))
+    on_cpu = checkpoint.load(path, s, 1, device="cpu", **key)
+    assert on_cpu is not None and on_cpu[0].color.device.type == "cpu"
+    assert torch.equal(on_cpu[0].color, ref.color.cpu())

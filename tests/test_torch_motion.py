@@ -450,5 +450,5 @@ def test_motion_and_lenses_are_not_refused(kind):
     renderer.check_supported(data, static, s, cam)
     with pytest.raises(NotImplementedError):
         renderer.check_supported(
-            data, static, dataclasses.replace(s, shadow_de_iterations=4),
+            data, static, dataclasses.replace(s, extra_aovs=("depth",)),
             cam)

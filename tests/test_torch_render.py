@@ -151,7 +151,7 @@ def test_segment_queue_bounce_matches_jax(case):
 
 
 @pytest.mark.parametrize("change", [
-    dict(shadow_de_iterations=4), dict(extra_aovs=("depth",)),
+    dict(extra_aovs=("mat_id",)), dict(extra_aovs=("depth",)),
     dict(compact_bounces=True), dict(use_pallas=False),
     dict(use_pallas_occlusion=False)])
 def test_unimplemented_settings_raise(change):
@@ -250,7 +250,7 @@ def test_unimplemented_entry_points_raise():
     data, static, cam = presets.default_scene(resolution=res, device="cpu")
     s = RenderSettings(resolution=res, spp=1)
     with pytest.raises(NotImplementedError):
-        renderer.render_frame(data, static, s, cam, checkpoint_path="x")
+        renderer.render_frame_resilient(data, static, s, cam, mesh=object())
     with pytest.raises(NotImplementedError):
         renderer.render_frame(data, static, s, cam, mesh=object())
 
