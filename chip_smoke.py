@@ -200,14 +200,33 @@ Phases (any failed gate raises and the script exits non-zero):
    verdicts from the first-DE occlusion march). (d) 1080p at 3 spp in
    2^20-ray passes (not a multiple of spp): two runs bit for bit, and the
    film at 3*2^18-ray passes to atol 2e-5.
+15. SDF programs (after phase 14, before phase 7): the registers and
+   spills of every `_tape_` kernel; `program_scene` (the default scene
+   with a second, program SDF instance) at 1080p: one 2^20-ray pass's
+   inputs on the fused, split-MIS and relaxed paths (four calls of each
+   kernel, so that the march kernel's instance 1 at depth 1 is among
+   them), every kernel and the queue tail against their twins as in
+   phase 3 (each a `_tape_` kernel here), rows 7-12 on instance 1's
+   program against their one-piece plain versions bit for bit, and each
+   one's depth-1 time, DEs (counted per instance, `sdf_flops`), ps a DE
+   and bound; `every_op_scene` (an instance that uses every opcode) at
+   256x256 against the twins; the default scene's depth-1 kernels with
+   its MandelBox as a one-op tape (`_build.tape_forced`) against the
+   MBoxOnly kernels on the same inputs, bit for bit and timed; the
+   program scene's fused and relaxed 1080p frames (phase 4's and phase
+   8's launch gates) and at 256x256 sorted against unsorted and 2^16
+   against 2^15 passes (fused, relaxed, sorted two-phase); one profiled
+   pass of the program scene and of the default scene (launches a pass).
 
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
 their depth-1 time on the 8-knot animated-geo inputs, and the 64-knot
 one; rows 2, 3, 5, 7 and the segments kernels with `ms_shadow_de_8`,
 `ms_full_de_same_inputs`, their DEs at both and the bound at 8
-iterations), the nvidia-smi line, and {"ok": true,
-"device": {...}}.
+iterations; every row that reads the SDF with `ms_program`, its
+program-scene time, and rows 1, 2, 3, 6 and the cost key with
+`ms_tape_default_scene` beside `ms_mbox_only_same_inputs`), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -260,17 +279,23 @@ def de_flops(iterations: int) -> int:
 # the kernel entries the wrapper launches.
 # A kernel that reads scene positions has a second instantiation for
 # animated scenes, `_anim_kernel` (ANIM_ENTRIES).
+# A kernel that reads the SDF has a Tape instantiation, `_tape_kernel`, for
+# any scene but one whose only SDF is a bare MandelBox.
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
-     ("closest_hit_kernel", "closest_hit_anim_kernel")),
+     ("closest_hit_kernel", "closest_hit_anim_kernel",
+      "closest_hit_tape_kernel", "closest_hit_anim_tape_kernel")),
     ("costkey", "intersect_cuda", "intersect_cost_key",
-     ("cost_key_kernel", "cost_key_anim_kernel")),
+     ("cost_key_kernel", "cost_key_anim_kernel", "cost_key_tape_kernel",
+      "cost_key_anim_tape_kernel")),
     ("key", "shade_cuda", "shadow_sort_key",
-     ("shadow_sort_key_kernel", "shadow_sort_key_anim_kernel")),
+     ("shadow_sort_key_kernel", "shadow_sort_key_anim_kernel",
+      "shadow_sort_key_tape_kernel", "shadow_sort_key_anim_tape_kernel")),
     ("seg", "shade_cuda", "shadow_segments",
      ("shadow_segments_kernel", "shadow_segments_anim_kernel")),
     ("smarch", "shade_cuda", "shadow_march",
-     ("shadow_march_kernel", "shadow_march_relaxed_kernel")),
+     ("shadow_march_kernel", "shadow_march_relaxed_kernel",
+      "shadow_march_tape_kernel", "shadow_march_relaxed_tape_kernel")),
     ("ssum", "shade_cuda", "shadow_sum", ("shadow_sum_kernel",)),
     ("tsum", "shade_cuda", "tail_sum",
      ("tail_sum_kernel", "tail_sum_anim_kernel")),
@@ -279,11 +304,14 @@ CUDA_KERNELS = (
     ("qseg", "shade_cuda", "queue_segments",
      ("queue_segments_kernel", "queue_segments_anim_kernel")),
     ("qsum", "shade_cuda", "queue_sum", ("queue_sum_kernel",)),
-    ("march", "march_cuda", "march", ("march_kernel", "march_relaxed_kernel")),
+    ("march", "march_cuda", "march",
+     ("march_kernel", "march_relaxed_kernel", "march_tape_kernel",
+      "march_relaxed_tape_kernel")),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
     ("omarch", "march_cuda", "occlusion_march",
      ("occl_march_kernel", "occl_march_relaxed_kernel",
-      "occl_march_first_de_kernel")),
+      "occl_march_first_de_kernel", "occl_march_tape_kernel",
+      "occl_march_relaxed_tape_kernel", "occl_march_first_de_tape_kernel")),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
 # each key's kernels for the constant scene and for an animated one
@@ -375,6 +403,108 @@ REFILL_KERNELS = ("shadow_march_kernel", "shadow_march_relaxed_kernel",
                   "occl_march_kernel", "occl_march_relaxed_kernel",
                   "occl_march_first_de_kernel", "march_kernel",
                   "march_relaxed_kernel")
+
+
+# float32 operations of one evaluation of each op of an SDF program
+# (csrc/common.cuh tape_de), the MandelBox's from de_flops: a sphere 3 mul,
+# 2 add, sqrt, sub; a box 3 abs, 3 sub, 3 max, 3 mul, 2 add, sqrt, 2 max,
+# min, add; a torus 4 mul, 2 add, 2 sqrt, 2 sub; a plane 3 mul, 3 add; a
+# smooth union 4 sub, 5 mul, a div, an add, a max and a min; a translate 3
+# sub; a scale 3 div and a mul.
+SDF_OP_FLOPS = {"Sphere": 7, "Box": 19, "Torus": 10, "Plane": 6,
+                "Union": 1, "Intersection": 1, "Subtraction": 2,
+                "SmoothUnion": 13, "Translate": 3, "Scale": 4, "Rounded": 1}
+
+
+def sdf_flops(prog) -> int:
+    """float32 operations of one DE of an SDF program (ops/sdf.py)."""
+    name = type(prog).__name__
+    if name == "MandelBox":
+        return de_flops(prog.iterations)
+    return SDF_OP_FLOPS[name] + sum(sdf_flops(v) for v in prog
+                                    if isinstance(v, tuple))
+
+
+def slab(sdf_ops):
+    """The program scene's instance 1: a rounded slab smooth-unioned with
+    a torus, 2.6 below the MandelBox (in frame: the far half of the slab
+    shows at the foot of the default camera's view)."""
+    return sdf_ops.translate(sdf_ops.smooth_union(
+        sdf_ops.rounded(sdf_ops.box((2.0, 0.1, 2.0)), 0.05),
+        sdf_ops.torus(1.2, 0.1), 0.2), (0.0, -2.6, 0.0))
+
+
+def program_scene(resolution, device):
+    """presets.default_scene's scene with its MandelBox as SDF instance 0
+    (bound 3.6) and `slab` as instance 1, with a lambertian material of
+    its own (bound 4.3 contains it): (data, static, camera). Built with
+    the port's SceneBuilder as default_scene builds its scene."""
+    import numpy as np
+
+    from rayn_tpu_torch.ops import sdf as sdf_ops
+    from rayn_tpu_torch.render.camera import PinholeCamera
+    from rayn_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.set_volume(0.25, 0.035)
+    sky = b.add_sky(top=(0.3, 0.4, 0.6),
+                    bottom=np.asarray((0.2, 0.3, 0.6), np.float32) * 0.05)
+    b.add_sphere((0.0, 0.0, 0.0), 100.0, sky)
+    grey = b.add_dielectric(albedo=(0.2, 0.2, 0.2), roughness=0.6)
+    b.add_sdf(sdf_ops.mandelbox(iterations=12, box_fold_l=1.0,
+                                sphere_min_rad=0.01, sphere_fixed_rad=1.9,
+                                scale=-2.1), grey, bound_radius=3.6)
+    green = np.asarray((1.5, 4.5, 3.0), np.float32)
+    green = green / np.linalg.norm(green)
+    blue = np.asarray((1.5, 3.0, 4.5), np.float32)
+    blue = blue / np.linalg.norm(blue)
+    blue_emissive = b.add_emissive(blue * 3.0)
+    green_emissive = b.add_emissive(green * 3.0)
+    for pos, rad in [((1.2, -1.2, 1.2), 0.15), ((-1.2, 1.2, 1.2), 0.15)]:
+        pos = np.asarray(pos, np.float32)
+        green_pos = pos * np.asarray((1.0, -1.0, 1.0), np.float32)
+        b.add_sphere_light(green_pos, rad, green * 40.0)
+        b.add_sphere_light(pos, rad, blue * 40.0)
+        b.add_sphere(green_pos, rad - 0.01, green_emissive)
+        b.add_sphere(pos, rad - 0.01, blue_emissive)
+    b.add_sphere_light((0.0, 0.0, 0.0), 0.25, green * 20.0)
+    b.add_sphere((0.0, 0.0, 0.0), 0.24, green_emissive)
+    b.add_sdf(slab(sdf_ops), b.add_lambertian((0.6, 0.5, 0.4)),
+              bound_radius=4.3)
+    origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
+    cam = PinholeCamera.make(resolution, 60.0, origin, (0.0, 0.0, 0.0),
+                             (0.0, 1.0, 0.0), device=device)
+    return (*b.build(device), cam)
+
+
+def every_op_scene(resolution, device):
+    """Sky, a light with its emissive body, a program that uses every
+    opcode of the tape (instance 0) and a translated sphere (instance 1),
+    each with its own material: (data, static, camera)."""
+    from rayn_tpu_torch.ops import sdf as m
+    from rayn_tpu_torch.render.camera import PinholeCamera
+    from rayn_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 0.0), 100.0,
+                 b.add_sky((0.3, 0.4, 0.6), (0.01, 0.015, 0.03)))
+    b.add_sphere_light((2.0, 2.5, 2.0), 0.4, (30.0, 24.0, 15.0))
+    b.add_sphere((2.0, 2.5, 2.0), 0.39, b.add_emissive((3.0, 2.4, 1.5)))
+    mb = m.mandelbox(12, 1.0, 0.01, 1.9, -2.1)
+    every = m.union(
+        m.scale(m.subtraction(m.intersection(mb, m.sphere(1.5)),
+                              m.plane((0.0, 1.0, 0.0), 0.2)), 0.8),
+        m.translate(m.smooth_union(m.rounded(m.torus(1.0, 0.2), 0.05),
+                                   m.box((0.3, 0.3, 0.3)), 0.25),
+                    (0.5, 0.5, 0.5)))
+    b.add_sdf(every, b.add_dielectric((0.2, 0.3, 0.8), 0.3),
+              bound_radius=2.5)
+    b.add_sdf(m.translate(m.sphere(0.4), (-1.2, -0.3, 0.5)),
+              b.add_lambertian((0.7, 0.2, 0.2)), bound_radius=2.0)
+    cam = PinholeCamera.make(resolution, 50.0, (0.3, 0.8, 4.0),
+                             (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                             device=device)
+    return (*b.build(device), cam)
 
 
 def gate(cond, what: str) -> None:
@@ -640,13 +770,13 @@ def main(argv=None) -> int:
                   "qtail": (integrator, "_segment_queue_tail", queue_tail)}
 
     @contextlib.contextmanager
-    def plain_twins(capture=None):
+    def plain_twins(capture=None, limit=2):
         """Route the render path's kernel calls to their plain twins
-        (recording the first two calls of each kernel, of each function
+        (recording the first `limit` calls of each kernel, of each function
         over kernels and of the segment-queue tail into `capture`)."""
         def recorder(key, fn):
             def call(*a, **kw):
-                if capture is not None and len(capture[key]) < 2:
+                if capture is not None and len(capture[key]) < limit:
                     capture[key].append((a, kw))
                 return fn(*a, **kw)
             return call
@@ -1028,15 +1158,16 @@ def main(argv=None) -> int:
     for path in ("fused", "relaxed", "unfused"):
         for depth, (a, kw) in enumerate(captured[(path, "smarch")]):
             cfg, segs = a[:2]
+            (mb, bv_r), = cfg.sdfs   # the default scene's one MandelBox
             relax = a[2] if len(a) > 2 else 1.0
             S, n = segs.active.shape
             start, end, act = aos(segs)
             steps = march_ops.occlusion_steps(
-                cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
-                cfg.bv_r, relax).reshape(S, n // 32, 32).long()
+                mb, start, end, cfg.detail, cfg.max_steps, act,
+                bv_r, relax).reshape(S, n // 32, 32).long()
             total = int(steps.sum())
-            occl_args = (cfg.mb, start, end, cfg.detail, cfg.max_steps, act,
-                         relax, cfg.bv_r)
+            occl_args = (mb, start, end, cfg.detail, cfg.max_steps, act,
+                         relax, bv_r)
             q = dict(segments=S * n, queued=int(segs.count[0]), des=total,
                      relax=relax,
                      sequential=int(steps.max(-1).values.sum()),
@@ -1068,7 +1199,8 @@ def main(argv=None) -> int:
         (cfg, segs, _relax), _kw = captured[(path, "smarch")][depth]
         S, n = segs.active.shape
         start, end, act = aos(segs)
-        head = (cfg.mb, start, end, cfg.detail, cfg.max_steps)
+        (mb, bv_r), = cfg.sdfs
+        head = (mb, start, end, cfg.detail, cfg.max_steps)
         q_got, c_got = kernels["enqueue"](act)
         q_want, c_want = wrappers["enqueue"][2](act)
         n_queued = int(c_want[0])
@@ -1076,12 +1208,12 @@ def main(argv=None) -> int:
             q_got[:n_queued].sort().values, q_want[:n_queued].sort().values),
              f"enqueue {path} depth {depth}: the queue differs from its twin")
         checks = ([("occl", (*head, act, relax, bv), {})
-                   for relax in (1.0, RELAX) for bv in (cfg.bv_r, 0.0)]
+                   for relax in (1.0, RELAX) for bv in (bv_r, 0.0)]
                   if path == "relaxed" else
-                  [("chained", (cfg.mb, start.reshape(S, n, 3),
+                  [("chained", (mb, start.reshape(S, n, 3),
                                 end.reshape(S, n, 3), cfg.detail,
                                 cfg.max_steps, act.reshape(S, n), bv), {})
-                   for bv in (cfg.bv_r, 0.0)])
+                   for bv in (bv_r, 0.0)])
         for key, a, kw in checks:
             got, want = functions[key](*a, **kw), twin[key](*a, **kw)
             gate(same_bits(got, want), f"{key} {path} depth {depth} at "
@@ -1131,7 +1263,7 @@ def main(argv=None) -> int:
         start, end, oact = aos(segs)
         oargs = (mb, start, end, cfg.detail, cfg.max_steps, oact)
         unclipped = functions["occl"](*oargs, bound_radius=0.0)
-        clipped = functions["occl"](*oargs, bound_radius=cfg.bv_r)
+        clipped = functions["occl"](*oargs, bound_radius=cfg.sdfs[0][1])
         clip_changes[depth] = int(((unclipped != clipped) & oact).sum())
         log(f"[3 two-phase] depth {depth}: the bounding-sphere clip changes "
             f"{clip_changes[depth]} of {int(oact.sum())} active verdicts of "
@@ -1193,7 +1325,7 @@ def main(argv=None) -> int:
                     ins = [start, end, oact]
                     # the segment queue's route: the refill march on the
                     # scratch, unclipped
-                    route = (cfg._replace(bv_r=0.0), segs, 1.0)
+                    route = (shade_cuda.unclipped(cfg), segs, 1.0)
                     extra = dict(
                         single_ms=timed(impl["occl"], fargs,
                                         dict(bound_radius=0.0), reps=5),
@@ -1802,9 +1934,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         gate(all(len(cap[k]) == 2 for k in keys),
              f"14 shadow-de {path}: captured {[len(cap[k]) for k in keys]}")
-        gate(cap["smarch"][0][0][0].mb.iterations == 8,
+        gate(cap["smarch"][0][0][0].sdfs[0][0].iterations == 8,
              f"14 shadow-de {path}: the shadow march's MandelBox has "
-             f"{cap['smarch'][0][0][0].mb.iterations} iterations")
+             f"{cap['smarch'][0][0][0].sdfs[0][0].iterations} iterations")
         for key in keys:
             for i, (a, kw) in enumerate(cap[key]):
                 depth = i + (1 if key == "key" else 0)
@@ -1818,8 +1950,8 @@ def main(argv=None) -> int:
         calls = {key: cap[key][0 if key == "key" else 1]
                  for key in timed14[path] if key != "occl"}
         if path == "relaxed":   # row 7 on the queue's depth-1 segments
-            a = (cfg.mb, start, end, cfg.detail, cfg.max_steps, act, RELAX,
-                 cfg.bv_r)
+            (mb, bv_r), = cfg.sdfs
+            a = (mb, start, end, cfg.detail, cfg.max_steps, act, RELAX, bv_r)
             got, want = functions["occl"](*a), twin["occl"](*a)
             gate(same_bits(got, want), "14 shadow-de occl: differs from its "
                  "one-piece twin")
@@ -1827,7 +1959,8 @@ def main(argv=None) -> int:
             calls["occl"] = (a, {})
         for key, (a, kw) in calls.items():
             a_full = ((full_mb,) + a[1:] if key == "occl" else
-                      (a[0]._replace(mb=full_mb),) + a[1:])
+                      (a[0]._replace(sdfs=((full_mb, a[0].sdfs[0][1]),)),)
+                      + a[1:])
             ms14[key] = (time14(key, a, kw), time14(key, a_full, kw))
             # the DEs each needs (the twin's lanes at each step) and the
             # bound at 8 iterations: a DE of 8 costs de_flops(8)
@@ -1920,6 +2053,322 @@ def main(argv=None) -> int:
     del odd, ref, de8_frame
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 15. SDF programs
+    # The program scene at full width (program_scene: the default scene
+    # with a second, program instance): one pass's inputs on the fused,
+    # split-MIS and relaxed paths, each kernel that reads the SDF (its
+    # Tape instantiation) and each function on them against its twin bit
+    # for bit, and the depth-1 time, DEs and ps a DE of each; the
+    # every-opcode scene at 256x256 against the twins; the default scene's
+    # kernels with its MandelBox run as a one-op tape against MBoxOnly on
+    # the same inputs; frames on the fused and relaxed paths, the phase-5
+    # and phase-12 invariants on the program scene; one profiled pass of
+    # the program scene and one of the default scene (launches a pass).
+    rec15 = {}
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    pd, pst, pcam = program_scene((W, H), dev)
+    insts15 = pst.sdf_instances(pd)
+    gate(len(insts15) == 2 and type(insts15[1][0]).__name__ == "Translate",
+         f"15: the program scene's instances {insts15}")
+    tape_ptx = {e: p for e in sorted({e for es in ENTRIES.values()
+                                      for e in es if "_tape_" in e})
+                for name, p in ptx.items() if f"{len(e)}{e}E" in name}
+    log(f"[15 programs] registers and spills of the Tape kernels: "
+        f"{tape_ptx}")
+    rec15["tape_ptxas"] = tape_ptx
+
+    def de_cost(fn, a, kw):
+        """(DEs, float32 operations) of fn(*a, **kw), a plain twin or a
+        function of them: the lanes of each DE it takes, each weighted by
+        its program's operations (sdf_flops)."""
+        tally = [0, 0]
+        mods = ((march_ops, "dist_c", 1), (intersect_cuda, "dist_c", 1),
+                (intersect_cuda, "dist", 3))
+        saved = [getattr(m, f) for m, f, _ in mods]
+
+        def counting(orig, per):
+            def call(prog, x, *rest):
+                lanes = x.numel() // per
+                tally[0] += lanes
+                tally[1] += lanes * sdf_flops(prog)
+                return orig(prog, x, *rest)
+            return call
+
+        for (m, f, per), orig in zip(mods, saved):
+            setattr(m, f, counting(orig, per))
+        try:
+            fn(*a, **kw)
+        finally:
+            for (m, f, _), orig in zip(mods, saved):
+                setattr(m, f, orig)
+        return tuple(tally)
+
+    def hit_cost(a):
+        """(DEs, operations) the closest hit takes on its arguments `a`:
+        each instance's march (march's n_de, bounded by the closest t so
+        far) and the four taps of the instance hit."""
+        d_, st_, s_, o, d, h_abs, h_lin, act = a[:8]
+        best_t, best_obj = intersect_cuda.sphere_fold(
+            d_, st_, s_, o, d, a[8] if len(a) > 8 else None)
+        detail = s_.sdf_detail_scale
+        progs = [p for p, _m, _b in st_.sdf_instances(d_)]
+        n = ops = 0
+        for i, prog in enumerate(progs):
+            n_de = torch.zeros(act.shape, dtype=torch.int32, device=dev)
+            t = march_ops.march(prog, o, d, best_t, 5e-5 * detail,
+                                0.05 * detail * h_abs, 0.05 * detail * h_lin,
+                                s_.max_marches, act, n_de=n_de)
+            closer = t < best_t
+            best_t = torch.where(closer, t, best_t)
+            best_obj = torch.where(closer, st_.n_spheres + i, best_obj)
+            c = int(n_de.sum())
+            n, ops = n + c, ops + c * sdf_flops(prog)
+        for i, prog in enumerate(progs):
+            c = 4 * int((best_obj == st_.n_spheres + i).sum())
+            n, ops = n + c, ops + c * sdf_flops(prog)
+        return n, ops
+
+    def cost15(key, a, kw):
+        if key == "intersect":
+            return hit_cost(a)
+        if key == "costkey":
+            alive = int(a[6].sum())
+            progs = [p for p, _m, _b in a[1].sdf_instances(a[0])]
+            return (alive * len(progs),
+                    alive * sum(sdf_flops(p) for p in progs))
+        return de_cost(twin.get(key) or plain15[key], a, kw)
+
+    def time15(key, a, kw):
+        """A call's time: a short kernel's profiler device time (on a
+        third profiler session that sees none of its launches, CUDA
+        events, logged), the others' CUDA events."""
+        fn = impl.get(key) or funcs15[key]
+        if key in DEVICE_TIMED:
+            for _ in range(3):
+                ms = device_ms(fn, a, kw, ENTRIES[key])
+                if ms is not None:
+                    return ms
+            log(f"[15 programs] {key}: the profiler saw none of "
+                f"{ENTRIES[key]}; timed with CUDA events")
+        return timed(fn, a, kw, reps=5)
+
+    def row15(label, key, a, kw, got):
+        """Depth-1 time, DEs, ps a DE and bound of one call."""
+        ms = time15(key, a, kw)
+        n_de, ops = cost15(key, a, kw)
+        io_key = {"march_sorted": "march", "march_phased": "march"}.get(
+            key, key if key in impl else "occl")
+        ins, outs = io_tensors(io_key, a, kw, got)
+        n_bytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        ops_ms = ops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        r = dict(ms=ms, de_evals=n_de, ps_per_de=ms * 1e9 / max(n_de, 1),
+                 bound_ms=max(ops_ms, bytes_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        log(f"[15 programs] {label} {key}, depth 1: {ms} ms, {n_de} DEs, "
+            f"{r['ps_per_de']} ps a DE; bound {r['bound_ms']} ms "
+            f"({r['bound_by']})")
+        return r
+
+    # the two-phase functions and the occlusion functions on one program
+    funcs15 = {"occl": march_cuda.march_occlusion,
+               "chained": march_cuda.march_occlusion_chained,
+               "march_sorted": march_cuda.march_sorted,
+               "march_phased": march_cuda.march_phased,
+               "march_occlusion_phased": march_cuda.march_occlusion_phased,
+               "march_occlusion_sorted": march_cuda.march_occlusion_sorted}
+    plain15 = {k: getattr(march_cuda, f.__name__ + "_plain")
+               for k, f in funcs15.items()}
+    paths15 = (("fused", dataclasses.replace(main_s, max_bounces=2),
+                ("intersect", "costkey", "key", "tail", "seg", "smarch",
+                 "tsum")),
+               ("split mis", dataclasses.replace(split_s, max_bounces=1),
+                ("shadow", "seg", "smarch", "ssum", "finish")),
+               ("relaxed", dataclasses.replace(relax_s, max_bounces=1),
+                ("march", "qtail", "qseg", "smarch", "qsum")))
+    timed15 = {"fused": ("intersect", "costkey", "key", "tail", "smarch"),
+               "split mis": ("shadow",), "relaxed": ("march", "smarch")}
+
+    def capture15(d_, st_, c_, s_, keys, label, n_rays):
+        """Each kernel's calls on one pass of (d_, st_, c_) at s_ (four:
+        the march kernel runs once an instance), checked against its
+        twin; returns the captured calls."""
+        cap = {k: [] for k in impl}
+        with plain_twins(cap, limit=4):
+            renderer.render_pass(film_mod.new_film(n_rays, device=dev), d_,
+                                 st_, s_, tables, c_, fis, 0, n_rays,
+                                 1.0 / 24, 2.0 / 24)
+        torch.cuda.synchronize()
+        gate(all(len(cap[k]) >= 2 for k in keys),
+             f"15 {label}: captured {[len(cap[k]) for k in keys]}")
+        for key in keys:
+            for i, (a, kw) in enumerate(cap[key]):
+                got = impl[key](*a, **kw)
+                want = twin[key](*a, **kw)
+                torch.cuda.synchronize()
+                check(key, f"15 {label}", i if key != "march" else i // 2,
+                      a, kw, got, want)
+                del got, want
+        return cap
+
+    def one_program(cfg, segs, march_call):
+        """The row-6-12 functions on instance 1's program: march_occlusion
+        (relax 1.5, clipped), the chained march (clipped) and the two-phase
+        occlusions (unclipped, their JAX splits) on a queue's segments,
+        the two-phase marches (their JAX splits) on a march kernel call's
+        rays; each against its one-piece plain version bit for bit.
+        Returns {key: (args, kwargs)}."""
+        prog, bv = cfg.sdfs[1]
+        S, n = segs.active.shape
+        start, end, act = aos(segs)
+        (_p, *mrest), mkw = march_call
+        mkw = {k: v for k, v in mkw.items() if k != "relax"}
+        calls = {
+            "occl": ((prog, start, end, cfg.detail, cfg.max_steps, act,
+                      RELAX, bv), {}),
+            "chained": ((prog, start.reshape(S, n, 3), end.reshape(S, n, 3),
+                         cfg.detail, cfg.max_steps, act.reshape(S, n), bv),
+                        {}),
+            "march_occlusion_phased": ((prog, start, end, cfg.detail,
+                                        cfg.max_steps, act), dict(
+                                            phase1_steps=16)),
+            "march_occlusion_sorted": ((prog, start, end, cfg.detail,
+                                        cfg.max_steps, act), dict(
+                                            phase1_steps=8)),
+            "march_sorted": ((prog, *mrest), dict(mkw, phase1_steps=8)),
+            "march_phased": ((prog, *mrest), dict(mkw, phase1_steps=32))}
+        for key, (a, kw) in calls.items():
+            got = funcs15[key](*a, **kw)
+            want = plain15[key](*a, **kw)
+            torch.cuda.synchronize()
+            gate(same_bits(got, want), f"15 {key}: differs from its "
+                 "one-piece plain version on instance 1's program")
+        log(f"[15 programs] {sorted(calls)} on instance 1's program equal "
+            "their one-piece plain versions bit for bit")
+        return calls
+
+    times15 = {}
+    for path, s15, keys in paths15:
+        cap = capture15(pd, pst, pcam, s15, keys, f"program {path}",
+                        MAIN_PASS)
+        gate(len(cap["smarch"][0][0][0].sdfs) == 2,
+             f"15 {path}: the shadow march has "
+             f"{len(cap['smarch'][0][0][0].sdfs)} instances")
+        for key in timed15[path]:
+            # depth 1: the sort key's and cost key's first call, the
+            # march's fourth (instance 1 at depth 1), the others' second
+            a, kw = cap[key][{"key": 0, "costkey": 0, "march": 3}.get(key, 1)]
+            got = impl[key](*a, **kw)
+            times15[f"{path} {key}"] = row15(path, key, a, kw, got)
+            del got
+        if path == "relaxed":
+            (cfg, segs, _relax), _kw = cap["smarch"][1]
+            calls = one_program(cfg, segs, cap["march"][3])
+            for key, (a, kw) in calls.items():
+                got = funcs15[key](*a, **kw)
+                times15[f"{path} {key}"] = row15(path, key, a, kw, got)
+                del got
+        del cap
+        torch.cuda.empty_cache()
+    rec15["program_kernels"] = times15
+
+    # the every-opcode scene: kernels and functions against their twins
+    eo = every_op_scene(INV_RES, dev)
+    n_eo = INV_RES[0] * INV_RES[1] * 4
+    for path, s15, keys in paths15:
+        cap = capture15(*eo, dataclasses.replace(s15, resolution=INV_RES),
+                        keys, f"every-op {path}", n_eo)
+        if path == "relaxed":
+            (cfg, segs, _relax), _kw = cap["smarch"][1]
+            one_program(cfg, segs, cap["march"][3])
+        del cap
+    del eo
+    log(f"[15 programs] the every-opcode scene at {INV_RES[0]}x"
+        f"{INV_RES[1]}: every kernel equal to its twin")
+
+    # the default scene through the Tape kernels (a one-op tape) against
+    # MBoxOnly on the same inputs
+    price = {}
+    for path, s15, keys in (
+            ("fused", dataclasses.replace(main_s, max_bounces=2),
+             ("intersect", "costkey", "key", "tail", "smarch")),
+            ("relaxed", dataclasses.replace(relax_s, max_bounces=1),
+             ("march", "smarch"))):
+        cap = {k: [] for k in impl}
+        with plain_twins(cap):
+            renderer.render_pass(film_mod.new_film(W * H, device=dev), data,
+                                 static, s15, tables, cam, fis, 0, MAIN_PASS,
+                                 1.0 / 24, 2.0 / 24)
+        for key in keys:
+            a, kw = cap[key][0 if key in ("key", "costkey") else 1]
+            mbox = impl[key](*a, **kw)
+            mbox_ms = time15(key, a, kw)
+            with _build.tape_forced():
+                tape = impl[key](*a, **kw)
+                tape_ms = time15(key, a, kw)
+            torch.cuda.synchronize()
+            gate(all(same_bits(x, y) for x, y in zip(
+                tensors_of(tape), tensors_of(mbox))),
+                f"15 tape price {path} {key}: the one-op tape differs from "
+                "MBoxOnly")
+            price[f"{path} {key}"] = dict(mbox_only_ms=mbox_ms,
+                                          tape_ms=tape_ms,
+                                          ratio=tape_ms / mbox_ms)
+            log(f"[15 tape price] {key} ({path}, depth 1, default scene): "
+                f"MBoxOnly {mbox_ms} ms, one-op tape {tape_ms} ms (ratio "
+                f"{tape_ms / mbox_ms}), bit for bit")
+            del mbox, tape
+        del cap
+        torch.cuda.empty_cache()
+    rec15["tape_price"] = price
+    del scrub
+
+    # frames and invariants
+    rec15["fused"] = main_path("15 program fused", main_s, MAIN_RES,
+                               fused_need, scene=program_scene,
+                               absent=fused_absent)
+    rec15["relaxed"] = main_path("15 program relaxed", relax_s, MAIN_RES,
+                                 queue_path, scene=program_scene,
+                                 absent=not_fused)
+    d15, st15, c15 = program_scene(INV_RES, dev)
+
+    def render15(**kw):
+        return renderer.render_frame(
+            d15, st15, RenderSettings(resolution=INV_RES, spp=4, **kw), c15,
+            frame=1)
+
+    inv15 = {"sorted == unsorted": all(torch.equal(x, y) for x, y in zip(
+        render15(), render15(sorted_shadow_march=False,
+                             sorted_intersect=False)))}
+    gate(inv15["sorted == unsorted"], "15: sorted and unsorted films differ")
+    for label, kw in (("fused", {}), ("relaxed", dict(march_relaxation=RELAX)),
+                      ("sorted two-phase", dict(unf5, **sorted_kw))):
+        p16 = render15(rays_per_pass=INV_PASSES[0], **kw)
+        p15 = render15(rays_per_pass=INV_PASSES[1], **kw)
+        inv15[label] = max((x - y).abs().max().item()
+                           for x, y in zip(p16, p15))
+        gate(inv15[label] <= 2e-5,
+             f"15 {label}: pass-size films differ by {inv15[label]}")
+    log(f"[15 invariants] the program scene at {INV_RES[0]}x{INV_RES[1]}, "
+        f"4 spp: {inv15}")
+    rec15["invariants"] = inv15
+    del d15, st15, c15, p16, p15
+
+    # launches a pass (the profiler's cudaLaunchKernel count)
+    film15 = film_mod.new_film(W * H, device=dev)
+    rec15["profile"] = {
+        label: profile_pass(lambda d_=d_, st_=st_, c_=c_: renderer.render_pass(
+            film15, d_, st_, main_s, tables, c_, fis, 0, MAIN_PASS, 1.0 / 24,
+            2.0 / 24), f"15 {label}")
+        for label, (d_, st_, c_) in (("program fused", (pd, pst, pcam)),
+                                     ("default fused", (data, static, cam)))}
+    log(f"[15 programs] launches a pass: program scene "
+        f"{rec15['profile']['program fused']['launches']}, default scene "
+        f"{rec15['profile']['default fused']['launches']}")
+    record["phase15"] = rec15
+    del film15, pd, pst, pcam
+    torch.cuda.empty_cache()
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -1997,6 +2446,16 @@ def main(argv=None) -> int:
                        bound_ms_shadow_de_8=des14[tkey][2],
                        de_evals_shadow_de_8=des14[tkey][0],
                        de_evals_full_de_same_inputs=des14[tkey][1])
+        p15 = next((v for k, v in times15.items() if k.endswith(f" {tkey}")),
+                   None)
+        if p15 is not None:   # a kernel that reads the SDF
+            row.update(ms_program=p15["ms"], de_evals_program=p15["de_evals"],
+                       ps_per_de_program=p15["ps_per_de"],
+                       bound_ms_program=p15["bound_ms"])
+        if f"fused {tkey}" in price or f"relaxed {tkey}" in price:
+            pr = price.get(f"fused {tkey}") or price[f"relaxed {tkey}"]
+            row.update(ms_tape_default_scene=pr["tape_ms"],
+                       ms_mbox_only_same_inputs=pr["mbox_only_ms"])
         if ("8 knots", tkey) in times13:   # a kernel that reads positions
             row.update(
                 ms_animated=times13[("8 knots", tkey)],

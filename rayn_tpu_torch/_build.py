@@ -14,6 +14,7 @@ returns an error.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -132,6 +133,106 @@ class MBox(ctypes.Structure):
                 ("fixed_rad_sq", ctypes.c_float)]
 
 
+class SdfInst(ctypes.Structure):
+    """csrc/common.cuh SdfInst: one instance's place in the tape, its
+    material and bounding sphere."""
+    _fields_ = [("op0", ctypes.c_int), ("n_ops", ctypes.c_int),
+                ("prm0", ctypes.c_int), ("mat", ctypes.c_int),
+                ("bv_r", ctypes.c_float), ("bv_r2", ctypes.c_float)]
+
+
+class Sdf(ctypes.Structure):
+    """csrc/common.cuh Sdf: the instance table and tape of the Tape
+    kernels."""
+    _fields_ = [("n_inst", ctypes.c_int), ("tape", ctypes.c_int),
+                ("inst", ctypes.c_void_p), ("ops", ctypes.c_void_p),
+                ("prm", ctypes.c_void_p)]
+
+
+_TAPED: dict = {}
+
+
+def taped(args: ctypes.Structure, sdf: Sdf) -> ctypes.Structure:
+    """csrc/common.cuh Taped<Args>: a DE-reading kernel's arguments, then
+    its Sdf. Every launcher of such a kernel takes it, and passes the
+    arguments alone to its MBoxOnly kernels (sdf.tape 0), so that those
+    take the arguments they took before SDF programs existed."""
+    cls = _TAPED.get(type(args))
+    if cls is None:
+        cls = _TAPED[type(args)] = type(
+            "Taped" + type(args).__name__, (ctypes.Structure,),
+            {"_fields_": [("a", type(args)), ("sdf", Sdf)]})
+    return cls(a=args, sdf=sdf)
+
+
+# The device tables of the Tape kernels, made once per set of instances
+# and device (a host-to-device copy) and kept: a render reads the same
+# few sets in every pass.
+_TAPES: dict = {}
+_TAPES_MAX = 64
+_force_tape = False
+
+
+@contextlib.contextmanager
+def tape_forced():
+    """Within it every scene runs the Tape kernels, a bare MandelBox as a
+    one-op tape (to price the interpreter against MBoxOnly)."""
+    global _force_tape
+    old, _force_tape = _force_tape, True
+    try:
+        yield
+    finally:
+        _force_tape = old
+
+
+def _tape_tables(instances, device):
+    """[n, 6] int32 instance rows (SdfInst), int32 op words and float32
+    operands of the instances, on `device`."""
+    import numpy as np
+    import torch
+
+    from rayn_tpu_torch.ops import sdf as sdf_ops
+
+    rows = np.zeros((len(instances), 6), np.int32)
+    ops, prm = [], []
+    for i, (prog, mat, bv) in enumerate(instances):
+        tp = sdf_ops.tape(prog)
+        rows[i, :4] = (len(ops), len(tp.ops), len(prm), mat)
+        # the square in double, then rounded: as the twins and MBoxOnly
+        rows[i, 4:].view(np.float32)[:] = (bv, bv * bv)
+        ops += tp.ops
+        prm += tp.operands
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(np.asarray(ops, np.int32), device=device),
+            torch.as_tensor(np.asarray(prm, np.float32), device=device))
+
+
+def sdf_args(instances, device) -> tuple[MBox, Sdf]:
+    """The (MBox, Sdf) arguments of SDF `instances`, a sequence of
+    (program, material id, bound radius) in object order: for one bare
+    MandelBox its MBox and an Sdf of tape 0 (the MBoxOnly kernels); else
+    a zero MBox and the tape tables on `device`; n_inst 0 for none."""
+    from rayn_tpu_torch.ops import sdf as sdf_ops
+
+    inst = tuple((sdf_ops.check(p), int(m), float(b))
+                 for p, m, b in instances)
+    if not inst:
+        return mbox_struct(None), Sdf(n_inst=0, tape=0)
+    if (len(inst) == 1 and type(inst[0][0]) is sdf_ops.MandelBox
+            and not _force_tape):
+        return mbox_struct(inst[0][0]), Sdf(n_inst=1, tape=0)
+    key = (inst, str(device))
+    tables = _TAPES.get(key)
+    if tables is None:
+        if len(_TAPES) >= _TAPES_MAX:
+            _TAPES.pop(next(iter(_TAPES)))
+        tables = _TAPES[key] = _tape_tables(inst, device)
+    rows, ops, prm = tables
+    return mbox_struct(None), Sdf(
+        n_inst=len(inst), tape=1, inst=rows.data_ptr(), ops=ops.data_ptr(),
+        prm=prm.data_ptr())
+
+
 class QueueMarch(ctypes.Structure):
     """csrc/common.cuh QueueMarch: the refill march's queue, verdicts and
     scalars."""
@@ -143,18 +244,20 @@ class QueueMarch(ctypes.Structure):
         ("bv_r2", ctypes.c_float)]
 
 
-def queue_march(queue: int, count: int, head, verdict, mb, detail: float,
-                max_steps: int, relax: float,
-                bound_radius: float) -> QueueMarch:
+def queue_march(queue: int, count: int, head, verdict, sdfs, detail: float,
+                max_steps: int, relax: float) -> tuple[QueueMarch, Sdf]:
     """The QueueMarch of a refill march over M = verdict.numel() segments
     (queue and count: checked pointers; head: a zeroed [1] int32 tensor;
-    verdict: a zeroed [M] bool tensor)."""
+    verdict: a zeroed [M] bool tensor) through the SDF instances `sdfs`,
+    a sequence of (program, bound radius) in object order, and their
+    Sdf."""
+    bv = float(sdfs[0][1]) if sdfs else 0.0
+    mb, sdf = sdf_args([(p, 0, b) for p, b in sdfs], verdict.device)
     return QueueMarch(
         queue=queue, count=count, head=head.data_ptr(),
         verdict=verdict.data_ptr(), m=verdict.numel(), max_steps=max_steps,
-        mb=mbox_struct(mb), eps_c=1e-4 * detail, eps_l=1e-5 * detail,
-        relax=relax, bv_r=bound_radius,
-        bv_r2=float(bound_radius * bound_radius))
+        mb=mb, eps_c=1e-4 * detail, eps_l=1e-5 * detail, relax=relax,
+        bv_r=bv, bv_r2=float(bv * bv)), sdf
 
 
 class Track(ctypes.Structure):

@@ -2,8 +2,12 @@
 
 `scene` takes the JAX `SceneData` with every leaf already a numpy array
 (`jax.tree.map(np.asarray, data)`), the JAX `SceneStatic` for its plain
-facts (counts, flags, SDF material, bound radius) and the MandelBox
-iteration count, which the JAX package keeps inside a closure. `camera`
+facts (counts, flags, each SDF instance's material and bound radius)
+and the structure of each SDF instance's program, which the JAX package
+keeps inside closures: the port's program of each instance (ops/sdf.py,
+any parameter values), whose leaves are then filled from JAX's
+parameter leaves in pytree order, or for a bare MandelBox just its
+iteration count. `camera`
 takes a JAX `PinholeCamera`, `ThinLensCamera` or `OrthographicCamera`
 with numpy leaves. Both packages then
 render the same scene. Nothing here imports JAX: the inputs are read by
@@ -16,11 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rayn_tpu_torch.ops.sdf import MandelBox
+from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render.camera import (Camera, OrthographicCamera,
                                           PinholeCamera, ThinLensCamera)
 from rayn_tpu_torch.scene.animation import AnimChannel
-from rayn_tpu_torch.scene.scene import Materials, SceneData, SceneStatic
+from rayn_tpu_torch.scene.scene import (Materials, SceneData, SceneStatic,
+                                        SdfInstanceStatic)
 
 
 def _f32(x) -> float:
@@ -35,21 +40,56 @@ def _channel(ch, device) -> AnimChannel:
     return AnimChannel(_t(ch.values, device), _f32(ch.t0), _f32(ch.t1))
 
 
-def scene(data, static, sdf_iterations: int, device="cuda"):
-    """(SceneData, SceneStatic) of the port from the JAX scene."""
-    if static.extra_sdfs or getattr(data, "extra_sdf_params", ()):
-        raise NotImplementedError(
-            "more than one SDF instance is not ported yet")
+def _param_leaves(x) -> list:
+    """The scalar leaves of a nest of tuples and NamedTuples in order:
+    the order jax.tree.leaves gives."""
+    if isinstance(x, (tuple, list)):
+        return [leaf for y in x for leaf in _param_leaves(y)]
+    return [x]
+
+
+_MANDELBOX_FIELDS = ("scale", "box_l", "min_rad_sq", "fixed_rad_sq")
+
+
+def _programs(data, static, sdf_iterations, programs) -> list:
+    """The port's program of every SDF instance of the JAX scene, its
+    leaves taken from JAX's parameters."""
+    params = [data.sdf_params, *getattr(data, "extra_sdf_params", ())]
+    if len(params) != 1 + len(static.extra_sdfs):
+        raise ValueError("extra_sdf_params and extra_sdfs disagree")
+    if programs is None:
+        prm = data.sdf_params
+        if (sdf_iterations is None or len(params) != 1
+                or not all(hasattr(prm, f) for f in _MANDELBOX_FIELDS)):
+            raise NotImplementedError(
+                "pass the port's program of each SDF instance (programs=); "
+                "sdf_iterations alone describes one bare MandelBox")
+        programs = [sdf_ops.MandelBox(
+            int(sdf_iterations), *(0.0 for _ in _MANDELBOX_FIELDS))]
+    elif isinstance(programs, sdf_ops.PROGRAM_TYPES):
+        programs = [programs]
+    programs = list(programs)
+    if len(programs) != len(params):
+        raise ValueError(f"{len(programs)} programs for {len(params)} SDF "
+                         "instances")
+    return [sdf_ops.with_leaves(sdf_ops.check(p), _param_leaves(prm))
+            for p, prm in zip(programs, params)]
+
+
+def scene(data, static, sdf_iterations: int | None = None, device="cuda",
+          programs=None):
+    """(SceneData, SceneStatic) of the port from the JAX scene.
+
+    programs: the port's program of each SDF instance in object order
+    (one program for a one-instance scene), whose parameter values are
+    replaced by JAX's leaves; a leaf count that differs raises
+    ValueError, anything but the SDF library's types
+    NotImplementedError. Without it, `sdf_iterations` gives the one bare
+    MandelBox of a one-instance scene."""
     if static.mat_param_fns:
         raise NotImplementedError("mat_param_fns are not ported yet")
-    mb = None
-    if static.has_sdf:
-        prm = data.sdf_params
-        fields = ("scale", "box_l", "min_rad_sq", "fixed_rad_sq")
-        if not all(hasattr(prm, f) for f in fields):
-            raise NotImplementedError("only MandelBox SDFs are ported")
-        mb = MandelBox(int(sdf_iterations),
-                       *(_f32(getattr(prm, f)) for f in fields))
+    progs = (_programs(data, static, sdf_iterations, programs)
+             if static.has_sdf else [None])
     m = data.materials
     out = SceneData(
         sphere_centers=_channel(data.sphere_centers, device),
@@ -62,18 +102,22 @@ def scene(data, static, sdf_iterations: int, device="cuda"):
         light_pos=_channel(data.light_pos, device),
         light_radii=_t(data.light_radii, device),
         light_emission=_t(data.light_emission, device),
-        sdf_params=mb,
+        sdf_params=progs[0],
         volume_sigma_s=_f32(data.volume_sigma_s),
         volume_sigma_t=_f32(data.volume_sigma_t),
         sphere_light=_t(data.sphere_light, device, torch.int32),
-        light_paired=_t(data.light_paired, device))
+        light_paired=_t(data.light_paired, device),
+        extra_sdf_params=tuple(progs[1:]))
     st = SceneStatic(
         n_spheres=int(static.n_spheres), n_lights=int(static.n_lights),
         n_materials=int(static.n_materials), has_sdf=bool(static.has_sdf),
         sdf_mat=int(static.sdf_mat),
         has_scattering=bool(static.has_scattering),
         has_extinction=bool(static.has_extinction),
-        sdf_bound_radius=float(static.sdf_bound_radius))
+        sdf_bound_radius=float(static.sdf_bound_radius),
+        extra_sdfs=tuple(SdfInstanceStatic(int(e.mat),
+                                           float(e.bound_radius))
+                         for e in static.extra_sdfs))
     return out, st
 
 

@@ -47,6 +47,35 @@ struct MBox {  // ops/sdf.py MandelBox
   float scale, box_l, min_rad_sq, fixed_rad_sq;
 };
 
+// One SDF instance of a scene (_build.py SdfInst): where its program lies
+// in the tape, its material and its bounding sphere.
+struct SdfInst {
+  int op0, n_ops;     // its op words: ops[op0, op0 + n_ops)
+  int prm0;           // its first operand: prm[prm0]
+  int mat;            // its material id
+  float bv_r, bv_r2;  // bounding-sphere clip radius (0 = none), its square
+};
+
+// The SDF instances of a Tape kernel (_build.py Sdf): the instance table
+// and the tape (ops/sdf.py tape: postfix op words and their operands). A
+// scene whose one instance is a bare MandelBox runs the MBoxOnly kernels,
+// which take the arguments they took before SDF programs existed (the
+// MBox, bound and material there); any other scene runs the Tape kernels,
+// which take Taped arguments: the same arguments, then the Sdf.
+struct Sdf {
+  int n_inst;           // instances (0 = no SDF)
+  int tape;             // 1: the kernels' Tape instantiation
+  const SdfInst* inst;  // [n_inst]
+  const int* ops;
+  const float* prm;
+};
+
+template <class Args>
+struct Taped {  // _build.py Taped
+  Args a;
+  Sdf sdf;
+};
+
 struct Sampler {  // utils/rng.py: sampler kind, frame salt, R_d alphas
   int hash;
   uint32_t frame;
@@ -80,6 +109,152 @@ __device__ __forceinline__ float mandelbox_de(const MBox& mb, float x,
   }
   return sqrtf(x * x + y * y + z * z) / fabsf(dr);
 }
+
+// ------------------------------------------------------------ SDF programs
+// Opcodes of a tape (ops/sdf.py OP_*): the low byte of an op word; the
+// MandelBox keeps its iteration count in the bits above. Each op reads its
+// operands from the instance's operand stream in turn.
+constexpr int kOpMBox = 0, kOpSphere = 1, kOpBox = 2, kOpTorus = 3,
+              kOpPlane = 4, kOpUnion = 5, kOpIntersection = 6,
+              kOpSubtraction = 7, kOpSmoothUnion = 8, kOpTranslate = 9,
+              kOpScale = 10, kOpRounded = 11, kOpPop = 12, kOpPopScale = 13;
+// The most distances, and the most saved points, a tape holds at once
+// (ops/sdf.py DEPTH_CAP; the host refuses a deeper program).
+constexpr int kSdfDepth = 8;
+
+// The DE of instance `inst` at (x, y, z): its tape run as a postfix
+// program over a stack of distances, the point moved by Translate and
+// Scale and restored from a stack of saved points after their operand.
+// Every op rounds as the JAX fn_c (ops/sdf.py dist_c): minimum and maximum
+// propagate NaN (nmin/nmax), `** 2` is a product, divisions are IEEE.
+__device__ __forceinline__ float tape_de(const Sdf& s, int inst, float x,
+                                         float y, float z) {
+  const SdfInst& in = s.inst[inst];
+  const int* op = s.ops + in.op0;
+  const float* q = s.prm + in.prm0;
+  float d[kSdfDepth], sx[kSdfDepth], sy[kSdfDepth], sz[kSdfDepth];
+  int nd = 0, np = 0;
+  for (int k = 0; k < in.n_ops; ++k) {
+    const int code = __ldg(op + k);
+    switch (code & 0xff) {
+      case kOpMBox: {
+        const MBox mb{code >> 8, __ldg(q), __ldg(q + 1), __ldg(q + 2),
+                      __ldg(q + 3)};
+        q += 4;
+        d[nd++] = mandelbox_de(mb, x, y, z);
+        break;
+      }
+      case kOpSphere:
+        d[nd++] = sqrtf(x * x + y * y + z * z) - __ldg(q);
+        q += 1;
+        break;
+      case kOpBox: {
+        const float qx = fabsf(x) - __ldg(q), qy = fabsf(y) - __ldg(q + 1),
+                    qz = fabsf(z) - __ldg(q + 2);
+        q += 3;
+        const float mx = nmax(qx, 0.0f), my = nmax(qy, 0.0f),
+                    mz = nmax(qz, 0.0f);
+        const float outside = sqrtf(mx * mx + my * my + mz * mz);
+        d[nd++] = outside + nmin(nmax(qx, nmax(qy, qz)), 0.0f);
+        break;
+      }
+      case kOpTorus: {
+        const float qx = sqrtf(x * x + z * z) - __ldg(q);
+        d[nd++] = sqrtf(qx * qx + y * y) - __ldg(q + 1);
+        q += 2;
+        break;
+      }
+      case kOpPlane:
+        d[nd++] = x * __ldg(q) + y * __ldg(q + 1) + z * __ldg(q + 2) +
+                  __ldg(q + 3);
+        q += 4;
+        break;
+      case kOpUnion:
+        --nd;
+        d[nd - 1] = nmin(d[nd - 1], d[nd]);
+        break;
+      case kOpIntersection:
+        --nd;
+        d[nd - 1] = nmax(d[nd - 1], d[nd]);
+        break;
+      case kOpSubtraction:
+        --nd;
+        d[nd - 1] = nmax(d[nd - 1], -d[nd]);
+        break;
+      case kOpSmoothUnion: {
+        const float kk = __ldg(q);
+        q += 1;
+        --nd;
+        const float d1 = d[nd - 1], d2 = d[nd];
+        const float h = nmin(nmax(0.5f + 0.5f * (d2 - d1) / kk, 0.0f), 1.0f);
+        d[nd - 1] = d2 + (d1 - d2) * h - kk * h * (1.0f - h);
+        break;
+      }
+      case kOpTranslate:
+        sx[np] = x;
+        sy[np] = y;
+        sz[np] = z;
+        ++np;
+        x = x - __ldg(q);
+        y = y - __ldg(q + 1);
+        z = z - __ldg(q + 2);
+        q += 3;
+        break;
+      case kOpScale: {
+        sx[np] = x;
+        sy[np] = y;
+        sz[np] = z;
+        ++np;
+        const float f = __ldg(q);
+        q += 1;
+        x = x / f;
+        y = y / f;
+        z = z / f;
+        break;
+      }
+      case kOpRounded:
+        d[nd - 1] = d[nd - 1] - __ldg(q);
+        q += 1;
+        break;
+      case kOpPop:
+        --np;
+        x = sx[np];
+        y = sy[np];
+        z = sz[np];
+        break;
+      case kOpPopScale:
+        --np;
+        x = sx[np];
+        y = sy[np];
+        z = sz[np];
+        d[nd - 1] = d[nd - 1] * __ldg(q);
+        q += 1;
+        break;
+    }
+  }
+  return d[0];
+}
+
+// The SDF kinds a DE-reading kernel is instantiated for. MBoxOnly: the one
+// bare MandelBox of the scene, its DE inlined as before programs existed
+// (one instance, `inst` unused). Tape: any number of instances, each any
+// program, through tape_de.
+struct MBoxOnly {
+  static constexpr bool kTape = false;
+  __device__ static __forceinline__ float de(const MBox& mb, const Sdf&, int,
+                                             float x, float y, float z) {
+    return mandelbox_de(mb, x, y, z);
+  }
+};
+
+struct TapeSdf {
+  static constexpr bool kTape = true;
+  __device__ static __forceinline__ float de(const MBox&, const Sdf& s,
+                                             int inst, float x, float y,
+                                             float z) {
+    return tape_de(s, inst, x, y, z);
+  }
+};
 
 // ------------------------------------------------------ animated positions
 // A channel of positions over time (scene/animation.py AnimChannel,
@@ -689,9 +864,12 @@ __device__ __forceinline__ bool entry_from_de(float bv_r, float bv_r2,
 }
 
 // march_pallas._segment_entry (reference src/sdf.rs:25-57) for segment
-// s->e: its direction d, its march length md and its first march
-// distance t0 (entry_from_de on the DE at s).
-__device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
+// s->e of SDF instance `inst` with bounding radius bv_r: its direction d,
+// its march length md and its first march distance t0 (entry_from_de on
+// the DE at s).
+template <class S>
+__device__ __forceinline__ bool segment_entry(const MBox& mb, const Sdf& sdf,
+                                              int inst, float bv_r,
                                               float bv_r2, float sx, float sy,
                                               float sz, float ex, float ey,
                                               float ez, float& dx, float& dy,
@@ -699,7 +877,7 @@ __device__ __forceinline__ bool segment_entry(const MBox& mb, float bv_r,
                                               float& t0) {
   segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
   return entry_from_de(bv_r, bv_r2, sx, sy, sz, dx, dy, dz,
-                       mandelbox_de(mb, sx, sy, sz), md, t0);
+                       S::de(mb, sdf, inst, sx, sy, sz), md, t0);
 }
 
 // Relax-1 occlusion step number `step` at t, whose DE `dist` at s + t*d
@@ -744,20 +922,48 @@ __device__ __forceinline__ bool occl_step_relaxed(
   return false;
 }
 
-// The sort key's price of one segment (shade_pallas._segment_cost):
-// min(md / max(t0, 1e-6), max_steps), or 1 for an inactive or
-// entry-resolved segment or one that starts past its end.
-__device__ __forceinline__ float segment_cost(const MBox& mb, float bv_r,
+// The sort key's price of one segment for one SDF instance
+// (shade_pallas._segment_cost): min(md / max(t0, 1e-6), max_steps), or 1
+// for an inactive or entry-resolved segment or one that starts past its
+// end.
+template <class S>
+__device__ __forceinline__ float segment_cost(const MBox& mb, const Sdf& sdf,
+                                              int inst, float bv_r,
                                               float bv_r2, int max_steps,
                                               bool act, float sx, float sy,
                                               float sz, float ex, float ey,
                                               float ez) {
   float dx, dy, dz, md, t0;
-  if (!act || !segment_entry(mb, bv_r, bv_r2, sx, sy, sz, ex, ey, ez, dx, dy,
-                             dz, md, t0) ||
+  if (!act ||
+      !segment_entry<S>(mb, sdf, inst, bv_r, bv_r2, sx, sy, sz, ex, ey, ez,
+                        dx, dy, dz, md, t0) ||
       t0 > md)
     return 1.0f;
   return nmin(md / nmax(t0, 1e-6f), (float)max_steps);
+}
+
+// A segment's price summed over the SDF instances (the fold marches every
+// instance over a still-unblocked segment), from 0 in instance order, as
+// shade_pallas._shadow_cost_key's seg_cost; MBoxOnly prices its one
+// instance with the bound radius bv_r, Tape each instance with its own.
+template <class S>
+__device__ __forceinline__ float instances_cost(const MBox& mb,
+                                                const Sdf& sdf, float bv_r,
+                                                float bv_r2, int max_steps,
+                                                bool act, float sx, float sy,
+                                                float sz, float ex, float ey,
+                                                float ez) {
+  if constexpr (!S::kTape) {
+    return segment_cost<S>(mb, sdf, 0, bv_r, bv_r2, max_steps, act, sx, sy,
+                           sz, ex, ey, ez);
+  } else {
+    float c = 0.0f;
+    for (int i = 0; i < sdf.n_inst; ++i)
+      c = c + segment_cost<S>(mb, sdf, i, sdf.inst[i].bv_r,
+                              sdf.inst[i].bv_r2, max_steps, act, sx, sy, sz,
+                              ex, ey, ez);
+    return c;
+  }
 }
 
 // ------------------------------------------------ compacted queue, refill
@@ -789,7 +995,9 @@ struct QueueMarch {
   MBox mb;
   float eps_c, eps_l;  // 1e-4 * detail, 1e-5 * detail
   float relax;
-  float bv_r, bv_r2;   // bounding-sphere clip radius (0 = none) and its square
+  // bounding-sphere clip radius (0 = none) and its square: the MBoxOnly
+  // march's; the Tape march reads each instance's own
+  float bv_r, bv_r2;
 };
 
 // Segment loaders of the refill march: the segment scratch [6, M]
@@ -864,15 +1072,24 @@ struct RelaxedStep {
 // (march_pallas.py:518): a segment whose first DE is below a literal 1e-4
 // and that does not start past its end is blocked at once, and with
 // max_steps 0 no segment steps on.
-template <class Segments, class Step, bool FirstDe = false>
+// S is the SDF kind (MBoxOnly or TapeSdf). With several instances a segment
+// is marched through instance 0, 1, ... in turn, each with its own bound
+// radius: one that an instance leaves unblocked goes on to the next in
+// place (its entry DE is the next iteration's), so the verdict is the
+// product fold of intersect.test_occluded and one launch covers every
+// instance.
+template <class Segments, class Step, bool FirstDe = false,
+          class S = MBoxOnly>
 __device__ __forceinline__ void refill_march(const Segments& segs,
-                                             const QueueMarch& a, Step st) {
+                                             const QueueMarch& a,
+                                             const Sdf& sdf, Step st) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int total = *a.count;
   int id = -1;         // this lane's segment, -1 while idle
   bool entry = false;  // its next DE is the entry DE, at the start
   int step = 0;
+  int inst = 0;        // the SDF instance it is marched through (Tape)
   float sx = 0.0f, sy = 0.0f, sz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f,
         md = 0.0f, t = 0.0f;
   // the warp's batch of queue slots: `batch` ids, the one of slot `lane`
@@ -900,6 +1117,7 @@ __device__ __forceinline__ void refill_march(const Segments& segs,
         id = got;
         entry = true;
         step = 0;
+        inst = 0;
         float ex, ey, ez;
         segs.load(id, sx, sy, sz, ex, ey, ez);
         segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
@@ -912,12 +1130,17 @@ __device__ __forceinline__ void refill_march(const Segments& segs,
       const float px = entry ? sx : sx + t * dx;
       const float py = entry ? sy : sy + t * dy;
       const float pz = entry ? sz : sz + t * dz;
-      const float dist = mandelbox_de(a.mb, px, py, pz);
+      const float dist = S::de(a.mb, sdf, inst, px, py, pz);
       bool done, occ = false;
       if (entry) {
         entry = false;
-        done = !entry_from_de(a.bv_r, a.bv_r2, sx, sy, sz, dx, dy, dz, dist,
-                              md, t);
+        float bv_r = a.bv_r, bv_r2 = a.bv_r2;
+        if constexpr (S::kTape) {
+          bv_r = sdf.inst[inst].bv_r;
+          bv_r2 = sdf.inst[inst].bv_r2;
+        }
+        done = !entry_from_de(bv_r, bv_r2, sx, sy, sz, dx, dy, dz, dist, md,
+                              t);
         if constexpr (FirstDe) {
           if (!done) {
             occ = dist < 1e-4f && !(t > md);
@@ -929,7 +1152,16 @@ __device__ __forceinline__ void refill_march(const Segments& segs,
         done = st(dist, md, a.eps_c, a.eps_l, step, a.max_steps, t, occ);
         ++step;
       }
-      if (done) {
+      bool next = false;  // unblocked: the next instance marches it
+      if constexpr (S::kTape) next = done && !occ && inst + 1 < sdf.n_inst;
+      if (next) {
+        ++inst;
+        entry = true;
+        step = 0;
+        float ex, ey, ez;  // md again, unclipped
+        segs.load(id, sx, sy, sz, ex, ey, ez);
+        segment_dir(sx, sy, sz, ex, ey, ez, dx, dy, dz, md);
+      } else if (done) {
         a.verdict[id] = occ;
         id = -1;
       }

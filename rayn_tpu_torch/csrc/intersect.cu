@@ -3,10 +3,12 @@
 //
 // closest_hit_kernel replaces rayn_tpu/ops/intersect_pallas.py
 // closest_hit_shading (_intersect_kernel): per ray, the closest root over
-// the K spheres, the MandelBox march bounded by that running closest t
-// (threshold max(eps_const, eps_abs + eps_lin * t), at most max_steps
-// steps), then the point, the sphere or tetrahedral normal, the shading
-// offset and the material id.
+// the K spheres, the march of each SDF instance in turn bounded by the
+// running closest t (threshold max(eps_const, eps_abs + eps_lin * t), at
+// most max_steps steps), then the point, the sphere normal or the
+// tetrahedral normal of the instance hit, the shading offset and the
+// material id. The MBoxOnly kernels take one bare MandelBox (the code
+// they had before SDF programs), the *_tape_* kernels any instances.
 //
 // What bounds it on the H100: float32 ALU and warp divergence. A ray takes
 // its entry DE, up to max_steps (256) march DEs and, on an SDF hit, four
@@ -74,7 +76,7 @@ struct IntersectArgs {
   long long n;
   int K;
   int has_sdf;
-  int sdf_mat;
+  int sdf_mat;      // instance 0's material (MBoxOnly)
   int max_steps;
   MBox mb;
   float t_max0;     // 2 * world_radius
@@ -122,12 +124,14 @@ __device__ __forceinline__ void sphere_fold(const Pos& at,
 }
 
 // The shading info of ray i (ops/intersect.shading_info) from its closest
-// t and object: a sphere's normal, or for the SDF (best_obj == K) the
-// normalised tap gradient g with offset hps; every output written. A
-// sphere's center is taken at the ray's time (`at`).
-template <class Pos>
+// t and object: a sphere's normal, or for SDF instance i (best_obj == K +
+// i) the normalised tap gradient g with offset hps and the instance's
+// material; every output written. A sphere's center is taken at the ray's
+// time (`at`).
+template <class S, class Pos>
 __device__ __forceinline__ void write_hit(const IntersectArgs& a,
-                                          const Pos& at, long long i,
+                                          const Sdf& sdf, const Pos& at,
+                                          long long i,
                                           float ox, float oy, float oz,
                                           float dx, float dy, float dz,
                                           float best_t, int best_obj,
@@ -146,13 +150,13 @@ __device__ __forceinline__ void write_hit(const IntersectArgs& a,
     ny = vy * vinv;
     nz = vz * vinv;
     mat = (int)a.spheres[5 * best_obj + 4];
-  } else if (best_obj == a.K) {
+  } else if (S::kTape ? best_obj >= a.K : best_obj == a.K) {
     const float glen = sqrtf(gx * gx + gy * gy + gz * gz);
     const float ginv = 1.0f / nmax(glen, 1e-20f);
     nx = gx * ginv;
     ny = gy * ginv;
     nz = gz * ginv;
-    mat = a.sdf_mat;
+    mat = S::kTape ? sdf.inst[best_obj - a.K].mat : a.sdf_mat;
     off = hps;
   }
   a.t[i] = best_t;
@@ -176,12 +180,19 @@ __device__ __forceinline__ float tap_sign(int tap, int axis) {
   return (tap == axis || tap == 3) ? 1.0f : -1.0f;
 }
 
-template <bool kAnim>
-__device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
+// S: the SDF kind. With several instances (TapeSdf) a ray marches instance
+// 0, 1, ... in turn (stage kEntry again for each), each bounded by the
+// closest t so far, and takes the four taps of the instance it hit last
+// (the closest; a tie keeps the earlier object): the bits of JAX's
+// taps of every instance selected by the object id.
+template <bool kAnim, class S>
+__device__ __forceinline__ void closest_hit(const IntersectArgs& a,
+                                            const Sdf& sdf) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int id = -1;  // this lane's ray, -1 while idle
   int stage = kEntry, step = 0, best_obj = -1;
+  int inst = 0, hit_inst = 0;  // the instance marched, the one hit (Tape)
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float hps_abs = 0.0f, hps_lin = 0.0f, t = 0.0f, best_t = 0.0f, hps = 0.0f;
   float tm = 0.0f;  // the ray's time (animated scenes)
@@ -224,8 +235,8 @@ __device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
             b_ha = a.hps_abs[bi];
             b_hl = a.hps_lin[bi];
           } else {  // no DE to take: done the moment it is folded
-            write_hit(a, at, bi, b_ox, b_oy, b_oz, b_dx, b_dy, b_dz, b_t,
-                      b_obj, 0.0f, 0.0f, 0.0f, 0.0f);
+            write_hit<S>(a, sdf, at, bi, b_ox, b_oy, b_oz, b_dx, b_dy, b_dz,
+                         b_t, b_obj, 0.0f, 0.0f, 0.0f, 0.0f);
           }
         }
         pending = __ballot_sync(FULL_MASK, needs_de);
@@ -262,6 +273,7 @@ __device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
         hps_lin = v_hl;
         tm = v_tm;
         stage = kEntry;
+        inst = 0;
       }
       // the lowest min(idle, pending) pending slots are handed out
       for (int k = min(__popc(idle), __popc(pending)); k > 0; --k)
@@ -289,7 +301,8 @@ __device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
       py = (oy + best_t * dy) + tap_sign(stage, 1) * hps;
       pz = (oz + best_t * dz) + tap_sign(stage, 2) * hps;
     }
-    const float dist = mandelbox_de(a.mb, px, py, pz);
+    const float dist =
+        S::de(a.mb, sdf, stage < 0 ? inst : hit_inst, px, py, pz);
     bool march_done = false;
     if (stage == kEntry) {
       // a NaN first DE ends the march with no hit (NaN < best_t is false)
@@ -311,26 +324,48 @@ __device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
       gy = gy + tap_sign(stage, 1) * dist;
       gz = gz + tap_sign(stage, 2) * dist;
       if (stage == 3) {
-        write_hit(a, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx, dy, dz,
-                  best_t, best_obj, hps, gx, gy, gz);
+        write_hit<S>(a, sdf, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx, dy,
+                     dz, best_t, best_obj, hps, gx, gy, gz);
         id = -1;
       } else {
         ++stage;
       }
     }
     if (march_done) {
-      if (t < best_t) {  // an SDF hit: its four normal taps follow
-        best_t = t;
-        best_obj = a.K;
-        hps = nmax(1e-4f, a.detail * (hps_abs + hps_lin * best_t));
-        gx = 0.0f;
-        gy = 0.0f;
-        gz = 0.0f;
-        stage = 0;
+      if constexpr (!S::kTape) {
+        if (t < best_t) {  // an SDF hit: its four normal taps follow
+          best_t = t;
+          best_obj = a.K;
+          hps = nmax(1e-4f, a.detail * (hps_abs + hps_lin * best_t));
+          gx = 0.0f;
+          gy = 0.0f;
+          gz = 0.0f;
+          stage = 0;
+        } else {
+          write_hit<S>(a, sdf, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx,
+                       dy, dz, best_t, best_obj, 0.0f, 0.0f, 0.0f, 0.0f);
+          id = -1;
+        }
       } else {
-        write_hit(a, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx, dy, dz,
-                  best_t, best_obj, 0.0f, 0.0f, 0.0f, 0.0f);
-        id = -1;
+        if (t < best_t) {
+          best_t = t;
+          best_obj = a.K + inst;
+          hit_inst = inst;
+        }
+        if (inst + 1 < sdf.n_inst) {  // the next instance's entry DE
+          ++inst;
+          stage = kEntry;
+        } else if (best_obj >= a.K) {  // an SDF hit: its four taps follow
+          hps = nmax(1e-4f, a.detail * (hps_abs + hps_lin * best_t));
+          gx = 0.0f;
+          gy = 0.0f;
+          gz = 0.0f;
+          stage = 0;
+        } else {
+          write_hit<S>(a, sdf, At<kAnim>(a.anim, tm), id, ox, oy, oz, dx,
+                       dy, dz, best_t, best_obj, 0.0f, 0.0f, 0.0f, 0.0f);
+          id = -1;
+        }
       }
     }
   }
@@ -338,16 +373,29 @@ __device__ __forceinline__ void closest_hit(const IntersectArgs& a) {
 
 __global__ void __launch_bounds__(128)
     closest_hit_kernel(const IntersectArgs a) {
-  closest_hit<false>(a);
+  closest_hit<false, MBoxOnly>(a, Sdf{});
 }
 
 __global__ void __launch_bounds__(128)
     closest_hit_anim_kernel(const IntersectArgs a) {
-  closest_hit<true>(a);
+  closest_hit<true, MBoxOnly>(a, Sdf{});
 }
 
-template <bool kAnim>
-__device__ __forceinline__ void cost_key(const CostKeyArgs& a) {
+__global__ void __launch_bounds__(128)
+    closest_hit_tape_kernel(const Taped<IntersectArgs> t) {
+  closest_hit<false, TapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    closest_hit_anim_tape_kernel(const Taped<IntersectArgs> t) {
+  closest_hit<true, TapeSdf>(t.a, t.sdf);
+}
+
+// Tape: the estimate of each instance, 1 for a dead ray or a NaN first DE,
+// summed from 0 in instance order (JAX integrator.py:166-172).
+template <bool kAnim, class S>
+__device__ __forceinline__ void cost_key(const CostKeyArgs& a,
+                                         const Sdf& sdf) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   float key = 1.0f;
@@ -369,20 +417,43 @@ __device__ __forceinline__ void cost_key(const CostKeyArgs& a) {
                                a.spheres[5 * k + 3], a.t_max0));
       bound = nmin(m, a.t_max0);
     }
-    const float d0 = mandelbox_de(a.mb, ox, oy, oz);
-    if (!isnan(d0))
-      key = nmin(bound / nmax(d0, 1e-6f), (float)a.max_steps);
+    if constexpr (!S::kTape) {
+      const float d0 = S::de(a.mb, sdf, 0, ox, oy, oz);
+      if (!isnan(d0))
+        key = nmin(bound / nmax(d0, 1e-6f), (float)a.max_steps);
+    } else {
+      key = 0.0f;
+      for (int j = 0; j < sdf.n_inst; ++j) {
+        const float d0 = S::de(a.mb, sdf, j, ox, oy, oz);
+        key = key + (isnan(d0) ? 1.0f
+                               : nmin(bound / nmax(d0, 1e-6f),
+                                      (float)a.max_steps));
+      }
+    }
+  } else if constexpr (S::kTape) {
+    key = 0.0f;
+    for (int j = 0; j < sdf.n_inst; ++j) key = key + 1.0f;
   }
   a.key[i] = key;
 }
 
 __global__ void __launch_bounds__(128) cost_key_kernel(const CostKeyArgs a) {
-  cost_key<false>(a);
+  cost_key<false, MBoxOnly>(a, Sdf{});
 }
 
 __global__ void __launch_bounds__(128)
     cost_key_anim_kernel(const CostKeyArgs a) {
-  cost_key<true>(a);
+  cost_key<true, MBoxOnly>(a, Sdf{});
+}
+
+__global__ void __launch_bounds__(128)
+    cost_key_tape_kernel(const Taped<CostKeyArgs> t) {
+  cost_key<false, TapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    cost_key_anim_tape_kernel(const Taped<CostKeyArgs> t) {
+  cost_key<true, TapeSdf>(t.a, t.sdf);
 }
 
 }  // namespace rayn
@@ -397,24 +468,37 @@ __global__ void __launch_bounds__(128)
 #endif
 
 // Persistent (launch_persistent): every block runs until all rays are
-// taken. The *_anim_kernel instantiation when the sphere centers are
-// animated.
-extern "C" cudaError_t rayn_closest_hit(const rayn::IntersectArgs* args,
-                                        cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  return rayn::launch_persistent(args->anim.spheres.T > 1
-                                     ? rayn::closest_hit_anim_kernel
-                                     : rayn::closest_hit_kernel,
-                                 *args, args->n, stream,
-                                 RAYN_HIT_BLOCKS_PER_SM);
+// taken. The *_anim_* instantiations when the sphere centers are animated,
+// the *_tape_* ones for any SDF but one bare MandelBox.
+extern "C" cudaError_t rayn_closest_hit(
+    const rayn::Taped<rayn::IntersectArgs>* args, cudaStream_t stream) {
+  const rayn::IntersectArgs& a = args->a;
+  if (a.n <= 0) return cudaSuccess;
+  const bool anim = a.anim.spheres.T > 1;
+  if (args->sdf.tape)
+    return rayn::launch_persistent(anim ? rayn::closest_hit_anim_tape_kernel
+                                        : rayn::closest_hit_tape_kernel,
+                                   *args, a.n, stream,
+                                   RAYN_HIT_BLOCKS_PER_SM);
+  return rayn::launch_persistent(anim ? rayn::closest_hit_anim_kernel
+                                      : rayn::closest_hit_kernel,
+                                 a, a.n, stream, RAYN_HIT_BLOCKS_PER_SM);
 }
 
-extern "C" cudaError_t rayn_cost_key(const rayn::CostKeyArgs* args,
+extern "C" cudaError_t rayn_cost_key(const rayn::Taped<rayn::CostKeyArgs>* args,
                                      cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  void (*kernel)(rayn::CostKeyArgs) = args->anim.spheres.T > 1
-                                          ? rayn::cost_key_anim_kernel
-                                          : rayn::cost_key_kernel;
-  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
+  const rayn::CostKeyArgs& a = args->a;
+  if (a.n <= 0) return cudaSuccess;
+  const bool anim = a.anim.spheres.T > 1;
+  const unsigned blocks = rayn::blocks_of(a.n, 128);
+  if (args->sdf.tape) {
+    void (*kernel)(rayn::Taped<rayn::CostKeyArgs>) =
+        anim ? rayn::cost_key_anim_tape_kernel : rayn::cost_key_tape_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(*args);
+  } else {
+    void (*kernel)(rayn::CostKeyArgs) =
+        anim ? rayn::cost_key_anim_kernel : rayn::cost_key_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Sphere-tracing kernels of the segment-queue bounce for Hopper (sm_90a).
 //
 // march_kernel / march_relaxed_kernel replace rayn_tpu/ops/
-// march_pallas.py march (_march_kernel): the closest-hit march of the
-// MandelBox along each ray, bounded by its t_max, with the cone
+// march_pallas.py march (_march_kernel): the closest-hit march of one SDF
+// program (a bare MandelBox, or any program in the *_tape_* kernels) along
+// each ray, bounded by its t_max, with the cone
 // threshold max(eps_const, eps_abs + eps_lin * t), plain (relax = 1) or
 // over-relaxed (Keinert's overshoot test and conservative fallback,
 // t_prev / r_prev per ray). The same kernel replaces march_pallas.py
@@ -150,8 +151,10 @@ struct RelaxedMarch {
 // the next. An entry DE that is NaN or past t_max ends the march there:
 // no step can move t (a plain step tests t_max before its DE, and a
 // relaxed first step cannot overshoot, since t0 - 0 <= |t0| + |dist|).
-template <class Step>
-__device__ __forceinline__ void march_refill(const MarchArgs& a, Step st) {
+// S: the SDF kind; `sdf` holds the one program marched (TapeSdf).
+template <class Step, class S>
+__device__ __forceinline__ void march_refill(const MarchArgs& a,
+                                             const Sdf& sdf, Step st) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int id = -1;         // this lane's ray, -1 while idle
@@ -243,7 +246,7 @@ __device__ __forceinline__ void march_refill(const MarchArgs& a, Step st) {
     const float px = entry ? ox : ox + t * dx;
     const float py = entry ? oy : oy + t * dy;
     const float pz = entry ? oz : oz + t * dz;
-    const float dist = mandelbox_de(a.mb, px, py, pz);
+    const float dist = S::de(a.mb, sdf, 0, px, py, pz);
     bool done;
     if (entry) {
       entry = false;
@@ -263,12 +266,24 @@ __device__ __forceinline__ void march_refill(const MarchArgs& a, Step st) {
 }
 
 __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
-  march_refill(a, PlainMarch{});
+  march_refill<PlainMarch, MBoxOnly>(a, Sdf{}, PlainMarch{});
 }
 
 __global__ void __launch_bounds__(128)
     march_relaxed_kernel(const MarchArgs a) {
-  march_refill(a, RelaxedMarch{a.relax, 0.0f, 0.0f});
+  march_refill<RelaxedMarch, MBoxOnly>(a, Sdf{},
+                                       RelaxedMarch{a.relax, 0.0f, 0.0f});
+}
+
+__global__ void __launch_bounds__(128)
+    march_tape_kernel(const Taped<MarchArgs> t) {
+  march_refill<PlainMarch, TapeSdf>(t.a, t.sdf, PlainMarch{});
+}
+
+__global__ void __launch_bounds__(128)
+    march_relaxed_tape_kernel(const Taped<MarchArgs> t) {
+  march_refill<RelaxedMarch, TapeSdf>(t.a, t.sdf,
+                                      RelaxedMarch{t.a.relax, 0.0f, 0.0f});
 }
 
 // Appends the id of every active segment to the queue.
@@ -280,12 +295,12 @@ __global__ void __launch_bounds__(128) enqueue_kernel(const EnqueueArgs a) {
 // The SDF verdict of every queued segment start -> end (refill_march).
 __global__ void __launch_bounds__(128) occl_march_kernel(
     const OcclMarchArgs a) {
-  refill_march(AosSegments{a.start, a.end}, a.q, PlainStep{});
+  refill_march(AosSegments{a.start, a.end}, a.q, Sdf{}, PlainStep{});
 }
 
 __global__ void __launch_bounds__(128) occl_march_relaxed_kernel(
     const OcclMarchArgs a) {
-  refill_march(AosSegments{a.start, a.end}, a.q,
+  refill_march(AosSegments{a.start, a.end}, a.q, Sdf{},
                RelaxedStep{a.q.relax, 0.0f, 0.0f});
 }
 
@@ -294,7 +309,27 @@ __global__ void __launch_bounds__(128) occl_march_relaxed_kernel(
 __global__ void __launch_bounds__(128) occl_march_first_de_kernel(
     const OcclMarchArgs a) {
   refill_march<AosSegments, PlainStep, true>(AosSegments{a.start, a.end},
-                                             a.q, PlainStep{});
+                                             a.q, Sdf{}, PlainStep{});
+}
+
+// The same three for any program but a bare MandelBox.
+__global__ void __launch_bounds__(128) occl_march_tape_kernel(
+    const Taped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, false, TapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) occl_march_relaxed_tape_kernel(
+    const Taped<OcclMarchArgs> t) {
+  refill_march<AosSegments, RelaxedStep, false, TapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
+}
+
+__global__ void __launch_bounds__(128) occl_march_first_de_tape_kernel(
+    const Taped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, true, TapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
 }
 
 }  // namespace rayn
@@ -307,15 +342,20 @@ __global__ void __launch_bounds__(128) occl_march_first_de_kernel(
 #endif
 
 // Persistent (launch_persistent): every block runs until all rays are
-// taken; plain steps at relax 1, relaxed ones otherwise.
-extern "C" cudaError_t rayn_march(const rayn::MarchArgs* args,
+// taken; plain steps at relax 1, relaxed ones otherwise; the *_tape_*
+// instantiations for any program but a bare MandelBox.
+extern "C" cudaError_t rayn_march(const rayn::Taped<rayn::MarchArgs>* args,
                                   cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  return rayn::launch_persistent(args->relax == 1.0f
-                                     ? rayn::march_kernel
-                                     : rayn::march_relaxed_kernel,
-                                 *args, args->n, stream,
-                                 RAYN_MARCH_BLOCKS_PER_SM);
+  const rayn::MarchArgs& a = args->a;
+  if (a.n <= 0) return cudaSuccess;
+  const bool plain = a.relax == 1.0f;
+  if (args->sdf.tape)
+    return rayn::launch_persistent(
+        plain ? rayn::march_tape_kernel : rayn::march_relaxed_tape_kernel,
+        *args, a.n, stream, RAYN_MARCH_BLOCKS_PER_SM);
+  return rayn::launch_persistent(
+      plain ? rayn::march_kernel : rayn::march_relaxed_kernel, a, a.n,
+      stream, RAYN_MARCH_BLOCKS_PER_SM);
 }
 
 extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
@@ -327,14 +367,21 @@ extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
 }
 
 // Persistent (launch_persistent); the first-DE entry where first_de is
-// set, else plain steps at relax 1 and relaxed ones otherwise.
-extern "C" cudaError_t rayn_occl_march(const rayn::OcclMarchArgs* args,
-                                       cudaStream_t stream) {
-  if (args->q.m <= 0) return cudaSuccess;
-  return rayn::launch_persistent(args->first_de
-                                     ? rayn::occl_march_first_de_kernel
-                                 : args->q.relax == 1.0f
+// set, else plain steps at relax 1 and relaxed ones otherwise; the *_tape_*
+// instantiations for any program but a bare MandelBox.
+extern "C" cudaError_t rayn_occl_march(
+    const rayn::Taped<rayn::OcclMarchArgs>* args, cudaStream_t stream) {
+  const rayn::OcclMarchArgs& a = args->a;
+  if (a.q.m <= 0) return cudaSuccess;
+  if (args->sdf.tape)
+    return rayn::launch_persistent(
+        a.first_de          ? rayn::occl_march_first_de_tape_kernel
+        : a.q.relax == 1.0f ? rayn::occl_march_tape_kernel
+                            : rayn::occl_march_relaxed_tape_kernel,
+        *args, a.q.m, stream);
+  return rayn::launch_persistent(a.first_de ? rayn::occl_march_first_de_kernel
+                                 : a.q.relax == 1.0f
                                      ? rayn::occl_march_kernel
                                      : rayn::occl_march_relaxed_kernel,
-                                 *args, args->q.m, stream);
+                                 a, a.q.m, stream);
 }

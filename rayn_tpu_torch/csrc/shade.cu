@@ -18,7 +18,9 @@
 //   bounding-sphere clip, the relax-1 step sequence and verdict rule of
 //   march_occlusion), written to the segment's own slot: refill_march
 //   (common.cuh) on the scratch; shadow_march_relaxed_kernel is the same
-//   march with the relaxed step, for the segment queue at relax != 1.
+//   march with the relaxed step, for the segment queue at relax != 1. Their
+//   *_tape_* instantiations take any SDF instances: a segment goes through
+//   each in turn, in the one launch, until one blocks it.
 // - shadow_sum_kernel / tail_sum_kernel, one thread per ray: k * visible
 //   summed over the segments in the JAX order (NEE 0..L-1, then volume
 //   sites march-major) from 0; the first writes the radiance delta [N, 3]
@@ -112,7 +114,7 @@ struct ShadowScalars {  // ops/shade_cuda.py _ShadowScalars
   int L, VM, NL, K;
   int has_ext, has_sdf;
   int max_steps;
-  float bv_r, bv_r2;
+  float bv_r, bv_r2;  // instance 0's clip radius (MBoxOnly), its square
   float eps_c, eps_l;
   float correction, vm_correction;
   float sigma_t, sigma_s;
@@ -570,13 +572,28 @@ __host__ cudaError_t launch_segments(void (*kernel)(SegArgs),
 // The SDF verdict of every queued segment of the scratch (refill_march).
 __global__ void __launch_bounds__(128) shadow_march_kernel(
     const SegMarchArgs a) {
-  refill_march(SoaSegments{a.geom, a.q.m}, a.q, PlainStep{});
+  refill_march(SoaSegments{a.geom, a.q.m}, a.q, Sdf{}, PlainStep{});
 }
 
 __global__ void __launch_bounds__(128) shadow_march_relaxed_kernel(
     const SegMarchArgs a) {
-  refill_march(SoaSegments{a.geom, a.q.m}, a.q,
+  refill_march(SoaSegments{a.geom, a.q.m}, a.q, Sdf{},
                RelaxedStep{a.q.relax, 0.0f, 0.0f});
+}
+
+// The same two for any SDF but one bare MandelBox: a segment goes through
+// every instance in turn until one blocks it.
+__global__ void __launch_bounds__(128) shadow_march_tape_kernel(
+    const Taped<SegMarchArgs> t) {
+  refill_march<SoaSegments, PlainStep, false, TapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) shadow_march_relaxed_tape_kernel(
+    const Taped<SegMarchArgs> t) {
+  refill_march<SoaSegments, RelaxedStep, false, TapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
 }
 
 // k * visible of ray i's segments, summed from 0 in the JAX order (NEE
@@ -781,8 +798,11 @@ __global__ void __launch_bounds__(128)
   finish_bounce<true>(a);
 }
 
-template <bool kAnim>
-__device__ __forceinline__ void shadow_sort_key(const KeyArgs& a) {
+// S: the SDF kind; each segment is priced summed over the instances
+// (instances_cost).
+template <bool kAnim, class S>
+__device__ __forceinline__ void shadow_sort_key(const KeyArgs& a,
+                                                const Sdf& sdf) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const ShadowScalars& sc = a.sc;
@@ -804,10 +824,10 @@ __device__ __forceinline__ void shadow_sort_key(const KeyArgs& a) {
       const float ndw =
           nrm.x * wfx * dinv + nrm.y * wfy * dinv + nrm.z * wfz * dinv;
       const float bias = signbit(ndw) ? -off : off;
-      key = key + segment_cost(sc.mb, sc.bv_r, sc.bv_r2, sc.max_steps,
-                               receives && ndw > 0.0f, p.x + nrm.x * bias,
-                               p.y + nrm.y * bias, p.z + nrm.z * bias, ex, ey,
-                               ez);
+      key = key + instances_cost<S>(sc.mb, sdf, sc.bv_r, sc.bv_r2,
+                                    sc.max_steps, receives && ndw > 0.0f,
+                                    p.x + nrm.x * bias, p.y + nrm.y * bias,
+                                    p.z + nrm.z * bias, ex, ey, ez);
     }
     const float3 o = ld3(a.origin, i), d = ld3(a.direction, i);
     const float t_hit = a.t_hit[i];
@@ -817,8 +837,9 @@ __device__ __forceinline__ void shadow_sort_key(const KeyArgs& a) {
       float spx, spy, spz, ex, ey, ez, pdf;
       vol_site(sc, at, a.lights, j, sidx, pix, vd, o.x, o.y, o.z, d.x, d.y,
                d.z, spx, spy, spz, ex, ey, ez, pdf);
-      key = key + segment_cost(sc.mb, sc.bv_r, sc.bv_r2, sc.max_steps,
-                               alive, spx, spy, spz, ex, ey, ez);
+      key = key + instances_cost<S>(sc.mb, sdf, sc.bv_r, sc.bv_r2,
+                                    sc.max_steps, alive, spx, spy, spz, ex,
+                                    ey, ez);
     }
   }
   a.key[i] = key;
@@ -826,12 +847,22 @@ __device__ __forceinline__ void shadow_sort_key(const KeyArgs& a) {
 
 __global__ void __launch_bounds__(128)
     shadow_sort_key_kernel(const KeyArgs a) {
-  shadow_sort_key<false>(a);
+  shadow_sort_key<false, MBoxOnly>(a, Sdf{});
 }
 
 __global__ void __launch_bounds__(128)
     shadow_sort_key_anim_kernel(const KeyArgs a) {
-  shadow_sort_key<true>(a);
+  shadow_sort_key<true, MBoxOnly>(a, Sdf{});
+}
+
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_tape_kernel(const Taped<KeyArgs> t) {
+  shadow_sort_key<false, TapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_anim_tape_kernel(const Taped<KeyArgs> t) {
+  shadow_sort_key<true, TapeSdf>(t.a, t.sdf);
 }
 
 }  // namespace rayn
@@ -850,14 +881,21 @@ extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
                                stream);
 }
 
-// Persistent (launch_persistent); plain steps at relax 1, else relaxed.
-extern "C" cudaError_t rayn_shadow_march(const rayn::SegMarchArgs* args,
-                                         cudaStream_t stream) {
-  if (args->q.m <= 0) return cudaSuccess;
-  return rayn::launch_persistent(args->q.relax == 1.0f
-                                     ? rayn::shadow_march_kernel
-                                     : rayn::shadow_march_relaxed_kernel,
-                                 *args, args->q.m, stream);
+// Persistent (launch_persistent); plain steps at relax 1, else relaxed;
+// the *_tape_* instantiations for any SDF but one bare MandelBox.
+extern "C" cudaError_t rayn_shadow_march(
+    const rayn::Taped<rayn::SegMarchArgs>* args, cudaStream_t stream) {
+  const rayn::SegMarchArgs& a = args->a;
+  if (a.q.m <= 0) return cudaSuccess;
+  const bool plain = a.q.relax == 1.0f;
+  if (args->sdf.tape)
+    return rayn::launch_persistent(
+        plain ? rayn::shadow_march_tape_kernel
+              : rayn::shadow_march_relaxed_tape_kernel,
+        *args, a.q.m, stream);
+  return rayn::launch_persistent(
+      plain ? rayn::shadow_march_kernel : rayn::shadow_march_relaxed_kernel,
+      a, a.q.m, stream);
 }
 
 extern "C" cudaError_t rayn_shadow_sum(const rayn::ShadowSumArgs* args,
@@ -896,12 +934,21 @@ extern "C" cudaError_t rayn_finish_bounce(const rayn::FinishArgs* args,
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t rayn_shadow_sort_key(const rayn::KeyArgs* args,
-                                            cudaStream_t stream) {
-  if (args->n <= 0) return cudaSuccess;
-  void (*kernel)(rayn::KeyArgs) = rayn::animated(args->sc)
-                                      ? rayn::shadow_sort_key_anim_kernel
-                                      : rayn::shadow_sort_key_kernel;
-  kernel<<<rayn::blocks_of(args->n, 128), 128, 0, stream>>>(*args);
+extern "C" cudaError_t rayn_shadow_sort_key(
+    const rayn::Taped<rayn::KeyArgs>* args, cudaStream_t stream) {
+  const rayn::KeyArgs& a = args->a;
+  if (a.n <= 0) return cudaSuccess;
+  const bool anim = rayn::animated(a.sc);
+  const unsigned blocks = rayn::blocks_of(a.n, 128);
+  if (args->sdf.tape) {
+    void (*kernel)(rayn::Taped<rayn::KeyArgs>) =
+        anim ? rayn::shadow_sort_key_anim_tape_kernel
+             : rayn::shadow_sort_key_tape_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(*args);
+  } else {
+    void (*kernel)(rayn::KeyArgs) = anim ? rayn::shadow_sort_key_anim_kernel
+                                         : rayn::shadow_sort_key_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Scene-level closest hit, occlusion and shading info (port of
 rayn_tpu.ops.intersect: closest_hit, test_occluded, shading_info).
 
-Object ids: 0..K-1 = spheres in scene order, K = the traced SDF, -1 =
-miss (reference src/hitable.rs:170-210). The spheres are plain torch;
-the SDF marches go through the kernels of ops/march_cuda.py (their plain
-twins for CPU tensors). This unfused path is what the segment-queue
+Object ids: 0..K-1 = spheres in scene order, K + i = SDF instance i,
+-1 = miss (reference src/hitable.rs:170-210). The spheres are plain
+torch; the SDF marches go through the kernels of ops/march_cuda.py (their
+plain twins for CPU tensors), one instance a call, folded as JAX folds
+them. This unfused path is what the segment-queue
 bounce runs, and the reference the fused intersect kernel is held
 against.
 """
@@ -40,10 +41,10 @@ class ShadingInfo(NamedTuple):
 def closest_hit(data: SceneData, static: SceneStatic,
                 settings: RenderSettings, origin, direction, time, t_max,
                 hps_abs, hps_lin, active) -> Hit:
-    """Closest hit across all spheres and the SDF; the SDF is marched
-    with the sphere fold's closest t as its t_max, by march_sorted with
-    plain marching and `march_sort_steps` > 0 (as the JAX package routes
-    it), else by the march kernel."""
+    """Closest hit across all spheres and the SDF instances; instance i,
+    in object order, is marched with the closest t so far as its t_max,
+    by march_sorted with plain marching and `march_sort_steps` > 0 (as
+    the JAX package routes it), else by the march kernel."""
     n = origin.shape[0]
     best_t = t_max
     best_obj = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
@@ -55,22 +56,23 @@ def closest_hit(data: SceneData, static: SceneStatic,
         closer = sph_t < best_t
         best_t = torch.where(closer, sph_t, best_t)
         best_obj = torch.where(closer, sph_id.to(torch.int32), best_obj)
-    if static.has_sdf:
-        detail = settings.sdf_detail_scale
-        kw = dict(eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
-                  eps_lin=0.05 * detail * hps_lin,
-                  max_steps=settings.max_marches, active=active)
+    detail = settings.sdf_detail_scale
+    kw = dict(eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
+              eps_lin=0.05 * detail * hps_lin,
+              max_steps=settings.max_marches, active=active)
+    # each instance in object order, marched up to the running closest
+    # t; a tie keeps the earlier object
+    for i, (prog, _mat, _bv) in enumerate(static.sdf_instances(data)):
         if settings.march_sort_steps > 0 and settings.march_relaxation == 1:
             t_sdf = march_cuda.march_sorted(
-                data.sdf_params, origin, direction, best_t,
+                prog, origin, direction, best_t,
                 phase1_steps=settings.march_sort_steps, **kw)
         else:
-            t_sdf = march_cuda.march(data.sdf_params, origin, direction,
-                                     best_t, relax=settings.march_relaxation,
-                                     **kw)
+            t_sdf = march_cuda.march(prog, origin, direction, best_t,
+                                     relax=settings.march_relaxation, **kw)
         closer = t_sdf < best_t
         best_t = torch.where(closer, t_sdf, best_t)
-        best_obj = torch.where(closer, static.n_spheres, best_obj)
+        best_obj = torch.where(closer, static.n_spheres + i, best_obj)
     return Hit(best_t, best_obj, active & (best_obj >= 0))
 
 
@@ -92,8 +94,11 @@ def test_occluded(data: SceneData, static: SceneStatic,
       ray i at k * M / segments + i): march_occlusion_chained;
     - else march_occlusion.
     Both run the enqueue kernel and the refill march on the segments, so
-    they give the same verdicts. Every one marches the MandelBox truncated
-    to `shadow_de_iterations` where that is set (JAX's prog.reduced,
+    they give the same verdicts. The SDF instances fold as a product:
+    each marches, with its own bound radius, only the segments that the
+    spheres and the instances before it left unblocked. Every one marches
+    its `sdf.reduced` program (a bare MandelBox truncated to
+    `shadow_de_iterations` where that is set; JAX's prog.reduced,
     rayn_tpu/ops/intersect.py:151). The segment-queue bounce no longer
     calls this function (it marches its own scratch,
     integrator._queue_verdicts)."""
@@ -104,29 +109,29 @@ def test_occluded(data: SceneData, static: SceneStatic,
         occ = sphere_ops.occluded(start, end, sphere_centers_at(data, time),
                                   data.sphere_radii)
         occluded = occluded | occ.any(dim=1)
-    if static.has_sdf:
-        detail = s.sdf_detail_scale * s.shadow_eps_scale
-        bv_r = float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0
-        mb = sdf_ops.reduced(data.sdf_params, s.shadow_de_iterations)
+    detail = s.sdf_detail_scale * s.shadow_eps_scale
+    for prog, _mat, inst_bv in static.sdf_instances(data):
+        bv_r = float(inst_bv) if s.shadow_bv_clip else 0.0
+        prog = sdf_ops.reduced(prog, s.shadow_de_iterations)
         m_act = active & ~occluded
         if s.march_relaxation == 1.0 and s.occl_sort_steps > 0:
             occ_sdf = march_cuda.march_occlusion_sorted(
-                mb, start, end, detail, s.max_vis_marches,
+                prog, start, end, detail, s.max_vis_marches,
                 m_act, phase1_steps=s.occl_sort_steps)
         elif s.march_relaxation == 1.0 and s.occl_phase1_steps > 0:
             occ_sdf = march_cuda.march_occlusion_phased(
-                mb, start, end, detail, s.max_vis_marches,
+                prog, start, end, detail, s.max_vis_marches,
                 m_act, phase1_steps=s.occl_phase1_steps)
         elif (1 < segments <= 30 and s.chained_shadow_march
                 and s.march_relaxation == 1.0 and m % segments == 0):
             k, n = segments, m // segments
             occ_sdf = march_cuda.march_occlusion_chained(
-                mb, start.reshape(k, n, 3),
+                prog, start.reshape(k, n, 3),
                 end.reshape(k, n, 3), detail, s.max_vis_marches,
                 m_act.reshape(k, n), bound_radius=bv_r).reshape(m)
         else:
             occ_sdf = march_cuda.march_occlusion(
-                mb, start, end, detail, s.max_vis_marches,
+                prog, start, end, detail, s.max_vis_marches,
                 m_act, relax=s.march_relaxation, bound_radius=bv_r)
         occluded = occluded | occ_sdf
     return torch.where(occluded, 0.0, 1.0)
@@ -154,9 +159,11 @@ def shading_info(data: SceneData, static: SceneStatic,
     if static.has_sdf:
         detail = settings.sdf_detail_scale
         hps = torch.clamp(detail * (hps_abs + hps_lin * hit.t), min=1e-4)
-        is_sdf = hit.obj == static.n_spheres
-        sdf_n = sdf_ops.tetrahedral_normal(data.sdf_params, point, hps)
-        normal = torch.where(is_sdf[:, None], sdf_n, normal)
-        offset_by = torch.where(is_sdf, hps, offset_by)
-        mat = torch.where(is_sdf, static.sdf_mat, mat)
+        for i, (prog, inst_mat, _bv) in enumerate(
+                static.sdf_instances(data)):
+            is_sdf = hit.obj == static.n_spheres + i
+            sdf_n = sdf_ops.tetrahedral_normal(prog, point, hps)
+            normal = torch.where(is_sdf[:, None], sdf_n, normal)
+            offset_by = torch.where(is_sdf, hps, offset_by)
+            mat = torch.where(is_sdf, inst_mat, mat)
     return ShadingInfo(point, normal, offset_by, mat)

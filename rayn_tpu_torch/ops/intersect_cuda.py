@@ -3,8 +3,9 @@ CUDA kernels and plain twins (csrc/intersect.cu).
 
 - `closest_hit_shading` replaces
   `rayn_tpu.ops.intersect_pallas.closest_hit_shading`
-  (`_intersect_kernel`): the sphere fold, the MandelBox march bounded by
-  the running closest t, the tetrahedral normal and the shading selects.
+  (`_intersect_kernel`): the sphere fold, the march of each SDF instance
+  bounded by the running closest t, the tetrahedral normal of the
+  instance hit and the shading selects.
   The kernel is a refill march over the wavefront: persistent lanes each
   take a ray, run it to the end (entry DE, march steps, normal taps, one
   DE per loop iteration) and write its outputs to its own slot, so the
@@ -13,10 +14,12 @@ CUDA kernels and plain twins (csrc/intersect.cu).
   `rayn_tpu.render.integrator._intersect_cost_key`: the pre-intersect
   chunk sort's estimate of each ray's march steps.
 
-Both take each ray's time: in a scene whose sphere centers are animated
-the kernels (their `_anim_kernel` instantiations) and the twins take
-every center at the ray's time, the lerp of its knots; a constant scene
-never reads the time.
+Both take every SDF instance of the scene: one bare MandelBox launches
+the kernels' MBoxOnly instantiations, anything else their Tape ones
+(csrc/common.cuh tape_de). Both take each ray's time: in a scene whose
+sphere centers are animated the kernels (their `_anim_kernel`
+instantiations) and the twins take every center at the ray's time, the
+lerp of its knots; a constant scene never reads the time.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch in
 its `launches` attribute, and raises on anything the kernel does not
@@ -31,7 +34,7 @@ import ctypes
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import MBox, check, device_of, mbox_struct
+from rayn_tpu_torch._build import MBox, check, device_of
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops.intersect import Hit, ShadingInfo
 from rayn_tpu_torch.ops import spheres as sphere_ops
@@ -87,32 +90,37 @@ def sphere_fold(data, static, settings, origin, direction, time=None):
 def closest_hit_shading_plain(data, static, settings, origin, direction,
                               hps_abs, hps_lin, active, time=None):
     """Plain twin of the kernel (intersect_pallas._intersect_kernel body):
-    the sphere fold, the SDF march bounded by it, the four normal taps,
-    then `write_hit_plain`; sphere centers at each ray's `time`."""
+    the sphere fold, the march of each SDF instance in object order
+    bounded by the closest t so far, the four normal taps of the instance
+    hit, then `write_hit_plain`; sphere centers at each ray's `time`."""
     K = static.n_spheres
     detail = settings.sdf_detail_scale
     best_t, best_obj = sphere_fold(data, static, settings, origin, direction,
                                    time)
     hps = g = None
-    if static.has_sdf:
+    insts = static.sdf_instances(data)
+    for i, (prog, _mat, _bv) in enumerate(insts):
         t_sdf = march_ops.march(
-            data.sdf_params, origin, direction, best_t,
+            prog, origin, direction, best_t,
             eps_const=5e-5 * detail, eps_abs=0.05 * detail * hps_abs,
             eps_lin=0.05 * detail * hps_lin,
             max_steps=settings.max_marches, active=active)
         closer = t_sdf < best_t
         best_t = torch.where(closer, t_sdf, best_t)
-        best_obj = torch.where(closer, K, best_obj)
+        best_obj = torch.where(closer, K + i, best_obj)
+    if insts:
         hps = torch.clamp(detail * (hps_abs + hps_lin * best_t), min=1e-4)
-        ox, oy, oz = origin.unbind(-1)
-        dx, dy, dz = direction.unbind(-1)
-        px, py, pz = ox + best_t * dx, oy + best_t * dy, oz + best_t * dz
-        gx = gy = gz = torch.zeros_like(px)
-        for (kx, ky, kz) in TETRA_TAPS:
-            dk = dist_c(data.sdf_params, px + kx * hps, py + ky * hps,
-                        pz + kz * hps)
-            gx, gy, gz = gx + kx * dk, gy + ky * dk, gz + kz * dk
-        g = torch.stack([gx, gy, gz], -1)
+        p = origin + best_t[:, None] * direction
+        g = torch.zeros_like(p)
+        for i, (prog, _mat, _bv) in enumerate(insts):
+            idx = torch.nonzero(best_obj == K + i).squeeze(1)
+            px, py, pz = p[idx].unbind(-1)
+            h = hps[idx]
+            gx = gy = gz = torch.zeros_like(px)
+            for (kx, ky, kz) in TETRA_TAPS:
+                dk = dist_c(prog, px + kx * h, py + ky * h, pz + kz * h)
+                gx, gy, gz = gx + kx * dk, gy + ky * dk, gz + kz * dk
+            g[idx] = torch.stack([gx, gy, gz], -1)
     return write_hit_plain(data, static, origin, direction, active, best_t,
                            best_obj, hps, g, time)
 
@@ -121,9 +129,10 @@ def write_hit_plain(data, static, origin, direction, active, best_t,
                     best_obj, hps, g, time=None):
     """(Hit, ShadingInfo) of each ray from its closest t and object (the
     kernel's write_hit): the point; a sphere's normal (its center at the
-    ray's time) and material; for the SDF (object K) the normalised tap
-    gradient g [N, 3], its material and the offset hps (both None in a
-    scene without an SDF); zeros on a miss."""
+    ray's time) and material; for SDF instance i (object K + i) the
+    normalised tap gradient g [N, 3], the instance's material and the
+    offset hps (g and hps None in a scene without an SDF); zeros on a
+    miss."""
     K = static.n_spheres
     ox, oy, oz = origin.unbind(-1)
     dx, dy, dz = direction.unbind(-1)
@@ -147,14 +156,16 @@ def write_hit_plain(data, static, origin, direction, active, best_t,
         nz = torch.where(is_sph, vz * vinv, nz)
         mat = torch.where(is_sph, row[:, 4].to(torch.int32), mat)
     if static.has_sdf:
-        is_sdf = best_obj == K
+        is_sdf = best_obj >= K
         gx, gy, gz = g.unbind(-1)
         glen = _sqrt(gx * gx + gy * gy + gz * gz)
         ginv = 1.0 / torch.clamp(glen, min=1e-20)
         nx = torch.where(is_sdf, gx * ginv, nx)
         ny = torch.where(is_sdf, gy * ginv, ny)
         nz = torch.where(is_sdf, gz * ginv, nz)
-        mat = torch.where(is_sdf, static.sdf_mat, mat)
+        for i, (_prog, inst_mat, _bv) in enumerate(
+                static.sdf_instances(data)):
+            mat = torch.where(best_obj == K + i, inst_mat, mat)
         off = torch.where(is_sdf, hps, off)
     hit = Hit(best_t, best_obj, active & (best_obj >= 0))
     info = ShadingInfo(torch.stack([px, py, pz], -1),
@@ -165,9 +176,10 @@ def write_hit_plain(data, static, origin, direction, active, best_t,
 def intersect_cost_key_plain(data, static, settings, origin, direction,
                              time, alive):
     """Plain twin of the cost-key kernel (JAX integrator.py:144-175):
-    estimated primary-march steps per ray before the intersect, the
-    sphere-fold closest t (at most t_max0) over the first DE, at most
-    max_marches; 1 for a dead ray or a NaN first DE."""
+    estimated primary-march steps per ray before the intersect, for each
+    SDF instance the sphere-fold closest t (at most t_max0) over its
+    first DE, at most max_marches, or 1 for a dead ray or a NaN first DE;
+    summed over the instances from 0."""
     n = origin.shape[0]
     t_max0 = 2.0 * settings.world_radius
     full = torch.full((n,), t_max0, dtype=torch.float32,
@@ -179,11 +191,14 @@ def intersect_cost_key_plain(data, static, settings, origin, direction,
         bound = torch.clamp(ts.min(dim=-1).values, max=t_max0)
     else:
         bound = full
-    d0 = dist(data.sdf_params, origin)
-    est = torch.clamp(bound / torch.clamp(d0, min=1e-6),
-                      max=float(settings.max_marches))
-    ok = alive & ~torch.isnan(d0)
-    return torch.where(ok, est, torch.ones_like(est))
+    key = torch.zeros_like(bound)
+    for prog, _mat, _bv in static.sdf_instances(data):
+        d0 = dist(prog, origin)
+        est = torch.clamp(bound / torch.clamp(d0, min=1e-6),
+                          max=float(settings.max_marches))
+        ok = alive & ~torch.isnan(d0)
+        key = key + torch.where(ok, est, torch.ones_like(est))
+    return key
 
 
 _P = ctypes.c_void_p
@@ -205,8 +220,8 @@ class _CostKeyArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "origin", "direction", "alive", "time", "spheres", "key")] + [
         ("n", ctypes.c_int64), ("K", ctypes.c_int),
-        ("max_steps", ctypes.c_int), ("mb", MBox), ("t_max0", ctypes.c_float),
-        ("anim", _build.Anim)]
+        ("max_steps", ctypes.c_int), ("mb", MBox),
+        ("t_max0", ctypes.c_float), ("anim", _build.Anim)]
 
 
 def _time_and_anim(data, static, time, n, dev, what):
@@ -251,6 +266,7 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
     time_p, anim = _time_and_anim(data, static, time, n, dev,
                                   "closest_hit_shading")
+    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev)
     args = _IntersectArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
@@ -265,11 +281,10 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
         normal=normal.data_ptr(), offset_by=off.data_ptr(),
         mat=mat.data_ptr(), n=n, K=static.n_spheres,
         has_sdf=int(static.has_sdf), sdf_mat=static.sdf_mat,
-        max_steps=settings.max_marches,
-        mb=mbox_struct(data.sdf_params if static.has_sdf else None),
+        max_steps=settings.max_marches, mb=mb,
         t_max0=2.0 * settings.world_radius, eps_const=5e-5 * detail,
         eps_k=0.05 * detail, detail=detail, anim=anim)
-    _build.launch("rayn_closest_hit", args, dev)
+    _build.launch("rayn_closest_hit", _build.taped(args, sdf), dev)
     closest_hit_shading.launches += 1
     return (Hit(t, obj, active & (obj >= 0)),
             ShadingInfo(point, normal, off, mat))
@@ -296,15 +311,16 @@ def intersect_cost_key(data, static, settings, origin, direction, time,
     key = torch.empty((n,), dtype=f32, device=dev)
     time_p, anim = _time_and_anim(data, static, time, n, dev,
                                   "intersect_cost_key")
+    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev)
     args = _CostKeyArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
         alive=check(alive, "alive", torch.bool, (n,), dev), time=time_p,
         spheres=check(spheres, "spheres", f32, (static.n_spheres, 5), dev),
         key=key.data_ptr(), n=n, K=static.n_spheres,
-        max_steps=settings.max_marches, mb=mbox_struct(data.sdf_params),
+        max_steps=settings.max_marches, mb=mb,
         t_max0=2.0 * settings.world_radius, anim=anim)
-    _build.launch("rayn_cost_key", args, dev)
+    _build.launch("rayn_cost_key", _build.taped(args, sdf), dev)
     intersect_cost_key.launches += 1
     return key
 

@@ -16,7 +16,8 @@ the step overshot and the lane falls back to the conservative step
 t_prev + r_prev. relax == 1 is the reference algorithm.
 
 Hit thresholds are cone-traced: max(eps_const, eps_abs + eps_lin * t)
-(reference src/camera.rs:116-118, src/film.rs:547-551).
+(reference src/camera.rs:116-118, src/film.rs:547-551). Every march takes
+one SDF program (ops/sdf.py), as JAX's marches take one instance.
 
 The two-phase marches (march_pallas.march_sorted, march_phased,
 march_occlusion_phased, march_occlusion_sorted) split the plain march
@@ -40,17 +41,17 @@ from __future__ import annotations
 
 import torch
 
-from rayn_tpu_torch.ops.sdf import MandelBox, dist_c
+from rayn_tpu_torch.ops.sdf import dist_c
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 
-def _de_at(mb, origin, direction, idx, t):
+def _de_at(prog, origin, direction, idx, t):
     o, d = origin[idx], direction[idx]
-    return dist_c(mb, o[:, 0] + t * d[:, 0], o[:, 1] + t * d[:, 1],
+    return dist_c(prog, o[:, 0] + t * d[:, 0], o[:, 1] + t * d[:, 1],
                   o[:, 2] + t * d[:, 2])
 
 
-def _march_steps(mb, origin, direction, t_max, eps_const: float, eps_abs,
+def _march_steps(prog, origin, direction, t_max, eps_const: float, eps_abs,
                  eps_lin, t, live, steps: int, n_de=None):
     """At most `steps` plain (relax 1) steps of the lanes `live`, with t
     advanced in place; returns the lanes that neither met their
@@ -63,7 +64,7 @@ def _march_steps(mb, origin, direction, t_max, eps_const: float, eps_abs,
         tl = t[live]
         if n_de is not None:
             n_de[live[~(tl > t_max[live])]] += 1
-        r = _de_at(mb, origin, direction, live, tl)
+        r = _de_at(prog, origin, direction, live, tl)
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
                              min=eps_const)
         step = ~((torch.abs(r) < thresh) | (tl > t_max[live]))
@@ -72,16 +73,16 @@ def _march_steps(mb, origin, direction, t_max, eps_const: float, eps_abs,
     return live
 
 
-def _first_de(mb, origin, t_max, act):
+def _first_de(prog, origin, t_max, act):
     """t of every lane before its first step: the DE at the origin, or
     t_max + 1 for an inactive lane."""
     t = t_max + 1.0
     o = origin[act]
-    t[act] = dist_c(mb, o[:, 0], o[:, 1], o[:, 2])
+    t[act] = dist_c(prog, o[:, 0], o[:, 1], o[:, 2])
     return t
 
 
-def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march(prog, origin, direction, t_max, eps_const: float,
           eps_abs, eps_lin, max_steps: int, active=None,
           relax: float = 1.0, n_de=None) -> torch.Tensor:
     """Primary-ray sphere trace; per-ray t (>= t_max on a miss). Lanes
@@ -92,13 +93,13 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
     begun past t_max takes none)."""
     act = (torch.ones_like(t_max, dtype=torch.bool) if active is None
            else active)
-    t = _first_de(mb, origin, t_max, act)
+    t = _first_de(prog, origin, t_max, act)
     if n_de is not None:
         n_de += act.to(n_de.dtype)
     # NaN and past-the-end lanes are done at their first step
     live = torch.nonzero(act & (t <= t_max)).squeeze(1)
     if relax == 1.0:
-        _march_steps(mb, origin, direction, t_max, eps_const, eps_abs,
+        _march_steps(prog, origin, direction, t_max, eps_const, eps_abs,
                      eps_lin, t, live, max_steps, n_de)
         return t
     t_prev = torch.zeros_like(t)
@@ -109,7 +110,7 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
         if n_de is not None:
             n_de[live] += 1
         tl = t[live]
-        r = _de_at(mb, origin, direction, live, tl)
+        r = _de_at(prog, origin, direction, live, tl)
         thresh = torch.clamp(eps_abs[live] + eps_lin[live] * tl,
                              min=eps_const)
         done = (torch.abs(r) < thresh) | (tl > t_max[live])
@@ -125,43 +126,43 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
     return t
 
 
-def march_steps(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_steps(prog, origin, direction, t_max, eps_const: float,
                 eps_abs, eps_lin, max_steps: int, active) -> torch.Tensor:
-    """int32 [N]: the MandelBox DEs each ray's closest-hit march takes in
+    """int32 [N]: the DEs each ray's closest-hit march takes in
     the intersect kernel: those of the relax-1 march kernel (`march`'s
     `n_de`), and the four normal taps of a ray whose march ends before
     t_max (an SDF hit): the work a schedule of the closest hit has to
     pack into warps."""
     n_de = torch.zeros(active.shape, dtype=torch.int32,
                        device=active.device)
-    t = march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+    t = march(prog, origin, direction, t_max, eps_const, eps_abs, eps_lin,
               max_steps, active, n_de=n_de)
     return n_de + 4 * (active & (t < t_max)).to(torch.int32)
 
 
-def march_phase1(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_phase1(prog, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, steps: int, active):
     """Phase 1 of the two-phase march (march_pallas._march_phase1_kernel):
     every lane takes at most `steps` plain steps. Returns (t1, resolved):
     t as `march` has it after those steps, and whether the lane is done:
     inactive, NaN at its first DE, or it met its threshold or passed
     t_max within them."""
-    t = _first_de(mb, origin, t_max, active)
+    t = _first_de(prog, origin, t_max, active)
     live = torch.nonzero(active & ~torch.isnan(t)).squeeze(1)
-    live = _march_steps(mb, origin, direction, t_max, eps_const, eps_abs,
+    live = _march_steps(prog, origin, direction, t_max, eps_const, eps_abs,
                         eps_lin, t, live, steps)
     resolved = torch.ones_like(active)
     resolved[live] = False
     return t, resolved
 
 
-def march_resume(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_resume(prog, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, steps: int, t1, resolved, order):
     """Phase 2 (march_pallas._march_resume_kernel): the lanes in `order`
     that phase 1 left unresolved march on from t1 for at most `steps`
     more plain steps. Returns a copy of t1 with their final t."""
     t = t1.clone()
-    _march_steps(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+    _march_steps(prog, origin, direction, t_max, eps_const, eps_abs, eps_lin,
                  t, order[~resolved[order]], steps)
     return t
 
@@ -175,7 +176,7 @@ def _segment_dir(start, end):
     return torch.stack([gx * inv, gy * inv, gz * inv], dim=-1), md
 
 
-def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
+def segment_entry(prog, bound_radius: float, start, end, act):
     """Shadow-segment entry (port of march_pallas._segment_entry):
     (unit direction [N,3], effective length md, first t0, entry-resolved
     mask, raw first DE). With bound_radius > 0 the segment is clipped to
@@ -186,7 +187,7 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     d, md = _segment_dir(start, end)
     dist0 = torch.full_like(sx, float("nan"))
     s = start[act]
-    dist0[act] = dist_c(mb, s[:, 0], s[:, 1], s[:, 2])
+    dist0[act] = dist_c(prog, s[:, 0], s[:, 1], s[:, 2])
     nan = torch.isnan(dist0) | ~act
     t0 = dist0
     if bound_radius > 0.0:
@@ -202,7 +203,7 @@ def segment_entry(mb: MandelBox, bound_radius: float, start, end, act):
     return d, md, t0, nan, dist0
 
 
-def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
+def _occl_steps(prog, start, d, md, detail_scale: float, t, occ, live,
                 steps: int, n_de=None):
     """At most `steps` relax-1 occlusion steps of the segments `live`,
     with t advanced in place: at each, a segment whose DE meets
@@ -219,7 +220,7 @@ def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
             n_de[live] += 1
         tl = t[live]
         gt_end = tl > md[live]
-        r = _de_at(mb, start, d, live, tl)
+        r = _de_at(prog, start, d, live, tl)
         hit = torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)
         occ[live[hit & ~gt_end]] = True
         step_on = ~(hit | gt_end)
@@ -228,12 +229,12 @@ def _occl_steps(mb, start, d, md, detail_scale: float, t, occ, live,
     return live
 
 
-def _occl_march(mb, start, end, detail_scale: float, max_steps: int,
+def _occl_march(prog, start, end, detail_scale: float, max_steps: int,
                 active, bound_radius: float, n_de=None, first_de=False):
     """The relax-1 occlusion march of march_occlusion; `n_de`, if given,
     counts each segment's DEs in place (its first DE, taken for every
     active segment, and one per step)."""
-    d, md, t, nan, dist0 = segment_entry(mb, bound_radius, start, end,
+    d, md, t, nan, dist0 = segment_entry(prog, bound_radius, start, end,
                                          active)
     occ = torch.zeros_like(nan)
     if n_de is not None:
@@ -244,24 +245,24 @@ def _occl_march(mb, start, end, detail_scale: float, max_steps: int,
         occ[live] = (dist0[live] < 1e-4) & ~(t[live] > md[live])
         live = live[~occ[live]]
         steps = max_steps
-    _occl_steps(mb, start, d, md, detail_scale, t.clone(), occ, live, steps,
+    _occl_steps(prog, start, d, md, detail_scale, t.clone(), occ, live, steps,
                 n_de)
     return occ
 
 
-def occlusion_steps(mb: MandelBox, start, end, detail_scale: float,
+def occlusion_steps(prog, start, end, detail_scale: float,
                     max_steps: int, active, bound_radius: float = 0.0,
                     relax: float = 1.0):
-    """int32 [N]: the MandelBox DEs each segment takes in march_occlusion
+    """int32 [N]: the DEs each segment takes in march_occlusion
     at `relax` (its first DE plus one per step; 0 when inactive), the
     work that a lane spends on it."""
     n_de = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
-    march_occlusion(mb, start, end, detail_scale, max_steps, active,
+    march_occlusion(prog, start, end, detail_scale, max_steps, active,
                     bound_radius, relax, n_de)
     return n_de
 
 
-def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion(prog, start, end, detail_scale: float,
                     max_steps: int, active, bound_radius: float = 0.0,
                     relax: float = 1.0, n_de=None, first_de: bool = False):
     """Shadow march; bool [N], True where the SDF blocks the segment.
@@ -281,9 +282,9 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     takes none there, which is the `first_de` verdict at 0 steps
     (march_cuda.march_occlusion routes it so)."""
     if relax == 1.0:
-        return _occl_march(mb, start, end, detail_scale, max_steps, active,
+        return _occl_march(prog, start, end, detail_scale, max_steps, active,
                            bound_radius, n_de, first_de)
-    d, md, t, nan, _ = segment_entry(mb, bound_radius, start, end, active)
+    d, md, t, nan, _ = segment_entry(prog, bound_radius, start, end, active)
     occ = torch.zeros_like(nan)
     if n_de is not None:
         n_de += active.to(n_de.dtype)
@@ -300,7 +301,7 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
             n_de[live] += 1
         tl = t[live]
         gt_end = tl > md[live]
-        r = _de_at(mb, start, d, live, tl)
+        r = _de_at(prog, start, d, live, tl)
         tp, rp = t_prev[live], r_prev[live]
         overshoot = (tl - tp) > (torch.abs(rp) + torch.abs(r))
         hit = (torch.abs(r) < torch.clamp(eps_l * tl, min=eps_c)) & ~overshoot
@@ -317,7 +318,7 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     return occ
 
 
-def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
+def occlusion_phase1(prog, start, end, detail_scale: float,
                      steps: int, active):
     """Phase 1 of the two-phase occlusion march
     (march_pallas._occl_phase1_kernel): every segment takes at most
@@ -326,19 +327,19 @@ def occlusion_phase1(mb: MandelBox, start, end, detail_scale: float,
     steps, and whether the segment hit or is past its end (an inactive or
     NaN-entry segment is resolved and unblocked). With no step taken the
     verdict is the kernel's `first DE < 1e-4` (march_pallas.py:518)."""
-    d, md, t0, nan, dist0 = segment_entry(mb, 0.0, start, end, active)
+    d, md, t0, nan, dist0 = segment_entry(prog, 0.0, start, end, active)
     t = t0.clone()
     occ = torch.zeros_like(nan)
     live = torch.nonzero(~nan).squeeze(1)
     if steps == 0:
         occ[live] = (dist0[live] < 1e-4) & ~(t[live] > md[live])
-    live = _occl_steps(mb, start, d, md, detail_scale, t, occ, live, steps)
+    live = _occl_steps(prog, start, d, md, detail_scale, t, occ, live, steps)
     resolved = torch.ones_like(nan)
     resolved[live] = (t[live] > md[live]) | occ[live]
     return occ, t, resolved
 
 
-def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
+def occlusion_resume(prog, start, end, detail_scale: float,
                      steps: int, occluded, t1, resolved, order):
     """Phase 2 (march_pallas._occl_resume_kernel): the segments in
     `order` that phase 1 left unresolved march on from t1 for at most
@@ -346,12 +347,12 @@ def occlusion_resume(mb: MandelBox, start, end, detail_scale: float,
     final verdicts."""
     d, md = _segment_dir(start, end)
     occ = occluded.clone()
-    _occl_steps(mb, start, d, md, detail_scale, t1.clone(), occ,
+    _occl_steps(prog, start, d, md, detail_scale, t1.clone(), occ,
                 order[~resolved[order]], steps)
     return occ
 
 
-def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion_chained(prog, start, end, detail_scale: float,
                             max_steps: int, active,
                             bound_radius: float = 0.0):
     """K shadow segments per ray (start/end [K, N, 3], active [K, N]) ->
@@ -359,7 +360,7 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
     Chaining only schedules a ray's segments one after another, so each
     verdict is that of `march_occlusion` at relax 1."""
     k, n = start.shape[0], start.shape[1]
-    return march_occlusion(mb, start.reshape(k * n, 3),
+    return march_occlusion(prog, start.reshape(k * n, 3),
                            end.reshape(k * n, 3), detail_scale, max_steps,
                            active.reshape(k * n),
                            bound_radius).reshape(k, n)

@@ -4,10 +4,10 @@ Port of the `rayn_tpu.ops.march_pallas` kernels that the unfused bounce
 runs (csrc/march.cu):
 
 - `march` replaces `march` (`_march_kernel`): the closest-hit march of
-  the SDF along each ray, plain or over-relaxed (`relax`). The kernel is
-  a refill march over the wavefront: persistent lanes that each take a
-  ray (a warp claims 32 ray ids at a time from a device counter), march
-  it and write its t to the ray's own slot, then take the next.
+  one SDF program along each ray, plain or over-relaxed (`relax`). The
+  kernel is a refill march over the wavefront: persistent lanes that each
+  take a ray (a warp claims 32 ray ids at a time from a device counter),
+  march it and write its t to the ray's own slot, then take the next.
 - `march_occlusion` replaces `march_occlusion` (`_occl_kernel`): shadow
   segments with the bounding-sphere clip, plain or over-relaxed. It is a
   function over two kernels: `enqueue` compacts the ids of the active
@@ -41,6 +41,10 @@ runs (csrc/march.cu):
   the TPU functions' own schedule in plain torch (phase 1, the lane
   order, the resume), the references the tests hold against JAX.
 
+Every function takes one SDF program (ops/sdf.py), as JAX's take one
+instance a call: a bare MandelBox launches the kernels' MBoxOnly
+instantiations, any other program their Tape ones.
+
 Each kernel wrapper launches its kernel for CUDA tensors, counts the
 launch in its `launches` attribute, and raises on anything the kernel
 does not take. For CPU tensors it calls its `_plain` twin, which is the
@@ -55,10 +59,8 @@ import ctypes
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import (MBox, QueueMarch, check, mbox_struct,
-                                   queue_march)
+from rayn_tpu_torch._build import MBox, QueueMarch, check, queue_march
 from rayn_tpu_torch.ops import march as march_ops
-from rayn_tpu_torch.ops.sdf import MandelBox
 
 _P = ctypes.c_void_p
 
@@ -99,15 +101,15 @@ def _int32_ids(m: int, name: str) -> int:
     return m
 
 
-def march_plain(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_plain(prog, origin, direction, t_max, eps_const: float,
                 eps_abs, eps_lin, max_steps: int, active,
                 relax: float = 1.0) -> torch.Tensor:
     """Plain twin of the march kernel (ops/march.py march)."""
-    return march_ops.march(mb, origin, direction, t_max, eps_const, eps_abs,
+    return march_ops.march(prog, origin, direction, t_max, eps_const, eps_abs,
                            eps_lin, max_steps, active, relax)
 
 
-def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march(prog, origin, direction, t_max, eps_const: float,
           eps_abs, eps_lin, max_steps: int, active, relax: float = 1.0,
           warp_steps=None) -> torch.Tensor:
     """[N] f32 t of the closest SDF hit along each ray (>= t_max on a
@@ -115,13 +117,14 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
     `warp_steps`, a [1] int64 CUDA tensor, has the kernel's warps add
     their loop iterations to it (one DE per busy lane each)."""
     if origin.device.type == "cpu":
-        return march_plain(mb, origin, direction, t_max, eps_const, eps_abs,
+        return march_plain(prog, origin, direction, t_max, eps_const, eps_abs,
                            eps_lin, max_steps, active, relax)
     dev = _cuda_device(origin, "march")
     n = _int32_ids(origin.shape[0], "march")
     f32 = torch.float32
     t = torch.empty((n,), dtype=f32, device=dev)
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    mb, sdf = _build.sdf_args([(prog, 0, 0.0)], dev)
     args = _MarchArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
@@ -132,9 +135,9 @@ def march(mb: MandelBox, origin, direction, t_max, eps_const: float,
         head=head.data_ptr(),
         warp_steps=(None if warp_steps is None else check(
             warp_steps, "warp_steps", torch.int64, (1,), dev)),
-        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mbox_struct(mb),
+        t=t.data_ptr(), n=n, max_steps=max_steps, mb=mb,
         eps_const=eps_const, relax=relax)
-    _build.launch("rayn_march", args, dev)
+    _build.launch("rayn_march", _build.taped(args, sdf), dev)
     march.launches += 1
     return t
 
@@ -174,7 +177,7 @@ def enqueue(active):
 enqueue.launches = 0
 
 
-def occlusion_march_plain(mb: MandelBox, start, end, detail_scale: float,
+def occlusion_march_plain(prog, start, end, detail_scale: float,
                           max_steps: int, queue, count, relax: float = 1.0,
                           bound_radius: float = 0.0,
                           first_de: bool = False) -> torch.Tensor:
@@ -184,13 +187,13 @@ def occlusion_march_plain(mb: MandelBox, start, end, detail_scale: float,
                           device=start.device)
     ids = queue[:int(count[0])].long()
     verdict[ids] = march_ops.march_occlusion(
-        mb, start[ids], end[ids], detail_scale, max_steps,
+        prog, start[ids], end[ids], detail_scale, max_steps,
         torch.ones_like(ids, dtype=torch.bool), bound_radius, relax,
         first_de=first_de)
     return verdict
 
 
-def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
+def occlusion_march(prog, start, end, detail_scale: float,
                     max_steps: int, queue, count, relax: float = 1.0,
                     bound_radius: float = 0.0,
                     first_de: bool = False) -> torch.Tensor:
@@ -203,7 +206,7 @@ def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
     if first_de and relax != 1.0:
         raise ValueError(f"the first-DE entry marches at relax 1, got {relax}")
     if start.device.type == "cpu":
-        return occlusion_march_plain(mb, start, end, detail_scale,
+        return occlusion_march_plain(prog, start, end, detail_scale,
                                      max_steps, queue, count, relax,
                                      bound_radius, first_de)
     dev = _cuda_device(start, "occlusion_march")
@@ -211,17 +214,17 @@ def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
     f32, i32 = torch.float32, torch.int32
     verdict = torch.zeros((m,), dtype=torch.bool, device=dev)
     head = torch.zeros((1,), dtype=i32, device=dev)
+    q, sdf = queue_march(check(queue, "queue", i32, (m,), dev),
+                         check(count, "count", i32, (1,), dev), head,
+                         verdict, [(prog, bound_radius)], detail_scale,
+                         _steps_at_least(max_steps, 0 if first_de else 1,
+                                         "occlusion_march"),
+                         relax)
     args = _OcclMarchArgs(
         start=check(start, "start", f32, (m, 3), dev),
-        end=check(end, "end", f32, (m, 3), dev),
-        q=queue_march(check(queue, "queue", i32, (m,), dev),
-                      check(count, "count", i32, (1,), dev), head, verdict,
-                      mb, detail_scale,
-                      _steps_at_least(max_steps, 0 if first_de else 1,
-                                      "occlusion_march"),
-                      relax, bound_radius),
+        end=check(end, "end", f32, (m, 3), dev), q=q,
         first_de=int(first_de))
-    _build.launch("rayn_occl_march", args, dev)
+    _build.launch("rayn_occl_march", _build.taped(args, sdf), dev)
     occlusion_march.launches += 1
     return verdict
 
@@ -229,19 +232,19 @@ def occlusion_march(mb: MandelBox, start, end, detail_scale: float,
 occlusion_march.launches = 0
 
 
-def march_occlusion_plain(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion_plain(prog, start, end, detail_scale: float,
                           max_steps: int, active, relax: float = 1.0,
                           bound_radius: float = 0.0) -> torch.Tensor:
     """Plain version of `march_occlusion` in one piece (ops/march.py)."""
     if max_steps <= 0:
-        return march_ops.march_occlusion(mb, start, end, detail_scale, 0,
+        return march_ops.march_occlusion(prog, start, end, detail_scale, 0,
                                          active, bound_radius,
                                          first_de=True)
-    return march_ops.march_occlusion(mb, start, end, detail_scale, max_steps,
+    return march_ops.march_occlusion(prog, start, end, detail_scale, max_steps,
                                      active, bound_radius, relax)
 
 
-def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion(prog, start, end, detail_scale: float,
                     max_steps: int, active, relax: float = 1.0,
                     bound_radius: float = 0.0) -> torch.Tensor:
     """[M] bool: True where the SDF blocks segment start -> end (active
@@ -252,23 +255,23 @@ def march_occlusion(mb: MandelBox, start, end, detail_scale: float,
     with no loop iteration (ops/march.py:126-170)."""
     queue, count = enqueue(active)
     if max_steps <= 0:
-        return occlusion_march(mb, start, end, detail_scale, 0, queue, count,
+        return occlusion_march(prog, start, end, detail_scale, 0, queue, count,
                                1.0, bound_radius, first_de=True)
-    return occlusion_march(mb, start, end, detail_scale, max_steps, queue,
+    return occlusion_march(prog, start, end, detail_scale, max_steps, queue,
                            count, relax, bound_radius)
 
 
-def march_occlusion_chained_plain(mb: MandelBox, start, end,
+def march_occlusion_chained_plain(prog, start, end,
                                   detail_scale: float, max_steps: int,
                                   active,
                                   bound_radius: float = 0.0) -> torch.Tensor:
     """Plain version of `march_occlusion_chained` in one piece
     (ops/march.py)."""
-    return march_ops.march_occlusion_chained(mb, start, end, detail_scale,
+    return march_ops.march_occlusion_chained(prog, start, end, detail_scale,
                                              max_steps, active, bound_radius)
 
 
-def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion_chained(prog, start, end, detail_scale: float,
                             max_steps: int, active,
                             bound_radius: float = 0.0) -> torch.Tensor:
     """[K, N] bool verdicts of K segments per ray (start/end [K, N, 3],
@@ -276,7 +279,7 @@ def march_occlusion_chained(mb: MandelBox, start, end, detail_scale: float,
     two kernels on the K*N segments. At `max_steps` 0 every segment takes
     one step, as in JAX's chained core (march_pallas.py:883-896)."""
     k, n = start.shape[0], start.shape[1]
-    return march_occlusion(mb, start.reshape(k * n, 3),
+    return march_occlusion(prog, start.reshape(k * n, 3),
                            end.reshape(k * n, 3), detail_scale,
                            max(max_steps, 1), active.reshape(k * n), 1.0,
                            bound_radius).reshape(k, n)
@@ -302,11 +305,11 @@ def sorted_order(resolved, length, t1, phase1_steps: int):
     return torch.argsort(torch.where(resolved, -1.0, (length - t1) / speed))
 
 
-def _march_two_phase_plain(sort: bool, mb, origin, direction, t_max,
+def _march_two_phase_plain(sort: bool, prog, origin, direction, t_max,
                            eps_const, eps_abs, eps_lin, max_steps, active,
                            phase1_steps):
     _check_split(phase1_steps)
-    head = (mb, origin, direction, t_max, eps_const, eps_abs, eps_lin)
+    head = (prog, origin, direction, t_max, eps_const, eps_abs, eps_lin)
     t1, resolved = march_ops.march_phase1(
         *head, min(phase1_steps, max_steps), active)
     if phase1_steps >= max_steps:
@@ -317,27 +320,27 @@ def _march_two_phase_plain(sort: bool, mb, origin, direction, t_max,
                                   resolved, order)
 
 
-def march_sorted_plain(mb: MandelBox, origin, direction, t_max,
+def march_sorted_plain(prog, origin, direction, t_max,
                        eps_const: float, eps_abs, eps_lin, max_steps: int,
                        active, phase1_steps: int = 8) -> torch.Tensor:
     """march_pallas.march_sorted in plain torch, in one piece: phase 1,
     a sort by predicted remaining steps, the resume."""
-    return _march_two_phase_plain(True, mb, origin, direction, t_max,
+    return _march_two_phase_plain(True, prog, origin, direction, t_max,
                                   eps_const, eps_abs, eps_lin, max_steps,
                                   active, phase1_steps)
 
 
-def march_phased_plain(mb: MandelBox, origin, direction, t_max,
+def march_phased_plain(prog, origin, direction, t_max,
                        eps_const: float, eps_abs, eps_lin, max_steps: int,
                        active, phase1_steps: int = 32) -> torch.Tensor:
     """march_pallas.march_phased in plain torch, in one piece: phase 1,
     the unresolved lanes first, the resume."""
-    return _march_two_phase_plain(False, mb, origin, direction, t_max,
+    return _march_two_phase_plain(False, prog, origin, direction, t_max,
                                   eps_const, eps_abs, eps_lin, max_steps,
                                   active, phase1_steps)
 
 
-def march_sorted(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_sorted(prog, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, max_steps: int, active,
                  phase1_steps: int = 8) -> torch.Tensor:
     """[N] t of march_pallas.march_sorted: `march`'s at relax 1, from one
@@ -345,44 +348,44 @@ def march_sorted(mb: MandelBox, origin, direction, t_max, eps_const: float,
     `phase1_steps` (>= 0) selects nothing: every split gives the same
     bits."""
     _check_split(phase1_steps)
-    return march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+    return march(prog, origin, direction, t_max, eps_const, eps_abs, eps_lin,
                  max_steps, active)
 
 
-def march_phased(mb: MandelBox, origin, direction, t_max, eps_const: float,
+def march_phased(prog, origin, direction, t_max, eps_const: float,
                  eps_abs, eps_lin, max_steps: int, active,
                  phase1_steps: int = 32) -> torch.Tensor:
     """[N] t of march_pallas.march_phased, the same as march_sorted's:
     one launch of the march kernel, `phase1_steps` (>= 0) selecting
     nothing."""
     _check_split(phase1_steps)
-    return march(mb, origin, direction, t_max, eps_const, eps_abs, eps_lin,
+    return march(prog, origin, direction, t_max, eps_const, eps_abs, eps_lin,
                  max_steps, active)
 
 
-def march_occlusion_phased_plain(mb: MandelBox, start, end,
+def march_occlusion_phased_plain(prog, start, end,
                                  detail_scale: float, max_steps: int, active,
                                  phase1_steps: int = 16) -> torch.Tensor:
     """march_pallas.march_occlusion_phased in plain torch, in one piece:
     phase 1, the unresolved segments first, the resume."""
-    return _occlusion_two_phase_plain(False, mb, start, end, detail_scale,
+    return _occlusion_two_phase_plain(False, prog, start, end, detail_scale,
                                       max_steps, active, phase1_steps)
 
 
-def march_occlusion_sorted_plain(mb: MandelBox, start, end,
+def march_occlusion_sorted_plain(prog, start, end,
                                  detail_scale: float, max_steps: int, active,
                                  phase1_steps: int = 8) -> torch.Tensor:
     """march_pallas.march_occlusion_sorted in plain torch, in one piece:
     phase 1, a sort by predicted remaining steps, the resume."""
-    return _occlusion_two_phase_plain(True, mb, start, end, detail_scale,
+    return _occlusion_two_phase_plain(True, prog, start, end, detail_scale,
                                       max_steps, active, phase1_steps)
 
 
-def _occlusion_two_phase_plain(sort: bool, mb, start, end, detail_scale,
+def _occlusion_two_phase_plain(sort: bool, prog, start, end, detail_scale,
                                max_steps, active, phase1_steps):
     _check_split(phase1_steps)
     occ, t1, resolved = march_ops.occlusion_phase1(
-        mb, start, end, detail_scale, min(phase1_steps, max_steps), active)
+        prog, start, end, detail_scale, min(phase1_steps, max_steps), active)
     if phase1_steps >= max_steps:
         return occ
     if sort:
@@ -391,22 +394,22 @@ def _occlusion_two_phase_plain(sort: bool, mb, start, end, detail_scale,
                              phase1_steps)
     else:
         order = partition_order(resolved)
-    return march_ops.occlusion_resume(mb, start, end, detail_scale,
+    return march_ops.occlusion_resume(prog, start, end, detail_scale,
                                       max_steps - phase1_steps, occ, t1,
                                       resolved, order)
 
 
-def _occlusion_refill(mb, start, end, detail_scale, max_steps, active,
+def _occlusion_refill(prog, start, end, detail_scale, max_steps, active,
                       phase1_steps):
     """The enqueue kernel and the unclipped relax-1 refill march, with
     the first-DE entry where phase 1 would take no step."""
     _check_split(phase1_steps)
     queue, count = enqueue(active)
-    return occlusion_march(mb, start, end, detail_scale, max_steps, queue,
+    return occlusion_march(prog, start, end, detail_scale, max_steps, queue,
                            count, first_de=min(phase1_steps, max_steps) == 0)
 
 
-def march_occlusion_phased(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion_phased(prog, start, end, detail_scale: float,
                            max_steps: int, active,
                            phase1_steps: int = 16) -> torch.Tensor:
     """[M] bool verdicts of march_pallas.march_occlusion_phased: those of
@@ -415,16 +418,16 @@ def march_occlusion_phased(mb: MandelBox, start, end, detail_scale: float,
     selects JAX's verdict at split 0 (no phase-1 step: a segment whose
     first DE is below 1e-4 before its end is blocked, the others march
     in full); on the CPU the same two twins run."""
-    return _occlusion_refill(mb, start, end, detail_scale, max_steps,
+    return _occlusion_refill(prog, start, end, detail_scale, max_steps,
                              active, phase1_steps)
 
 
-def march_occlusion_sorted(mb: MandelBox, start, end, detail_scale: float,
+def march_occlusion_sorted(prog, start, end, detail_scale: float,
                            max_steps: int, active,
                            phase1_steps: int = 8) -> torch.Tensor:
     """[M] bool verdicts of march_pallas.march_occlusion_sorted, the same
     as march_occlusion_phased's at the same split (the lane order never
     changes a verdict): the enqueue kernel and the refill march, with
     `phase1_steps` (>= 0) only selecting the split-0 verdict."""
-    return _occlusion_refill(mb, start, end, detail_scale, max_steps,
+    return _occlusion_refill(prog, start, end, detail_scale, max_steps,
                              active, phase1_steps)

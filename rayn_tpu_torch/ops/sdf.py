@@ -1,10 +1,22 @@
-"""Signed-distance fields: the MandelBox (port of rayn_tpu.ops.sdf).
+"""Signed-distance-field programs (port of rayn_tpu.ops.sdf).
 
 The JAX package represents an SDF as a traced closure plus a parameter
-pytree. The port's kernels are compiled CUDA, so an SDF here is a plain
-value: `MandelBox` carries its iteration count and its four scalar
-parameters (float32-rounded), and the CUDA kernels take them as plain
-arguments. The other primitives and combinators are not ported yet.
+pytree. The port's kernels are compiled CUDA, so a program here is a
+plain value: a tree of NamedTuples, one per primitive or combinator,
+whose float fields are the float32-rounded scalar parameters in the JAX
+pytree's leaf order (`leaves`), and whose int fields are structure (the
+MandelBox's iteration count). Primitives: `MandelBox`, `Sphere`, `Box`,
+`Torus`, `Plane`; combinators: `Union`, `Intersection`, `Subtraction`,
+`SmoothUnion`, `Translate`, `Scale`, `Rounded`. The constructors take
+the names and arguments of the JAX module's.
+
+`dist_c` is the plain torch DE of any program, op for op as JAX's
+`fn_c`; `tape` lowers a program to what the CUDA kernels read: int32
+opcodes and float32 operands evaluated as a postfix program with a
+stack of distances and a stack of saved points (csrc/common.cuh
+tape_de). A user-written closure (arbitrary jnp code) has no CUDA
+counterpart short of a code generator, so anything that is not one of
+these types is refused.
 """
 
 from __future__ import annotations
@@ -15,13 +27,15 @@ import numpy as np
 import torch
 
 from rayn_tpu_torch.utils import vecmath
+from rayn_tpu_torch.utils.vecmath import div as _div
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
 
 
-def _f32(x: float) -> float:
+def _f32(x) -> float:
     return float(np.float32(x))
 
 
+# ------------------------------------------------------------- primitives
 class MandelBox(NamedTuple):
     """MandelBox distance estimator (reference src/sdf.rs:104-188)."""
     iterations: int
@@ -31,6 +45,72 @@ class MandelBox(NamedTuple):
     fixed_rad_sq: float   # sphere-fold fixed radius^2
 
 
+class Sphere(NamedTuple):
+    radius: float
+
+
+class Box(NamedTuple):
+    hx: float
+    hy: float
+    hz: float
+
+
+class Torus(NamedTuple):
+    major: float
+    minor: float
+
+
+class Plane(NamedTuple):
+    nx: float
+    ny: float
+    nz: float
+    offset: float
+
+
+# ------------------------------------------------------------ combinators
+class Union(NamedTuple):
+    a: tuple
+    b: tuple
+
+
+class Intersection(NamedTuple):
+    a: tuple
+    b: tuple
+
+
+class Subtraction(NamedTuple):
+    """a minus b."""
+    a: tuple
+    b: tuple
+
+
+class SmoothUnion(NamedTuple):
+    a: tuple
+    b: tuple
+    k: float
+
+
+class Translate(NamedTuple):
+    a: tuple
+    x: float
+    y: float
+    z: float
+
+
+class Scale(NamedTuple):
+    a: tuple
+    factor: float
+
+
+class Rounded(NamedTuple):
+    a: tuple
+    radius: float
+
+
+PROGRAM_TYPES = (MandelBox, Sphere, Box, Torus, Plane, Union, Intersection,
+                 Subtraction, SmoothUnion, Translate, Scale, Rounded)
+
+
 def mandelbox(iterations: int, box_fold_l: float, sphere_min_rad: float,
               sphere_fixed_rad: float, scale: float) -> MandelBox:
     return MandelBox(int(iterations), _f32(scale), _f32(box_fold_l),
@@ -38,19 +118,118 @@ def mandelbox(iterations: int, box_fold_l: float, sphere_min_rad: float,
                      _f32(sphere_fixed_rad * sphere_fixed_rad))
 
 
-def reduced(mb: MandelBox, iterations: int) -> MandelBox:
-    """The MandelBox at `iterations` iterations, or `mb` itself at 0: the
-    truncated DE that JAX gives every shadow march
-    (RenderSettings.shadow_de_iterations; SdfProgram.reduced and the
-    MandelBox reduce_fn, rayn_tpu/ops/sdf.py:52-57, 87-117)."""
-    return mb._replace(iterations=int(iterations)) if iterations else mb
+def sphere(radius: float) -> Sphere:
+    return Sphere(_f32(radius))
 
 
-def dist_c(mb: MandelBox, x: torch.Tensor, y: torch.Tensor,
-           z: torch.Tensor) -> torch.Tensor:
-    """Component-form DE (reference src/sdf.rs:126-141): per iteration a
-    box fold, a sphere fold, then p = p*scale + p0 and dr = -dr*scale + 1;
-    DE = |p| / |dr|. NaN propagates like jnp.clip/jnp.maximum."""
+def box(half_extents) -> Box:
+    return Box(*(_f32(v) for v in half_extents))
+
+
+def torus(major: float, minor: float) -> Torus:
+    return Torus(_f32(major), _f32(minor))
+
+
+def plane(normal, offset: float = 0.0) -> Plane:
+    """The normal is normalised in float64 and each component then
+    rounded to float32, as the JAX module does."""
+    n = np.asarray(normal, np.float64)
+    n = n / np.linalg.norm(n)
+    return Plane(_f32(n[0]), _f32(n[1]), _f32(n[2]), _f32(offset))
+
+
+def union(a, b) -> Union:
+    return Union(check(a), check(b))
+
+
+def intersection(a, b) -> Intersection:
+    return Intersection(check(a), check(b))
+
+
+def subtraction(a, b) -> Subtraction:
+    return Subtraction(check(a), check(b))
+
+
+def smooth_union(a, b, k: float) -> SmoothUnion:
+    return SmoothUnion(check(a), check(b), _f32(k))
+
+
+def translate(a, offset) -> Translate:
+    return Translate(check(a), *(_f32(v) for v in offset))
+
+
+def scale(a, factor: float) -> Scale:
+    return Scale(check(a), _f32(factor))
+
+
+def rounded(a, radius: float) -> Rounded:
+    return Rounded(check(a), _f32(radius))
+
+
+def _children(prog):
+    return [v for v in prog if isinstance(v, PROGRAM_TYPES)]
+
+
+def check(prog):
+    """`prog` if it is a program of the library's types, else
+    NotImplementedError: a user-written closure needs a code generator
+    that the port does not have."""
+    if not isinstance(prog, PROGRAM_TYPES):
+        raise NotImplementedError(
+            f"{type(prog).__name__}: the port takes only the SDF library's "
+            "primitives and combinators (ops/sdf.py); user-written fn_c "
+            "closures need a code generator (ROADMAP Queue 1)")
+    for child in _children(prog):
+        check(child)
+    return prog
+
+
+def leaves(prog) -> list:
+    """The program's float parameters in the JAX pytree's leaf order
+    (jax.tree.leaves of the JAX program's params)."""
+    out = []
+    for v in check(prog):
+        if isinstance(v, PROGRAM_TYPES):
+            out += leaves(v)
+        elif isinstance(v, float):
+            out.append(v)
+    return out
+
+
+def with_leaves(prog, values):
+    """The program of the same structure with its float leaves replaced,
+    in leaf order, by `values` (rounded to float32); raises ValueError
+    when the counts differ."""
+    values = [_f32(v) for v in values]
+    want = len(leaves(prog))
+    if len(values) != want:
+        raise ValueError(f"{type(prog).__name__} program has {want} "
+                         f"parameter leaves, got {len(values)}")
+    it = iter(values)
+
+    def fill(p):
+        return type(p)(*(fill(v) if isinstance(v, PROGRAM_TYPES)
+                         else next(it) if isinstance(v, float) else v
+                         for v in p))
+    return fill(prog)
+
+
+def reduced(prog, iterations: int):
+    """The shadow marches' program (RenderSettings.shadow_de_iterations):
+    a bare MandelBox at `iterations` iterations; any other program, and
+    every program at 0, unchanged. JAX's `_from_c` drops the reduce_fn,
+    so a MandelBox inside a combinator keeps its full iterations
+    (SdfProgram.reduced, rayn_tpu/ops/sdf.py:52-57, 120-124)."""
+    if iterations and isinstance(prog, MandelBox):
+        return prog._replace(iterations=int(iterations))
+    return prog
+
+
+# ----------------------------------------------------------- distances
+def _mandelbox_c(mb: MandelBox, x, y, z):
+    """reference src/sdf.rs:126-141: per iteration a box fold, a sphere
+    fold, then p = p*scale + p0 and dr = -dr*scale + 1; DE = |p| / |dr|.
+    NaN propagates like jnp.clip/jnp.maximum."""
     ox, oy, oz = x, y, z
     dr = torch.ones_like(x)
     lo, hi = -mb.box_l, mb.box_l
@@ -59,9 +238,8 @@ def dist_c(mb: MandelBox, x: torch.Tensor, y: torch.Tensor,
         y = torch.clamp(y, lo, hi) * 2.0 - y
         z = torch.clamp(z, lo, hi) * 2.0 - z
         r2 = x * x + y * y + z * z
-        mul = torch.clamp(vecmath.div(mb.fixed_rad_sq,
-                                      torch.clamp(r2, min=mb.min_rad_sq)),
-                          min=1.0)
+        mul = torch.clamp(_div(mb.fixed_rad_sq,
+                               torch.clamp(r2, min=mb.min_rad_sq)), min=1.0)
         x, y, z = x * mul, y * mul, z * mul
         dr = dr * mul
         x = x * mb.scale + ox
@@ -71,8 +249,56 @@ def dist_c(mb: MandelBox, x: torch.Tensor, y: torch.Tensor,
     return _sqrt(x * x + y * y + z * z) / torch.abs(dr)
 
 
-def dist(mb: MandelBox, p: torch.Tensor) -> torch.Tensor:
-    return dist_c(mb, p[..., 0], p[..., 1], p[..., 2])
+def dist_c(prog, x: torch.Tensor, y: torch.Tensor,
+           z: torch.Tensor) -> torch.Tensor:
+    """Component-form DE of any program, op for op as the JAX fn_c:
+    minimum/maximum propagate NaN, `** 2` is a product, and every
+    division is one IEEE division."""
+    t = type(prog)
+    if t is MandelBox:
+        return _mandelbox_c(prog, x, y, z)
+    if t is Sphere:
+        return _sqrt(x * x + y * y + z * z) - prog.radius
+    if t is Box:
+        qx = torch.abs(x) - prog.hx
+        qy = torch.abs(y) - prog.hy
+        qz = torch.abs(z) - prog.hz
+        mx, my, mz = (torch.clamp(q, min=0.0) for q in (qx, qy, qz))
+        outside = _sqrt(mx * mx + my * my + mz * mz)
+        inside = torch.clamp(torch.maximum(qx, torch.maximum(qy, qz)),
+                             max=0.0)
+        return outside + inside
+    if t is Torus:
+        qx = _sqrt(x * x + z * z) - prog.major
+        return _sqrt(qx * qx + y * y) - prog.minor
+    if t is Plane:
+        return x * prog.nx + y * prog.ny + z * prog.nz + prog.offset
+    if t is Union:
+        return torch.minimum(dist_c(prog.a, x, y, z),
+                             dist_c(prog.b, x, y, z))
+    if t is Intersection:
+        return torch.maximum(dist_c(prog.a, x, y, z),
+                             dist_c(prog.b, x, y, z))
+    if t is Subtraction:
+        return torch.maximum(dist_c(prog.a, x, y, z),
+                             -dist_c(prog.b, x, y, z))
+    if t is SmoothUnion:
+        d1, d2, k = dist_c(prog.a, x, y, z), dist_c(prog.b, x, y, z), prog.k
+        h = torch.clamp(0.5 + _div(0.5 * (d2 - d1), k), 0.0, 1.0)
+        return d2 + (d1 - d2) * h - k * h * (1.0 - h)
+    if t is Translate:
+        return dist_c(prog.a, x - prog.x, y - prog.y, z - prog.z)
+    if t is Scale:
+        s = prog.factor
+        return dist_c(prog.a, _div(x, s), _div(y, s), _div(z, s)) * s
+    if t is Rounded:
+        return dist_c(prog.a, x, y, z) - prog.radius
+    check(prog)
+    raise AssertionError(t)
+
+
+def dist(prog, p: torch.Tensor) -> torch.Tensor:
+    return dist_c(prog, p[..., 0], p[..., 1], p[..., 2])
 
 
 # sdfu normals_fast tetrahedral tap directions (shared with the CUDA
@@ -81,13 +307,105 @@ TETRA_TAPS = ((1.0, -1.0, -1.0), (-1.0, 1.0, -1.0),
               (-1.0, -1.0, 1.0), (1.0, 1.0, 1.0))
 
 
-def tetrahedral_normal(mb: MandelBox, p: torch.Tensor,
+def tetrahedral_normal(prog, p: torch.Tensor,
                        eps: torch.Tensor) -> torch.Tensor:
     """4-tap tetrahedral gradient estimate, normalized (reference
     src/sdf.rs:92-96). eps: [...] per-point step size."""
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     g = [torch.zeros_like(x) for _ in range(3)]
     for kx, ky, kz in TETRA_TAPS:
-        d = dist_c(mb, x + kx * eps, y + ky * eps, z + kz * eps)
+        d = dist_c(prog, x + kx * eps, y + ky * eps, z + kz * eps)
         g = [g[0] + kx * d, g[1] + ky * d, g[2] + kz * d]
     return vecmath.normalize(torch.stack(g, dim=-1), eps=1e-20)
+
+
+# ------------------------------------------------------------------ tape
+# Opcodes of csrc/common.cuh tape_de (the low byte of an op word; the
+# MandelBox keeps its iteration count in the bits above). Each op takes
+# its operands from the instance's operand stream in order.
+OP_MBOX, OP_SPHERE, OP_BOX, OP_TORUS, OP_PLANE = 0, 1, 2, 3, 4
+OP_UNION, OP_INTERSECTION, OP_SUBTRACTION, OP_SMOOTH_UNION = 5, 6, 7, 8
+OP_TRANSLATE, OP_SCALE, OP_ROUNDED, OP_POP, OP_POP_SCALE = 9, 10, 11, 12, 13
+# The most distances, and the most saved points, a tape may hold at once
+# (csrc/common.cuh kSdfDepth: the stacks are fixed arrays per thread).
+DEPTH_CAP = 8
+
+LEAF_OP = {MandelBox: OP_MBOX, Sphere: OP_SPHERE, Box: OP_BOX,
+           Torus: OP_TORUS, Plane: OP_PLANE}
+BINARY_OP = {Union: OP_UNION, Intersection: OP_INTERSECTION,
+             Subtraction: OP_SUBTRACTION, SmoothUnion: OP_SMOOTH_UNION}
+
+
+class Tape(NamedTuple):
+    """A program as the kernels read it: postfix op words and their
+    operands, and the deepest the distance and point stacks get."""
+    ops: tuple        # int32 op words
+    operands: tuple   # float32 operands, in op order
+    depth: int        # distances held at once
+    points: int       # points saved at once
+
+
+def _emit(prog, ops, prm):
+    t = type(prog)
+    if t in LEAF_OP:
+        code = LEAF_OP[t]
+        if t is MandelBox:
+            if not 0 <= prog.iterations < 2 ** 23:
+                raise ValueError(f"MandelBox iterations {prog.iterations}")
+            code |= prog.iterations << 8
+        ops.append(code)
+        prm.extend(v for v in prog if isinstance(v, float))
+    elif t in BINARY_OP:
+        _emit(prog.a, ops, prm)
+        _emit(prog.b, ops, prm)
+        ops.append(BINARY_OP[t])
+        if t is SmoothUnion:
+            prm.append(prog.k)
+    elif t is Translate:
+        ops.append(OP_TRANSLATE)
+        prm.extend((prog.x, prog.y, prog.z))
+        _emit(prog.a, ops, prm)
+        ops.append(OP_POP)
+    elif t is Scale:
+        ops.append(OP_SCALE)
+        prm.append(prog.factor)
+        _emit(prog.a, ops, prm)
+        ops.append(OP_POP_SCALE)
+        prm.append(prog.factor)
+    elif t is Rounded:
+        _emit(prog.a, ops, prm)
+        ops.append(OP_ROUNDED)
+        prm.append(prog.radius)
+    else:
+        check(prog)
+
+
+def _depths(ops) -> tuple[int, int]:
+    depth = points = nd = np_ = 0
+    for code in ops:
+        op = code & 0xFF
+        if op in LEAF_OP.values():
+            nd += 1
+        elif op in BINARY_OP.values():
+            nd -= 1
+        elif op in (OP_TRANSLATE, OP_SCALE):
+            np_ += 1
+        elif op in (OP_POP, OP_POP_SCALE):
+            np_ -= 1
+        depth, points = max(depth, nd), max(points, np_)
+    return depth, points
+
+
+def tape(prog) -> Tape:
+    """The program as postfix op words and operands. Raises
+    NotImplementedError for anything but the library's types, or when a
+    stack would hold more than DEPTH_CAP entries."""
+    ops, prm = [], []
+    _emit(check(prog), ops, prm)
+    depth, points = _depths(ops)
+    if max(depth, points) > DEPTH_CAP:
+        raise NotImplementedError(
+            f"SDF program needs {depth} distances and {points} saved "
+            f"points at once; the CUDA tape holds at most {DEPTH_CAP} of "
+            "each (ops/sdf.py DEPTH_CAP, csrc/common.cuh kSdfDepth)")
+    return Tape(tuple(ops), tuple(prm), depth, points)

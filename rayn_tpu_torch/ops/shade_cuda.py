@@ -65,19 +65,18 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from rayn_tpu_torch import _build
-from rayn_tpu_torch._build import check, device_of, mbox_struct
+from rayn_tpu_torch._build import check, device_of
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
 from rayn_tpu_torch.ops import lights as light_ops
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import march_cuda
 from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.ops import spheres as sphere_ops
-from rayn_tpu_torch.ops.sdf import MandelBox
 from rayn_tpu_torch.scene.animation import (AnimChannel, need_time, rows_at,
                                             sample_batched_at)
 from rayn_tpu_torch.scene.scene import (DIELECTRIC, EMISSIVE, LAMBERT,
@@ -107,8 +106,9 @@ class ShadowCfg(NamedTuple):
     NL: int
     K: int
     has_ext: bool
-    mb: Optional[MandelBox]
-    bv_r: float
+    # the shadow marches' SDF instances in object order: (program reduced
+    # to shadow_de_iterations, bounding-sphere clip radius or 0)
+    sdfs: tuple
     eps_c: float
     eps_l: float
     detail: float
@@ -143,9 +143,10 @@ class ShadowCfg(NamedTuple):
 
 def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
     """The shadow-kernel configuration of one bounce (mirrors
-    shade_pallas._shadow_cfg_const and the bounce_tail_fused flags): its
-    MandelBox is the shadow marches' one, truncated to
-    `shadow_de_iterations` where that is set."""
+    shade_pallas._shadow_cfg_const and the bounce_tail_fused flags): each
+    SDF instance's shadow program (sdf.reduced: a bare MandelBox
+    truncated to `shadow_de_iterations` where that is set) with its bound
+    radius where `shadow_bv_clip` is set."""
     NL, K = int(static.n_lights), int(static.n_spheres)
     L = s.nee_light_samples if NL > 0 else 0
     VM = s.volume_marches if (static.has_scattering and NL > 0) else 0
@@ -154,9 +155,9 @@ def shadow_cfg(data, static, s, tables, depth: int) -> ShadowCfg:
         sampler=s.sampler, frame=int(tables.frame),
         num_1d_sets=s.num_1d_sets, L=L, VM=VM, NL=NL, K=K,
         has_ext=static.has_extinction,
-        mb=(sdf_ops.reduced(data.sdf_params, s.shadow_de_iterations)
-            if static.has_sdf else None),
-        bv_r=float(static.sdf_bound_radius) if s.shadow_bv_clip else 0.0,
+        sdfs=tuple((sdf_ops.reduced(prog, s.shadow_de_iterations),
+                    float(bv) if s.shadow_bv_clip else 0.0)
+                   for prog, _mat, bv in static.sdf_instances(data)),
         eps_c=1e-4 * detail, eps_l=1e-5 * detail, detail=detail,
         max_steps=s.max_vis_marches,
         correction=(NL / L) if L else 0.0,
@@ -531,20 +532,35 @@ def _stack(*cols):
     return torch.stack(cols, dim=-1)
 
 
+def unclipped(cfg: ShadowCfg) -> ShadowCfg:
+    """The configuration with no bounding-sphere clip on any instance."""
+    return cfg._replace(sdfs=tuple((prog, 0.0) for prog, _bv in cfg.sdfs))
+
+
+def _occlusion_fold(cfg, start, end, act, relax: float = 1.0):
+    """[M] bool: march_ops.march_occlusion folded over the SDF instances,
+    each with its bound radius, marching only the segments still active
+    and unblocked (intersect.test_occluded's product fold)."""
+    occ = torch.zeros_like(act)
+    for prog, bv in cfg.sdfs:
+        occ = occ | march_ops.march_occlusion(
+            prog, start, end, cfg.detail, cfg.max_steps, act & ~occ, bv,
+            relax)
+    return occ
+
+
 def _sdf_verdicts(cfg, segs):
-    """Occlusion verdict of every segment (march_ops.march_occlusion with
-    the bounding-sphere clip): all segments march as one batch, each with
-    its own step sequence (scheduling never changes a verdict). segs:
-    list of (start xyz, end xyz, active)."""
-    if cfg.mb is None or not segs:
+    """Occlusion verdict of every segment (`_occlusion_fold`): all
+    segments march as one batch, each with its own step sequence
+    (scheduling never changes a verdict). segs: list of (start xyz, end
+    xyz, active)."""
+    if not cfg.sdfs or not segs:
         return [torch.zeros_like(a) for (_s, _e, a) in segs]
     n = segs[0][2].shape[0]
     start = torch.cat([_stack(*s) for (s, _e, _a) in segs])
     end = torch.cat([_stack(*e) for (_s, e, _a) in segs])
     act = torch.cat([a for (_s, _e, a) in segs])
-    occ = march_ops.march_occlusion(cfg.mb, start, end, cfg.detail,
-                                    cfg.max_steps, act, cfg.bv_r)
-    return list(occ.split(n))
+    return list(_occlusion_fold(cfg, start, end, act).split(n))
 
 
 def _ordered_sum(ks, vis, like):
@@ -846,18 +862,19 @@ def shadow_segments_plain(cfg: ShadowCfg, tables: SceneTables, state, info,
 
 def shadow_march_plain(cfg: ShadowCfg, segs: ShadowSegments,
                        relax: float = 1.0) -> torch.Tensor:
-    """Plain twin of the march kernel: [S, N] bool, True where the SDF
-    blocks a queued segment (the march_occlusion verdict at `relax` with
-    the bounding-sphere clip); False elsewhere."""
+    """Plain twin of the march kernel: [S, N] bool, True where an SDF
+    instance blocks a queued segment (the march_occlusion verdicts at
+    `relax`, each instance with its bounding-sphere clip, folded as a
+    product over the instances); False elsewhere."""
     S, n = segs.active.shape
     verdict = torch.zeros((S * n,), dtype=torch.bool,
                           device=segs.active.device)
-    if cfg.mb is not None:
+    if cfg.sdfs:
         ids = segs.queue[:int(segs.count[0])].long()
         g = segs.geom.reshape(6, -1)[:, ids].T
-        verdict[ids] = march_ops.march_occlusion(
-            cfg.mb, g[:, :3], g[:, 3:], cfg.detail, cfg.max_steps,
-            torch.ones_like(ids, dtype=torch.bool), cfg.bv_r, relax)
+        verdict[ids] = _occlusion_fold(
+            cfg, g[:, :3], g[:, 3:], torch.ones_like(ids, dtype=torch.bool),
+            relax)
     return verdict.reshape(S, n)
 
 
@@ -1014,13 +1031,18 @@ def queue_sum_plain(radiance, segs: ShadowSegments, verdict) -> torch.Tensor:
 
 
 def _segment_cost(cfg, start, end, act):
-    """min(md / max(t0, 1e-6), max_steps), or 1 for a segment resolved at
-    entry or starting past its end (shade_pallas._segment_cost)."""
-    _d, md, t0, nan, _ = march_ops.segment_entry(
-        cfg.mb, cfg.bv_r, _stack(*start), _stack(*end), act)
-    est = torch.clamp(md / torch.clamp(t0, min=1e-6),
-                      max=float(cfg.max_steps))
-    return torch.where(nan | (t0 > md), 1.0, est)
+    """Per SDF instance min(md / max(t0, 1e-6), max_steps), or 1 for a
+    segment resolved at entry or starting past its end
+    (shade_pallas._segment_cost), summed over the instances from 0
+    (_shadow_cost_key's seg_cost)."""
+    cost = torch.zeros_like(start[0])
+    for prog, bv in cfg.sdfs:
+        _d, md, t0, nan, _ = march_ops.segment_entry(
+            prog, bv, _stack(*start), _stack(*end), act)
+        est = torch.clamp(md / torch.clamp(t0, min=1e-6),
+                          max=float(cfg.max_steps))
+        cost = cost + torch.where(nan | (t0 > md), 1.0, est)
+    return cost
 
 
 def equi_angular_plain(cfg: ShadowCfg, tables: SceneTables, origin,
@@ -1058,8 +1080,8 @@ def shadow_sort_key_plain(cfg: ShadowCfg, tables: SceneTables, point, normal,
     """Plain twin of the sort-key kernel: `_shadow_cost_key` on the
     volume sites' distances of `equi_angular_plain`, the lights at each
     ray's `time`. `n_de`, if given, counts in place the DEs each ray's
-    key takes (one per active segment, at its start)."""
-    if cfg.mb is None:
+    key takes (one per active segment and instance, at its start)."""
+    if not cfg.sdfs:
         return torch.zeros_like(offset_by)
     vol_dist, _ = equi_angular_plain(cfg, tables, origin, direction, t_hit,
                                      sample_idx, pixel, time)
@@ -1091,12 +1113,12 @@ def _shadow_cost_key(cfg: ShadowCfg, tables: SceneTables, point, normal,
         act = receives & (ndw > 0.0)
         key = key + _segment_cost(cfg, start, (ex, ey, ez), act)
         if n_de is not None:
-            n_de += act.to(n_de.dtype)
+            n_de += act.to(n_de.dtype) * len(cfg.sdfs)
     for j in range(cfg.VM * cfg.L):
         sp, e, _pdf, _em = _vol_site(cfg, tables, j, vol_dist[j], v)
         key = key + _segment_cost(cfg, sp, e, live)
         if n_de is not None:
-            n_de += live.to(n_de.dtype)
+            n_de += live.to(n_de.dtype) * len(cfg.sdfs)
     return key
 
 
@@ -1234,15 +1256,21 @@ def _anim(cfg: ShadowCfg, tables: SceneTables, dev):
         mis=_build.track(tables.mis_knots, "mis knots", cfg.K, dev))
 
 
+def _sdf_args(cfg: ShadowCfg, dev):
+    """(MBox, Sdf) of the shadow marches' instances."""
+    return _build.sdf_args([(p, 0, bv) for p, bv in cfg.sdfs], dev)
+
+
 def _scalars(cfg: ShadowCfg, tables: SceneTables, dev) -> _ShadowScalars:
+    bv_r = float(cfg.sdfs[0][1]) if cfg.sdfs else 0.0
     return _ShadowScalars(anim=_anim(cfg, tables, dev),
+        mb=_sdf_args(cfg, dev)[0],
         smp=sampler_struct(cfg.frame, cfg.sampler == "hash",
                            cfg.num_1d_sets),
-        mb=mbox_struct(cfg.mb), L=cfg.L, VM=cfg.VM,
-        NL=cfg.NL, K=cfg.K, has_ext=int(cfg.has_ext),
-        has_sdf=int(cfg.mb is not None),
-        max_steps=cfg.max_steps, bv_r=cfg.bv_r,
-        bv_r2=float(cfg.bv_r * cfg.bv_r), eps_c=cfg.eps_c, eps_l=cfg.eps_l,
+        L=cfg.L, VM=cfg.VM, NL=cfg.NL, K=cfg.K, has_ext=int(cfg.has_ext),
+        has_sdf=int(bool(cfg.sdfs)),
+        max_steps=cfg.max_steps, bv_r=bv_r, bv_r2=float(bv_r * bv_r),
+        eps_c=cfg.eps_c, eps_l=cfg.eps_l,
         correction=cfg.correction, vm_correction=cfg.vm_correction,
         sigma_t=cfg.sigma_t, sigma_s=cfg.sigma_s,
         compat_reflect=int(cfg.compat_reflect),
@@ -1385,24 +1413,24 @@ shadow_segments.launches = 0
 
 def shadow_march(cfg: ShadowCfg, segs: ShadowSegments,
                  relax: float = 1.0) -> torch.Tensor:
-    """[S, N] bool: True where the SDF blocks a queued segment, marched
-    plain at `relax` 1 and over-relaxed otherwise (False for every
-    segment of a scene without an SDF, with no launch)."""
+    """[S, N] bool: True where an SDF instance blocks a queued segment,
+    marched plain at `relax` 1 and over-relaxed otherwise, through each
+    instance in turn in one launch (False for every segment of a scene
+    without an SDF, with no launch)."""
     dev = device_of("shadow_march", segs.active)
     if dev is None:
         return shadow_march_plain(cfg, segs, relax)
     S, n = segs.active.shape
     verdict = torch.zeros((S, n), dtype=torch.bool, device=dev)
-    if cfg.mb is None:
+    if not cfg.sdfs:
         return verdict
     cols = _seg_cols(segs, dev)
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
-    args = _SegMarchArgs(
-        geom=cols["geom"],
-        q=_build.queue_march(cols["queue"], cols["count"], head, verdict,
-                             cfg.mb, cfg.detail, cfg.max_steps, relax,
-                             cfg.bv_r))
-    _build.launch("rayn_shadow_march", args, dev)
+    q, sdf = _build.queue_march(cols["queue"], cols["count"], head, verdict,
+                                cfg.sdfs, cfg.detail, cfg.max_steps, relax)
+    _build.launch("rayn_shadow_march",
+                  _build.taped(_SegMarchArgs(geom=cols["geom"], q=q), sdf),
+                  dev)
     shadow_march.launches += 1
     return verdict
 
@@ -1564,7 +1592,8 @@ def shadow_sort_key(cfg: ShadowCfg, tables: SceneTables, point, normal,
         time=_time_col(tables, time, n, dev),
         lights=check(tables.lights, "lights", f32, (cfg.NL, 8), dev),
         key=key.data_ptr(), n=n, sc=_scalars(cfg, tables, dev))
-    _build.launch("rayn_shadow_sort_key", args, dev)
+    _build.launch("rayn_shadow_sort_key",
+                  _build.taped(args, _sdf_args(cfg, dev)[1]), dev)
     shadow_sort_key.launches += 1
     return key
 

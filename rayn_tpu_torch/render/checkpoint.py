@@ -50,8 +50,12 @@ class Progress(NamedTuple):
 
 def _leaves(x):
     """The tensors and scalars of a nest of NamedTuples, tuples and
-    lists, in field order."""
+    lists, in field order, each NamedTuple preceded by its class name (an
+    SDF program's operations: two programs with equal parameters differ
+    there)."""
     if isinstance(x, (tuple, list)):
+        if hasattr(x, "_fields"):
+            yield type(x).__name__
         for y in x:
             yield from _leaves(y)
     else:

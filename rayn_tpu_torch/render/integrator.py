@@ -315,16 +315,20 @@ def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
     two_phase = (s.occl_sort_steps > 0 or s.occl_phase1_steps > 0)
     plain = s.march_relaxation == 1.0
     if plain and two_phase:
-        cfg = cfg._replace(bv_r=0.0)
+        cfg = shade_cuda.unclipped(cfg)
     n_seg = segs.active.shape[0]
     chained = (plain and not two_phase and s.chained_shadow_march
                and 1 < n_seg <= 30)
-    if cfg.max_steps <= 0 and cfg.mb is not None and not chained:
+    if cfg.max_steps <= 0 and cfg.sdfs and not chained:
         g = segs.geom.reshape(6, -1)
-        return march_cuda.march_occlusion(
-            cfg.mb, g[:3].T.contiguous(), g[3:].T.contiguous(), cfg.detail,
-            0, segs.active.reshape(-1),
-            bound_radius=cfg.bv_r).reshape(n_seg, -1)
+        start, end = g[:3].T.contiguous(), g[3:].T.contiguous()
+        act = segs.active.reshape(-1)
+        occ = torch.zeros_like(act)
+        for prog, bv in cfg.sdfs:   # the product fold over the instances
+            occ = occ | march_cuda.march_occlusion(
+                prog, start, end, cfg.detail, 0, act & ~occ,
+                bound_radius=bv)
+        return occ.reshape(n_seg, -1)
     return shade_cuda.shadow_march(cfg, segs, s.march_relaxation)
 
 

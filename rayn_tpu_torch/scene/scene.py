@@ -7,8 +7,10 @@ wavefront is a dense gather instead of a virtual call per object
 
 `SceneBuilder.build(device)` returns `(SceneData, SceneStatic)`:
 SceneData holds the tensors, on `device` (CUDA unless the caller asks
-for another device); SceneStatic holds the counts
-and flags. The port supports one traced SDF, a `MandelBox`.
+for another device), and the SDF programs (ops/sdf.py); SceneStatic
+holds the counts, flags and each SDF instance's material and bound
+radius. Any number of SDF instances, each any program of the SDF
+library, as in the JAX package (`add_sdf`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from rayn_tpu_torch.ops.sdf import MandelBox
+from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.scene.animation import (AnimChannel, sample_batched,
                                             sample_batched_at, stack_channels)
 
@@ -42,7 +44,7 @@ class Materials(NamedTuple):
 
 
 class SceneData(NamedTuple):
-    """All per-scene tensors (on one device) and the SDF's parameters."""
+    """All per-scene tensors (on one device) and the SDF programs."""
     sphere_centers: AnimChannel   # values [K, T, 3]
     sphere_radii: torch.Tensor    # [K]
     sphere_mats: torch.Tensor     # [K] int32
@@ -50,15 +52,26 @@ class SceneData(NamedTuple):
     light_pos: AnimChannel        # values [L, T, 3]
     light_radii: torch.Tensor     # [L]
     light_emission: torch.Tensor  # [L, 3]
-    sdf_params: Optional[MandelBox]
+    sdf_params: Optional[tuple]   # the first SDF instance's program
     volume_sigma_s: float         # float32-rounded; 0 when disabled
     volume_sigma_t: float
     sphere_light: torch.Tensor    # [K] int32 paired light id, -1 = none
     light_paired: torch.Tensor    # [L] f32 1.0 if the light has a pair
+    # programs of the SDF instances beyond the first (SceneStatic
+    # .extra_sdfs holds their materials and bounds, in the same order)
+    extra_sdf_params: tuple = ()
 
     @property
     def device(self) -> torch.device:
         return self.sphere_radii.device
+
+
+@dataclasses.dataclass(frozen=True)
+class SdfInstanceStatic:
+    """Material and bound radius of an SDF instance past the first (the
+    first's are SceneStatic's sdf_* fields)."""
+    mat: int
+    bound_radius: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +87,19 @@ class SceneStatic:
     # radius of an origin-centred sphere that contains the SDF's
     # {|DE| < eps} shell; 0 = unknown (no shadow-segment clip)
     sdf_bound_radius: float = 0.0
+    # SDF instances beyond the first (SdfInstanceStatic each); object ids
+    # follow the spheres: instance i is object n_spheres + i
+    extra_sdfs: tuple = ()
+
+    def sdf_instances(self, data: SceneData) -> list:
+        """Every SDF instance as (program, material id, bound radius) in
+        object-id order: the closest-hit and occlusion fold domain
+        (reference src/hitable.rs:163-210)."""
+        if not self.has_sdf:
+            return []
+        return [(data.sdf_params, self.sdf_mat, self.sdf_bound_radius)] + [
+            (prog, inst.mat, inst.bound_radius)
+            for prog, inst in zip(data.extra_sdf_params, self.extra_sdfs)]
 
 
 def sphere_centers_at(data: SceneData, time: torch.Tensor) -> torch.Tensor:
@@ -118,9 +144,10 @@ class SceneBuilder:
         self._light_pos: list[AnimChannel] = []
         self._light_radii: list[float] = []
         self._light_emission: list[np.ndarray] = []
-        self._sdf: Optional[MandelBox] = None
+        self._sdf = None
         self._sdf_mat = -1
         self._sdf_bound = 0.0
+        self._extra_sdfs: list = []   # (program, material, bound radius)
         self._sigma_s: Optional[float] = None
         self._sigma_t: Optional[float] = None
         self._pairs: dict[int, int] = {}
@@ -165,23 +192,31 @@ class SceneBuilder:
         self._sphere_mats.append(int(material))
         return len(self._sphere_radii) - 1
 
-    def set_sdf(self, program: MandelBox, material: int,
+    def set_sdf(self, program, material: int,
                 bound_radius: float = 0.0) -> None:
-        """Attach THE traced SDF (reference src/sdf.rs:12-21)."""
-        if not isinstance(program, MandelBox):
-            raise NotImplementedError(
-                "the port supports MandelBox SDFs only")
+        """Attach THE traced SDF, replacing any added before (reference
+        src/sdf.rs:12-21). `program`: any program of ops/sdf.py;
+        bound_radius: the radius of an origin-centred sphere that
+        contains its hit shell (0 = unknown: no shadow-segment clip).
+        A program the CUDA tape cannot hold raises NotImplementedError."""
+        sdf_ops.tape(program)
         self._sdf = program
         self._sdf_mat = int(material)
         self._sdf_bound = float(bound_radius)
+        self._extra_sdfs = []
 
-    def add_sdf(self, program: MandelBox, material: int,
+    def add_sdf(self, program, material: int,
                 bound_radius: float = 0.0) -> int:
-        if self._sdf is not None:
-            raise NotImplementedError(
-                "more than one SDF instance is not ported yet")
-        self.set_sdf(program, material, bound_radius)
-        return 0
+        """Append an SDF instance with its own material (reference
+        src/hitable.rs:143-161); returns its offset in the instances
+        (object id n_spheres + offset)."""
+        if self._sdf is None:
+            self.set_sdf(program, material, bound_radius)
+            return 0
+        sdf_ops.tape(program)
+        self._extra_sdfs.append(
+            (program, int(material), float(bound_radius)))
+        return len(self._extra_sdfs)
 
     def add_sphere_light(self, pos, radius: float, emission) -> int:
         self._light_pos.append(_as_channel(pos))
@@ -261,12 +296,15 @@ class SceneBuilder:
             volume_sigma_s=_f32(self._sigma_s or 0.0),
             volume_sigma_t=_f32(self._sigma_t or 0.0),
             sphere_light=t(sphere_light, torch.int32),
-            light_paired=t(light_paired))
+            light_paired=t(light_paired),
+            extra_sdf_params=tuple(p for p, _m, _b in self._extra_sdfs))
         static = SceneStatic(
             n_spheres=k, n_lights=n_lights,
             n_materials=len(self._mat_kind),
             has_sdf=self._sdf is not None, sdf_mat=self._sdf_mat,
             has_scattering=self._sigma_s is not None,
             has_extinction=self._sigma_t is not None,
-            sdf_bound_radius=self._sdf_bound)
+            sdf_bound_radius=self._sdf_bound,
+            extra_sdfs=tuple(SdfInstanceStatic(m, b)
+                             for _p, m, b in self._extra_sdfs))
         return data, static

@@ -41,6 +41,11 @@ the finish equal their twins as on the constant scene (the finish to
 the same gates), and give other results than the same kernels at time
 0, which reads knot 0; the animated camera, the thin lens and the
 orthographic camera render through the kernels.
+SDF programs (PROGRAM_SCENES: the default scene with a second, program
+instance, and a scene whose first instance uses every opcode): every
+kernel that reads the SDF runs its Tape instantiation and equals its
+twin bit for bit, and the default scene's MandelBox run as a one-op tape
+gives the MBoxOnly kernels' bits.
 """
 
 import dataclasses
@@ -49,6 +54,7 @@ import numpy as np
 import pytest
 import torch
 
+from rayn_tpu_torch import _build
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda, shade_cuda
 from rayn_tpu_torch.ops import march as march_ops
@@ -56,6 +62,7 @@ from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render import camera as camera_mod
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
+from rayn_tpu_torch.scene.scene import SceneBuilder
 from rayn_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.gpu
@@ -70,17 +77,22 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _wavefront(dev, depth, mis=False, volume=True, nee=4, knots=0):
+def _wavefront(dev, depth, mis=False, volume=True, nee=4, knots=0,
+               scene=None):
     """(scene, settings, tables, state, hps) of the default scene's
     wavefront at `depth` (depth 1 = the bounce rays of a plain depth-0
     bounce); with `knots`, of the scene with animated lights and spheres
-    (`animated_geo`) at that many knots, its rays over [0, 2] s."""
+    (`animated_geo`) at that many knots, its rays over [0, 2] s; with
+    `scene`, of the scene of PROGRAM_SCENES of that name."""
     s = RenderSettings(resolution=RES, spp=1, max_marches=128,
                        max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
                        mis=mis, nee_light_samples=nee)
-    data, static, cam = presets.default_scene(
-        resolution=RES, device=dev, volume=volume, animated_geo=knots > 0,
-        geo_knots=max(knots, 1))
+    if scene is not None:
+        data, static, cam = PROGRAM_SCENES[scene](dev)
+    else:
+        data, static, cam = presets.default_scene(
+            resolution=RES, device=dev, volume=volume,
+            animated_geo=knots > 0, geo_knots=max(knots, 1))
     tables = rng.build_sample_tables(s, 1)
     fis = filters.build_fis_table(filters.blackman_harris(1.5), 512,
                                   device=dev)
@@ -857,8 +869,8 @@ def test_two_phase_queue_route_launches_the_scratch_march(cuda, depth):
     before = _all_launches()
     got = integrator._queue_verdicts(s, cfg, segs)
     _launched_only(before, shade_cuda.shadow_march)
-    assert cfg.bv_r > 0.0 and got.any() and _same_bits(
-        got, shade_cuda.shadow_march_plain(cfg._replace(bv_r=0.0), segs))
+    assert cfg.sdfs[0][1] > 0.0 and got.any() and _same_bits(
+        got, shade_cuda.shadow_march_plain(shade_cuda.unclipped(cfg), segs))
 
 
 @pytest.mark.parametrize("name", ["march_occlusion_phased",
@@ -1030,3 +1042,185 @@ def test_checkpointed_frame_resumes_bit_for_bit(cuda, tmp_path, monkeypatch):
     on_cpu = checkpoint.load(path, s, 1, device="cpu", **key)
     assert on_cpu is not None and on_cpu[0].color.device.type == "cpu"
     assert torch.equal(on_cpu[0].color, ref.color.cpu())
+
+
+# ------------------------------------------------------------ SDF programs
+def _slab(m=sdf_ops):
+    """The program scene's instance 1: a rounded slab smooth-unioned with
+    a torus, 2.6 below the MandelBox."""
+    return m.translate(m.smooth_union(
+        m.rounded(m.box((2.0, 0.1, 2.0)), 0.05), m.torus(1.2, 0.1), 0.2),
+        (0.0, -2.6, 0.0))
+
+
+def _every_op(m=sdf_ops):
+    """A program with every opcode of the tape."""
+    mb = m.mandelbox(12, 1.0, 0.01, 1.9, -2.1)
+    return m.union(
+        m.scale(m.subtraction(m.intersection(mb, m.sphere(1.5)),
+                              m.plane((0.0, 1.0, 0.0), 0.2)), 0.8),
+        m.translate(m.smooth_union(m.rounded(m.torus(1.0, 0.2), 0.05),
+                                   m.box((0.3, 0.3, 0.3)), 0.25),
+                    (0.5, 0.5, 0.5)))
+
+
+def _program_scene(dev):
+    """The default scene with its MandelBox as instance 0 and the slab,
+    with a lambertian material of its own, as instance 1."""
+    data, static, cam = presets.default_scene(resolution=RES, device=dev)
+    b = SceneBuilder()
+    b.set_volume(0.25, 0.035)
+    for kind, a, bb, power, ior in zip(*(
+            x.tolist() for x in data.materials)):
+        b._add_material(kind, a, bb, power, ior)
+    slab = b.add_lambertian((0.6, 0.5, 0.4))
+    for k in range(static.n_spheres):
+        b.add_sphere(data.sphere_centers.values[k, 0].tolist(),
+                     float(data.sphere_radii[k]), int(data.sphere_mats[k]))
+    for i in range(static.n_lights):
+        b.add_sphere_light(data.light_pos.values[i, 0].tolist(),
+                           float(data.light_radii[i]),
+                           data.light_emission[i].tolist())
+    b.add_sdf(data.sdf_params, static.sdf_mat, static.sdf_bound_radius)
+    b.add_sdf(_slab(), slab, bound_radius=4.3)
+    return (*b.build(dev), cam)
+
+
+def _every_op_scene(dev):
+    """Sky, a light with its emissive body, the every-opcode program
+    (instance 0) and a sphere program (instance 1)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 0.0), 100.0, b.add_sky((0.3, 0.4, 0.6),
+                                                   (0.01, 0.015, 0.03)))
+    b.add_sphere_light((2.0, 2.5, 2.0), 0.4, (30.0, 24.0, 15.0))
+    b.add_sphere((2.0, 2.5, 2.0), 0.39, b.add_emissive((3.0, 2.4, 1.5)))
+    b.add_sdf(_every_op(), b.add_dielectric((0.2, 0.3, 0.8), 0.3),
+              bound_radius=2.5)
+    b.add_sdf(sdf_ops.translate(sdf_ops.sphere(0.4), (-1.2, -0.3, 0.5)),
+              b.add_lambertian((0.7, 0.2, 0.2)), bound_radius=2.0)
+    cam = camera_mod.PinholeCamera.make(RES, 50.0, (0.3, 0.8, 4.0),
+                                        (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                        device=dev)
+    return (*b.build(dev), cam)
+
+
+PROGRAM_SCENES = {"program": _program_scene, "every_op": _every_op_scene}
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("scene", sorted(PROGRAM_SCENES))
+def test_program_intersect_kernels_match_plain(cuda, scene, depth):
+    """The closest hit (every instance in turn, the taps of the one hit)
+    and the cost key (summed over the instances) equal their twins."""
+    data, static, s, _t, state, hps = _wavefront(cuda, depth, scene=scene)
+    assert len(static.sdf_instances(data)) == 2
+    before = intersect_cuda.closest_hit_shading.launches
+    got = _hit(data, static, s, state, hps,
+               intersect_cuda.closest_hit_shading)
+    want = _hit(data, static, s, state, hps,
+                intersect_cuda.closest_hit_shading_plain)
+    _launched(intersect_cuda.closest_hit_shading, before)
+    assert _hits_equal(got, want)
+    obj = want[0].obj
+    assert bool((obj == static.n_spheres).any()) and bool(
+        (obj == static.n_spheres + 1).any())
+    args = (data, static, s, state.origin, state.direction, state.time,
+            state.alive)
+    before = intersect_cuda.intersect_cost_key.launches
+    got = intersect_cuda.intersect_cost_key(*args)
+    _launched(intersect_cuda.intersect_cost_key, before)
+    assert _same_bits(got, intersect_cuda.intersect_cost_key_plain(*args))
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("scene", sorted(PROGRAM_SCENES))
+def test_program_tail_kernels_match_plain(cuda, scene, depth):
+    """The bounce tail and shadow radiance (a segment goes through the
+    instances in turn in one launch of the march), the sort key (summed
+    over the instances) and the queue's refill march at relax 1 and 1.5
+    equal their twins bit for bit."""
+    data, static, s, tables, state, hps = _wavefront(cuda, depth, True,
+                                                     scene=scene)
+    hit, info = _hit(data, static, s, state, hps,
+                     intersect_cuda.closest_hit_shading_plain)
+    live, mat, recv, vtr = integrator._derive_shading(data, static, state,
+                                                      hit, info)
+    cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
+    tabs = shade_cuda.scene_tables(data, static)
+    args = (cfg, tabs, state, hit, info, mat, live, recv, vtr, hit.t)
+    _bounce_tail_vs_plain(args)
+    _shadow_radiance_vs_plain(args)
+    key_args = (cfg, tabs, info.point, info.normal, info.offset_by,
+                state.origin, state.direction, hit.t, live, recv,
+                state.sample_idx, state.pixel)
+    before = shade_cuda.shadow_sort_key.launches
+    got = shade_cuda.shadow_sort_key(*key_args)
+    _launched(shade_cuda.shadow_sort_key, before)
+    assert _same_bits(got, shade_cuda.shadow_sort_key_plain(*key_args))
+    segs = shade_cuda.queue_segments_plain(cfg, tabs, state, info, mat, live,
+                                           recv, vtr, hit.t)
+    for relax in (1.0, 1.5):
+        got = shade_cuda.shadow_march(cfg, segs, relax)
+        want = shade_cuda.shadow_march_plain(cfg, segs, relax)
+        assert want.any() and _same_bits(got, want)
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.5])
+@pytest.mark.parametrize("scene", sorted(PROGRAM_SCENES))
+def test_program_march_kernels_match_plain(cuda, scene, relax):
+    """The march kernel and march_occlusion (enqueue + refill march) on
+    each instance's program, and the first-DE entry, equal their twins."""
+    data, static, s, _t, state, (ha, hl) = _wavefront(cuda, 1, scene=scene)
+    n = state.origin.shape[0]
+    t_max = torch.full((n,), 2.0 * s.world_radius, device=cuda)
+    start, end, act = _segments(cuda, 4, n)
+    for prog, _mat, bv in static.sdf_instances(data):
+        args = (prog, state.origin, state.direction, t_max, 5e-5, 0.05 * ha,
+                0.05 * hl, s.max_marches, state.alive, relax)
+        assert _same_bits(march_cuda.march(*args),
+                          march_cuda.march_plain(*args))
+        for steps, bound in ((100, bv), (100, 0.0), (0, bv)):
+            oargs = (prog, start.reshape(-1, 3), end.reshape(-1, 3), 0.5,
+                     steps, act.reshape(-1), relax, bound)
+            assert _same_bits(march_cuda.march_occlusion(*oargs),
+                              march_cuda.march_occlusion_plain(*oargs))
+        if relax == 1.0:
+            pargs = (prog, start.reshape(-1, 3), end.reshape(-1, 3), 0.5, 64,
+                     act.reshape(-1))
+            for split in (0, 8):
+                assert _same_bits(
+                    march_cuda.march_occlusion_phased(*pargs, split),
+                    march_cuda.march_occlusion_phased_plain(*pargs, split))
+
+
+def test_forced_tape_matches_mbox_only(cuda):
+    """The default scene's MandelBox run as a one-op tape (the Tape
+    kernels) gives the MBoxOnly kernels' bits: closest hit, cost key,
+    bounce tail, sort key and march."""
+    args = _tail_inputs(cuda, 1)
+    cfg, tabs, state, hit, info, mat, live, recv, vtr, t_hit = args
+    data, static, s, _t, _state, hps = _wavefront(cuda, 1)
+    key_args = (cfg, tabs, info.point, info.normal, info.offset_by,
+                state.origin, state.direction, hit.t, live, recv,
+                state.sample_idx, state.pixel)
+    n = state.origin.shape[0]
+    margs = (data.sdf_params, state.origin, state.direction,
+             torch.full((n,), 200.0, device=cuda), 5e-5, hps[0] * 0.05,
+             hps[1] * 0.05, s.max_marches, state.alive, 1.5)
+
+    def run():
+        return (_hit(data, static, s, state, hps,
+                     intersect_cuda.closest_hit_shading),
+                intersect_cuda.intersect_cost_key(
+                    data, static, s, state.origin, state.direction,
+                    state.time, state.alive),
+                shade_cuda.bounce_tail(*args),
+                shade_cuda.shadow_sort_key(*key_args),
+                march_cuda.march(*margs))
+    mbox = run()
+    with _build.tape_forced():
+        tape = run()
+    assert _hits_equal(tape[0], mbox[0])
+    assert _same_bits(tape[1], mbox[1])
+    assert all(_same_bits(tape[2][f], mbox[2][f]) for f in mbox[2])
+    assert _same_bits(tape[3], mbox[3]) and _same_bits(tape[4], mbox[4])

@@ -202,7 +202,7 @@ def test_march_occlusion_twins_compose(relax, bound):
 
 def test_two_phase_route_marches_the_scratch_unclipped():
     """With `occl_sort_steps=8` and `shadow_bv_clip=True`, _queue_verdicts
-    equals the refill march's twin on the same scratch at bv_r 0, and
+    equals the refill march's twin on the same scratch unclipped, and
     JAX's march_occlusion_sorted of the queued segments: 2 x 512 random
     segments through the fractal, under a clip radius of 1.5 in place of
     the scene's 3.6, so that the clip changes verdicts."""
@@ -212,7 +212,7 @@ def test_two_phase_route_marches_the_scratch_unclipped():
     s = RenderSettings(resolution=RES, spp=1, max_vis_marches=32,
                        shadow_bv_clip=True, occl_sort_steps=8)
     cfg = shade_cuda.shadow_cfg(data, static, s, rng.SampleTables(1), 0)
-    cfg = cfg._replace(bv_r=1.5)
+    cfg = cfg._replace(sdfs=tuple((prog, 1.5) for prog, _bv in cfg.sdfs))
     g = np.random.default_rng(8)
     S, n = 2, 512
     start = g.uniform(-3.0, 3.0, (S * n, 3))
@@ -225,7 +225,8 @@ def test_two_phase_route_marches_the_scratch_unclipped():
         k=torch.ones((3, S, n)), active=torch.from_numpy(act.reshape(S, n)),
         queue=queue, count=count)
     got = integrator._queue_verdicts(s, cfg, segs)
-    want = shade_cuda.shadow_march_plain(cfg._replace(bv_r=0.0), segs, 1.0)
+    want = shade_cuda.shadow_march_plain(shade_cuda.unclipped(cfg), segs,
+                                         1.0)
     clipped = shade_cuda.shadow_march_plain(cfg, segs, 1.0)
     assert want.any() and (want != clipped).any()
     assert torch.equal(got, want)

@@ -17,18 +17,21 @@ off; animated-geo and animated: the fused pass on
 `default_scene(animated_geo=True)`, its lights and emissive spheres on
 8-knot channels, and on `default_scene(animated=True)`, its camera on a
 64-knot orbit, both with rays over [0, 2] s, as chip_smoke.py phase 13
-renders them) calls chip_smoke.profile_pass: five unprofiled passes
+renders them; spheres: the fused pass on `presets.spheres_scene`, which
+has no SDF; program: the fused pass on chip_smoke.program_scene, the
+default scene with a second, program SDF instance) calls
+chip_smoke.profile_pass: five unprofiled passes
 timed on the host clock up to `torch.cuda.synchronize()`, then one pass
 under torch.profiler for the device busy time, the idle share of the
 median unprofiled wall, the launch count, the device time by kernel and
 the peak device memory. With --rounds R the paths' unprofiled walls
 are then taken in turns, R rounds, the order reversed every other
-round. With --film PATH it also renders the first path's whole frame
-(`render_frame`, phase 4's 1080p, 4 spp) and saves the film there; with
---film-ref PATH it renders it and prints whether the film equals the one
-saved there bit for bit (a parent's, to show that a change leaves the
-static scene's images as they were). Prints the card's name and power
-limit and one JSON line; exits non-zero without a CUDA device.
+round. With --film PATH it also renders each path's whole frame
+(`render_frame`, phase 4's 1080p, 4 spp) and saves the films there; with
+--film-ref PATH it renders them and prints whether each film equals the
+one of its path saved there bit for bit (a parent's, to show that a
+change leaves the scenes' images as they were). Prints the card's name
+and power limit and one JSON line; exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,9 +58,9 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--json", default=None)
     ap.add_argument("--film", default=None,
-                    help="save the first path's 1080p film here")
+                    help="save each path's 1080p film here")
     ap.add_argument("--film-ref", default=None,
-                    help="compare the first path's film with this one")
+                    help="compare each path's film with the one saved here")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -105,7 +108,9 @@ def main(argv=None) -> int:
                                        march_relaxation=smoke.RELAX),
         "unfused": unfused_s,
         "sorted": dataclasses.replace(unfused_s, march_sort_steps=8,
-                                      occl_sort_steps=8)}
+                                      occl_sort_steps=8),
+        "spheres": (main_s, dict(scene="spheres"), frame1),
+        "program": (main_s, dict(scene="program"), frame1)}
     settings = {k: v if isinstance(v, tuple) else (v, {}, frame1)
                 for k, v in settings.items()}
     scenes = {}
@@ -119,10 +124,15 @@ def main(argv=None) -> int:
 
     def one_pass(path):
         s, anim, (t0, t1) = settings[path]
-        key = tuple(sorted(anim))
+        key = tuple(sorted(anim.items()))
         if key not in scenes:   # made on first use: a parent tree may
-            scenes[key] = presets.default_scene(   # have no animated scenes
-                resolution=(w, h), device=dev, **anim)
+            kind = anim.get("scene")  # have no animated or program scenes
+            scenes[key] = (
+                presets.spheres_scene((w, h), device=dev)
+                if kind == "spheres" else
+                smoke.program_scene((w, h), dev) if kind == "program" else
+                presets.default_scene(resolution=(w, h), device=dev,
+                                      **anim))
         data, static, cam = scenes[key]
         return lambda: renderer.render_pass(film, data, static, s, tables,
                                             cam, fis, 0, n, t0, t1)
@@ -145,19 +155,23 @@ def main(argv=None) -> int:
               f"{ {p: sorted(w)[len(w) // 2] for p, w in walls.items()} }",
               flush=True)
     if args.film or args.film_ref:
-        s, anim, t_range = settings[paths[0]]
-        data, static, cam = scenes[tuple(sorted(anim))]
-        fr = renderer.render_frame(data, static, s, cam, frame=1,
-                                   time_range=t_range)
-        cols = {f: getattr(fr, f).cpu() for f in fr._fields}
+        films = {}
+        for path in paths:
+            s, anim, t_range = settings[path]
+            data, static, cam = scenes[tuple(sorted(anim.items()))]
+            fr = renderer.render_frame(data, static, s, cam, frame=1,
+                                       time_range=t_range)
+            films[path] = {f: getattr(fr, f).cpu() for f in fr._fields}
         if args.film:
-            torch.save(cols, args.film)
+            torch.save(films, args.film)
         if args.film_ref:
             ref = torch.load(args.film_ref)
-            same = {f: bool(torch.equal(cols[f], ref[f])) for f in cols}
+            same = {path: {f: bool(torch.equal(c, ref[path][f]))
+                           for f, c in cols.items()}
+                    for path, cols in films.items() if path in ref}
             out["film_equal_to_ref"] = same
-            print(f"{args.label} {paths[0]} film equal to {args.film_ref} "
-                  f"bit for bit: {same}", flush=True)
+            print(f"{args.label} films equal to {args.film_ref} bit for "
+                  f"bit: {same}", flush=True)
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(out, fh, indent=1)
