@@ -217,6 +217,26 @@ Phases (any failed gate raises and the script exits non-zero):
    8's launch gates) and at 256x256 sorted against unsorted and 2^16
    against 2^15 passes (fused, relaxed, sorted two-phase); one profiled
    pass of the program scene and of the default scene (launches a pass).
+16. Per-lane extras (after phase 15, before phase 7): the default scene
+   with a smooth albedo function on its MandelBox's material, the four
+   extra AOVs (depth, position, albedo, mat_id) and `compact_bounces`.
+   1080p 4-spp frames on the fused path (phase 4's gates) and the relaxed
+   path (phase 8's), each beside the same frame without the extras, in
+   turns; the fused frame with compaction and the albedo function but no
+   AOVs (peak memory); the split tail with MIS at 480x270 (phase 10's
+   gates); every such frame must hold one finite accumulator a
+   configured AOV. At 256x256, 4 spp: the compacted film equals the
+   uncompacted one bit for bit, AOV accumulators included, on the fused,
+   relaxed and sorted two-phase paths, and two compacted runs agree bit
+   for bit. The inputs of one 2^20-ray pass with the albedo function and
+   compaction at depths 0 and 1 (keys 1 and 2) on the fused path and the
+   relaxed queue: every kernel and the queue tail against its twin as in
+   phase 3, each kernel's depth-1 time. The compaction's device time by
+   kernel name on the depth-1 state (the partition and gather, and the
+   gather back to ray order); one profiled pass without the extras and
+   with them without and with compaction, in turns (device busy time,
+   launches). `cli.main --aov depth --aov albedo` at 480x270 writes the
+   two AOV PNGs under JAX's names beside the three default channels.
 
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
@@ -225,8 +245,11 @@ one; rows 2, 3, 5, 7 and the segments kernels with `ms_shadow_de_8`,
 `ms_full_de_same_inputs`, their DEs at both and the bound at 8
 iterations; every row that reads the SDF with `ms_program`, its
 program-scene time, and rows 1, 2, 3, 6 and the cost key with
-`ms_tape_default_scene` beside `ms_mbox_only_same_inputs`), the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+`ms_tape_default_scene` beside `ms_mbox_only_same_inputs`; the rows
+phase 16 times with `ms_extras`, `max_abs_err_extras` and
+`launches_extras`, their depth-1 time, error and frame launches with
+per-lane albedo and compacted lanes), the nvidia-smi line, and {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -568,13 +591,17 @@ def profile_pass(one_pass, label: str) -> dict:
         one_pass()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_pass()
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):   # a session that records no kernel is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_pass()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
     busy = busy_us((e.time_range.start, e.time_range.end)
                    for e in kernels) / 1e3
     by_name: dict = {}
@@ -846,21 +873,26 @@ def main(argv=None) -> int:
         host time between launches counts), with the 50 MB L2 cache
         overwritten before each call, as a render pass leaves it: the
         mean over the launches the profiler recorded, or None if it
-        recorded none."""
+        recorded none. A session that records no kernel at all (the
+        profiler on that machine sometimes does) is retried twice."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn(*a, **kw)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                scrub.zero_()
-                fn(*a, **kw)
-            torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    scrub.zero_()
+                    fn(*a, **kw)
+                torch.cuda.synchronize()
+            cuda = [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+            if cuda:
+                break
         tags = [t for e in entries for t in (f"rayn::{e}(", f"{len(e)}{e}E")]
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and any(t in e.name for t in tags)]
+        ev = [e for e in cuda if any(t in e.name for t in tags)]
         if not ev:
             return None
         return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
@@ -1401,6 +1433,10 @@ def main(argv=None) -> int:
         gate(int(f.samples.sum().item()) == n_samples, "film sample count")
         img = film_mod.resolve(f, (w, h))
         gate(np.isfinite(img.color).all(), "non-finite colour")
+        gate(len(f.extra) == len(s.extra_aovs) and all(
+            bool(torch.isfinite(x).all()) for x in f.extra),
+            f"{phase}: {len(f.extra)} extra AOV accumulators for "
+            f"{s.extra_aovs}, or non-finite ones")
         # the exact centre pixel sees the emissive sphere at the origin,
         # which does not receive light (alpha 0); coverage is checked on
         # the central 5% crop
@@ -1416,6 +1452,15 @@ def main(argv=None) -> int:
         del f, img
         torch.cuda.empty_cache()
         return out
+
+    def films_equal(a, b):
+        """Every accumulator of two films (the extras too) the same bits."""
+        return all(torch.equal(x, y) for x, y in zip(film_mod.tensors(a),
+                                                     film_mod.tensors(b)))
+
+    def films_diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(
+            film_mod.tensors(a), film_mod.tensors(b)))
 
     # -------------------------------------------------------- 4. main path
     queue_path = ("march", "costkey", "qseg", "smarch", "qsum")
@@ -1435,24 +1480,22 @@ def main(argv=None) -> int:
 
     a = render5()
     b = render5(sorted_shadow_march=False, sorted_intersect=False)
-    gate(all(torch.equal(x, y) for x, y in zip(a, b)),
-         "sorted and unsorted films differ")
+    gate(films_equal(a, b), "sorted and unsorted films differ")
     inv = {}
     for label, kw in (("fused", {}),
                       ("relaxed", dict(march_relaxation=RELAX))):
         p16 = render5(rays_per_pass=INV_PASSES[0], **kw)
         p15 = render5(rays_per_pass=INV_PASSES[1], **kw)
-        inv[label] = max((x - y).abs().max().item() for x, y in zip(p16, p15))
+        inv[label] = films_diff(p16, p15)
         gate(inv[label] <= 2e-5,
              f"{label}: pass-size films differ by {inv[label]}")
     split5 = render5(mis=True, use_fused_bounce_tail=False)
     tail5 = render5(mis=True)
-    inv["split vs tail, mis"] = max((x - y).abs().max().item()
-                                    for x, y in zip(split5, tail5))
+    inv["split vs tail, mis"] = films_diff(split5, tail5)
     gate(inv["split vs tail, mis"] <= 2e-5,
          f"mis: split-tail and bounce-tail films differ by "
          f"{inv['split vs tail, mis']}")
-    same = all(torch.equal(x, y) for x, y in zip(split5, tail5))
+    same = films_equal(split5, tail5)
     del split5, tail5
     log(f"[5 invariants] sorted == unsorted bit for bit; 2^16 vs 2^15 "
         f"passes and split vs bounce tail with mis, max |d| {inv}; split "
@@ -1628,13 +1671,12 @@ def main(argv=None) -> int:
             ("occl_sort_steps=8 vs unfused, shadow_bv_clip=False",
              dict(occl_sort_steps=8), dict(shadow_bv_clip=False))):
         x, y = render5(**unf5, **x_kw), render5(**unf5, **y_kw)
-        same12[label] = all(torch.equal(u, v) for u, v in zip(x, y))
+        same12[label] = films_equal(x, y)
         gate(same12[label], f"12 invariants: {label}: films differ")
     del x, y
     p16 = render5(rays_per_pass=INV_PASSES[0], **unf5, **sorted_kw)
     p15 = render5(rays_per_pass=INV_PASSES[1], **unf5, **sorted_kw)
-    same12["2^16 vs 2^15 passes, max |d|"] = max(
-        (u - v).abs().max().item() for u, v in zip(p16, p15))
+    same12["2^16 vs 2^15 passes, max |d|"] = films_diff(p16, p15)
     gate(same12["2^16 vs 2^15 passes, max |d|"] <= 2e-5,
          f"12 invariants: sorted pass-size films differ: {same12}")
     del p16, p15
@@ -1801,12 +1843,6 @@ def main(argv=None) -> int:
              and not any(launches[k] for k in fused_absent),
              f"{label}: launches {launches}, needed {fused_need}, absent "
              f"{fused_absent}")
-
-    def films_equal(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
-
-    def films_diff(a, b):
-        return max((x - y).abs().max().item() for x, y in zip(a, b))
 
     rec14 = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2138,17 +2174,16 @@ def main(argv=None) -> int:
                     alive * sum(sdf_flops(p) for p in progs))
         return de_cost(twin.get(key) or plain15[key], a, kw)
 
-    def time15(key, a, kw):
-        """A call's time: a short kernel's profiler device time (on a
-        third profiler session that sees none of its launches, CUDA
-        events, logged), the others' CUDA events."""
+    def time15(key, a, kw, phase="15 programs"):
+        """A call's time: a short kernel's profiler device time (when the
+        profiler sees none of its launches, CUDA events, logged), the
+        others' CUDA events."""
         fn = impl.get(key) or funcs15[key]
         if key in DEVICE_TIMED:
-            for _ in range(3):
-                ms = device_ms(fn, a, kw, ENTRIES[key])
-                if ms is not None:
-                    return ms
-            log(f"[15 programs] {key}: the profiler saw none of "
+            ms = device_ms(fn, a, kw, ENTRIES[key])
+            if ms is not None:
+                return ms
+            log(f"[{phase}] {key}: the profiler saw none of "
                 f"{ENTRIES[key]}; timed with CUDA events")
         return timed(fn, a, kw, reps=5)
 
@@ -2337,16 +2372,15 @@ def main(argv=None) -> int:
             d15, st15, RenderSettings(resolution=INV_RES, spp=4, **kw), c15,
             frame=1)
 
-    inv15 = {"sorted == unsorted": all(torch.equal(x, y) for x, y in zip(
+    inv15 = {"sorted == unsorted": films_equal(
         render15(), render15(sorted_shadow_march=False,
-                             sorted_intersect=False)))}
+                             sorted_intersect=False))}
     gate(inv15["sorted == unsorted"], "15: sorted and unsorted films differ")
     for label, kw in (("fused", {}), ("relaxed", dict(march_relaxation=RELAX)),
                       ("sorted two-phase", dict(unf5, **sorted_kw))):
         p16 = render15(rays_per_pass=INV_PASSES[0], **kw)
         p15 = render15(rays_per_pass=INV_PASSES[1], **kw)
-        inv15[label] = max((x - y).abs().max().item()
-                           for x, y in zip(p16, p15))
+        inv15[label] = films_diff(p16, p15)
         gate(inv15[label] <= 2e-5,
              f"15 {label}: pass-size films differ by {inv15[label]}")
     log(f"[15 invariants] the program scene at {INV_RES[0]}x{INV_RES[1]}, "
@@ -2368,6 +2402,235 @@ def main(argv=None) -> int:
     record["phase15"] = rec15
     del film15, pd, pst, pcam
     torch.cuda.empty_cache()
+
+    # --------------------------------------------- 16. per-lane extras
+    # The default scene with an albedo function on its MandelBox's
+    # material, the four extra AOVs and compaction: frames on the fused,
+    # relaxed and split paths with their launch gates, the compaction
+    # invariant at 256x256, the kernels against their twins on one pass's
+    # per-lane-albedo, compacted inputs, the command line's AOV PNGs, and
+    # what the extras cost: frame walls, profiled passes in turns, the
+    # compaction's own kernels, peak memory.
+    rec16 = {}
+    aovs16 = ("depth", "position", "albedo", "mat_id")
+
+    def albedo16(p, n):
+        """A smooth albedo (tests/test_param_materials.py's), lane by
+        lane."""
+        return torch.stack([0.5 + 0.4 * torch.sin(3.0 * p[:, 0]),
+                            0.5 + 0.4 * torch.sin(3.0 * p[:, 1] + 1.0),
+                            0.4 + 0.3 * n[:, 2]], dim=-1)
+
+    def extras_scene(resolution, device):
+        d_, st_, c_ = presets.default_scene(resolution=resolution,
+                                            device=device)
+        return d_, dataclasses.replace(
+            st_, mat_param_fns=((st_.sdf_mat, albedo16),)), c_
+
+    ext16 = dict(extra_aovs=aovs16, compact_bounces=True)
+    main16 = dataclasses.replace(main_s, **ext16)
+    relax16 = dataclasses.replace(relax_s, **ext16)
+    split_need = ("intersect", "costkey", "key", "seg", "smarch", "ssum",
+                  "finish")
+
+    # frames: without the extras and with them, in turns (the order
+    # reversed in the second round)
+    specs16 = {"fused": (main_s, None, fused_need, fused_absent),
+               "fused, extras": (main16, extras_scene, fused_need,
+                                 fused_absent),
+               "relaxed": (relax_s, None, queue_path, not_fused),
+               "relaxed, extras": (relax16, extras_scene, queue_path,
+                                   not_fused)}
+    frames16 = {label: [] for label in specs16}
+    for r in range(2):
+        for label in (list(specs16) if r == 0 else list(specs16)[::-1]):
+            s16, scene16, need, absent = specs16[label]
+            frames16[label].append(main_path(
+                f"16 {label}", s16, MAIN_RES, need, scene=scene16,
+                absent=absent))
+    frames16["fused, extras but no AOVs"] = [main_path(
+        "16 fused, extras but no AOVs", dataclasses.replace(
+            main16, extra_aovs=()), MAIN_RES, fused_need,
+        scene=extras_scene, absent=fused_absent)]
+    frames16["split mis, extras"] = [main_path(
+        "16 split mis, extras", dataclasses.replace(
+            split_s, resolution=SMALL_RES, **ext16), SMALL_RES, split_need,
+        scene=extras_scene, absent=("tsum", *not_queue))]
+    rec16["frames"] = frames16
+    peak_aov = (frames16["fused, extras"][0]["peak_bytes"]
+                - frames16["fused, extras but no AOVs"][0]["peak_bytes"])
+    log(f"[16 extras] 1080p 4-spp frames, Msamples/s: " + ", ".join(
+        f"{k} {[round(r['msamples_per_s'], 4) for r in v]}"
+        for k, v in frames16.items()) + f"; peak device memory of the "
+        f"fused frame with the four AOV accumulators minus without: "
+        f"{peak_aov} B")
+    rec16["peak_bytes_aovs_minus_none"] = peak_aov
+
+    # the compaction invariant at 256x256: compacted = uncompacted, the
+    # AOV accumulators included, on three paths; two compacted runs
+    d16, st16, c16 = extras_scene(INV_RES, dev)
+
+    def render16(**kw):
+        return renderer.render_frame(d16, st16, RenderSettings(
+            resolution=INV_RES, spp=4, extra_aovs=aovs16, **kw), c16,
+            frame=1)
+
+    inv16 = {}
+    for label, kw in (("fused", {}), ("relaxed", dict(march_relaxation=RELAX)),
+                      ("sorted two-phase", dict(unf5, **sorted_kw))):
+        packed = render16(compact_bounces=True, **kw)
+        inv16[label] = films_equal(packed, render16(**kw))
+        gate(inv16[label] and len(packed.extra) == 4,
+             f"16 {label}: the compacted film differs from the uncompacted")
+    inv16["two compacted runs"] = films_equal(
+        render16(compact_bounces=True), render16(compact_bounces=True))
+    gate(inv16["two compacted runs"], "16: two compacted films differ")
+    log(f"[16 invariants] {INV_RES[0]}x{INV_RES[1]}, 4 spp, the four AOVs "
+        f"and the albedo function, compacted film = uncompacted film bit "
+        f"for bit: {inv16}")
+    rec16["invariants"] = inv16
+    del d16, st16, c16, packed
+
+    # kernels against their twins on the inputs of one 2^20-ray pass with
+    # the albedo function, compacted from depth 1 on
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    dx, stx, cx = extras_scene(MAIN_RES, dev)
+    paths16 = (("fused", dataclasses.replace(main16, max_bounces=2),
+                ("intersect", "costkey", "key", "tail", "seg", "smarch",
+                 "tsum")),
+               ("relaxed", dataclasses.replace(relax16, max_bounces=1),
+                ("march", "qtail", "qseg", "smarch", "qsum")))
+    times16, errs16, state16 = {}, {}, None
+    for path, s16, keys in paths16:
+        cap = {k: [] for k in impl}
+        with plain_twins(cap):
+            renderer.render_pass(
+                film_mod.new_film(W * H, device=dev, settings=s16), dx, stx,
+                s16, tables, cx, fis, 0, MAIN_PASS, 1.0 / 24, 2.0 / 24)
+        torch.cuda.synchronize()
+        gate(all(len(cap[k]) == 2 for k in keys),
+             f"16 {path}: captured {[len(cap[k]) for k in keys]} calls")
+        for key in keys:
+            errs = []
+            for i, (a, kw) in enumerate(cap[key]):
+                depth = i + (1 if key in ("key", "costkey") else 0)
+                got = impl[key](*a, **kw)
+                want = twin[key](*a, **kw)
+                torch.cuda.synchronize()
+                errs.append(check(key, f"16 {path}", depth, a, kw, got,
+                                  want))
+                del got, want
+            errs16[(path, key)] = max(errs)
+            if key == "qtail":
+                continue
+            a, kw = cap[key][0 if key in ("key", "costkey") else 1]
+            times16[(path, key)] = time15(key, a, kw, "16 kernels")
+            log(f"[16 kernels] {key} ({path}), depth 1, per-lane albedo, "
+                f"compacted lanes: {times16[(path, key)]:.4f} ms")
+        if path == "fused":
+            state16 = cap["tail"][1][0][2]   # the depth-1 state
+        del cap, a, kw
+        torch.cuda.empty_cache()
+    rec16["kernels"] = {f"{p} {k}": dict(ms=times16.get((p, k)),
+                                         max_abs_err=e)
+                        for (p, k), e in errs16.items()}
+
+    # the compaction's own kernels, on that depth-1 state: the partition
+    # and gather (three a pass) and the gather back to ray order (one)
+    def by_kernel(fn, reps=5):
+        """Device ms a call by kernel name (torch.profiler; a session
+        that sees no kernel is retried twice)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        out = {}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    ms, calls = out.get(e.name, (0.0, 0))
+                    out[e.name] = (ms + e.time_range.elapsed_us() / 1e3
+                                   / reps, calls + 1)
+            if out:
+                return out
+        gate(False, "16 compaction: the profiler saw no kernel")
+
+    back = integrator.compact_order(state16.alive)
+    comp16 = {"compact": by_kernel(lambda: integrator.compact(state16)),
+              "gather back": by_kernel(
+                  lambda: integrator._take(state16, back))}
+    for label, names in comp16.items():
+        total = sum(ms for ms, _c in names.values())
+        log(f"[16 compaction] {label} of {MAIN_PASS} lanes "
+            f"({int(state16.alive.sum())} alive): {total:.4f} ms of device "
+            f"time a call; by kernel: " + "; ".join(
+                f"{n[:60]} {ms:.4f} ms x{c // 5}"
+                for n, (ms, c) in sorted(names.items(),
+                                         key=lambda kv: -kv[1][0])))
+    rec16["compaction_by_kernel"] = {
+        label: {n: dict(ms=ms, calls=c // 5) for n, (ms, c) in names.items()}
+        for label, names in comp16.items()}
+    del state16, back, scrub
+
+    # one profiled pass: no extras; the extras without and with
+    # compaction, in turns
+    film16 = film_mod.new_film(W * H, device=dev, settings=main16)
+
+    def pass16(d_, st_, c_, s_):
+        return lambda: renderer.render_pass(
+            film16, d_, st_, s_, tables, c_, fis, 0, MAIN_PASS, 1.0 / 24,
+            2.0 / 24)
+
+    fns16 = {"plain": pass16(data, static, cam, dataclasses.replace(
+                 main16, extra_aovs=(), compact_bounces=False)),
+             "extras, no compaction": pass16(dx, stx, cx, dataclasses.replace(
+                 main16, compact_bounces=False)),
+             "extras, compaction": pass16(dx, stx, cx, main16)}
+    turns16 = []
+    for label in ("plain", "extras, no compaction", "extras, compaction",
+                  "extras, compaction", "extras, no compaction", "plain"):
+        r = profile_pass(fns16[label], f"16 {label}")
+        turns16.append(dict(label=label, busy_ms=r["busy_ms"],
+                            launches=r["launches"],
+                            idle_share=r["idle_share"],
+                            pass_wall_ms=r["pass_wall_ms"],
+                            peak_bytes=r["peak_bytes"]))
+    log("[16 profile] device busy ms / launches a pass, in turns: " +
+        "; ".join(f"{t['label']} {t['busy_ms']:.3f} / {t['launches']}"
+                  for t in turns16))
+    rec16["profile_turns"] = turns16
+    del film16, fns16, dx, stx, cx
+    torch.cuda.empty_cache()
+
+    # the command line's AOV PNGs under JAX's names
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", DEVICE, "--width", str(SMALL_RES[0]),
+                "--height", str(SMALL_RES[1]), "--spp", str(MAIN_SPP),
+                "--aov", "depth", "--aov", "albedo", "--out", f"{tmp}/cli"]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, launches, cli16_wall = launched(lambda: cli.main(argv))
+        gate(rc == 0, f"16 cli: rc {rc}, stderr {err.getvalue()[-400:]!r}")
+        gate_fused("16 cli", launches)
+        names = sorted(os.listdir(f"{tmp}/cli"))
+        want_names = sorted(f"frame0001_{MAIN_SPP}spp_{k}.png" for k in (
+            "alpha", "normal", "color", "depth", "albedo"))
+        gate(names == want_names, f"16 cli wrote {names}, not {want_names}")
+        shapes = {k: film_mod.read_png(
+            f"{tmp}/cli/frame0001_{MAIN_SPP}spp_{k}.png").shape
+            for k in ("depth", "albedo")}
+        gate(shapes == {"depth": SMALL_RES[::-1],
+                        "albedo": (*SMALL_RES[::-1], 3)},
+             f"16 cli: AOV PNG shapes {shapes}")
+    log(f"[16 cli] --aov depth --aov albedo at {SMALL_RES[0]}x"
+        f"{SMALL_RES[1]}: wrote {names} in {cli16_wall:.3f} s")
+    rec16["cli"] = dict(files=names, wall_s=cli16_wall)
+    record["phase16"] = rec16
 
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
@@ -2456,6 +2719,14 @@ def main(argv=None) -> int:
             pr = price.get(f"fused {tkey}") or price[f"relaxed {tkey}"]
             row.update(ms_tape_default_scene=pr["tape_ms"],
                        ms_mbox_only_same_inputs=pr["mbox_only_ms"])
+        t16 = next(((p, k) for p, k in times16 if k == tkey), None)
+        if t16 is not None:   # phase 16: per-lane albedo, compacted lanes
+            row.update(ms_extras=times16[t16],
+                       max_abs_err_extras=errs16[t16],
+                       launches_extras=frames16[
+                           "fused, extras" if phase == "main" else
+                           "relaxed, extras"][0]["launches"][lkey]
+                       if phase in ("main", "relaxed") else None)
         if ("8 knots", tkey) in times13:   # a kernel that reads positions
             row.update(
                 ms_animated=times13[("8 knots", tkey)],

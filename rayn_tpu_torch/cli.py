@@ -51,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("color", "alpha", "normal", "background"))
     p.add_argument("--aov", action="append", default=[],
                    choices=("depth", "position", "albedo", "mat_id"),
-                   help="extra AOV channels (not ported: refused)")
+                   help="extra AOV channels (render/aovs.py registry), "
+                        "saved as {base}_{aov}.png")
     p.add_argument("--transparent-background", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file for preemptible rendering")
@@ -130,8 +131,6 @@ def _refusal(args) -> str | None:
         (args.num_processes and args.num_processes > 1,
          "--num-processes > 1 (the multi-process frame farm) is not ported "
          "yet (ROADMAP Queue 1 item 5, scale-out)"),
-        (args.aov, "--aov (extra AOV channels) is not ported yet (ROADMAP "
-         "Queue 1 item 4, per-lane extras)"),
         (args.no_pallas, "--no-pallas selects the JAX package's path "
          "without kernels, which the port does not have (ROADMAP Queue 1, "
          "the note on use_pallas=False)"),
@@ -176,7 +175,8 @@ def main(argv=None) -> int:
         shadow_bv_clip=not args.no_shadow_bv_clip,
         shadow_de_iterations=args.shadow_de_iterations,
         chained_shadow_march=not args.no_chained_shadow,
-        sorted_shadow_march=not args.no_sorted_shadow)
+        sorted_shadow_march=not args.no_sorted_shadow,
+        extra_aovs=tuple(args.aov))
 
     if args.scene == "fractal":
         data, static, camera = presets.default_scene(
@@ -215,8 +215,9 @@ def main(argv=None) -> int:
               f"({n_samples / secs / 1e6:.3f} Msamples/s)",
               file=sys.stderr)
         paths = film_mod.save_channels(
-            film_mod.resolve(film, res), args.out,
-            f"frame{frame:04d}_{args.spp}spp", tuple(args.channels),
+            film_mod.resolve(film, res, settings), args.out,
+            f"frame{frame:04d}_{args.spp}spp",
+            tuple(args.channels) + tuple(args.aov),
             transparent_background=args.transparent_background)
         for p in paths:
             print(f"Saved {p}", file=sys.stderr)

@@ -4,9 +4,10 @@ The frozen dataclass of `rayn_tpu.config.RenderSettings`, so a settings
 object means the same render in both packages. The fields that only
 sized Pallas blocks on the TPU (`pallas_block_rows`,
 `pallas_occl_block_rows`, `chained_advance_group`) are left out: nothing
-here reads them. Values that select a path the port has not implemented
-yet make `render_frame` raise `NotImplementedError` (see
-`unsupported_reason`).
+here reads them. Every other value renders, `extra_aovs` and
+`compact_bounces` included, except the two that select the JAX
+package's path without kernels, which the port does not have: they make
+`render_frame` raise `NotImplementedError` (see `unsupported_reason`).
 """
 
 from __future__ import annotations
@@ -85,7 +86,10 @@ class RenderSettings:
 
 
 def unsupported_reason(s: RenderSettings) -> str | None:
-    """The first setting this port does not implement yet, or None.
+    """The first setting this port does not implement, or None: only
+    `use_pallas=False` and `use_pallas_occlusion=False`, the JAX
+    package's path without kernels (ROADMAP Queue 1, the note on
+    use_pallas=False).
 
     Every bounce-tail branch is ported, `mis` included: with plain
     marching and `use_fused_shadows` the fused kernels run (the bounce
@@ -98,10 +102,11 @@ def unsupported_reason(s: RenderSettings) -> str | None:
     (ops/intersect.py). `shadow_de_iterations` gives every shadow march
     (the shadow kernels, their sort key and `intersect.test_occluded`)
     the MandelBox at that many iterations; `max_vis_marches` 0 takes
-    each occlusion function's JAX verdict with no march step."""
+    each occlusion function's JAX verdict with no march step.
+    `extra_aovs` accumulates depth-0 AOVs beside the film's channels and
+    `compact_bounces` partitions the wavefront before each bounce at
+    depth >= 1, on every one of those paths."""
     checks = (
-        (bool(s.extra_aovs), "extra_aovs"),
-        (s.compact_bounces, "compact_bounces=True"),
         (not s.use_pallas, "the non-kernel intersect path (use_pallas=False)"),
         (not s.use_pallas_occlusion,
          "the non-kernel occlusion path (use_pallas_occlusion=False)"),

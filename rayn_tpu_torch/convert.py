@@ -7,7 +7,9 @@ and the structure of each SDF instance's program, which the JAX package
 keeps inside closures: the port's program of each instance (ops/sdf.py,
 any parameter values), whose leaves are then filled from JAX's
 parameter leaves in pytree order, or for a bare MandelBox just its
-iteration count. `camera`
+iteration count. A material's albedo function is a jnp closure in the
+JAX scene; `scene` takes its torch counterpart by material id
+(`albedo_fns=`). `camera`
 takes a JAX `PinholeCamera`, `ThinLensCamera` or `OrthographicCamera`
 with numpy leaves. Both packages then
 render the same scene. Nothing here imports JAX: the inputs are read by
@@ -76,8 +78,24 @@ def _programs(data, static, sdf_iterations, programs) -> list:
             for p, prm in zip(programs, params)]
 
 
+def _albedo_fns(static, albedo_fns) -> tuple:
+    """SceneStatic.mat_param_fns of the port: the torch function of each
+    material that has a JAX albedo function, in material order."""
+    want = sorted(int(mid) for mid, _fn in static.mat_param_fns)
+    given = {int(mid): fn for mid, fn in (albedo_fns or {}).items()}
+    missing = [mid for mid in want if mid not in given]
+    if missing:
+        raise ValueError(f"materials {missing} have a JAX albedo function; "
+                         "pass its torch counterpart (albedo_fns=)")
+    unknown = sorted(set(given) - set(want))
+    if unknown:
+        raise ValueError(f"albedo_fns names materials {unknown}, which have "
+                         "no albedo function in the JAX scene")
+    return tuple((mid, given[mid]) for mid in want)
+
+
 def scene(data, static, sdf_iterations: int | None = None, device="cuda",
-          programs=None):
+          programs=None, albedo_fns=None):
     """(SceneData, SceneStatic) of the port from the JAX scene.
 
     programs: the port's program of each SDF instance in object order
@@ -85,9 +103,12 @@ def scene(data, static, sdf_iterations: int | None = None, device="cuda",
     replaced by JAX's leaves; a leaf count that differs raises
     ValueError, anything but the SDF library's types
     NotImplementedError. Without it, `sdf_iterations` gives the one bare
-    MandelBox of a one-instance scene."""
-    if static.mat_param_fns:
-        raise NotImplementedError("mat_param_fns are not ported yet")
+    MandelBox of a one-instance scene. albedo_fns: {material id: torch
+    fn(point, normal) -> albedo} for every material with an albedo
+    function in the JAX scene (SceneBuilder.set_albedo_fn); a material
+    left out, or one the JAX scene gives no function, raises
+    ValueError."""
+    fns = _albedo_fns(static, albedo_fns)
     progs = (_programs(data, static, sdf_iterations, programs)
              if static.has_sdf else [None])
     m = data.materials
@@ -117,7 +138,8 @@ def scene(data, static, sdf_iterations: int | None = None, device="cuda",
         sdf_bound_radius=float(static.sdf_bound_radius),
         extra_sdfs=tuple(SdfInstanceStatic(int(e.mat),
                                            float(e.bound_radius))
-                         for e in static.extra_sdfs))
+                         for e in static.extra_sdfs),
+        mat_param_fns=fns)
     return out, st
 
 

@@ -19,8 +19,13 @@ fields:
 
 The fingerprint hashes tensors as host bytes with their shape and dtype,
 never their device or strides, so a checkpoint written on the card loads
-on the CPU and the other way round. The settings classes of the two
-packages differ, so a JAX checkpoint does not resume here.
+on the CPU and the other way round; a function (a material's albedo
+function) by its name, bytecode and constants. The settings classes of
+the two packages differ, so a JAX checkpoint does not resume here.
+
+The film's extra AOV accumulators are saved by position as extra0,
+extra1, ...; settings.extra_aovs is in the fingerprint, so a load always
+finds the arrays the settings name.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.render import film as film_mod
 
-_CHANNELS = film_mod.Film._fields
+_CHANNELS = film_mod.CHANNELS
 
 
 class Progress(NamedTuple):
@@ -48,16 +53,28 @@ class Progress(NamedTuple):
     next_pass: int
 
 
+def _code_id(fn) -> str:
+    """A function's identity across processes: its qualified name, its
+    bytecode and its constants (not the values its closure captures)."""
+    code = getattr(fn, "__code__", None)
+    if code is None:
+        return f"callable {type(fn).__qualname__}"
+    consts = tuple(c for c in code.co_consts if not hasattr(c, "co_code"))
+    return f"{fn.__qualname__} {code.co_code.hex()} {consts!r}"
+
+
 def _leaves(x):
     """The tensors and scalars of a nest of NamedTuples, tuples and
     lists, in field order, each NamedTuple preceded by its class name (an
     SDF program's operations: two programs with equal parameters differ
-    there)."""
+    there), each function as its `_code_id`."""
     if isinstance(x, (tuple, list)):
         if hasattr(x, "_fields"):
             yield type(x).__name__
         for y in x:
             yield from _leaves(y)
+    elif callable(x):
+        yield _code_id(x)
     else:
         yield x
 
@@ -102,6 +119,7 @@ def save(path: str, film: film_mod.Film, settings: RenderSettings,
     tmp = path + ".tmp.npz"
     np.savez(
         tmp, **{c: getattr(film, c).cpu().numpy() for c in _CHANNELS},
+        **{f"extra{i}": a.cpu().numpy() for i, a in enumerate(film.extra)},
         next_pass=np.int64(next_pass), spp_base=np.int64(spp_base),
         spp=np.int64(settings.spp if spp is None else spp),
         fingerprint=np.bytes_(_fingerprint(
@@ -122,8 +140,12 @@ def load_progress(path: str, settings: RenderSettings, frame: int,
         if bytes(z["fingerprint"]).decode() != _fingerprint(
                 settings, frame, scene, camera, fis_table, time_range):
             return None
+        extra = []
+        while f"extra{len(extra)}" in z:
+            extra.append(torch.as_tensor(z[f"extra{len(extra)}"],
+                                         device=device))
         film = film_mod.Film(*(torch.as_tensor(z[c], device=device)
-                               for c in _CHANNELS))
+                               for c in _CHANNELS), extra=tuple(extra))
         return Progress(film, int(z["spp_base"]), int(z["spp"]),
                         int(z["next_pass"]))
 

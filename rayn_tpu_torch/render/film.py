@@ -2,7 +2,8 @@
 splat, splat_aligned, resolve, save_channels).
 
 Channels mirror reference src/film.rs:103-120: Color, Alpha, Background,
-WorldNormal, plus the per-pixel sample count. A pass that covers whole
+WorldNormal, plus the per-pixel sample count and the configured extra
+AOVs (render/aovs.py), one accumulator each. A pass that covers whole
 pixels in pixel-major order is splatted by a reshape-sum over the spp
 axis and one slice add per channel; a pass that starts or ends inside a
 pixel is padded with zero lanes to whole pixels first. No atomics, so
@@ -23,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rayn_tpu_torch.render.aovs import specs_for
+
 
 class Film(NamedTuple):
     color: torch.Tensor       # [P, 3] sum of terminated path radiance
@@ -30,22 +33,43 @@ class Film(NamedTuple):
     background: torch.Tensor  # [P, 3] sum of depth-0 escaped radiance
     normal: torch.Tensor      # [P, 3] sum of depth-0 world normals
     samples: torch.Tensor     # [P]    per-pixel sample counts
+    # the extra AOV accumulators in RenderSettings.extra_aovs order,
+    # [P] or [P, 3] each
+    extra: tuple = ()
 
 
-def new_film(n_pixels: int, device) -> Film:
+# the fixed channels, in field order (Film.extra follows them)
+CHANNELS = Film._fields[:5]
+
+
+def tensors(film: Film) -> list:
+    """Every accumulator of the film: the fixed channels, then the
+    extras."""
+    return [getattr(film, c) for c in CHANNELS] + list(film.extra)
+
+
+def new_film(n_pixels: int, device, settings=None) -> Film:
+    """A zero film; with `settings`, one accumulator for each of its
+    extra AOVs (an unknown name raises ValueError)."""
     kw = dict(dtype=torch.float32, device=device)
+    extra = ()
+    if settings is not None and settings.extra_aovs:
+        extra = tuple(torch.zeros((n_pixels,) if s.dim == 1
+                                  else (n_pixels, 3), **kw)
+                      for s in specs_for(settings))
     return Film(color=torch.zeros((n_pixels, 3), **kw),
                 alpha=torch.zeros((n_pixels,), **kw),
                 background=torch.zeros((n_pixels, 3), **kw),
                 normal=torch.zeros((n_pixels, 3), **kw),
-                samples=torch.zeros((n_pixels,), **kw))
+                samples=torch.zeros((n_pixels,), **kw), extra=extra)
 
 
 def splat_aligned(film: Film, pixel0: int, color, alpha, background, normal,
-                  count, spp: int) -> Film:
+                  count, spp: int, extra: tuple = ()) -> Film:
     """Add one pass whose ray i belongs to pixel pixel0 + i // spp, in
-    place (the JAX version donates the film buffers). Rays past the end of
-    the frame must carry zero contributions; their rows fall off the film
+    place (the JAX version donates the film buffers); `extra` holds the
+    pass's values of the film's extra AOVs. Rays past the end of the
+    frame must carry zero contributions; their rows fall off the film
     (renderer.py:53-59, film.py:87-95 in JAX)."""
     n = color.shape[0]
     rows = n // spp
@@ -60,11 +84,12 @@ def splat_aligned(film: Film, pixel0: int, color, alpha, background, normal,
     return Film(color=add(film.color, color), alpha=add(film.alpha, alpha),
                 background=add(film.background, background),
                 normal=add(film.normal, normal),
-                samples=add(film.samples, count))
+                samples=add(film.samples, count),
+                extra=tuple(add(acc, v) for acc, v in zip(film.extra, extra)))
 
 
 def splat(film: Film, ray0: int, color, alpha, background, normal, count,
-          spp: int) -> Film:
+          spp: int, extra: tuple = ()) -> Film:
     """Add one pass of rays ray0, ray0 + 1, ... (flat ids, pixel-major:
     ray r belongs to pixel r // spp), in place, for a pass that need not
     start or end on a pixel boundary (JAX's scatter-add `splat`, which
@@ -83,7 +108,8 @@ def splat(film: Film, ray0: int, color, alpha, background, normal, count,
                           z((trail,) + tuple(v.shape[1:]))])
 
     return splat_aligned(film, ray0 // spp, pad(color), pad(alpha),
-                         pad(background), pad(normal), pad(count), spp)
+                         pad(background), pad(normal), pad(count), spp,
+                         tuple(pad(v) for v in extra))
 
 
 class ResolvedFilm(NamedTuple):
@@ -93,9 +119,14 @@ class ResolvedFilm(NamedTuple):
     alpha: np.ndarray
     background: np.ndarray
     normal: np.ndarray
+    # {name: [H, W] or [H, W, 3]} means of the extra AOVs
+    extra: dict = {}
 
 
-def resolve(film: Film, resolution: tuple[int, int]) -> ResolvedFilm:
+def resolve(film: Film, resolution: tuple[int, int],
+            settings=None) -> ResolvedFilm:
+    """Per-pixel means; the extras are named by settings.extra_aovs, or
+    aov0, aov1, ... without settings."""
     w, h = resolution
     cnt = np.maximum(film.samples.cpu().numpy(), 1e-8)[:, None]
 
@@ -104,10 +135,18 @@ def resolve(film: Film, resolution: tuple[int, int]) -> ResolvedFilm:
         return (a / cnt).reshape(h, w, 3) if vec else \
             (a / cnt[:, 0]).reshape(h, w)
 
+    extra = {}
+    if film.extra:
+        if settings is not None:
+            names = [s.name for s in specs_for(settings)]
+        else:
+            names = [f"aov{i}" for i in range(len(film.extra))]
+        extra = {name: mean(acc, acc.dim() == 2)
+                 for name, acc in zip(names, film.extra)}
     return ResolvedFilm(color=mean(film.color, True),
                         alpha=mean(film.alpha, False),
                         background=mean(film.background, True),
-                        normal=mean(film.normal, True))
+                        normal=mean(film.normal, True), extra=extra)
 
 
 def _gamma(rgb: np.ndarray, g: float = 2.2) -> np.ndarray:
@@ -179,8 +218,10 @@ def save_channels(resolved: ResolvedFilm, output_folder, base_name: str,
     """Write PNGs mirroring reference src/film.rs:205-377: color is
     saturate+gamma-2.2 of color(+background) (or alpha-composited when
     transparent_background), normal is 0.5+0.5 remap, alpha is grayscale,
-    background is saturate+gamma-2.2. Images are y-flipped (raster y-up
-    -> image y-down, src/film.rs:237). Returns the paths written,
+    background is saturate+gamma-2.2; an extra AOV is RGB clipped to
+    [0, 1] with no gamma (vector) or grayscale divided by its maximum
+    (scalar). Images are y-flipped (raster y-up -> image y-down,
+    src/film.rs:237). Returns the paths written,
     `{output_folder}/{base_name}_{channel}.png`."""
     out = Path(output_folder)
     out.mkdir(parents=True, exist_ok=True)
@@ -199,6 +240,12 @@ def save_channels(resolved: ResolvedFilm, output_folder, base_name: str,
             img = _to_u8(resolved.normal * 0.5 + 0.5)
         elif kind == "alpha":
             img = _to_u8(resolved.alpha)
+        elif kind in resolved.extra:
+            a = resolved.extra[kind]
+            if a.ndim == 3:
+                img = _to_u8(np.clip(a, 0.0, 1.0))
+            else:
+                img = _to_u8(a / (float(a.max()) or 1.0))
         else:
             raise ValueError(f"unknown channel {kind}")
         path = out / f"{base_name}_{kind}.png"

@@ -8,7 +8,10 @@ One bounce at depth d:
    relaxed marching or `use_fused_intersect=False` the unfused
    intersect.closest_hit (the march kernel, or at relax 1 with
    `march_sort_steps` the two-phase march_sorted) + shading_info;
-3. per-lane shading values (`_derive_shading`);
+3. per-lane shading values (`_derive_shading`; a material's albedo
+   function, SceneStatic.mat_param_fns, replaces its color_a there, so
+   every tail reads the per-point albedo as a per-lane column); at d = 0
+   the extra AOVs (render/aovs.py) of the receiving lanes;
 4. the bounce tail, chosen as JAX chooses it:
    - fused (plain marching and `use_fused_shadows`): in a scene with
      lights, at d >= 1 the shadow sort-key kernel and the chunk sort
@@ -40,7 +43,15 @@ position-independent, so sorted and unsorted bounces give bit-identical
 outputs; each lane's `time` moves with it (it is a PathState column), so
 every kernel after a sort reads the lane's own time, and in a scene with
 animated lights, spheres or camera every position a kernel or the torch
-code takes is taken at that time. `compact` is not ported yet.
+code takes is taken at that time.
+
+With `compact_bounces`, `trace` partitions the wavefront before every
+bounce at d >= 1, alive lanes first in a stable order (`compact`, JAX's
+integrator.py:629-645), and after the last bounce gathers every lane
+back to ray order with the composed permutation. Since each lane's
+result does not depend on its position, the film of a compacted pass is
+the same bits as the uncompacted one, and `film.splat` needs no pixel
+ids (no atomics, no `index_add_`).
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
 from rayn_tpu_torch.ops import (intersect, intersect_cuda, march_cuda,
                                 shade_cuda)
+from rayn_tpu_torch.render import aovs as aovs_mod
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of)
 from rayn_tpu_torch.utils import rng, sampling, vecmath
@@ -131,18 +143,30 @@ def _sort_tree_by_cost(trees: tuple, key: torch.Tensor, chunk: int):
     return tuple(_permute_chunks(t, perm, chunk) for t in trees), perm
 
 
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse permutation (one scatter of distinct indices)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
 def _unsort_state(state: PathState, perm: torch.Tensor, chunk: int):
     """Invert a chunk permutation on a bounce's output state."""
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-    return _permute_chunks(state, inv, chunk)
+    return _permute_chunks(state, _inverse(perm), chunk)
 
 
 def _derive_shading(data: SceneData, static: SceneStatic, state: PathState,
                     hit, info):
-    """(live, material params, receives, vol_trans) of each lane."""
+    """(live, material params, receives, vol_trans) of each lane. The
+    albedo functions replace color_a lane by lane, so a second call after
+    a sort gives every lane the same bits (JAX integrator.py:190-216)."""
     live = state.alive & hit.valid
     mat = bsdf_ops.gather(data.materials, info.mat)
+    for mid, fn in static.mat_param_fns:
+        mat = mat._replace(color_a=torch.where(
+            (info.mat == mid)[:, None], fn(info.point, info.normal),
+            mat.color_a))
     receives = bsdf_ops.receives_light(mat) & live
     if static.has_extinction:
         vol_trans = torch.exp(-data.volume_sigma_t * hit.t)
@@ -156,6 +180,14 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
            hps_abs0: float, hps_lin0: float, scene_tables=None) -> PathState:
     """One wavefront bounce at `depth`. scene_tables: the constant tables
     of shade_cuda.scene_tables, built per call when not given."""
+    return _bounce(data, static, settings, tables, state, depth, hps_abs0,
+                   hps_lin0, scene_tables)[0]
+
+
+def _bounce(data, static, settings, tables, state, depth, hps_abs0,
+            hps_lin0, scene_tables=None):
+    """`bounce`, and at depth 0 the lanes' extra AOVs (aovs.extract, in
+    the input's lane order: depth 0 sorts nothing); () otherwise."""
     n = state.origin.shape[0]
     s = settings
     dev = state.origin.device
@@ -192,14 +224,18 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
                                       hps_lin)
     live, mat, receives, vol_trans = _derive_shading(data, static, state,
                                                      hit, info)
+    aovs = ()
+    if depth == 0 and s.extra_aovs:
+        aovs = aovs_mod.extract(s, hit, info, mat, receives)
     tabs = scene_tables or shade_cuda.scene_tables(data, static)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
     if not (s.use_fused_shadows and plain_march):
         out = _segment_queue_tail(data, static, s, tables, cfg, tabs, state,
                                   depth, hit, info, mat, live, receives,
                                   vol_trans)
-        return out if pre_perm is None else _unsort_state(out, pre_perm,
-                                                          chunk)
+        if pre_perm is not None:
+            out = _unsort_state(out, pre_perm, chunk)
+        return out, aovs
 
     shadow_perm = None
     if (s.sorted_shadow_march and s.chained_shadow_march and depth > 0
@@ -245,7 +281,7 @@ def bounce(data: SceneData, static: SceneStatic, settings: RenderSettings,
     perm = pre_perm
     if shadow_perm is not None:
         perm = shadow_perm if perm is None else perm[shadow_perm]
-    return out if perm is None else _unsort_state(out, perm, chunk)
+    return (out if perm is None else _unsort_state(out, perm, chunk)), aovs
 
 
 def _emission(data, static, s, state, depth, hit, mat, live, wo, vol_trans):
@@ -394,12 +430,46 @@ def _finish_bounce(s, tables, state, depth, info, mat, live, receives, wo,
         normal_out=normal_out)
 
 
+def compact_order(alive: torch.Tensor) -> torch.Tensor:
+    """The stable partition of the lanes, alive first: lane i of the
+    compacted wavefront is lane order[i]. JAX's O(N) form
+    (integrator.py:629-645): each lane's destination is its rank among
+    the alive lanes, or n_alive + its rank among the dead ones,
+    inverted."""
+    alive_rank = torch.cumsum(alive.to(torch.int64), 0) - 1
+    dead_rank = torch.cumsum((~alive).to(torch.int64), 0) - 1
+    return _inverse(torch.where(alive, alive_rank,
+                                alive_rank[-1] + 1 + dead_rank))
+
+
+def _take(state: PathState, idx: torch.Tensor) -> PathState:
+    return PathState(*(t.index_select(0, idx) for t in state))
+
+
+def compact(state: PathState) -> PathState:
+    """Stable-partition the wavefront: alive lanes first (reference
+    src/film.rs:604-625, the dense repacking, here a gather)."""
+    return _take(state, compact_order(state.alive))
+
+
 def trace(data: SceneData, static: SceneStatic, settings: RenderSettings,
           tables: SampleTables, state: PathState, hps_abs0: float,
-          hps_lin0: float) -> PathState:
-    """Run the bounce loop (depths 0..max_bounces)."""
+          hps_lin0: float) -> tuple[PathState, tuple]:
+    """Run the bounce loop (depths 0..max_bounces). Returns the final
+    state in the input's lane order and the depth-0 extra AOVs
+    (settings.extra_aovs; () without them). With `compact_bounces`
+    every bounce at depth >= 1 runs on the compacted wavefront."""
     tabs = shade_cuda.scene_tables(data, static)
+    lanes, aovs = None, ()   # lane i of `state` is input lane lanes[i]
     for depth in range(settings.max_bounces + 1):
-        state = bounce(data, static, settings, tables, state, depth,
-                       hps_abs0, hps_lin0, scene_tables=tabs)
-    return state
+        if depth > 0 and settings.compact_bounces:
+            order = compact_order(state.alive)
+            state = _take(state, order)
+            lanes = order if lanes is None else lanes[order]
+        state, out = _bounce(data, static, settings, tables, state, depth,
+                             hps_abs0, hps_lin0, scene_tables=tabs)
+        if depth == 0:
+            aovs = out
+    if lanes is not None:
+        state = _take(state, _inverse(lanes))
+    return state, aovs

@@ -5,9 +5,13 @@ render_frame, render_frame_resilient; reference src/film.rs:380-628).
 The frame's (pixel, sample) grid is flattened into one ray index space
 and rendered in passes of `rays_per_pass` rays with a plain loop; the
 last pass may run past the end of the frame, and its extra lanes start
-dead and splat nothing. A checkpointed render saves the film every few
-passes and resumes where it stopped, growing spp progressively
-(render/checkpoint.py). Multi-device meshes are not ported yet.
+dead and splat nothing. The film holds one accumulator for each of
+`settings.extra_aovs` (render/aovs.py, taken at depth 0); with
+`compact_bounces` the integrator hands the pass back in ray order, so
+every pass is splatted the same way. A checkpointed render saves the
+film every few passes and resumes where it stopped, growing spp
+progressively (render/checkpoint.py). Multi-device meshes are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -85,24 +89,31 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
     `sample_base` shifts their per-pixel sample indices (progressive
     spp; see generate_rays). `film.splat` adds it, padding a pass that
     starts or ends inside a pixel to whole pixels (an aligned pass gives
-    `film.splat_aligned`'s bits)."""
+    `film.splat_aligned`'s bits). A film without an accumulator for each
+    of settings.extra_aovs raises ValueError."""
+    if settings.extra_aovs and len(film.extra) != len(settings.extra_aovs):
+        raise ValueError(
+            "film was created without the configured extra AOVs: build it "
+            "with film.new_film(n_pixels, device, settings)")
     ray_idx = ray_indices(pass_start, pass_size, fis_table.device)
     origin, direction, time, pixel, sample_idx, in_range = generate_rays(
         settings, tables, camera, fis_table, ray_idx, t0, t1, sample_base)
     hps_abs0, hps_lin0 = camera.half_pixel_size_coeffs()
     state = init_state(origin, direction, time, pixel, sample_idx, in_range)
-    state = trace(data, static, settings, tables, state, hps_abs0, hps_lin0)
+    state, aovs = trace(data, static, settings, tables, state, hps_abs0,
+                        hps_lin0)
     return film_mod.splat(
         film, pass_start, color=state.color_out, alpha=state.alpha_out,
         background=state.bg_out, normal=state.normal_out,
-        count=in_range.to(torch.float32), spp=settings.spp)
+        count=in_range.to(torch.float32), spp=settings.spp, extra=aovs)
 
 
 def check_supported(data: SceneData, static: SceneStatic,
                     settings: RenderSettings, camera) -> None:
     """Raise NotImplementedError naming the first setting or scene
-    feature this port does not implement yet. Every camera class and
-    animated light, sphere and camera channels are ported."""
+    feature this port does not implement yet. Every camera class,
+    animated light, sphere and camera channels, extra AOVs, compaction
+    and albedo functions are ported."""
     reason = unsupported_reason(settings)
     if reason is not None:
         raise NotImplementedError(f"rayn_tpu_torch does not implement "
@@ -191,9 +202,12 @@ def render_frame(data: SceneData, static: SceneStatic,
     # Segment plan: (spp_base, spp_target, start_pass). A fresh render is
     # one segment [0, spp); a resumed one first finishes the checkpoint's
     # segment, then (if spp grew) adds the segment [ckpt_spp, spp).
-    ck_key = dict(settings=settings, frame=frame, scene=data, camera=camera,
+    # (data, the albedo functions): without functions the same leaves as
+    # the scene data alone
+    ck_key = dict(settings=settings, frame=frame,
+                  scene=(data, static.mat_param_fns), camera=camera,
                   fis_table=fis_table, time_range=time_range)
-    film = film_mod.new_film(w * h, device=data.device)
+    film = film_mod.new_film(w * h, data.device, settings)
     segments = [(0, settings.spp, 0)]
     if checkpoint_path:
         prog = ckpt.load_progress(checkpoint_path, **ck_key,

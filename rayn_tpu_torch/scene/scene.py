@@ -8,15 +8,16 @@ wavefront is a dense gather instead of a virtual call per object
 `SceneBuilder.build(device)` returns `(SceneData, SceneStatic)`:
 SceneData holds the tensors, on `device` (CUDA unless the caller asks
 for another device), and the SDF programs (ops/sdf.py); SceneStatic
-holds the counts, flags and each SDF instance's material and bound
-radius. Any number of SDF instances, each any program of the SDF
-library, as in the JAX package (`add_sdf`).
+holds the counts, flags, each SDF instance's material and bound radius
+and the materials' per-point albedo functions. Any number of SDF
+instances, each any program of the SDF library, as in the JAX package
+(`add_sdf`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,6 +91,10 @@ class SceneStatic:
     # SDF instances beyond the first (SdfInstanceStatic each); object ids
     # follow the spheres: instance i is object n_spheres + i
     extra_sdfs: tuple = ()
+    # (material id, fn(point [N, 3], normal [N, 3]) -> albedo [N, 3]) in
+    # material order: color_a of that material at each shading point
+    # (SceneBuilder.set_albedo_fn)
+    mat_param_fns: tuple = ()
 
     def sdf_instances(self, data: SceneData) -> list:
         """Every SDF instance as (program, material id, bound radius) in
@@ -151,6 +156,7 @@ class SceneBuilder:
         self._sigma_s: Optional[float] = None
         self._sigma_t: Optional[float] = None
         self._pairs: dict[int, int] = {}
+        self._mat_fns: dict[int, Callable] = {}
 
     def _add_material(self, kind, a, b, power, ior=1.0) -> int:
         self._mat_kind.append(kind)
@@ -185,6 +191,16 @@ class SceneBuilder:
 
     def add_emissive(self, emission) -> int:
         return self._add_material(EMISSIVE, np.zeros(3), emission, 0.0)
+
+    def set_albedo_fn(self, material: int, fn: Callable) -> None:
+        """Make `material`'s albedo (color_a) vary per shading point: the
+        reference's `Material<G: WShadingParamGenerator>` (src/material.rs:
+        75-83, read by get_bsdf_at :31-38). `fn(point [N, 3], normal
+        [N, 3]) -> [N, 3]` is a torch function that works lane by lane;
+        it replaces the material table's color_a wherever a lane shades
+        with this material (NEE, emission, scatter, the albedo AOV), on
+        every path of the integrator."""
+        self._mat_fns[int(material)] = fn
 
     def add_sphere(self, center, radius: float, material: int) -> int:
         self._sphere_centers.append(_as_channel(center))
@@ -306,5 +322,7 @@ class SceneBuilder:
             has_extinction=self._sigma_t is not None,
             sdf_bound_radius=self._sdf_bound,
             extra_sdfs=tuple(SdfInstanceStatic(m, b)
-                             for _p, m, b in self._extra_sdfs))
+                             for _p, m, b in self._extra_sdfs),
+            mat_param_fns=tuple(sorted(self._mat_fns.items(),
+                                       key=lambda kv: kv[0])))
         return data, static

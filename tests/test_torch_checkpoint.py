@@ -40,13 +40,13 @@ def spheres():
 
 
 def assert_films_equal(a, b):
-    for x, y in zip(a, b):
+    for x, y in zip(film_mod.tensors(a), film_mod.tensors(b)):
         assert torch.equal(x, y)
 
 
 def assert_films_close(a, b, atol=2e-5):
     torch.testing.assert_close(a.samples, b.samples, rtol=0, atol=0)
-    for x, y in zip(a, b):
+    for x, y in zip(film_mod.tensors(a), film_mod.tensors(b)):
         torch.testing.assert_close(x, y, rtol=0, atol=atol)
 
 

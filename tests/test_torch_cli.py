@@ -107,7 +107,7 @@ def test_splat_matches_jax_scatter():
     n_px, spp = 30, 3
     base = {c: g.uniform(0, 1, (n_px, 3) if c in ("color", "background",
                                                    "normal") else n_px)
-            .astype(np.float32) for c in film.Film._fields}
+            .astype(np.float32) for c in film.CHANNELS}
     base["samples"] = base["samples"] * 0.0
     jf = jfilm.Film(**{c: jnp.asarray(v) for c, v in base.items()})
     tf = film.Film(**{c: torch.from_numpy(v.copy()) for c, v in base.items()})
@@ -118,7 +118,7 @@ def test_splat_matches_jax_scatter():
                                        for k, v in vals.items()})
         tf = film.splat(tf, ray0, spp=spp, **{k: torch.from_numpy(v)
                                               for k, v in vals.items()})
-    for c in film.Film._fields:
+    for c in film.CHANNELS:
         np.testing.assert_allclose(getattr(tf, c).numpy(),
                                    np.asarray(getattr(jf, c)), rtol=0,
                                    atol=1e-6)
@@ -129,7 +129,7 @@ def test_splat_of_an_aligned_pass_is_splat_aligned():
     vals = {k: torch.from_numpy(v) for k, v in _pass_values(g, 48).items()}
     a = film.splat(film.new_film(40, "cpu"), 24, spp=4, **vals)
     b = film.splat_aligned(film.new_film(40, "cpu"), 6, spp=4, **vals)
-    for x, y in zip(a, b):
+    for x, y in zip(film.tensors(a), film.tensors(b)):
         assert torch.equal(x, y)
 
 
@@ -145,10 +145,12 @@ def test_unaligned_passes_render():
     ref = renderer.render_frame(data, static,
                                 dataclasses.replace(s, rays_per_pass=48), cam)
     assert f1.samples.sum().item() == 8 * 8 * 3
-    for x, y, r in zip(f1, f2, ref):
+    for x, y, r in zip(film.tensors(f1), film.tensors(f2),
+                       film.tensors(ref)):
         assert torch.equal(x, y)
         torch.testing.assert_close(x, r, rtol=0, atol=2e-5)
-    assert not all(torch.equal(x, r) for x, r in zip(f1, ref))
+    assert not all(torch.equal(x, r)
+                   for x, r in zip(film.tensors(f1), film.tensors(ref)))
 
 
 def _resolved(g, h=5, w=7):
@@ -230,7 +232,6 @@ def test_parser_has_every_jax_option():
 @pytest.mark.parametrize("argv, flag", [
     (["--multichip"], "--multichip"),
     (["--num-processes", "2"], "--num-processes"),
-    (["--aov", "depth"], "--aov"),
     (["--no-pallas"], "--no-pallas")])
 def test_unported_options_exit_with_their_message(argv, flag, capsys):
     with pytest.raises(SystemExit) as e:

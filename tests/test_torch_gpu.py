@@ -60,6 +60,7 @@ from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda, shade_cuda
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render import camera as camera_mod
+from rayn_tpu_torch.render import film as film_mod
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
 from rayn_tpu_torch.scene.scene import SceneBuilder
@@ -1034,7 +1035,8 @@ def test_checkpointed_frame_resumes_bit_for_bit(cuda, tmp_path, monkeypatch):
                                           checkpoint_every=2)
     torch.cuda.synchronize()
     assert failed == [3]
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b)
+               for a, b in zip(film_mod.tensors(got), film_mod.tensors(ref)))
     from rayn_tpu_torch.render import checkpoint
     fis = filters.build_fis_table(filters.blackman_harris(1.5), device=cuda)
     key = dict(scene=data, camera=cam, fis_table=fis,

@@ -49,14 +49,14 @@ def test_sorted_and_unsorted_films_bit_identical(monkeypatch):
         "every sort was the identity: the test would be vacuous"
     b = _render(rays_per_pass=512, sorted_shadow_march=False,
                 sorted_intersect=False)
-    for x, y in zip(a, b):
+    for x, y in zip(film.tensors(a), film.tensors(b)):
         assert torch.equal(x, y)
 
 
 def test_pass_size_invariance():
     a = _render(rays_per_pass=256)
     b = _render(rays_per_pass=512)
-    for x, y in zip(a, b):
+    for x, y in zip(film.tensors(a), film.tensors(b)):
         torch.testing.assert_close(x, y, rtol=0.0, atol=2e-5)
     assert a.samples.sum().item() == 16 * 16 * 4
 

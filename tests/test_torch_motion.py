@@ -450,5 +450,4 @@ def test_motion_and_lenses_are_not_refused(kind):
     renderer.check_supported(data, static, s, cam)
     with pytest.raises(NotImplementedError):
         renderer.check_supported(
-            data, static, dataclasses.replace(s, extra_aovs=("depth",)),
-            cam)
+            data, static, dataclasses.replace(s, use_pallas=False), cam)

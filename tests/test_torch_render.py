@@ -151,9 +151,7 @@ def test_segment_queue_bounce_matches_jax(case):
 
 
 @pytest.mark.parametrize("change", [
-    dict(extra_aovs=("mat_id",)), dict(extra_aovs=("depth",)),
-    dict(compact_bounces=True), dict(use_pallas=False),
-    dict(use_pallas_occlusion=False)])
+    dict(use_pallas=False), dict(use_pallas_occlusion=False)])
 def test_unimplemented_settings_raise(change):
     res = (8, 8)
     data, static, cam = presets.default_scene(resolution=res, device="cpu")

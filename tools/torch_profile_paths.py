@@ -161,7 +161,8 @@ def main(argv=None) -> int:
             data, static, cam = scenes[tuple(sorted(anim.items()))]
             fr = renderer.render_frame(data, static, s, cam, frame=1,
                                        time_range=t_range)
-            films[path] = {f: getattr(fr, f).cpu() for f in fr._fields}
+            films[path] = {f: getattr(fr, f).cpu()
+                           for f in film_mod.CHANNELS}
         if args.film:
             torch.save(films, args.film)
         if args.film_ref:
