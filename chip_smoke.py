@@ -237,6 +237,27 @@ Phases (any failed gate raises and the script exits non-zero):
    with them without and with compaction, in turns (device busy time,
    launches). `cli.main --aov depth --aov albedo` at 480x270 writes the
    two AOV PNGs under JAX's names beside the three default channels.
+17. Scale-out (after phase 16, before phase 7), in child processes of
+   this script (`--scale-out-rank`), which load phase 2's library: (a)
+   phase 4's frame through `render_frame(mesh=make_mesh())` in a
+   one-rank NCCL group (a FileStore in a temporary directory), its film
+   bit for bit with phase 4's, phase 4's kernels launched; (b) the same
+   in a two-rank gloo group with both ranks on cuda:0 (NCCL refuses two
+   ranks on one card; gloo takes CUDA tensors for all_reduce and
+   broadcast): `samples` exact, colour, alpha, background and normal
+   within atol 2e-5, the ranks' films the same bits, phase 4's kernels
+   launched in each rank (the wrappers' counts, and the kernel names of
+   one profiled sharded pass), then `render_frames_per_chip` over frames
+   1-3 at 480x270 on both ranks, bit for bit with this process's
+   `render_frame` of each frame; (c) `python -m rayn_tpu_torch
+   --num-processes 2 --coordinator 127.0.0.1:<port>` over frames 1-4 at
+   480x270, 2 spp, as two processes, every PNG byte for byte the
+   one-process CLI's. Printed: the 1080p frame walls of (a) and (b)
+   beside this process's frame, in turns; the pass window's all_reduce
+   (host ms, and device ms under NCCL) and bytes a pass; launches of one
+   sharded pass; peak memory per rank. Two ranks sharing one card
+   measure the collective's cost and the sharing, not scaling; cards
+   other than cuda:0 are not exercised on a one-card machine.
 
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
@@ -248,8 +269,9 @@ program-scene time, and rows 1, 2, 3, 6 and the cost key with
 `ms_tape_default_scene` beside `ms_mbox_only_same_inputs`; the rows
 phase 16 times with `ms_extras`, `max_abs_err_extras` and
 `launches_extras`, their depth-1 time, error and frame launches with
-per-lane albedo and compacted lanes), the nvidia-smi line, and {"ok":
-true, "device": {...}}.
+per-lane albedo and compacted lanes; the rows phase 4 launches with
+`launches_sharded_2_ranks`, each phase-17 (b) rank's launches in its
+1080p frame), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -684,13 +706,413 @@ def io_tensors(key, a, kw, out):
     return [a[1], a[2], a[5]], [out]     # occl, chained: start, end, act
 
 
+# ------------------------------------------------------- 17. scale-out
+# The accumulators whose sums two ranks may order differently (samples
+# is a count, exact at any rank count), and their gate (the JAX
+# package's, tests/test_sharding.py).
+SHARD_ATOL = 2e-5
+# phase 17 (c): the command-line farm's frames [1, 5) and samples a pixel
+FARM_FRAMES, FARM_SPP = (1, 5), 2
+
+
+def scale_out_rank(cfg: dict) -> int:
+    """One rank of phase 17, in its own process: joins the group that
+    `cfg` names, renders the 1080p frame twice through
+    `render_frame(mesh=...)` (the first with launch counts and peak
+    memory, the second timed as well), saves the film, times the pass
+    window's all_reduce, profiles one sharded pass and, with
+    cfg["frames"], renders frames 1-3 at cfg["small_res"] with
+    `render_frames_per_chip`. Prints one "SCALE_OUT {json}" line."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayn_tpu_torch import _build
+    from rayn_tpu_torch.config import RenderSettings
+    from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda
+    from rayn_tpu_torch.ops import shade_cuda
+    from rayn_tpu_torch.parallel import distributed, sharding
+    from rayn_tpu_torch.render import film as film_mod
+    from rayn_tpu_torch.render import renderer
+    from rayn_tpu_torch.scene import presets
+    from rayn_tpu_torch.utils import rng
+
+    rank, world, cuda = cfg["rank"], cfg["world"], cfg["device"] == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("scale-out rank: no CUDA device")
+    t_start = time.perf_counter()
+    if cuda:
+        _build.load(verbose=True)   # phase 2's build: found, not rebuilt
+    store = f"file://{cfg['store']}"
+    if world == 1:
+        # distributed.init starts no group for one process
+        if cuda:
+            torch.cuda.set_device(0)
+        dist.init_process_group(cfg["backend"], init_method=store, rank=0,
+                                world_size=1)
+    else:
+        gate(distributed.init(coordinator_address=store,
+                              num_processes=world, process_id=rank,
+                              backend=cfg["backend"], device=cfg["device"]),
+             "scale-out rank: no group started")
+    mesh = sharding.make_mesh(device=None if cuda else cfg["device"])
+    dev = mesh.device
+    gate(mesh.size == world and mesh.rank == rank,
+         f"scale-out rank {rank}: mesh {mesh}")
+    mods = {"intersect_cuda": intersect_cuda, "shade_cuda": shade_cuda,
+            "march_cuda": march_cuda}
+    kernels = {key: getattr(mods[m], attr)
+               for key, m, attr, _e in CUDA_KERNELS}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    s = RenderSettings(resolution=tuple(cfg["res"]), spp=cfg["spp"],
+                       rays_per_pass=cfg["pass"], max_marches=256,
+                       max_vis_marches=100)
+    w, h = s.resolution
+    data, static, cam = presets.default_scene(resolution=(w, h), device=dev)
+    out = dict(rank=rank, world=world, backend=cfg["backend"],
+               mesh=mesh.shape, start_s=time.perf_counter() - t_start)
+    walls, films = [], []
+    for i in range(2):
+        for fn in kernels.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sharding.barrier(mesh)
+        sync()
+        t0 = time.perf_counter()
+        films.append(renderer.render_frame(data, static, s, cam, frame=1,
+                                           mesh=mesh))
+        sync()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            out["launches"] = {k: fn.launches for k, fn in kernels.items()}
+            out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                 if cuda else 0)
+    gate(all(torch.equal(a, b) for a, b in zip(
+        film_mod.tensors(films[0]), film_mod.tensors(films[1]))),
+         f"scale-out rank {rank}: two renders of the frame differ")
+    out["walls_s"] = walls
+    torch.save([t.cpu() for t in film_mod.tensors(films[0])],
+               os.path.join(cfg["out"], f"{cfg['tag']}_r{rank}.pt"))
+    del films
+
+    # the pass window's all_reduce alone, at this frame's pass plan
+    pass_size, n_passes = renderer.seg_passes(s, s.spp, world)
+    per_rank = pass_size // world
+    lo, hi = sharding.pass_window(0, pass_size, s.spp, w * h)
+    buf = torch.zeros(((hi - lo) * 11,), device=dev)
+    host_ms, dev_ms = [], []
+    for _ in range(6):
+        # device time under NCCL only: gloo reduces on the host
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              if cfg["backend"] == "nccl" else None)
+        sync()
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        dist.all_reduce(buf, group=mesh.group)
+        if ev:
+            ev[1].record()
+        sync()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if ev:
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+    out.update(passes=n_passes, per_rank=per_rank,
+               reduce_bytes=buf.numel() * 4, reduce_host_ms=host_ms[1:],
+               reduce_device_ms=dev_ms[1:] or None)
+    del buf
+
+    # one profiled sharded pass: kernel names and launches
+    tables = rng.build_sample_tables(s, 1)
+    fis = filters.build_fis_table(filters.blackman_harris(1.5),
+                                  s.filter_table_size, device=dev)
+    scratch = film_mod.new_film(w * h, dev, s)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    for _ in range(3):   # a session that records no kernel is retried
+        with profile(activities=acts) as prof:
+            sharding.render_pass_sharded(mesh, scratch, data, static, s,
+                                         tables, cam, fis, 0, per_rank,
+                                         1.0 / 24, 2.0 / 24)
+            sync()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA})
+        if names or not cuda:
+            break
+    out["kernel_names"] = names
+    out["pass_launches"] = sum(1 for e in prof.events() if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    del scratch
+
+    if cfg.get("frames"):
+        small = dataclasses.replace(s, resolution=tuple(cfg["small_res"]))
+        d2, st2, c2 = presets.default_scene(resolution=small.resolution,
+                                            device=dev)
+        for fn in kernels.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        got = sharding.render_frames_per_chip(d2, st2, small, c2, [1, 2, 3],
+                                              mesh=mesh)
+        sync()
+        out["frames_wall_s"] = time.perf_counter() - t0
+        out["frames_launches"] = {k: fn.launches
+                                  for k, fn in kernels.items()}
+        torch.save([[t.cpu() for t in film_mod.tensors(f)] for f in got],
+                   os.path.join(cfg["out"], f"{cfg['tag']}_frames_r{rank}.pt"))
+    dist.destroy_process_group()
+    print("SCALE_OUT " + json.dumps(out), flush=True)
+    return 0
+
+
+def run_ranks(cmds, label: str, timeout: float = 300.0) -> list:
+    """Start the commands together; every one's standard output. Their
+    output goes to files, so that no process blocks on a full pipe while
+    another waits for it in a collective. A process that fails or
+    outlives `timeout` fails the phase, and none is left running."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as logs:
+        files = [(open(f"{logs}/{i}.out", "w+"), open(f"{logs}/{i}.err", "w+"))
+                 for i in range(len(cmds))]
+        procs = [subprocess.Popen(c, cwd=here, env=env, stdout=o, stderr=e,
+                                  text=True) for c, (o, e) in zip(cmds, files)]
+        try:
+            # a rank that failed leaves the others waiting in a
+            # collective: stop them at once
+            deadline = time.monotonic() + timeout
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs, bad = [], []
+        for i, (p, (o, e)) in enumerate(zip(procs, files)):
+            o.seek(0)
+            e.seek(0)
+            out, err = o.read(), e.read()
+            o.close()
+            e.close()
+            outs.append(out)
+            if p.returncode != 0:
+                bad.append(f"process {i} exited {p.returncode}:\n"
+                           f"{out[-2000:]}\n{err[-4000:]}")
+    # -9: stopped after another process failed, or at the time limit
+    gate(not bad, f"{label}: " + "\n".join(bad))
+    return outs
+
+
+def scale_out(data, static, cam, main_s, need, absent, cli) -> dict:
+    """Phase 17 (module docstring): (a) one NCCL rank, (b) two gloo ranks
+    on one card, then frames one per rank, (c) the command line's frame
+    farm; gates and the printed numbers. Returns the phase's record."""
+    import dataclasses
+    import socket
+
+    import torch
+
+    from rayn_tpu_torch import _build
+    from rayn_tpu_torch.render import film as film_mod
+    from rayn_tpu_torch.render import renderer
+    from rayn_tpu_torch.scene import presets
+
+    cuda = DEVICE == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(DEVICE)
+    W, H = main_s.resolution
+    rec = {}
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def parent_frame():
+        """Phase 4's frame in this process: (film on the host, wall)."""
+        sync()
+        t0 = time.perf_counter()
+        f = renderer.render_frame(data, static, main_s, cam, frame=1)
+        sync()
+        wall = time.perf_counter() - t0
+        return [t.cpu() for t in film_mod.tensors(f)], wall
+
+    def rank_cmd(cfg):
+        return [sys.executable, os.path.abspath(__file__),
+                "--scale-out-rank", json.dumps(cfg)]
+
+    def results(outs):
+        return [json.loads(next(line[len("SCALE_OUT "):]
+                                for line in o.splitlines()
+                                if line.startswith("SCALE_OUT ")))
+                for o in outs]
+
+    def gate_launches(label, launches):
+        gate(all(launches[k] > 0 for k in need)
+             and not any(launches[k] for k in absent),
+             f"{label}: launches {launches}, needed {need}, absent {absent}")
+
+    film4, wall4 = parent_frame()
+    walls_parent = [wall4]
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = {"device": DEVICE, "res": [W, H], "spp": main_s.spp,
+                "pass": main_s.rays_per_pass, "out": tmp,
+                "small_res": list(SMALL_RES)}
+
+        # (a) one NCCL rank
+        cfg_a = dict(base, rank=0, world=1, tag="a", store=f"{tmp}/store_a",
+                     backend="nccl" if cuda else "gloo")
+        (res_a,) = results(run_ranks([rank_cmd(cfg_a)], "17 (a)"))
+        film_a = torch.load(f"{tmp}/a_r0.pt")
+        gate_launches("17 (a)", res_a["launches"])
+        gate(all(torch.equal(x, y) for x, y in zip(film_a, film4)),
+             "17 (a): the one-rank NCCL film differs from phase 4's")
+        del film_a
+
+        # (b) two gloo ranks on the one card, then frames one per rank
+        cfg_b = dict(base, world=2, tag="b", store=f"{tmp}/store_b",
+                     backend="gloo", frames=True)
+        res_b = results(run_ranks(
+            [rank_cmd(dict(cfg_b, rank=r)) for r in range(2)], "17 (b)"))
+        films_b = [torch.load(f"{tmp}/b_r{r}.pt") for r in range(2)]
+        gate(all(torch.equal(x, y) for x, y in zip(*films_b)),
+             "17 (b): the two ranks' films differ")
+        gate(torch.equal(films_b[0][4], film4[4]),
+             "17 (b): samples differ from phase 4's")
+        diff_b = {c: (x - y).abs().max().item() for c, x, y in zip(
+            film_mod.CHANNELS[:4], films_b[0], film4)}
+        gate(all(d <= SHARD_ATOL for d in diff_b.values()),
+             f"17 (b): max |film - phase 4's| {diff_b} > {SHARD_ATOL}")
+        for r, res in enumerate(res_b):
+            gate_launches(f"17 (b) rank {r}", res["launches"])
+            gate_launches(f"17 (b) rank {r} frames", res["frames_launches"])
+        for label, res in [("(a) rank 0", res_a)] + [
+                (f"(b) rank {r}", x) for r, x in enumerate(res_b)]:
+            # the counts are the gate; the profiler's names, where its
+            # session recorded kernels at all, must agree with them
+            names = res["kernel_names"]
+
+            def seen(entry):
+                # the entry as a whole name: march_kernel is not
+                # shadow_march_kernel
+                pat = re.compile(rf"(?<!\w){entry}(?!\w)")
+                return any(pat.search(n) for n in names)
+
+            missing = [k for k in need
+                       if not any(seen(e) for e in STATIC_ENTRIES[k])]
+            gate(not (cuda and names and missing),
+                 f"17 {label}: the profiler saw no kernel of {missing} in "
+                 f"{names}")
+            ours = sorted(e for es in ENTRIES.values() for e in es
+                          if seen(e))
+            log(f"[17 scale-out] {label}: the profiled sharded pass ran "
+                f"{len(names)} distinct kernels, the port's "
+                f"{ours or 'none recorded'}, and "
+                f"{[n[:80] for n in names if 'nccl' in n.lower()]} of NCCL")
+        del films_b
+        sc = presets.default_scene(resolution=SMALL_RES, device=dev)
+        small = dataclasses.replace(main_s, resolution=SMALL_RES)
+        for r in range(2):
+            got = torch.load(f"{tmp}/b_frames_r{r}.pt")
+            for i, f in enumerate((1, 2, 3)):
+                ref = film_mod.tensors(renderer.render_frame(
+                    *sc[:2], small, sc[2], frame=f))
+                gate(all(torch.equal(x, y.cpu()) for x, y in zip(got[i], ref)),
+                     f"17 (b) rank {r}: frame {f} of render_frames_per_chip "
+                     f"differs from render_frame's")
+        del sc
+        _f, wall_after = parent_frame()
+        walls_parent.append(wall_after)
+
+        # (c) the command line's frame farm against one process
+        _build.library_path()   # the CLI's build, once, before its ranks
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        argv = ["--device", DEVICE, "--width", str(SMALL_RES[0]),
+                "--height", str(SMALL_RES[1]), "--spp", str(FARM_SPP),
+                "--frames", *map(str, FARM_FRAMES)]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv + ["--out", f"{tmp}/one"])
+        gate(rc == 0, f"17 (c): the one-process CLI: rc {rc}, "
+             f"{err.getvalue()[-400:]!r}")
+        t0 = time.perf_counter()
+        run_ranks([[sys.executable, "-m", "rayn_tpu_torch", *argv,
+                    "--num-processes", "2", "--process-id", str(i),
+                    "--coordinator", f"127.0.0.1:{port}", "--out",
+                    f"{tmp}/farm"] for i in range(2)], "17 (c)")
+        farm_wall = time.perf_counter() - t0
+
+        def pngs(d):
+            return {n: open(os.path.join(d, n), "rb").read()
+                    for n in sorted(os.listdir(d))}
+
+        one, farm = pngs(f"{tmp}/one"), pngs(f"{tmp}/farm")
+        n_frames = FARM_FRAMES[1] - FARM_FRAMES[0]
+        gate(len(one) == 3 * n_frames and farm == one,
+             f"17 (c): the farm wrote {sorted(farm)}, the one-process run "
+             f"{sorted(one)}, or a PNG differs")
+
+    log(f"[17 scale-out] (a) one NCCL rank: film bit for bit with phase "
+        f"4's; launches {res_a['launches']}")
+    log(f"[17 scale-out] (b) two gloo ranks on cuda:0: samples exact, "
+        f"max |d| {diff_b} (atol {SHARD_ATOL}), ranks the same bits; "
+        f"frames 1-3 at {SMALL_RES[0]}x{SMALL_RES[1]} per rank bit for bit "
+        f"with render_frame")
+    log(f"[17 scale-out] (c) python -m rayn_tpu_torch --num-processes 2, "
+        f"frames {FARM_FRAMES[0]}-{FARM_FRAMES[1] - 1} at {SMALL_RES[0]}x"
+        f"{SMALL_RES[1]}, {FARM_SPP} spp: {len(farm)} PNGs byte for byte "
+        f"the one-process run's; the two processes took {farm_wall:.3f} s "
+        f"from start to exit")
+    log(f"[17 scale-out] {W}x{H} frame walls in turns, s (two ranks on one "
+        f"card measure the collective's cost and the sharing, not "
+        f"scaling): this process {walls_parent[0]:.4f}; (a) one NCCL rank "
+        f"{res_a['walls_s']}; (b) two gloo ranks "
+        f"{[r['walls_s'] for r in res_b]}; this process "
+        f"{walls_parent[1]:.4f}")
+    for label, res in [("(a) nccl rank 0", res_a)] + [
+            (f"(b) gloo rank {r}", x) for r, x in enumerate(res_b)]:
+        log(f"[17 scale-out] {label}: {res['passes']} passes of "
+            f"{res['per_rank']} rays a rank; the window all_reduce "
+            f"{res['reduce_bytes']} B a pass, host ms {res['reduce_host_ms']}"
+            f", device ms {res['reduce_device_ms']}; one sharded pass "
+            f"{res['pass_launches']} launches; the frame's kernel launches "
+            f"{res['launches']}; peak device memory "
+            f"{res['peak_bytes']} B; kernel library load and group start "
+            f"{res['start_s']:.2f} s")
+    rec.update(a=res_a, b=res_b, diff_b=diff_b, walls_parent_s=walls_parent,
+               farm_wall_s=farm_wall, farm_pngs=len(farm),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[17 scale-out] phase took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
     ap.add_argument("--profile", action="store_true",
                     help="also run phase 7, the profiled main-path passes")
+    ap.add_argument("--scale-out-rank", default=None, metavar="JSON",
+                    help="run one rank of phase 17 (the phase starts these "
+                         "processes itself)")
     args = ap.parse_args(argv)
+    if args.scale_out_rank is not None:
+        return scale_out_rank(json.loads(args.scale_out_rank))
 
     import torch
     if not torch.cuda.is_available():
@@ -2632,6 +3054,10 @@ def main(argv=None) -> int:
     rec16["cli"] = dict(files=names, wall_s=cli16_wall)
     record["phase16"] = rec16
 
+    # ----------------------------------------------------- 17. scale-out
+    record["phase17"] = scale_out(data, static, cam, main_s, fused_need,
+                                  fused_absent, cli)
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -2733,6 +3159,9 @@ def main(argv=None) -> int:
                 ms_animated_64=times13[("64 knots", tkey)],
                 ms_static_same_call=times13[("static", tkey)],
                 bound_ms_animated=bounds13[("8 knots", tkey)][0])
+        if phase == "main":   # phase 17 (b): each of two ranks' frame
+            row["launches_sharded_2_ranks"] = [
+                r["launches"][lkey] for r in record["phase17"]["b"]]
         kern.append(row)
     record["kernels"] = kern
     if args.json:

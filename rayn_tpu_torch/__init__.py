@@ -17,3 +17,11 @@ too and then runs its plain torch twin, which is how the CPU tests run.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # rayn_tpu/__init__.py's re-export, imported when first asked for
+    if name == "render_frame_sharded":
+        from rayn_tpu_torch.parallel.sharding import render_frame_sharded
+        return render_frame_sharded
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

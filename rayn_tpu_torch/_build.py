@@ -116,12 +116,16 @@ def load(verbose: bool = False) -> ctypes.CDLL:
 
 def launch(name: str, args: ctypes.Structure, device) -> None:
     """Launch kernel `name` with its argument struct on the current
-    stream of `device`; raise if the launch is refused."""
+    stream of `device`; raise if the launch is refused. The launch runs
+    with `device` as the thread's current CUDA device, so that a tensor
+    on another card than the current one gets its own card's stream and
+    grid (the `<<<>>>` launch in csrc/ uses the current device)."""
     import torch
 
     fn = getattr(load(), name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

@@ -2,11 +2,21 @@
 reference src/main.rs:28-98): build the scene, loop over frames with a
 24 fps / (1/24) s-shutter schedule, render, print timing, save PNG
 channels. Every option of `python -m rayn_tpu` is here with its default,
-plus `--device`; the options the port cannot serve yet stop the run with
-a message that names them.
+plus `--device`; `--no-pallas` (the JAX package's path without kernels)
+stops the run with a message.
 
     python -m rayn_tpu_torch --scene fractal --width 1280 --height 720 \
         --spp 8 --frames 1 2 --out renders
+
+Scale-out runs one process per card (rayn_tpu_torch/parallel):
+`--num-processes N --process-id i --coordinator host:port` starts
+process i of a frame farm, each process rendering and saving its
+round-robin share; `--multichip` renders on the group that torchrun
+started (`torchrun --nproc-per-node N -m rayn_tpu_torch --multichip
+...`; without torchrun, one rank), each frame's passes over the ranks
+(`--multichip-mode rays`) or whole frames one per rank (`frames`;
+`auto` takes frames for two frames or more), and rank 0 alone prints
+progress and saves the PNGs.
 """
 
 from __future__ import annotations
@@ -68,16 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--multichip", action="store_true",
-                   help="shard the render over all visible devices (not "
-                        "ported: refused)")
+                   help="render on the ranks of the torchrun group, one "
+                        "card each (without torchrun: one rank)")
     p.add_argument("--multichip-mode", choices=("auto", "rays", "frames"),
                    default="auto", help="with --multichip only")
     p.add_argument("--coordinator", default=None,
                    help="frame-farm coordinator address (host:port), with "
                         "--num-processes only")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="frame-farm process count (above 1 not ported: "
-                        "refused)")
+                   help="frame-farm process count (one process per "
+                        "card)")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--mis", action="store_true",
                    help="MIS-weight paired light/emissive emitters "
@@ -122,49 +132,62 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args) -> str | None:
-    """The message of the first option the port cannot serve, naming
-    where ROADMAP.md queues the work, or None."""
-    refused = (
-        (args.multichip, "--multichip (multi-device rendering) is not "
-         "ported yet (ROADMAP Queue 1 item 5, scale-out)"),
-        (args.num_processes and args.num_processes > 1,
-         "--num-processes > 1 (the multi-process frame farm) is not ported "
-         "yet (ROADMAP Queue 1 item 5, scale-out)"),
-        (args.no_pallas, "--no-pallas selects the JAX package's path "
-         "without kernels, which the port does not have (ROADMAP Queue 1, "
-         "the note on use_pallas=False)"),
-    )
-    return next((msg for bad, msg in refused if bad), None)
-
-
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = _refusal(args)
-    if refused is not None:
-        parser.error(refused)
+    if args.no_pallas:
+        parser.error("--no-pallas selects the JAX package's path without "
+                     "kernels, which the port does not have (ROADMAP Queue "
+                     "1, the note on use_pallas=False)")
     if args.advance_group is not None:
         print("--advance-group sizes the TPU's chained shadow march, which "
               "rayn_tpu_torch does not have: ignored", file=sys.stderr)
 
+    import torch
+    import torch.distributed as dist
+
+    from rayn_tpu_torch.parallel import distributed
+
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("rayn_tpu_torch: no CUDA device; pass --device "
+                           "cpu to render on the CPU")
+    farm = bool(args.num_processes and args.num_processes > 1)
+    if farm and (args.coordinator is None or args.process_id is None):
+        parser.error("--num-processes > 1 needs --coordinator and "
+                     "--process-id")
+    # before any tensor is made: init binds the rank to its card
+    started = False
+    if farm:
+        started = distributed.init(coordinator_address=args.coordinator,
+                                   num_processes=args.num_processes,
+                                   process_id=args.process_id, device=dev)
+    elif args.multichip:
+        started = distributed.init(device=dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _render(args, dev, farm)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _render(args, dev, farm: bool) -> int:
+    """Build the scene on `dev`, render the frames and save them."""
     import contextlib
 
     import torch
 
     from rayn_tpu_torch.config import RenderSettings
     from rayn_tpu_torch.ops import filters as filter_ops
+    from rayn_tpu_torch.parallel import distributed, sharding
     from rayn_tpu_torch.render import film as film_mod
     from rayn_tpu_torch.render import renderer
     from rayn_tpu_torch.render.camera import (OrthographicCamera,
                                               PinholeCamera, ThinLensCamera)
     from rayn_tpu_torch.scene import presets
     from rayn_tpu_torch.utils.profiling import device_trace
-
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("rayn_tpu_torch: no CUDA device; pass --device "
-                           "cpu to render on the CPU")
 
     res = (args.width, args.height)
     settings = RenderSettings(
@@ -209,6 +232,10 @@ def main(argv=None) -> int:
         print(f"\r  {done}/{total} rays ({pct:5.1f}%)", end="",
               flush=True, file=sys.stderr)
 
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     def save_frame(frame, film, secs):
         n_samples = res[0] * res[1] * args.spp
         print(f"\nFrame {frame}: done in {secs:.2f}s "
@@ -222,20 +249,55 @@ def main(argv=None) -> int:
         for p in paths:
             print(f"Saved {p}", file=sys.stderr)
 
+    frame_list = list(range(args.frames[0], args.frames[1]))
     trace_cm = (device_trace(args.trace_dir) if args.trace_dir
                 else contextlib.nullcontext())
     with trace_cm:
-        for frame in range(args.frames[0], args.frames[1]):
+        if farm:
+            # the frame farm: this process's round-robin share, saved here
+            start = time.perf_counter()
+            out = distributed.render_frames_multiprocess(
+                data, static, settings, camera, frame_list,
+                per_chip=args.multichip, filter=filt,
+                frame_rate=args.frame_rate, shutter_speed=args.shutter)
+            sync()
+            secs = time.perf_counter() - start
+            for frame, film in out:
+                save_frame(frame, film, secs / max(1, len(out)))
+            return 0
+        mesh = sharding.make_mesh(device=dev) if args.multichip else None
+        lead = mesh is None or mesh.rank == 0
+        if args.multichip and (
+                args.multichip_mode == "frames"
+                or (args.multichip_mode == "auto" and len(frame_list) >= 2)):
+            start = time.perf_counter()
+            films = sharding.render_frames_per_chip(
+                data, static, settings, camera, frame_list, mesh=mesh,
+                filter=filt, frame_rate=args.frame_rate,
+                shutter_speed=args.shutter, retries=args.retries)
+            sync()
+            secs = time.perf_counter() - start
+            if lead:
+                for frame, film in zip(frame_list, films):
+                    save_frame(frame, film, secs / len(frame_list))
+            return 0
+        for frame in frame_list:
             start = time.perf_counter()
             t0 = frame / args.frame_rate
-            film = renderer.render_frame_resilient(
-                data, static, settings, camera, frame=frame,
-                retries=args.retries, time_range=(t0, t0 + args.shutter),
-                filter=filt, checkpoint_path=args.checkpoint,
-                progress=progress)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            save_frame(frame, film, time.perf_counter() - start)
+            if mesh is not None:
+                film = sharding.render_frame_sharded(
+                    data, static, settings, camera, frame=frame, mesh=mesh,
+                    time_range=(t0, t0 + args.shutter), filter=filt,
+                    progress=progress if lead else None)
+            else:
+                film = renderer.render_frame_resilient(
+                    data, static, settings, camera, frame=frame,
+                    retries=args.retries,
+                    time_range=(t0, t0 + args.shutter), filter=filt,
+                    checkpoint_path=args.checkpoint, progress=progress)
+            sync()
+            if lead:
+                save_frame(frame, film, time.perf_counter() - start)
     return 0
 
 

@@ -10,8 +10,9 @@ dead and splat nothing. The film holds one accumulator for each of
 `compact_bounces` the integrator hands the pass back in ray order, so
 every pass is splatted the same way. A checkpointed render saves the
 film every few passes and resumes where it stopped, growing spp
-progressively (render/checkpoint.py). Multi-device meshes are not
-ported yet.
+progressively (render/checkpoint.py). With a mesh
+(parallel/sharding.py) every rank of a process group renders its slice
+of each pass and the film is merged by all_reduce.
 """
 
 from __future__ import annotations
@@ -120,6 +121,34 @@ def check_supported(data: SceneData, static: SceneStatic,
                                   f"{reason} yet")
 
 
+def seg_passes(settings: RenderSettings, spp_seg: int,
+               ranks: int = 1) -> tuple[int, int]:
+    """(pass_size, n_passes) of a [*, * + spp_seg) sample segment over
+    `ranks` ranks: each rank takes up to rays_per_pass rays a pass
+    (rayn_tpu/render/renderer.py:266-275)."""
+    w, h = settings.resolution
+    seg_total = w * h * spp_seg
+    per_rank = min(settings.rays_per_pass, -(-seg_total // ranks))
+    return per_rank * ranks, -(-seg_total // (per_rank * ranks))
+
+
+def checkpoint_key(data: SceneData, static: SceneStatic,
+                   settings: RenderSettings, camera: Camera, frame: int,
+                   time_range: tuple[float, float],
+                   filter: filter_ops.Filter, ranks: int = 1) -> dict:
+    """What a frame's checkpoint is fingerprinted by (render/
+    checkpoint.py), the filter as its table on the scene's device. Its
+    passes count in `seg_passes` units, which depend on the rank count
+    above 1, so such a checkpoint names its ranks too."""
+    fis_table = filter_ops.build_fis_table(
+        filter, settings.filter_table_size, device=data.device)
+    scene = (data, static.mat_param_fns)
+    if ranks > 1:
+        scene += (f"{ranks} ranks",)
+    return dict(settings=settings, frame=frame, scene=scene, camera=camera,
+                fis_table=fis_table, time_range=time_range)
+
+
 # Test-only fault injection point: called with the pass index after every
 # completed pass (tests/test_torch_checkpoint.py uses it to kill a render
 # mid-frame and exercise render_frame_resilient's checkpoint resume).
@@ -179,34 +208,34 @@ def render_frame(data: SceneData, static: SceneStatic,
     holds spp samples is returned as it is. `progress(done, total)` is
     called with ray counts after every pass (the reference's progress
     bar, src/film.rs:636); it reads nothing from the device. Follows
-    rayn_tpu/render/renderer.py:219-397 without its TPU dispatch batching."""
+    rayn_tpu/render/renderer.py:219-397 without its TPU dispatch batching.
+
+    With `mesh` (parallel.sharding.make_mesh()), every rank of the mesh
+    calls render_frame with the same arguments, renders its slice of each
+    pass, and gets the same merged film (parallel.sharding.
+    render_pass_sharded); rank 0 alone saves checkpoints, a resume loads
+    the same file on every rank, and `progress` runs on every rank with
+    the same counts. A mesh on another device than the scene's raises
+    ValueError, anything but a Mesh TypeError."""
+    ranks = 1
     if mesh is not None:
-        raise NotImplementedError("rayn_tpu_torch does not implement mesh "
-                                  "(multi-device) rendering yet")
+        from rayn_tpu_torch.parallel import sharding
+        sharding.check_mesh(mesh, data)
+        ranks = mesh.size
     check_supported(data, static, settings, camera)
     w, h = settings.resolution
     if time_range is None:
         start = frame / frame_rate
         time_range = (start, start + shutter_speed)
     tables = rng.build_sample_tables(settings, frame)
-    fis_table = filter_ops.build_fis_table(
-        filter or filter_ops.blackman_harris(1.5),
-        settings.filter_table_size, device=data.device)
-
-    def seg_passes(spp_seg: int) -> tuple[int, int]:
-        """(pass_size, n_passes) of a [*, * + spp_seg) sample segment."""
-        seg_total = w * h * spp_seg
-        size = min(settings.rays_per_pass, seg_total)
-        return size, -(-seg_total // size)
+    ck_key = checkpoint_key(data, static, settings, camera, frame,
+                            time_range,
+                            filter or filter_ops.blackman_harris(1.5), ranks)
+    fis_table = ck_key["fis_table"]
 
     # Segment plan: (spp_base, spp_target, start_pass). A fresh render is
     # one segment [0, spp); a resumed one first finishes the checkpoint's
     # segment, then (if spp grew) adds the segment [ckpt_spp, spp).
-    # (data, the albedo functions): without functions the same leaves as
-    # the scene data alone
-    ck_key = dict(settings=settings, frame=frame,
-                  scene=(data, static.mat_param_fns), camera=camera,
-                  fis_table=fis_table, time_range=time_range)
     film = film_mod.new_film(w * h, data.device, settings)
     segments = [(0, settings.spp, 0)]
     if checkpoint_path:
@@ -214,7 +243,8 @@ def render_frame(data: SceneData, static: SceneStatic,
                                   device=data.device)
         if prog is not None:
             film, segments = prog.film, []
-            if prog.next_pass < seg_passes(prog.spp - prog.spp_base)[1]:
+            if prog.next_pass < seg_passes(settings, prog.spp
+                                           - prog.spp_base, ranks)[1]:
                 segments.append((prog.spp_base, prog.spp, prog.next_pass))
             if prog.spp < settings.spp:
                 segments.append((prog.spp, settings.spp, 0))
@@ -223,17 +253,25 @@ def render_frame(data: SceneData, static: SceneStatic,
                               segments[-1][1] if segments else 0)
     if segments:
         sb0, st0, p00 = segments[0]
-        done = w * h * sb0 + min(p00 * seg_passes(st0 - sb0)[0],
-                                 w * h * (st0 - sb0))
+        done = w * h * sb0 + min(
+            p00 * seg_passes(settings, st0 - sb0, ranks)[0],
+            w * h * (st0 - sb0))
     else:
         done = grand_total
     for sb, st, start_pass in segments:
         seg_settings = dataclasses.replace(settings, spp=st - sb)
-        pass_size, n_passes = seg_passes(st - sb)
+        pass_size, n_passes = seg_passes(settings, st - sb, ranks)
         for p in range(start_pass, n_passes):
-            film = render_pass(film, data, static, seg_settings, tables,
-                               camera, fis_table, p * pass_size, pass_size,
-                               time_range[0], time_range[1], sample_base=sb)
+            if mesh is None:
+                film = render_pass(film, data, static, seg_settings, tables,
+                                   camera, fis_table, p * pass_size,
+                                   pass_size, time_range[0], time_range[1],
+                                   sample_base=sb)
+            else:
+                film = sharding.render_pass_sharded(
+                    mesh, film, data, static, seg_settings, tables, camera,
+                    fis_table, p * pass_size, pass_size // ranks,
+                    time_range[0], time_range[1], sample_base=sb)
             if _FAIL_HOOK is not None:
                 _FAIL_HOOK(p)
             done = min(done + pass_size, grand_total)
@@ -241,6 +279,10 @@ def render_frame(data: SceneData, static: SceneStatic,
                 progress(done, grand_total)
             if checkpoint_path and ((p + 1) % checkpoint_every == 0
                                     or p + 1 == n_passes):
-                ckpt.save(checkpoint_path, film, next_pass=p + 1,
-                          spp_base=sb, spp=st, **ck_key)
+                if mesh is None or mesh.rank == 0:
+                    ckpt.save(checkpoint_path, film, next_pass=p + 1,
+                              spp_base=sb, spp=st, **ck_key)
+                if mesh is not None:
+                    # no rank runs ahead of the file it may resume from
+                    sharding.barrier(mesh)
     return film

@@ -26,6 +26,9 @@ Pillow is used by these tests only; the port writes PNG itself.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +55,8 @@ from rayn_tpu_torch.utils import rng, spectrum
 # The tensors here are small: one torch thread per test worker avoids
 # contending with the other pytest workers for the cores.
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 # --------------------------------------------------------------- filters
@@ -230,8 +235,6 @@ def test_parser_has_every_jax_option():
 
 
 @pytest.mark.parametrize("argv, flag", [
-    (["--multichip"], "--multichip"),
-    (["--num-processes", "2"], "--num-processes"),
     (["--no-pallas"], "--no-pallas")])
 def test_unported_options_exit_with_their_message(argv, flag, capsys):
     with pytest.raises(SystemExit) as e:
@@ -239,6 +242,40 @@ def test_unported_options_exit_with_their_message(argv, flag, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert flag in err and "ROADMAP Queue 1" in err
+
+
+@pytest.mark.parametrize("flag", ["--multichip", "--num-processes"])
+def test_scale_out_options_render_on_the_cpu(flag, tmp_path, capsys):
+    """--multichip on a one-rank mesh (no torchrun); --num-processes 2 as
+    process 0 here and process 1 in a second interpreter, each saving
+    its share of frames 1-2 (the farm's PNGs against one process's:
+    tests/test_torch_distributed.py)."""
+    argv = ["--device", "cpu", "--scene", "spheres", "--width", "8",
+            "--height", "8", "--spp", "2", "--bounces", "1", "--frames",
+            "1", "3", "--out", str(tmp_path / "out")]
+    peer = None
+    if flag == "--num-processes":
+        farm = ["--num-processes", "2", "--coordinator",
+                f"file://{tmp_path / 'store'}", "--process-id"]
+        peer = subprocess.Popen(
+            [sys.executable, "-m", "rayn_tpu_torch", *argv, *farm, "1"],
+            env={**os.environ, "PYTHONPATH": REPO},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        argv += farm + ["0"]
+    else:
+        argv.append(flag)
+    try:
+        assert cli.main(argv) == 0
+        if peer is not None:
+            out, err = peer.communicate(timeout=120)
+            assert peer.returncode == 0, err
+    finally:
+        if peer is not None:
+            peer.kill()
+            peer.wait()
+    names = sorted(p.name for p in (tmp_path / "out").iterdir())
+    assert names == sorted(f"frame000{f}_2spp_{c}.png" for f in (1, 2)
+                           for c in ("alpha", "normal", "color"))
 
 
 def test_main_writes_jax_file_names(tmp_path, capsys):

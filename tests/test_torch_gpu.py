@@ -46,6 +46,8 @@ instance, and a scene whose first instance uses every opcode): every
 kernel that reads the SDF runs its Tape instantiation and equals its
 twin bit for bit, and the default scene's MandelBox run as a one-op tape
 gives the MBoxOnly kernels' bits.
+A kernel whose tensors are on cuda:1 while cuda:0 is current runs on
+cuda:1 (needs two cards; skipped on one).
 """
 
 import dataclasses
@@ -194,6 +196,27 @@ def test_cost_key_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert intersect_cuda.intersect_cost_key.launches == before + 1
     assert _same_bits(got, want) and bool((want > 1.0).any())
+
+
+def test_kernel_launches_on_the_card_of_its_tensors(cuda):
+    """`_build.launch` enters the device of the kernel's tensors: the
+    closest hit with its inputs on cuda:1 while cuda:0 is the current
+    device runs there and equals its twin bit for bit. A machine with one
+    card skips it."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (inputs on cuda:1 while "
+                    "cuda:0 is current)")
+    other = torch.device("cuda", 1)
+    data, static, s, _t, state, hps = _wavefront(other, 1)
+    with torch.cuda.device(0):
+        got = _hit(data, static, s, state, hps,
+                   intersect_cuda.closest_hit_shading)
+        assert torch.cuda.current_device() == 0
+    want = _hit(data, static, s, state, hps,
+                intersect_cuda.closest_hit_shading_plain)
+    torch.cuda.synchronize(other)
+    assert got[0].t.device == other
+    assert _hits_equal(got, want)
 
 
 @pytest.mark.parametrize("sampler", ["rd", "hash"])

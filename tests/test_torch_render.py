@@ -34,6 +34,7 @@ from rayn_tpu.scene import presets as jpresets
 from rayn_tpu.utils import rng as jrng
 from rayn_tpu_torch import convert
 from rayn_tpu_torch.config import RenderSettings
+from rayn_tpu_torch.parallel import sharding
 from rayn_tpu_torch.render import camera as camera_mod
 from rayn_tpu_torch.render import film, integrator, renderer
 from rayn_tpu_torch.scene import presets
@@ -223,6 +224,8 @@ def _entry_point(name):
         cam = camera_mod.PinholeCamera.make((8, 8), 60.0, (0.0, 0.0, 4.0),
                                             (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
         return cam.origin.values.device
+    if name == "parallel.make_mesh":
+        return sharding.make_mesh().device
     jdata, jstatic, jcam = jpresets.default_scene(resolution=(8, 8))
     if name == "convert.scene":
         return convert.scene(jax.tree.map(np.asarray, jdata), jstatic,
@@ -232,7 +235,7 @@ def _entry_point(name):
 
 @pytest.mark.parametrize("name", [
     "default_scene", "SceneBuilder.build", "PinholeCamera.make",
-    "convert.scene", "convert.camera"])
+    "convert.scene", "convert.camera", "parallel.make_mesh"])
 def test_entry_points_default_to_cuda(name):
     """With no device argument an entry point puts its tensors on the
     CUDA card; without a card it raises instead of using the CPU."""
@@ -244,12 +247,15 @@ def test_entry_points_default_to_cuda(name):
 
 
 def test_unimplemented_entry_points_raise():
+    """mesh= is rendered since scale-out was ported (tests/
+    test_torch_sharding.py); anything but a parallel.sharding.Mesh is a
+    TypeError."""
     res = (8, 8)
     data, static, cam = presets.default_scene(resolution=res, device="cpu")
     s = RenderSettings(resolution=res, spp=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         renderer.render_frame_resilient(data, static, s, cam, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         renderer.render_frame(data, static, s, cam, mesh=object())
 
 
