@@ -258,6 +258,28 @@ Phases (any failed gate raises and the script exits non-zero):
    sharded pass; peak memory per rank. Two ranks sharing one card
    measure the collective's cost and the sharing, not scaling; cards
    other than cuda:0 are not exercised on a one-card machine.
+18. The route without kernels, closures and deep programs (after phase
+   17, before phase 7): (a) phase 4's scene at 1080p, 1 spp, with
+   `use_pallas=False`: its film bit for bit with the kernel route's with
+   `use_fused_intersect=False`, and against the fused route (whose
+   intersect kernel normalises the normal as g * (1/|g|), where the
+   unfused shading info divides) phase 4's image gate; no closest-hit,
+   march or cost-key kernel launched or in the profile, the fused shadow
+   kernels in both; launches, device busy ms, idle share and pass walls
+   of both routes, in turns; (b) `use_pallas_occlusion=False` at
+   960x540: bit for bit with `use_fused_shadows=False`, no shadow-march
+   launch, the queue-segments and queue-sum kernels launched; (c)
+   `python -m rayn_tpu_torch --no-pallas` at 480x270, 2 spp: its PNGs
+   byte for byte those of render_frame + save_channels; (d) the program
+   scene with a closure torus (vecmath ops) as instance 1 at 960x540: bit
+   for bit with the library Torus on the unfused route, one warning per
+   fused feature; (e) the program scene with `deep_program` (12 distances
+   and 12 saved points) at 1080p: every DeepTape kernel against its twin
+   bit for bit on one pass's inputs (fused and relaxed paths, rows 6-12's
+   functions on the deep instance, the first-DE entry, and the animated
+   instantiations on the animated-geo scene at 64x64), with each one's
+   depth-1 ms, DEs and ps a DE beside phase 15's Tape numbers, and the
+   DeepTape kernels' registers and spills.
 
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
@@ -271,7 +293,9 @@ phase 16 times with `ms_extras`, `max_abs_err_extras` and
 `launches_extras`, their depth-1 time, error and frame launches with
 per-lane albedo and compacted lanes; the rows phase 4 launches with
 `launches_sharded_2_ranks`, each phase-17 (b) rank's launches in its
-1080p frame), the nvidia-smi line, and {"ok": true, "device": {...}}.
+1080p frame; every row that reads the SDF with `ms_deep`,
+`de_evals_deep`, `ps_per_de_deep` and `bound_ms_deep`, its DeepTape
+kernel's phase-18 depth-1 numbers), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -325,22 +349,27 @@ def de_flops(iterations: int) -> int:
 # A kernel that reads scene positions has a second instantiation for
 # animated scenes, `_anim_kernel` (ANIM_ENTRIES).
 # A kernel that reads the SDF has a Tape instantiation, `_tape_kernel`, for
-# any scene but one whose only SDF is a bare MandelBox.
+# any scene but one whose only SDF is a bare MandelBox, and a DeepTape one,
+# `_deep_kernel`, for a scene with a program deeper than the Tape's stacks.
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
      ("closest_hit_kernel", "closest_hit_anim_kernel",
-      "closest_hit_tape_kernel", "closest_hit_anim_tape_kernel")),
+      "closest_hit_tape_kernel", "closest_hit_anim_tape_kernel",
+      "closest_hit_deep_kernel", "closest_hit_anim_deep_kernel")),
     ("costkey", "intersect_cuda", "intersect_cost_key",
      ("cost_key_kernel", "cost_key_anim_kernel", "cost_key_tape_kernel",
-      "cost_key_anim_tape_kernel")),
+      "cost_key_anim_tape_kernel", "cost_key_deep_kernel",
+      "cost_key_anim_deep_kernel")),
     ("key", "shade_cuda", "shadow_sort_key",
      ("shadow_sort_key_kernel", "shadow_sort_key_anim_kernel",
-      "shadow_sort_key_tape_kernel", "shadow_sort_key_anim_tape_kernel")),
+      "shadow_sort_key_tape_kernel", "shadow_sort_key_anim_tape_kernel",
+      "shadow_sort_key_deep_kernel", "shadow_sort_key_anim_deep_kernel")),
     ("seg", "shade_cuda", "shadow_segments",
      ("shadow_segments_kernel", "shadow_segments_anim_kernel")),
     ("smarch", "shade_cuda", "shadow_march",
      ("shadow_march_kernel", "shadow_march_relaxed_kernel",
-      "shadow_march_tape_kernel", "shadow_march_relaxed_tape_kernel")),
+      "shadow_march_tape_kernel", "shadow_march_relaxed_tape_kernel",
+      "shadow_march_deep_kernel", "shadow_march_relaxed_deep_kernel")),
     ("ssum", "shade_cuda", "shadow_sum", ("shadow_sum_kernel",)),
     ("tsum", "shade_cuda", "tail_sum",
      ("tail_sum_kernel", "tail_sum_anim_kernel")),
@@ -351,12 +380,15 @@ CUDA_KERNELS = (
     ("qsum", "shade_cuda", "queue_sum", ("queue_sum_kernel",)),
     ("march", "march_cuda", "march",
      ("march_kernel", "march_relaxed_kernel", "march_tape_kernel",
-      "march_relaxed_tape_kernel")),
+      "march_relaxed_tape_kernel", "march_deep_kernel",
+      "march_relaxed_deep_kernel")),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
     ("omarch", "march_cuda", "occlusion_march",
      ("occl_march_kernel", "occl_march_relaxed_kernel",
       "occl_march_first_de_kernel", "occl_march_tape_kernel",
-      "occl_march_relaxed_tape_kernel", "occl_march_first_de_tape_kernel")),
+      "occl_march_relaxed_tape_kernel", "occl_march_first_de_tape_kernel",
+      "occl_march_deep_kernel", "occl_march_relaxed_deep_kernel",
+      "occl_march_first_de_deep_kernel")),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
 # each key's kernels for the constant scene and for an animated one
@@ -479,11 +511,77 @@ def slab(sdf_ops):
         sdf_ops.torus(1.2, 0.1), 0.2), (0.0, -2.6, 0.0))
 
 
-def program_scene(resolution, device):
+def deep_program(sdf_ops):
+    """Phase 18's instance 1, deeper than the Tape kernels' stacks: the
+    slab's box at the end of a right-nested chain of eleven concentric
+    tori, each joined by another combinator (12 distances at once), in
+    twelve nested translates that together move it 2.6 down (12 saved
+    points): the DeepTape kernels."""
+    m = sdf_ops
+    p = m.box((2.0, 0.1, 2.0))
+    ops = (m.union, m.intersection, m.subtraction,
+           lambda a, b: m.smooth_union(a, b, 0.05))
+    for i in range(11):
+        p = ops[i % 4](m.rounded(m.torus(0.4 + 0.15 * i, 0.04), 0.01), p)
+    for _ in range(12):
+        p = m.translate(p, (0.0, -2.6 / 12, 0.0))
+    return p
+
+
+def torus_closure(sdf_ops):
+    """Phase 18 (d): the library Torus(1.2, 0.1) as a user-written
+    closure (sdf.SdfProgram), its DE written with the port's vecmath ops
+    as ops/sdf.py dist_c writes the Torus's."""
+    from rayn_tpu_torch.utils import vecmath
+
+    def torus_fn(prm, p):
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        qx = vecmath.sqrt(x * x + z * z) - prm["major"]
+        return vecmath.sqrt(qx * qx + y * y) - prm["minor"]
+
+    return sdf_ops.SdfProgram(torus_fn, {"major": 1.2, "minor": 0.1})
+
+
+def animated_program_scene(resolution, device, second, knots=8):
+    """presets.default_scene(animated_geo=True) (its lights and emissive
+    spheres on `knots`-knot channels) with `second` as SDF instance 1,
+    with a lambertian material of its own (bound 4.3):
+    (data, static, camera)."""
+    from rayn_tpu_torch.scene import presets
+    from rayn_tpu_torch.scene.animation import AnimChannel
+    from rayn_tpu_torch.scene.scene import SceneBuilder
+
+    data, static, cam = presets.default_scene(
+        resolution=resolution, device=device, animated_geo=True,
+        geo_knots=knots)
+    b = SceneBuilder()
+    b.set_volume(0.25, 0.035)
+    for kind, a, bb, power, ior in zip(*(x.tolist() for x in
+                                         data.materials)):
+        b._add_material(kind, a, bb, power, ior)
+    mat = b.add_lambertian((0.6, 0.5, 0.4))
+
+    def channel(ch, k):
+        return AnimChannel(ch.values[k].cpu(), ch.t0, ch.t1)
+
+    for k in range(static.n_spheres):
+        b.add_sphere(channel(data.sphere_centers, k),
+                     float(data.sphere_radii[k]), int(data.sphere_mats[k]))
+    for i in range(static.n_lights):
+        b.add_sphere_light(channel(data.light_pos, i),
+                           float(data.light_radii[i]),
+                           data.light_emission[i].tolist())
+    b.add_sdf(data.sdf_params, static.sdf_mat, static.sdf_bound_radius)
+    b.add_sdf(second, mat, bound_radius=4.3)
+    return (*b.build(device), cam)
+
+
+def program_scene(resolution, device, second=None):
     """presets.default_scene's scene with its MandelBox as SDF instance 0
-    (bound 3.6) and `slab` as instance 1, with a lambertian material of
-    its own (bound 4.3 contains it): (data, static, camera). Built with
-    the port's SceneBuilder as default_scene builds its scene."""
+    (bound 3.6) and `second` (default: `slab`) as instance 1, with a
+    lambertian material of its own (bound 4.3 contains it): (data,
+    static, camera). Built with the port's SceneBuilder as
+    default_scene builds its scene."""
     import numpy as np
 
     from rayn_tpu_torch.ops import sdf as sdf_ops
@@ -514,8 +612,8 @@ def program_scene(resolution, device):
         b.add_sphere(pos, rad - 0.01, blue_emissive)
     b.add_sphere_light((0.0, 0.0, 0.0), 0.25, green * 20.0)
     b.add_sphere((0.0, 0.0, 0.0), 0.24, green_emissive)
-    b.add_sdf(slab(sdf_ops), b.add_lambertian((0.6, 0.5, 0.4)),
-              bound_radius=4.3)
+    b.add_sdf(second if second is not None else slab(sdf_ops),
+              b.add_lambertian((0.6, 0.5, 0.4)), bound_radius=4.3)
     origin = np.asarray((-0.45, 0.2, 2.0), np.float32) * 2.25
     cam = PinholeCamera.make(resolution, 60.0, origin, (0.0, 0.0, 0.0),
                              (0.0, 1.0, 0.0), device=device)
@@ -2609,7 +2707,7 @@ def main(argv=None) -> int:
                 f"{ENTRIES[key]}; timed with CUDA events")
         return timed(fn, a, kw, reps=5)
 
-    def row15(label, key, a, kw, got):
+    def row15(label, key, a, kw, got, phase="15 programs"):
         """Depth-1 time, DEs, ps a DE and bound of one call."""
         ms = time15(key, a, kw)
         n_de, ops = cost15(key, a, kw)
@@ -2622,7 +2720,7 @@ def main(argv=None) -> int:
         r = dict(ms=ms, de_evals=n_de, ps_per_de=ms * 1e9 / max(n_de, 1),
                  bound_ms=max(ops_ms, bytes_ms),
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-        log(f"[15 programs] {label} {key}, depth 1: {ms} ms, {n_de} DEs, "
+        log(f"[{phase}] {label} {key}, depth 1: {ms} ms, {n_de} DEs, "
             f"{r['ps_per_de']} ps a DE; bound {r['bound_ms']} ms "
             f"({r['bound_by']})")
         return r
@@ -3058,6 +3156,314 @@ def main(argv=None) -> int:
     record["phase17"] = scale_out(data, static, cam, main_s, fused_need,
                                   fused_absent, cli)
 
+    # ---------- 18. the route without kernels, closures, deep programs
+    # (a) use_pallas=False on phase 4's scene at 1080p, 1 spp; (b)
+    # use_pallas_occlusion=False at 960x540; (c) the CLI's --no-pallas;
+    # (d) a closure instance; (e) a program deeper than the Tape's stacks
+    # through the DeepTape kernels, each against its twin.
+    import warnings
+
+    rec18 = {}
+    t_phase18 = time.perf_counter()
+    s18 = dataclasses.replace(main_s, spp=1)
+    n18 = W * H
+
+    def whole_word(names, entry):
+        pat = re.compile(rf"(?<!\w){entry}(?!\w)")
+        return any(pat.search(n) for n in names)
+
+    def profile18(one_pass, both=False):
+        """(device busy ms, cudaLaunchKernel calls, kernel names) of one
+        pass under torch.profiler (retried where a session records no
+        kernel). The route without kernels makes ~10^6 events a pass:
+        they are read from kineto's raw events where this torch has
+        them, since building prof.events() for them takes minutes; with
+        `both`, the counts from prof.events() are logged beside."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one_pass()
+                torch.cuda.synchronize()
+            try:
+                ev = [(e.name(), e.device_type(), e.start_ns() / 1e3,
+                       (e.start_ns() + e.duration_ns()) / 1e3)
+                      for e in prof.profiler.kineto_results.events()]
+            except AttributeError:
+                ev = None
+            slow = None
+            if ev is None or both:
+                slow = [(e.name, e.device_type, e.time_range.start,
+                         e.time_range.end) for e in prof.events()]
+                ev = ev or slow
+            ks = [e for e in ev if e[1] == DeviceType.CUDA]
+            if ks:
+                break
+
+        def counts(events):
+            kern = [e for e in events if e[1] == DeviceType.CUDA]
+            return (sum(1 for e in events if e[0] == "cudaLaunchKernel"),
+                    len(kern), sorted({e[0] for e in kern}))
+
+        if both:
+            log(f"[18 no-pallas] launches and kernels of the pass from "
+                f"kineto's raw events {counts(ev)[:2]}, from prof.events() "
+                f"{counts(slow)[:2]}, the same names: "
+                f"{counts(ev)[2] == counts(slow)[2]}")
+        busy = busy_us((start, end) for _n, _d, start, end in ks) / 1e3
+        return busy, counts(ev)[0], {e[0] for e in ks}
+
+    # (a) the films: the route without kernels against the kernel route
+    # with the fused intersect off (bit for bit: the march kernel equals
+    # its twin, the torch march) and against the fused route (the fused
+    # intersect normalises g * (1 / |g|), the unfused shading info
+    # divides: phase 4's image gate)
+    nk_s = dataclasses.replace(s18, use_pallas=False)
+    nk, nk_l, nk_wall = launched(lambda: renderer.render_frame(
+        data, static, nk_s, cam, frame=1))
+    uk, _l, uk_wall = launched(lambda: renderer.render_frame(
+        data, static, dataclasses.replace(s18, use_fused_intersect=False),
+        cam, frame=1))
+    fk, fk_l, fk_wall = launched(lambda: renderer.render_frame(
+        data, static, s18, cam, frame=1))
+    null_f = renderer.render_frame(data, static, s18, cam, frame=101)
+    gate(not any(nk_l[k] for k in ("intersect", "march", "costkey",
+                                   "omarch"))
+         and all(nk_l[k] > 0 for k in ("key", "seg", "smarch", "tsum")),
+         f"18 (a): launches {nk_l}")
+    same_a = films_equal(nk, uk)
+    gate(same_a, "18 (a): the use_pallas=False film differs from the "
+         "kernel route's with use_fused_intersect=False")
+    img_nk, img_fk, img_null = (film_mod.resolve(f, (W, H)).color
+                                for f in (nk, fk, null_f))
+    rmse_a = float(np.sqrt(np.mean((img_nk - img_fk) ** 2)))
+    null_a = float(np.sqrt(np.mean((img_fk - img_null) ** 2)))
+    mean_rel_a = float(abs(img_nk.mean() - img_fk.mean())
+                       / max(img_fk.mean(), 1e-9))
+    fused_same = films_equal(nk, fk)
+    gate(fused_same or (rmse_a <= 1.5 * null_a and mean_rel_a <= 1e-3),
+         f"18 (a): image gate against the fused route: RMSE {rmse_a}, "
+         f"null {null_a}, mean rel {mean_rel_a}")
+    log(f"[18 no-pallas] (a) {W}x{H} @ 1 spp, {MAIN_PASS}-ray passes: "
+        f"use_pallas=False film bit for bit with use_fused_intersect=False"
+        f"'s: {same_a}; against the fused route bit for bit: {fused_same} "
+        f"(stage: the fused intersect's normal, g * (1/|g|), against "
+        f"shading_info's g / |g|), max |d| {films_diff(nk, fk)}, RMSE "
+        f"{rmse_a} against a seed-swap null {null_a}, mean rel diff "
+        f"{mean_rel_a}; frame walls {nk_wall} s (use_pallas=False), "
+        f"{uk_wall} s (unfused intersect), {fk_wall} s (fused); launches "
+        f"{nk_l}")
+    rec18["a"] = dict(bit_for_bit_unfused_intersect=same_a,
+                      bit_for_bit_fused=fused_same, rmse=rmse_a,
+                      null_rmse=null_a, mean_rel=mean_rel_a,
+                      frame_s=dict(no_pallas=nk_wall, unfused=uk_wall,
+                                   fused=fk_wall), launches=nk_l)
+    del nk, uk, fk, null_f, img_nk, img_fk, img_null
+    torch.cuda.empty_cache()
+
+    # (a) the passes: walls in turns, then one profiled pass each
+    film18 = film_mod.new_film(n18, device=dev)
+    pass18 = {label: (lambda s_=s_: renderer.render_pass(
+        film18, data, static, s_, tables, cam, fis, 0, MAIN_PASS,
+        1.0 / 24, 2.0 / 24))
+        for label, s_ in (("use_pallas=False", nk_s), ("kernels", s18))}
+    walls18 = {label: [] for label in pass18}
+    for r in range(2):
+        for label in (list(pass18) if r % 2 == 0 else list(pass18)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pass18[label]()
+            torch.cuda.synchronize()
+            walls18[label].append((time.perf_counter() - t0) * 1e3)
+    prof18 = {}
+    for label, fn in pass18.items():
+        t0 = time.perf_counter()
+        busy, launches, names = profile18(fn, both=label == "kernels")
+        prof_s = time.perf_counter() - t0
+        wall = sorted(walls18[label])[len(walls18[label]) // 2]
+        prof18[label] = dict(busy_ms=busy, launches=launches,
+                             pass_wall_ms=walls18[label],
+                             idle_share=1.0 - busy / wall)
+        if label == "use_pallas=False":
+            absent = [e for k in ("intersect", "march", "costkey")
+                      for e in ENTRIES[k] if whole_word(names, e)]
+            present = [e for e in ("shadow_segments_kernel",
+                                   "shadow_march_kernel", "tail_sum_kernel",
+                                   "shadow_sort_key_kernel")
+                       if whole_word(names, e)]
+            gate(not absent and len(present) == 4,
+                 f"18 (a): the profile shows {absent} and {present}")
+        log(f"[18 no-pallas] (a) {label} pass of {MAIN_PASS} rays: "
+            f"launches {launches}, device busy {busy} ms, idle share "
+            f"{1.0 - busy / wall} of the median wall {wall} ms; walls in "
+            f"turns {walls18[label]} ms; the profiled pass took {prof_s} s")
+    rec18["a"]["passes"] = prof18
+    del film18
+    log(f"[18] (a) took {time.perf_counter() - t_phase18:.1f} s")
+
+    # (b) use_pallas_occlusion=False at 960x540, 1 spp
+    db, sb_, cb = presets.default_scene(resolution=UNFUSED_RES, device=dev)
+    sb = RenderSettings(resolution=UNFUSED_RES, spp=1,
+                        rays_per_pass=MAIN_PASS, max_marches=256,
+                        max_vis_marches=100)
+    no_occ, occ_l, occ_wall = launched(lambda: renderer.render_frame(
+        db, sb_, dataclasses.replace(sb, use_pallas_occlusion=False), cb,
+        frame=1))
+    unf, unf_l, unf_wall = launched(lambda: renderer.render_frame(
+        db, sb_, dataclasses.replace(sb, use_fused_shadows=False), cb,
+        frame=1))
+    same_b = films_equal(no_occ, unf)
+    gate(same_b, "18 (b): the use_pallas_occlusion=False film differs "
+         "from use_fused_shadows=False's")
+    gate(occ_l["smarch"] == 0 and occ_l["omarch"] == 0 and occ_l["qseg"] > 0
+         and occ_l["qsum"] > 0 and unf_l["smarch"] > 0,
+         f"18 (b): launches {occ_l} (use_fused_shadows=False: {unf_l})")
+    log(f"[18 no-pallas] (b) {UNFUSED_RES[0]}x{UNFUSED_RES[1]} @ 1 spp: "
+        f"use_pallas_occlusion=False film bit for bit with "
+        f"use_fused_shadows=False's; no shadow-march launch; frame walls "
+        f"{occ_wall} s and {unf_wall} s; launches {occ_l}")
+    rec18["b"] = dict(bit_for_bit=same_b, launches=occ_l,
+                      frame_s=dict(no_occlusion_kernels=occ_wall,
+                                   unfused_shadows=unf_wall))
+    del no_occ, unf, db, sb_, cb
+
+    # (c) the CLI's --no-pallas against the same render through the API
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", DEVICE, "--width", str(SMALL_RES[0]),
+                "--height", str(SMALL_RES[1]), "--spp", "2",
+                "--rays-per-pass", str(MAIN_PASS), "--frames", "1", "2",
+                "--no-pallas", "--out", f"{tmp}/cli"]
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc, cli_l, cli_wall = launched(lambda: cli.main(argv))
+        gate(rc == 0 and cli_l["intersect"] == 0 and cli_l["march"] == 0
+             and cli_l["tsum"] > 0, f"18 (c): rc {rc}, launches {cli_l}")
+        dc, stc, cc = presets.default_scene(resolution=SMALL_RES, device=dev)
+        ref = renderer.render_frame(dc, stc, RenderSettings(
+            resolution=SMALL_RES, spp=2, rays_per_pass=MAIN_PASS,
+            max_marches=256, max_vis_marches=100, use_pallas=False), cc,
+            frame=1)
+        written = film_mod.save_channels(film_mod.resolve(ref, SMALL_RES),
+                                         f"{tmp}/api", "api")
+        same_c = {}
+        for path in written:
+            ch = os.path.basename(path)[len("api_"):]
+            with open(path, "rb") as a, open(
+                    f"{tmp}/cli/frame0001_2spp_{ch}", "rb") as b:
+                same_c[ch] = a.read() == b.read()
+        gate(len(same_c) == 3 and all(same_c.values()),
+             f"18 (c): PNGs byte for byte {same_c}")
+    log(f"[18 no-pallas] (c) --no-pallas at {SMALL_RES[0]}x{SMALL_RES[1]} "
+        f"@ 2 spp: rc 0 in {cli_wall} s; its PNGs byte for byte those of "
+        f"render_frame + save_channels: {same_c}; launches {cli_l}")
+    rec18["c"] = dict(png_bytes_equal=same_c, wall_s=cli_wall,
+                      launches=cli_l)
+    del ref, dc, stc, cc
+
+    # (d) a closure instance against the library Torus
+    clo = program_scene(UNFUSED_RES, dev, second=sdf_ops.translate(
+        torus_closure(sdf_ops), (0.0, -2.6, 0.0)))
+    lib = program_scene(UNFUSED_RES, dev, second=sdf_ops.translate(
+        sdf_ops.torus(1.2, 0.1), (0.0, -2.6, 0.0)))
+    integrator._WARNED.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        f_clo, clo_l, clo_wall = launched(lambda: renderer.render_frame(
+            clo[0], clo[1], sb, clo[2], frame=1))
+    f_lib, lib_l, lib_wall = launched(lambda: renderer.render_frame(
+        lib[0], lib[1], dataclasses.replace(sb, use_fused_intersect=False,
+                                            use_fused_shadows=False),
+        lib[2], frame=1))
+    msgs = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)
+            and "rayn_tpu_torch:" in str(w.message)]
+    same_d = films_equal(f_clo, f_lib)
+    gate(same_d, "18 (d): the closure film differs from the library "
+         "Torus's on the unfused route")
+    gate(sorted(m.split(" unavailable")[0] for m in msgs) == [
+        "rayn_tpu_torch: fused intersect kernel",
+        "rayn_tpu_torch: fused shadow/finish kernels"],
+         f"18 (d): warnings {msgs}")
+    gate(clo_l["intersect"] == 0 and clo_l["march"] > 0
+         and clo_l["smarch"] > 0, f"18 (d): launches {clo_l}")
+    for m in msgs:
+        log(f"[18 closure] warned once: {m}")
+    log(f"[18 closure] (d) {UNFUSED_RES[0]}x{UNFUSED_RES[1]} @ 1 spp: the "
+        f"closure torus's film bit for bit with the library Torus's on the "
+        f"unfused route; frame walls {clo_wall} s (closure, fused flags "
+        f"set) and {lib_wall} s (library, unfused); launches {clo_l}")
+    rec18["d"] = dict(bit_for_bit=same_d, warnings=msgs, launches=clo_l,
+                      frame_s=dict(closure=clo_wall, library=lib_wall))
+    del clo, lib, f_clo, f_lib
+    torch.cuda.empty_cache()
+
+    # (e) a deep program through the DeepTape kernels
+    log(f"[18] (a)-(d) took {time.perf_counter() - t_phase18:.1f} s")
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    deep = deep_program(sdf_ops)
+    tp = sdf_ops.tape(deep)
+    gate((tp.depth, tp.points) == (12, 12),
+         f"18 (e): the program holds {tp.depth} distances and {tp.points} "
+         "points")
+    dd, dst, dcam = program_scene((W, H), dev, second=deep)
+    deep_sdf = _build.sdf_args(dst.sdf_instances(dd), dev, MAIN_PASS)[1]
+    gate(deep_sdf.tape == 2, f"18 (e): tape {deep_sdf.tape}")
+    deep_ptx = {e: p for e in sorted({e for es in ENTRIES.values()
+                                      for e in es if "_deep_" in e})
+                for name, p in ptx.items() if f"{len(e)}{e}E" in name}
+    log(f"[18 deep] registers and spills of the DeepTape kernels: "
+        f"{deep_ptx}; the scratch: {deep_sdf.slots} thread slots x "
+        f"{tp.depth + 3 * tp.points} floats")
+    rec18["deep_ptxas"] = deep_ptx
+    times18 = {}
+    for path, s_, keys in (paths15[0], paths15[2]):
+        t0 = time.perf_counter()
+        cap = capture15(dd, dst, dcam, s_, keys, f"deep {path}", MAIN_PASS)
+        log(f"[18] (e) {path}: the captured pass and the checks took "
+            f"{time.perf_counter() - t0:.1f} s")
+        for key in timed15[path]:
+            a, kw = cap[key][{"key": 0, "costkey": 0, "march": 3}.get(key, 1)]
+            got = impl[key](*a, **kw)
+            times18[f"{path} {key}"] = row15(path, key, a, kw, got,
+                                             phase="18 deep")
+            del got
+        if path == "relaxed":
+            (cfg, segs, _relax), _kw = cap["smarch"][1]
+            calls = one_program(cfg, segs, cap["march"][3])
+            for key, (a, kw) in calls.items():
+                got = funcs15[key](*a, **kw)
+                times18[f"{path} {key}"] = row15(path, key, a, kw, got,
+                                                 phase="18 deep")
+                del got
+            # the first-DE entry (split 0) on the deep program
+            a0, kw0 = calls["march_occlusion_phased"]
+            kw0 = dict(kw0, phase1_steps=0)
+            gate(same_bits(funcs15["march_occlusion_phased"](*a0, **kw0),
+                           plain15["march_occlusion_phased"](*a0, **kw0)),
+                 "18 (e): the first-DE entry differs from its plain version")
+        del cap
+        torch.cuda.empty_cache()
+    for k, r in times18.items():
+        p15 = times15.get(k)
+        log(f"[18 deep] {k}: {r['ms']} ms, {r['de_evals']} DEs, "
+            f"{r['ps_per_de']} ps a DE (phase 15's Tape program scene: "
+            + (f"{p15['ms']} ms, {p15['de_evals']} DEs, {p15['ps_per_de']} "
+               "ps a DE)" if p15 else "not timed)"))
+    # the animated DeepTape kernels on the animated-geo scene, small
+    ad = animated_program_scene(IMG_RES, dev, deep)
+    capture15(*ad, dataclasses.replace(paths15[0][1], resolution=IMG_RES),
+              ("intersect", "costkey", "key", "tail", "seg", "smarch",
+               "tsum"), "deep animated", IMG_RES[0] * IMG_RES[1] * 4)
+    log(f"[18 deep] the animated DeepTape kernels at {IMG_RES[0]}x"
+        f"{IMG_RES[1]}: every kernel equal to its twin")
+    rec18["deep_kernels"] = times18
+    del dd, dst, dcam, ad, scrub
+    torch.cuda.empty_cache()
+    rec18["seconds"] = time.perf_counter() - t_phase18
+    log(f"[18] phase took {rec18['seconds']:.1f} s")
+    record["phase18"] = rec18
+
     # --------------------------------------------- 7. profile (optional)
     # Last of the render phases: passes that ran after torch.profiler in
     # the same process were measured slower, so no main path follows it.
@@ -3141,6 +3547,12 @@ def main(argv=None) -> int:
             row.update(ms_program=p15["ms"], de_evals_program=p15["de_evals"],
                        ps_per_de_program=p15["ps_per_de"],
                        bound_ms_program=p15["bound_ms"])
+        p18 = next((v for k, v in times18.items()
+                    if k.endswith(f" {tkey}")), None)
+        if p18 is not None:   # phase 18: the DeepTape kernel
+            row.update(ms_deep=p18["ms"], de_evals_deep=p18["de_evals"],
+                       ps_per_de_deep=p18["ps_per_de"],
+                       bound_ms_deep=p18["bound_ms"])
         if f"fused {tkey}" in price or f"relaxed {tkey}" in price:
             pr = price.get(f"fused {tkey}") or price[f"relaxed {tkey}"]
             row.update(ms_tape_default_scene=pr["tape_ms"],

@@ -146,21 +146,25 @@ class SdfInst(ctypes.Structure):
 
 
 class Sdf(ctypes.Structure):
-    """csrc/common.cuh Sdf: the instance table and tape of the Tape
-    kernels."""
+    """csrc/common.cuh DeepSdf: the Sdf (the instance table and tape of
+    the Tape kernels, tape 1), then the stack scratch of the DeepTape
+    ones (tape 2)."""
     _fields_ = [("n_inst", ctypes.c_int), ("tape", ctypes.c_int),
                 ("inst", ctypes.c_void_p), ("ops", ctypes.c_void_p),
-                ("prm", ctypes.c_void_p)]
+                ("prm", ctypes.c_void_p), ("deep", ctypes.c_void_p),
+                ("slots", ctypes.c_int64), ("depth", ctypes.c_int),
+                ("points", ctypes.c_int)]
 
 
 _TAPED: dict = {}
 
 
 def taped(args: ctypes.Structure, sdf: Sdf) -> ctypes.Structure:
-    """csrc/common.cuh Taped<Args>: a DE-reading kernel's arguments, then
-    its Sdf. Every launcher of such a kernel takes it, and passes the
-    arguments alone to its MBoxOnly kernels (sdf.tape 0), so that those
-    take the arguments they took before SDF programs existed."""
+    """csrc/common.cuh DeepTaped<Args>: a DE-reading kernel's arguments,
+    then its Sdf. Every launcher of such a kernel takes it; it passes its
+    DeepTape kernels all of it, its Tape kernels the Taped<Args> prefix,
+    and its MBoxOnly kernels (sdf.tape 0) the arguments alone, so that
+    those take the arguments they took before SDF programs existed."""
     cls = _TAPED.get(type(args))
     if cls is None:
         cls = _TAPED[type(args)] = type(
@@ -191,7 +195,8 @@ def tape_forced():
 
 def _tape_tables(instances, device):
     """[n, 6] int32 instance rows (SdfInst), int32 op words and float32
-    operands of the instances, on `device`."""
+    operands of the instances, on `device`, and the deepest the distance
+    and point stacks of any of them get."""
     import numpy as np
     import torch
 
@@ -199,6 +204,7 @@ def _tape_tables(instances, device):
 
     rows = np.zeros((len(instances), 6), np.int32)
     ops, prm = [], []
+    depth = points = 0
     for i, (prog, mat, bv) in enumerate(instances):
         tp = sdf_ops.tape(prog)
         rows[i, :4] = (len(ops), len(tp.ops), len(prm), mat)
@@ -206,24 +212,80 @@ def _tape_tables(instances, device):
         rows[i, 4:].view(np.float32)[:] = (bv, bv * bv)
         ops += tp.ops
         prm += tp.operands
+        depth, points = max(depth, tp.depth), max(points, tp.points)
     return (torch.as_tensor(rows, device=device),
             torch.as_tensor(np.asarray(ops, np.int32), device=device),
-            torch.as_tensor(np.asarray(prm, np.float32), device=device))
+            torch.as_tensor(np.asarray(prm, np.float32), device=device),
+            depth, points)
 
 
-def sdf_args(instances, device) -> tuple[MBox, Sdf]:
+# The DeepTape kernels' stack scratch, one per device, grown on demand.
+# Every launch of the port runs on its device's current stream, so
+# launches that share it run one after another.
+_DEEP: dict = {}
+
+
+def deep_slots(threads: int, device, persistent: bool) -> int:
+    """Thread slots a DeepTape launch of `threads` work items needs: its
+    grid rounded to whole 128-thread blocks, and for a persistent grid
+    (launch_persistent) at most what the card holds at once."""
+    import torch
+
+    slots = -(-threads // 128) * 128
+    if persistent and device.type == "cuda":
+        p = torch.cuda.get_device_properties(device)
+        slots = min(slots,
+                    p.multi_processor_count * p.max_threads_per_multi_processor)
+    return slots
+
+
+def _deep_scratch(n_floats: int, device):
+    import torch
+
+    buf = _DEEP.get(str(device))
+    if buf is None or buf.numel() < n_floats:
+        buf = _DEEP[str(device)] = torch.empty(
+            (n_floats,), dtype=torch.float32, device=device)
+    return buf
+
+
+def _bare_mandelbox(instances) -> bool:
+    """Whether SDF `instances` ((program, ...) in object order) run the
+    MBoxOnly kernels: one bare MandelBox, the Tape not forced."""
+    from rayn_tpu_torch.ops import sdf as sdf_ops
+
+    return (len(instances) == 1 and not _force_tape
+            and type(instances[0][0]) is sdf_ops.MandelBox)
+
+
+def mbox_of(instances) -> MBox:
+    """The MBox that the MBoxOnly kernels read for SDF `instances`: the
+    one bare MandelBox's, else zeros."""
+    return mbox_struct(instances[0][0] if _bare_mandelbox(instances)
+                       else None)
+
+
+def sdf_args(instances, device, threads: int = 0,
+             persistent: bool = True) -> tuple[MBox, Sdf]:
     """The (MBox, Sdf) arguments of SDF `instances`, a sequence of
     (program, material id, bound radius) in object order: for one bare
     MandelBox its MBox and an Sdf of tape 0 (the MBoxOnly kernels); else
-    a zero MBox and the tape tables on `device`; n_inst 0 for none."""
+    a zero MBox and the tape tables on `device`, tape 1 (the Tape
+    kernels) when every program's stacks fit `sdf.DEPTH_CAP`, else tape
+    2 (the DeepTape kernels) with a stack scratch of `deep_slots(threads,
+    device, persistent)` thread slots; n_inst 0 for none. A user-written
+    program (sdf.SdfProgram) raises NotImplementedError: no kernel
+    evaluates it."""
     from rayn_tpu_torch.ops import sdf as sdf_ops
 
     inst = tuple((sdf_ops.check(p), int(m), float(b))
                  for p, m, b in instances)
+    if not all(sdf_ops.kernel_ready(p) for p, _m, _b in inst):
+        raise NotImplementedError("a user-written SdfProgram has no tape: "
+                                  "no kernel evaluates it")
     if not inst:
         return mbox_struct(None), Sdf(n_inst=0, tape=0)
-    if (len(inst) == 1 and type(inst[0][0]) is sdf_ops.MandelBox
-            and not _force_tape):
+    if _bare_mandelbox(inst):
         return mbox_struct(inst[0][0]), Sdf(n_inst=1, tape=0)
     key = (inst, str(device))
     tables = _TAPES.get(key)
@@ -231,10 +293,15 @@ def sdf_args(instances, device) -> tuple[MBox, Sdf]:
         if len(_TAPES) >= _TAPES_MAX:
             _TAPES.pop(next(iter(_TAPES)))
         tables = _TAPES[key] = _tape_tables(inst, device)
-    rows, ops, prm = tables
-    return mbox_struct(None), Sdf(
-        n_inst=len(inst), tape=1, inst=rows.data_ptr(), ops=ops.data_ptr(),
-        prm=prm.data_ptr())
+    rows, ops, prm, depth, points = tables
+    sdf = Sdf(n_inst=len(inst), tape=1, inst=rows.data_ptr(),
+              ops=ops.data_ptr(), prm=prm.data_ptr())
+    if max(depth, points) > sdf_ops.DEPTH_CAP:
+        slots = deep_slots(threads, device, persistent)
+        sdf.tape, sdf.slots, sdf.depth, sdf.points = 2, slots, depth, points
+        sdf.deep = _deep_scratch(slots * (depth + 3 * points),
+                                 device).data_ptr()
+    return mbox_struct(None), sdf
 
 
 class QueueMarch(ctypes.Structure):
@@ -256,7 +323,8 @@ def queue_march(queue: int, count: int, head, verdict, sdfs, detail: float,
     a sequence of (program, bound radius) in object order, and their
     Sdf."""
     bv = float(sdfs[0][1]) if sdfs else 0.0
-    mb, sdf = sdf_args([(p, 0, b) for p, b in sdfs], verdict.device)
+    mb, sdf = sdf_args([(p, 0, b) for p, b in sdfs], verdict.device,
+                       verdict.numel())
     return QueueMarch(
         queue=queue, count=count, head=head.data_ptr(),
         verdict=verdict.data_ptr(), m=verdict.numel(), max_steps=max_steps,

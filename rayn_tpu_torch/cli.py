@@ -2,8 +2,8 @@
 reference src/main.rs:28-98): build the scene, loop over frames with a
 24 fps / (1/24) s-shutter schedule, render, print timing, save PNG
 channels. Every option of `python -m rayn_tpu` is here with its default,
-plus `--device`; `--no-pallas` (the JAX package's path without kernels)
-stops the run with a message.
+plus `--device`; `--no-pallas` sets `use_pallas=False`, the JAX
+package's route without its kernels (config.py).
 
     python -m rayn_tpu_torch --scene fractal --width 1280 --height 720 \
         --spp 8 --frames 1 2 --out renders
@@ -73,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rays-per-pass", type=int, default=1 << 20)
     p.add_argument("--max-marches", type=int, default=256)
     p.add_argument("--no-pallas", action="store_true",
-                   help="the JAX package's path without kernels (not "
-                        "ported: refused)")
+                   help="march the closest hits in torch, without the "
+                        "fused intersect kernel (use_pallas=False)")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--multichip", action="store_true",
@@ -135,10 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.no_pallas:
-        parser.error("--no-pallas selects the JAX package's path without "
-                     "kernels, which the port does not have (ROADMAP Queue "
-                     "1, the note on use_pallas=False)")
     if args.advance_group is not None:
         print("--advance-group sizes the TPU's chained shadow march, which "
               "rayn_tpu_torch does not have: ignored", file=sys.stderr)
@@ -194,7 +190,8 @@ def _render(args, dev, farm: bool) -> int:
         resolution=res, spp=args.spp, max_bounces=args.bounces,
         volume_marches=args.volume_marches, sampler=args.sampler,
         rays_per_pass=args.rays_per_pass, max_marches=args.max_marches,
-        mis=args.mis, march_relaxation=args.relax,
+        use_pallas=not args.no_pallas, mis=args.mis,
+        march_relaxation=args.relax,
         shadow_bv_clip=not args.no_shadow_bv_clip,
         shadow_de_iterations=args.shadow_de_iterations,
         chained_shadow_march=not args.no_chained_shadow,

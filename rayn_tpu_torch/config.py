@@ -4,10 +4,12 @@ The frozen dataclass of `rayn_tpu.config.RenderSettings`, so a settings
 object means the same render in both packages. The fields that only
 sized Pallas blocks on the TPU (`pallas_block_rows`,
 `pallas_occl_block_rows`, `chained_advance_group`) are left out: nothing
-here reads them. Every other value renders, `extra_aovs` and
-`compact_bounces` included, except the two that select the JAX
-package's path without kernels, which the port does not have: they make
-`render_frame` raise `NotImplementedError` (see `unsupported_reason`).
+here reads them. Every other value renders, as in the JAX package.
+`use_pallas=False` and `use_pallas_occlusion=False` choose the JAX
+package's route without its kernels: the closest hit, or the shadow
+marches, of every SDF instance march in torch (ops/march.py) and the
+fused kernels that evaluate a distance step aside, as JAX routes them
+(render/integrator.py); the kernels that read no SDF keep running.
 """
 
 from __future__ import annotations
@@ -83,35 +85,3 @@ class RenderSettings:
     def num_2d_sets(self) -> int:
         # set 0 = pixel uv (filter importance sampling), set 1 = lens
         return 2 + (self.max_bounces + 1) * self.sets_2d_per_depth
-
-
-def unsupported_reason(s: RenderSettings) -> str | None:
-    """The first setting this port does not implement, or None: only
-    `use_pallas=False` and `use_pallas_occlusion=False`, the JAX
-    package's path without kernels (ROADMAP Queue 1, the note on
-    use_pallas=False).
-
-    Every bounce-tail branch is ported, `mis` included: with plain
-    marching and `use_fused_shadows` the fused kernels run (the bounce
-    tail, or with `use_fused_bounce_tail=False` / `use_fused_finish=False`
-    the split shadow-radiance and finish kernels); relaxed marching or
-    `use_fused_shadows=False` takes the segment queue. At relax 1,
-    `march_sort_steps` then sends the unfused closest-hit march, and
-    `occl_sort_steps` or `occl_phase1_steps` the segment queue's shadow
-    marches, to the two-phase marches, as in the JAX package
-    (ops/intersect.py). `shadow_de_iterations` gives every shadow march
-    (the shadow kernels, their sort key and `intersect.test_occluded`)
-    the MandelBox at that many iterations; `max_vis_marches` 0 takes
-    each occlusion function's JAX verdict with no march step.
-    `extra_aovs` accumulates depth-0 AOVs beside the film's channels and
-    `compact_bounces` partitions the wavefront before each bounce at
-    depth >= 1, on every one of those paths."""
-    checks = (
-        (not s.use_pallas, "the non-kernel intersect path (use_pallas=False)"),
-        (not s.use_pallas_occlusion,
-         "the non-kernel occlusion path (use_pallas_occlusion=False)"),
-    )
-    for bad, what in checks:
-        if bad:
-            return what
-    return None

@@ -5,8 +5,9 @@
 facts (counts, flags, each SDF instance's material and bound radius)
 and the structure of each SDF instance's program, which the JAX package
 keeps inside closures: the port's program of each instance (ops/sdf.py,
-any parameter values), whose leaves are then filled from JAX's
-parameter leaves in pytree order, or for a bare MandelBox just its
+any parameter values, or a user-written `SdfProgram` with torch code),
+whose leaves are then filled from JAX's parameter leaves in pytree
+order, or for a bare MandelBox just its
 iteration count. A material's albedo function is a jnp closure in the
 JAX scene; `scene` takes its torch counterpart by material id
 (`albedo_fns=`). `camera`
@@ -42,18 +43,10 @@ def _channel(ch, device) -> AnimChannel:
     return AnimChannel(_t(ch.values, device), _f32(ch.t0), _f32(ch.t1))
 
 
-def _param_leaves(x) -> list:
-    """The scalar leaves of a nest of tuples and NamedTuples in order:
-    the order jax.tree.leaves gives."""
-    if isinstance(x, (tuple, list)):
-        return [leaf for y in x for leaf in _param_leaves(y)]
-    return [x]
-
-
 _MANDELBOX_FIELDS = ("scale", "box_l", "min_rad_sq", "fixed_rad_sq")
 
 
-def _programs(data, static, sdf_iterations, programs) -> list:
+def _programs(data, static, sdf_iterations, programs, device) -> list:
     """The port's program of every SDF instance of the JAX scene, its
     leaves taken from JAX's parameters."""
     params = [data.sdf_params, *getattr(data, "extra_sdf_params", ())]
@@ -74,8 +67,9 @@ def _programs(data, static, sdf_iterations, programs) -> list:
     if len(programs) != len(params):
         raise ValueError(f"{len(programs)} programs for {len(params)} SDF "
                          "instances")
-    return [sdf_ops.with_leaves(sdf_ops.check(p), _param_leaves(prm))
-            for p, prm in zip(programs, params)]
+    return [sdf_ops.to_device(sdf_ops.with_leaves(
+        sdf_ops.check(p), sdf_ops.param_leaves(prm)), device)
+        for p, prm in zip(programs, params)]
 
 
 def _albedo_fns(static, albedo_fns) -> tuple:
@@ -100,16 +94,17 @@ def scene(data, static, sdf_iterations: int | None = None, device="cuda",
 
     programs: the port's program of each SDF instance in object order
     (one program for a one-instance scene), whose parameter values are
-    replaced by JAX's leaves; a leaf count that differs raises
-    ValueError, anything but the SDF library's types
-    NotImplementedError. Without it, `sdf_iterations` gives the one bare
+    replaced by JAX's leaves (a user-written sdf.SdfProgram's params
+    too, leaf for leaf in JAX's pytree order, its tensors on `device`);
+    a leaf count that differs raises ValueError, anything that is not a
+    program NotImplementedError. Without it, `sdf_iterations` gives the one bare
     MandelBox of a one-instance scene. albedo_fns: {material id: torch
     fn(point, normal) -> albedo} for every material with an albedo
     function in the JAX scene (SceneBuilder.set_albedo_fn); a material
     left out, or one the JAX scene gives no function, raises
     ValueError."""
     fns = _albedo_fns(static, albedo_fns)
-    progs = (_programs(data, static, sdf_iterations, programs)
+    progs = (_programs(data, static, sdf_iterations, programs, device)
              if static.has_sdf else [None])
     m = data.materials
     out = SceneData(

@@ -64,16 +64,36 @@ struct SdfInst {
 // which take Taped arguments: the same arguments, then the Sdf.
 struct Sdf {
   int n_inst;           // instances (0 = no SDF)
-  int tape;             // 1: the kernels' Tape instantiation
+  int tape;             // 1: the Tape instantiation, 2: the DeepTape one
   const SdfInst* inst;  // [n_inst]
   const int* ops;
   const float* prm;
 };
 
 template <class Args>
-struct Taped {  // _build.py Taped
+struct Taped {
   Args a;
   Sdf sdf;
+};
+
+// The Sdf of the DeepTape kernels (_build.py Sdf, whose fields these
+// are): the stacks of thread t (its global index) live in a device
+// scratch of `slots` thread slots, distance k at deep[k * slots + t] and
+// saved point k's x, y, z at rows depth + k, depth + points + k and
+// depth + 2 * points + k. The launchers take DeepTaped arguments and pass
+// the Tape kernels their Taped prefix, the MBoxOnly kernels the Args.
+struct DeepSdf : Sdf {
+  float* deep;
+  long long slots;
+  int depth, points;
+};
+
+template <class Args>
+struct DeepTaped {  // _build.py Taped
+  Args a;
+  DeepSdf sdf;
+
+  Taped<Args> taped() const { return Taped<Args>{a, sdf}; }
 };
 
 struct Sampler {  // utils/rng.py: sampler kind, frame salt, R_d alphas
@@ -118,8 +138,9 @@ constexpr int kOpMBox = 0, kOpSphere = 1, kOpBox = 2, kOpTorus = 3,
               kOpPlane = 4, kOpUnion = 5, kOpIntersection = 6,
               kOpSubtraction = 7, kOpSmoothUnion = 8, kOpTranslate = 9,
               kOpScale = 10, kOpRounded = 11, kOpPop = 12, kOpPopScale = 13;
-// The most distances, and the most saved points, a tape holds at once
-// (ops/sdf.py DEPTH_CAP; the host refuses a deeper program).
+// The most distances, and the most saved points, the Tape kernels hold at
+// once in per-thread arrays (ops/sdf.py DEPTH_CAP); a deeper program runs
+// the DeepTape kernels (deep_tape_de).
 constexpr int kSdfDepth = 8;
 
 // The DE of instance `inst` at (x, y, z): its tape run as a postfix
@@ -235,10 +256,125 @@ __device__ __forceinline__ float tape_de(const Sdf& s, int inst, float x,
   return d[0];
 }
 
+// tape_de with its stacks in the thread's slots of the DeepTape scratch
+// (DeepSdf), so a program of any depth: the same ops in the same order.
+__device__ __forceinline__ float deep_tape_de(const DeepSdf& s, int inst,
+                                              float x, float y, float z) {
+  const SdfInst& in = s.inst[inst];
+  const int* op = s.ops + in.op0;
+  const float* q = s.prm + in.prm0;
+  const long long n = s.slots;
+  float* const d =
+      s.deep + ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  float* const sx = d + s.depth * n;
+  float* const sy = sx + s.points * n;
+  float* const sz = sy + s.points * n;
+  int nd = 0, np = 0;
+  for (int k = 0; k < in.n_ops; ++k) {
+    const int code = __ldg(op + k);
+    switch (code & 0xff) {
+      case kOpMBox: {
+        const MBox mb{code >> 8, __ldg(q), __ldg(q + 1), __ldg(q + 2),
+                      __ldg(q + 3)};
+        q += 4;
+        d[(nd++) * n] = mandelbox_de(mb, x, y, z);
+        break;
+      }
+      case kOpSphere:
+        d[(nd++) * n] = sqrtf(x * x + y * y + z * z) - __ldg(q);
+        q += 1;
+        break;
+      case kOpBox: {
+        const float qx = fabsf(x) - __ldg(q), qy = fabsf(y) - __ldg(q + 1),
+                    qz = fabsf(z) - __ldg(q + 2);
+        q += 3;
+        const float mx = nmax(qx, 0.0f), my = nmax(qy, 0.0f),
+                    mz = nmax(qz, 0.0f);
+        const float outside = sqrtf(mx * mx + my * my + mz * mz);
+        d[(nd++) * n] = outside + nmin(nmax(qx, nmax(qy, qz)), 0.0f);
+        break;
+      }
+      case kOpTorus: {
+        const float qx = sqrtf(x * x + z * z) - __ldg(q);
+        d[(nd++) * n] = sqrtf(qx * qx + y * y) - __ldg(q + 1);
+        q += 2;
+        break;
+      }
+      case kOpPlane:
+        d[(nd++) * n] =
+            x * __ldg(q) + y * __ldg(q + 1) + z * __ldg(q + 2) + __ldg(q + 3);
+        q += 4;
+        break;
+      case kOpUnion:
+        --nd;
+        d[(nd - 1) * n] = nmin(d[(nd - 1) * n], d[nd * n]);
+        break;
+      case kOpIntersection:
+        --nd;
+        d[(nd - 1) * n] = nmax(d[(nd - 1) * n], d[nd * n]);
+        break;
+      case kOpSubtraction:
+        --nd;
+        d[(nd - 1) * n] = nmax(d[(nd - 1) * n], -d[nd * n]);
+        break;
+      case kOpSmoothUnion: {
+        const float kk = __ldg(q);
+        q += 1;
+        --nd;
+        const float d1 = d[(nd - 1) * n], d2 = d[nd * n];
+        const float h = nmin(nmax(0.5f + 0.5f * (d2 - d1) / kk, 0.0f), 1.0f);
+        d[(nd - 1) * n] = d2 + (d1 - d2) * h - kk * h * (1.0f - h);
+        break;
+      }
+      case kOpTranslate:
+        sx[np * n] = x;
+        sy[np * n] = y;
+        sz[np * n] = z;
+        ++np;
+        x = x - __ldg(q);
+        y = y - __ldg(q + 1);
+        z = z - __ldg(q + 2);
+        q += 3;
+        break;
+      case kOpScale: {
+        sx[np * n] = x;
+        sy[np * n] = y;
+        sz[np * n] = z;
+        ++np;
+        const float f = __ldg(q);
+        q += 1;
+        x = x / f;
+        y = y / f;
+        z = z / f;
+        break;
+      }
+      case kOpRounded:
+        d[(nd - 1) * n] = d[(nd - 1) * n] - __ldg(q);
+        q += 1;
+        break;
+      case kOpPop:
+        --np;
+        x = sx[np * n];
+        y = sy[np * n];
+        z = sz[np * n];
+        break;
+      case kOpPopScale:
+        --np;
+        x = sx[np * n];
+        y = sy[np * n];
+        z = sz[np * n];
+        d[(nd - 1) * n] = d[(nd - 1) * n] * __ldg(q);
+        q += 1;
+        break;
+    }
+  }
+  return d[0];
+}
+
 // The SDF kinds a DE-reading kernel is instantiated for. MBoxOnly: the one
 // bare MandelBox of the scene, its DE inlined as before programs existed
 // (one instance, `inst` unused). Tape: any number of instances, each any
-// program, through tape_de.
+// program whose stacks fit kSdfDepth, through tape_de.
 struct MBoxOnly {
   static constexpr bool kTape = false;
   __device__ static __forceinline__ float de(const MBox& mb, const Sdf&, int,
@@ -253,6 +389,17 @@ struct TapeSdf {
                                              int inst, float x, float y,
                                              float z) {
     return tape_de(s, inst, x, y, z);
+  }
+};
+
+// DeepTape: as Tape, with the stacks in the thread's slots of the DeepSdf
+// scratch (any depth; the host sizes it for the launch's grid).
+struct DeepTapeSdf {
+  static constexpr bool kTape = true;
+  __device__ static __forceinline__ float de(const MBox&, const Sdf& s,
+                                             int inst, float x, float y,
+                                             float z) {
+    return deep_tape_de(static_cast<const DeepSdf&>(s), inst, x, y, z);
   }
 };
 

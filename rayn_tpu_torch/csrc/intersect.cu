@@ -391,6 +391,16 @@ __global__ void __launch_bounds__(128)
   closest_hit<true, TapeSdf>(t.a, t.sdf);
 }
 
+__global__ void __launch_bounds__(128)
+    closest_hit_deep_kernel(const DeepTaped<IntersectArgs> t) {
+  closest_hit<false, DeepTapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    closest_hit_anim_deep_kernel(const DeepTaped<IntersectArgs> t) {
+  closest_hit<true, DeepTapeSdf>(t.a, t.sdf);
+}
+
 // Tape: the estimate of each instance, 1 for a dead ray or a NaN first DE,
 // summed from 0 in instance order (JAX integrator.py:166-172).
 template <bool kAnim, class S>
@@ -456,6 +466,16 @@ __global__ void __launch_bounds__(128)
   cost_key<true, TapeSdf>(t.a, t.sdf);
 }
 
+__global__ void __launch_bounds__(128)
+    cost_key_deep_kernel(const DeepTaped<CostKeyArgs> t) {
+  cost_key<false, DeepTapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    cost_key_anim_deep_kernel(const DeepTaped<CostKeyArgs> t) {
+  cost_key<true, DeepTapeSdf>(t.a, t.sdf);
+}
+
 }  // namespace rayn
 
 // Blocks an SM of the closest hit's persistent grid: four (16 warps), not
@@ -469,32 +489,42 @@ __global__ void __launch_bounds__(128)
 
 // Persistent (launch_persistent): every block runs until all rays are
 // taken. The *_anim_* instantiations when the sphere centers are animated,
-// the *_tape_* ones for any SDF but one bare MandelBox.
+// the *_tape_* ones for any SDF but one bare MandelBox, the *_deep_* ones
+// for a program deeper than kSdfDepth.
 extern "C" cudaError_t rayn_closest_hit(
-    const rayn::Taped<rayn::IntersectArgs>* args, cudaStream_t stream) {
+    const rayn::DeepTaped<rayn::IntersectArgs>* args, cudaStream_t stream) {
   const rayn::IntersectArgs& a = args->a;
   if (a.n <= 0) return cudaSuccess;
   const bool anim = a.anim.spheres.T > 1;
+  if (args->sdf.tape == 2)
+    return rayn::launch_persistent(anim ? rayn::closest_hit_anim_deep_kernel
+                                        : rayn::closest_hit_deep_kernel,
+                                   *args, a.n, stream,
+                                   RAYN_HIT_BLOCKS_PER_SM);
   if (args->sdf.tape)
     return rayn::launch_persistent(anim ? rayn::closest_hit_anim_tape_kernel
                                         : rayn::closest_hit_tape_kernel,
-                                   *args, a.n, stream,
+                                   args->taped(), a.n, stream,
                                    RAYN_HIT_BLOCKS_PER_SM);
   return rayn::launch_persistent(anim ? rayn::closest_hit_anim_kernel
                                       : rayn::closest_hit_kernel,
                                  a, a.n, stream, RAYN_HIT_BLOCKS_PER_SM);
 }
 
-extern "C" cudaError_t rayn_cost_key(const rayn::Taped<rayn::CostKeyArgs>* args,
-                                     cudaStream_t stream) {
+extern "C" cudaError_t rayn_cost_key(
+    const rayn::DeepTaped<rayn::CostKeyArgs>* args, cudaStream_t stream) {
   const rayn::CostKeyArgs& a = args->a;
   if (a.n <= 0) return cudaSuccess;
   const bool anim = a.anim.spheres.T > 1;
   const unsigned blocks = rayn::blocks_of(a.n, 128);
-  if (args->sdf.tape) {
+  if (args->sdf.tape == 2) {
+    void (*kernel)(rayn::DeepTaped<rayn::CostKeyArgs>) =
+        anim ? rayn::cost_key_anim_deep_kernel : rayn::cost_key_deep_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(*args);
+  } else if (args->sdf.tape) {
     void (*kernel)(rayn::Taped<rayn::CostKeyArgs>) =
         anim ? rayn::cost_key_anim_tape_kernel : rayn::cost_key_tape_kernel;
-    kernel<<<blocks, 128, 0, stream>>>(*args);
+    kernel<<<blocks, 128, 0, stream>>>(args->taped());
   } else {
     void (*kernel)(rayn::CostKeyArgs) =
         anim ? rayn::cost_key_anim_kernel : rayn::cost_key_kernel;

@@ -286,6 +286,17 @@ __global__ void __launch_bounds__(128)
                                       RelaxedMarch{t.a.relax, 0.0f, 0.0f});
 }
 
+__global__ void __launch_bounds__(128)
+    march_deep_kernel(const DeepTaped<MarchArgs> t) {
+  march_refill<PlainMarch, DeepTapeSdf>(t.a, t.sdf, PlainMarch{});
+}
+
+__global__ void __launch_bounds__(128)
+    march_relaxed_deep_kernel(const DeepTaped<MarchArgs> t) {
+  march_refill<RelaxedMarch, DeepTapeSdf>(
+      t.a, t.sdf, RelaxedMarch{t.a.relax, 0.0f, 0.0f});
+}
+
 // Appends the id of every active segment to the queue.
 __global__ void __launch_bounds__(128) enqueue_kernel(const EnqueueArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -332,6 +343,26 @@ __global__ void __launch_bounds__(128) occl_march_first_de_tape_kernel(
       AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
 }
 
+// And for a program deeper than kSdfDepth.
+__global__ void __launch_bounds__(128) occl_march_deep_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, false, DeepTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) occl_march_relaxed_deep_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, RelaxedStep, false, DeepTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
+}
+
+__global__ void __launch_bounds__(128) occl_march_first_de_deep_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, true, DeepTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
+}
+
 }  // namespace rayn
 
 // Blocks an SM of the closest-hit march's persistent grid (0: as many as
@@ -343,16 +374,21 @@ __global__ void __launch_bounds__(128) occl_march_first_de_tape_kernel(
 
 // Persistent (launch_persistent): every block runs until all rays are
 // taken; plain steps at relax 1, relaxed ones otherwise; the *_tape_*
-// instantiations for any program but a bare MandelBox.
-extern "C" cudaError_t rayn_march(const rayn::Taped<rayn::MarchArgs>* args,
-                                  cudaStream_t stream) {
+// instantiations for any program but a bare MandelBox, the *_deep_* ones
+// for a program deeper than kSdfDepth.
+extern "C" cudaError_t rayn_march(
+    const rayn::DeepTaped<rayn::MarchArgs>* args, cudaStream_t stream) {
   const rayn::MarchArgs& a = args->a;
   if (a.n <= 0) return cudaSuccess;
   const bool plain = a.relax == 1.0f;
+  if (args->sdf.tape == 2)
+    return rayn::launch_persistent(
+        plain ? rayn::march_deep_kernel : rayn::march_relaxed_deep_kernel,
+        *args, a.n, stream, RAYN_MARCH_BLOCKS_PER_SM);
   if (args->sdf.tape)
     return rayn::launch_persistent(
         plain ? rayn::march_tape_kernel : rayn::march_relaxed_tape_kernel,
-        *args, a.n, stream, RAYN_MARCH_BLOCKS_PER_SM);
+        args->taped(), a.n, stream, RAYN_MARCH_BLOCKS_PER_SM);
   return rayn::launch_persistent(
       plain ? rayn::march_kernel : rayn::march_relaxed_kernel, a, a.n,
       stream, RAYN_MARCH_BLOCKS_PER_SM);
@@ -368,17 +404,24 @@ extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
 
 // Persistent (launch_persistent); the first-DE entry where first_de is
 // set, else plain steps at relax 1 and relaxed ones otherwise; the *_tape_*
-// instantiations for any program but a bare MandelBox.
+// instantiations for any program but a bare MandelBox, the *_deep_* ones
+// for a program deeper than kSdfDepth.
 extern "C" cudaError_t rayn_occl_march(
-    const rayn::Taped<rayn::OcclMarchArgs>* args, cudaStream_t stream) {
+    const rayn::DeepTaped<rayn::OcclMarchArgs>* args, cudaStream_t stream) {
   const rayn::OcclMarchArgs& a = args->a;
   if (a.q.m <= 0) return cudaSuccess;
+  if (args->sdf.tape == 2)
+    return rayn::launch_persistent(
+        a.first_de          ? rayn::occl_march_first_de_deep_kernel
+        : a.q.relax == 1.0f ? rayn::occl_march_deep_kernel
+                            : rayn::occl_march_relaxed_deep_kernel,
+        *args, a.q.m, stream);
   if (args->sdf.tape)
     return rayn::launch_persistent(
         a.first_de          ? rayn::occl_march_first_de_tape_kernel
         : a.q.relax == 1.0f ? rayn::occl_march_tape_kernel
                             : rayn::occl_march_relaxed_tape_kernel,
-        *args, a.q.m, stream);
+        args->taped(), a.q.m, stream);
   return rayn::launch_persistent(a.first_de ? rayn::occl_march_first_de_kernel
                                  : a.q.relax == 1.0f
                                      ? rayn::occl_march_kernel

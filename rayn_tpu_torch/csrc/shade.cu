@@ -596,6 +596,20 @@ __global__ void __launch_bounds__(128) shadow_march_relaxed_tape_kernel(
       RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
 }
 
+// And for a program deeper than kSdfDepth.
+__global__ void __launch_bounds__(128) shadow_march_deep_kernel(
+    const DeepTaped<SegMarchArgs> t) {
+  refill_march<SoaSegments, PlainStep, false, DeepTapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) shadow_march_relaxed_deep_kernel(
+    const DeepTaped<SegMarchArgs> t) {
+  refill_march<SoaSegments, RelaxedStep, false, DeepTapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
+}
+
 // k * visible of ray i's segments, summed from 0 in the JAX order (NEE
 // 0..L-1, then volume sites march-major): the radiance delta.
 __device__ __forceinline__ void segment_sum(const SumCols& c, long long n,
@@ -865,6 +879,16 @@ __global__ void __launch_bounds__(128)
   shadow_sort_key<true, TapeSdf>(t.a, t.sdf);
 }
 
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_deep_kernel(const DeepTaped<KeyArgs> t) {
+  shadow_sort_key<false, DeepTapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_anim_deep_kernel(const DeepTaped<KeyArgs> t) {
+  shadow_sort_key<true, DeepTapeSdf>(t.a, t.sdf);
+}
+
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
@@ -884,15 +908,20 @@ extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
 // Persistent (launch_persistent); plain steps at relax 1, else relaxed;
 // the *_tape_* instantiations for any SDF but one bare MandelBox.
 extern "C" cudaError_t rayn_shadow_march(
-    const rayn::Taped<rayn::SegMarchArgs>* args, cudaStream_t stream) {
+    const rayn::DeepTaped<rayn::SegMarchArgs>* args, cudaStream_t stream) {
   const rayn::SegMarchArgs& a = args->a;
   if (a.q.m <= 0) return cudaSuccess;
   const bool plain = a.q.relax == 1.0f;
+  if (args->sdf.tape == 2)
+    return rayn::launch_persistent(
+        plain ? rayn::shadow_march_deep_kernel
+              : rayn::shadow_march_relaxed_deep_kernel,
+        *args, a.q.m, stream);
   if (args->sdf.tape)
     return rayn::launch_persistent(
         plain ? rayn::shadow_march_tape_kernel
               : rayn::shadow_march_relaxed_tape_kernel,
-        *args, a.q.m, stream);
+        args->taped(), a.q.m, stream);
   return rayn::launch_persistent(
       plain ? rayn::shadow_march_kernel : rayn::shadow_march_relaxed_kernel,
       a, a.q.m, stream);
@@ -935,16 +964,21 @@ extern "C" cudaError_t rayn_finish_bounce(const rayn::FinishArgs* args,
 }
 
 extern "C" cudaError_t rayn_shadow_sort_key(
-    const rayn::Taped<rayn::KeyArgs>* args, cudaStream_t stream) {
+    const rayn::DeepTaped<rayn::KeyArgs>* args, cudaStream_t stream) {
   const rayn::KeyArgs& a = args->a;
   if (a.n <= 0) return cudaSuccess;
   const bool anim = rayn::animated(a.sc);
   const unsigned blocks = rayn::blocks_of(a.n, 128);
-  if (args->sdf.tape) {
+  if (args->sdf.tape == 2) {
+    void (*kernel)(rayn::DeepTaped<rayn::KeyArgs>) =
+        anim ? rayn::shadow_sort_key_anim_deep_kernel
+             : rayn::shadow_sort_key_deep_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(*args);
+  } else if (args->sdf.tape) {
     void (*kernel)(rayn::Taped<rayn::KeyArgs>) =
         anim ? rayn::shadow_sort_key_anim_tape_kernel
              : rayn::shadow_sort_key_tape_kernel;
-    kernel<<<blocks, 128, 0, stream>>>(*args);
+    kernel<<<blocks, 128, 0, stream>>>(args->taped());
   } else {
     void (*kernel)(rayn::KeyArgs) = anim ? rayn::shadow_sort_key_anim_kernel
                                          : rayn::shadow_sort_key_kernel;

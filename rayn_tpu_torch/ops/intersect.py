@@ -3,11 +3,12 @@ rayn_tpu.ops.intersect: closest_hit, test_occluded, shading_info).
 
 Object ids: 0..K-1 = spheres in scene order, K + i = SDF instance i,
 -1 = miss (reference src/hitable.rs:170-210). The spheres are plain
-torch; the SDF marches go through the kernels of ops/march_cuda.py (their
-plain twins for CPU tensors), one instance a call, folded as JAX folds
-them. This unfused path is what the segment-queue
-bounce runs, and the reference the fused intersect kernel is held
-against.
+torch; each SDF instance marches, one a call, folded as JAX folds them,
+through the kernels of ops/march_cuda.py (their plain twins for CPU
+tensors) where `kernel_march_ok` holds, else with the torch march of
+ops/march.py on the tensors' device, as JAX's jnp march. This unfused
+path is what the segment-queue bounce runs, and the reference the fused
+intersect kernel is held against.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
+from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops import march_cuda
 from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.ops import spheres as sphere_ops
@@ -38,13 +40,27 @@ class ShadingInfo(NamedTuple):
     mat: torch.Tensor        # [N] int32 material id
 
 
+def kernel_march_ok(settings: RenderSettings, prog) -> bool:
+    """Whether an instance of `prog` marches in a kernel: `use_pallas`
+    and a program the kernels evaluate, as JAX's `_pallas_ok`
+    (rayn_tpu/ops/intersect.py:33-41). Otherwise it marches in torch."""
+    return settings.use_pallas and sdf_ops.kernel_ready(prog)
+
+
+def kernel_occlusion_ok(settings: RenderSettings, prog) -> bool:
+    """Whether an instance's shadow segments march in a kernel: also
+    `use_pallas_occlusion` (rayn_tpu/ops/intersect.py:153-199)."""
+    return settings.use_pallas_occlusion and kernel_march_ok(settings, prog)
+
+
 def closest_hit(data: SceneData, static: SceneStatic,
                 settings: RenderSettings, origin, direction, time, t_max,
                 hps_abs, hps_lin, active) -> Hit:
     """Closest hit across all spheres and the SDF instances; instance i,
-    in object order, is marched with the closest t so far as its t_max,
-    by march_sorted with plain marching and `march_sort_steps` > 0 (as
-    the JAX package routes it), else by the march kernel."""
+    in object order, is marched with the closest t so far as its t_max:
+    where `kernel_march_ok`, by march_sorted with plain marching and
+    `march_sort_steps` > 0 (as the JAX package routes it), else by the
+    march kernel; otherwise by the torch march."""
     n = origin.shape[0]
     best_t = t_max
     best_obj = torch.full((n,), -1, dtype=torch.int32, device=origin.device)
@@ -63,7 +79,10 @@ def closest_hit(data: SceneData, static: SceneStatic,
     # each instance in object order, marched up to the running closest
     # t; a tie keeps the earlier object
     for i, (prog, _mat, _bv) in enumerate(static.sdf_instances(data)):
-        if settings.march_sort_steps > 0 and settings.march_relaxation == 1:
+        if not kernel_march_ok(settings, prog):
+            t_sdf = march_ops.march(prog, origin, direction, best_t,
+                                    relax=settings.march_relaxation, **kw)
+        elif settings.march_sort_steps > 0 and settings.march_relaxation == 1:
             t_sdf = march_cuda.march_sorted(
                 prog, origin, direction, best_t,
                 phase1_steps=settings.march_sort_steps, **kw)
@@ -85,6 +104,9 @@ def test_occluded(data: SceneData, static: SceneStatic,
 
     The SDF verdicts come from the first of these that applies, in the
     JAX package's order (rayn_tpu/ops/intersect.py:153-199):
+    - an instance that fails `kernel_occlusion_ok`: the torch march
+      (march_cuda.march_occlusion_plain, JAX's jnp march_occlusion, with
+      the clip that `shadow_bv_clip` sets);
     - plain marching with `occl_sort_steps` > 0: march_occlusion_sorted;
     - plain marching with `occl_phase1_steps` > 0: march_occlusion_phased;
       these two march the whole segment with no bounding-sphere clip,
@@ -114,7 +136,11 @@ def test_occluded(data: SceneData, static: SceneStatic,
         bv_r = float(inst_bv) if s.shadow_bv_clip else 0.0
         prog = sdf_ops.reduced(prog, s.shadow_de_iterations)
         m_act = active & ~occluded
-        if s.march_relaxation == 1.0 and s.occl_sort_steps > 0:
+        if not kernel_occlusion_ok(s, prog):
+            occ_sdf = march_cuda.march_occlusion_plain(
+                prog, start, end, detail, s.max_vis_marches, m_act,
+                relax=s.march_relaxation, bound_radius=bv_r)
+        elif s.march_relaxation == 1.0 and s.occl_sort_steps > 0:
             occ_sdf = march_cuda.march_occlusion_sorted(
                 prog, start, end, detail, s.max_vis_marches,
                 m_act, phase1_steps=s.occl_sort_steps)

@@ -266,7 +266,7 @@ def closest_hit_shading(data, static, settings, origin, direction, hps_abs,
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
     time_p, anim = _time_and_anim(data, static, time, n, dev,
                                   "closest_hit_shading")
-    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev)
+    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev, n)
     args = _IntersectArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),
@@ -311,7 +311,8 @@ def intersect_cost_key(data, static, settings, origin, direction, time,
     key = torch.empty((n,), dtype=f32, device=dev)
     time_p, anim = _time_and_anim(data, static, time, n, dev,
                                   "intersect_cost_key")
-    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev)
+    mb, sdf = _build.sdf_args(static.sdf_instances(data), dev, n,
+                              persistent=False)
     args = _CostKeyArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),

@@ -124,7 +124,7 @@ def march(prog, origin, direction, t_max, eps_const: float,
     f32 = torch.float32
     t = torch.empty((n,), dtype=f32, device=dev)
     head = torch.zeros((1,), dtype=torch.int32, device=dev)
-    mb, sdf = _build.sdf_args([(prog, 0, 0.0)], dev)
+    mb, sdf = _build.sdf_args([(prog, 0, 0.0)], dev, n)
     args = _MarchArgs(
         origin=check(origin, "origin", f32, (n, 3), dev),
         direction=check(direction, "direction", f32, (n, 3), dev),

@@ -14,14 +14,21 @@ the names and arguments of the JAX module's.
 `fn_c`; `tape` lowers a program to what the CUDA kernels read: int32
 opcodes and float32 operands evaluated as a postfix program with a
 stack of distances and a stack of saved points (csrc/common.cuh
-tape_de). A user-written closure (arbitrary jnp code) has no CUDA
-counterpart short of a code generator, so anything that is not one of
-these types is refused.
+tape_run), of any depth.
+
+A user-written program is an `SdfProgram(fn, params, fn_c, reduce_fn)`,
+JAX's type with torch code: `fn(params, p [..., 3])` is its point-form
+DE and `params` any nest of tensors and floats. No kernel can evaluate
+it (that would take a code generator), so it has no tape: an instance of
+it marches with ops/march.py, and a scene that holds one takes the
+unfused route without the fused kernels, as JAX routes a program with no
+`fn_c` (`kernel_ready`, render/integrator.py). A library combinator may
+hold one; the whole program is then a closure program.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -107,8 +114,23 @@ class Rounded(NamedTuple):
     radius: float
 
 
+class SdfProgram(NamedTuple):
+    """A user-written SDF (rayn_tpu.ops.sdf.SdfProgram's fields): `fn(
+    params, p [..., 3]) -> [...]` a torch point-form DE; `params` any
+    nest of tensors and floats (dicts, lists, tuples, NamedTuples);
+    `fn_c(params, x, y, z)` its component form, if given (the DE then
+    evaluates through it); `reduce_fn(iterations)` the reduced `fn`, or
+    an (fn, fn_c) pair, for the shadow marches (RenderSettings.
+    shadow_de_iterations)."""
+    fn: Callable
+    params: Any
+    fn_c: Optional[Callable] = None
+    reduce_fn: Optional[Callable] = None
+
+
 PROGRAM_TYPES = (MandelBox, Sphere, Box, Torus, Plane, Union, Intersection,
-                 Subtraction, SmoothUnion, Translate, Scale, Rounded)
+                 Subtraction, SmoothUnion, Translate, Scale, Rounded,
+                 SdfProgram)
 
 
 def mandelbox(iterations: int, box_fold_l: float, sphere_min_rad: float,
@@ -167,28 +189,70 @@ def rounded(a, radius: float) -> Rounded:
 
 
 def _children(prog):
+    if type(prog) is SdfProgram:
+        return []
     return [v for v in prog if isinstance(v, PROGRAM_TYPES)]
 
 
 def check(prog):
-    """`prog` if it is a program of the library's types, else
-    NotImplementedError: a user-written closure needs a code generator
-    that the port does not have."""
+    """`prog` if it is a program: the library's types, whose children are
+    programs, or an SdfProgram with a callable fn; else
+    NotImplementedError."""
     if not isinstance(prog, PROGRAM_TYPES):
         raise NotImplementedError(
-            f"{type(prog).__name__}: the port takes only the SDF library's "
-            "primitives and combinators (ops/sdf.py); user-written fn_c "
-            "closures need a code generator (ROADMAP Queue 1)")
+            f"{type(prog).__name__} is not an SDF program: the library's "
+            "primitives and combinators (ops/sdf.py), or a user-written "
+            "closure as SdfProgram(fn, params)")
+    if type(prog) is SdfProgram and not callable(prog.fn):
+        raise NotImplementedError("SdfProgram.fn must be callable")
     for child in _children(prog):
         check(child)
     return prog
 
 
+def kernel_ready(prog) -> bool:
+    """Whether the kernels can evaluate the program: it holds no
+    user-written SdfProgram (JAX's `_pallas_ok` on a program with fn_c,
+    rayn_tpu/ops/intersect.py:33-41)."""
+    if type(prog) is SdfProgram:
+        return False
+    return all(kernel_ready(c) for c in _children(check(prog)))
+
+
+def param_leaves(x) -> list:
+    """The leaves of a nest in jax.tree.leaves order: dict values by
+    sorted key, tuples, lists and NamedTuples in order, no leaf for
+    None."""
+    if x is None:
+        return []
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in param_leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [leaf for y in x for leaf in param_leaves(y)]
+    return [x]
+
+
+def _unflatten(x, it):
+    """`x`'s nest with each leaf taken from the iterator `it`."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        got = {k: _unflatten(x[k], it) for k in sorted(x)}
+        return type(x)((k, got[k]) for k in x)
+    if isinstance(x, (tuple, list)):
+        vals = [_unflatten(y, it) for y in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    return next(it)
+
+
 def leaves(prog) -> list:
-    """The program's float parameters in the JAX pytree's leaf order
-    (jax.tree.leaves of the JAX program's params)."""
+    """The program's parameters in the JAX pytree's leaf order
+    (jax.tree.leaves of the JAX program's params): floats, and a
+    closure's tensors."""
+    if type(check(prog)) is SdfProgram:
+        return param_leaves(prog.params)
     out = []
-    for v in check(prog):
+    for v in prog:
         if isinstance(v, PROGRAM_TYPES):
             out += leaves(v)
         elif isinstance(v, float):
@@ -196,11 +260,26 @@ def leaves(prog) -> list:
     return out
 
 
+def _like(old, value):
+    """`value` as a leaf of the kind of `old`: a tensor of old's dtype
+    (on value's device if it is a tensor, else on old's), an int, or a
+    float rounded to float32."""
+    if isinstance(old, torch.Tensor):
+        if isinstance(value, torch.Tensor):
+            return value.to(dtype=old.dtype)
+        return torch.as_tensor(np.asarray(value), dtype=old.dtype).to(
+            old.device)
+    if isinstance(old, int) and not isinstance(old, bool):
+        return int(np.asarray(value))
+    return _f32(value)
+
+
 def with_leaves(prog, values):
-    """The program of the same structure with its float leaves replaced,
-    in leaf order, by `values` (rounded to float32); raises ValueError
-    when the counts differ."""
-    values = [_f32(v) for v in values]
+    """The program of the same structure with its leaves replaced, in
+    leaf order, by `values` (each a float rounded to float32, or a
+    closure's tensor with its old leaf's dtype and device); raises
+    ValueError when the counts differ."""
+    values = list(values)
     want = len(leaves(prog))
     if len(values) != want:
         raise ValueError(f"{type(prog).__name__} program has {want} "
@@ -208,20 +287,40 @@ def with_leaves(prog, values):
     it = iter(values)
 
     def fill(p):
+        if type(p) is SdfProgram:
+            return p._replace(params=_unflatten(
+                p.params, iter([_like(o, next(it))
+                                for o in param_leaves(p.params)])))
         return type(p)(*(fill(v) if isinstance(v, PROGRAM_TYPES)
-                         else next(it) if isinstance(v, float) else v
+                         else _f32(next(it)) if isinstance(v, float) else v
                          for v in p))
     return fill(prog)
 
 
+def to_device(prog, device):
+    """The program with every tensor of a closure's params on
+    `device`."""
+    vals = leaves(prog)
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        return prog
+    return with_leaves(prog, [v.to(device) if isinstance(v, torch.Tensor)
+                              else v for v in vals])
+
+
 def reduced(prog, iterations: int):
     """The shadow marches' program (RenderSettings.shadow_de_iterations):
-    a bare MandelBox at `iterations` iterations; any other program, and
-    every program at 0, unchanged. JAX's `_from_c` drops the reduce_fn,
-    so a MandelBox inside a combinator keeps its full iterations
-    (SdfProgram.reduced, rayn_tpu/ops/sdf.py:52-57, 120-124)."""
+    a bare MandelBox at `iterations` iterations, a closure with a
+    reduce_fn its reduced fn (and fn_c; the reduce_fn dropped, as JAX's
+    SdfProgram.reduced); any other program, and every program at 0,
+    unchanged. JAX's `_from_c` drops the reduce_fn, so a MandelBox inside
+    a combinator keeps its full iterations (rayn_tpu/ops/sdf.py:52-57,
+    120-124)."""
     if iterations and isinstance(prog, MandelBox):
         return prog._replace(iterations=int(iterations))
+    if iterations and type(prog) is SdfProgram and prog.reduce_fn:
+        fn = prog.reduce_fn(int(iterations))
+        fn, fn_c = fn if isinstance(fn, tuple) else (fn, None)
+        return SdfProgram(fn, prog.params, fn_c)
     return prog
 
 
@@ -255,6 +354,10 @@ def dist_c(prog, x: torch.Tensor, y: torch.Tensor,
     minimum/maximum propagate NaN, `** 2` is a product, and every
     division is one IEEE division."""
     t = type(prog)
+    if t is SdfProgram:
+        if prog.fn_c is not None:
+            return prog.fn_c(prog.params, x, y, z)
+        return prog.fn(prog.params, torch.stack([x, y, z], dim=-1))
     if t is MandelBox:
         return _mandelbox_c(prog, x, y, z)
     if t is Sphere:
@@ -298,6 +401,9 @@ def dist_c(prog, x: torch.Tensor, y: torch.Tensor,
 
 
 def dist(prog, p: torch.Tensor) -> torch.Tensor:
+    """Point-form DE: a closure's fn, any other program's dist_c."""
+    if type(prog) is SdfProgram:
+        return prog.fn(prog.params, p)
     return dist_c(prog, p[..., 0], p[..., 1], p[..., 2])
 
 
@@ -326,8 +432,10 @@ def tetrahedral_normal(prog, p: torch.Tensor,
 OP_MBOX, OP_SPHERE, OP_BOX, OP_TORUS, OP_PLANE = 0, 1, 2, 3, 4
 OP_UNION, OP_INTERSECTION, OP_SUBTRACTION, OP_SMOOTH_UNION = 5, 6, 7, 8
 OP_TRANSLATE, OP_SCALE, OP_ROUNDED, OP_POP, OP_POP_SCALE = 9, 10, 11, 12, 13
-# The most distances, and the most saved points, a tape may hold at once
-# (csrc/common.cuh kSdfDepth: the stacks are fixed arrays per thread).
+# The most distances, and the most saved points, the Tape kernels hold at
+# once (csrc/common.cuh kSdfDepth: fixed arrays per thread); a deeper
+# program runs the DeepTape kernels, whose stacks live in a device
+# scratch (_build.sdf_args).
 DEPTH_CAP = 8
 
 LEAF_OP = {MandelBox: OP_MBOX, Sphere: OP_SPHERE, Box: OP_BOX,
@@ -378,6 +486,9 @@ def _emit(prog, ops, prm):
         prm.append(prog.radius)
     else:
         check(prog)
+        raise NotImplementedError(
+            "a user-written SdfProgram has no tape: no kernel evaluates it "
+            "(it marches with ops/march.py)")
 
 
 def _depths(ops) -> tuple[int, int]:
@@ -397,15 +508,9 @@ def _depths(ops) -> tuple[int, int]:
 
 
 def tape(prog) -> Tape:
-    """The program as postfix op words and operands. Raises
-    NotImplementedError for anything but the library's types, or when a
-    stack would hold more than DEPTH_CAP entries."""
+    """The program as postfix op words and operands, of any depth.
+    Raises NotImplementedError for anything but a program of the
+    library's types."""
     ops, prm = [], []
     _emit(check(prog), ops, prm)
-    depth, points = _depths(ops)
-    if max(depth, points) > DEPTH_CAP:
-        raise NotImplementedError(
-            f"SDF program needs {depth} distances and {points} saved "
-            f"points at once; the CUDA tape holds at most {DEPTH_CAP} of "
-            "each (ops/sdf.py DEPTH_CAP, csrc/common.cuh kSdfDepth)")
-    return Tape(tuple(ops), tuple(prm), depth, points)
+    return Tape(tuple(ops), tuple(prm), *_depths(ops))

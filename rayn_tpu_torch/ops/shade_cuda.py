@@ -1256,15 +1256,10 @@ def _anim(cfg: ShadowCfg, tables: SceneTables, dev):
         mis=_build.track(tables.mis_knots, "mis knots", cfg.K, dev))
 
 
-def _sdf_args(cfg: ShadowCfg, dev):
-    """(MBox, Sdf) of the shadow marches' instances."""
-    return _build.sdf_args([(p, 0, bv) for p, bv in cfg.sdfs], dev)
-
-
 def _scalars(cfg: ShadowCfg, tables: SceneTables, dev) -> _ShadowScalars:
     bv_r = float(cfg.sdfs[0][1]) if cfg.sdfs else 0.0
     return _ShadowScalars(anim=_anim(cfg, tables, dev),
-        mb=_sdf_args(cfg, dev)[0],
+        mb=_build.mbox_of(cfg.sdfs),
         smp=sampler_struct(cfg.frame, cfg.sampler == "hash",
                            cfg.num_1d_sets),
         L=cfg.L, VM=cfg.VM, NL=cfg.NL, K=cfg.K, has_ext=int(cfg.has_ext),
@@ -1592,8 +1587,9 @@ def shadow_sort_key(cfg: ShadowCfg, tables: SceneTables, point, normal,
         time=_time_col(tables, time, n, dev),
         lights=check(tables.lights, "lights", f32, (cfg.NL, 8), dev),
         key=key.data_ptr(), n=n, sc=_scalars(cfg, tables, dev))
-    _build.launch("rayn_shadow_sort_key",
-                  _build.taped(args, _sdf_args(cfg, dev)[1]), dev)
+    sdf = _build.sdf_args([(p, 0, bv) for p, bv in cfg.sdfs], dev, n,
+                          persistent=False)[1]
+    _build.launch("rayn_shadow_sort_key", _build.taped(args, sdf), dev)
     shadow_sort_key.launches += 1
     return key
 

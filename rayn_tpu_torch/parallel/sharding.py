@@ -17,6 +17,17 @@ ceil(pass_end / spp)) clipped to the film, about size·per_device/spp
 pixels, and outside it every rank's film is zero. The collectives are
 `all_reduce`, `broadcast` and `barrier`, which NCCL and gloo both take
 on CUDA tensors.
+
+A failure on one rank becomes a failure on every rank at the same
+collective. Collectives pair by their order on each rank, so a rank
+that stopped at an error and started again alone would pair its next
+collective with a peer's later one. Every collective of a frame
+(`render_pass_sharded`'s window, `agree`'s word at a checkpoint)
+therefore carries a status word: a rank whose work failed still enters
+the collective, with a zero contribution and its word set, and after
+it every rank reads the summed word and raises the same error
+(`PassFailed`, which a retry takes up on every rank together, or
+`PassAborted`, which none retries).
 """
 
 from __future__ import annotations
@@ -33,6 +44,66 @@ from rayn_tpu_torch.ops import filters as filter_ops
 from rayn_tpu_torch.render import checkpoint as ckpt
 from rayn_tpu_torch.render import film as film_mod
 from rayn_tpu_torch.render import renderer
+
+
+class PassFailed(RuntimeError):
+    """A rank of the mesh failed with a transient error (a RuntimeError
+    or an OSError); every rank raises it at the same collective, so all
+    retry together (renderer.render_frame_resilient)."""
+
+
+class PassAborted(Exception):
+    """A rank of the mesh failed with an error that no retry mends;
+    every rank raises it at the same collective."""
+
+
+# The status word: a transient failure adds 1, any other failure
+# _ABORT (more than any rank count), so the sum says whether a rank
+# failed and whether a retry may mend it.
+_ABORT = float(1 << 20)
+# per device, the words [ok, transient failure, fatal failure]: a view
+# of one rides at the end of a pass's window with no launch of its own
+_WORDS: dict = {}
+
+
+def _word(err, device) -> torch.Tensor:
+    """[1] f32 status word of this rank: 0 for no error."""
+    words = _WORDS.get(str(device))
+    if words is None:
+        words = _WORDS[str(device)] = torch.tensor(
+            [0.0, 1.0, _ABORT], dtype=torch.float32, device=device)
+    k = 0 if err is None else 1 if _transient(err) else 2
+    return words[k:k + 1]
+
+
+def _transient(err) -> bool:
+    return (isinstance(err, renderer._TRANSIENT_ERRORS)
+            and not isinstance(err, (NotImplementedError, PassAborted)))
+
+
+def _raise_if_failed(total: float, err, what: str) -> None:
+    """Raise on every rank once the summed word says a rank failed,
+    chained to this rank's own error where it had one."""
+    if total == 0.0:
+        return
+    if total >= _ABORT:
+        raise PassAborted(f"a rank of the mesh failed in {what}; no retry "
+                          "mends it") from err
+    raise PassFailed(f"{int(total)} rank(s) of the mesh failed in {what}") \
+        from err
+
+
+def agree(mesh: Mesh, err, what: str) -> None:
+    """One all_reduce of the ranks' status words (`err`: this rank's
+    error, or None); every rank raises if any rank failed. It also
+    stands for a barrier: no rank leaves before every rank has come."""
+    if mesh.group is None:
+        if err is not None:
+            raise err
+        return
+    word = _word(err, mesh.device).clone()
+    dist.all_reduce(word, op=dist.ReduceOp.SUM, group=mesh.group)
+    _raise_if_failed(float(word.item()), err, what)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,26 +181,42 @@ def pass_window(pass_start: int, pass_size: int, spp: int,
 def render_pass_sharded(mesh: Mesh, film: film_mod.Film, data, static,
                         settings: RenderSettings, tables, camera,
                         fis_table, pass_start: int, per_device: int,
-                        t0: float, t1: float,
-                        sample_base: int = 0) -> film_mod.Film:
+                        t0: float, t1: float, sample_base: int = 0,
+                        after=None) -> film_mod.Film:
     """One pass of `per_device * mesh.size` rays: this rank renders rays
-    [pass_start + rank * per_device, + per_device) into a zero film, the
-    ranks' films are summed over the pass's pixel window by one
-    all_reduce (every accumulator, the extras too), and the sum is added
-    to `film` in place, which is returned. Every rank of the mesh must
-    call it with the same arguments but its film."""
+    [pass_start + rank * per_device, + per_device) into a zero film and
+    calls `after()` if given, the ranks' films are summed over the
+    pass's pixel window by one all_reduce (every accumulator, the extras
+    too, and the status word at its end), and the sum is added to `film`
+    in place, which is returned. Every rank of the mesh must call it
+    with the same arguments but its film. If the rank's render or
+    `after` raises, it still enters the all_reduce, with a zero window
+    and its word set, and every rank raises PassFailed or PassAborted
+    after it; `film` is then left as it was."""
     n_px = film.color.shape[0]
-    local = renderer.render_pass(
-        film_mod.new_film(n_px, mesh.device, settings), data, static,
-        settings, tables, camera, fis_table,
-        pass_start + mesh.rank * per_device, per_device, t0, t1,
-        sample_base=sample_base)
+    err = None
+    try:
+        local = renderer.render_pass(
+            film_mod.new_film(n_px, mesh.device, settings), data, static,
+            settings, tables, camera, fis_table,
+            pass_start + mesh.rank * per_device, per_device, t0, t1,
+            sample_base=sample_base)
+        if after is not None:
+            after()
+    except Exception as e:  # every rank must reach the all_reduce
+        if mesh.group is None:
+            raise
+        err = e
+        local = film_mod.new_film(n_px, mesh.device, settings)
     lo, hi = pass_window(pass_start, per_device * mesh.size, settings.spp,
                          n_px)
     parts = [t[lo:hi] for t in film_mod.tensors(local)]
     if mesh.group is not None:
-        flat = torch.cat([p.reshape(-1) for p in parts])
+        flat = torch.cat([p.reshape(-1) for p in parts]
+                         + [_word(err, mesh.device)])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        _raise_if_failed(float(flat[-1].item()), err,
+                         f"the pass at ray {pass_start}")
         parts = _unflatten(flat, parts)
     for acc, part in zip(film_mod.tensors(film), parts):
         acc[lo:hi] += part

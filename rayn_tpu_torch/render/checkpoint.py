@@ -20,7 +20,8 @@ fields:
 The fingerprint hashes tensors as host bytes with their shape and dtype,
 never their device or strides, so a checkpoint written on the card loads
 on the CPU and the other way round; a function (a material's albedo
-function) by its name, bytecode and constants. The settings classes of
+function, a user-written SDF program's) by its name, bytecode and
+constants, not by the values its closure captures. The settings classes of
 the two packages differ, so a JAX checkpoint does not resume here.
 
 The film's extra AOV accumulators are saved by position as extra0,
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
+from rayn_tpu_torch.ops.sdf import SdfProgram
 from rayn_tpu_torch.render import film as film_mod
 
 _CHANNELS = film_mod.CHANNELS
@@ -64,11 +66,24 @@ def _code_id(fn) -> str:
 
 
 def _leaves(x):
-    """The tensors and scalars of a nest of NamedTuples, tuples and
-    lists, in field order, each NamedTuple preceded by its class name (an
-    SDF program's operations: two programs with equal parameters differ
-    there), each function as its `_code_id`."""
-    if isinstance(x, (tuple, list)):
+    """The tensors and scalars of a nest of NamedTuples, tuples, lists
+    and dicts (by sorted key), in field order, each NamedTuple preceded
+    by its class name (an SDF program's operations: two programs with
+    equal parameters differ there), each function as its `_code_id`; a
+    user-written SDF program (ops/sdf.py SdfProgram) as its functions'
+    modules and `_code_id`s and its params (the values its functions
+    capture are not hashed, as in the JAX package)."""
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield repr(k)
+            yield from _leaves(x[k])
+    elif isinstance(x, SdfProgram):
+        yield "SdfProgram"
+        for fn in (x.fn, x.fn_c, x.reduce_fn):
+            yield (None if fn is None else
+                   f"{getattr(fn, '__module__', None)} {_code_id(fn)}")
+        yield from _leaves(x.params)
+    elif isinstance(x, (tuple, list)):
         if hasattr(x, "_fields"):
             yield type(x).__name__
         for y in x:

@@ -2,18 +2,23 @@
 `rayn_tpu.render.integrator.bounce` (reference src/integrator.rs:32-281).
 
 One bounce at depth d:
-1. at d >= 1, the pre-intersect chunk cost sort (`sorted_intersect`),
-   its key from the cost-key kernel;
-2. closest hit + shading info: the fused intersect kernel, or with
-   relaxed marching or `use_fused_intersect=False` the unfused
-   intersect.closest_hit (the march kernel, or at relax 1 with
-   `march_sort_steps` the two-phase march_sorted) + shading_info;
+1. at d >= 1 with `use_pallas`, the pre-intersect chunk cost sort
+   (`sorted_intersect`), its key from the cost-key kernel (in torch, as
+   JAX's XLA key, in a scene with a user-written closure);
+2. closest hit + shading info: the fused intersect kernel, or the
+   unfused intersect.closest_hit (the march kernel, or at relax 1 with
+   `march_sort_steps` the two-phase march_sorted; the torch march for an
+   instance the kernels do not take, `intersect.kernel_march_ok`) +
+   shading_info where `_fused_ok` fails (JAX's fused_intersect_ok):
+   without `use_pallas` or `use_fused_intersect`, with relaxed marching
+   or a closure;
 3. per-lane shading values (`_derive_shading`; a material's albedo
    function, SceneStatic.mat_param_fns, replaces its color_a there, so
    every tail reads the per-point albedo as a per-lane column); at d = 0
    the extra AOVs (render/aovs.py) of the receiving lanes;
 4. the bounce tail, chosen as JAX chooses it:
-   - fused (plain marching and `use_fused_shadows`): in a scene with
+   - fused (`_fused_ok`, JAX's fused_ok: `use_pallas_occlusion`,
+     `use_fused_shadows`, plain marching, no closure): in a scene with
      lights, at d >= 1 the shadow sort-key kernel and the chunk sort
      (`sorted_shadow_march`); then one of
      - the bounce-tail kernel (NEE, volume scattering, emission,
@@ -23,13 +28,14 @@ One bounce at depth d:
        lights), then the finish kernel on (radiance + delta);
      - else: emission in torch, the shadow-radiance kernel (with
        lights), then `_finish_bounce`, so (radiance + emission) + delta;
-   - the segment queue (relaxed marching or `use_fused_shadows=False`):
-     emission; in a scene with lights, every NEE and volume shadow
-     segment of the bounce built into a scratch by the queue-segments
-     kernel (with the sphere test), their SDF verdicts from the refill
-     march (plain or relaxed; at relax 1 with `occl_sort_steps` or
-     `occl_phase1_steps` unclipped, the two-phase marches' verdicts),
-     and the queue-sum
+   - the segment queue (otherwise): emission; in a scene with lights,
+     every NEE and volume shadow segment of the bounce built into a
+     scratch by the queue-segments kernel (with the sphere test), their
+     SDF verdicts from the refill march (plain or relaxed; at relax 1
+     with `occl_sort_steps` or `occl_phase1_steps` unclipped, the
+     two-phase marches' verdicts), or for an instance that fails
+     `intersect.kernel_occlusion_ok` from the torch march, and the
+     queue-sum
      kernel's radiance + contribution * visibility in segment order;
      then `_finish_bounce`;
    with `mis`, every branch weights NEE of paired lights and, at d >= 1,
@@ -56,6 +62,7 @@ ids (no atomics, no `index_add_`).
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -64,6 +71,7 @@ from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import bsdf as bsdf_ops
 from rayn_tpu_torch.ops import (intersect, intersect_cuda, march_cuda,
                                 shade_cuda)
+from rayn_tpu_torch.ops import sdf as sdf_ops
 from rayn_tpu_torch.render import aovs as aovs_mod
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of)
@@ -156,6 +164,53 @@ def _unsort_state(state: PathState, perm: torch.Tensor, chunk: int):
     return _permute_chunks(state, _inverse(perm), chunk)
 
 
+_WARNED: set = set()
+
+
+def warn_fallback(feature: str, reason: str,
+                  consequence: str = "falling back to the ~2x slower "
+                                     "unfused path for this render") -> None:
+    """Warn once per feature and reason in the process that a fused
+    route is off (the words of rayn_tpu/ops/shade_pallas.py:145-160)."""
+    if (feature, reason) in _WARNED:
+        return
+    _WARNED.add((feature, reason))
+    warnings.warn(f"rayn_tpu_torch: {feature} unavailable ({reason}); "
+                  f"{consequence}", RuntimeWarning, stacklevel=3)
+
+
+def _eligibility_reason(s: RenderSettings, data: SceneData,
+                        static: SceneStatic) -> str | None:
+    """What keeps the fused kernels off in this scene, or None (JAX's
+    shade_pallas._eligibility_reason): relaxed marching, or an SDF
+    instance that is a user-written closure, which no kernel evaluates
+    (JAX's kernels trace a closure's fn_c; the port cannot compile torch
+    code into them)."""
+    if s.march_relaxation != 1.0:
+        return "march_relaxation != 1.0 (relaxed march carries extra state)"
+    for i, (prog, _mat, _bv) in enumerate(static.sdf_instances(data)):
+        if sdf_ops.kernel_ready(prog):
+            continue
+        if type(prog) is sdf_ops.SdfProgram and prog.fn_c is None:
+            return f"SDF instance {i} has no component-form fn_c"
+        return (f"SDF instance {i} is a user-written closure, which no "
+                "CUDA kernel evaluates")
+    return None
+
+
+def _fused_ok(feature: str, flags: bool, s, data, static) -> bool:
+    """Whether the fused `feature` runs: `flags` (the settings that ask
+    for it) and the scene's eligibility; a scene that is not eligible
+    warns once (warn_fallback)."""
+    if not flags:
+        return False
+    reason = _eligibility_reason(s, data, static)
+    if reason is not None:
+        warn_fallback(feature, reason)
+        return False
+    return True
+
+
 def _derive_shading(data: SceneData, static: SceneStatic, state: PathState,
                     hit, info):
     """(live, material params, receives, vol_trans) of each lane. The
@@ -200,16 +255,19 @@ def _bounce(data, static, settings, tables, state, depth, hps_abs0,
                              device=dev)
 
     pre_perm, chunk = None, 0
-    if s.sorted_intersect and depth > 0 and static.has_sdf:
+    if s.sorted_intersect and depth > 0 and static.has_sdf and s.use_pallas:
         chunk = _chunk_of(s, n)
         if chunk:
-            key = intersect_cuda.intersect_cost_key(
-                data, static, s, state.origin, state.direction, state.time,
-                state.alive)
+            key_fn = (intersect_cuda.intersect_cost_key if all(
+                sdf_ops.kernel_ready(p) for p, _m, _b in
+                static.sdf_instances(data))
+                else intersect_cuda.intersect_cost_key_plain)
+            key = key_fn(data, static, s, state.origin, state.direction,
+                         state.time, state.alive)
             (state,), pre_perm = _sort_tree_by_cost((state,), key, chunk)
 
-    plain_march = s.march_relaxation == 1.0
-    if s.use_fused_intersect and plain_march:
+    if _fused_ok("fused intersect kernel",
+                 s.use_pallas and s.use_fused_intersect, s, data, static):
         hit, info = intersect_cuda.closest_hit_shading(
             data, static, s, state.origin, state.direction, hps_abs, hps_lin,
             state.alive, state.time)
@@ -229,7 +287,9 @@ def _bounce(data, static, settings, tables, state, depth, hps_abs0,
         aovs = aovs_mod.extract(s, hit, info, mat, receives)
     tabs = scene_tables or shade_cuda.scene_tables(data, static)
     cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
-    if not (s.use_fused_shadows and plain_march):
+    if not _fused_ok("fused shadow/finish kernels",
+                     s.use_pallas_occlusion and s.use_fused_shadows, s, data,
+                     static):
         out = _segment_queue_tail(data, static, s, tables, cfg, tabs, state,
                                   depth, hit, info, mat, live, receives,
                                   vol_trans)
@@ -334,6 +394,35 @@ def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
 
 
 def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
+    """[S, N] SDF verdicts of the queued segments. The instances that
+    pass `intersect.kernel_occlusion_ok` take the refill march on the
+    scratch (`_kernel_verdicts`); each other one, a closure or every
+    instance without `use_pallas` or `use_pallas_occlusion`, marches
+    the segments still unblocked with the torch march
+    (march_cuda.march_occlusion_plain: JAX's jnp march_occlusion, at
+    `march_relaxation`, with the clip that `shadow_bv_clip` sets, and at
+    `max_vis_marches` 0 its first-DE verdict), in object order. A
+    verdict is the OR of the instances' verdicts, which no order
+    changes, so the kernel's instances go first."""
+    ok = [intersect.kernel_occlusion_ok(s, prog) for prog, _bv in cfg.sdfs]
+    kernel = tuple(i for i, k in zip(cfg.sdfs, ok) if k)
+    rest = [i for i, k in zip(cfg.sdfs, ok) if not k]
+    occ = (_kernel_verdicts(s, cfg._replace(sdfs=kernel), segs) if kernel
+           else torch.zeros_like(segs.active))
+    if rest:
+        g = segs.geom.reshape(6, -1)
+        start, end = g[:3].T.contiguous(), g[3:].T.contiguous()
+        act = segs.active.reshape(-1)
+        occ = occ.reshape(-1)
+        for prog, bv in rest:
+            occ = occ | march_cuda.march_occlusion_plain(
+                prog, start, end, cfg.detail, cfg.max_steps, act & ~occ,
+                relax=s.march_relaxation, bound_radius=bv)
+        occ = occ.reshape(segs.active.shape)
+    return occ
+
+
+def _kernel_verdicts(s, cfg, segs) -> torch.Tensor:
     """[S, N] SDF verdicts of the queued segments from the refill march
     on the scratch, plain or relaxed, with the bounding-sphere clip as
     `shadow_bv_clip` says (the verdicts of the one-segment and chained

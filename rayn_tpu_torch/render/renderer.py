@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from rayn_tpu_torch.config import RenderSettings, unsupported_reason
+from rayn_tpu_torch.config import RenderSettings
 from rayn_tpu_torch.ops import filters as filter_ops
 from rayn_tpu_torch.render import checkpoint as ckpt
 from rayn_tpu_torch.render import film as film_mod
@@ -109,18 +109,6 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
         count=in_range.to(torch.float32), spp=settings.spp, extra=aovs)
 
 
-def check_supported(data: SceneData, static: SceneStatic,
-                    settings: RenderSettings, camera) -> None:
-    """Raise NotImplementedError naming the first setting or scene
-    feature this port does not implement yet. Every camera class,
-    animated light, sphere and camera channels, extra AOVs, compaction
-    and albedo functions are ported."""
-    reason = unsupported_reason(settings)
-    if reason is not None:
-        raise NotImplementedError(f"rayn_tpu_torch does not implement "
-                                  f"{reason} yet")
-
-
 def seg_passes(settings: RenderSettings, spp_seg: int,
                ranks: int = 1) -> tuple[int, int]:
     """(pass_size, n_passes) of a [*, * + spp_seg) sample segment over
@@ -169,7 +157,10 @@ def render_frame_resilient(data: SceneData, static: SceneStatic,
     errors only); with a checkpoint_path each retry resumes at the last
     saved pass instead of ray 0, so a crashed render loses at most
     `checkpoint_every` passes of work (rayn_tpu/render/renderer.py:
-    182-216)."""
+    182-216). With `mesh=`, every rank raises a failure of any rank at
+    the same collective (parallel/sharding.py), so the ranks retry
+    together, each from rank 0's checkpoint; an error that no retry
+    mends (sharding.PassAborted) is raised on every rank at once."""
     for attempt in range(retries + 1):
         try:
             return render_frame(data, static, settings, camera, **kwargs)
@@ -215,14 +206,15 @@ def render_frame(data: SceneData, static: SceneStatic,
     pass, and gets the same merged film (parallel.sharding.
     render_pass_sharded); rank 0 alone saves checkpoints, a resume loads
     the same file on every rank, and `progress` runs on every rank with
-    the same counts. A mesh on another device than the scene's raises
+    the same counts. A failed pass or checkpoint on any rank raises on
+    every rank at the same collective (sharding.PassFailed or
+    PassAborted). A mesh on another device than the scene's raises
     ValueError, anything but a Mesh TypeError."""
     ranks = 1
     if mesh is not None:
         from rayn_tpu_torch.parallel import sharding
         sharding.check_mesh(mesh, data)
         ranks = mesh.size
-    check_supported(data, static, settings, camera)
     w, h = settings.resolution
     if time_range is None:
         start = frame / frame_rate
@@ -267,22 +259,34 @@ def render_frame(data: SceneData, static: SceneStatic,
                                    camera, fis_table, p * pass_size,
                                    pass_size, time_range[0], time_range[1],
                                    sample_base=sb)
+                if _FAIL_HOOK is not None:
+                    _FAIL_HOOK(p)
             else:
+                # the hook runs in the pass body: a rank it fails still
+                # enters the pass's all_reduce, and every rank raises
                 film = sharding.render_pass_sharded(
                     mesh, film, data, static, seg_settings, tables, camera,
                     fis_table, p * pass_size, pass_size // ranks,
-                    time_range[0], time_range[1], sample_base=sb)
-            if _FAIL_HOOK is not None:
-                _FAIL_HOOK(p)
+                    time_range[0], time_range[1], sample_base=sb,
+                    after=None if _FAIL_HOOK is None
+                    else (lambda p=p: _FAIL_HOOK(p)))
             done = min(done + pass_size, grand_total)
             if progress is not None:
                 progress(done, grand_total)
             if checkpoint_path and ((p + 1) % checkpoint_every == 0
                                     or p + 1 == n_passes):
-                if mesh is None or mesh.rank == 0:
-                    ckpt.save(checkpoint_path, film, next_pass=p + 1,
-                              spp_base=sb, spp=st, **ck_key)
+                err = None
+                try:
+                    if mesh is None or mesh.rank == 0:
+                        ckpt.save(checkpoint_path, film, next_pass=p + 1,
+                                  spp_base=sb, spp=st, **ck_key)
+                except Exception as e:
+                    if mesh is None:
+                        raise
+                    err = e
                 if mesh is not None:
-                    # no rank runs ahead of the file it may resume from
-                    sharding.barrier(mesh)
+                    # no rank runs ahead of the file it may resume from,
+                    # and a failed save fails every rank here
+                    sharding.agree(mesh, err, f"the checkpoint after pass "
+                                              f"{p}")
     return film

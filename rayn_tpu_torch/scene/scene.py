@@ -10,8 +10,8 @@ SceneData holds the tensors, on `device` (CUDA unless the caller asks
 for another device), and the SDF programs (ops/sdf.py); SceneStatic
 holds the counts, flags, each SDF instance's material and bound radius
 and the materials' per-point albedo functions. Any number of SDF
-instances, each any program of the SDF library, as in the JAX package
-(`add_sdf`).
+instances, each any program of the SDF library or a user-written
+closure (ops/sdf.py SdfProgram), as in the JAX package (`add_sdf`).
 """
 
 from __future__ import annotations
@@ -211,11 +211,13 @@ class SceneBuilder:
     def set_sdf(self, program, material: int,
                 bound_radius: float = 0.0) -> None:
         """Attach THE traced SDF, replacing any added before (reference
-        src/sdf.rs:12-21). `program`: any program of ops/sdf.py;
-        bound_radius: the radius of an origin-centred sphere that
-        contains its hit shell (0 = unknown: no shadow-segment clip).
-        A program the CUDA tape cannot hold raises NotImplementedError."""
-        sdf_ops.tape(program)
+        src/sdf.rs:12-21). `program`: any program of ops/sdf.py, of
+        any depth, or a user-written sdf.SdfProgram (which takes the
+        route without the fused kernels, as in JAX); bound_radius: the
+        radius of an origin-centred sphere that contains its hit shell
+        (0 = unknown: no shadow-segment clip). Anything else raises
+        NotImplementedError."""
+        sdf_ops.check(program)
         self._sdf = program
         self._sdf_mat = int(material)
         self._sdf_bound = float(bound_radius)
@@ -229,7 +231,7 @@ class SceneBuilder:
         if self._sdf is None:
             self.set_sdf(program, material, bound_radius)
             return 0
-        sdf_ops.tape(program)
+        sdf_ops.check(program)
         self._extra_sdfs.append(
             (program, int(material), float(bound_radius)))
         return len(self._extra_sdfs)
@@ -308,12 +310,14 @@ class SceneBuilder:
             light_pos=chan(self._light_pos),
             light_radii=t(np.asarray(self._light_radii, np.float32)),
             light_emission=t(emission),
-            sdf_params=self._sdf,
+            sdf_params=(None if self._sdf is None
+                        else sdf_ops.to_device(self._sdf, device)),
             volume_sigma_s=_f32(self._sigma_s or 0.0),
             volume_sigma_t=_f32(self._sigma_t or 0.0),
             sphere_light=t(sphere_light, torch.int32),
             light_paired=t(light_paired),
-            extra_sdf_params=tuple(p for p, _m, _b in self._extra_sdfs))
+            extra_sdf_params=tuple(sdf_ops.to_device(p, device)
+                                   for p, _m, _b in self._extra_sdfs))
         static = SceneStatic(
             n_spheres=k, n_lights=n_lights,
             n_materials=len(self._mat_kind),

@@ -236,12 +236,27 @@ def test_parser_has_every_jax_option():
 
 @pytest.mark.parametrize("argv, flag", [
     (["--no-pallas"], "--no-pallas")])
-def test_unported_options_exit_with_their_message(argv, flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP Queue 1" in err
+def test_unported_options_exit_with_their_message(argv, flag, tmp_path):
+    """Once refused, --no-pallas now renders, as JAX's CLI does: it sets
+    use_pallas=False (rayn_tpu/cli.py:156) and nothing else, and its PNGs
+    are byte for byte those of the same render through the Python API."""
+    res, spp = (8, 6), 1
+    rc = cli.main(argv + ["--device", "cpu", "--width", str(res[0]),
+                          "--height", str(res[1]), "--spp", str(spp),
+                          "--bounces", "1", "--max-marches", "48",
+                          "--out", str(tmp_path / "cli")])
+    assert rc == 0 and flag == "--no-pallas"
+    data, static, cam = presets.default_scene(resolution=res, device="cpu")
+    s = RenderSettings(resolution=res, spp=spp, max_bounces=1,
+                       max_marches=48, use_pallas=False)
+    f = renderer.render_frame(data, static, s, cam, frame=1)
+    names = film.save_channels(film.resolve(f, res), str(tmp_path / "api"),
+                               "api")
+    for path in names:
+        ch = os.path.basename(path)[len("api_"):]
+        with open(path, "rb") as a, open(
+                tmp_path / "cli" / f"frame0001_{spp}spp_{ch}", "rb") as b:
+            assert a.read() == b.read(), ch
 
 
 @pytest.mark.parametrize("flag", ["--multichip", "--num-processes"])

@@ -45,7 +45,13 @@ SDF programs (PROGRAM_SCENES: the default scene with a second, program
 instance, and a scene whose first instance uses every opcode): every
 kernel that reads the SDF runs its Tape instantiation and equals its
 twin bit for bit, and the default scene's MandelBox run as a one-op tape
-gives the MBoxOnly kernels' bits.
+gives the MBoxOnly kernels' bits. With a second instance deeper than
+the Tape kernels' stacks ("deep", and "deep_animated" with animated
+lights and spheres) every such kernel runs its DeepTape instantiation,
+and equals its twin bit for bit too.
+The route without kernels (`use_pallas=False`, `use_pallas_occlusion=
+False`) and a scene with a user-written closure give the films of the
+kernel routes they stand beside, bit for bit.
 A kernel whose tensors are on cuda:1 while cuda:0 is current runs on
 cuda:1 (needs two cards; skipped on one).
 """
@@ -65,6 +71,7 @@ from rayn_tpu_torch.render import camera as camera_mod
 from rayn_tpu_torch.render import film as film_mod
 from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
+from rayn_tpu_torch.scene.animation import AnimChannel
 from rayn_tpu_torch.scene.scene import SceneBuilder
 from rayn_tpu_torch.utils import rng
 
@@ -1089,10 +1096,35 @@ def _every_op(m=sdf_ops):
                     (0.5, 0.5, 0.5)))
 
 
-def _program_scene(dev):
-    """The default scene with its MandelBox as instance 0 and the slab,
-    with a lambertian material of its own, as instance 1."""
-    data, static, cam = presets.default_scene(resolution=RES, device=dev)
+def _deep(m=sdf_ops):
+    """A program deeper than the Tape kernels' stacks: the slab's box at
+    the end of a right-nested chain of eleven concentric tori (12
+    distances at once), inside twelve nested translates that together
+    move it 2.6 down (12 saved points): the DeepTape kernels."""
+    p = m.box((2.0, 0.1, 2.0))
+    ops = (m.union, m.intersection, m.subtraction,
+           lambda a, b: m.smooth_union(a, b, 0.05))
+    for i in range(11):
+        p = ops[i % 4](m.rounded(m.torus(0.4 + 0.15 * i, 0.04), 0.01), p)
+    for _ in range(12):
+        p = m.translate(p, (0.0, -2.6 / 12, 0.0))
+    return p
+
+
+def _program_scene(dev, second=None, knots=0):
+    """The default scene with its MandelBox as instance 0 and `second`
+    (the slab by default), with a lambertian material of its own, as
+    instance 1; with `knots`, of the scene with animated lights and
+    spheres at that many knots."""
+    data, static, cam = presets.default_scene(
+        resolution=RES, device=dev, animated_geo=knots > 0,
+        geo_knots=max(knots, 1))
+
+    def channel(ch, k):
+        if knots:
+            return AnimChannel(ch.values[k].cpu(), ch.t0, ch.t1)
+        return ch.values[k, 0].tolist()
+
     b = SceneBuilder()
     b.set_volume(0.25, 0.035)
     for kind, a, bb, power, ior in zip(*(
@@ -1100,14 +1132,14 @@ def _program_scene(dev):
         b._add_material(kind, a, bb, power, ior)
     slab = b.add_lambertian((0.6, 0.5, 0.4))
     for k in range(static.n_spheres):
-        b.add_sphere(data.sphere_centers.values[k, 0].tolist(),
+        b.add_sphere(channel(data.sphere_centers, k),
                      float(data.sphere_radii[k]), int(data.sphere_mats[k]))
     for i in range(static.n_lights):
-        b.add_sphere_light(data.light_pos.values[i, 0].tolist(),
+        b.add_sphere_light(channel(data.light_pos, i),
                            float(data.light_radii[i]),
                            data.light_emission[i].tolist())
     b.add_sdf(data.sdf_params, static.sdf_mat, static.sdf_bound_radius)
-    b.add_sdf(_slab(), slab, bound_radius=4.3)
+    b.add_sdf(second or _slab(), slab, bound_radius=4.3)
     return (*b.build(dev), cam)
 
 
@@ -1129,7 +1161,10 @@ def _every_op_scene(dev):
     return (*b.build(dev), cam)
 
 
-PROGRAM_SCENES = {"program": _program_scene, "every_op": _every_op_scene}
+PROGRAM_SCENES = {
+    "program": _program_scene, "every_op": _every_op_scene,
+    "deep": lambda dev: _program_scene(dev, _deep()),
+    "deep_animated": lambda dev: _program_scene(dev, _deep(), knots=8)}
 
 
 @pytest.mark.parametrize("depth", [0, 1])
@@ -1177,7 +1212,7 @@ def test_program_tail_kernels_match_plain(cuda, scene, depth):
     _shadow_radiance_vs_plain(args)
     key_args = (cfg, tabs, info.point, info.normal, info.offset_by,
                 state.origin, state.direction, hit.t, live, recv,
-                state.sample_idx, state.pixel)
+                state.sample_idx, state.pixel, state.time)
     before = shade_cuda.shadow_sort_key.launches
     got = shade_cuda.shadow_sort_key(*key_args)
     _launched(shade_cuda.shadow_sort_key, before)
@@ -1249,3 +1284,66 @@ def test_forced_tape_matches_mbox_only(cuda):
     assert _same_bits(tape[1], mbox[1])
     assert all(_same_bits(tape[2][f], mbox[2][f]) for f in mbox[2])
     assert _same_bits(tape[3], mbox[3]) and _same_bits(tape[4], mbox[4])
+
+
+def test_deep_scenes_take_the_deep_tape(cuda):
+    """The deep scenes' instances run the DeepTape kernels (tape 2), the
+    scratch sized for a persistent grid at most what the card holds."""
+    props = torch.cuda.get_device_properties(cuda)
+    cap = props.multi_processor_count * props.max_threads_per_multi_processor
+    for name in ("deep", "deep_animated"):
+        data, static, _cam = PROGRAM_SCENES[name](cuda)
+        insts = static.sdf_instances(data)
+        assert max(sdf_ops.tape(insts[1][0])[2:]) == 12
+        sdf = _build.sdf_args(insts, cuda, 1 << 24)[1]
+        assert (sdf.tape, sdf.depth, sdf.points, sdf.slots) == (
+            2, 12, 12, cap)
+        assert _build.sdf_args(insts, cuda, 1000,
+                               persistent=False)[1].slots == 1024
+
+
+def _frame(data, static, cam, **change):
+    s = RenderSettings(resolution=RES, spp=1, max_marches=128,
+                       max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
+                       **change)
+    return film_mod.tensors(renderer.render_frame(data, static, s, cam))
+
+
+@pytest.mark.parametrize("flag, twin", [
+    ("use_pallas", "use_fused_intersect"),
+    ("use_pallas_occlusion", "use_fused_shadows")])
+def test_route_without_kernels_matches_kernel_route(cuda, flag, twin):
+    """The route without kernels on the card (its marches in torch) gives
+    the film of the kernel route with the same fused kernels off, bit for
+    bit; the marches it replaces launch no kernel."""
+    data, static, cam = presets.default_scene(resolution=RES, device=cuda)
+    before = (march_cuda.march.launches, shade_cuda.shadow_march.launches,
+              intersect_cuda.intersect_cost_key.launches)
+    got = _frame(data, static, cam, **{flag: False})
+    after = (march_cuda.march.launches, shade_cuda.shadow_march.launches,
+             intersect_cuda.intersect_cost_key.launches)
+    want = _frame(data, static, cam, **{twin: False})
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    if flag == "use_pallas":
+        assert after[0] == before[0] and after[2] == before[2]
+        assert after[1] > before[1]   # the fused shadow kernels still run
+    else:
+        assert after[1] == before[1]
+
+
+def test_closure_scene_matches_library_scene(cuda):
+    """A closure torus written with vecmath ops gives the library Torus's
+    film on the card, bit for bit, on the unfused route."""
+    from rayn_tpu_torch.utils import vecmath
+
+    def torus_fn(prm, p):
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        qx = vecmath.sqrt(x * x + z * z) - prm["major"]
+        return vecmath.sqrt(qx * qx + y * y) - prm["minor"]
+
+    closure = sdf_ops.SdfProgram(torus_fn, {"major": 1.2, "minor": 0.1})
+    lib = sdf_ops.torus(1.2, 0.1)
+    films = [_frame(*_program_scene(cuda, sdf_ops.translate(
+        p, (0.0, -2.6, 0.0))), use_fused_intersect=False,
+        use_fused_shadows=False) for p in (closure, lib)]
+    assert all(_same_bits(a, b) for a, b in zip(*films))

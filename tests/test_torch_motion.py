@@ -29,7 +29,8 @@ would fall in the first knot interval of an 8-knot channel over [0, 2] s.
   integrator.bounce with test_torch_render's gates.
 - The constant scene is unchanged: every twin gives the same bits with
   the lanes' times, with no time and with NaN times.
-- check_supported refuses none of these scenes or cameras.
+- none of these scenes or cameras is refused, on the kernel route or
+  the route without kernels (`use_pallas=False`).
 """
 
 import dataclasses
@@ -447,7 +448,12 @@ def test_motion_and_lenses_are_not_refused(kind):
         animated=kind == "animated")
     if kind in ("thin_lens", "orthographic"):
         cam = _port_camera(kind)
-    renderer.check_supported(data, static, s, cam)
-    with pytest.raises(NotImplementedError):
-        renderer.check_supported(
-            data, static, dataclasses.replace(s, use_pallas=False), cam)
+    # the route without kernels renders them too: its closest hits march
+    # in torch, and its film is the unfused kernel route's, bit for bit
+    s = dataclasses.replace(s, max_bounces=1, max_marches=48,
+                            max_vis_marches=24, use_fused_intersect=False)
+    films = [film.tensors(renderer.render_frame(
+        data, static, dataclasses.replace(s, use_pallas=use), cam,
+        time_range=(0.0, 2.0))) for use in (True, False)]
+    assert all(torch.equal(a, b) for a, b in zip(*films))
+    assert int(films[0][film.CHANNELS.index("samples")].sum()) == 64

@@ -154,11 +154,22 @@ def test_segment_queue_bounce_matches_jax(case):
 @pytest.mark.parametrize("change", [
     dict(use_pallas=False), dict(use_pallas_occlusion=False)])
 def test_unimplemented_settings_raise(change):
+    """Once refused, the JAX package's route without kernels now renders:
+    its film is the kernel route's with the fused kernel that the flag
+    turns off turned off, bit for bit (tests/test_torch_nokernel.py holds
+    the route against JAX)."""
     res = (8, 8)
     data, static, cam = presets.default_scene(resolution=res, device="cpu")
-    s = dataclasses.replace(RenderSettings(resolution=res, spp=1), **change)
-    with pytest.raises(NotImplementedError):
-        renderer.render_frame(data, static, s, cam)
+    s = RenderSettings(resolution=res, spp=1, max_bounces=1, max_marches=48,
+                       max_vis_marches=24)
+    off = ({"use_fused_intersect": False} if "use_pallas" in change
+           else {"use_fused_shadows": False})
+    got = renderer.render_frame(data, static,
+                                dataclasses.replace(s, **change), cam)
+    want = renderer.render_frame(data, static,
+                                 dataclasses.replace(s, **off), cam)
+    assert all(torch.equal(a, b) for a, b in zip(film.tensors(got),
+                                                 film.tensors(want)))
 
 
 @pytest.mark.parametrize("field", [

@@ -241,17 +241,32 @@ def _deep(kind, n):
 
 @pytest.mark.parametrize("kind", ["distances", "points"])
 def test_tape_depth_cap_raises(kind):
-    """A program whose stack would pass DEPTH_CAP is refused by tape()
-    and by set_sdf and add_sdf, naming the cap; one at the cap is taken."""
+    """A program whose stack would pass DEPTH_CAP is no longer refused:
+    tape() lowers it with its depth, set_sdf and add_sdf take it, and
+    _build.sdf_args gives it the DeepTape kernels (tape 2), while one at
+    the cap keeps the Tape kernels (tape 1)."""
+    from rayn_tpu_torch import _build
+
     ok = _deep(kind, sdf.DEPTH_CAP - (kind == "distances"))
     assert max(sdf.tape(ok)[2:]) == sdf.DEPTH_CAP
     deep = _deep(kind, sdf.DEPTH_CAP + 1)
+    assert max(sdf.tape(deep)[2:]) > sdf.DEPTH_CAP
+    assert _from_tape_ok(deep)
     b = tscene.SceneBuilder()
     mat = b.add_lambertian((0.5,) * 3)
-    for call in (sdf.tape, lambda p: b.set_sdf(p, mat),
-                 lambda p: b.add_sdf(p, mat)):
-        with pytest.raises(NotImplementedError, match=str(sdf.DEPTH_CAP)):
-            call(deep)
+    b.set_sdf(deep, mat)
+    assert b.add_sdf(deep, mat) == 1
+    cpu = torch.device("cpu")
+    assert _build.sdf_args([(ok, mat, 0.0)], cpu, 64)[1].tape == 1
+    assert _build.sdf_args([(deep, mat, 0.0)], cpu, 64)[1].tape == 2
+
+
+def _from_tape_ok(prog):
+    """The tape of `prog` lowers back to it and runs to dist_c's bits."""
+    tp = sdf.tape(prog)
+    xyz = _tensors(PTS)
+    return from_tape(tp) == prog and _same_bits(
+        _tape_model(tp, *xyz).numpy(), sdf.dist_c(prog, *xyz).numpy())
 
 
 def test_scene_takes_programs_and_instances():
@@ -270,6 +285,13 @@ def test_scene_takes_programs_and_instances():
         (progs["mandelbox"], red, 0.0)]
     with pytest.raises(NotImplementedError, match="closure"):
         b.set_sdf(lambda p, x, y, z: x, red)
+    # a user-written closure is a program: set_sdf and add_sdf take it
+    closure = sdf.SdfProgram(
+        lambda prm, p: torch.linalg.vector_norm(p, dim=-1) - prm["r"],
+        {"r": 0.5})
+    assert b.add_sdf(closure, blue, bound_radius=1.0) == 3
+    data, static = b.build("cpu")
+    assert static.sdf_instances(data)[3] == (closure, blue, 1.0)
 
 
 # ------------------------------------------------ two instances, carried
