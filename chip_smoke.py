@@ -266,20 +266,35 @@ Phases (any failed gate raises and the script exits non-zero):
    unfused shading info divides) phase 4's image gate; no closest-hit,
    march or cost-key kernel launched or in the profile, the fused shadow
    kernels in both; launches, device busy ms, idle share and pass walls
-   of both routes, in turns; (b) `use_pallas_occlusion=False` at
-   960x540: bit for bit with `use_fused_shadows=False`, no shadow-march
-   launch, the queue-segments and queue-sum kernels launched; (c)
-   `python -m rayn_tpu_torch --no-pallas` at 480x270, 2 spp: its PNGs
-   byte for byte those of render_frame + save_channels; (d) the program
-   scene with a closure torus (vecmath ops) as instance 1 at 960x540: bit
-   for bit with the library Torus on the unfused route, one warning per
-   fused feature; (e) the program scene with `deep_program` (12 distances
-   and 12 saved points) at 1080p: every DeepTape kernel against its twin
-   bit for bit on one pass's inputs (fused and relaxed paths, rows 6-12's
-   functions on the deep instance, the first-DE entry, and the animated
-   instantiations on the animated-geo scene at 64x64), with each one's
-   depth-1 ms, DEs and ps a DE beside phase 15's Tape numbers, and the
-   DeepTape kernels' registers and spills.
+   of both routes, in turns, at max_bounces 2; (b)
+   `use_pallas_occlusion=False` at 960x540: bit for bit with
+   `use_fused_shadows=False`, no shadow-march launch, the queue-segments
+   and queue-sum kernels launched; (c) `python -m rayn_tpu_torch
+   --no-pallas` at 480x270, 2 spp: its PNGs byte for byte those of
+   render_frame + save_channels; (d) the program scene with a closure
+   torus without fn_c (vecmath ops) as instance 1 at 960x540: bit for bit
+   with the library Torus on the unfused route, one warning per fused
+   feature, no closest-hit launch; (e) the program scene with
+   `deep_program` (12 distances and 12 saved points) at 1080p: every
+   DeepTape kernel against its twin bit for bit on one pass's inputs
+   (fused and relaxed paths, rows 6-12's functions on the deep instance,
+   the first-DE entry, and the animated instantiations on the
+   animated-geo scene at 64x64), with each one's depth-1 ms, DEs and ps a
+   DE beside phase 15's Tape numbers, and the DeepTape kernels' registers
+   and spills; (f) the closure torus with fn_c (its expression program,
+   ops/sdf_expr.py) at 960x540 on the fused route, no warning: bit for
+   bit with the library Torus's fused film, the fused kernels launched
+   and the queue's not, both frames' walls in turns, and the `_expr_`
+   kernels in a profiled fused and relaxed frame; each transcendental op
+   (sin, cos, exp, log, pow, rsqrt) as a closure through the cost key
+   (bound / DE) on 2^20 seeded points, kernel against torch's CUDA op, the
+   largest ulp difference printed; `wavy_closure` (sin, cos, exp, log,
+   pow) on the fused route at 960x540, and at 64x64, 32 spp its kernels'
+   film against its plain twins' under phase 6's image gate; every
+   ExprTape kernel against its twin bit for bit on one pass's inputs of
+   the closure torus's program scene at 1080p (as (e)), with each one's
+   depth-1 ms, DEs and ps a DE beside phase 15's Tape and (e)'s DeepTape
+   numbers, and the ExprTape kernels' registers and spills.
 
 The last three lines of standard output are the kernels' JSON record
 (rows 1-5, the cost key and both segments kernels with `ms_animated`,
@@ -295,7 +310,9 @@ per-lane albedo and compacted lanes; the rows phase 4 launches with
 `launches_sharded_2_ranks`, each phase-17 (b) rank's launches in its
 1080p frame; every row that reads the SDF with `ms_deep`,
 `de_evals_deep`, `ps_per_de_deep` and `bound_ms_deep`, its DeepTape
-kernel's phase-18 depth-1 numbers), the nvidia-smi line, and {"ok": true, "device": {...}}.
+kernel's phase-18 depth-1 numbers, and `ms_closure`, `de_evals_closure`,
+`ps_per_de_closure` and `bound_ms_closure`, its ExprTape kernel's phase-18
+(f) numbers), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -349,27 +366,33 @@ def de_flops(iterations: int) -> int:
 # A kernel that reads scene positions has a second instantiation for
 # animated scenes, `_anim_kernel` (ANIM_ENTRIES).
 # A kernel that reads the SDF has a Tape instantiation, `_tape_kernel`, for
-# any scene but one whose only SDF is a bare MandelBox, and a DeepTape one,
-# `_deep_kernel`, for a scene with a program deeper than the Tape's stacks.
+# any scene but one whose only SDF is a bare MandelBox, a DeepTape one,
+# `_deep_kernel`, for a scene with a program deeper than the Tape's stacks,
+# and an ExprTape one, `_expr_kernel`, for a scene with a kernel-ready
+# user-written closure.
 CUDA_KERNELS = (
     ("intersect", "intersect_cuda", "closest_hit_shading",
      ("closest_hit_kernel", "closest_hit_anim_kernel",
       "closest_hit_tape_kernel", "closest_hit_anim_tape_kernel",
-      "closest_hit_deep_kernel", "closest_hit_anim_deep_kernel")),
+      "closest_hit_deep_kernel", "closest_hit_anim_deep_kernel",
+      "closest_hit_expr_kernel", "closest_hit_anim_expr_kernel")),
     ("costkey", "intersect_cuda", "intersect_cost_key",
      ("cost_key_kernel", "cost_key_anim_kernel", "cost_key_tape_kernel",
       "cost_key_anim_tape_kernel", "cost_key_deep_kernel",
-      "cost_key_anim_deep_kernel")),
+      "cost_key_anim_deep_kernel", "cost_key_expr_kernel",
+      "cost_key_anim_expr_kernel")),
     ("key", "shade_cuda", "shadow_sort_key",
      ("shadow_sort_key_kernel", "shadow_sort_key_anim_kernel",
       "shadow_sort_key_tape_kernel", "shadow_sort_key_anim_tape_kernel",
-      "shadow_sort_key_deep_kernel", "shadow_sort_key_anim_deep_kernel")),
+      "shadow_sort_key_deep_kernel", "shadow_sort_key_anim_deep_kernel",
+      "shadow_sort_key_expr_kernel", "shadow_sort_key_anim_expr_kernel")),
     ("seg", "shade_cuda", "shadow_segments",
      ("shadow_segments_kernel", "shadow_segments_anim_kernel")),
     ("smarch", "shade_cuda", "shadow_march",
      ("shadow_march_kernel", "shadow_march_relaxed_kernel",
       "shadow_march_tape_kernel", "shadow_march_relaxed_tape_kernel",
-      "shadow_march_deep_kernel", "shadow_march_relaxed_deep_kernel")),
+      "shadow_march_deep_kernel", "shadow_march_relaxed_deep_kernel",
+      "shadow_march_expr_kernel", "shadow_march_relaxed_expr_kernel")),
     ("ssum", "shade_cuda", "shadow_sum", ("shadow_sum_kernel",)),
     ("tsum", "shade_cuda", "tail_sum",
      ("tail_sum_kernel", "tail_sum_anim_kernel")),
@@ -381,14 +404,16 @@ CUDA_KERNELS = (
     ("march", "march_cuda", "march",
      ("march_kernel", "march_relaxed_kernel", "march_tape_kernel",
       "march_relaxed_tape_kernel", "march_deep_kernel",
-      "march_relaxed_deep_kernel")),
+      "march_relaxed_deep_kernel", "march_expr_kernel",
+      "march_relaxed_expr_kernel")),
     ("enqueue", "march_cuda", "enqueue", ("enqueue_kernel",)),
     ("omarch", "march_cuda", "occlusion_march",
      ("occl_march_kernel", "occl_march_relaxed_kernel",
       "occl_march_first_de_kernel", "occl_march_tape_kernel",
       "occl_march_relaxed_tape_kernel", "occl_march_first_de_tape_kernel",
       "occl_march_deep_kernel", "occl_march_relaxed_deep_kernel",
-      "occl_march_first_de_deep_kernel")),
+      "occl_march_first_de_deep_kernel", "occl_march_expr_kernel",
+      "occl_march_relaxed_expr_kernel", "occl_march_first_de_expr_kernel")),
 )
 ENTRIES = {key: entries for key, _m, _a, entries in CUDA_KERNELS}
 # each key's kernels for the constant scene and for an animated one
@@ -494,10 +519,16 @@ SDF_OP_FLOPS = {"Sphere": 7, "Box": 19, "Torus": 10, "Plane": 6,
 
 
 def sdf_flops(prog) -> int:
-    """float32 operations of one DE of an SDF program (ops/sdf.py)."""
+    """float32 operations of one DE of an SDF program (ops/sdf.py); a
+    user-written closure's, one an instruction of its expression
+    program."""
     name = type(prog).__name__
     if name == "MandelBox":
         return de_flops(prog.iterations)
+    if name == "SdfProgram":
+        from rayn_tpu_torch.ops import sdf_expr
+
+        return len(sdf_expr.lower_closure(prog).ops)
     return SDF_OP_FLOPS[name] + sum(sdf_flops(v) for v in prog
                                     if isinstance(v, tuple))
 
@@ -528,18 +559,74 @@ def deep_program(sdf_ops):
     return p
 
 
-def torus_closure(sdf_ops):
-    """Phase 18 (d): the library Torus(1.2, 0.1) as a user-written
-    closure (sdf.SdfProgram), its DE written with the port's vecmath ops
-    as ops/sdf.py dist_c writes the Torus's."""
+def torus_c(prm, x, y, z):
+    """The library Torus's DE written with the port's vecmath ops as
+    ops/sdf.py dist_c writes it, in a closure's component form."""
     from rayn_tpu_torch.utils import vecmath
 
-    def torus_fn(prm, p):
-        x, y, z = p[..., 0], p[..., 1], p[..., 2]
-        qx = vecmath.sqrt(x * x + z * z) - prm["major"]
-        return vecmath.sqrt(qx * qx + y * y) - prm["minor"]
+    qx = vecmath.sqrt(x * x + z * z) - prm["major"]
+    return vecmath.sqrt(qx * qx + y * y) - prm["minor"]
 
-    return sdf_ops.SdfProgram(torus_fn, {"major": 1.2, "minor": 0.1})
+
+def torus_fn(prm, p):
+    return torus_c(prm, p[..., 0], p[..., 1], p[..., 2])
+
+
+def wavy_c(prm, x, y, z):
+    """Phase 18 (f): the torus with a ripple of sin, cos, exp, log and
+    pow (its gradient below 0.4, so sphere tracing stays safe)."""
+    import torch
+
+    ripple = torch.sin(x * prm["freq"]) * torch.cos(z * prm["freq"])
+    fade = torch.exp(-(y * y)) * torch.log(x * x + z * z + 2.0)
+    return torus_c(prm, x, y, z) + prm["amp"] * ripple * torch.abs(
+        fade) ** 1.5
+
+
+def wavy_fn(prm, p):
+    return wavy_c(prm, p[..., 0], p[..., 1], p[..., 2])
+
+
+def torus_closure(sdf_ops, fn_c=False):
+    """Phase 18 (d) and (f): the library Torus(1.2, 0.1) as a user-written
+    closure (sdf.SdfProgram), without a fn_c (the torch route) or with
+    one (the kernels)."""
+    return sdf_ops.SdfProgram(torus_fn, {"major": 1.2, "minor": 0.1},
+                              torus_c if fn_c else None)
+
+
+def wavy_closure(sdf_ops):
+    """Phase 18 (f): the rippled torus, a closure of transcendental
+    ops."""
+    return sdf_ops.SdfProgram(wavy_fn, {"major": 1.2, "minor": 0.1,
+                                        "freq": 6.0, "amp": 0.02}, wavy_c)
+
+
+# Phase 18 (f): one closure a transcendental op of the expression
+# programs, each DE at least 0 and below 2, so that the cost key, bound /
+# max(DE, 1e-6), shows each DE's bits.
+TRANSCENDENTAL_C = {
+    "sin": lambda p, x, y, z: torch_abs_of("sin", x),
+    "cos": lambda p, x, y, z: torch_abs_of("cos", x),
+    "exp": lambda p, x, y, z: torch_abs_of("exp", x),
+    "log": lambda p, x, y, z: torch_abs_of("log", x),
+    "pow, a tensor exponent": lambda p, x, y, z: torch_abs_of(
+        "pow", x, p["e"]),
+    "pow by 1.7": lambda p, x, y, z: torch_abs_of("pows", x),
+    "pow by -0.5 (rsqrt)": lambda p, x, y, z: torch_abs_of("rsqrt", x)}
+
+
+def torch_abs_of(op: str, x, e=None):
+    import torch
+
+    b = torch.abs(x) + 0.5
+    return {"sin": lambda: torch.abs(torch.sin(x * 3.0)),
+            "cos": lambda: torch.abs(torch.cos(x * 3.0)),
+            "exp": lambda: torch.exp(-torch.abs(x)),
+            "log": lambda: torch.abs(torch.log(b)),
+            "pow": lambda: b ** e,
+            "pows": lambda: b ** 1.7,
+            "rsqrt": lambda: b ** -0.5}[op]()
 
 
 def animated_program_scene(resolution, device, second, knots=8):
@@ -1226,7 +1313,7 @@ def main(argv=None) -> int:
     from rayn_tpu_torch.ops import filters, intersect_cuda, march_cuda
     from rayn_tpu_torch.ops import march as march_ops
     from rayn_tpu_torch.ops import sdf as sdf_ops
-    from rayn_tpu_torch.ops import shade_cuda
+    from rayn_tpu_torch.ops import sdf_expr, shade_cuda
     from rayn_tpu_torch.render import film as film_mod
     from rayn_tpu_torch.render import integrator, renderer
     from rayn_tpu_torch.render.camera import (OrthographicCamera,
@@ -2744,12 +2831,12 @@ def main(argv=None) -> int:
     timed15 = {"fused": ("intersect", "costkey", "key", "tail", "smarch"),
                "split mis": ("shadow",), "relaxed": ("march", "smarch")}
 
-    def capture15(d_, st_, c_, s_, keys, label, n_rays):
-        """Each kernel's calls on one pass of (d_, st_, c_) at s_ (four:
-        the march kernel runs once an instance), checked against its
-        twin; returns the captured calls."""
+    def capture15(d_, st_, c_, s_, keys, label, n_rays, limit=4):
+        """Each kernel's first `limit` calls on one pass of (d_, st_, c_)
+        at s_ (four: the march kernel runs once an instance), checked
+        against its twin; returns the captured calls."""
         cap = {k: [] for k in impl}
-        with plain_twins(cap, limit=4):
+        with plain_twins(cap, limit=limit):
             renderer.render_pass(film_mod.new_film(n_rays, device=dev), d_,
                                  st_, s_, tables, c_, fis, 0, n_rays,
                                  1.0 / 24, 2.0 / 24)
@@ -3165,7 +3252,9 @@ def main(argv=None) -> int:
 
     rec18 = {}
     t_phase18 = time.perf_counter()
-    s18 = dataclasses.replace(main_s, spp=1)
+    # (a) at max_bounces 2: the route without kernels is launch-bound, its
+    # launches a pass in proportion to its bounces
+    s18 = dataclasses.replace(main_s, spp=1, max_bounces=2)
     n18 = W * H
 
     def whole_word(names, entry):
@@ -3361,7 +3450,7 @@ def main(argv=None) -> int:
                       launches=cli_l)
     del ref, dc, stc, cc
 
-    # (d) a closure instance against the library Torus
+    # (d) a closure instance without fn_c against the library Torus
     clo = program_scene(UNFUSED_RES, dev, second=sdf_ops.translate(
         torus_closure(sdf_ops), (0.0, -2.6, 0.0)))
     lib = program_scene(UNFUSED_RES, dev, second=sdf_ops.translate(
@@ -3395,11 +3484,12 @@ def main(argv=None) -> int:
         f"set) and {lib_wall} s (library, unfused); launches {clo_l}")
     rec18["d"] = dict(bit_for_bit=same_d, warnings=msgs, launches=clo_l,
                       frame_s=dict(closure=clo_wall, library=lib_wall))
-    del clo, lib, f_clo, f_lib
+    del clo, f_clo, f_lib
     torch.cuda.empty_cache()
 
     # (e) a deep program through the DeepTape kernels
     log(f"[18] (a)-(d) took {time.perf_counter() - t_phase18:.1f} s")
+    t_e = time.perf_counter()
     scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
     deep = deep_program(sdf_ops)
     tp = sdf_ops.tape(deep)
@@ -3419,7 +3509,9 @@ def main(argv=None) -> int:
     times18 = {}
     for path, s_, keys in (paths15[0], paths15[2]):
         t0 = time.perf_counter()
-        cap = capture15(dd, dst, dcam, s_, keys, f"deep {path}", MAIN_PASS)
+        # the fused path's first two calls: depths 0 and 1 (keys 1 and 2)
+        cap = capture15(dd, dst, dcam, s_, keys, f"deep {path}", MAIN_PASS,
+                        limit=2 if path == "fused" else 4)
         log(f"[18] (e) {path}: the captured pass and the checks took "
             f"{time.perf_counter() - t0:.1f} s")
         for key in timed15[path]:
@@ -3460,6 +3552,219 @@ def main(argv=None) -> int:
     rec18["deep_kernels"] = times18
     del dd, dst, dcam, ad, scrub
     torch.cuda.empty_cache()
+    log(f"[18] (e) took {time.perf_counter() - t_e:.1f} s")
+
+    # (f) user-written closures inside the kernels (the ExprTape kernels):
+    # the closure torus with fn_c on the fused route against the library
+    # Torus; each transcendental op through the cost key; a closure of
+    # transcendental ops on the fused route against its plain twins (the
+    # image gate); every _expr_ kernel against its twin on one pass's
+    # inputs, timed beside phase 15's Tape numbers.
+    t_f = time.perf_counter()
+    scrub = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    clo_k = sdf_ops.translate(torus_closure(sdf_ops, fn_c=True),
+                              (0.0, -2.6, 0.0))
+    ck = program_scene(UNFUSED_RES, dev, second=clo_k)
+    ck_sdf = _build.sdf_args(ck[1].sdf_instances(ck[0]), dev, 1024,
+                             persistent=False)[1]
+    gate(ck_sdf.tape == 3 and sdf_ops.tape(clo_k).regs > 0,
+         f"18 (f): the closure scene's tape {ck_sdf.tape}")
+    expr_ptx = {e: p for e in sorted({e for es in ENTRIES.values()
+                                      for e in es if "_expr_" in e})
+                for name, p in ptx.items() if f"{len(e)}{e}E" in name}
+    gate(len(expr_ptx) == 13, f"18 (f): ptxas reports {sorted(expr_ptx)}")
+    log(f"[18 closure] registers and spills of the ExprTape kernels: "
+        f"{expr_ptx}; the closure torus: "
+        f"{len(sdf_expr.lower_closure(clo_k.a).ops)} instructions, "
+        f"{sdf_ops.tape(clo_k).regs} registers")
+    rec18["expr_ptxas"] = expr_ptx
+    fused_f = ("intersect", "costkey", "key", "seg", "smarch", "tsum")
+    queue_f = ("march", "qseg", "qsum", "enqueue", "omarch")
+    integrator._WARNED.clear()
+    with warnings.catch_warnings(record=True) as caught_f:
+        warnings.simplefilter("always")
+        f_ck, ck_l, _w = launched(lambda: renderer.render_frame(
+            ck[0], ck[1], sb, ck[2], frame=1))
+    f_lf, _l, _w = launched(lambda: renderer.render_frame(
+        lib[0], lib[1], sb, lib[2], frame=1))
+    msgs_f = [str(w.message) for w in caught_f
+              if "rayn_tpu_torch" in str(w.message)]
+    same_f = films_equal(f_ck, f_lf)
+    gate(same_f, "18 (f): the fused closure film differs from the library "
+         "Torus's fused film")
+    gate(not msgs_f, f"18 (f): warnings {msgs_f}")
+    gate(all(ck_l[k] > 0 for k in fused_f)
+         and not any(ck_l[k] for k in queue_f), f"18 (f): launches {ck_l}")
+    del f_ck, f_lf
+    fns_f = {
+        "closure with fn_c, fused": lambda: renderer.render_frame(
+            ck[0], ck[1], sb, ck[2], frame=1),
+        "library Torus, fused": lambda: renderer.render_frame(
+            lib[0], lib[1], sb, lib[2], frame=1)}
+    walls_f = {label: [] for label in fns_f}
+    for r in range(4):
+        for label in (list(fns_f) if r % 2 == 0 else list(fns_f)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns_f[label]()
+            torch.cuda.synchronize()
+            walls_f[label].append(time.perf_counter() - t0)
+    prof_f = {}
+    for label, s_, need in (
+            ("fused", sb, ("closest_hit_expr_kernel", "cost_key_expr_kernel",
+                           "shadow_sort_key_expr_kernel",
+                           "shadow_march_expr_kernel")),
+            ("relaxed", dataclasses.replace(sb, march_relaxation=RELAX),
+             ("march_relaxed_expr_kernel", "cost_key_expr_kernel",
+              "shadow_march_relaxed_expr_kernel"))):
+        busy, launches, names = profile18(
+            lambda s_=s_: renderer.render_frame(ck[0], ck[1], s_, ck[2],
+                                                frame=1))
+        missing = [e for e in need if not whole_word(names, e)]
+        gate(not missing, f"18 (f): the {label} profile lacks {missing}")
+        prof_f[label] = dict(busy_ms=busy, launches=launches,
+                             expr_kernels=sorted(
+                                 e for es in ENTRIES.values() for e in es
+                                 if "_expr_" in e and whole_word(names, e)))
+    log(f"[18 closure] (f) {UNFUSED_RES[0]}x{UNFUSED_RES[1]} @ 1 spp: the "
+        f"closure torus with fn_c on the fused route, bit for bit with the "
+        f"library Torus's fused film, no warning; launches {ck_l}; frame "
+        f"walls in turns {walls_f} s (the closure without fn_c on the "
+        f"unfused route: {clo_wall} s); profiled frames {prof_f}")
+    rec18["f"] = dict(bit_for_bit=same_f, launches=ck_l, frame_s=walls_f,
+                      profile=prof_f)
+    log(f"[18] (f) frames and profiles took {time.perf_counter() - t_f:.1f} "
+        "s")
+
+    # each transcendental op: the cost key (bound / DE) of 2^20 seeded
+    # points, kernel against twin (torch's CUDA op)
+    def ulps(a, b):
+        ia, ib = (x.contiguous().view(torch.int32).to(torch.int64)
+                  for x in (a, b))
+        ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        d = torch.where(torch.isnan(a) & torch.isnan(b), 0, (ia - ib).abs())
+        return int(d.max()), int((d > 0).sum())
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    pts = torch.rand((1 << 20, 3), device=dev, generator=gen) * 4.0 - 2.0
+    dirs = torch.nn.functional.normalize(
+        torch.randn((1 << 20, 3), device=dev, generator=gen), dim=-1)
+    key_s = RenderSettings(resolution=(1024, 1024), max_marches=1 << 27)
+    trans = {}
+    for op, fn_c in TRANSCENDENTAL_C.items():
+        b = SceneBuilder()
+        b.add_sphere((0.0, 0.0, 0.0), 100.0,
+                     b.add_sky((0.3, 0.4, 0.6), (0.01, 0.015, 0.03)))
+        prm = {"e": torch.full((), 1.7, device=dev)}
+        b.add_sdf(sdf_ops.SdfProgram(lambda p_, x: None, prm, fn_c),
+                  b.add_lambertian((0.5, 0.5, 0.5)), bound_radius=0.0)
+        od, ost = b.build(dev)
+        key_args = (od, ost, key_s, pts, dirs, torch.zeros_like(pts[:, 0]),
+                    torch.ones_like(pts[:, 0], dtype=torch.bool))
+        got = intersect_cuda.intersect_cost_key(*key_args)
+        want = intersect_cuda.intersect_cost_key_plain(*key_args)
+        worst, lanes = ulps(got, want)
+        trans[op] = dict(bit_for_bit=worst == 0, max_ulps=worst,
+                         lanes_differ=lanes)
+        del od, ost, key_args, got, want
+    log(f"[18 closure] (f) each transcendental op on {1 << 20} seeded "
+        f"points, the cost key (bound / DE) of the kernel against torch's "
+        f"CUDA op: {trans}")
+    rec18["f"]["transcendental_ops"] = trans
+    del pts, dirs
+
+    # the closure of transcendental ops: fused frame, and the image gate
+    # of its kernels' film against its plain twins'
+    wv = program_scene(UNFUSED_RES, dev, second=sdf_ops.translate(
+        wavy_closure(sdf_ops), (0.0, -2.6, 0.0)))
+    with warnings.catch_warnings(record=True) as caught_w:
+        warnings.simplefilter("always")
+        _f, wv_l, wv_wall = launched(lambda: renderer.render_frame(
+            wv[0], wv[1], sb, wv[2], frame=1))
+    gate(all(wv_l[k] > 0 for k in fused_f)
+         and not any(wv_l[k] for k in queue_f)
+         and not [w for w in caught_w if "rayn_tpu_torch" in str(w.message)],
+         f"18 (f): the transcendental closure's launches {wv_l}")
+    del _f, wv
+    wv6 = program_scene(IMG_RES, dev, second=sdf_ops.translate(
+        wavy_closure(sdf_ops), (0.0, -2.6, 0.0)))
+
+    def render_wv(frame):
+        return film_mod.resolve(renderer.render_frame(
+            wv6[0], wv6[1], set6, wv6[2], frame=frame), IMG_RES).color
+
+    img_wk = render_wv(1)
+    with plain_twins():
+        img_wp = render_wv(1)
+        img_wn = render_wv(101)
+    null_w = float(np.sqrt(np.mean((img_wp - img_wn) ** 2)))
+    rmse_w = float(np.sqrt(np.mean((img_wk - img_wp) ** 2)))
+    mean_w = float(abs(img_wk.mean() - img_wp.mean())
+                   / max(img_wp.mean(), 1e-9))
+    same_w = bool(np.array_equal(img_wk, img_wp))
+    gate(rmse_w <= 1.5 * null_w and mean_w <= 1e-3,
+         f"18 (f): the transcendental closure's image gate: RMSE {rmse_w}, "
+         f"null {null_w}, mean rel {mean_w}")
+    log(f"[18 closure] (f) the closure of sin, cos, exp, log and pow: its "
+        f"{UNFUSED_RES[0]}x{UNFUSED_RES[1]} fused frame {wv_wall} s, "
+        f"launches {wv_l}; at {IMG_RES[0]}x{IMG_RES[1]} @ {IMG_SPP} spp "
+        f"the kernels' film against the plain twins': RMSE {rmse_w}, "
+        f"seed-swap null {null_w}, mean rel diff {mean_w}, bit for bit "
+        f"{same_w}")
+    rec18["f"]["transcendental_closure"] = dict(
+        frame_s=wv_wall, launches=wv_l, rmse=rmse_w, null_rmse=null_w,
+        mean_rel=mean_w, bit_for_bit=same_w)
+    log(f"[18] (f) up to the kernels' checks took "
+        f"{time.perf_counter() - t_f:.1f} s")
+    del wv6, img_wk, img_wp, img_wn, ck, lib
+
+    # every _expr_ kernel against its twin on one pass's inputs
+    cd, cst, ccam = program_scene((W, H), dev, second=clo_k)
+    times18c = {}
+    for path, s_, keys in (paths15[0], paths15[2]):
+        cap = capture15(cd, cst, ccam, s_, keys, f"closure {path}",
+                        MAIN_PASS, limit=2 if path == "fused" else 4)
+        for key in timed15[path]:
+            a, kw = cap[key][{"key": 0, "costkey": 0, "march": 3}.get(key, 1)]
+            got = impl[key](*a, **kw)
+            times18c[f"{path} {key}"] = row15(path, key, a, kw, got,
+                                              phase="18 closure")
+            del got
+        if path == "relaxed":
+            (cfg, segs, _relax), _kw = cap["smarch"][1]
+            calls = one_program(cfg, segs, cap["march"][3])
+            for key, (a, kw) in calls.items():
+                got = funcs15[key](*a, **kw)
+                times18c[f"{path} {key}"] = row15(path, key, a, kw, got,
+                                                  phase="18 closure")
+                del got
+            a0, kw0 = calls["march_occlusion_phased"]
+            kw0 = dict(kw0, phase1_steps=0)
+            gate(same_bits(funcs15["march_occlusion_phased"](*a0, **kw0),
+                           plain15["march_occlusion_phased"](*a0, **kw0)),
+                 "18 (f): the first-DE entry differs from its plain version")
+        del cap
+        torch.cuda.empty_cache()
+    for k, r in times18c.items():
+        p15, p18 = times15.get(k), times18.get(k)
+        log(f"[18 closure] {k}: {r['ms']} ms, {r['de_evals']} DEs, "
+            f"{r['ps_per_de']} ps a DE (phase 15's Tape program scene: "
+            + (f"{p15['ms']} ms, {p15['ps_per_de']} ps a DE" if p15
+               else "not timed")
+            + "; the DeepTape program: "
+            + (f"{p18['ms']} ms, {p18['ps_per_de']} ps a DE)" if p18
+               else "not timed)"))
+    capture15(*animated_program_scene(IMG_RES, dev, clo_k),
+              dataclasses.replace(paths15[0][1], resolution=IMG_RES),
+              ("intersect", "costkey", "key", "tail", "seg", "smarch",
+               "tsum"), "closure animated", IMG_RES[0] * IMG_RES[1] * 4)
+    log(f"[18 closure] the animated ExprTape kernels at {IMG_RES[0]}x"
+        f"{IMG_RES[1]}: every kernel equal to its twin")
+    rec18["closure_kernels"] = times18c
+    del cd, cst, ccam, scrub
+    torch.cuda.empty_cache()
+    log(f"[18] (f) took {time.perf_counter() - t_f:.1f} s")
     rec18["seconds"] = time.perf_counter() - t_phase18
     log(f"[18] phase took {rec18['seconds']:.1f} s")
     record["phase18"] = rec18
@@ -3553,6 +3858,13 @@ def main(argv=None) -> int:
             row.update(ms_deep=p18["ms"], de_evals_deep=p18["de_evals"],
                        ps_per_de_deep=p18["ps_per_de"],
                        bound_ms_deep=p18["bound_ms"])
+        p18c = next((v for k, v in times18c.items()
+                     if k.endswith(f" {tkey}")), None)
+        if p18c is not None:   # phase 18 (f): the ExprTape kernel
+            row.update(ms_closure=p18c["ms"],
+                       de_evals_closure=p18c["de_evals"],
+                       ps_per_de_closure=p18c["ps_per_de"],
+                       bound_ms_closure=p18c["bound_ms"])
         if f"fused {tkey}" in price or f"relaxed {tkey}" in price:
             pr = price.get(f"fused {tkey}") or price[f"relaxed {tkey}"]
             row.update(ms_tape_default_scene=pr["tape_ms"],

@@ -148,7 +148,8 @@ class SdfInst(ctypes.Structure):
 class Sdf(ctypes.Structure):
     """csrc/common.cuh DeepSdf: the Sdf (the instance table and tape of
     the Tape kernels, tape 1), then the stack scratch of the DeepTape
-    ones (tape 2)."""
+    ones (tape 2) and the ExprTape ones (tape 3), whose expression
+    registers follow the stacks in the same thread slots."""
     _fields_ = [("n_inst", ctypes.c_int), ("tape", ctypes.c_int),
                 ("inst", ctypes.c_void_p), ("ops", ctypes.c_void_p),
                 ("prm", ctypes.c_void_p), ("deep", ctypes.c_void_p),
@@ -195,8 +196,9 @@ def tape_forced():
 
 def _tape_tables(instances, device):
     """[n, 6] int32 instance rows (SdfInst), int32 op words and float32
-    operands of the instances, on `device`, and the deepest the distance
-    and point stacks of any of them get."""
+    operands of the instances, on `device`, the deepest the distance
+    and point stacks of any of them get, and the most expression
+    registers any of their closures holds."""
     import numpy as np
     import torch
 
@@ -204,7 +206,7 @@ def _tape_tables(instances, device):
 
     rows = np.zeros((len(instances), 6), np.int32)
     ops, prm = [], []
-    depth = points = 0
+    depth = points = regs = 0
     for i, (prog, mat, bv) in enumerate(instances):
         tp = sdf_ops.tape(prog)
         rows[i, :4] = (len(ops), len(tp.ops), len(prm), mat)
@@ -213,10 +215,11 @@ def _tape_tables(instances, device):
         ops += tp.ops
         prm += tp.operands
         depth, points = max(depth, tp.depth), max(points, tp.points)
+        regs = max(regs, tp.regs)
     return (torch.as_tensor(rows, device=device),
             torch.as_tensor(np.asarray(ops, np.int32), device=device),
             torch.as_tensor(np.asarray(prm, np.float32), device=device),
-            depth, points)
+            depth, points, regs)
 
 
 # The DeepTape kernels' stack scratch, one per device, grown on demand.
@@ -271,35 +274,43 @@ def sdf_args(instances, device, threads: int = 0,
     (program, material id, bound radius) in object order: for one bare
     MandelBox its MBox and an Sdf of tape 0 (the MBoxOnly kernels); else
     a zero MBox and the tape tables on `device`, tape 1 (the Tape
-    kernels) when every program's stacks fit `sdf.DEPTH_CAP`, else tape
-    2 (the DeepTape kernels) with a stack scratch of `deep_slots(threads,
-    device, persistent)` thread slots; n_inst 0 for none. A user-written
-    program (sdf.SdfProgram) raises NotImplementedError: no kernel
-    evaluates it."""
+    kernels) when every program's stacks fit `sdf.DEPTH_CAP` and none
+    holds a closure, tape 3 (the ExprTape kernels) when one holds a
+    kernel-ready closure, else tape 2 (the DeepTape kernels); tapes 2 and
+    3 with a scratch of `deep_slots(threads, device, persistent)` thread
+    slots (the stacks, then the expression registers); n_inst 0 for none.
+    A program that is not kernel-ready (sdf.refusal) raises
+    NotImplementedError: no kernel evaluates it. The tables are cached
+    by `sdf.cache_key` of the instances and the device."""
     from rayn_tpu_torch.ops import sdf as sdf_ops
 
     inst = tuple((sdf_ops.check(p), int(m), float(b))
                  for p, m, b in instances)
-    if not all(sdf_ops.kernel_ready(p) for p, _m, _b in inst):
-        raise NotImplementedError("a user-written SdfProgram has no tape: "
-                                  "no kernel evaluates it")
+    for p, _m, _b in inst:
+        why = sdf_ops.refusal(p)
+        if why is not None:
+            raise NotImplementedError(
+                f"a user-written SdfProgram that {why} has no tape: no "
+                "kernel evaluates it")
     if not inst:
         return mbox_struct(None), Sdf(n_inst=0, tape=0)
     if _bare_mandelbox(inst):
         return mbox_struct(inst[0][0]), Sdf(n_inst=1, tape=0)
-    key = (inst, str(device))
+    key = (tuple((sdf_ops.cache_key(p), m, b) for p, m, b in inst),
+           str(device))
     tables = _TAPES.get(key)
     if tables is None:
         if len(_TAPES) >= _TAPES_MAX:
             _TAPES.pop(next(iter(_TAPES)))
         tables = _TAPES[key] = _tape_tables(inst, device)
-    rows, ops, prm, depth, points = tables
+    rows, ops, prm, depth, points, regs = tables
     sdf = Sdf(n_inst=len(inst), tape=1, inst=rows.data_ptr(),
               ops=ops.data_ptr(), prm=prm.data_ptr())
-    if max(depth, points) > sdf_ops.DEPTH_CAP:
+    if regs or max(depth, points) > sdf_ops.DEPTH_CAP:
         slots = deep_slots(threads, device, persistent)
-        sdf.tape, sdf.slots, sdf.depth, sdf.points = 2, slots, depth, points
-        sdf.deep = _deep_scratch(slots * (depth + 3 * points),
+        sdf.tape = 3 if regs else 2
+        sdf.slots, sdf.depth, sdf.points = slots, depth, points
+        sdf.deep = _deep_scratch(slots * (depth + 3 * points + regs),
                                  device).data_ptr()
     return mbox_struct(None), sdf
 

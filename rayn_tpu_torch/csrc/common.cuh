@@ -64,7 +64,7 @@ struct SdfInst {
 // which take Taped arguments: the same arguments, then the Sdf.
 struct Sdf {
   int n_inst;           // instances (0 = no SDF)
-  int tape;             // 1: the Tape instantiation, 2: the DeepTape one
+  int tape;             // 1: Tape, 2: DeepTape, 3: ExprTape
   const SdfInst* inst;  // [n_inst]
   const int* ops;
   const float* prm;
@@ -137,7 +137,8 @@ __device__ __forceinline__ float mandelbox_de(const MBox& mb, float x,
 constexpr int kOpMBox = 0, kOpSphere = 1, kOpBox = 2, kOpTorus = 3,
               kOpPlane = 4, kOpUnion = 5, kOpIntersection = 6,
               kOpSubtraction = 7, kOpSmoothUnion = 8, kOpTranslate = 9,
-              kOpScale = 10, kOpRounded = 11, kOpPop = 12, kOpPopScale = 13;
+              kOpScale = 10, kOpRounded = 11, kOpPop = 12, kOpPopScale = 13,
+              kOpExpr = 14;
 // The most distances, and the most saved points, the Tape kernels hold at
 // once in per-thread arrays (ops/sdf.py DEPTH_CAP); a deeper program runs
 // the DeepTape kernels (deep_tape_de).
@@ -371,6 +372,225 @@ __device__ __forceinline__ float deep_tape_de(const DeepSdf& s, int inst,
   return d[0];
 }
 
+// ------------------------------------------ closure expression programs
+// A kernel-ready user-written closure (ops/sdf_expr.py lower_closure) is
+// one leaf op of the tape, kOpExpr: its op word holds the count of the
+// words that follow it (code >> 8): a header (its operand count in bits
+// 0-7, its result's source in bits 8-15) and its instruction words. A
+// word holds the opcode in bits 0-7, the destination register in 8-15
+// and the sources a and b in 16-23 and 24-31; kXWhere's third source is
+// the low byte of the next word. A source s is the point's x, y, z for s
+// < 3, register s - 3 for s < 128, else operand s - 128 of the closure's
+// operands (its parameters and constants). Each op does what the torch op
+// it stands for does on the card (ops/sdf_expr.py).
+constexpr int kXMov = 0, kXNeg = 1, kXAbs = 2, kXSqrt = 3, kXFloor = 4,
+              kXSin = 5, kXCos = 6, kXExp = 7, kXLog = 8, kXRecip = 9,
+              kXNot = 10, kXAdd = 16, kXSub = 17, kXMul = 18, kXDiv = 19,
+              kXDivS = 20, kXMin = 21, kXMax = 22, kXPow = 23, kXPowS = 24,
+              kXLt = 25, kXLe = 26, kXGt = 27, kXGe = 28, kXEq = 29,
+              kXNe = 30, kXAnd = 31, kXOr = 32, kXWhere = 33;
+
+// torch's CUDA pow of a tensor by a number (PowKernel.cu): its special
+// exponents, else powf.
+__device__ __forceinline__ float torch_pow_scalar(float a, float e) {
+  if (e == 0.0f) return 1.0f;
+  if (e == 1.0f) return a;
+  if (e == 0.5f) return sqrtf(a);
+  if (e == -0.5f) return rsqrtf(a);
+  if (e == -1.0f) return 1.0f / a;
+  if (e == 2.0f) return a * a;
+  if (e == 3.0f) return a * a * a;
+  if (e == -2.0f) return 1.0f / (a * a);
+  return powf(a, e);
+}
+
+// The value of source s: x, y, z, a register (row s - 3 of the thread's
+// registers r, n floats apart) or an operand.
+__device__ __forceinline__ float expr_src(int s, const float* q,
+                                          const float* r, long long n,
+                                          float x, float y, float z) {
+  if (s >= 128) return __ldg(q + (s - 128));
+  if (s >= 3) return r[(s - 3) * n];
+  return s == 0 ? x : (s == 1 ? y : z);
+}
+
+// Runs the `count` instruction words at w over the point (x, y, z) with
+// operands q and registers r; returns the result's source.
+__device__ __forceinline__ float expr_run(const int* w, int count,
+                                          const float* q, float* r,
+                                          long long n, float x, float y,
+                                          float z, int result) {
+  for (int i = 0; i < count; ++i) {
+    const unsigned c = (unsigned)__ldg(w + i);
+    const float a = expr_src((c >> 16) & 0xffu, q, r, n, x, y, z);
+    const float b = expr_src(c >> 24, q, r, n, x, y, z);
+    float v;
+    switch (c & 0xffu) {
+      case kXMov: v = a; break;
+      case kXNeg: v = -a; break;
+      case kXAbs: v = fabsf(a); break;
+      case kXSqrt: v = sqrtf(a); break;
+      case kXFloor: v = floorf(a); break;
+      case kXSin: v = sinf(a); break;
+      case kXCos: v = cosf(a); break;
+      case kXExp: v = expf(a); break;
+      case kXLog: v = logf(a); break;
+      case kXRecip: v = 1.0f / a; break;
+      case kXNot: v = a == 0.0f ? 1.0f : 0.0f; break;
+      case kXAdd: v = a + b; break;
+      case kXSub: v = a - b; break;
+      case kXMul: v = a * b; break;
+      case kXDiv: v = a / b; break;
+      case kXDivS: v = a * (1.0f / b); break;  // torch's t / c on CUDA
+      case kXMin: v = nmin(a, b); break;
+      case kXMax: v = nmax(a, b); break;
+      case kXPow: v = powf(a, b); break;
+      case kXPowS: v = torch_pow_scalar(a, b); break;
+      case kXLt: v = a < b ? 1.0f : 0.0f; break;
+      case kXLe: v = a <= b ? 1.0f : 0.0f; break;
+      case kXGt: v = a > b ? 1.0f : 0.0f; break;
+      case kXGe: v = a >= b ? 1.0f : 0.0f; break;
+      case kXEq: v = a == b ? 1.0f : 0.0f; break;
+      case kXNe: v = a != b ? 1.0f : 0.0f; break;
+      case kXAnd: v = (a != 0.0f && b != 0.0f) ? 1.0f : 0.0f; break;
+      case kXOr: v = (a != 0.0f || b != 0.0f) ? 1.0f : 0.0f; break;
+      case kXWhere: {
+        const float e = expr_src(__ldg(w + ++i) & 0xff, q, r, n, x, y, z);
+        v = a != 0.0f ? b : e;
+        break;
+      }
+      default: v = nan_f(); break;
+    }
+    r[(int)(((c >> 8) & 0xffu) - 3u) * n] = v;
+  }
+  return expr_src(result, q, r, n, x, y, z);
+}
+
+// deep_tape_de with the closure leaf op, kOpExpr: its registers follow
+// the stacks in the thread's slots of the scratch (the host sizes it for
+// depth + 3 * points + the most registers any closure holds).
+__device__ __forceinline__ float expr_tape_de(const DeepSdf& s, int inst,
+                                              float x, float y, float z) {
+  const SdfInst& in = s.inst[inst];
+  const int* op = s.ops + in.op0;
+  const float* q = s.prm + in.prm0;
+  const long long n = s.slots;
+  float* const d =
+      s.deep + ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  float* const sx = d + s.depth * n;
+  float* const sy = sx + s.points * n;
+  float* const sz = sy + s.points * n;
+  float* const r = sz + s.points * n;
+  int nd = 0, np = 0;
+  for (int k = 0; k < in.n_ops; ++k) {
+    const int code = __ldg(op + k);
+    switch (code & 0xff) {
+      case kOpMBox: {
+        const MBox mb{code >> 8, __ldg(q), __ldg(q + 1), __ldg(q + 2),
+                      __ldg(q + 3)};
+        q += 4;
+        d[(nd++) * n] = mandelbox_de(mb, x, y, z);
+        break;
+      }
+      case kOpSphere:
+        d[(nd++) * n] = sqrtf(x * x + y * y + z * z) - __ldg(q);
+        q += 1;
+        break;
+      case kOpBox: {
+        const float qx = fabsf(x) - __ldg(q), qy = fabsf(y) - __ldg(q + 1),
+                    qz = fabsf(z) - __ldg(q + 2);
+        q += 3;
+        const float mx = nmax(qx, 0.0f), my = nmax(qy, 0.0f),
+                    mz = nmax(qz, 0.0f);
+        const float outside = sqrtf(mx * mx + my * my + mz * mz);
+        d[(nd++) * n] = outside + nmin(nmax(qx, nmax(qy, qz)), 0.0f);
+        break;
+      }
+      case kOpTorus: {
+        const float qx = sqrtf(x * x + z * z) - __ldg(q);
+        d[(nd++) * n] = sqrtf(qx * qx + y * y) - __ldg(q + 1);
+        q += 2;
+        break;
+      }
+      case kOpPlane:
+        d[(nd++) * n] =
+            x * __ldg(q) + y * __ldg(q + 1) + z * __ldg(q + 2) + __ldg(q + 3);
+        q += 4;
+        break;
+      case kOpUnion:
+        --nd;
+        d[(nd - 1) * n] = nmin(d[(nd - 1) * n], d[nd * n]);
+        break;
+      case kOpIntersection:
+        --nd;
+        d[(nd - 1) * n] = nmax(d[(nd - 1) * n], d[nd * n]);
+        break;
+      case kOpSubtraction:
+        --nd;
+        d[(nd - 1) * n] = nmax(d[(nd - 1) * n], -d[nd * n]);
+        break;
+      case kOpSmoothUnion: {
+        const float kk = __ldg(q);
+        q += 1;
+        --nd;
+        const float d1 = d[(nd - 1) * n], d2 = d[nd * n];
+        const float h = nmin(nmax(0.5f + 0.5f * (d2 - d1) / kk, 0.0f), 1.0f);
+        d[(nd - 1) * n] = d2 + (d1 - d2) * h - kk * h * (1.0f - h);
+        break;
+      }
+      case kOpTranslate:
+        sx[np * n] = x;
+        sy[np * n] = y;
+        sz[np * n] = z;
+        ++np;
+        x = x - __ldg(q);
+        y = y - __ldg(q + 1);
+        z = z - __ldg(q + 2);
+        q += 3;
+        break;
+      case kOpScale: {
+        sx[np * n] = x;
+        sy[np * n] = y;
+        sz[np * n] = z;
+        ++np;
+        const float f = __ldg(q);
+        q += 1;
+        x = x / f;
+        y = y / f;
+        z = z / f;
+        break;
+      }
+      case kOpRounded:
+        d[(nd - 1) * n] = d[(nd - 1) * n] - __ldg(q);
+        q += 1;
+        break;
+      case kOpPop:
+        --np;
+        x = sx[np * n];
+        y = sy[np * n];
+        z = sz[np * n];
+        break;
+      case kOpPopScale:
+        --np;
+        x = sx[np * n];
+        y = sy[np * n];
+        z = sz[np * n];
+        d[(nd - 1) * n] = d[(nd - 1) * n] * __ldg(q);
+        q += 1;
+        break;
+      case kOpExpr: {
+        const int words = code >> 8, head = __ldg(op + k + 1);
+        d[(nd++) * n] = expr_run(op + k + 2, words - 1, q, r, n, x, y, z,
+                                 (head >> 8) & 0xff);
+        q += head & 0xff;
+        k += words;
+        break;
+      }
+    }
+  }
+  return d[0];
+}
+
 // The SDF kinds a DE-reading kernel is instantiated for. MBoxOnly: the one
 // bare MandelBox of the scene, its DE inlined as before programs existed
 // (one instance, `inst` unused). Tape: any number of instances, each any
@@ -400,6 +620,16 @@ struct DeepTapeSdf {
                                              int inst, float x, float y,
                                              float z) {
     return deep_tape_de(static_cast<const DeepSdf&>(s), inst, x, y, z);
+  }
+};
+
+// ExprTape: as DeepTape, with kernel-ready closures (expr_tape_de).
+struct ExprTapeSdf {
+  static constexpr bool kTape = true;
+  __device__ static __forceinline__ float de(const MBox&, const Sdf& s,
+                                             int inst, float x, float y,
+                                             float z) {
+    return expr_tape_de(static_cast<const DeepSdf&>(s), inst, x, y, z);
   }
 };
 

@@ -297,6 +297,17 @@ __global__ void __launch_bounds__(128)
       t.a, t.sdf, RelaxedMarch{t.a.relax, 0.0f, 0.0f});
 }
 
+__global__ void __launch_bounds__(128)
+    march_expr_kernel(const DeepTaped<MarchArgs> t) {
+  march_refill<PlainMarch, ExprTapeSdf>(t.a, t.sdf, PlainMarch{});
+}
+
+__global__ void __launch_bounds__(128)
+    march_relaxed_expr_kernel(const DeepTaped<MarchArgs> t) {
+  march_refill<RelaxedMarch, ExprTapeSdf>(
+      t.a, t.sdf, RelaxedMarch{t.a.relax, 0.0f, 0.0f});
+}
+
 // Appends the id of every active segment to the queue.
 __global__ void __launch_bounds__(128) enqueue_kernel(const EnqueueArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -363,6 +374,26 @@ __global__ void __launch_bounds__(128) occl_march_first_de_deep_kernel(
       AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
 }
 
+// And for a scene with a kernel-ready closure.
+__global__ void __launch_bounds__(128) occl_march_expr_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, false, ExprTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) occl_march_relaxed_expr_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, RelaxedStep, false, ExprTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
+}
+
+__global__ void __launch_bounds__(128) occl_march_first_de_expr_kernel(
+    const DeepTaped<OcclMarchArgs> t) {
+  refill_march<AosSegments, PlainStep, true, ExprTapeSdf>(
+      AosSegments{t.a.start, t.a.end}, t.a.q, t.sdf, PlainStep{});
+}
+
 }  // namespace rayn
 
 // Blocks an SM of the closest-hit march's persistent grid (0: as many as
@@ -375,12 +406,17 @@ __global__ void __launch_bounds__(128) occl_march_first_de_deep_kernel(
 // Persistent (launch_persistent): every block runs until all rays are
 // taken; plain steps at relax 1, relaxed ones otherwise; the *_tape_*
 // instantiations for any program but a bare MandelBox, the *_deep_* ones
-// for a program deeper than kSdfDepth.
+// for a program deeper than kSdfDepth, the *_expr_* ones for a
+// kernel-ready closure.
 extern "C" cudaError_t rayn_march(
     const rayn::DeepTaped<rayn::MarchArgs>* args, cudaStream_t stream) {
   const rayn::MarchArgs& a = args->a;
   if (a.n <= 0) return cudaSuccess;
   const bool plain = a.relax == 1.0f;
+  if (args->sdf.tape == 3)
+    return rayn::launch_persistent(
+        plain ? rayn::march_expr_kernel : rayn::march_relaxed_expr_kernel,
+        *args, a.n, stream, RAYN_MARCH_BLOCKS_PER_SM);
   if (args->sdf.tape == 2)
     return rayn::launch_persistent(
         plain ? rayn::march_deep_kernel : rayn::march_relaxed_deep_kernel,
@@ -405,11 +441,18 @@ extern "C" cudaError_t rayn_enqueue(const rayn::EnqueueArgs* args,
 // Persistent (launch_persistent); the first-DE entry where first_de is
 // set, else plain steps at relax 1 and relaxed ones otherwise; the *_tape_*
 // instantiations for any program but a bare MandelBox, the *_deep_* ones
-// for a program deeper than kSdfDepth.
+// for a program deeper than kSdfDepth, the *_expr_* ones for a
+// kernel-ready closure.
 extern "C" cudaError_t rayn_occl_march(
     const rayn::DeepTaped<rayn::OcclMarchArgs>* args, cudaStream_t stream) {
   const rayn::OcclMarchArgs& a = args->a;
   if (a.q.m <= 0) return cudaSuccess;
+  if (args->sdf.tape == 3)
+    return rayn::launch_persistent(
+        a.first_de          ? rayn::occl_march_first_de_expr_kernel
+        : a.q.relax == 1.0f ? rayn::occl_march_expr_kernel
+                            : rayn::occl_march_relaxed_expr_kernel,
+        *args, a.q.m, stream);
   if (args->sdf.tape == 2)
     return rayn::launch_persistent(
         a.first_de          ? rayn::occl_march_first_de_deep_kernel

@@ -610,6 +610,20 @@ __global__ void __launch_bounds__(128) shadow_march_relaxed_deep_kernel(
       RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
 }
 
+// And for a scene with a kernel-ready closure.
+__global__ void __launch_bounds__(128) shadow_march_expr_kernel(
+    const DeepTaped<SegMarchArgs> t) {
+  refill_march<SoaSegments, PlainStep, false, ExprTapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf, PlainStep{});
+}
+
+__global__ void __launch_bounds__(128) shadow_march_relaxed_expr_kernel(
+    const DeepTaped<SegMarchArgs> t) {
+  refill_march<SoaSegments, RelaxedStep, false, ExprTapeSdf>(
+      SoaSegments{t.a.geom, t.a.q.m}, t.a.q, t.sdf,
+      RelaxedStep{t.a.q.relax, 0.0f, 0.0f});
+}
+
 // k * visible of ray i's segments, summed from 0 in the JAX order (NEE
 // 0..L-1, then volume sites march-major): the radiance delta.
 __device__ __forceinline__ void segment_sum(const SumCols& c, long long n,
@@ -889,6 +903,16 @@ __global__ void __launch_bounds__(128)
   shadow_sort_key<true, DeepTapeSdf>(t.a, t.sdf);
 }
 
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_expr_kernel(const DeepTaped<KeyArgs> t) {
+  shadow_sort_key<false, ExprTapeSdf>(t.a, t.sdf);
+}
+
+__global__ void __launch_bounds__(128)
+    shadow_sort_key_anim_expr_kernel(const DeepTaped<KeyArgs> t) {
+  shadow_sort_key<true, ExprTapeSdf>(t.a, t.sdf);
+}
+
 }  // namespace rayn
 
 extern "C" cudaError_t rayn_shadow_segments(const rayn::SegArgs* args,
@@ -906,12 +930,19 @@ extern "C" cudaError_t rayn_queue_segments(const rayn::SegArgs* args,
 }
 
 // Persistent (launch_persistent); plain steps at relax 1, else relaxed;
-// the *_tape_* instantiations for any SDF but one bare MandelBox.
+// the *_tape_* instantiations for any SDF but one bare MandelBox, the
+// *_deep_* ones for a program deeper than kSdfDepth, the *_expr_* ones for
+// a kernel-ready closure.
 extern "C" cudaError_t rayn_shadow_march(
     const rayn::DeepTaped<rayn::SegMarchArgs>* args, cudaStream_t stream) {
   const rayn::SegMarchArgs& a = args->a;
   if (a.q.m <= 0) return cudaSuccess;
   const bool plain = a.q.relax == 1.0f;
+  if (args->sdf.tape == 3)
+    return rayn::launch_persistent(
+        plain ? rayn::shadow_march_expr_kernel
+              : rayn::shadow_march_relaxed_expr_kernel,
+        *args, a.q.m, stream);
   if (args->sdf.tape == 2)
     return rayn::launch_persistent(
         plain ? rayn::shadow_march_deep_kernel
@@ -969,7 +1000,12 @@ extern "C" cudaError_t rayn_shadow_sort_key(
   if (a.n <= 0) return cudaSuccess;
   const bool anim = rayn::animated(a.sc);
   const unsigned blocks = rayn::blocks_of(a.n, 128);
-  if (args->sdf.tape == 2) {
+  if (args->sdf.tape == 3) {
+    void (*kernel)(rayn::DeepTaped<rayn::KeyArgs>) =
+        anim ? rayn::shadow_sort_key_anim_expr_kernel
+             : rayn::shadow_sort_key_expr_kernel;
+    kernel<<<blocks, 128, 0, stream>>>(*args);
+  } else if (args->sdf.tape == 2) {
     void (*kernel)(rayn::DeepTaped<rayn::KeyArgs>) =
         anim ? rayn::shadow_sort_key_anim_deep_kernel
              : rayn::shadow_sort_key_deep_kernel;

@@ -16,7 +16,9 @@ CUDA kernels and plain twins (csrc/intersect.cu).
 
 Both take every SDF instance of the scene: one bare MandelBox launches
 the kernels' MBoxOnly instantiations, anything else their Tape ones
-(csrc/common.cuh tape_de). Both take each ray's time: in a scene whose
+(csrc/common.cuh tape_de), a program deeper than sdf.DEPTH_CAP their
+DeepTape ones and a scene with a kernel-ready closure their ExprTape
+ones (_build.sdf_args). Both take each ray's time: in a scene whose
 sphere centers are animated the kernels (their `_anim_kernel`
 instantiations) and the twins take every center at the ray's time, the
 lerp of its knots; a constant scene never reads the time.
@@ -38,7 +40,7 @@ from rayn_tpu_torch._build import MBox, check, device_of
 from rayn_tpu_torch.ops import march as march_ops
 from rayn_tpu_torch.ops.intersect import Hit, ShadingInfo
 from rayn_tpu_torch.ops import spheres as sphere_ops
-from rayn_tpu_torch.ops.sdf import TETRA_TAPS, dist, dist_c
+from rayn_tpu_torch.ops.sdf import TETRA_TAPS, dist, dist_c, kernel_ready
 from rayn_tpu_torch.ops.spheres import MISS
 from rayn_tpu_torch.scene.animation import need_time, rows_at
 from rayn_tpu_torch.scene.scene import sphere_center_of
@@ -193,7 +195,10 @@ def intersect_cost_key_plain(data, static, settings, origin, direction,
         bound = full
     key = torch.zeros_like(bound)
     for prog, _mat, _bv in static.sdf_instances(data):
-        d0 = dist(prog, origin)
+        # JAX's key reads a closure's point form; the kernel's, the fn_c
+        # it lowers (the key only orders chunks)
+        d0 = (dist_c(prog, *origin.unbind(-1)) if kernel_ready(prog)
+              else dist(prog, origin))
         est = torch.clamp(bound / torch.clamp(d0, min=1e-6),
                           max=float(settings.max_marches))
         ok = alive & ~torch.isnan(d0)

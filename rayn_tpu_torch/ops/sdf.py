@@ -18,12 +18,17 @@ tape_run), of any depth.
 
 A user-written program is an `SdfProgram(fn, params, fn_c, reduce_fn)`,
 JAX's type with torch code: `fn(params, p [..., 3])` is its point-form
-DE and `params` any nest of tensors and floats. No kernel can evaluate
-it (that would take a code generator), so it has no tape: an instance of
-it marches with ops/march.py, and a scene that holds one takes the
-unfused route without the fused kernels, as JAX routes a program with no
-`fn_c` (`kernel_ready`, render/integrator.py). A library combinator may
-hold one; the whole program is then a closure program.
+DE and `params` any nest of tensors and floats. A closure with a
+component-form `fn_c` and scalar parameter leaves (JAX's `_pallas_ok`
+rule) whose `fn_c` lowers to an expression program (ops/sdf_expr.py
+lower_closure) is kernel-ready: its tape is one leaf op, OP_EXPR, that
+runs the program on the current point, and the ExprTape kernels
+(csrc/common.cuh expr_tape_de) evaluate it. Any other closure has no
+tape: an instance of it marches with ops/march.py, and a scene that
+holds one takes the unfused route without the fused kernels, as JAX
+routes a program with no `fn_c` (`refusal`, render/integrator.py). A
+library combinator may hold a closure, and is kernel-ready when every
+closure in it is.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from rayn_tpu_torch.ops import sdf_expr
 from rayn_tpu_torch.utils import vecmath
 from rayn_tpu_torch.utils.vecmath import div as _div
 from rayn_tpu_torch.utils.vecmath import sqrt as _sqrt
@@ -210,13 +216,49 @@ def check(prog):
     return prog
 
 
+def refusal(prog) -> Optional[str]:
+    """Why no kernel evaluates the program, completing "SDF instance i
+    ...", or None: a closure without fn_c or with a non-scalar parameter
+    leaf (JAX's reasons, rayn_tpu/ops/shade_pallas.py:177-193), or one
+    whose fn_c does not lower to an expression program (the port's own
+    limit; lower_closure warns once with the reason); a combinator the
+    first refusal among its children."""
+    if type(check(prog)) is SdfProgram:
+        if prog.fn_c is None:
+            return "has no component-form fn_c"
+        if sdf_expr.leaf_kinds(prog.params) is None:
+            return "has non-scalar parameter leaves"
+        try:
+            sdf_expr.lower_closure(prog)
+        except sdf_expr.Refused as e:
+            return f"has a fn_c that no CUDA kernel runs ({e})"
+        return None
+    for c in _children(prog):
+        why = refusal(c)
+        if why is not None:
+            return why
+    return None
+
+
 def kernel_ready(prog) -> bool:
-    """Whether the kernels can evaluate the program: it holds no
-    user-written SdfProgram (JAX's `_pallas_ok` on a program with fn_c,
-    rayn_tpu/ops/intersect.py:33-41)."""
-    if type(prog) is SdfProgram:
-        return False
-    return all(kernel_ready(c) for c in _children(check(prog)))
+    """Whether the kernels can evaluate the program: every user-written
+    closure in it is kernel-ready (`refusal`; JAX's `_pallas_ok`,
+    rayn_tpu/ops/intersect.py:33-41, and a fn_c that lowers)."""
+    return refusal(prog) is None
+
+
+def cache_key(prog):
+    """A hashable key of the program and its parameter values: a closure
+    by its functions, its params' structure and each leaf (a number's
+    float32 value, a tensor by identity and version)."""
+    if type(check(prog)) is SdfProgram:
+        vals = tuple((v, v._version) if isinstance(v, torch.Tensor)
+                     else (type(v).__name__, _f32(v))
+                     for v in param_leaves(prog.params))
+        return ("SdfProgram", prog.fn, prog.fn_c, prog.reduce_fn,
+                sdf_expr.params_structure(prog.params), vals)
+    return (type(prog).__name__,) + tuple(
+        cache_key(v) if isinstance(v, PROGRAM_TYPES) else v for v in prog)
 
 
 def param_leaves(x) -> list:
@@ -432,6 +474,11 @@ def tetrahedral_normal(prog, p: torch.Tensor,
 OP_MBOX, OP_SPHERE, OP_BOX, OP_TORUS, OP_PLANE = 0, 1, 2, 3, 4
 OP_UNION, OP_INTERSECTION, OP_SUBTRACTION, OP_SMOOTH_UNION = 5, 6, 7, 8
 OP_TRANSLATE, OP_SCALE, OP_ROUNDED, OP_POP, OP_POP_SCALE = 9, 10, 11, 12, 13
+# A kernel-ready closure: the op word holds, above its low byte, the count
+# of words that follow it inline: a header (its operand count in bits
+# 0-7, its result's source in bits 8-15) and its expression program's
+# instruction words (ops/sdf_expr.py). Its operands are the program's.
+OP_EXPR = 14
 # The most distances, and the most saved points, the Tape kernels hold at
 # once (csrc/common.cuh kSdfDepth: fixed arrays per thread); a deeper
 # program runs the DeepTape kernels, whose stacks live in a device
@@ -446,11 +493,14 @@ BINARY_OP = {Union: OP_UNION, Intersection: OP_INTERSECTION,
 
 class Tape(NamedTuple):
     """A program as the kernels read it: postfix op words and their
-    operands, and the deepest the distance and point stacks get."""
+    operands, the deepest the distance and point stacks get, and the
+    registers its closures' expression programs hold at once (0: it
+    holds no closure)."""
     ops: tuple        # int32 op words
     operands: tuple   # float32 operands, in op order
     depth: int        # distances held at once
     points: int       # points saved at once
+    regs: int = 0     # expression registers
 
 
 def _emit(prog, ops, prm):
@@ -485,17 +535,28 @@ def _emit(prog, ops, prm):
         ops.append(OP_ROUNDED)
         prm.append(prog.radius)
     else:
-        check(prog)
-        raise NotImplementedError(
-            "a user-written SdfProgram has no tape: no kernel evaluates it "
-            "(it marches with ops/march.py)")
+        why = refusal(prog)
+        if why is not None:
+            raise NotImplementedError(
+                f"a user-written SdfProgram that {why} has no tape: no "
+                "kernel evaluates it (it marches with ops/march.py)")
+        ex = sdf_expr.lower_closure(prog)
+        ops.append(OP_EXPR | (len(ex.words) + 1) << 8)
+        ops.append(len(ex.operands) | ex.result << 8)
+        ops.extend(ex.words)
+        prm.extend(sdf_expr.operand_values(ex, param_leaves(prog.params)))
 
 
 def _depths(ops) -> tuple[int, int]:
     depth = points = nd = np_ = 0
-    for code in ops:
-        op = code & 0xFF
-        if op in LEAF_OP.values():
+    k = 0
+    while k < len(ops):
+        code, op = ops[k], ops[k] & 0xFF
+        k += 1
+        if op == OP_EXPR:
+            nd += 1
+            k += code >> 8
+        elif op in LEAF_OP.values():
             nd += 1
         elif op in BINARY_OP.values():
             nd -= 1
@@ -507,10 +568,18 @@ def _depths(ops) -> tuple[int, int]:
     return depth, points
 
 
+def _closures(prog) -> list:
+    if type(prog) is SdfProgram:
+        return [prog]
+    return [c for v in _children(prog) for c in _closures(v)]
+
+
 def tape(prog) -> Tape:
     """The program as postfix op words and operands, of any depth.
-    Raises NotImplementedError for anything but a program of the
-    library's types."""
+    Raises NotImplementedError for a program that is not kernel-ready
+    (`refusal`)."""
     ops, prm = [], []
     _emit(check(prog), ops, prm)
-    return Tape(tuple(ops), tuple(prm), *_depths(ops))
+    regs = max((sdf_expr.lower_closure(c).regs for c in _closures(prog)),
+               default=0)
+    return Tape(tuple(ops), tuple(prm), *_depths(ops), regs)

@@ -4,23 +4,25 @@
 One bounce at depth d:
 1. at d >= 1 with `use_pallas`, the pre-intersect chunk cost sort
    (`sorted_intersect`), its key from the cost-key kernel (in torch, as
-   JAX's XLA key, in a scene with a user-written closure);
+   JAX's XLA key, in a scene with a closure no kernel evaluates,
+   sdf.refusal);
 2. closest hit + shading info: the fused intersect kernel, or the
    unfused intersect.closest_hit (the march kernel, or at relax 1 with
    `march_sort_steps` the two-phase march_sorted; the torch march for an
    instance the kernels do not take, `intersect.kernel_march_ok`) +
    shading_info where `_fused_ok` fails (JAX's fused_intersect_ok):
    without `use_pallas` or `use_fused_intersect`, with relaxed marching
-   or a closure;
+   or a closure no kernel evaluates (a closure whose fn_c lowers to an
+   expression program runs in the kernels, ops/sdf_expr.py);
 3. per-lane shading values (`_derive_shading`; a material's albedo
    function, SceneStatic.mat_param_fns, replaces its color_a there, so
    every tail reads the per-point albedo as a per-lane column); at d = 0
    the extra AOVs (render/aovs.py) of the receiving lanes;
 4. the bounce tail, chosen as JAX chooses it:
    - fused (`_fused_ok`, JAX's fused_ok: `use_pallas_occlusion`,
-     `use_fused_shadows`, plain marching, no closure): in a scene with
-     lights, at d >= 1 the shadow sort-key kernel and the chunk sort
-     (`sorted_shadow_march`); then one of
+     `use_fused_shadows`, plain marching, every closure kernel-ready): in
+     a scene with lights, at d >= 1 the shadow sort-key kernel and the
+     chunk sort (`sorted_shadow_march`); then one of
      - the bounce-tail kernel (NEE, volume scattering, emission,
        scatter, roulette, AOVs, termination), with `use_fused_finish`,
        `use_fused_bounce_tail` and lights;
@@ -183,18 +185,23 @@ def _eligibility_reason(s: RenderSettings, data: SceneData,
                         static: SceneStatic) -> str | None:
     """What keeps the fused kernels off in this scene, or None (JAX's
     shade_pallas._eligibility_reason): relaxed marching, or an SDF
-    instance that is a user-written closure, which no kernel evaluates
-    (JAX's kernels trace a closure's fn_c; the port cannot compile torch
-    code into them)."""
+    instance that no kernel evaluates (sdf.refusal): a user-written
+    closure without fn_c or with a non-scalar parameter leaf, as in JAX,
+    or one whose fn_c does not lower to an expression program, or whose
+    reduced shadow program (shadow_de_iterations) does not. A closure
+    that lowers runs inside the kernels (the ExprTape instantiations),
+    as JAX's Pallas kernels trace its fn_c."""
     if s.march_relaxation != 1.0:
         return "march_relaxation != 1.0 (relaxed march carries extra state)"
     for i, (prog, _mat, _bv) in enumerate(static.sdf_instances(data)):
-        if sdf_ops.kernel_ready(prog):
-            continue
-        if type(prog) is sdf_ops.SdfProgram and prog.fn_c is None:
-            return f"SDF instance {i} has no component-form fn_c"
-        return (f"SDF instance {i} is a user-written closure, which no "
-                "CUDA kernel evaluates")
+        why = sdf_ops.refusal(prog)
+        if why is None:
+            reduced = sdf_ops.reduced(prog, s.shadow_de_iterations)
+            why = sdf_ops.refusal(reduced)
+            if why is not None:
+                why = f"has a reduced shadow program that {why}"
+        if why is not None:
+            return f"SDF instance {i} {why}"
     return None
 
 
@@ -396,8 +403,9 @@ def _segment_queue_tail(data, static, s, tables, cfg, tabs, state, depth,
 def _queue_verdicts(s, cfg, segs) -> torch.Tensor:
     """[S, N] SDF verdicts of the queued segments. The instances that
     pass `intersect.kernel_occlusion_ok` take the refill march on the
-    scratch (`_kernel_verdicts`); each other one, a closure or every
-    instance without `use_pallas` or `use_pallas_occlusion`, marches
+    scratch (`_kernel_verdicts`); each other one, a closure no kernel
+    evaluates or every instance without `use_pallas` or
+    `use_pallas_occlusion`, marches
     the segments still unblocked with the torch march
     (march_cuda.march_occlusion_plain: JAX's jnp march_occlusion, at
     `march_relaxation`, with the clip that `shadow_bv_clip` sets, and at

@@ -1,6 +1,7 @@
 """Frame renderer: ray generation -> wavefront trace -> film splat (port
 of rayn_tpu.render.renderer: ray_indices, generate_rays, render_pass,
-render_frame, render_frame_resilient; reference src/film.rs:380-628).
+render_passes, render_frame, render_frame_resilient; reference
+src/film.rs:380-628).
 
 The frame's (pixel, sample) grid is flattened into one ray index space
 and rendered in passes of `rays_per_pass` rays with a plain loop; the
@@ -17,6 +18,7 @@ of each pass and the film is merged by all_reduce.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import sys
 from typing import Optional
@@ -109,6 +111,22 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
         count=in_range.to(torch.float32), spp=settings.spp, extra=aovs)
 
 
+def render_passes(film: film_mod.Film, data: SceneData, static: SceneStatic,
+                  settings: RenderSettings, tables: SampleTables,
+                  camera: Camera, fis_table: torch.Tensor, pass_start: int,
+                  pass_size: int, n_passes: int, t0: float, t1: float,
+                  sample_base: int = 0) -> film_mod.Film:
+    """Render `n_passes` consecutive passes of `pass_size` rays from ray
+    `pass_start` (rayn_tpu/render/renderer.py:148-177). The port's passes
+    are eager, so this is render_pass n_passes times, the same bits; the
+    JAX package's one fori_loop dispatch has no counterpart here."""
+    for i in range(n_passes):
+        film = render_pass(film, data, static, settings, tables, camera,
+                           fis_table, pass_start + i * pass_size, pass_size,
+                           t0, t1, sample_base)
+    return film
+
+
 def seg_passes(settings: RenderSettings, spp_seg: int,
                ranks: int = 1) -> tuple[int, int]:
     """(pass_size, n_passes) of a [*, * + spp_seg) sample segment over
@@ -184,6 +202,8 @@ def render_frame(data: SceneData, static: SceneStatic,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 4,
                  progress: Optional[callable] = None,
+                 sync_every: int = 8,
+                 passes_per_dispatch: int = 1,
                  mesh=None) -> film_mod.Film:
     """Render a full frame on the scene's device, in passes of
     `settings.rays_per_pass` rays. Frame f covers [f/frame_rate,
@@ -199,7 +219,17 @@ def render_frame(data: SceneData, static: SceneStatic,
     holds spp samples is returned as it is. `progress(done, total)` is
     called with ray counts after every pass (the reference's progress
     bar, src/film.rs:636); it reads nothing from the device. Follows
-    rayn_tpu/render/renderer.py:219-397 without its TPU dispatch batching.
+    rayn_tpu/render/renderer.py:219-397.
+
+    Passes go out in groups of up to `passes_per_dispatch`
+    (render_passes), a group clamped to checkpoint boundaries; the mesh
+    path stays one pass a group. After each group a probe (a CUDA event
+    on the film's card) is recorded, and once `sync_every` passes are in
+    flight the host waits on the oldest probe, not on the newest pass: at
+    most that many passes are queued ahead of the host. Each group's
+    passes are the same eager passes, so every setting of the two gives
+    the default's film bit for bit. `_FAIL_HOOK` and `progress` run once
+    a pass.
 
     With `mesh` (parallel.sharding.make_mesh()), every rank of the mesh
     calls render_frame with the same arguments, renders its slice of each
@@ -250,35 +280,55 @@ def render_frame(data: SceneData, static: SceneStatic,
             w * h * (st0 - sb0))
     else:
         done = grand_total
+    sync_every = max(1, sync_every)
+    group_max = max(1, passes_per_dispatch) if mesh is None else 1
+    probes = collections.deque()   # (passes, event) of groups in flight
     for sb, st, start_pass in segments:
         seg_settings = dataclasses.replace(settings, spp=st - sb)
         pass_size, n_passes = seg_passes(settings, st - sb, ranks)
-        for p in range(start_pass, n_passes):
-            if mesh is None:
-                film = render_pass(film, data, static, seg_settings, tables,
-                                   camera, fis_table, p * pass_size,
-                                   pass_size, time_range[0], time_range[1],
-                                   sample_base=sb)
-                if _FAIL_HOOK is not None:
-                    _FAIL_HOOK(p)
+        p = start_pass
+        while p < n_passes:
+            group = min(group_max, n_passes - p)
+            if checkpoint_path:
+                group = min(group, checkpoint_every - p % checkpoint_every)
+            for q in range(p, p + group):
+                if mesh is None:
+                    film = render_pass(film, data, static, seg_settings,
+                                       tables, camera, fis_table,
+                                       q * pass_size, pass_size,
+                                       time_range[0], time_range[1],
+                                       sample_base=sb)
+                    if _FAIL_HOOK is not None:
+                        _FAIL_HOOK(q)
+                else:
+                    # the hook runs in the pass body: a rank it fails still
+                    # enters the pass's all_reduce, and every rank raises
+                    film = sharding.render_pass_sharded(
+                        mesh, film, data, static, seg_settings, tables,
+                        camera, fis_table, q * pass_size, pass_size // ranks,
+                        time_range[0], time_range[1], sample_base=sb,
+                        after=None if _FAIL_HOOK is None
+                        else (lambda q=q: _FAIL_HOOK(q)))
+                done = min(done + pass_size, grand_total)
+                if progress is not None:
+                    progress(done, grand_total)
+            p += group
+            want_ckpt = checkpoint_path and (p % checkpoint_every == 0
+                                             or p == n_passes)
+            probes.append((group, _probe(film)))
+            if want_ckpt or p == n_passes:
+                waits = len(probes)   # a save reads the finished film
             else:
-                # the hook runs in the pass body: a rank it fails still
-                # enters the pass's all_reduce, and every rank raises
-                film = sharding.render_pass_sharded(
-                    mesh, film, data, static, seg_settings, tables, camera,
-                    fis_table, p * pass_size, pass_size // ranks,
-                    time_range[0], time_range[1], sample_base=sb,
-                    after=None if _FAIL_HOOK is None
-                    else (lambda p=p: _FAIL_HOOK(p)))
-            done = min(done + pass_size, grand_total)
-            if progress is not None:
-                progress(done, grand_total)
-            if checkpoint_path and ((p + 1) % checkpoint_every == 0
-                                    or p + 1 == n_passes):
+                waits = int(sum(g for g, _e in probes) >= sync_every)
+            for _ in range(waits):
+                _g, event = probes.popleft()
+                if event is not None:
+                    event.synchronize()
+            if want_ckpt:
                 err = None
                 try:
                     if mesh is None or mesh.rank == 0:
-                        ckpt.save(checkpoint_path, film, next_pass=p + 1,
+                        ckpt.save(checkpoint_path, film, next_pass=p,
                                   spp_base=sb, spp=st, **ck_key)
                 except Exception as e:
                     if mesh is None:
@@ -288,5 +338,16 @@ def render_frame(data: SceneData, static: SceneStatic,
                     # no rank runs ahead of the file it may resume from,
                     # and a failed save fails every rank here
                     sharding.agree(mesh, err, f"the checkpoint after pass "
-                                              f"{p}")
+                                              f"{p - 1}")
     return film
+
+
+def _probe(film: film_mod.Film):
+    """A CUDA event recorded after the film's last pass on its card's
+    current stream (None on the CPU, where every pass has ended)."""
+    dev = film.samples.device
+    if dev.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(dev))
+    return event

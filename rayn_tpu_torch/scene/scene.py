@@ -122,6 +122,11 @@ def light_position_of(data: SceneData, light_idx, time) -> torch.Tensor:
     return sample_batched_at(data.light_pos, light_idx, time)
 
 
+def light_positions_at(data: SceneData, time: torch.Tensor) -> torch.Tensor:
+    """[N, L, 3] light centers at each ray's time."""
+    return sample_batched(data.light_pos, time)
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -212,8 +217,9 @@ class SceneBuilder:
                 bound_radius: float = 0.0) -> None:
         """Attach THE traced SDF, replacing any added before (reference
         src/sdf.rs:12-21). `program`: any program of ops/sdf.py, of
-        any depth, or a user-written sdf.SdfProgram (which takes the
-        route without the fused kernels, as in JAX); bound_radius: the
+        any depth, or a user-written sdf.SdfProgram (in the kernels
+        when sdf.kernel_ready, else on the route without the fused
+        kernels, as in JAX without fn_c); bound_radius: the
         radius of an origin-centred sphere that contains its hit shell
         (0 = unknown: no shadow-segment clip). Anything else raises
         NotImplementedError."""

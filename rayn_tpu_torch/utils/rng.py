@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rayn_tpu_torch.config import RenderSettings
@@ -53,6 +54,22 @@ def rd_alphas_u64(dims: int) -> list[int]:
     for i in range(dims):
         frac = (1.0 / g) ** (i + 1) % 1.0
         out.append(int(round(frac * (1 << 64))) & _U64_MASK)
+    return out
+
+
+def rd_sequence(dims: int, n: int, index_offset: int) -> np.ndarray:
+    """[n, dims] float32 R_d samples from sequence index `index_offset`:
+    (idx * alpha) mod 2^64 in u64 fixed point, its top 24 bits over 2^24
+    (rayn_tpu/utils/rng.py:74; the quasi-rd crate of the reference,
+    src/sampler.rs:23-29). On the host, as in the JAX package."""
+    alphas = rd_alphas_u64(dims)
+    idx = np.arange(n, dtype=np.uint64) + np.uint64(index_offset & _U64_MASK)
+    out = np.empty((n, dims), dtype=np.float32)
+    with np.errstate(over="ignore"):
+        for d, a in enumerate(alphas):
+            vals = idx * np.uint64(a)   # wrapping u64 multiply
+            out[:, d] = (vals >> np.uint64(40)).astype(np.float64) / float(
+                1 << 24)
     return out
 
 

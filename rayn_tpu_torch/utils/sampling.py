@@ -31,6 +31,16 @@ def concentric_disk(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
+def uniform_sphere(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere, [..., 3] (reference
+    src/math.rs:85-91)."""
+    theta = u * TWO_PI
+    phi = v * 2.0 - 1.0
+    ophisq = _sqrt(torch.clamp(1.0 - phi * phi, min=0.0))
+    return torch.stack([ophisq * torch.cos(theta), ophisq * torch.sin(theta),
+                        phi], dim=-1)
+
+
 def cosine_hemisphere(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Cosine-weighted direction in local z-up space; pdf = z / pi."""
     xy = concentric_disk(u, v)

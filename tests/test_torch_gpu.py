@@ -48,7 +48,13 @@ twin bit for bit, and the default scene's MandelBox run as a one-op tape
 gives the MBoxOnly kernels' bits. With a second instance deeper than
 the Tape kernels' stacks ("deep", and "deep_animated" with animated
 lights and spheres) every such kernel runs its DeepTape instantiation,
-and equals its twin bit for bit too.
+and equals its twin bit for bit too. With a user-written closure whose
+fn_c lowers to an expression program ("expr": the torus; "expr_every":
+every IEEE-exact op of the set, in a Union with a library Sphere;
+"expr_animated") every such kernel runs its ExprTape instantiation and
+equals its twin bit for bit; a closure of sin, cos, exp, log and pow
+keeps the cost key within 16 ulps of its twin; the closure torus's fused
+film is the library Torus's.
 The route without kernels (`use_pallas=False`, `use_pallas_occlusion=
 False`) and a scene with a user-written closure give the films of the
 kernel routes they stand beside, bit for bit.
@@ -73,7 +79,7 @@ from rayn_tpu_torch.render import integrator, renderer
 from rayn_tpu_torch.scene import presets
 from rayn_tpu_torch.scene.animation import AnimChannel
 from rayn_tpu_torch.scene.scene import SceneBuilder
-from rayn_tpu_torch.utils import rng
+from rayn_tpu_torch.utils import rng, vecmath
 
 pytestmark = pytest.mark.gpu
 
@@ -98,7 +104,7 @@ def _wavefront(dev, depth, mis=False, volume=True, nee=4, knots=0,
                        max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
                        mis=mis, nee_light_samples=nee)
     if scene is not None:
-        data, static, cam = PROGRAM_SCENES[scene](dev)
+        data, static, cam = {**PROGRAM_SCENES, **WAVY_SCENE}[scene](dev)
     else:
         data, static, cam = presets.default_scene(
             resolution=RES, device=dev, volume=volume,
@@ -1161,10 +1167,73 @@ def _every_op_scene(dev):
     return (*b.build(dev), cam)
 
 
+def _torus_c(prm, x, y, z):
+    """The library Torus's DE (ops/sdf.py dist_c) as a closure's fn_c."""
+    qx = vecmath.sqrt(x * x + z * z) - prm["major"]
+    return vecmath.sqrt(qx * qx + y * y) - prm["minor"]
+
+
+def _slab_c(prm, x, y, z):
+    """A rounded slab written with every op of the expression programs
+    that rounds as IEEE arithmetic (no sin, cos, exp, log or pow)."""
+    qx = torch.abs(x) - prm["hx"]
+    qy = torch.maximum(y, -y) - prm["hy"]
+    qz = torch.abs(z) / prm["s"] * prm["s"] - prm["hz"]
+    mx = torch.clamp(qx, min=0.0)
+    my = torch.clamp(qy, 0.0, 1e9)
+    mz = torch.where(qz > 0.0, qz, 0.0)
+    outside = vecmath.sqrt(mx * mx + my ** 2 + mz * mz)
+    inside = torch.minimum(torch.maximum(qx, torch.maximum(qy, qz)),
+                           torch.zeros_like(x))
+    zero = (vecmath.div(torch.floor(x * 4.0), 400.0)
+            + 1.0 / (2.0 + x * x)) * 0.0
+    keep = (((x < 100.0) & (y <= 100.0)) | ~(z >= 100.0)
+            | (x == 1e9) | (y != y)).float()
+    return (outside + inside) * keep + zero - prm["r"]
+
+
+def _wavy_c(prm, x, y, z):
+    """The torus with a ripple made of sin, cos, exp, log and pow."""
+    d = _torus_c(prm, x, y, z)
+    ripple = torch.sin(x * prm["freq"]) * torch.cos(z * prm["freq"])
+    fade = torch.exp(-(y * y)) * torch.log(x * x + z * z + 2.0)
+    return d + prm["amp"] * ripple * torch.abs(fade) ** 1.5
+
+
+def _closure(fn_c, **params):
+    return sdf_ops.SdfProgram(
+        lambda prm, p: fn_c(prm, p[..., 0], p[..., 1], p[..., 2]), params,
+        fn_c)
+
+
+def _closure_torus():
+    return sdf_ops.translate(_closure(_torus_c, major=1.2, minor=0.1),
+                             (0.0, -2.6, 0.0))
+
+
+def _closure_slab():
+    """The slab closure in a Union with a library Sphere."""
+    slab = _closure(_slab_c, hx=2.0, hy=0.1, hz=2.0, s=3.0, r=0.05)
+    return sdf_ops.union(sdf_ops.translate(slab, (0.0, -2.6, 0.0)),
+                         sdf_ops.translate(sdf_ops.sphere(0.3),
+                                           (1.5, -2.2, 0.0)))
+
+
+def _closure_wavy():
+    return sdf_ops.translate(_closure(_wavy_c, major=1.2, minor=0.1,
+                                      freq=6.0, amp=0.02), (0.0, -2.6, 0.0))
+
+
 PROGRAM_SCENES = {
     "program": _program_scene, "every_op": _every_op_scene,
     "deep": lambda dev: _program_scene(dev, _deep()),
-    "deep_animated": lambda dev: _program_scene(dev, _deep(), knots=8)}
+    "deep_animated": lambda dev: _program_scene(dev, _deep(), knots=8),
+    "expr": lambda dev: _program_scene(dev, _closure_torus()),
+    "expr_every": lambda dev: _program_scene(dev, _closure_slab()),
+    "expr_animated": lambda dev: _program_scene(dev, _closure_torus(),
+                                                knots=8)}
+# the closure of transcendental ops, held to ulps rather than bits
+WAVY_SCENE = {"wavy": lambda dev: _program_scene(dev, _closure_wavy())}
 
 
 @pytest.mark.parametrize("depth", [0, 1])
@@ -1302,6 +1371,41 @@ def test_deep_scenes_take_the_deep_tape(cuda):
                                persistent=False)[1].slots == 1024
 
 
+def test_closure_scenes_take_the_expr_tape(cuda):
+    """The closure scenes run the ExprTape kernels (tape 3), the scratch
+    sized for the stacks and the registers."""
+    for name in ("expr", "expr_every", "expr_animated"):
+        data, static, _cam = PROGRAM_SCENES[name](cuda)
+        insts = static.sdf_instances(data)
+        tp = sdf_ops.tape(insts[1][0])
+        assert tp.regs > 0
+        sdf = _build.sdf_args(insts, cuda, 1000, persistent=False)[1]
+        assert (sdf.tape, sdf.depth, sdf.points, sdf.slots) == (
+            3, max(tp.depth, 1), tp.points, 1024)
+
+
+def _ulps(a, b):
+    """Largest distance in float32 ulps between a and b (equal NaNs 0)."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = (ia - ib).abs()
+    return int(torch.where(torch.isnan(a) & torch.isnan(b), 0, d).max())
+
+
+def test_transcendental_closure_de_within_ulps(cuda):
+    """A closure of sin, cos, exp, log and pow: the cost key kernel (one
+    DE of each instance per ray) against its twin (torch's CUDA ops),
+    within a few ulps."""
+    data, static, s, _t, state, _hps = _wavefront(cuda, 0, scene="wavy")
+    args = (data, static, s, state.origin, state.direction, state.time,
+            state.alive)
+    got = intersect_cuda.intersect_cost_key(*args)
+    want = intersect_cuda.intersect_cost_key_plain(*args)
+    assert _ulps(got, want) <= 16, _ulps(got, want)
+
+
 def _frame(data, static, cam, **change):
     s = RenderSettings(resolution=RES, spp=1, max_marches=128,
                        max_vis_marches=64, rays_per_pass=RES[0] * RES[1],
@@ -1347,3 +1451,14 @@ def test_closure_scene_matches_library_scene(cuda):
         p, (0.0, -2.6, 0.0))), use_fused_intersect=False,
         use_fused_shadows=False) for p in (closure, lib)]
     assert all(_same_bits(a, b) for a, b in zip(*films))
+
+
+def test_expr_closure_fused_film_matches_library_scene(cuda):
+    """A closure torus with fn_c runs the fused route's ExprTape kernels
+    and gives the library Torus's fused film, bit for bit."""
+    lib = sdf_ops.translate(sdf_ops.torus(1.2, 0.1), (0.0, -2.6, 0.0))
+    before = intersect_cuda.closest_hit_shading.launches
+    got = _frame(*_program_scene(cuda, _closure_torus()))
+    assert intersect_cuda.closest_hit_shading.launches > before
+    want = _frame(*_program_scene(cuda, lib))
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
