@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from rayn_tpu_torch.render.aovs import specs_for
+from rayn_tpu_torch.utils.profiling import span
 
 
 class Film(NamedTuple):
@@ -128,12 +129,17 @@ def resolve(film: Film, resolution: tuple[int, int],
     """Per-pixel means; the extras are named by settings.extra_aovs, or
     aov0, aov1, ... without settings."""
     w, h = resolution
-    cnt = np.maximum(film.samples.cpu().numpy(), 1e-8)[:, None]
+    with span("rayn.resolve.copy"):
+        cnt = film.samples.cpu().numpy()
+    with span("rayn.resolve.mean"):
+        cnt = np.maximum(cnt, 1e-8)[:, None]
 
     def mean(acc, vec: bool):
-        a = acc.cpu().numpy()
-        return (a / cnt).reshape(h, w, 3) if vec else \
-            (a / cnt[:, 0]).reshape(h, w)
+        with span("rayn.resolve.copy"):
+            a = acc.cpu().numpy()
+        with span("rayn.resolve.mean"):
+            return (a / cnt).reshape(h, w, 3) if vec else \
+                (a / cnt[:, 0]).reshape(h, w)
 
     extra = {}
     if film.extra:

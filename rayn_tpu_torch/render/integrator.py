@@ -78,6 +78,7 @@ from rayn_tpu_torch.render import aovs as aovs_mod
 from rayn_tpu_torch.scene.scene import (REFRACTIVE, SceneData, SceneStatic,
                                         light_position_of)
 from rayn_tpu_torch.utils import rng, sampling, vecmath
+from rayn_tpu_torch.utils.profiling import span
 from rayn_tpu_torch.utils.rng import SampleTables
 
 
@@ -265,43 +266,52 @@ def _bounce(data, static, settings, tables, state, depth, hps_abs0,
     if s.sorted_intersect and depth > 0 and static.has_sdf and s.use_pallas:
         chunk = _chunk_of(s, n)
         if chunk:
-            key_fn = (intersect_cuda.intersect_cost_key if all(
-                sdf_ops.kernel_ready(p) for p, _m, _b in
-                static.sdf_instances(data))
-                else intersect_cuda.intersect_cost_key_plain)
-            key = key_fn(data, static, s, state.origin, state.direction,
-                         state.time, state.alive)
-            (state,), pre_perm = _sort_tree_by_cost((state,), key, chunk)
+            with span("rayn.bounce.sort"):
+                key_fn = (intersect_cuda.intersect_cost_key if all(
+                    sdf_ops.kernel_ready(p) for p, _m, _b in
+                    static.sdf_instances(data))
+                    else intersect_cuda.intersect_cost_key_plain)
+                key = key_fn(data, static, s, state.origin, state.direction,
+                             state.time, state.alive)
+                (state,), pre_perm = _sort_tree_by_cost((state,), key, chunk)
 
-    if _fused_ok("fused intersect kernel",
-                 s.use_pallas and s.use_fused_intersect, s, data, static):
-        hit, info = intersect_cuda.closest_hit_shading(
-            data, static, s, state.origin, state.direction, hps_abs, hps_lin,
-            state.alive, state.time)
-    else:
-        t_max = torch.full((n,), 2.0 * s.world_radius, dtype=torch.float32,
-                           device=dev)
-        hit = intersect.closest_hit(data, static, s, state.origin,
-                                    state.direction, state.time, t_max,
-                                    hps_abs, hps_lin, state.alive)
-        info = intersect.shading_info(data, static, s, hit, state.origin,
-                                      state.direction, state.time, hps_abs,
-                                      hps_lin)
-    live, mat, receives, vol_trans = _derive_shading(data, static, state,
-                                                     hit, info)
-    aovs = ()
-    if depth == 0 and s.extra_aovs:
-        aovs = aovs_mod.extract(s, hit, info, mat, receives)
-    tabs = scene_tables or shade_cuda.scene_tables(data, static)
-    cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
-    if not _fused_ok("fused shadow/finish kernels",
-                     s.use_pallas_occlusion and s.use_fused_shadows, s, data,
+    with span("rayn.bounce.intersect"):
+        if _fused_ok("fused intersect kernel",
+                     s.use_pallas and s.use_fused_intersect, s, data,
                      static):
-        out = _segment_queue_tail(data, static, s, tables, cfg, tabs, state,
-                                  depth, hit, info, mat, live, receives,
-                                  vol_trans)
+            hit, info = intersect_cuda.closest_hit_shading(
+                data, static, s, state.origin, state.direction, hps_abs,
+                hps_lin, state.alive, state.time)
+        else:
+            t_max = torch.full((n,), 2.0 * s.world_radius,
+                               dtype=torch.float32, device=dev)
+            hit = intersect.closest_hit(data, static, s, state.origin,
+                                        state.direction, state.time, t_max,
+                                        hps_abs, hps_lin, state.alive)
+            info = intersect.shading_info(data, static, s, hit, state.origin,
+                                          state.direction, state.time,
+                                          hps_abs, hps_lin)
+    # the shading runs as one span, or two on the fused tail: before and
+    # after the shadow sort, which is a span of its own
+    with span("rayn.bounce.shade"):
+        live, mat, receives, vol_trans = _derive_shading(data, static, state,
+                                                         hit, info)
+        aovs = ()
+        if depth == 0 and s.extra_aovs:
+            aovs = aovs_mod.extract(s, hit, info, mat, receives)
+        tabs = scene_tables or shade_cuda.scene_tables(data, static)
+        cfg = shade_cuda.shadow_cfg(data, static, s, tables, depth)
+        fused = _fused_ok("fused shadow/finish kernels",
+                          s.use_pallas_occlusion and s.use_fused_shadows, s,
+                          data, static)
+        if not fused:
+            out = _segment_queue_tail(data, static, s, tables, cfg, tabs,
+                                      state, depth, hit, info, mat, live,
+                                      receives, vol_trans)
+    if not fused:
         if pre_perm is not None:
-            out = _unsort_state(out, pre_perm, chunk)
+            with span("rayn.bounce.unsort"):
+                out = _unsort_state(out, pre_perm, chunk)
         return out, aovs
 
     shadow_perm = None
@@ -312,43 +322,48 @@ def _bounce(data, static, settings, tables, state, depth, hps_abs0,
         # JAX does
         chunk = _chunk_of(s, n, strict=s.use_fused_finish)
         if chunk:
-            cost = shade_cuda.shadow_sort_key(
-                cfg, tabs, info.point, info.normal, info.offset_by,
-                state.origin, state.direction, hit.t, live, receives,
-                state.sample_idx, state.pixel, state.time)
-            (state, hit, info), shadow_perm = _sort_tree_by_cost(
-                (state, hit, info), cost, chunk)
-            live, mat, receives, vol_trans = _derive_shading(
-                data, static, state, hit, info)
+            with span("rayn.bounce.sort"):
+                cost = shade_cuda.shadow_sort_key(
+                    cfg, tabs, info.point, info.normal, info.offset_by,
+                    state.origin, state.direction, hit.t, live, receives,
+                    state.sample_idx, state.pixel, state.time)
+                (state, hit, info), shadow_perm = _sort_tree_by_cost(
+                    (state, hit, info), cost, chunk)
+                live, mat, receives, vol_trans = _derive_shading(
+                    data, static, state, hit, info)
 
     lit = static.n_lights > 0
-    if s.use_fused_finish and s.use_fused_bounce_tail and lit:
-        out = state._replace(**shade_cuda.bounce_tail(
-            cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
-            hit.t))
-    elif s.use_fused_finish:
-        radiance = state.radiance
-        if lit:
-            radiance = radiance + shade_cuda.shadow_radiance(
-                cfg, tabs, state, info, mat, live, receives, vol_trans,
-                hit.t)
-        out = state._replace(**shade_cuda.finish_bounce(
-            cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
-            radiance))
-    else:
-        wo = -state.direction
-        radiance = _emission(data, static, s, state, depth, hit, mat, live,
-                             wo, vol_trans)
-        if lit:
-            radiance = radiance + shade_cuda.shadow_radiance(
-                cfg, tabs, state, info, mat, live, receives, vol_trans,
-                hit.t)
-        out = _finish_bounce(s, tables, state, depth, info, mat, live,
-                             receives, wo, vol_trans, radiance)
+    with span("rayn.bounce.shade"):
+        if s.use_fused_finish and s.use_fused_bounce_tail and lit:
+            out = state._replace(**shade_cuda.bounce_tail(
+                cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
+                hit.t))
+        elif s.use_fused_finish:
+            radiance = state.radiance
+            if lit:
+                radiance = radiance + shade_cuda.shadow_radiance(
+                    cfg, tabs, state, info, mat, live, receives, vol_trans,
+                    hit.t)
+            out = state._replace(**shade_cuda.finish_bounce(
+                cfg, tabs, state, hit, info, mat, live, receives, vol_trans,
+                radiance))
+        else:
+            wo = -state.direction
+            radiance = _emission(data, static, s, state, depth, hit, mat,
+                                 live, wo, vol_trans)
+            if lit:
+                radiance = radiance + shade_cuda.shadow_radiance(
+                    cfg, tabs, state, info, mat, live, receives, vol_trans,
+                    hit.t)
+            out = _finish_bounce(s, tables, state, depth, info, mat, live,
+                                 receives, wo, vol_trans, radiance)
     perm = pre_perm
     if shadow_perm is not None:
         perm = shadow_perm if perm is None else perm[shadow_perm]
-    return (out if perm is None else _unsort_state(out, perm, chunk)), aovs
+    if perm is None:
+        return out, aovs
+    with span("rayn.bounce.unsort"):
+        return _unsort_state(out, perm, chunk), aovs
 
 
 def _emission(data, static, s, state, depth, hit, mat, live, wo, vol_trans):
@@ -559,14 +574,18 @@ def trace(data: SceneData, static: SceneStatic, settings: RenderSettings,
     tabs = shade_cuda.scene_tables(data, static)
     lanes, aovs = None, ()   # lane i of `state` is input lane lanes[i]
     for depth in range(settings.max_bounces + 1):
-        if depth > 0 and settings.compact_bounces:
-            order = compact_order(state.alive)
-            state = _take(state, order)
-            lanes = order if lanes is None else lanes[order]
-        state, out = _bounce(data, static, settings, tables, state, depth,
-                             hps_abs0, hps_lin0, scene_tables=tabs)
+        with span("rayn.bounce"):
+            if depth > 0 and settings.compact_bounces:
+                with span("rayn.bounce.compact"):
+                    order = compact_order(state.alive)
+                    state = _take(state, order)
+                    lanes = order if lanes is None else lanes[order]
+            state, out = _bounce(data, static, settings, tables, state,
+                                 depth, hps_abs0, hps_lin0,
+                                 scene_tables=tabs)
         if depth == 0:
             aovs = out
     if lanes is not None:
-        state = _take(state, _inverse(lanes))
+        with span("rayn.bounce.compact"):
+            state = _take(state, _inverse(lanes))
     return state, aovs

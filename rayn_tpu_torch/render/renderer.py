@@ -33,6 +33,7 @@ from rayn_tpu_torch.render.camera import Camera
 from rayn_tpu_torch.render.integrator import init_state, trace
 from rayn_tpu_torch.scene.scene import SceneData, SceneStatic
 from rayn_tpu_torch.utils import rng
+from rayn_tpu_torch.utils.profiling import span
 from rayn_tpu_torch.utils.rng import SampleTables
 from rayn_tpu_torch.utils.vecmath import div
 
@@ -98,17 +99,22 @@ def render_pass(film: film_mod.Film, data: SceneData, static: SceneStatic,
         raise ValueError(
             "film was created without the configured extra AOVs: build it "
             "with film.new_film(n_pixels, device, settings)")
-    ray_idx = ray_indices(pass_start, pass_size, fis_table.device)
-    origin, direction, time, pixel, sample_idx, in_range = generate_rays(
-        settings, tables, camera, fis_table, ray_idx, t0, t1, sample_base)
-    hps_abs0, hps_lin0 = camera.half_pixel_size_coeffs()
-    state = init_state(origin, direction, time, pixel, sample_idx, in_range)
-    state, aovs = trace(data, static, settings, tables, state, hps_abs0,
-                        hps_lin0)
-    return film_mod.splat(
-        film, pass_start, color=state.color_out, alpha=state.alpha_out,
-        background=state.bg_out, normal=state.normal_out,
-        count=in_range.to(torch.float32), spp=settings.spp, extra=aovs)
+    with span("rayn.pass.rays"):
+        ray_idx = ray_indices(pass_start, pass_size, fis_table.device)
+        origin, direction, time, pixel, sample_idx, in_range = generate_rays(
+            settings, tables, camera, fis_table, ray_idx, t0, t1,
+            sample_base)
+        hps_abs0, hps_lin0 = camera.half_pixel_size_coeffs()
+        state = init_state(origin, direction, time, pixel, sample_idx,
+                           in_range)
+    with span("rayn.pass.trace"):
+        state, aovs = trace(data, static, settings, tables, state, hps_abs0,
+                            hps_lin0)
+    with span("rayn.pass.splat"):
+        return film_mod.splat(
+            film, pass_start, color=state.color_out, alpha=state.alpha_out,
+            background=state.bg_out, normal=state.normal_out,
+            count=in_range.to(torch.float32), spp=settings.spp, extra=aovs)
 
 
 def render_passes(film: film_mod.Film, data: SceneData, static: SceneStatic,
@@ -249,27 +255,31 @@ def render_frame(data: SceneData, static: SceneStatic,
     if time_range is None:
         start = frame / frame_rate
         time_range = (start, start + shutter_speed)
-    tables = rng.build_sample_tables(settings, frame)
-    ck_key = checkpoint_key(data, static, settings, camera, frame,
-                            time_range,
-                            filter or filter_ops.blackman_harris(1.5), ranks)
-    fis_table = ck_key["fis_table"]
+    with span("rayn.frame.setup"):
+        tables = rng.build_sample_tables(settings, frame)
+        ck_key = checkpoint_key(data, static, settings, camera, frame,
+                                time_range,
+                                filter or filter_ops.blackman_harris(1.5),
+                                ranks)
+        fis_table = ck_key["fis_table"]
 
-    # Segment plan: (spp_base, spp_target, start_pass). A fresh render is
-    # one segment [0, spp); a resumed one first finishes the checkpoint's
-    # segment, then (if spp grew) adds the segment [ckpt_spp, spp).
-    film = film_mod.new_film(w * h, data.device, settings)
-    segments = [(0, settings.spp, 0)]
-    if checkpoint_path:
-        prog = ckpt.load_progress(checkpoint_path, **ck_key,
-                                  device=data.device)
-        if prog is not None:
-            film, segments = prog.film, []
-            if prog.next_pass < seg_passes(settings, prog.spp
-                                           - prog.spp_base, ranks)[1]:
-                segments.append((prog.spp_base, prog.spp, prog.next_pass))
-            if prog.spp < settings.spp:
-                segments.append((prog.spp, settings.spp, 0))
+        # Segment plan: (spp_base, spp_target, start_pass). A fresh render
+        # is one segment [0, spp); a resumed one first finishes the
+        # checkpoint's segment, then (if spp grew) adds the segment
+        # [ckpt_spp, spp).
+        film = film_mod.new_film(w * h, data.device, settings)
+        segments = [(0, settings.spp, 0)]
+        if checkpoint_path:
+            prog = ckpt.load_progress(checkpoint_path, **ck_key,
+                                      device=data.device)
+            if prog is not None:
+                film, segments = prog.film, []
+                if prog.next_pass < seg_passes(settings, prog.spp
+                                               - prog.spp_base, ranks)[1]:
+                    segments.append((prog.spp_base, prog.spp,
+                                     prog.next_pass))
+                if prog.spp < settings.spp:
+                    segments.append((prog.spp, settings.spp, 0))
 
     grand_total = w * h * max(settings.spp,
                               segments[-1][1] if segments else 0)
@@ -292,23 +302,26 @@ def render_frame(data: SceneData, static: SceneStatic,
             if checkpoint_path:
                 group = min(group, checkpoint_every - p % checkpoint_every)
             for q in range(p, p + group):
-                if mesh is None:
-                    film = render_pass(film, data, static, seg_settings,
-                                       tables, camera, fis_table,
-                                       q * pass_size, pass_size,
-                                       time_range[0], time_range[1],
-                                       sample_base=sb)
-                    if _FAIL_HOOK is not None:
-                        _FAIL_HOOK(q)
-                else:
-                    # the hook runs in the pass body: a rank it fails still
-                    # enters the pass's all_reduce, and every rank raises
-                    film = sharding.render_pass_sharded(
-                        mesh, film, data, static, seg_settings, tables,
-                        camera, fis_table, q * pass_size, pass_size // ranks,
-                        time_range[0], time_range[1], sample_base=sb,
-                        after=None if _FAIL_HOOK is None
-                        else (lambda q=q: _FAIL_HOOK(q)))
+                with span("rayn.pass"):
+                    if mesh is None:
+                        film = render_pass(film, data, static, seg_settings,
+                                           tables, camera, fis_table,
+                                           q * pass_size, pass_size,
+                                           time_range[0], time_range[1],
+                                           sample_base=sb)
+                        if _FAIL_HOOK is not None:
+                            _FAIL_HOOK(q)
+                    else:
+                        # the hook runs in the pass body: a rank it fails
+                        # still enters the pass's all_reduce, and every
+                        # rank raises
+                        film = sharding.render_pass_sharded(
+                            mesh, film, data, static, seg_settings, tables,
+                            camera, fis_table, q * pass_size,
+                            pass_size // ranks, time_range[0],
+                            time_range[1], sample_base=sb,
+                            after=None if _FAIL_HOOK is None
+                            else (lambda q=q: _FAIL_HOOK(q)))
                 done = min(done + pass_size, grand_total)
                 if progress is not None:
                     progress(done, grand_total)
@@ -323,22 +336,24 @@ def render_frame(data: SceneData, static: SceneStatic,
             for _ in range(waits):
                 _g, event = probes.popleft()
                 if event is not None:
-                    event.synchronize()
+                    with span("rayn.pass.wait"):
+                        event.synchronize()
             if want_ckpt:
-                err = None
-                try:
-                    if mesh is None or mesh.rank == 0:
-                        ckpt.save(checkpoint_path, film, next_pass=p,
-                                  spp_base=sb, spp=st, **ck_key)
-                except Exception as e:
-                    if mesh is None:
-                        raise
-                    err = e
-                if mesh is not None:
-                    # no rank runs ahead of the file it may resume from,
-                    # and a failed save fails every rank here
-                    sharding.agree(mesh, err, f"the checkpoint after pass "
-                                              f"{p - 1}")
+                with span("rayn.frame.checkpoint"):
+                    err = None
+                    try:
+                        if mesh is None or mesh.rank == 0:
+                            ckpt.save(checkpoint_path, film, next_pass=p,
+                                      spp_base=sb, spp=st, **ck_key)
+                    except Exception as e:
+                        if mesh is None:
+                            raise
+                        err = e
+                    if mesh is not None:
+                        # no rank runs ahead of the file it may resume
+                        # from, and a failed save fails every rank here
+                        sharding.agree(mesh, err, f"the checkpoint after "
+                                                  f"pass {p - 1}")
     return film
 
 
