@@ -7,7 +7,9 @@ BENCHMARK.json's `workloads`, its configuration in the file that
 BENCHMARK.json's `configs` names, its traffic mix in
 benchmark/traffic/<traffic>.json, its check's budget and limits in
 benchmark/checks/<cell>.json, and each per-layer metric in
-benchmark/metrics/<metric>.py. A run is one process on one card.
+benchmark/metrics/<metric>.py. A run of a cell on one card is one
+process; a cell on more cards runs one process a card, each a rank of
+the renderer's mesh, started and joined by benchmark/multirank.py.
 """
 
 from __future__ import annotations
@@ -57,9 +59,8 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     if int(traffic.get("chips", w["chips"])) != int(w["chips"]):
         raise ValueError(f"{name}: its traffic {w['traffic']} is for "
                          f"{traffic['chips']} chips")
-    if int(w["chips"]) != 1:
-        raise ValueError(f"{name}: the harness runs one card, not "
-                         f"{w['chips']}")
+    if int(w["chips"]) < 1:
+        raise ValueError(f"{name}: chips {w['chips']}")
     chk = json.loads((data / "checks" / f"{name}.json").read_text())
     files = {m["name"]: data / "metrics" / f"{m['name']}.py"
              for m in bench["per_layer"]}
@@ -93,9 +94,12 @@ def cache_env(root: Path) -> dict:
 # ---- the run ----------------------------------------------------------
 
 def run_frames(cell: Cell, seed: int, seconds: float, trace: bool,
-               device: str, t0: float) -> dict:
+               device: str, t0: float, ranks=None) -> dict:
     """Set up, run the window (and the traced frames), and return what the
-    result is made of."""
+    result is made of. With `ranks` (multirank.Ranks: this process is one
+    rank of a cell on several cards) every rank renders its slice of each
+    frame through the mesh; rank 0 alone resolves the film, keeps the
+    clock, and tells every rank before each frame whether it comes."""
     import torch
 
     cuda = device == "cuda"
@@ -107,20 +111,30 @@ def run_frames(cell: Cell, seed: int, seconds: float, trace: bool,
         _build.load()
     phases.append(("kernels loaded", time.perf_counter() - t0))
     settings = program.settings_of(cell.config, spp=cell.traffic["spp"])
-    r = program.Renderer(cell.config, settings, dev)
+    r = program.Renderer(cell.config, settings, dev,
+                         None if ranks is None else ranks.mesh)
     phases.append(("scene built", time.perf_counter() - t0))
     w, h = settings.resolution
     f0 = first_frame(seed)
+    resolves = ranks is None or ranks.rank == 0
 
     def sync():
         if cuda:
             torch.cuda.synchronize(dev)
 
+    def go(more: bool) -> bool:
+        """Whether a frame comes next: on several cards, rank 0's word."""
+        return more if ranks is None else ranks.agree(more)
+
     # warm-up: whole frames of the cell's own settings (the first frames
     # after one still run slower), numbered before the window's
     for j in range(int(cell.traffic["warmup_frames"])):
-        r.resolve(r.render(f0 - 1 - j))
+        film = r.render(f0 - 1 - j)
+        if resolves:
+            r.resolve(film)
+        del film
     sync()
+    go(True)   # on several cards: every rank is set up
     setup_s = time.perf_counter() - t0
     phases.append(("warm-up frames", setup_s))
     if cuda:
@@ -131,14 +145,16 @@ def run_frames(cell: Cell, seed: int, seconds: float, trace: bool,
     ppf = int(cell.check["pixels_per_frame"])
     t_start = time.perf_counter()
     k = 0
-    while k == 0 or time.perf_counter() - t_start < seconds:
+    while go(k == 0 or time.perf_counter() - t_start < seconds):
         f = f0 + k
         with spans.span("frame", frame=f):
             film = r.render(f)
-            with spans.span("resolve", frame=f):
-                res = r.resolve(film)
-        picks.append(check.take(res, check.frame_pixels(
-            seed, f, w * h, ppf)))
+            if resolves:
+                with spans.span("resolve", frame=f):
+                    res = r.resolve(film)
+        if resolves:
+            picks.append(check.take(res, check.frame_pixels(
+                seed, f, w * h, ppf)))
         frames.append(f)
         k += 1
     sync()
@@ -151,20 +167,23 @@ def run_frames(cell: Cell, seed: int, seconds: float, trace: bool,
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if cuda else [])
         n_tr = int(cell.traffic["trace_frames"])
+        go(True)   # on several cards: the ranks start tracing together
         with profile(activities=acts) as prof:
             tt0 = time.perf_counter()
             for j in range(n_tr):
+                go(True)   # each frame waits for rank 0, as in the window
                 with record_function("render_frame"):
                     film = r.render(f0 + k + j)
-                with record_function("resolve"):
-                    r.resolve(film)
+                if resolves:
+                    with record_function("resolve"):
+                        r.resolve(film)
             sync()
             tt1 = time.perf_counter()
         traced = tracing.reduce_profile(prof)
         del prof
         traced.update(window_s=tt1 - tt0,
                       passes=n_tr * r.passes_per_frame(),
-                      samples=n_tr * w * h * settings.spp)
+                      samples=n_tr * r.samples_per_frame())
     passes = r.passes_per_frame()
     del r, film
     gc.collect()
@@ -172,6 +191,7 @@ def run_frames(cell: Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     return dict(setup_s=setup_s, phases=phases, spans=spans.items,
                 frames=frames, picks=picks, peak=peak, traced=traced,
+                rank_traces=None, count=1 if ranks is None else ranks.size,
                 samples_per_frame=w * h * settings.spp,
                 passes_per_frame=passes, resolution=(w, h),
                 kind=(torch.cuda.get_device_name(dev) if cuda else "cpu"))
@@ -229,7 +249,8 @@ def power_limit() -> str:
 def run(name: str, seed: int, seconds: float, trace: bool, t0: float,
         root: Path = ROOT, device: str | None = None) -> int:
     """The benchmark's run; prints the result line. `device` None is the
-    real run (CUDA); tests pass "cpu"."""
+    real run (CUDA); tests pass "cpu". A cell on several cards starts one
+    process a card (multirank.launch), which prints rank 0's line."""
     cell = load_cell(name, root)
     if device is None:
         import torch
@@ -241,14 +262,32 @@ def run(name: str, seed: int, seconds: float, trace: bool, t0: float,
                   f"{torch.cuda.device_count()}", file=sys.stderr)
             return 2
         device = "cuda"
-    metrics_mods = {m: load_metric(m, p) for m, p in cell.metric_files.items()}
+    metrics_mods = metric_modules(cell)
+    if cell.chips > 1:
+        from benchmark import multirank
+        return multirank.launch(cell, seed, seconds, trace, t0, root,
+                                device)
+    rec = run_frames(cell, seed, seconds, trace, device, t0)
+    return report(cell, rec, seed, trace, device, metrics_mods)
+
+
+def metric_modules(cell: Cell) -> dict:
+    """{name: module} of the cell's per-layer metrics, each checked
+    against its BENCHMARK.json entry."""
+    mods = {m: load_metric(m, p) for m, p in cell.metric_files.items()}
     for m in cell.per_layer:
-        mod = metrics_mods[m["name"]]
+        mod = mods[m["name"]]
         if (mod.UNIT, mod.LAYER, mod.MOVES) != (m["unit"], m["layer"],
                                                 m["moves"]):
             raise ValueError(f"metric {m['name']}: its file and "
                              f"BENCHMARK.json disagree")
-    rec = run_frames(cell, seed, seconds, trace, device, t0)
+    return mods
+
+
+def report(cell: Cell, rec: dict, seed: int, trace: bool, device: str,
+           metrics_mods: dict) -> int:
+    """The log on standard error, the check against the reference, and
+    the result line; the run's exit code."""
     e2e = end_to_end(rec)
     log = sys.stderr
     if device == "cuda":
@@ -274,7 +313,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, t0: float,
     result_metrics = {}
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     if trace:
-        run_view = dict(spans=rec["spans"], trace=rec["traced"])
+        run_view = dict(spans=rec["spans"], trace=rec["traced"],
+                        ranks=rec["rank_traces"])
         for m in cell.per_layer:
             v = metrics_mods[m["name"]].read(run_view)
             if v is not None:
@@ -285,27 +325,30 @@ def run(name: str, seed: int, seconds: float, trace: bool, t0: float,
             result_metrics[m["name"]] = dict(value=float(e2e[m["name"]]),
                                              unit=units[m["name"]])
     dev = dict(platform="gpu" if device == "cuda" else "cpu",
-               kind=rec["kind"], count=1,
+               kind=rec["kind"], count=rec["count"],
                memory_peak_bytes=int(rec["peak"]))
     out = dict(correct=False, attempted=len(rec["frames"]), failed=0,
                metrics=result_metrics, device=dev)
     if trace:
-        tr = rec["traced"]
-        dev["busy_s"] = tracing.union_length(
+        # on several cards, the mean over the ranks
+        traces = rec["rank_traces"] or [rec["traced"]]
+        dev["busy_s"] = sum(tracing.union_length(
             (s, e) for _n, s, e in tr["device"]) * 1e-6
-        dev["window_s"] = float(tr["window_s"])
-        out["breakdown"] = tracing.breakdown(tr)
+            for tr in traces) / len(traces)
+        dev["window_s"] = float(sum(tr["window_s"] for tr in traces)
+                                / len(traces))
+        out["breakdown"] = tracing.breakdown(rec["traced"])
 
-    ok, report, info = reference_check(cell, rec, seed)
+    ok, compared, info = reference_check(cell, rec, seed)
     out["correct"] = bool(ok)
-    out["check"] = report
+    out["check"] = compared
     bad = forbidden_modules()
     if bad:
         print(f"run: forbidden modules loaded: {bad}", file=log)
         return 3
     print(f"check: {info['pixels']} pixels of {info['frames']} frames, "
           f"reference {info['reference_s']:.1f} s", file=log)
-    for k, v in report.items():
+    for k, v in compared.items():
         print(f"check {k} {v['value']!r} limit {v['limit']!r} "
               f"{'ok' if v['value'] <= v['limit'] else 'FAILED'}", file=log)
     log.flush()

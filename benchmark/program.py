@@ -2,8 +2,9 @@
 
 Everything the benchmark takes from the renderer goes through here: the
 scene built from the configuration's data with `SceneBuilder` and the
-pinhole camera, `render_frame`, and `film.resolve`, which copies the
-film to the host and so ends a frame.
+pinhole camera, `render_frame` (on several cards, through the mesh of
+`parallel.sharding`), and `film.resolve`, which copies the film to the
+host and so ends a frame.
 """
 
 from __future__ import annotations
@@ -89,12 +90,14 @@ def build_scene(config: dict, device):
 
 class Renderer:
     """One configuration's scene on one card (or the CPU), rendering whole
-    frames through the renderer's entry point."""
+    frames through the renderer's entry point; with `mesh`
+    (parallel.sharding.make_mesh()), this rank's slice of each frame."""
 
-    def __init__(self, config: dict, settings, device):
+    def __init__(self, config: dict, settings, device, mesh=None):
         from rayn_tpu_torch.ops import filters
         self.config = config
         self.settings = settings
+        self.mesh = mesh
         self.data, self.static, self.camera = build_scene(config, device)
         flt = config["filter"]
         self.filter = filters.FILTERS[flt["name"]](flt["radius"])
@@ -105,7 +108,7 @@ class Renderer:
         return renderer.render_frame(
             self.data, self.static, self.settings, self.camera, frame=frame,
             filter=self.filter, frame_rate=self.config["frame_rate"],
-            shutter_speed=self.config["shutter_speed"])
+            shutter_speed=self.config["shutter_speed"], mesh=self.mesh)
 
     def resolve(self, film):
         """Per-pixel means on the host (numpy, [H, W, ...])."""
@@ -116,4 +119,21 @@ class Renderer:
     def passes_per_frame(self) -> int:
         """Passes the renderer runs for one frame."""
         from rayn_tpu_torch.render import renderer
-        return renderer.seg_passes(self.settings, self.settings.spp, 1)[1]
+        ranks = 1 if self.mesh is None else self.mesh.size
+        return renderer.seg_passes(self.settings, self.settings.spp,
+                                   ranks)[1]
+
+    def samples_per_frame(self) -> int:
+        """Camera samples this rank renders a frame: the whole frame's on
+        one card; on a mesh, those of the rank's slice of each pass that
+        lie inside the frame (the last pass may end past it)."""
+        from rayn_tpu_torch.render import renderer
+        w, h = self.settings.resolution
+        total = w * h * self.settings.spp
+        if self.mesh is None:
+            return total
+        size, n = renderer.seg_passes(self.settings, self.settings.spp,
+                                      self.mesh.size)
+        per = size // self.mesh.size
+        starts = (p * size + self.mesh.rank * per for p in range(n))
+        return sum(max(0, min(total, lo + per) - lo) for lo in starts)
